@@ -6,28 +6,50 @@
 Phases, in order; any failure exits non-zero and prints no result line:
 
 1. Identify the card (nvidia-smi name and power limit); TF32 off.
-2. Build the flash-attention forward kernel from csrc/ with nvcc (sm_90a)
-   and hold it against its plain PyTorch version on the card, in bf16, at
-   B=1, nh=32, hd=128, S in {128, 512, 1536, 2048}, causal, with and without a
-   key-padding tail, on ALL rows (plus one fp32 and one head_dim-256 case).
-   Times the kernel, the plain version and, as a yardstick the port never
-   calls, torch's scaled_dot_product_attention (CUDA events, median of 25).
-3. Decode against recompute: LLaMA-7B width at depth 4, bf16, through
+2. Build the flash-attention forward and backward kernels from csrc/ with
+   nvcc (sm_90a), one nvcc per source, both started together.
+3. Hold the forward kernel against its plain PyTorch version on the card, in
+   bf16, at B=1, nh=32, hd=128, S in {128, 512, 1536, 2048}, causal, with and
+   without a key-padding tail, on ALL rows (plus one fp32 and one
+   head_dim-256 case), each element within a limit scaled by its own row
+   (TOL_FWD_BF16); two planted faults (a zeroed first or last tile) must
+   fail the same check. Times the kernel, the plain version and, as a
+   yardstick the port never calls, torch's scaled_dot_product_attention
+   (CUDA events, median of 25).
+4. The same for the backward kernel: bf16, B=1, nh=32, hd=128, S in
+   {512, 2048}, causal, with and without a key-padding tail, every row and
+   key of dq, dk and dv (plus one fp32 and one head_dim-256 case), with the
+   same row-scaled check and planted faults; the yardstick is the backward
+   of scaled_dot_product_attention (autograd of SDPA, its forward
+   excluded).
+5. Gradients in place: LLaMA-7B width at depth 2, bf16, one micro-batch of
+   2048 tokens; the loss and every parameter's gradient through the kernels
+   against the plain attention path (``attn_impl="xla"``).
+6. Decode against recompute: LLaMA-7B width at depth 4, bf16, through
    ServeEngine (prefill, then 4 decode steps); each step's logits against a
    full-sequence recompute through the plain attention path.
-4. Serve: ``galvatron_tpu_torch.cli.serve.main`` in-process, LLaMA-7B at
+7. Serve: ``galvatron_tpu_torch.cli.serve.main`` in-process, LLaMA-7B at
    full depth (32 layers), 16 requests; asserts every request completes,
-   the logits stay finite, and the flash kernel launched exactly
+   the logits stay finite, and the flash forward kernel launched exactly
    32 x prefills times. Also times the fp32 -> bf16 weight casts one decode
    tick performs.
+8. Train: ``galvatron_tpu_torch.cli.train.main`` in-process on the
+   configuration of ``galvatron_tpu_torch/tools/train_cell.py``: LLaMA-7B
+   width at depth 8 (cut from 32: fp32 params, grads and Adam moments of 32
+   layers take 108 GB), seq 2048, global batch 8 in 2 micro-batches, a
+   strategy JSON mixing per-layer remat (layers 0-3 full, 4-5
+   dots_saveable, 6-7 none), 6 steps; asserts finite losses and the launch
+   counts of both kernels.
 
-The last lines of standard output are the serve summary, the ``kernels``
-JSON line, the card line, and ``{"ok": true, "device": {...}}``. Details go
-to chiprun_out/chip_smoke.json.
+Each main path (serve, train) runs with the kernels' launch counts set to 0
+just before it and read just after. The last lines of standard output are
+the serve and train summaries, the ``kernels`` JSON line, the card line, and
+``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
 """
 
 import dataclasses
 import json
+import math
 import os
 import random
 import statistics
@@ -36,14 +58,34 @@ import sys
 import time
 
 SEED = 1234
-# kernel vs plain version, elementwise |out - ref| <= atol + rtol * |ref|.
-# bf16: the output rounds to bf16 (one ulp is 2^-8 relative: 0.0156 at
-# |x| in [2, 4)) and the tensor-core path rounds p to bf16 before P.V, as
-# the Pallas kernel does (2^-9 relative per term).
-TOL_BF16 = 2e-2
-RTOL_BF16 = 1e-2
-TOL_FP32 = 1e-4  # fp32 inputs: the two differ only in summation order
+# kernel vs plain version, elementwise on BSNH tensors:
+#   |out - ref| <= row * rowmax|ref| + rel * |ref| + floor * max|ref|
+# where rowmax is the largest |ref| in the element's row of head_dim values
+# (one query's output or dq, one key's dk or dv). Under the causal mask the
+# values fall off along the sequence (a late query's output and dq, a late
+# key's dv, are ~1/sqrt(keys or queries seen), down to ~0.004 at S=2048), so
+# a bound on the tensor's max would let a late tile be wrong; the row's own
+# scale does not, and a planted fault (a zeroed last tile) must fail it.
+# bf16: both round p (and ds in the backward) to bf16 before the second
+# products, in different summation orders, so a term may round one ulp
+# apart (2^-8 relative), ~1e-3 of a row's max after summing; the result
+# itself rounds to bf16, up to 2^-7 relative (rel). The floor covers rows
+# whose exact value is ~0 (query 0 under the causal mask sees one key, so
+# its dq is the fp32 rounding of dp - di, ~1e-7) and sits far below the
+# smallest late-tile value. fp32: summation order only.
+TOL_FWD_BF16 = dict(row=2e-2, rel=1e-2, floor=1e-4)
+TOL_FWD_FP32 = dict(row=1e-4, rel=0.0, floor=1e-5)
 TOL_LSE = 1e-3   # fp32 logsumexp, both fp32 math
+TOL_BWD_BF16 = dict(row=2e-2, rel=1e-2, floor=1e-4)
+TOL_BWD_FP32 = dict(row=1e-4, rel=1e-4, floor=1e-5)
+# gradients in place (bf16, LLaMA-7B width, 2 layers): the kernels and the
+# plain path round to bf16 at different places (p before P.V and dS before
+# dQ/dK in the kernels; the probabilities and every einsum output on the
+# plain path), each ~2^-9 relative, and those differences pass through two
+# layers' backward and the head: per parameter, ||g - g_plain|| /
+# ||g_plain|| <= 5e-2, and the losses (~ln 32000) within 1e-2.
+TOL_GRAD_REL = 5e-2
+TOL_GRAD_LOSS = 1e-2
 # decode vs recompute in bf16 at LLaMA-7B width: every matmul output rounds
 # to bf16 (relative 2^-9) and the two paths round in different places; the
 # logits have a std of ~1.3 at this init, so 0.15 allows some tens of such
@@ -54,6 +96,8 @@ H100_FP32_FLOPS = 67e12    # non-tensor fp32
 H100_BYTES_PER_S = 3.35e12
 REPLACES = "galvatron_tpu/ops/attention.py:82"
 SOURCE = "galvatron_tpu_torch/csrc/flash_attn_fwd.cu"
+BWD_SOURCE = "galvatron_tpu_torch/csrc/flash_attn_bwd.cu"
+TILE = 64  # the kernels' query and key tile rows
 
 
 def fail(msg):
@@ -70,6 +114,39 @@ def log(msg):
     print(msg, flush=True)
 
 
+def judge(torch, got, ref, tol):
+    """Hold `got` against `ref` (BSNH) at `tol` (see TOL_FWD_BF16):
+    (elements over their limit, the largest |got - ref| / limit, the largest
+    |got - ref|, the median |ref|)."""
+    a = ref.float().abs()
+    limit = tol["row"] * a.amax(dim=-1, keepdim=True) + tol["rel"] * a + tol["floor"] * a.max()
+    diff = (got.float() - ref.float()).abs()
+    return (int((diff > limit).sum().item()), (diff / limit).max().item(), diff.max().item(),
+            a.median().item())
+
+
+def planted_faults(ref):
+    """Wrong copies of a BSNH kernel result that the check must refuse: the
+    last tile of rows zeroed (the last query tile of an output or dq, the
+    last key tile of dk or dv), and the first."""
+    late, early = ref.clone(), ref.clone()
+    late[:, -TILE:] = 0
+    early[:, :TILE] = 0
+    return {"last tile zeroed": late, "first tile zeroed": early}
+
+
+def check_against_plain(torch, name, got, ref, tol, case):
+    """Fail unless `got` passes the check and every planted fault fails it;
+    returns (max abs err, share of the limit used, median |ref|)."""
+    n_bad, used, err, med = judge(torch, got, ref, tol)
+    check(n_bad == 0, "%s kernel vs plain: %d elements over %s (max abs err %.3g, %.3g of the "
+          "limit, median |ref| %.3g) at %s" % (name, n_bad, tol, err, used, med, case))
+    for fault, wrong in planted_faults(ref).items():
+        check(judge(torch, wrong, ref, tol)[0] > 0,
+              "%s check passes a planted fault (%s) at %s" % (name, fault, case))
+    return err, used, med
+
+
 # ------------------------------------------------------------------ phase 1
 def identify_card():
     proc = subprocess.run(
@@ -81,6 +158,29 @@ def identify_card():
 
 
 # ------------------------------------------------------------------ phase 2
+def build_kernels(TF):
+    """One nvcc per kernel source, all started together; returns
+    {source: (library path, seconds)} and the ptxas lines of each build."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(src):
+        t0 = time.perf_counter()
+        so = TF.build(src)
+        return so, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(TF.SOURCES)) as ex:
+        built = dict(zip(TF.SOURCES, ex.map(one, TF.SOURCES)))
+    ptxas = {}
+    for src, (so, _) in built.items():
+        with open(so + ".log") as f:
+            lines = [ln.strip() for ln in f]
+        # "Compiling entry function X" precedes its register / spill lines
+        ptxas[os.path.basename(src)] = [ln for ln in lines if "registers" in ln or "spill" in ln
+                                        or "entry function" in ln]
+    return built, ptxas
+
+
+# ------------------------------------------------------------------ phase 3
 def time_ms(torch, fn, reps=25, warmup=3):
     """Median of `reps` single-call CUDA-event timings."""
     for _ in range(warmup):
@@ -113,10 +213,15 @@ def admitted_pairs(torch, s, valid, causal):
     return int(per_row.sum().item())
 
 
-def bound_ms(torch, b, s, nh, hd, valid, causal, dtype):
+def bound_ms(torch, b, s, nh, hd, valid, causal, dtype, flops_per_dim=4.0, n_tensors=4):
+    """Least time on the card: the larger of the operations (flops_per_dim
+    * hd per admitted pair and head: 4 for the forward's two products, 10
+    for the backward's five) at the dtype's peak, and the bytes of
+    n_tensors BSNH tensors (each read or written once) + lse at the memory
+    rate."""
     elem = 2 if dtype == torch.bfloat16 else 4
-    flops = 4.0 * hd * admitted_pairs(torch, s, valid, causal) * nh * b
-    nbytes = 4.0 * b * s * nh * hd * elem + 4.0 * b * nh * s  # q, k, v, o + lse
+    flops = flops_per_dim * hd * admitted_pairs(torch, s, valid, causal) * nh * b
+    nbytes = n_tensors * b * s * nh * hd * elem + 4.0 * b * nh * s
     if valid < s:
         nbytes += 2 * 4.0 * b * s  # q and kv segment ids
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
@@ -152,13 +257,9 @@ def check_kernel(torch, TF, dev):
                                                         segment_ids=seg)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(out.float()).all()), "kernel output not finite at %s" % c)
-        diff = (out.float() - ref.float()).abs()
-        err = diff.max().item()
+        tol = TOL_FWD_BF16 if dtype == torch.bfloat16 else TOL_FWD_FP32
+        err, used, med = check_against_plain(torch, "forward", out, ref, tol, c)
         lse_err = (lse - ref_lse).abs().max().item()
-        tol, rtol = (TOL_BF16, RTOL_BF16) if dtype == torch.bfloat16 else (TOL_FP32, 0.0)
-        n_bad = int((diff > tol + rtol * ref.float().abs()).sum().item())
-        check(n_bad == 0, "kernel vs plain: %d elements off by more than %.3g + %.3g|ref| "
-              "(max abs err %.3g) at %s" % (n_bad, tol, rtol, err, c))
         check(lse_err <= TOL_LSE, "kernel lse err %.3g > %.3g at %s" % (lse_err, TOL_LSE, c))
         kernel = time_ms(torch, lambda: TF.flash_attention_fwd(
             q, k, v, causal=causal, sm_scale=scale, segment_ids=seg))
@@ -171,14 +272,15 @@ def check_kernel(torch, TF, dev):
                 qt, kt, vt, is_causal=causal, scale=scale))
         bms, by, flops = bound_ms(torch, b, s, nh, hd, valid, causal, dtype)
         r = dict(shape=[b, s, nh, hd], dtype=str(dtype).replace("torch.", ""), causal=causal,
-                 valid_len=valid, max_abs_err=err, lse_err=lse_err, tolerance=tol, rtol=rtol,
-                 ms=kernel, plain_ms=plain, library_ms=library, bound_ms=bms, bound_by=by,
+                 valid_len=valid, max_abs_err=err, limit_used=used, median_abs_ref=med,
+                 lse_err=lse_err, tolerance=tol, ms=kernel, plain_ms=plain, library_ms=library, bound_ms=bms, bound_by=by,
                  gflop=flops / 1e9, tflops=flops / kernel / 1e9)
         results.append(r)
-        log("flash S=%d nh=%d hd=%d %s %s%s: err %.3g lse %.3g | kernel %.3f ms, plain %.3f ms, "
-            "sdpa %s ms, bound %.4f ms (%s), %.1f TFLOP/s" % (
+        log("flash S=%d nh=%d hd=%d %s %s%s: err %.3g (%.2f of the limit, median |ref| %.3g) "
+            "lse %.3g | kernel %.3f ms, plain %.3f ms, sdpa %s ms, bound %.4f ms (%s), "
+            "%.1f TFLOP/s" % (
                 s, nh, hd, r["dtype"], "padded" if c["padded"] else "full",
-                "" if causal else " non-causal", err, lse_err,
+                "" if causal else " non-causal", err, used, med, lse_err,
                 kernel, plain, "%.3f" % library if library is not None else "-", bms, by,
                 r["tflops"]))
         del q, k, v, out, ref
@@ -186,7 +288,122 @@ def check_kernel(torch, TF, dev):
     return results
 
 
-# ------------------------------------------------------------------ phase 3
+# ------------------------------------------------------------------ phase 4
+def check_bwd_kernel(torch, TF, dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    cases = [dict(s=s, nh=32, hd=128, padded=padded, dtype=torch.bfloat16)
+             for s in (512, 2048) for padded in (False, True)]
+    cases.append(dict(s=512, nh=32, hd=128, padded=True, dtype=torch.float32))
+    cases.append(dict(s=512, nh=8, hd=256, padded=True, dtype=torch.bfloat16))
+    results = []
+    for c in cases:
+        b, s, nh, hd, dtype, causal = 1, c["s"], c["nh"], c["hd"], c["dtype"], True
+        q, k, v, do = (torch.randn((b, s, nh, hd), generator=gen, device=dev).to(dtype)
+                       for _ in range(4))
+        valid = s - s // 8 - 3 if c["padded"] else s
+        seg = None
+        if c["padded"]:
+            ids = (torch.arange(s, device=dev) < valid).to(torch.int32)[None].contiguous()
+            seg = TF.SegmentIds(q=ids, kv=ids)
+        scale = hd ** -0.5
+        out, lse = TF.flash_attention_fwd(q, k, v, causal=causal, sm_scale=scale, segment_ids=seg)
+        got = TF.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, sm_scale=scale,
+                                     segment_ids=seg)
+        torch.cuda.synchronize()
+        want = TF.flash_attention_bwd_reference(q, k, v, out, lse, do, causal=causal,
+                                                sm_scale=scale, segment_ids=seg)
+        torch.cuda.synchronize()
+        tol = TOL_BWD_BF16 if dtype == torch.bfloat16 else TOL_BWD_FP32
+        errs, used, med = {}, {}, {}
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            check(bool(torch.isfinite(g.float()).all()), "backward %s not finite at %s" % (name, c))
+            errs[name], used[name], med[name] = check_against_plain(
+                torch, "backward " + name, g, w, tol, c)
+        args = (q, k, v, out, lse, do)
+        kw = dict(causal=causal, sm_scale=scale, segment_ids=seg)
+        kernel = time_ms(torch, lambda: TF.flash_attention_bwd(*args, **kw))
+        plain = time_ms(torch, lambda: TF.flash_attention_bwd_reference(*args, **kw), reps=11)
+        library = None
+        if not c["padded"]:
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+            lo = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                                  scale=scale)
+            dot = do.transpose(1, 2)
+            library = time_ms(torch, lambda: torch.autograd.grad(lo, (qt, kt, vt), dot,
+                                                                  retain_graph=True))
+            del qt, kt, vt, lo
+        bms, by, flops = bound_ms(torch, b, s, nh, hd, valid, causal, dtype, 10.0, 8)
+        r = dict(shape=[b, s, nh, hd], dtype=str(dtype).replace("torch.", ""), causal=causal,
+                 valid_len=valid, max_abs_err=max(errs.values()), max_abs_err_by_grad=errs,
+                 limit_used_by_grad=used, median_abs_ref_by_grad=med, tolerance=tol,
+                 ms=kernel, plain_ms=plain,
+                 library_ms=library, bound_ms=bms, bound_by=by, gflop=flops / 1e9,
+                 tflops=flops / kernel / 1e9)
+        results.append(r)
+        log("flash bwd S=%d nh=%d hd=%d %s %s: err dq/dk/dv %.3g/%.3g/%.3g (of the limit: "
+            "%.2f/%.2f/%.2f; median |ref| %.3g/%.3g/%.3g) | kernel %.3f ms, plain %.3f ms, "
+            "sdpa bwd %s ms, bound %.4f ms (%s), %.1f TFLOP/s" % (
+                s, nh, hd, r["dtype"], "padded" if c["padded"] else "full", errs["dq"],
+                errs["dk"], errs["dv"], used["dq"], used["dk"], used["dv"], med["dq"],
+                med["dk"], med["dv"], kernel, plain,
+                "%.3f" % library if library is not None else "-", bms, by, r["tflops"]))
+        del q, k, v, do, out, lse, got, want
+    torch.cuda.empty_cache()
+    return results
+
+
+# ------------------------------------------------------------------ phase 5
+def grads_in_place(torch, TF, dev):
+    """One lm_loss_fn + backward at LLaMA-7B width, depth 2, through the
+    kernels, against the plain attention path on the same weights and
+    tokens."""
+    from galvatron_tpu_torch.config.strategy import HybridParallelConfig
+    from galvatron_tpu_torch.models import base as M
+    from galvatron_tpu_torch.models.llama import llama_config
+    from galvatron_tpu_torch.runtime.dataloader import RandomTextDataset, prepare_batch
+    from galvatron_tpu_torch.runtime.model_api import construct_hybrid_parallel_model
+
+    cfg = llama_config("llama-7b", num_layers=2, compute_dtype=torch.bfloat16)
+    params = construct_hybrid_parallel_model(cfg, HybridParallelConfig.uniform(1, 2),
+                                             dev).init_params(SEED)
+    tokens = RandomTextDataset(cfg.vocab_size, cfg.max_seq_len, seed=SEED).batch(0, 1)
+    batch = prepare_batch(None, tokens, device=dev)
+
+    def loss_and_grads(c):
+        for p in params.parameters():
+            p.grad = None
+        loss = M.lm_loss_fn(params, batch, c)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), {n: p.grad for n, p in params.named_parameters()}
+
+    n_fwd, n_bwd = TF.flash_attention_fwd.launches, TF.flash_attention_bwd.launches
+    loss_k, grads_k = loss_and_grads(cfg)
+    launched = (TF.flash_attention_fwd.launches - n_fwd, TF.flash_attention_bwd.launches - n_bwd)
+    check(launched == (2, 2), "gradients in place: kernels launched %s times, expected (2, 2)"
+          % (launched,))
+    for p in params.parameters():
+        p.grad = None
+    grads_k = {n: g.clone() for n, g in grads_k.items()}
+    loss_p, grads_p = loss_and_grads(dataclasses.replace(cfg, attn_impl="xla"))
+    rel = {n: ((grads_k[n].float() - grads_p[n].float()).norm()
+               / grads_p[n].float().norm().clamp(min=1e-30)).item() for n in grads_p}
+    worst = max(rel, key=rel.get)
+    log("gradients in place (llama-7b width, 2 layers, bf16, 2048 tokens): loss %.5f kernels vs "
+        "%.5f plain; per-parameter relative gradient error max %.3g (%s), median %.3g (tol %.2g)"
+        % (loss_k, loss_p, rel[worst], worst, sorted(rel.values())[len(rel) // 2], TOL_GRAD_REL))
+    check(math.isfinite(loss_k) and abs(loss_k - loss_p) <= TOL_GRAD_LOSS,
+          "gradients in place: loss %.5f vs plain %.5f" % (loss_k, loss_p))
+    check(all(math.isfinite(v) for v in rel.values()) and rel[worst] <= TOL_GRAD_REL,
+          "gradients in place: %s relative error %.3g > %.2g" % (worst, rel[worst], TOL_GRAD_REL))
+    del params, grads_k, grads_p
+    torch.cuda.empty_cache()
+    return dict(loss_kernels=loss_k, loss_plain=loss_p, rel_err=rel, max_rel_err=rel[worst],
+                worst=worst, tolerance=TOL_GRAD_REL, loss_tolerance=TOL_GRAD_LOSS)
+
+
+# ------------------------------------------------------------------ phase 6
 def decode_vs_recompute(torch, dev):
     import numpy as np
 
@@ -237,7 +454,7 @@ def decode_vs_recompute(torch, dev):
                 steps=len(agree), logit_std=float(ref.std()))
 
 
-# ------------------------------------------------------------------ phase 4
+# ------------------------------------------------------------------ phase 7
 SERVE_ARGV = [
     "--model_type", "llama", "--model_size", "llama-7b", "--mixed_precision", "bf16",
     "--device", "cuda", "--serve_max_concurrency", "8", "--serve_page_size", "128",
@@ -317,6 +534,33 @@ def serve(torch, TF):
     return out
 
 
+# ------------------------------------------------------------------ phase 8
+def train(torch, TF):
+    from galvatron_tpu_torch.cli import train as cli_train
+    from galvatron_tpu_torch.tools import train_cell as C
+
+    argv = C.argv(C.write_strategy("chiprun_out"))
+    TF.flash_attention_fwd.launches = 0
+    TF.flash_attention_bwd.launches = 0
+    summary = cli_train.main(argv)
+    fwd, bwd = TF.flash_attention_fwd.launches, TF.flash_attention_bwd.launches
+    losses = summary["losses"]
+    check(len(losses) == C.STEPS and all(math.isfinite(x) for x in losses),
+          "train losses %s" % losses)
+    remat = sum(C.CHECKPOINT)  # every remat layer's forward runs again in the backward
+    want_fwd = C.STEPS * C.CHUNKS * (C.LAYERS + remat)
+    want_bwd = C.STEPS * C.CHUNKS * C.LAYERS
+    check((fwd, bwd) == (want_fwd, want_bwd),
+          "train launched the forward kernel %d times (expected %d = %d steps x %d chunks x "
+          "(%d layers + %d recomputed)) and the backward %d times (expected %d)"
+          % (fwd, want_fwd, C.STEPS, C.CHUNKS, C.LAYERS, remat, bwd, want_bwd))
+    torch.cuda.empty_cache()
+    return dict(summary=summary, fwd_launches=fwd, bwd_launches=bwd, layers=C.LAYERS,
+                steps=C.STEPS, chunks=C.CHUNKS, global_bsz=C.GLOBAL_BSZ,
+                checkpoint=C.CHECKPOINT, remat_policy=C.REMAT_POLICY,
+                remat=",".join(p if c else "none" for c, p in zip(C.CHECKPOINT, C.REMAT_POLICY)))
+
+
 def main():
     try:
         import torch
@@ -337,31 +581,46 @@ def main():
     log("card: %s | torch %s, CUDA %s, %d device(s)" % (
         card, torch.__version__, torch.version.cuda, torch.cuda.device_count()))
 
-    t0 = time.perf_counter()
-    so = TF.build()
-    build_s = time.perf_counter() - t0
-    with open(so + ".log") as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
-    log("built %s in %.1f s\n  %s" % (os.path.relpath(so), build_s, "\n  ".join(ptxas)))
+    built, ptxas = build_kernels(TF)
+    build_s = {os.path.basename(src): sec for src, (_, sec) in built.items()}
+    for src, (so, sec) in built.items():
+        log("built %s in %.1f s\n  %s" % (os.path.relpath(so), sec,
+                                          "\n  ".join(ptxas[os.path.basename(src)])))
 
     shapes = check_kernel(torch, TF, dev)
+    bwd_shapes = check_bwd_kernel(torch, TF, dev)
+    grads = grads_in_place(torch, TF, dev)
     decode = decode_vs_recompute(torch, dev)
     served = serve(torch, TF)
-    s = served["summary"]
+    trained = train(torch, TF)
+    s, t = served["summary"], trained["summary"]
 
-    head = next(r for r in shapes if r["shape"] == [1, 2048, 32, 128] and r["valid_len"] == 2048
-                and r["dtype"] == "bfloat16" and r["causal"])
+    def at_2048(rows):
+        return next(r for r in rows if r["shape"] == [1, 2048, 32, 128] and r["valid_len"] == 2048
+                    and r["dtype"] == "bfloat16" and r["causal"])
+
+    head, bwd_head = at_2048(shapes), at_2048(bwd_shapes)
     kernels = {"kernels": [{
         "name": "flash_attn_fwd", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-        "launches": served["flash_launches"],
+        "launches": trained["fwd_launches"],
+        "launches_by_path": {"serve": served["flash_launches"], "train": trained["fwd_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in shapes if r["dtype"] == "bfloat16"),
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-        "shape": head["shape"], "tolerance": TOL_BF16, "rtol": RTOL_BF16, "shapes": shapes,
+        "shape": head["shape"], "tolerance": TOL_FWD_BF16, "shapes": shapes,
+    }, {
+        "name": "flash_attn_bwd", "route": "cuda", "source": BWD_SOURCE, "replaces": REPLACES,
+        "launches": trained["bwd_launches"],
+        "launches_by_path": {"serve": 0, "train": trained["bwd_launches"]},
+        "max_abs_err": max(r["max_abs_err"] for r in bwd_shapes if r["dtype"] == "bfloat16"),
+        "ms": bwd_head["ms"], "plain_ms": bwd_head["plain_ms"], "bound_ms": bwd_head["bound_ms"],
+        "bound_by": bwd_head["bound_by"], "library_ms": bwd_head["library_ms"],
+        "shape": bwd_head["shape"], "tolerance": TOL_BWD_BF16, "shapes": bwd_shapes,
     }]}
     results = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
-                   build_s=build_s, ptxas=ptxas, kernels=kernels["kernels"], decode=decode,
-                   serve=served, wall_s=time.perf_counter() - t_start)
+                   build_s=build_s, ptxas=ptxas, kernels=kernels["kernels"], grads=grads,
+                   decode=decode, serve=served, train=trained,
+                   wall_s=time.perf_counter() - t_start)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1, default=str)
@@ -375,6 +634,13 @@ def main():
             served["decode_tick_ms_median"], served["weight_cast_ms_per_tick"],
             served["weight_cast_gb_per_tick"], served["peak_memory_gb"],
             served["flash_launches"], served["layers"], served["prefills"]))
+    log("train llama-7b width (%d layers, bf16, seq 2048, global batch %d in %d micro-batches, "
+        "remat %s) on %s: steady step %.1f ms, %.0f tokens/s, MFU %.3f (989 TFLOP/s), peak "
+        "memory %.1f GB, losses %s, flash launches fwd %d / bwd %d" % (
+            trained["layers"], trained["global_bsz"], trained["chunks"], trained["remat"], card,
+            t["steady_step_ms"], t["tokens_per_s"], t.get("mfu", float("nan")),
+            t["peak_hbm_mb"] * 2**20 / 1e9, ["%.4f" % x for x in t["losses"]],
+            trained["fwd_launches"], trained["bwd_launches"]))
     log(json.dumps(kernels))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

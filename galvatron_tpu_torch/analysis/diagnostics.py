@@ -1,7 +1,7 @@
 """Structured diagnostics raised by the strategy code and the serve lint.
 
 Port of the subset of ``galvatron_tpu/analysis/diagnostics.py`` that the
-strategy schema, the structural validator and the serve-mode lint report
+strategy schema, the structural validator and the serve/train lint report
 through: `Diagnostic`, `make`, `did_you_mean`, `DiagnosticError` (still a
 ``ValueError``) and `DiagnosticReport`. Codes and severities are the
 reference's, so a strategy refused by one package is refused with the same

@@ -4,9 +4,13 @@
                        (--device cuda|cpu, default cuda): drives a synthetic
                        or replayed load through the continuous batcher and
                        reports TTFT/TPOT percentiles and tokens/s
+    train              train on one device (--device cuda|cpu, default
+                       cuda): strategy -> lint -> model -> synthetic LM
+                       batches -> loss and gradients -> clip + Adam + weight
+                       decay for --train_iters steps, with a timing summary
 
-The reference's other subcommands (train, search, profile,
-profile-hardware, lint, report) come with later slices of the port.
+The reference's other subcommands (search, profile, profile-hardware, lint,
+report) come with later slices of the port.
 """
 
 import sys
@@ -19,6 +23,8 @@ def main():
     cmd, argv = sys.argv[1], sys.argv[2:]
     if cmd == "serve":
         from galvatron_tpu_torch.cli.serve import main as run
+    elif cmd == "train":
+        from galvatron_tpu_torch.cli.train import main as run
     else:
         print("unknown subcommand %r\n%s" % (cmd, __doc__))
         return 2

@@ -1,13 +1,17 @@
-"""Argument system for the port's entry points (serve mode).
+"""Argument system for the port's entry points (serve and train modes).
 
-Port of the serve subset of ``galvatron_tpu/cli/arguments.py``: the model
-flags, the GLOBAL-mode strategy flags, the serve flags and the two
-args -> structure functions. Flags whose modules are not ported yet are not
-defined, so argparse refuses them: ``--load``/``--load_iteration``
-(checkpoints), ``--watchdog*``, ``--mesh_probe_interval``,
-``--migrate_on_degrade``, ``--elastic_*`` (serve resilience), the
-compilation-cache and multi-host bootstrap flags (JAX runtime only). The port
-adds ``--device {cuda,cpu}``.
+Port of the serve and train subsets of ``galvatron_tpu/cli/arguments.py``:
+the model flags, the GLOBAL-mode strategy flags, the serve flags, the
+training flags the one-device trainer acts on (iterations, learning rate and
+schedule, Adam, clipping, seed, log interval) and the two args -> structure
+functions. Flags whose modules are not ported yet are not defined, so
+argparse refuses them: ``--load``/``--save`` and the other checkpoint flags,
+``--data_path``/``--split``, ``--eval_*``, telemetry/tracing for training,
+prefetch/inflight/donation, resilience (anomaly guard, retries, elastic),
+sdc and autotune flags, ``--watchdog*``, ``--mesh_probe_interval``,
+``--migrate_on_degrade`` (serve resilience), the compilation-cache and
+multi-host bootstrap flags (JAX runtime only). The port adds
+``--device {cuda,cpu}``.
 """
 
 from __future__ import annotations
@@ -86,11 +90,33 @@ def _add_parallel_args(p: argparse.ArgumentParser):
                    help="devices to use (default 1; this slice runs world size 1 only)")
 
 
-def _add_serve_args(p: argparse.ArgumentParser):
-    g = p.add_argument_group("serving")
+def _add_device_arg(g):
     g.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"),
                    help="where the model runs; 'cuda' raises when no GPU is "
                         "visible instead of falling back to the CPU")
+
+
+def _add_train_args(p: argparse.ArgumentParser):
+    g = p.add_argument_group("training")
+    _add_device_arg(g)
+    g.add_argument("--train_iters", type=int, default=20)
+    g.add_argument("--lr", type=float, default=1e-4)
+    g.add_argument("--min_lr", type=float, default=1e-5)
+    g.add_argument("--weight_decay", type=float, default=0.01)
+    g.add_argument("--adam_beta1", type=float, default=0.9)
+    g.add_argument("--adam_beta2", type=float, default=0.999)
+    g.add_argument("--adam_eps", type=float, default=1e-8)
+    g.add_argument("--clip_grad", type=float, default=1.0)
+    g.add_argument("--lr_decay_style", type=str, default="cosine",
+                   choices=("cosine", "linear", "constant"))
+    g.add_argument("--lr_warmup_iters", type=int, default=0)
+    g.add_argument("--seed", type=int, default=1234)
+    g.add_argument("--log_interval", type=int, default=1)
+
+
+def _add_serve_args(p: argparse.ArgumentParser):
+    g = p.add_argument_group("serving")
+    _add_device_arg(g)
     g.add_argument("--serve_max_concurrency", type=int, default=None,
                    help="decode slots (defaults to the strategy JSON's "
                         "serve_max_concurrency, else 8)")
@@ -137,18 +163,25 @@ def _add_serve_args(p: argparse.ArgumentParser):
                         "predicted-TTFT shedder arms")
 
 
-def build_parser() -> argparse.ArgumentParser:
-    """The serve parser (the port's only mode so far)."""
-    p = argparse.ArgumentParser("galvatron_tpu_torch-serve", allow_abbrev=False)
+MODES = ("serve", "train")
+
+
+def build_parser(mode: str = "serve") -> argparse.ArgumentParser:
+    """The parser of one entry point: model + strategy flags, then the
+    serve or the train flags."""
+    if mode not in MODES:
+        raise ValueError("unknown mode %r (one of %s)" % (mode, MODES))
+    p = argparse.ArgumentParser("galvatron_tpu_torch-%s" % mode, allow_abbrev=False)
     _add_model_args(p)
     _add_parallel_args(p)
-    _add_serve_args(p)
+    (_add_serve_args if mode == "serve" else _add_train_args)(p)
     return p
 
 
-def initialize_galvatron(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
-    args = build_parser().parse_args(argv)
-    args.galvatron_mode = "serve"
+def initialize_galvatron(argv: Optional[Sequence[str]] = None,
+                         mode: str = "serve") -> argparse.Namespace:
+    args = build_parser(mode).parse_args(argv)
+    args.galvatron_mode = mode
     return args
 
 

@@ -59,8 +59,7 @@ def _serve(args) -> dict:
     from galvatron_tpu_torch.analysis import strategy_lint as _slint
     from galvatron_tpu_torch.analysis.diagnostics import DiagnosticError
 
-    report = _slint.lint_hp(
-        hp, file=getattr(args, "galvatron_config_path", None), mode="serve")
+    report = _slint.lint_hp(hp, file=getattr(args, "galvatron_config_path", None), mode="serve")
     for d in report.warnings:
         print("strategy lint: %s" % d.format())
     if not report.ok:

@@ -698,5 +698,24 @@ class HybridParallelConfig:
             "serve_max_pending": self.serve_max_pending,
         } if self.serve_max_pending else {})
 
+    def describe(self) -> str:
+        """One line for the whole strategy, then one per layer and the vocab
+        line (the reference's format)."""
+        lines = ["pp=%d world=%d bsz=%d chunks=%d pipeline=%s default_dp=%s" % (
+            self.pp, self.world_size, self.global_bsz, self.chunks,
+            self.pipeline_type, self.default_dp_type)]
+        for i, s in enumerate(self.layers):
+            lines.append("  layer %2d: stage %d tp=%d%s cp=%d dp=%d(%s)%s%s%s%s" % (
+                i, self.stage_of_layer[i], s.tp, "(ulysses-sp)" if s.sp else "",
+                s.cp, self.dp(i), self.dp_type(i),
+                (" ckpt" if s.remat_policy == "full" else " ckpt[%s]" % s.remat_policy)
+                if s.checkpoint else "",
+                "" if s.tp_consec else " nonconsec",
+                " gcomm=%s" % s.grad_comm_dtype if s.grad_comm_dtype != "none" else "",
+                " pcomm=%s" % s.param_comm_dtype if s.param_comm_dtype != "none" else ""))
+        lines.append("  vocab: tp=%d sp=%d cp=%d embed_sdp=%d" % (
+            self.vocab_tp, self.vocab_sp, self.vocab_cp, self.embed_sdp))
+        return "\n".join(lines)
+
     def save(self, path: str):
         write_json_config(self.to_json_dict(), path)

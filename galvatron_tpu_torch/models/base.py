@@ -1,6 +1,6 @@
-"""Generic decoder transformer: config, parameters, forward and decode.
+"""Generic decoder transformer: config, parameters, forward, loss and decode.
 
-Port of the forward half of ``galvatron_tpu/models/base.py``. The model's
+Port of ``galvatron_tpu/models/base.py`` for the token-input causal LM. The model's
 parameters are ``nn.Module``s whose state-dict names are the reference's
 param-tree paths (``embed.wte``, ``layers.<i>.ln1.scale``,
 ``layers.<i>.wqkv.kernel``, ``final_norm.scale``, ``lm_head.kernel``), with
@@ -14,9 +14,9 @@ the reference's head-major shapes:
 Forward code is plain functions over those modules and tensors, each the
 counterpart of the reference function of the same name. Parameters are
 kept in ``param_dtype`` (fp32) and cast to ``compute_dtype`` (bf16) at every
-use, as in the reference. This slice runs one device: there are no sharding
-constraints, and per-layer remat (which only matters under a backward) is
-not applied.
+use, as in the reference. The port runs one device: there are no sharding
+constraints. Per-layer remat follows the strategy (`run_layers`): the
+reference's ``jax.checkpoint`` policies become ``torch.utils.checkpoint``.
 """
 
 from __future__ import annotations
@@ -28,7 +28,9 @@ from typing import Any, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
+from galvatron_tpu_torch.config.strategy import HybridParallelConfig
 from galvatron_tpu_torch.ops.attention import core_attention
 from galvatron_tpu_torch.ops.norms import layer_norm, rms_norm
 from galvatron_tpu_torch.ops.rope import apply_rotary
@@ -350,25 +352,80 @@ def lm_logits(params: TransformerLM, x: torch.Tensor, cfg: TransformerConfig) ->
     return x @ kernel
 
 
+def model_head(params: TransformerLM, x: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+    """The family's output head. The port builds causal LMs only, so this
+    is the reference's ``lm`` branch; the ``mlm`` and ``classification``
+    heads come with the encoder families (TransformerLM refuses them)."""
+    if cfg.head_type != "lm":
+        raise ValueError("head_type %r is not ported yet" % cfg.head_type)
+    return lm_logits(params, x, cfg)
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-mean cross entropy in fp32, loss-mask weighted. The label logit
+    is taken with a masked sum over the vocab, as in the reference (whose
+    form lets a vocab-sharded layout reduce shard-locally)."""
+    logits32 = logits.float()
+    m = logits32.amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.exp(logits32 - m).sum(dim=-1)) + m[..., 0]
+    vocab_iota = torch.arange(logits.shape[-1], device=logits.device)
+    label_logit = torch.where(vocab_iota == labels[..., None], logits32, 0.0).sum(dim=-1)
+    losses = lse - label_logit
+    if loss_mask is None:
+        return losses.mean()
+    loss_mask = loss_mask.float()
+    return (losses * loss_mask).sum() / loss_mask.sum().clamp(min=1.0)
+
+
+# ----------------------------------------------------------------- remat
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
+
+
+def _remat(fn, policy: str):
+    """The reference's ``jax.checkpoint`` with a saveable policy, as
+    non-reentrant ``torch.utils.checkpoint``: "full" and "nothing_saveable"
+    save nothing and recompute the layer in the backward; "dots_saveable"
+    keeps the matrix-product outputs (aten mm/bmm/addmm) and recomputes the
+    rest. The flash-attention kernel is no aten op, so it is recomputed
+    under every policy, as jax recomputes the opaque ``pallas_call``."""
+    if policy in ("full", "nothing_saveable"):
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    if policy == "dots_saveable":
+        return lambda *args: checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=lambda: create_selective_checkpoint_contexts(list(_DOTS)))
+    raise ValueError("unknown remat policy %r" % policy)
+
+
 def run_layers(
     params: TransformerLM,
     x: torch.Tensor,
     positions: torch.Tensor,
     cfg: TransformerConfig,
+    hp: Optional[HybridParallelConfig] = None,
     attn_bias: Optional[torch.Tensor] = None,
     collect_kv: bool = False,
 ):
     """The layer stack, one layer after another (the reference's scan over
-    same-strategy layer runs is a Python loop here). ``collect_kv=True``
-    additionally returns one post-rope (k, v) pair per layer, in layer
-    order — the serving prefill's cache contents."""
+    same-strategy layer runs is a Python loop here). With a strategy `hp`
+    and gradients enabled, each layer runs under its own effective remat
+    policy (``hp.layers[i].effective_remat_policy``, "none" runs it plainly).
+    ``collect_kv=True`` additionally returns one post-rope (k, v) pair per
+    layer, in layer order — the serving prefill's cache contents; that path
+    is forward-only and never remats."""
     kvs: List[Tuple[torch.Tensor, torch.Tensor]] = []
-    for lp in params.layers:
+    for i, lp in enumerate(params.layers):
         if collect_kv:
             x, kv = layer_forward(lp, x, positions, cfg, attn_bias=attn_bias, return_kv=True)
             kvs.append(kv)
-        else:
+            continue
+        policy = hp.layers[i].effective_remat_policy if hp is not None else "none"
+        if policy == "none" or not torch.is_grad_enabled():
             x = layer_forward(lp, x, positions, cfg, attn_bias=attn_bias)
+        else:
+            x = _remat(lambda x_, _lp=lp: layer_forward(_lp, x_, positions, cfg,
+                                                        attn_bias=attn_bias), policy)(x)
     if collect_kv:
         return x, kvs
     return x
@@ -385,11 +442,21 @@ def model_forward(
     positions: Optional[torch.Tensor],
     cfg: TransformerConfig,
     attn_mask: Optional[torch.Tensor] = None,
+    hp: Optional[HybridParallelConfig] = None,
 ) -> torch.Tensor:
     """Full forward to logits."""
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
     x = embed_tokens(params.embed, tokens, positions, cfg)
     bias = padding_attn_bias(attn_mask) if attn_mask is not None else None
-    x = run_layers(params, x, positions, cfg, attn_bias=bias)
-    return lm_logits(params, x, cfg)
+    x = run_layers(params, x, positions, cfg, hp, attn_bias=bias)
+    return model_head(params, x, cfg)
+
+
+def lm_loss_fn(params: TransformerLM, batch: dict, cfg: TransformerConfig,
+               hp: Optional[HybridParallelConfig] = None) -> torch.Tensor:
+    """batch: dict(tokens, positions, labels, loss_mask?, attn_mask?) ->
+    scalar fp32 token-mean cross entropy."""
+    logits = model_forward(params, batch["tokens"], batch["positions"], cfg,
+                           attn_mask=batch.get("attn_mask"), hp=hp)
+    return vocab_parallel_cross_entropy(logits, batch["labels"], batch.get("loss_mask"))

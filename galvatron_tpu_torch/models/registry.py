@@ -20,6 +20,9 @@ class ModelFamily:
     config_fn: Callable[..., Any]  # (model_size: str, **overrides) -> TransformerConfig
     meta_configs: Dict[str, dict]
     default_size: str
+    # which input pipeline the train entry point wires up: "lm" (token stream);
+    # the reference's "seq2seq" and "vision" come with their families
+    data_kind: str = "lm"
 
 
 _REGISTRY: Dict[str, ModelFamily] = {
@@ -28,6 +31,7 @@ _REGISTRY: Dict[str, ModelFamily] = {
         config_fn=llama.llama_config,
         meta_configs=llama.META_CONFIGS,
         default_size="llama-0.3b",
+        data_kind="lm",
     ),
 }
 
@@ -41,7 +45,7 @@ def get_family(name: str) -> ModelFamily:
     if name in _NOT_PORTED:
         raise ValueError(
             "model family %r is not ported to galvatron_tpu_torch yet: this "
-            "slice serves the 'llama' family; the other families come with "
+            "slice serves and trains the 'llama' family; the other families come with "
             "the later 'other families' slice (ROADMAP queue 1)" % name)
     raise KeyError("unknown model family %r; known: %s" % (name, family_names()))
 

@@ -1,0 +1,146 @@
+"""Analytic model-FLOPs accounting and the peak-FLOPs registry behind MFU.
+
+Port of ``galvatron_tpu/obs/flops.py`` (the training half). Model FLOPs, not
+hardware FLOPs: the matmul terms of attention (with the causal 0.5 factor),
+the MLP and the head projection, independent of remat replay. MFU is
+``model_flops / step_time / peak_flops``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+# Peak dense matmul throughput per device, FLOP/s, by device-name prefix
+# (``torch.cuda.get_device_name`` here, jax's device_kind in the reference,
+# whose TPU rows are kept as they are). NVIDIA H100: dense bf16, NVIDIA's
+# data sheet (SXM). The "cpu" entry is a NOMINAL figure so CPU test runs
+# produce a defined MFU — a label, not a measurement.
+PEAK_FLOPS_BY_KIND: Dict[str, float] = {
+    "TPU v4": 275e12,
+    "TPU v5 lite": 197e12,
+    "TPU v5e": 197e12,
+    "TPU v5": 459e12,
+    "TPU v5p": 459e12,
+    "TPU v6 lite": 918e12,
+    "TPU v6e": 918e12,
+    "TPU7x": 2307e12,
+    "NVIDIA H100": 989e12,
+    "cpu": 5e10,
+}
+
+
+def peak_flops_for(device_kind: Optional[str]) -> Optional[float]:
+    """Peak FLOP/s for a device kind (longest-prefix match, case-insensitive);
+    None when unknown."""
+    if not device_kind:
+        return None
+    kind = device_kind.lower()
+    best: Optional[float] = None
+    best_len = -1
+    for prefix, peak in PEAK_FLOPS_BY_KIND.items():
+        if kind.startswith(prefix.lower()) and len(prefix) > best_len:
+            best, best_len = peak, len(prefix)
+    return best
+
+
+def layer_fwd_flops(
+    *,
+    hidden: int,
+    num_heads: int,
+    seq_len: int,
+    ffn_hidden: Optional[int] = None,
+    head_dim: Optional[int] = None,
+    num_kv_heads: Optional[int] = None,
+    causal: bool = True,
+    swiglu: bool = False,
+    tokens: Optional[float] = None,
+) -> float:
+    """Forward model FLOPs of ONE transformer block over `tokens` tokens
+    (default: one sequence). Matmul terms only, 2 FLOPs per MAC."""
+    tokens = float(seq_len if tokens is None else tokens)
+    ffn = ffn_hidden or 4 * hidden
+    hd = head_dim or hidden // num_heads
+    nkv = num_kv_heads or num_heads
+    q_dim = num_heads * hd
+    # per-token projections: q, fused kv (GQA-scaled), out
+    proj = 2.0 * hidden * q_dim + 2.0 * hidden * (2 * nkv * hd) + 2.0 * q_dim * hidden
+    # per-token attention: scores + weighted sum, each 2*S*q_dim; causal halves
+    attn = 2.0 * (2.0 * seq_len * q_dim) * (0.5 if causal else 1.0)
+    mlp = (2.0 * hidden * (2 * ffn) + 2.0 * ffn * hidden) if swiglu \
+        else (2.0 * hidden * ffn + 2.0 * ffn * hidden)
+    return tokens * (proj + attn + mlp)
+
+
+def layer_fwd_flops_from_config(cfg: Any, tokens: Optional[float] = None,
+                                seq_len: Optional[int] = None) -> Optional[float]:
+    """Duck-typed entry for TransformerConfig-shaped configs."""
+    hidden = getattr(cfg, "hidden_size", None)
+    heads = getattr(cfg, "num_heads", None)
+    seq = seq_len or getattr(cfg, "max_seq_len", None)
+    if not hidden or not heads or not seq:
+        return None
+    return layer_fwd_flops(
+        hidden=hidden,
+        num_heads=heads,
+        seq_len=seq,
+        ffn_hidden=getattr(cfg, "ffn_hidden", None),
+        head_dim=getattr(cfg, "head_dim", None),
+        num_kv_heads=getattr(cfg, "num_kv_heads", None),
+        causal=bool(getattr(cfg, "causal", True)),
+        swiglu=getattr(cfg, "activation", "gelu") == "swiglu",
+        tokens=tokens,
+    )
+
+
+def head_fwd_flops_from_config(cfg: Any, tokens: Optional[float] = None) -> float:
+    """Head projection FLOPs over `tokens` tokens (lookups are ~0 FLOPs)."""
+    hidden = getattr(cfg, "hidden_size", 0) or 0
+    tokens = float(tokens if tokens is not None else getattr(cfg, "max_seq_len", 0) or 0)
+    head_type = getattr(cfg, "head_type", "lm")
+    if head_type in ("lm", "mlm"):
+        vocab = getattr(cfg, "vocab_size", 0) or 0
+        extra = 2.0 * hidden * hidden if head_type == "mlm" else 0.0
+        return tokens * (2.0 * hidden * vocab + extra)
+    if head_type == "classification":
+        return 2.0 * hidden * (getattr(cfg, "num_classes", 0) or 0)
+    return 0.0
+
+
+def model_fwd_flops(cfg: Any, batch_size: int = 1) -> Optional[float]:
+    """Whole-model forward FLOPs for one batch."""
+    seq = getattr(cfg, "max_seq_len", None)
+    layers = getattr(cfg, "num_layers", None)
+    if not seq or not layers:
+        return None
+    tokens = float(batch_size) * seq
+    per_layer = layer_fwd_flops_from_config(cfg, tokens=tokens)
+    if per_layer is None:
+        return None
+    return layers * per_layer + head_fwd_flops_from_config(cfg, tokens=tokens)
+
+
+# backward ~= 2x forward (dL/dx and dL/dW each re-run every matmul)
+BWD_FWD_RATIO = 2.0
+
+
+def train_step_flops(cfg: Any, global_bsz: int) -> Optional[float]:
+    """Model FLOPs of one optimizer step: forward + backward (3x forward).
+    Remat replay is not counted: MFU measures useful arithmetic."""
+    fwd = model_fwd_flops(cfg, batch_size=global_bsz)
+    if fwd is None:
+        return None
+    return fwd * (1.0 + BWD_FWD_RATIO)
+
+
+def mfu(flops_per_step: Optional[float], step_ms: Optional[float],
+        peak_flops: Optional[float]) -> Optional[float]:
+    """Model-FLOPs utilization; None when any input is unknown/degenerate."""
+    if not flops_per_step or not step_ms or not peak_flops or step_ms <= 0:
+        return None
+    return flops_per_step / (step_ms / 1e3) / peak_flops
+
+
+def flops_per_s(flops_per_step: Optional[float], step_ms: Optional[float]) -> Optional[float]:
+    if not flops_per_step or not step_ms or step_ms <= 0:
+        return None
+    return flops_per_step / (step_ms / 1e3)

@@ -6,10 +6,12 @@ head_dim) ("BSNH") throughout; the flash kernel reads them in place.
 The dispatch rule is the reference's, with "on TPU" replaced by "the
 tensors are on CUDA": flash-eligible shapes (seq a multiple of 128,
 head_dim >= 128, no bias or a key-padding bias) go to
-`ops.flash_attention.flash_attention_fwd`, which launches the hand-written
-kernel on CUDA tensors and computes the kernel's plain version on CPU
+`ops.flash_attention.FlashAttention`, whose forward and backward launch the
+hand-written kernels on CUDA tensors and compute their plain versions on CPU
 tensors. Everything else goes to `_xla_attention`, the plain einsum path
-(named after the reference's XLA path it mirrors).
+(named after the reference's XLA path it mirrors), differentiated by
+autograd. GQA heads are expanded before either call; autograd sums the
+expanded gradients back onto the kv heads.
 """
 
 from __future__ import annotations
@@ -18,11 +20,7 @@ from typing import Optional
 
 import torch
 
-from galvatron_tpu_torch.ops.flash_attention import (
-    DEFAULT_MASK_VALUE,
-    SegmentIds,
-    flash_attention_fwd,
-)
+from galvatron_tpu_torch.ops.flash_attention import DEFAULT_MASK_VALUE, FlashAttention
 
 
 def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -109,13 +107,8 @@ def core_attention(
             # the kernel takes no generic additive bias: keep the plain path
             # rather than silently dropping it
             return _xla_attention(q, k, v, causal=causal, sm_scale=sm_scale, bias=bias)
-        seg = None
-        if bias is not None:
-            ids = padding_bias_to_segment_ids(bias)
-            seg = SegmentIds(q=ids, kv=ids)
-        out, _ = flash_attention_fwd(q, k, v, causal=causal, sm_scale=sm_scale,
-                                     segment_ids=seg)
-        return out
+        ids = padding_bias_to_segment_ids(bias) if bias is not None else None
+        return FlashAttention.apply(q, k, v, causal, sm_scale, ids, ids)
     if impl == "xla":
         return _xla_attention(q, k, v, causal=causal, sm_scale=sm_scale, bias=bias)
     raise ValueError("unknown attention impl %r" % impl)

@@ -1,19 +1,24 @@
-"""Flash-attention forward: a hand-written CUDA kernel and its plain version.
+"""Flash attention: hand-written CUDA kernels for the forward and the backward,
+their plain versions, and the autograd Function that joins them.
 
 Replaces the TPU kernel ``galvatron_tpu/ops/attention.py::_pallas_flash``
-(forward of jax.experimental.pallas.ops.tpu.flash_attention). The kernel
-source is ``csrc/flash_attn_fwd.cu`` (sm_90a); its header note gives the
-bound and the design: bf16 inputs with 16-byte-aligned rows run on the
-tensor cores, fp32 inputs and unaligned bf16 rows on the CUDA cores. It is compiled with ``nvcc`` into a shared library
-with a plain C interface at first use, keyed by a hash of the source and the
-flags, under ``build/galvatron_tpu_torch/`` beside the package, and loaded
-with ``ctypes``.
+(jax.experimental.pallas.ops.tpu.flash_attention): its forward ``pallas_call``
+becomes ``csrc/flash_attn_fwd.cu``, its two backward ``pallas_call``s (dkv and
+dq) become ``csrc/flash_attn_bwd.cu``, both for sm_90a. Each source's header
+note gives the bound and the design: bf16 inputs with 16-byte-aligned rows run
+on the tensor cores, fp32 inputs and unaligned bf16 rows (and, for the
+backward, head_dim 256) on the CUDA cores. Each source is compiled with
+``nvcc`` into a shared library with a plain C interface at first use, keyed by
+a hash of the source and the flags, under ``build/galvatron_tpu_torch/``
+beside the package, and loaded with ``ctypes``.
 
-`flash_attention_fwd` is the wrapper: on CPU tensors it computes the plain
-version `flash_attention_fwd_reference`; on CUDA tensors it launches the
-kernel or raises (bad argument, no ``nvcc``, build or launch failure) —
-there is no fallback. ``flash_attention_fwd.launches`` counts kernel
-launches.
+`flash_attention_fwd` and `flash_attention_bwd` are the wrappers: on CPU
+tensors they compute the plain versions `flash_attention_fwd_reference` and
+`flash_attention_bwd_reference`; on CUDA tensors they launch the kernel or
+raise (bad argument, no ``nvcc``, build or launch failure) — there is no
+fallback. Each wrapper's ``launches`` attribute counts its kernel launches.
+`FlashAttention` is the ``torch.autograd.Function`` whose forward is the
+forward wrapper and whose backward is the backward wrapper.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -37,6 +42,8 @@ BLOCK = 64  # query and key tile rows: sequence lengths must be multiples
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "flash_attn_fwd.cu")
+BWD_SOURCE = os.path.join(_PKG_DIR, "csrc", "flash_attn_bwd.cu")
+SOURCES = (SOURCE, BWD_SOURCE)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "galvatron_tpu_torch")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -52,17 +59,19 @@ class SegmentIds(NamedTuple):
     kv: torch.Tensor
 
 
-# -------------------------------------------------------------- plain version
-def flash_attention_fwd_reference(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
-    sm_scale: float, segment_ids: Optional[SegmentIds] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """What the kernel computes, in fp32 math: BSNH q (B, Sq, H, D) and k/v
-    (B, Sk, H, D) -> (out (B, Sq, H, D) in q's dtype, logsumexp (B, H, Sq)
-    fp32). Masked logits get DEFAULT_MASK_VALUE added, as in the Pallas
-    kernel, so a padded query row attends within the pad segment and every
-    row is defined."""
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
+# ------------------------------------------------------------ plain versions
+def _math_dtype(dtype: torch.dtype) -> torch.dtype:
+    """fp32 for the kernels' dtypes (bf16, fp32); float64 stays float64, so
+    gradcheck can run the plain versions in double precision."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _masked_logits(q, k, sm_scale, causal, segment_ids):
+    """(B, H, Sq, Sk) logits in the math dtype, masked logits with
+    DEFAULT_MASK_VALUE ADDED as in the Pallas kernel, so every row stays
+    defined (a padded query row attends within the pad segment)."""
+    acc = _math_dtype(q.dtype)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * sm_scale
     sq, sk = q.shape[1], k.shape[1]
     mask = None
     if segment_ids is not None:
@@ -73,14 +82,49 @@ def flash_attention_fwd_reference(
         causal_mask = (cols[None, :] <= rows[:, None])[None, None]
         mask = causal_mask if mask is None else mask & causal_mask
     if mask is not None:
-        logits = logits + torch.where(mask, 0.0, DEFAULT_MASK_VALUE)
+        logits = logits + torch.where(mask, 0.0, DEFAULT_MASK_VALUE).to(acc)
+    return logits
+
+
+def flash_attention_fwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+    sm_scale: float, segment_ids: Optional[SegmentIds] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the forward kernel computes, in fp32 math: BSNH q (B, Sq, H, D)
+    and k/v (B, Sk, H, D) -> (out (B, Sq, H, D) in q's dtype, logsumexp
+    (B, H, Sq) fp32)."""
+    logits = _masked_logits(q, k, sm_scale, causal, segment_ids)
     lse = torch.logsumexp(logits, dim=-1)
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(logits.dtype))
     return out.to(q.dtype), lse
 
 
-# ------------------------------------------------------------------- the build
+def flash_attention_bwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, *, causal: bool, sm_scale: float,
+    segment_ids: Optional[SegmentIds] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What the backward kernel computes, in fp32 math, as the Pallas
+    backward does: p = exp(logits - lse) with the forward's masks,
+    di = rowsum(out * do), dv = p^T do, dp = do v^T,
+    ds = p (dp - di) sm_scale, dq = ds k, dk = ds^T q. p is rounded to do's
+    dtype before dv and ds to the input dtype before dq and dk; the products
+    accumulate in fp32; (dq, dk, dv) come back in the input dtype."""
+    logits = _masked_logits(q, k, sm_scale, causal, segment_ids)
+    acc = logits.dtype
+    p = torch.exp(logits - lse.to(acc)[..., None])
+    dof = do.to(acc)
+    di = (out.to(acc) * dof).sum(-1).permute(0, 2, 1)  # (B, H, Sq)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).to(acc), dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.to(acc))
+    ds = ((dp - di[..., None]) * p * sm_scale).to(q.dtype).to(acc)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.to(acc))
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(acc))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ------------------------------------------------------------------ the build
 def find_nvcc() -> str:
     candidates = [shutil.which("nvcc")]
     for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"), "/usr/local/cuda"):
@@ -91,21 +135,22 @@ def find_nvcc() -> str:
             return cand
     raise RuntimeError(
         "nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): the flash-attention "
-        "kernel is built from %s at first use on a CUDA tensor" % SOURCE)
+        "kernels are built from %s at first use on a CUDA tensor" % ", ".join(SOURCES))
 
 
-def library_path() -> str:
-    """Where the build for the current source and flags goes."""
-    with open(SOURCE, "rb") as f:
+def library_path(source: str = SOURCE) -> str:
+    """Where the build of `source` with the current flags goes."""
+    with open(source, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, "flash_attn_fwd_%s.so" % digest)
+    stem = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR, "%s_%s.so" % (stem, digest))
 
 
-def build() -> str:
-    """Compile the kernel if this source has no build yet; returns the path
-    of the shared library. The compiler's output (registers, shared memory,
-    spills from ``-Xptxas -v``) is kept beside it as ``.log``."""
-    so = library_path()
+def build(source: str = SOURCE) -> str:
+    """Compile `source` if it has no build yet; returns the path of the
+    shared library. The compiler's output (registers, shared memory, spills
+    from ``-Xptxas -v``) is kept beside it as ``.log``."""
+    so = library_path(source)
     if os.path.exists(so):
         return so
     nvcc = find_nvcc()
@@ -113,11 +158,11 @@ def build() -> str:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, source],
                               capture_output=True, text=True)
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError("nvcc failed (%d) on %s:\n%s" % (proc.returncode, SOURCE, log))
+            raise RuntimeError("nvcc failed (%d) on %s:\n%s" % (proc.returncode, source, log))
         with open(so + ".log", "w") as f:
             f.write(log)
         os.replace(tmp, so)
@@ -128,25 +173,19 @@ def build() -> str:
 
 
 class _KernelLibrary:
-    """The loaded shared library, built and loaded once per process."""
+    """One source's shared library, built and loaded once per process."""
 
-    def __init__(self):
+    def __init__(self, source: str, symbol: str, argtypes: Sequence):
+        self.source, self.symbol, self.argtypes = source, symbol, list(argtypes)
         self._lock = threading.Lock()
         self._lib = None
 
     def get(self):
         with self._lock:
             if self._lib is None:
-                lib = ctypes.CDLL(build())
-                fn = lib.galv_flash_attn_fwd
-                fn.argtypes = [
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.POINTER(ctypes.c_longlong),
-                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_void_p,
-                ]
+                lib = ctypes.CDLL(build(self.source))
+                fn = getattr(lib, self.symbol)
+                fn.argtypes = self.argtypes
                 fn.restype = ctypes.c_int
                 lib.galv_cuda_error_string.argtypes = [ctypes.c_int]
                 lib.galv_cuda_error_string.restype = ctypes.c_char_p
@@ -154,10 +193,18 @@ class _KernelLibrary:
             return self._lib
 
 
-_KERNEL = _KernelLibrary()
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_KERNEL = _KernelLibrary(SOURCE, "galv_flash_attn_fwd", [
+    _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
+    _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P,
+])
+_BWD_KERNEL = _KernelLibrary(BWD_SOURCE, "galv_flash_attn_bwd", [
+    _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
+    _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P,
+])
 
 
-# ------------------------------------------------------------------ the wrapper
+# ---------------------------------------------------------------- the wrappers
 def _check_cuda_args(q, k, v, segment_ids):
     tensors = [q, k, v] + (list(segment_ids) if segment_ids is not None else [])
     if any(t.device != q.device for t in tensors):
@@ -192,20 +239,32 @@ def _check_cuda_args(q, k, v, segment_ids):
                                                           tuple(ids.shape)))
 
 
+def _on_cpu(tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def _device_index(t: torch.Tensor) -> int:
+    return t.device.index if t.device.index is not None else torch.cuda.current_device()
+
+
+def _raise_on(rc: int, lib, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError("flash attention %s kernel launch failed (%d): %s"
+                           % (what, rc, lib.galv_cuda_error_string(rc).decode()))
+
+
 def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     sm_scale: float, segment_ids: Optional[SegmentIds] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out (B, Sq, H, D), logsumexp (B, H, Sq) fp32). CPU tensors take the
     plain version; CUDA tensors launch the kernel on the current stream."""
-    tensors = [q, k, v] + (list(segment_ids) if segment_ids is not None else [])
-    if all(t.device.type == "cpu" for t in tensors):
+    if _on_cpu([q, k, v] + (list(segment_ids) if segment_ids is not None else [])):
         return flash_attention_fwd_reference(q, k, v, causal=causal, sm_scale=sm_scale,
                                              segment_ids=segment_ids)
     _check_cuda_args(q, k, v, segment_ids)
     lib = _KERNEL.get()
     b, sq, h, d = q.shape
-    sk = k.shape[1]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 12)(
@@ -214,15 +273,86 @@ def flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         segment_ids.q.data_ptr() if segment_ids is not None else None,
         segment_ids.kv.data_ptr() if segment_ids is not None else None,
-        strides, b, h, sq, sk, d, _DTYPE_CODES[q.dtype], float(sm_scale), int(bool(causal)),
-        q.device.index if q.device.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        strides, b, h, sq, k.shape[1], d, _DTYPE_CODES[q.dtype], float(sm_scale),
+        int(bool(causal)), _device_index(q), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    if rc != 0:
-        raise RuntimeError("flash attention kernel launch failed (%d): %s"
-                           % (rc, lib.galv_cuda_error_string(rc).decode()))
+    _raise_on(rc, lib, "forward")
     flash_attention_fwd.launches += 1
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, *, causal: bool, sm_scale: float,
+    segment_ids: Optional[SegmentIds] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv), BSNH in the input dtype, from the forward's inputs, its
+    out and logsumexp, and the cotangent `do` of out. CPU tensors take the
+    plain version; CUDA tensors launch the kernel on the current stream."""
+    seg = list(segment_ids) if segment_ids is not None else []
+    if _on_cpu([q, k, v, out, lse, do] + seg):
+        return flash_attention_bwd_reference(q, k, v, out, lse, do, causal=causal,
+                                             sm_scale=sm_scale, segment_ids=segment_ids)
+    _check_cuda_args(q, k, v, segment_ids)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    for name, t in (("out", out), ("do", do)):
+        if t.device != q.device or t.dtype != q.dtype or t.shape != q.shape or t.stride(-1) != 1:
+            raise ValueError("flash attention backward: %s must be a %s %s tensor on %s with "
+                             "a contiguous head_dim, got %s %s on %s"
+                             % (name, q.dtype, tuple(q.shape), q.device, t.dtype,
+                                tuple(t.shape), t.device))
+    if (lse.device != q.device or lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, sq)
+            or not lse.is_contiguous()):
+        raise ValueError("flash attention backward: lse must be contiguous float32 "
+                         "(%d, %d, %d) on %s" % (b, h, sq, q.device))
+    lib = _BWD_KERNEL.get()
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, h, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, sk, h, d), dtype=q.dtype, device=q.device)
+    di = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*(
+        s for t in (q, k, v, out, do, dq, dk, dv) for s in t.stride()[:3]))
+    rc = lib.galv_flash_attn_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), di.data_ptr(),
+        segment_ids.q.data_ptr() if segment_ids is not None else None,
+        segment_ids.kv.data_ptr() if segment_ids is not None else None,
+        strides, b, h, sq, sk, d, _DTYPE_CODES[q.dtype], float(sm_scale), int(bool(causal)),
+        _device_index(q), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(rc, lib, "backward")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """out = flash attention(q, k, v) with the kernels on both passes: the
+    forward saves (q, k, v, out, lse) and the backward feeds them to
+    `flash_attention_bwd` (the counterpart of the Pallas kernel's
+    ``jax.custom_vjp``). Segment ids are (B, S) int32 or None."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, q_seg=None, kv_seg=None):
+        seg = SegmentIds(q_seg, kv_seg) if q_seg is not None else None
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, sm_scale=sm_scale,
+                                       segment_ids=seg)
+        ctx.save_for_backward(q, k, v, out, lse, q_seg, kv_seg)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, q_seg, kv_seg = ctx.saved_tensors
+        seg = SegmentIds(q_seg, kv_seg) if q_seg is not None else None
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, causal=ctx.causal,
+                                         sm_scale=ctx.sm_scale, segment_ids=seg)
+        return dq, dk, dv, None, None, None, None

@@ -1,20 +1,24 @@
-"""Model construction for one device.
+"""Model construction and the train step for one device.
 
-Port of ``galvatron_tpu/runtime/model_api.construct_hybrid_parallel_model``
-for world size 1: the strategy is checked for what this slice can execute,
-and the returned model builds its parameters on the given device from a
-``torch.Generator`` seeded by the caller. The per-layer tp/dp layouts (and
-with them process groups, ZeRO and the train step) come with later slices.
+Port of ``galvatron_tpu/runtime/model_api.py`` for world size 1: the
+strategy is checked for what the port can execute, the returned model builds
+its parameters on the given device from a ``torch.Generator`` seeded by the
+caller, and `make_train_step` runs the reference's step: per-microbatch
+loss and gradients (chunked accumulation weighted by each microbatch's share
+of the valid tokens), then the optimizer chain. The per-layer tp/dp layouts
+(and with them process groups and ZeRO) come with later slices.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable, Dict
 
 import torch
 
 from galvatron_tpu_torch.config.strategy import HybridParallelConfig
 from galvatron_tpu_torch.models import base as M
+from galvatron_tpu_torch.runtime.optimizer import AdamState, AdamW
 
 
 def check_single_device(hp: HybridParallelConfig) -> None:
@@ -50,6 +54,63 @@ class HybridParallelModel:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
         return M.init_model_params(self.cfg, gen, self.device)
+
+    def loss_fn(self, params: M.TransformerLM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return M.lm_loss_fn(params, batch, self.cfg, self.hp)
+
+    def init_opt_state(self, tx: AdamW, params: M.TransformerLM) -> AdamState:
+        return tx.init(params)
+
+    def make_train_step(self, tx: AdamW, *, guard_anomalies: bool = False,
+                        sdc_check: str = "off") -> Callable:
+        """The (params, opt_state, batch) -> (params, opt_state, metrics)
+        step; params and opt_state are updated in place and returned.
+        metrics = {"loss", "grad_norm"}: the step's loss and the global norm
+        of the accumulated gradients before clipping, as device scalars.
+        The anomaly guard, the silent-corruption sentinel and the quantized
+        gradient sync are refused until their slices are ported."""
+        if guard_anomalies:
+            raise ValueError("guard_anomalies is not ported yet: the anomaly guard comes "
+                             "with the resilience slice of galvatron_tpu_torch")
+        if sdc_check != "off":
+            raise ValueError("sdc_check=%r is not ported yet: the silent-corruption "
+                             "sentinel comes with the resilience slice" % sdc_check)
+        if any(s.grad_comm_dtype != "none" or s.param_comm_dtype != "none"
+               for s in self.hp.layers):
+            raise ValueError("quantized gradient/parameter sync is not ported yet: it "
+                             "comes with the data-parallel slice of galvatron_tpu_torch")
+        chunks = self.hp.chunks
+
+        def train_step(params, opt_state, batch):
+            for p in params.parameters():
+                p.grad = None
+            if chunks == 1:
+                loss = self.loss_fn(params, batch)
+                loss.backward()
+                loss = loss.detach()
+            else:
+                mbs = {k: v.reshape((chunks, v.shape[0] // chunks) + tuple(v.shape[1:]))
+                       for k, v in batch.items()}
+                # each microbatch loss is a mean over its own valid tokens:
+                # weight it by its share of the step's valid tokens, so the
+                # chunked objective equals the chunks == 1 one
+                if "loss_mask" in batch:
+                    sums = mbs["loss_mask"].float().sum(dim=tuple(range(1, mbs["loss_mask"].dim())))
+                    weights = sums / sums.sum().clamp(min=1.0)
+                else:
+                    weights = torch.full((chunks,), 1.0 / chunks, device=batch["tokens"].device)
+                loss = torch.zeros((), device=batch["tokens"].device)
+                for c in range(chunks):
+                    mb_loss = self.loss_fn(params, {k: v[c] for k, v in mbs.items()})
+                    (mb_loss * weights[c]).backward()
+                    loss = loss + mb_loss.detach() * weights[c]
+            grads = {n: p.grad for n, p in params.named_parameters()}
+            grad_norm = tx.update(params, grads, opt_state)
+            for p in params.parameters():
+                p.grad = None
+            return params, opt_state, {"loss": loss, "grad_norm": grad_norm}
+
+        return train_step
 
 
 def construct_hybrid_parallel_model(

@@ -6,18 +6,23 @@ the port keeps them as ``nn.Module`` state whose state-dict names are the
 same paths joined with dots (``embed.wte``, ``layers.0.ln1.scale``). With
 the tree's leaves as numpy arrays (``jax.device_get`` of the reference's
 params), `params_from_numpy` gives the port's state dict with the same
-names, shapes and dtypes, and `params_to_numpy` is its inverse. Tests use
-the bridge so both packages compute from identical weights. The module
-itself needs only numpy and torch.
+names, shapes and dtypes, and `params_to_numpy` is its inverse. The Adam
+moments cross the same way: optax's ``ScaleByAdamState`` (count, mu, nu —
+mu and nu are param-shaped trees) to the port's `AdamState` with
+`adam_state_from_numpy`, and back with `adam_state_to_numpy`. Tests use the
+bridge so both packages compute from identical weights and optimizer state.
+The module itself needs only numpy and torch.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Union
+from typing import Any, Dict, Mapping, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
+
+from galvatron_tpu_torch.runtime.optimizer import AdamState
 
 
 def _flatten(tree: Any, prefix: str, out: Dict[str, Any]) -> None:
@@ -61,3 +66,15 @@ def _lists_from_int_keys(node: Any) -> Any:
     if out and all(k.isdigit() for k in out):
         return [out[str(i)] for i in range(len(out))]
     return out
+
+
+def adam_state_from_numpy(count: Any, mu: Any, nu: Any, device="cpu") -> AdamState:
+    """optax ScaleByAdamState fields (numpy leaves) -> the port's AdamState."""
+    return AdamState(count=int(np.asarray(count)), mu=params_from_numpy(mu, device),
+                     nu=params_from_numpy(nu, device))
+
+
+def adam_state_to_numpy(state: AdamState) -> Tuple[int, Dict[str, Any], Dict[str, Any]]:
+    """The port's AdamState -> (count, mu tree, nu tree) with numpy leaves,
+    the fields of optax's ScaleByAdamState."""
+    return state.count, params_to_numpy(state.mu), params_to_numpy(state.nu)

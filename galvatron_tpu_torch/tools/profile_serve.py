@@ -20,13 +20,15 @@ import argparse
 import json
 import os
 import time
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
 
-def _phase(prof, wall_ms: float, top: int) -> Dict:
+def kernel_rows(prof) -> List[Tuple[str, float, int]]:
+    """(kernel name, device ms, calls) for every device kernel the profiler
+    recorded, largest first."""
     from torch.autograd import DeviceType
 
     rows = []
@@ -36,6 +38,11 @@ def _phase(prof, wall_ms: float, top: int) -> Dict:
         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
             rows.append((ev.key, ev.self_device_time_total / 1e3, ev.count))
     rows.sort(key=lambda r: -r[1])
+    return rows
+
+
+def _phase(prof, wall_ms: float, top: int) -> Dict:
+    rows = kernel_rows(prof)
     busy = sum(r[1] for r in rows)
     return {
         "wall_ms": wall_ms,

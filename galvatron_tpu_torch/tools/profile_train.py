@@ -1,0 +1,135 @@
+"""Where a train step's time goes on the GPU: steady steps of the port's
+train step under ``torch.profiler``.
+
+    python -m galvatron_tpu_torch.tools.profile_train \\
+        [--warmup 2] [--steps 2] [--top 15] [--trace_dir chiprun_out]
+
+The run is the configuration that ``chip_smoke.py`` trains
+(``tools/train_cell.py``; its strategy JSON is written into ``--trace_dir``
+or ``build/galvatron_tpu_torch``), built by ``cli.train.build``. After
+``--warmup`` untraced steps it traces ``--steps`` steps and prints the wall
+time per step, the device-busy time (the sum of kernel times the profiler
+records), the device's idle share, the device time by kind (the
+flash-attention forward and backward kernels, matrix products, the rest),
+the optimizer update's share of the step (CUDA events around it) and the
+kernels that take the most device time. Needs a CUDA GPU; raises without
+one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+from typing import Dict, List
+
+import torch
+
+# device-kernel name fragments -> kind (first match wins)
+_KINDS = (
+    ("flash_attn_fwd", ("flash_fwd",)),
+    ("flash_attn_bwd", ("BwdParams",)),
+    ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
+)
+
+
+def kind_of(kernel: str) -> str:
+    for kind, fragments in _KINDS:
+        if any(f in kernel for f in fragments):
+            return kind
+    return "other"
+
+
+def breakdown(prof, wall_ms: float, steps: int, top: int) -> Dict:
+    from galvatron_tpu_torch.tools.profile_serve import kernel_rows
+
+    rows = kernel_rows(prof)
+    busy = sum(r[1] for r in rows)
+    kinds: Dict[str, float] = {}
+    for key, ms, _ in rows:
+        kinds[kind_of(key)] = kinds.get(kind_of(key), 0.0) + ms
+    return {
+        "wall_ms_per_step": wall_ms / steps,
+        "device_busy_ms_per_step": busy / steps,
+        "idle_share": max(0.0, 1.0 - busy / wall_ms) if wall_ms > 0 else None,
+        "by_kind_ms_per_step": {k: v / steps for k, v in sorted(kinds.items(), key=lambda x: -x[1])},
+        "top": [{"kernel": k[:120], "ms_per_step": ms / steps,
+                 "share_of_busy": ms / busy if busy else None, "calls_per_step": n / steps}
+                for k, ms, n in rows[:top]],
+    }
+
+
+def main(argv: List[str] = None) -> Dict:
+    p = argparse.ArgumentParser("galvatron_tpu_torch-profile_train")
+    p.add_argument("--warmup", type=int, default=2)
+    p.add_argument("--steps", type=int, default=2)
+    p.add_argument("--top", type=int, default=15)
+    p.add_argument("--trace_dir", default=None)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_train needs a CUDA GPU (torch.cuda.is_available() is False)")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from galvatron_tpu_torch.cli import train as cli_train
+    from galvatron_tpu_torch.cli.arguments import initialize_galvatron
+    from galvatron_tpu_torch.tools import train_cell
+
+    train_argv = train_cell.argv(train_cell.write_strategy(
+        args.trace_dir or os.path.join("build", "galvatron_tpu_torch")))
+    targs = initialize_galvatron(train_argv, mode="train")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    run = cli_train.build(targs)
+    params, state, tx = run.params, run.opt_state, run.tx
+    for _ in range(args.warmup):
+        params, state, _ = run.step(params, state, next(run.data))
+    batches = [next(run.data) for _ in range(args.steps)]
+
+    # the optimizer update's device time, from events around tx.update
+    # (which already synchronises once, reading the gradient norm)
+    update, update_ms = tx.update, []
+
+    def timed_update(*a, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        norm = update(*a, **kw)
+        end.record()
+        end.synchronize()
+        update_ms.append(start.elapsed_time(end))
+        return norm
+
+    tx.update = timed_update
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches:
+            params, state, metrics = run.step(params, state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    hp = run.hp
+    out = {"device": torch.cuda.get_device_name(0), "argv": train_argv,
+           "num_layers": run.cfg.num_layers, "global_bsz": hp.global_bsz, "chunks": hp.chunks,
+           "seq_len": run.cfg.max_seq_len, "checkpoint": [s.checkpoint for s in hp.layers],
+           "remat_policy": [s.remat_policy for s in hp.layers], "steps": args.steps,
+           "loss": float(metrics["loss"])}
+    out.update(breakdown(prof, wall, args.steps, args.top))
+    out["optimizer_ms_per_step"] = sum(update_ms) / len(update_ms)
+    if args.trace_dir:
+        os.makedirs(args.trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.trace_dir, "profile_train.json"))
+    print("train step: wall %.2f ms, device busy %.2f ms, idle share %.3f" % (
+        out["wall_ms_per_step"], out["device_busy_ms_per_step"], out["idle_share"]))
+    for kind, ms in out["by_kind_ms_per_step"].items():
+        print("  %-15s %9.3f ms %5.1f%%" % (kind, ms, 100 * ms / out["device_busy_ms_per_step"]))
+    print("  optimizer update %.3f ms per step (CUDA events)" % out["optimizer_ms_per_step"])
+    for row in out["top"]:
+        print("  %9.3f ms %5.1f%% x%-6g %s" % (row["ms_per_step"], 100 * row["share_of_busy"],
+                                             row["calls_per_step"], row["kernel"]))
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,9 @@
-"""The port's hand-written CUDA kernel on the card: the flash-attention
-forward against its plain version, its argument checks, and a serve run
-whose prefills go through it. Every test is marked ``cuda`` and skips where
-there is no GPU or no nvcc, from inside the test.
+"""The port's hand-written CUDA kernels on the card: the flash-attention
+forward and backward against their plain versions, their argument checks,
+the autograd Function against autograd of the plain forward, a serve run
+whose prefills go through the forward and a train run whose steps go
+through both. Every test is marked ``cuda`` and skips where there is no GPU
+or no nvcc, from inside the test.
 
 This file imports neither jax nor the reference package, so it also runs on
 a machine that has only PyTorch and the CUDA toolkit:
@@ -9,21 +11,32 @@ a machine that has only PyTorch and the CUDA toolkit:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from galvatron_tpu_torch.cli import serve as S
+from galvatron_tpu_torch.cli import train as T
 from galvatron_tpu_torch.ops import flash_attention as TF
 
 pytestmark = [pytest.mark.cuda]
 
-# elementwise |out - ref| <= atol + rtol * |ref|. bf16: one output ulp is
-# 2^-8 relative, and the tensor-core path rounds p to bf16 before P.V as the
-# Pallas kernel does. fp32 inputs: only the summation order differs.
-TOL_BF16, RTOL_BF16 = 2e-2, 1e-2
-TOL_FP32, RTOL_FP32 = 1e-4, 0.0
-TOL_LSE = 1e-3
+
+def _chip_smoke():
+    """chip_smoke.py's kernel-vs-plain check and tolerances: elementwise
+    within a limit scaled by the element's own row of head_dim values."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(root, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CS = _chip_smoke()
+TOL_LSE = CS.TOL_LSE
 
 
 def _need_cuda_kernel():
@@ -35,8 +48,15 @@ def _need_cuda_kernel():
         pytest.skip(str(e))
 
 
-def _close(out, ref, atol, rtol):
-    return bool(((out.float() - ref.float()).abs() <= atol + rtol * ref.float().abs()).all())
+def _close(out, ref, tol):
+    return CS.judge(torch, out, ref, tol)[0] == 0
+
+
+def _close_and_faults_caught(out, ref, tol):
+    """`out` passes the check and each planted fault (a zeroed first or
+    last tile of `ref`) fails it."""
+    return _close(out, ref, tol) and not any(
+        _close(wrong, ref, tol) for wrong in CS.planted_faults(ref).values())
 
 
 def _rand(shape, seed, dtype):
@@ -69,9 +89,9 @@ def test_flash_kernel_matches_plain_version(s, hd, padded, causal, dtype):
     assert TF.flash_attention_fwd.launches == n0 + 1
     ref, ref_lse = TF.flash_attention_fwd_reference(q, k, v, causal=causal, sm_scale=hd ** -0.5,
                                                     segment_ids=seg)
-    tol = (TOL_BF16, RTOL_BF16) if dtype == torch.bfloat16 else (TOL_FP32, RTOL_FP32)
+    tol = CS.TOL_FWD_BF16 if dtype == torch.bfloat16 else CS.TOL_FWD_FP32
     assert out.dtype == dtype and tuple(out.shape) == (b, s, nh, hd)
-    assert _close(out, ref, *tol)
+    assert _close_and_faults_caught(out, ref, tol)
     assert (lse - ref_lse).abs().max().item() <= TOL_LSE
 
 
@@ -105,7 +125,7 @@ def test_flash_kernel_unaligned_bf16_rows_take_the_cuda_core_path(causal):
     torch.cuda.synchronize()
     ref, ref_lse = TF.flash_attention_fwd_reference(q, k, v, causal=causal, sm_scale=0.1,
                                                     segment_ids=seg)
-    assert _close(out, ref, TOL_BF16, RTOL_BF16)
+    assert _close(out, ref, CS.TOL_FWD_BF16)
     assert (lse - ref_lse).abs().max().item() <= TOL_LSE
 
 
@@ -142,3 +162,142 @@ def test_serve_on_cuda_prefills_through_the_flash_kernel():
     summary = S.main(argv)
     assert summary["requests"] == 3 and summary["shed"] == 0
     assert TF.flash_attention_fwd.launches - n0 == 2 * 3  # layers x prefills
+
+
+def _bwd_case(b, s, nh, hd, dtype, padded, causal, seed=41):
+    q, k, v, do = (_rand((b, s, nh, hd), seed + i, dtype) for i in range(4))
+    seg = None
+    if padded:
+        ids = torch.ones((b, s), dtype=torch.int32, device="cuda")
+        ids[0, s - s // 4 - 5:] = 0
+        seg = TF.SegmentIds(q=ids, kv=ids)
+    out, lse = TF.flash_attention_fwd(q, k, v, causal=causal, sm_scale=hd ** -0.5,
+                                      segment_ids=seg)
+    return q, k, v, do, out, lse, seg
+
+
+@pytest.mark.parametrize("s,hd,padded,causal,dtype", [
+    (128, 128, False, True, torch.bfloat16),
+    (512, 128, True, True, torch.bfloat16),
+    (256, 128, True, False, torch.bfloat16),
+    (256, 256, True, True, torch.bfloat16),
+    (384, 128, True, True, torch.float32),
+])
+def test_flash_bwd_kernel_matches_plain_version(s, hd, padded, causal, dtype):
+    """Backward kernel vs its plain version on the same inputs (the
+    forward's out and lse included), every row and key."""
+    _need_cuda_kernel()
+    q, k, v, do, out, lse, seg = _bwd_case(2, s, 4, hd, dtype, padded, causal)
+    n0 = TF.flash_attention_bwd.launches
+    got = TF.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, sm_scale=hd ** -0.5,
+                                 segment_ids=seg)
+    torch.cuda.synchronize()
+    assert TF.flash_attention_bwd.launches == n0 + 1
+    want = TF.flash_attention_bwd_reference(q, k, v, out, lse, do, causal=causal,
+                                            sm_scale=hd ** -0.5, segment_ids=seg)
+    tol = CS.TOL_BWD_BF16 if dtype == torch.bfloat16 else CS.TOL_BWD_FP32
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert bool(torch.isfinite(g.float()).all()), name
+        assert _close_and_faults_caught(g, w, tol), "%s: %s" % (
+            name, CS.judge(torch, g, w, tol))
+
+
+def test_flash_bwd_kernel_reads_and_writes_strided_bsnh_in_place():
+    """q/k/v/out/do as slices of fused (B, S, n, H, D) buffers: the same
+    gradients as from contiguous copies, bit for bit."""
+    _need_cuda_kernel()
+    qkv = _rand((1, 256, 3, 4, 128), 7, torch.bfloat16)
+    od = _rand((1, 256, 2, 4, 128), 8, torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    out, do = od[:, :, 0], od[:, :, 1]
+    _, lse = TF.flash_attention_fwd(q, k, v, causal=True, sm_scale=0.1)
+    got = TF.flash_attention_bwd(q, k, v, out, lse, do, causal=True, sm_scale=0.1)
+    want = TF.flash_attention_bwd(*(t.contiguous() for t in (q, k, v, out)), lse,
+                                  do.contiguous(), causal=True, sm_scale=0.1)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_flash_bwd_kernel_unaligned_bf16_rows_take_the_cuda_core_path():
+    _need_cuda_kernel()
+    b, s, nh, hd = 1, 256, 2, 128
+    q, k, v, out, do = (_rand((b, s, nh, hd + 1), 61 + i, torch.bfloat16)[..., 1:]
+                        for i in range(5))
+    assert q.data_ptr() % 16 != 0 and q.stride(-1) == 1
+    ids = torch.ones((b, s), dtype=torch.int32, device="cuda")
+    ids[0, 190:] = 0
+    seg = TF.SegmentIds(q=ids, kv=ids)
+    _, lse = TF.flash_attention_fwd(q, k, v, causal=True, sm_scale=0.1, segment_ids=seg)
+    got = TF.flash_attention_bwd(q, k, v, out, lse, do, causal=True, sm_scale=0.1,
+                                 segment_ids=seg)
+    torch.cuda.synchronize()
+    want = TF.flash_attention_bwd_reference(q, k, v, out, lse, do, causal=True, sm_scale=0.1,
+                                            segment_ids=seg)
+    for g, w in zip(got, want):
+        assert _close(g, w, CS.TOL_BWD_BF16)
+
+
+@pytest.mark.parametrize("bad", ["lse_shape", "lse_dtype", "do_dtype", "out_shape", "device"])
+def test_flash_bwd_kernel_refuses_what_it_does_not_take(bad):
+    _need_cuda_kernel()
+    q = torch.zeros(1, 128, 2, 128, device="cuda", dtype=torch.bfloat16)
+    out = do = q
+    lse = torch.zeros(1, 2, 128, device="cuda")
+    if bad == "lse_shape":
+        lse = torch.zeros(1, 128, 2, device="cuda")
+    elif bad == "lse_dtype":
+        lse = lse.double()
+    elif bad == "do_dtype":
+        do = q.float()
+    elif bad == "out_shape":
+        out = torch.zeros(1, 128, 2, 256, device="cuda", dtype=torch.bfloat16)
+    elif bad == "device":
+        do = q.cpu()
+    with pytest.raises(ValueError):
+        TF.flash_attention_bwd(q, q, q, out, lse, do, causal=True, sm_scale=0.1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_function_on_cuda_matches_autograd_of_plain_forward(dtype):
+    """Both kernels through FlashAttention.apply against autograd of the
+    plain forward, on the card, at a small shape."""
+    _need_cuda_kernel()
+    b, s, nh, hd = 1, 256, 2, 128
+    q, k, v = (_rand((b, s, nh, hd), 81 + i, dtype).requires_grad_() for i in range(3))
+    do = _rand((b, s, nh, hd), 84, dtype)
+    ids = torch.ones((b, s), dtype=torch.int32, device="cuda")
+    ids[0, 200:] = 0
+    n_fwd, n_bwd = TF.flash_attention_fwd.launches, TF.flash_attention_bwd.launches
+    got = torch.autograd.grad(TF.FlashAttention.apply(q, k, v, True, 0.1, ids, ids), (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (TF.flash_attention_fwd.launches - n_fwd, TF.flash_attention_bwd.launches - n_bwd) \
+        == (1, 1)
+    ref, _ = TF.flash_attention_fwd_reference(q.float(), k.float(), v.float(), causal=True,
+                                              sm_scale=0.1, segment_ids=TF.SegmentIds(ids, ids))
+    want = torch.autograd.grad(ref, (q, k, v), do.float())
+    # fp32: summation order only; bf16: the kernels round p, ds and the
+    # gradients to bf16 where autograd of the fp32 plain forward does not,
+    # which the bf16 limit covers (tests/test_torch_kernel_check.py)
+    tol = CS.TOL_BWD_FP32 if dtype == torch.float32 else CS.TOL_BWD_BF16
+    for g, w in zip(got, want):
+        assert _close_and_faults_caught(g, w, tol)
+
+
+def test_train_on_cuda_steps_through_both_kernels():
+    _need_cuda_kernel()
+    argv = [
+        "--device", "cuda", "--model_type", "llama", "--set_model_config_manually", "1",
+        "--hidden_size", "256", "--num_attention_heads", "2", "--ffn_hidden_size", "256",
+        "--num_layers", "2", "--vocab_size", "64", "--seq_length", "256",
+        "--global_train_batch_size", "2", "--chunks", "2", "--train_iters", "3",
+        "--checkpoint", "1", "--lr", "1e-3",
+    ]
+    n_fwd, n_bwd = TF.flash_attention_fwd.launches, TF.flash_attention_bwd.launches
+    summary = T.main(argv)
+    assert len(summary["losses"]) == 3 and all(np.isfinite(summary["losses"]))
+    # 3 steps x 2 micro-batches x 2 layers, each layer's forward run again
+    # by the remat of the backward
+    assert TF.flash_attention_fwd.launches - n_fwd == 3 * 2 * 2 * 2
+    assert TF.flash_attention_bwd.launches - n_bwd == 3 * 2 * 2

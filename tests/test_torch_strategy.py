@@ -95,3 +95,39 @@ def test_runtime_refuses_layouts_beyond_one_device(kw):
 
 def test_runtime_accepts_world_one():
     check_single_device(TC.HybridParallelConfig.uniform(1, 4, checkpoint=1))
+
+
+# codes the port's lint reports; the reference's others need its cost model
+# or fire only on the tp/cp/sp layouts that come with later slices
+_PORTED_CODES = {"GLS001", "GLS002", "GLS003", "GLS004", "GLS005", "GLS006", "GLS014",
+                 "GLS103"}
+
+
+def _constructs(path):
+    try:
+        JC.HybridParallelConfig.from_json(path, world_size=8)
+    except JDiagErr:
+        return False  # refused at construction: the broken-fixture test's case
+    return True
+
+
+LINTABLE = [p for p in VALID + BROKEN if _constructs(p)]
+
+
+@pytest.mark.parametrize("path", LINTABLE, ids=[os.path.basename(p) for p in LINTABLE])
+def test_train_lint_matches_reference_on_the_fixtures(path):
+    """The train-mode lint reports the reference's diagnostics (code,
+    severity, layer, key) wherever the code is ported; the reference lints
+    with a llama config, whose model-aware codes are not ported."""
+    from galvatron_tpu.models.llama import llama_config as j_llama
+
+    jcfg = j_llama("llama-0.3b", num_layers=4, hidden_size=192, num_heads=6, num_kv_heads=3,
+                   vocab_size=1001, max_seq_len=30)
+    j = JC.HybridParallelConfig.from_json(path, world_size=8)
+    t = TC.HybridParallelConfig.from_json(path, world_size=8)
+    want = [(d.code, d.severity, d.layer, d.key)
+            for d in JS.lint_hp(j, model_cfg=jcfg, mode="train").diagnostics
+            if d.code in _PORTED_CODES]
+    got = [(d.code, d.severity, d.layer, d.key)
+           for d in TS.lint_hp(t, mode="train").diagnostics]
+    assert got == want
