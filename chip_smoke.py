@@ -7,21 +7,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 1. Identify the card (nvidia-smi name and power limit); TF32 off.
 2. Build the flash-attention forward and backward kernels from csrc/ with
-   nvcc (sm_90a), one nvcc per source, both started together.
+   nvcc (sm_90a), one nvcc per source, both started together; fail if
+   ptxas reports a spill in any wgmma kernel or ignores a `setmaxnreg`
+   (warning C7508).
 3. Hold the forward kernel against its plain PyTorch version on the card, in
-   bf16, at B=1, nh=32, hd=128, S in {128, 512, 1536, 2048}, causal, with and
-   without a key-padding tail, on ALL rows (plus one fp32 and one
-   head_dim-256 case), each element within a limit scaled by its own row
-   (TOL_FWD_BF16); two planted faults (a zeroed first or last tile) must
-   fail the same check. Times the kernel, the plain version and, as a
-   yardstick the port never calls, torch's scaled_dot_product_attention
-   (CUDA events, median of 25).
+   bf16, at B=1, nh=32, hd=128, S in {128, 512, 576, 1536, 2048}, causal,
+   with and without a key-padding tail, and at B=4, S=2048 (the train
+   micro-batch), on ALL rows (plus one fp32 and one head_dim-256 case), each
+   element within a limit scaled by its own row (TOL_FWD_BF16); two planted
+   faults (a zeroed first or last tile) must fail the same check. Every
+   bf16 head_dim-128 case must have run the "wgmma" route. Times the kernel
+   (``ms``: 20 calls back to back between two CUDA events, over 20, median
+   of 5 runs, the kernel's time once the host's launch overhead runs ahead;
+   ``ms_single``: the median of 25 single calls, each between its own
+   events, as earlier versions of this script timed, host overhead
+   included), the plain version and, as a yardstick the port never calls,
+   torch's scaled_dot_product_attention, both ways.
 4. The same for the backward kernel: bf16, B=1, nh=32, hd=128, S in
-   {512, 2048}, causal, with and without a key-padding tail, every row and
-   key of dq, dk and dv (plus one fp32 and one head_dim-256 case), with the
-   same row-scaled check and planted faults; the yardstick is the backward
-   of scaled_dot_product_attention (autograd of SDPA, its forward
-   excluded).
+   {512, 576, 2048}, causal, with and without a key-padding tail, and B=4,
+   S=2048, every row and key of dq, dk and dv (plus one fp32 and one
+   head_dim-256 case), with the same row-scaled check, planted faults and
+   route check; the yardstick is the backward of
+   scaled_dot_product_attention (autograd of SDPA, its forward excluded).
 5. Gradients in place: LLaMA-7B width at depth 2, bf16, one micro-batch of
    2048 tokens; the loss and every parameter's gradient through the kernels
    against the plain attention path (``attn_impl="xla"``).
@@ -98,6 +105,7 @@ REPLACES = "galvatron_tpu/ops/attention.py:82"
 SOURCE = "galvatron_tpu_torch/csrc/flash_attn_fwd.cu"
 BWD_SOURCE = "galvatron_tpu_torch/csrc/flash_attn_bwd.cu"
 TILE = 64  # the kernels' query and key tile rows
+WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "dkv_wgmma_kernel", "dq_wgmma_kernel")
 
 
 def fail(msg):
@@ -170,14 +178,55 @@ def build_kernels(TF):
 
     with ThreadPoolExecutor(len(TF.SOURCES)) as ex:
         built = dict(zip(TF.SOURCES, ex.map(one, TF.SOURCES)))
-    ptxas = {}
+    ptxas, kernels = {}, {}
     for src, (so, _) in built.items():
         with open(so + ".log") as f:
             lines = [ln.strip() for ln in f]
         # "Compiling entry function X" precedes its register / spill lines
         ptxas[os.path.basename(src)] = [ln for ln in lines if "registers" in ln or "spill" in ln
-                                        or "entry function" in ln]
-    return built, ptxas
+                                        or "entry function" in ln or "C7508" in ln]
+        kernels.update(ptxas_by_kernel(lines))
+    return built, ptxas, kernels
+
+
+def ptxas_by_kernel(lines):
+    """{entry function (mangled): {"registers", "spill_stores", "spill_loads",
+    "c7508"}} from the lines of an ``nvcc -Xptxas -v`` log."""
+    import re
+
+    out, name = {}, None
+    for ln in lines:
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": None, "spill_stores": None, "spill_loads": None,
+                         "c7508": False}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out[name]["spill_stores"], out[name]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+        if "C7508" in ln or "setmaxnreg ignored" in ln:
+            out[name]["c7508"] = True
+    return out
+
+
+def gate_wgmma_ptxas(kernels, logs):
+    """Fail unless each wgmma kernel compiled with no spill and every
+    `setmaxnreg` was honoured (no C7508 anywhere in the logs)."""
+    found = {k: v for k, v in kernels.items() if any(w in k for w in WGMMA_KERNELS)}
+    check(all(any(w in k for k in found) for w in WGMMA_KERNELS),
+          "ptxas lines for the wgmma kernels %s not found (got %s)" % (WGMMA_KERNELS, list(found)))
+    for name, info in found.items():
+        check(info["spill_stores"] == 0 and info["spill_loads"] == 0,
+              "ptxas: %s spills (%s)" % (name, info))
+    bad = [ln for lines in logs.values() for ln in lines if "C7508" in ln]
+    check(not bad, "ptxas ignored setmaxnreg: %s" % bad)
+    return found
 
 
 # ------------------------------------------------------------------ phase 3
@@ -196,6 +245,30 @@ def time_ms(torch, fn, reps=25, warmup=3):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def time_stream_ms(torch, fn, calls=20, runs=5):
+    """Median over `runs` of `calls` calls back to back between two CUDA
+    events, per call: the time once the host's launch overhead runs ahead."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def check_route(torch, got, dtype, hd, case):
+    """Every bf16 head_dim-128 case runs the wgmma kernels."""
+    if dtype == torch.bfloat16 and hd == 128:
+        check(got == "wgmma", "route %r, not wgmma, at %s" % (got, case))
 
 
 def admitted_pairs(torch, s, valid, causal):
@@ -233,26 +306,30 @@ def check_kernel(torch, TF, dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     cases = []
-    for s in (128, 512, 1536, 2048):
+    for s in (128, 512, 576, 1536, 2048):
         for padded in (False, True):
-            cases.append(dict(s=s, nh=32, hd=128, padded=padded, causal=True,
+            cases.append(dict(b=1, s=s, nh=32, hd=128, padded=padded, causal=True,
                               dtype=torch.bfloat16))
-    cases.append(dict(s=512, nh=32, hd=128, padded=True, causal=False, dtype=torch.bfloat16))
-    cases.append(dict(s=512, nh=32, hd=128, padded=True, causal=True, dtype=torch.float32))
-    cases.append(dict(s=512, nh=8, hd=256, padded=True, causal=True, dtype=torch.bfloat16))
+    cases.append(dict(b=4, s=2048, nh=32, hd=128, padded=False, causal=True, dtype=torch.bfloat16))
+    cases.append(dict(b=1, s=576, nh=32, hd=128, padded=True, causal=False, dtype=torch.bfloat16))
+    cases.append(dict(b=1, s=512, nh=32, hd=128, padded=True, causal=False, dtype=torch.bfloat16))
+    cases.append(dict(b=1, s=512, nh=32, hd=128, padded=True, causal=True, dtype=torch.float32))
+    cases.append(dict(b=1, s=512, nh=8, hd=256, padded=True, causal=True, dtype=torch.bfloat16))
     results = []
     for c in cases:
-        b, s, nh, hd, dtype, causal = 1, c["s"], c["nh"], c["hd"], c["dtype"], c["causal"]
+        b, s, nh, hd, dtype, causal = c["b"], c["s"], c["nh"], c["hd"], c["dtype"], c["causal"]
         q, k, v = (torch.randn((b, s, nh, hd), generator=gen, device=dev).to(dtype)
                    for _ in range(3))
         valid = s - s // 8 - 3 if c["padded"] else s
         seg = None
         if c["padded"]:
-            ids = (torch.arange(s, device=dev) < valid).to(torch.int32)[None].contiguous()
-            seg = TF.SegmentIds(q=ids, kv=ids)
+            ids = (torch.arange(s, device=dev) < valid).to(torch.int32)[None].repeat(b, 1)
+            seg = TF.SegmentIds(q=ids.contiguous(), kv=ids.contiguous())
         scale = hd ** -0.5
         out, lse = TF.flash_attention_fwd(q, k, v, causal=causal, sm_scale=scale, segment_ids=seg)
         torch.cuda.synchronize()
+        route = TF.flash_attention_fwd.last_route
+        check_route(torch, route, dtype, hd, c)
         ref, ref_lse = TF.flash_attention_fwd_reference(q, k, v, causal=causal, sm_scale=scale,
                                                         segment_ids=seg)
         torch.cuda.synchronize()
@@ -261,27 +338,31 @@ def check_kernel(torch, TF, dev):
         err, used, med = check_against_plain(torch, "forward", out, ref, tol, c)
         lse_err = (lse - ref_lse).abs().max().item()
         check(lse_err <= TOL_LSE, "kernel lse err %.3g > %.3g at %s" % (lse_err, TOL_LSE, c))
-        kernel = time_ms(torch, lambda: TF.flash_attention_fwd(
-            q, k, v, causal=causal, sm_scale=scale, segment_ids=seg))
+        call = lambda: TF.flash_attention_fwd(q, k, v, causal=causal, sm_scale=scale,  # noqa: E731
+                                              segment_ids=seg)
+        single, kernel = time_ms(torch, call), time_stream_ms(torch, call)
         plain = time_ms(torch, lambda: TF.flash_attention_fwd_reference(
-            q, k, v, causal=causal, sm_scale=scale, segment_ids=seg), reps=21)
-        library = None
+            q, k, v, causal=causal, sm_scale=scale, segment_ids=seg), reps=21 if b == 1 else 5)
+        library = library_single = None
         if not c["padded"]:
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            library = time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, scale=scale))
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=causal, scale=scale)
+            library_single, library = time_ms(torch, sdpa), time_stream_ms(torch, sdpa)
         bms, by, flops = bound_ms(torch, b, s, nh, hd, valid, causal, dtype)
         r = dict(shape=[b, s, nh, hd], dtype=str(dtype).replace("torch.", ""), causal=causal,
-                 valid_len=valid, max_abs_err=err, limit_used=used, median_abs_ref=med,
-                 lse_err=lse_err, tolerance=tol, ms=kernel, plain_ms=plain, library_ms=library, bound_ms=bms, bound_by=by,
-                 gflop=flops / 1e9, tflops=flops / kernel / 1e9)
+                 valid_len=valid, route=route, max_abs_err=err, limit_used=used,
+                 median_abs_ref=med, lse_err=lse_err, tolerance=tol, ms=kernel, ms_single=single,
+                 plain_ms=plain, library_ms=library, library_ms_single=library_single,
+                 bound_ms=bms, bound_by=by, gflop=flops / 1e9, tflops=flops / kernel / 1e9)
         results.append(r)
-        log("flash S=%d nh=%d hd=%d %s %s%s: err %.3g (%.2f of the limit, median |ref| %.3g) "
-            "lse %.3g | kernel %.3f ms, plain %.3f ms, sdpa %s ms, bound %.4f ms (%s), "
-            "%.1f TFLOP/s" % (
-                s, nh, hd, r["dtype"], "padded" if c["padded"] else "full",
-                "" if causal else " non-causal", err, used, med, lse_err,
-                kernel, plain, "%.3f" % library if library is not None else "-", bms, by,
+        log("flash B=%d S=%d nh=%d hd=%d %s %s%s [%s]: err %.3g (%.2f of the limit, median |ref| "
+            "%.3g) lse %.3g | kernel %.4f ms (single calls %.4f), plain %.3f ms, sdpa %s ms, "
+            "bound %.4f ms (%s), %.1f TFLOP/s" % (
+                b, s, nh, hd, r["dtype"], "padded" if c["padded"] else "full",
+                "" if causal else " non-causal", route, err, used, med, lse_err,
+                kernel, single, plain,
+                "%.4f/%.4f" % (library, library_single) if library is not None else "-", bms, by,
                 r["tflops"]))
         del q, k, v, out, ref
     torch.cuda.empty_cache()
@@ -292,25 +373,28 @@ def check_kernel(torch, TF, dev):
 def check_bwd_kernel(torch, TF, dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 1)
-    cases = [dict(s=s, nh=32, hd=128, padded=padded, dtype=torch.bfloat16)
-             for s in (512, 2048) for padded in (False, True)]
-    cases.append(dict(s=512, nh=32, hd=128, padded=True, dtype=torch.float32))
-    cases.append(dict(s=512, nh=8, hd=256, padded=True, dtype=torch.bfloat16))
+    cases = [dict(b=1, s=s, nh=32, hd=128, padded=padded, dtype=torch.bfloat16)
+             for s in (512, 576, 2048) for padded in (False, True)]
+    cases.append(dict(b=4, s=2048, nh=32, hd=128, padded=False, dtype=torch.bfloat16))
+    cases.append(dict(b=1, s=512, nh=32, hd=128, padded=True, dtype=torch.float32))
+    cases.append(dict(b=1, s=512, nh=8, hd=256, padded=True, dtype=torch.bfloat16))
     results = []
     for c in cases:
-        b, s, nh, hd, dtype, causal = 1, c["s"], c["nh"], c["hd"], c["dtype"], True
+        b, s, nh, hd, dtype, causal = c["b"], c["s"], c["nh"], c["hd"], c["dtype"], True
         q, k, v, do = (torch.randn((b, s, nh, hd), generator=gen, device=dev).to(dtype)
                        for _ in range(4))
         valid = s - s // 8 - 3 if c["padded"] else s
         seg = None
         if c["padded"]:
-            ids = (torch.arange(s, device=dev) < valid).to(torch.int32)[None].contiguous()
-            seg = TF.SegmentIds(q=ids, kv=ids)
+            ids = (torch.arange(s, device=dev) < valid).to(torch.int32)[None].repeat(b, 1)
+            seg = TF.SegmentIds(q=ids.contiguous(), kv=ids.contiguous())
         scale = hd ** -0.5
         out, lse = TF.flash_attention_fwd(q, k, v, causal=causal, sm_scale=scale, segment_ids=seg)
         got = TF.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, sm_scale=scale,
                                      segment_ids=seg)
         torch.cuda.synchronize()
+        route = TF.flash_attention_bwd.last_route
+        check_route(torch, route, dtype, hd, c)
         want = TF.flash_attention_bwd_reference(q, k, v, out, lse, do, causal=causal,
                                                 sm_scale=scale, segment_ids=seg)
         torch.cuda.synchronize()
@@ -322,32 +406,36 @@ def check_bwd_kernel(torch, TF, dev):
                 torch, "backward " + name, g, w, tol, c)
         args = (q, k, v, out, lse, do)
         kw = dict(causal=causal, sm_scale=scale, segment_ids=seg)
-        kernel = time_ms(torch, lambda: TF.flash_attention_bwd(*args, **kw))
-        plain = time_ms(torch, lambda: TF.flash_attention_bwd_reference(*args, **kw), reps=11)
-        library = None
+        call = lambda: TF.flash_attention_bwd(*args, **kw)  # noqa: E731
+        single, kernel = time_ms(torch, call), time_stream_ms(torch, call)
+        plain = time_ms(torch, lambda: TF.flash_attention_bwd_reference(*args, **kw),
+                        reps=11 if b == 1 else 3)
+        library = library_single = None
         if not c["padded"]:
             qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
             lo = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                                   scale=scale)
             dot = do.transpose(1, 2)
-            library = time_ms(torch, lambda: torch.autograd.grad(lo, (qt, kt, vt), dot,
-                                                                  retain_graph=True))
+            sdpa_bwd = lambda: torch.autograd.grad(lo, (qt, kt, vt), dot,  # noqa: E731
+                                                   retain_graph=True)
+            library_single, library = time_ms(torch, sdpa_bwd), time_stream_ms(torch, sdpa_bwd)
             del qt, kt, vt, lo
         bms, by, flops = bound_ms(torch, b, s, nh, hd, valid, causal, dtype, 10.0, 8)
         r = dict(shape=[b, s, nh, hd], dtype=str(dtype).replace("torch.", ""), causal=causal,
-                 valid_len=valid, max_abs_err=max(errs.values()), max_abs_err_by_grad=errs,
-                 limit_used_by_grad=used, median_abs_ref_by_grad=med, tolerance=tol,
-                 ms=kernel, plain_ms=plain,
-                 library_ms=library, bound_ms=bms, bound_by=by, gflop=flops / 1e9,
-                 tflops=flops / kernel / 1e9)
+                 valid_len=valid, route=route, max_abs_err=max(errs.values()),
+                 max_abs_err_by_grad=errs, limit_used_by_grad=used, median_abs_ref_by_grad=med,
+                 tolerance=tol, ms=kernel, ms_single=single, plain_ms=plain,
+                 library_ms=library, library_ms_single=library_single, bound_ms=bms, bound_by=by,
+                 gflop=flops / 1e9, tflops=flops / kernel / 1e9)
         results.append(r)
-        log("flash bwd S=%d nh=%d hd=%d %s %s: err dq/dk/dv %.3g/%.3g/%.3g (of the limit: "
-            "%.2f/%.2f/%.2f; median |ref| %.3g/%.3g/%.3g) | kernel %.3f ms, plain %.3f ms, "
-            "sdpa bwd %s ms, bound %.4f ms (%s), %.1f TFLOP/s" % (
-                s, nh, hd, r["dtype"], "padded" if c["padded"] else "full", errs["dq"],
+        log("flash bwd B=%d S=%d nh=%d hd=%d %s %s [%s]: err dq/dk/dv %.3g/%.3g/%.3g (of the "
+            "limit: %.2f/%.2f/%.2f; median |ref| %.3g/%.3g/%.3g) | kernel %.4f ms (single calls "
+            "%.4f), plain %.3f ms, sdpa bwd %s ms, bound %.4f ms (%s), %.1f TFLOP/s" % (
+                b, s, nh, hd, r["dtype"], "padded" if c["padded"] else "full", route, errs["dq"],
                 errs["dk"], errs["dv"], used["dq"], used["dk"], used["dv"], med["dq"],
-                med["dk"], med["dv"], kernel, plain,
-                "%.3f" % library if library is not None else "-", bms, by, r["tflops"]))
+                med["dk"], med["dv"], kernel, single, plain,
+                "%.4f/%.4f" % (library, library_single) if library is not None else "-", bms, by,
+                r["tflops"]))
         del q, k, v, do, out, lse, got, want
     torch.cuda.empty_cache()
     return results
@@ -581,11 +669,16 @@ def main():
     log("card: %s | torch %s, CUDA %s, %d device(s)" % (
         card, torch.__version__, torch.version.cuda, torch.cuda.device_count()))
 
-    built, ptxas = build_kernels(TF)
+    built, ptxas, ptxas_kernels = build_kernels(TF)
     build_s = {os.path.basename(src): sec for src, (_, sec) in built.items()}
     for src, (so, sec) in built.items():
         log("built %s in %.1f s\n  %s" % (os.path.relpath(so), sec,
                                           "\n  ".join(ptxas[os.path.basename(src)])))
+    wgmma_ptxas = gate_wgmma_ptxas(ptxas_kernels, ptxas)
+    log("wgmma kernels: %s" % "; ".join(
+        "%s %d registers, spill %d/%d bytes" % (
+            next(w for w in WGMMA_KERNELS if w in k), v["registers"], v["spill_stores"],
+            v["spill_loads"]) for k, v in wgmma_ptxas.items()))
 
     shapes = check_kernel(torch, TF, dev)
     bwd_shapes = check_bwd_kernel(torch, TF, dev)
@@ -595,30 +688,34 @@ def main():
     trained = train(torch, TF)
     s, t = served["summary"], trained["summary"]
 
-    def at_2048(rows):
-        return next(r for r in rows if r["shape"] == [1, 2048, 32, 128] and r["valid_len"] == 2048
+    def at_2048(rows, b):
+        return next(r for r in rows if r["shape"] == [b, 2048, 32, 128] and r["valid_len"] == 2048
                     and r["dtype"] == "bfloat16" and r["causal"])
 
-    head, bwd_head = at_2048(shapes), at_2048(bwd_shapes)
-    kernels = {"kernels": [{
-        "name": "flash_attn_fwd", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-        "launches": trained["fwd_launches"],
-        "launches_by_path": {"serve": served["flash_launches"], "train": trained["fwd_launches"]},
-        "max_abs_err": max(r["max_abs_err"] for r in shapes if r["dtype"] == "bfloat16"),
-        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-        "shape": head["shape"], "tolerance": TOL_FWD_BF16, "shapes": shapes,
-    }, {
-        "name": "flash_attn_bwd", "route": "cuda", "source": BWD_SOURCE, "replaces": REPLACES,
-        "launches": trained["bwd_launches"],
-        "launches_by_path": {"serve": 0, "train": trained["bwd_launches"]},
-        "max_abs_err": max(r["max_abs_err"] for r in bwd_shapes if r["dtype"] == "bfloat16"),
-        "ms": bwd_head["ms"], "plain_ms": bwd_head["plain_ms"], "bound_ms": bwd_head["bound_ms"],
-        "bound_by": bwd_head["bound_by"], "library_ms": bwd_head["library_ms"],
-        "shape": bwd_head["shape"], "tolerance": TOL_BWD_BF16, "shapes": bwd_shapes,
-    }]}
+    def entry(name, source, rows, launches, by_path, tol):
+        head, b4 = at_2048(rows, 1), at_2048(rows, 4)
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": REPLACES,
+            "launches": launches, "launches_by_path": by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16"),
+            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "kernel_route": head["route"], "ms_single": head["ms_single"],
+            "library_ms_single": head["library_ms_single"], "shape": head["shape"],
+            "b4": {k: b4[k] for k in ("shape", "route", "ms", "ms_single", "plain_ms",
+                                      "library_ms", "library_ms_single", "bound_ms", "bound_by")},
+            "tolerance": tol, "shapes": rows,
+        }
+
+    kernels = {"kernels": [
+        entry("flash_attn_fwd", SOURCE, shapes, trained["fwd_launches"],
+              {"serve": served["flash_launches"], "train": trained["fwd_launches"]}, TOL_FWD_BF16),
+        entry("flash_attn_bwd", BWD_SOURCE, bwd_shapes, trained["bwd_launches"],
+              {"serve": 0, "train": trained["bwd_launches"]}, TOL_BWD_BF16),
+    ]}
     results = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
-                   build_s=build_s, ptxas=ptxas, kernels=kernels["kernels"], grads=grads,
+                   build_s=build_s, ptxas=ptxas, wgmma_ptxas=wgmma_ptxas,
+                   kernels=kernels["kernels"], grads=grads,
                    decode=decode, serve=served, train=trained,
                    wall_s=time.perf_counter() - t_start)
     os.makedirs("chiprun_out", exist_ok=True)

@@ -28,41 +28,57 @@
 //
 // Design: three passes and no atomics, so the result is deterministic.
 //  1. di: one warp per (batch, head, query row) reduces out * dout in fp32.
-//  2. dkv: one CTA per (key tile, head, batch) keeps its key tile's dK and dV
-//     accumulators for the whole run and loops over the query tiles from the
-//     causal diagonal to the end (the Pallas grid's sequential q axis becomes
-//     a loop inside the block).
-//  3. dq: one CTA per (query tile, head, batch) loops over the key tiles up
-//     to the causal diagonal, accumulating dQ.
-// Tiles are issued heaviest-first so the causal triangle balances over SMs.
+//  2. dkv: one CTA per key tile keeps its dK and dV accumulators for the
+//     whole run and loops over the query tiles from the causal diagonal to
+//     the end (the Pallas grid's sequential q axis becomes a loop inside the
+//     block).
+//  3. dq: one CTA per query tile loops over the key tiles up to the causal
+//     diagonal, accumulating dQ.
+// Both dkv and dq recompute S = q k^T and dP = dout v^T, so the design does
+// 14 * hd FLOP per admitted pair against the 10 * hd the bound counts: its
+// ceiling is ~71% of the bound, which keeps counting 10 * hd, the work the
+// function needs.
 //
-// Two implementations behind one entry point, chosen from the inputs:
+// Two routes behind one entry point; the Python wrapper picks the route
+// (`flash_route`) and this file refuses (-1) a route that does not take the
+// arguments:
 //
-// * bf16, head_dim 128, 16-byte-aligned rows (the training path): tensor
-//   cores through `mma.sync.m16n8k16` (bf16 in, fp32 accumulate). 4 warps per
-//   CTA, 64-row tiles of bf16 in shared memory (rows padded by 16 bytes so
-//   fragment loads are conflict-free). The dkv pass computes the TRANSPOSED
-//   products S^T = K Q^T and dP^T = V dO^T, so each warp owns 16 key rows and
-//   P^T / dS^T come out of the accumulators already in the A-operand layout
-//   of dV += P^T dO and dK += dS^T Q; the B operands of those two (dO, Q,
-//   stored query-major) come from `ldmatrix.trans`. The dq pass mirrors the
-//   forward: each warp owns 16 query rows, dS goes from its accumulators
-//   into the A operand of dQ += dS K, K through `ldmatrix.trans`. The dkv
-//   warp holds dK and dV (2 x 64 fp32 a thread) for the whole loop, so it
-//   walks each query tile in halves of 32 to keep the logits tiles small.
-//   Loads are synchronous (no cp.async/TMA pipeline); wgmma + TMA is the
-//   next step toward the bound.
-// * everything else (fp32, head_dim 256, unaligned bf16 rows): fp32 FMAs on
-//   the CUDA cores, 256 threads per CTA, 32-row tiles staged as fp32 in
-//   shared memory (four tiles of 32 x 257 floats fit at head_dim 256); p and
-//   ds pass through shared memory into the second products. At head_dim 256
-//   the tensor-core layout above would need 2 x 128 fp32 accumulators a
+// * route 2, "wgmma" (bf16, head_dim 128, every base 16-byte aligned and
+//   every (batch, seq, head) stride a multiple of 8 elements: TMA's rule;
+//   the training path): the forward's Hopper design (`sm90.cuh`). Each pass
+//   runs one CTA of three warpgroups per 128-row tile: a producer warp
+//   (registers cut to 24) loads the CTA's resident tile pair once and
+//   streams 64-row tiles of the other pair through a 3-stage TMA ring with
+//   full/empty mbarriers (one 64-row-box tensor map per input, shared by
+//   both passes); two consumer warpgroups (240 registers each) own 64 rows
+//   of the resident tile and run every product as `wgmma`. In the
+//   dkv pass the products are transposed, S^T = K Q^T and dP^T = V dO^T,
+//   so P^T and dS^T leave the accumulators already in the A-register layout
+//   of dV += P^T dO and dK += dS^T Q, with dO and Q read as MN-major B
+//   operands; dK and dV (2 x 64 fp32 a thread) stay in registers for the
+//   whole loop, which is what the 240-register budget is for. The dq pass
+//   takes dS from its accumulators into dQ += dS K, K as MN-major B; it
+//   issues S and dP of the next tile while dQ += dS K is in flight, and
+//   its two warpgroups take turns issuing (ping-pong on named barriers).
+//   The dkv pass does neither: with dK and dV resident, the registers that
+//   would hold a second tile's operands are not there (ping-pong alone
+//   made ptxas spill). Score tiles that no mask touches take one FFMA and
+//   one EX2 per element. A warpgroup whose 64 rows lie past S
+//   (S % 128 == 64) idles, and the producer loads only the owned half.
+// * route 0, "cuda_core" (everything else: fp32, head_dim 256, unaligned
+//   bf16 rows): fp32 FMAs on the CUDA cores, 256 threads per CTA, 32-row
+//   tiles staged as fp32 in shared memory (four tiles of 32 x 257 floats fit
+//   at head_dim 256); p and ds pass through shared memory into the second
+//   products. At head_dim 256 dK and dV alone would be 2 x 128 fp32 a
 //   thread, past the register file.
+// Tiles are issued heaviest-first so the causal triangle balances over SMs.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -329,311 +345,455 @@ __global__ void __launch_bounds__(kCThreads) dkv_kernel(const BwdParams p) {
   }
 }
 
-// -------------------------------------------------------- tensor-core path
-constexpr int kBlock = 64;        // query and key tile rows
-constexpr int kMmaThreads = 128;  // 4 warps x 16 rows
-constexpr int kMmaD = 128;
-constexpr int kStride = kMmaD + 8;  // bf16 per smem row, +16 bytes
+// ---------------------------------------------------------------- wgmma path
+constexpr int kWgTile = 128;   // keys (dkv) or queries (dq) per CTA: two warpgroups of 64
+constexpr int kWgStep = 64;    // queries (dkv) or keys (dq) per pipeline stage
+constexpr int kWgStages = 3;
+constexpr int kWgThreads = 384;  // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int kBoxCols = 64;     // head_dim columns per TMA box: 128 bytes, the swizzle width
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr uint32_t kTileBoxBytes = kWgTile * kBoxCols * 2;  // one box of the resident tile
+constexpr uint32_t kStepBoxBytes = kWgStep * kBoxCols * 2;  // one box of a streamed tile
 
-constexpr size_t mma_smem_bytes() {
-  // four bf16 tiles, plus lse, di and segment ids of one tile
-  return sizeof(bf16) * (size_t)(4 * kBlock * kStride) + sizeof(float) * 2 * kBlock +
-         sizeof(int) * kBlock;
-}
+struct BwdMaps {
+  CUtensorMap q, k, v, dout;  // boxes of 64 columns x 64 rows
+};
 
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+struct DkvSmem {
+  bf16 k[2][kWgTile * kBoxCols];  // 16 KB per box, 1024-byte aligned
+  bf16 v[2][kWgTile * kBoxCols];
+  bf16 q[kWgStages][2][kWgStep * kBoxCols];
+  bf16 dout[kWgStages][2][kWgStep * kBoxCols];
+  float lse[kWgStages][kWgStep];
+  float di[kWgStages][kWgStep];
+  int qseg[kWgStages][kWgStep];
+  uint64_t tile_full;
+  uint64_t full[kWgStages];
+  uint64_t empty[kWgStages];
+};
 
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r, const bf16* ptr) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(ptr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr));
-}
+struct DqSmem {
+  bf16 q[2][kWgTile * kBoxCols];
+  bf16 dout[2][kWgTile * kBoxCols];
+  bf16 k[kWgStages][2][kWgStep * kBoxCols];
+  bf16 v[kWgStages][2][kWgStep * kBoxCols];
+  int kvseg[kWgStages][kWgStep];
+  uint64_t tile_full;
+  uint64_t full[kWgStages];
+  uint64_t empty[kWgStages];
+};
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t lds32(const bf16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
+template <typename Smem>
+__device__ __forceinline__ Smem& aligned_smem(unsigned char* raw) {
+  // the 128B swizzle wants 1024-byte aligned boxes; one spare KB is allocated
+  return *reinterpret_cast<Smem*>((reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
 }
 
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src, long long row_stride) {
-  // kBlock rows x kMmaD, 16 bytes per thread per step (rows are 16-byte aligned)
-  constexpr int kVecs = kMmaD / 8;
-  for (int idx = threadIdx.x; idx < kBlock * kVecs; idx += kMmaThreads) {
-    const int r = idx / kVecs;
-    const int c = (idx - r * kVecs) * 8;
-    *reinterpret_cast<uint4*>(dst + r * kStride + c) =
-        *reinterpret_cast<const uint4*>(src + (long long)r * row_stride + c);
-  }
-}
-
-// acc (16 x 8n tiles of the warp's rows) += A (16 x 16 k-chunk, registers) .
-// B, where B's 16 k-rows start at `rows` in a row-major [k][d] smem tile
-__device__ __forceinline__ void mma_rows_trans(float (*acc)[4], const uint32_t* a,
-                                               const bf16* rows, int lane) {
-  const bf16* r = rows + (lane & 15) * kStride;
-#pragma unroll
-  for (int n = 0; n < kMmaD / 8; ++n) {
-    uint32_t bfrag[2];
-    ldmatrix_x2_trans(bfrag, r + n * 8);
-    mma_16816(acc[n], a, bfrag);
-  }
-}
-
-// s (16 rows x 8*NT cols) += A_rows . B_rows^T over kMmaD, A's 16 rows at
-// a_rows (the warp's), B's 8*NT rows at b_rows: both row-major [row][d]
-template <int NT>
-__device__ __forceinline__ void mma_abt(float (*s)[4], const bf16* a_rows, const bf16* b_rows,
-                                        int g, int t4) {
-#pragma unroll
-  for (int kk = 0; kk < kMmaD / 16; ++kk) {
-    const bf16* pa = a_rows + g * kStride + kk * 16 + t4 * 2;
-    const uint32_t a[4] = {lds32(pa), lds32(pa + 8 * kStride), lds32(pa + 8),
-                           lds32(pa + 8 * kStride + 8)};
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const bf16* pb = b_rows + (j * 8 + g) * kStride + kk * 16 + t4 * 2;
-      const uint32_t bfrag[2] = {lds32(pb), lds32(pb + 8)};
-      mma_16816(s[j], a, bfrag);
+__device__ __forceinline__ void init_ring(uint64_t* tile_full, uint64_t* full, uint64_t* empty,
+                                          int n_consumers) {
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(tile_full, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      sm90::mbar_init(&full[s], 32);                 // every producer lane
+      sm90::mbar_init(&empty[s], 4 * n_consumers);  // every consumer warp
     }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+}
+
+// rows [row, row + box rows) of one (head, batch): both 64-column boxes
+__device__ __forceinline__ void tma_rows(bf16* box0, bf16* box1, const CUtensorMap* map,
+                                         uint64_t* bar, int row, int h, int b) {
+  sm90::tma_load_4d(box0, map, bar, 0, row, h, b);
+  sm90::tma_load_4d(box1, map, bar, kBoxCols, row, h, b);
+}
+
+// a resident 128-row tile: each 64-column box as two 64-row loads, the
+// second 8 KB after the first, which is the layout of one 128-row box; the
+// second half only where a consumer owns it (`halves` == 2)
+__device__ __forceinline__ void tma_tile(bf16* box0, bf16* box1, const CUtensorMap* map,
+                                         uint64_t* bar, int row, int h, int b, int halves) {
+  tma_rows(box0, box1, map, bar, row, h, b);
+  if (halves == 2) {
+    tma_rows(box0 + kWgStep * kBoxCols, box1 + kWgStep * kBoxCols, map, bar, row + kWgStep, h, b);
   }
 }
 
-__global__ void __launch_bounds__(kMmaThreads) dq_mma_kernel(const BwdParams p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* do_s = q_s + kBlock * kStride;
-  bf16* k_s = do_s + kBlock * kStride;
-  bf16* v_s = k_s + kBlock * kStride;
-  int* kvseg_s = reinterpret_cast<int*>(v_s + kBlock * kStride);
+// p = exp(s * scale + mask - lse) in base 2. Unmasked: one FFMA and EX2
+// with the scale and lse folded into log2 units. Masked: the logit is the
+// mask value itself (s * scale + mask rounds to it in fp32), and the
+// difference is taken in natural units before the conversion, so a row whose
+// every key is masked (lse ~ the mask value) still gets exp(-log n), not NaN.
+template <bool kMasked>
+__device__ __forceinline__ float bwd_p(float s, bool keep, float scale, float lse) {
+  if (kMasked) return sm90::exp2_approx(((keep ? s * scale : kMaskValue) - lse) * kLog2e);
+  return sm90::exp2_approx(fmaf(s, scale * kLog2e, -lse * kLog2e));
+}
 
-  const int n_qtiles = p.Sq / kBlock;
-  const int qt = n_qtiles - 1 - (int)blockIdx.x;  // heaviest causal tiles first
+struct DkvRows {
+  int key0, key1;      // the two keys a thread holds
+  int kvseg0, kvseg1;  // their segment ids (0 without segment ids)
+  int t4;              // column pair within an 8-column group
+  int q0;              // the query tile's first query
+};
+
+// P^T and dS^T of one tile (keys x 64 queries) from S^T and dP^T, packed as
+// the A operands of dV += P^T dO and dK += dS^T Q: p rounded to bf16 before
+// dV, ds = p (dp - di) scale rounded to bf16 before dK.
+template <bool kMasked>
+__device__ __forceinline__ void dkv_scores(const float (&st)[32], const float (&dpt)[32],
+                                           const float* lse_s, const float* di_s,
+                                           const int* qseg_s, const BwdParams& p,
+                                           const DkvRows& r, uint32_t (&pa)[4][4],
+                                           uint32_t (&sa)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int cj = 8 * j + 2 * r.t4;  // query of the tile, and cj + 1
+    const float2 lse = *reinterpret_cast<const float2*>(lse_s + cj);
+    const float2 di = *reinterpret_cast<const float2*>(di_s + cj);
+    float pr[4], ds[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      bool keep = true;
+      if (kMasked) {
+        const int qi = cj + (e & 1);
+        keep = !p.causal || (e < 2 ? r.key0 : r.key1) <= r.q0 + qi;
+        if (p.q_seg != nullptr) keep = keep && (e < 2 ? r.kvseg0 : r.kvseg1) == qseg_s[qi];
+      }
+      pr[e] = bwd_p<kMasked>(st[4 * j + e], keep, p.sm_scale, (e & 1) ? lse.y : lse.x);
+      ds[e] = (dpt[4 * j + e] - ((e & 1) ? di.y : di.x)) * pr[e] * p.sm_scale;
+    }
+    pa[j >> 1][(j & 1) * 2] = pack_bf16x2(pr[0], pr[1]);
+    pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16x2(pr[2], pr[3]);
+    sa[j >> 1][(j & 1) * 2] = pack_bf16x2(ds[0], ds[1]);
+    sa[j >> 1][(j & 1) * 2 + 1] = pack_bf16x2(ds[2], ds[3]);
+  }
+}
+
+struct DqRows {
+  int row0, row1;      // the two queries a thread holds
+  float lse0, lse1;
+  float di0, di1;
+  int qseg0, qseg1;    // their segment ids (0 without segment ids)
+  int t4;              // column pair within an 8-column group
+};
+
+// dS of one tile (64 queries x 64 keys) from S and dP, rounded to bf16 and
+// packed as the A operand of dQ += dS K
+template <bool kMasked>
+__device__ __forceinline__ void dq_scores(const float (&sc)[32], const float (&dp)[32],
+                                          const int* kvseg_s, const BwdParams& p, int k0,
+                                          const DqRows& r, uint32_t (&sa)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float ds[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      bool keep = true;
+      if (kMasked) {
+        const int cj = 8 * j + 2 * r.t4 + (e & 1);
+        keep = !p.causal || k0 + cj <= (e < 2 ? r.row0 : r.row1);
+        if (p.kv_seg != nullptr) keep = keep && (e < 2 ? r.qseg0 : r.qseg1) == kvseg_s[cj];
+      }
+      const float pr = bwd_p<kMasked>(sc[4 * j + e], keep, p.sm_scale, e < 2 ? r.lse0 : r.lse1);
+      ds[e] = (dp[4 * j + e] - (e < 2 ? r.di0 : r.di1)) * pr * p.sm_scale;
+    }
+    sa[j >> 1][(j & 1) * 2] = pack_bf16x2(ds[0], ds[1]);
+    sa[j >> 1][(j & 1) * 2 + 1] = pack_bf16x2(ds[2], ds[3]);
+  }
+}
+
+// acc (64 x 64) = A (64 rows of the resident tile) . B^T (64 rows of a
+// streamed tile) over head_dim 128: both K-major, two boxes of four
+// 16-column slices each
+__device__ __forceinline__ void k_major_products(float (&acc)[32], uint32_t a_rows,
+                                                 uint32_t b_rows) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint32_t a_off = (kk >> 2) * kTileBoxBytes + (kk & 3) * 32;
+    const uint32_t b_off = (kk >> 2) * kStepBoxBytes + (kk & 3) * 32;
+    sm90::wgmma_m64n64k16_ss(acc, sm90::desc_k_major(a_rows + a_off),
+                             sm90::desc_k_major(b_rows + b_off), kk > 0);
+  }
+}
+
+// acc (64 x 128) += A (64 x 64, registers, four 16-wide slices) . B (64 rows
+// of a streamed tile x head_dim 128, MN-major)
+__device__ __forceinline__ void rs_products(float (&acc)[64], const uint32_t (&a)[4][4],
+                                            uint32_t b_rows) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    sm90::wgmma_m64n128k16_rs_mn(acc, a[kk], sm90::desc_mn_major(b_rows + kk * 2048, kStepBoxBytes));
+  }
+}
+
+// An accumulator fragment (rows row0 and row1 of a 64 x 128 tile) to bf16
+// rows `ss` elements apart, one column pair of each 8-column group at a
+// time; the fence keeps the compiler from converting every pair before the
+// first store, which would take ~64 more registers than the loop needs.
+__device__ __forceinline__ void store_rows(bf16* base, long long ss, int row0, int row1, int t4,
+                                           float (&acc)[64]) {
+  bf16* r0 = base + (long long)row0 * ss + 2 * t4;
+  bf16* r1 = base + (long long)row1 * ss + 2 * t4;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    *reinterpret_cast<__nv_bfloat162*>(r0 + 8 * j) = __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<__nv_bfloat162*>(r1 + 8 * j) =
+        __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+    sm90::fence_regs(acc);
+  }
+}
+
+// Pass 2, dK and dV. One CTA per (128-key tile, head, batch); consumer
+// warpgroup w owns keys k0 + 64w .. +63 and keeps their dK and dV (2 x 64
+// fp32 a thread) in registers while the producer streams 64-query tiles of
+// Q and dO (with their lse, di and segment ids) from the causal diagonal on.
+// Per tile: S^T = K Q^T and dP^T = V dO^T (wgmma, both operands K-major in
+// shared memory), P^T and dS^T from the accumulators into A-register
+// fragments (p rounded to bf16 before dV, ds before dK), then dV += P^T dO
+// and dK += dS^T Q (wgmma, dO and Q as MN-major B).
+__global__ void __launch_bounds__(kWgThreads, 1)
+    dkv_wgmma_kernel(const BwdParams p, const __grid_constant__ BwdMaps maps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DkvSmem& sm = aligned_smem<DkvSmem>(smem_raw);
+  const int k0 = blockIdx.x * kWgTile;  // low key tiles see the most query tiles
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int q0 = qt * kBlock;
-  const int lane = threadIdx.x & 31;
-  const int wrow = (threadIdx.x >> 5) * 16;  // the warp's first row in the tile
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
+  const int n_consumers = k0 + 64 < p.Sk ? 2 : 1;  // S % 128 == 64: the last tile's half
+  const int qt0 = p.causal ? k0 / kWgStep : 0;
+  const int n_steps = p.Sq / kWgStep - qt0;
+  const int wg = threadIdx.x / 128;
+  init_ring(&sm.tile_full, sm.full, sm.empty, n_consumers);
 
-  load_tile_bf16(q_s, static_cast<const bf16*>(p.q) + b * p.q_sb + (long long)q0 * p.q_ss +
-                          h * p.q_sh, p.q_ss);
-  load_tile_bf16(do_s, static_cast<const bf16*>(p.dout) + b * p.do_sb +
-                           (long long)q0 * p.do_ss + h * p.do_sh, p.do_ss);
-  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
-
-  const int row0 = q0 + wrow + g;  // the two query rows this thread holds
-  const int row1 = row0 + 8;
-  const long long stat = ((long long)b * p.H + h) * p.Sq;
-  const float lse0 = p.lse[stat + row0], lse1 = p.lse[stat + row1];
-  const float di0 = p.di[stat + row0], di1 = p.di[stat + row1];
-  int qseg0 = 0, qseg1 = 0;
-  if (p.q_seg != nullptr) {
-    qseg0 = p.q_seg[(long long)b * p.Sq + row0];
-    qseg1 = p.q_seg[(long long)b * p.Sq + row1];
-  }
-
-  float acc[kMmaD / 8][4];
-#pragma unroll
-  for (int n = 0; n < kMmaD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  const int n_ktiles_all = p.Sk / kBlock;
-  const int n_ktiles =
-      p.causal ? min(n_ktiles_all, (q0 + kBlock - 1) / kBlock + 1) : n_ktiles_all;
-  for (int kt = 0; kt < n_ktiles; ++kt) {
-    const int k0 = kt * kBlock;
-    __syncthreads();  // the previous tile's K and V are no longer read
-    load_tile_bf16(k_s, kg + (long long)k0 * p.k_ss, p.k_ss);
-    load_tile_bf16(v_s, vg + (long long)k0 * p.v_ss, p.v_ss);
-    if (p.kv_seg != nullptr && threadIdx.x < kBlock) {
-      kvseg_s[threadIdx.x] = p.kv_seg[(long long)b * p.Sk + k0 + threadIdx.x];
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    sm90::regs_dealloc<24>();
+    if (threadIdx.x >= 2 * 128 + 32) return;  // one warp issues everything
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      sm90::mbar_arrive_expect_tx(&sm.tile_full, 4 * n_consumers * kStepBoxBytes);
+      tma_tile(sm.k[0], sm.k[1], &maps.k, &sm.tile_full, k0, h, b, n_consumers);
+      tma_tile(sm.v[0], sm.v[1], &maps.v, &sm.tile_full, k0, h, b, n_consumers);
     }
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
+    const long long stat0 = ((long long)b * p.H + h) * p.Sq;
+    for (int it = 0; it < n_steps; ++it) {
+      const int s = it % kWgStages;
+      const int q0 = (qt0 + it) * kWgStep;
+      sm90::mbar_wait(&sm.empty[s], ((it / kWgStages) & 1) ^ 1);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-    }
-    mma_abt<8>(s, q_s + wrow * kStride, k_s, g, t4);    // S = Q K^T
-    mma_abt<8>(dp, do_s + wrow * kStride, v_s, g, t4);  // dP = dO V^T
-
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = j * 8 + t4 * 2 + e;
-        bool keep0 = true, keep1 = true;
-        if (p.kv_seg != nullptr) {
-          keep0 = qseg0 == kvseg_s[c];
-          keep1 = qseg1 == kvseg_s[c];
-        }
-        if (p.causal) {
-          keep0 = keep0 && (k0 + c <= row0);
-          keep1 = keep1 && (k0 + c <= row1);
-        }
-        const float p0 = expf(s[j][e] * p.sm_scale + (keep0 ? 0.f : kMaskValue) - lse0);
-        const float p1 = expf(s[j][2 + e] * p.sm_scale + (keep1 ? 0.f : kMaskValue) - lse1);
-        s[j][e] = (dp[j][e] - di0) * p0 * p.sm_scale;  // s now holds dS
-        s[j][2 + e] = (dp[j][2 + e] - di1) * p1 * p.sm_scale;
+      for (int i = 0; i < kWgStep / 32; ++i) {
+        const int r = lane + 32 * i;
+        sm.lse[s][r] = p.lse[stat0 + q0 + r];
+        sm.di[s][r] = p.di[stat0 + q0 + r];
+        if (p.q_seg != nullptr) sm.qseg[s][r] = p.q_seg[(long long)b * p.Sq + q0 + r];
+      }
+      if (lane == 0) {
+        sm90::mbar_arrive_expect_tx(&sm.full[s], 4 * kStepBoxBytes);
+        tma_rows(sm.q[s][0], sm.q[s][1], &maps.q, &sm.full[s], q0, h, b);
+        tma_rows(sm.dout[s][0], sm.dout[s][1], &maps.dout, &sm.full[s], q0, h, b);
+      } else {
+        sm90::mbar_arrive(&sm.full[s]);
       }
     }
-
-    // dQ += dS K: dS's accumulator layout is the A operand layout
-#pragma unroll
-    for (int kk = 0; kk < kBlock / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      mma_rows_trans(acc, a, k_s + kk * 16 * kStride, lane);
+  } else {
+    // ------------------------------------------------------------ consumers
+    sm90::regs_alloc<240>();
+    if (wg >= n_consumers) return;  // all 64 keys past Sk
+    const int tid = threadIdx.x & 127;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t4 = lane & 3;
+    const int kw0 = k0 + 64 * wg;                  // the warpgroup's first key
+    const int key0 = kw0 + 16 * (tid >> 5) + g;   // the two keys this thread holds
+    const int key1 = key0 + 8;
+    int kvseg0 = 0, kvseg1 = 0;
+    if (p.kv_seg != nullptr) {
+      kvseg0 = p.kv_seg[(long long)b * p.Sk + key0];
+      kvseg1 = p.kv_seg[(long long)b * p.Sk + key1];
     }
-  }
-
-  bf16* dqg = static_cast<bf16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+    // accumulator fragments: element 4j + e holds key (e < 2 ? key0 : key1),
+    // column 8j + 2 * t4 + (e & 1) (a query of the tile, or a head_dim index)
+    float dk[64], dv[64];
 #pragma unroll
-  for (int n = 0; n < kMmaD / 8; ++n) {
-    const int d = n * 8 + t4 * 2;
-    *reinterpret_cast<__nv_bfloat162*>(dqg + (long long)row0 * p.dq_ss + d) =
-        __floats2bfloat162_rn(acc[n][0], acc[n][1]);
-    *reinterpret_cast<__nv_bfloat162*>(dqg + (long long)row1 * p.dq_ss + d) =
-        __floats2bfloat162_rn(acc[n][2], acc[n][3]);
+    for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+    const uint32_t k_rows = sm90::smem_u32(sm.k[0]) + wg * 64 * 128;
+    const uint32_t v_rows = sm90::smem_u32(sm.v[0]) + wg * 64 * 128;
+    sm90::mbar_wait(&sm.tile_full, 0);
+
+    for (int it = 0; it < n_steps; ++it) {
+      const int s = it % kWgStages;
+      const int q0 = (qt0 + it) * kWgStep;
+      sm90::mbar_wait(&sm.full[s], (it / kWgStages) & 1);
+
+      float st[32], dpt[32];
+      const uint32_t q_base = sm90::smem_u32(sm.q[s][0]);
+      const uint32_t do_base = sm90::smem_u32(sm.dout[s][0]);
+      sm90::wgmma_fence();
+      k_major_products(st, k_rows, q_base);
+      k_major_products(dpt, v_rows, do_base);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(st);
+      sm90::fence_regs(dpt);
+
+      uint32_t pa[4][4], sa[4][4];  // P^T and dS^T as A operands, 16 queries per slice
+      const DkvRows rows{key0, key1, kvseg0, kvseg1, t4, q0};
+      if ((p.causal && q0 < kw0 + 63) || p.q_seg != nullptr) {
+        dkv_scores<true>(st, dpt, sm.lse[s], sm.di[s], sm.qseg[s], p, rows, pa, sa);
+      } else {
+        dkv_scores<false>(st, dpt, sm.lse[s], sm.di[s], sm.qseg[s], p, rows, pa, sa);
+      }
+
+      sm90::fence_regs(dv);
+      sm90::fence_regs(dk);
+      sm90::wgmma_fence();
+      rs_products(dv, pa, do_base);
+      rs_products(dk, sa, q_base);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dv);
+      sm90::fence_regs(dk);
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(&sm.empty[s]);
+    }
+
+    store_rows(static_cast<bf16*>(p.dv) + b * p.dv_sb + h * p.dv_sh, p.dv_ss, key0, key1, t4, dv);
+    sm90::fence_regs(dk);
+    store_rows(static_cast<bf16*>(p.dk) + b * p.dk_sb + h * p.dk_sh, p.dk_ss, key0, key1, t4, dk);
   }
 }
 
-__global__ void __launch_bounds__(kMmaThreads) dkv_mma_kernel(const BwdParams p) {
+// Pass 3, dQ. One CTA per (128-query tile, head, batch), heaviest first;
+// consumer warpgroup w owns queries q0 + 64w .. +63 and their dQ while the
+// producer streams 64-key tiles of K and V (with the key segment ids) up to
+// the causal diagonal. Per tile: S = Q K^T and dP = dO V^T (wgmma, K-major
+// operands), dS into A-register fragments (rounded to bf16), then dQ += dS K
+// (wgmma, K as MN-major B).
+__global__ void __launch_bounds__(kWgThreads, 1)
+    dq_wgmma_kernel(const BwdParams p, const __grid_constant__ BwdMaps maps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* v_s = k_s + kBlock * kStride;
-  bf16* q_s = v_s + kBlock * kStride;
-  bf16* do_s = q_s + kBlock * kStride;
-  float* lse_s = reinterpret_cast<float*>(do_s + kBlock * kStride);
-  float* di_s = lse_s + kBlock;
-  int* qseg_s = reinterpret_cast<int*>(di_s + kBlock);
-
-  const int kt = blockIdx.x;  // low key tiles see the most query tiles
+  DqSmem& sm = aligned_smem<DqSmem>(smem_raw);
+  const int n_qtiles = (p.Sq + kWgTile - 1) / kWgTile;
+  const int q0 = (n_qtiles - 1 - (int)blockIdx.x) * kWgTile;  // heaviest causal tiles first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int k0 = kt * kBlock;
-  const int lane = threadIdx.x & 31;
-  const int wrow = (threadIdx.x >> 5) * 16;  // the warp's first key row in the tile
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
+  const int n_consumers = q0 + 64 < p.Sq ? 2 : 1;  // S % 128 == 64: the last tile's half
+  const int last_row = min(q0 + kWgTile, p.Sq) - 1;
+  const int n_steps = p.causal ? min(p.Sk / kWgStep, last_row / kWgStep + 1) : p.Sk / kWgStep;
+  const int wg = threadIdx.x / 128;
+  init_ring(&sm.tile_full, sm.full, sm.empty, n_consumers);
 
-  load_tile_bf16(k_s, static_cast<const bf16*>(p.k) + b * p.k_sb + (long long)k0 * p.k_ss +
-                          h * p.k_sh, p.k_ss);
-  load_tile_bf16(v_s, static_cast<const bf16*>(p.v) + b * p.v_sb + (long long)k0 * p.v_ss +
-                          h * p.v_sh, p.v_ss);
-  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* dog = static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const long long stat0 = ((long long)b * p.H + h) * p.Sq;
-
-  const int key0 = k0 + wrow + g;  // the two key rows this thread holds
-  const int key1 = key0 + 8;
-  int kvseg0 = 0, kvseg1 = 0;
-  if (p.kv_seg != nullptr) {
-    kvseg0 = p.kv_seg[(long long)b * p.Sk + key0];
-    kvseg1 = p.kv_seg[(long long)b * p.Sk + key1];
-  }
-
-  float dk[kMmaD / 8][4], dv[kMmaD / 8][4];
-#pragma unroll
-  for (int n = 0; n < kMmaD / 8; ++n) {
-    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
-    dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
-  }
-
-  const int n_qtiles = p.Sq / kBlock;
-  for (int qt = p.causal ? k0 / kBlock : 0; qt < n_qtiles; ++qt) {
-    const int q0 = qt * kBlock;
-    __syncthreads();  // the previous tile's Q and dO are no longer read
-    load_tile_bf16(q_s, qg + (long long)q0 * p.q_ss, p.q_ss);
-    load_tile_bf16(do_s, dog + (long long)q0 * p.do_ss, p.do_ss);
-    if (threadIdx.x < kBlock) {
-      lse_s[threadIdx.x] = p.lse[stat0 + q0 + threadIdx.x];
-      di_s[threadIdx.x] = p.di[stat0 + q0 + threadIdx.x];
-      if (p.q_seg != nullptr) qseg_s[threadIdx.x] = p.q_seg[(long long)b * p.Sq + q0 + threadIdx.x];
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    sm90::regs_dealloc<24>();
+    if (threadIdx.x >= 2 * 128 + 32) return;  // one warp issues everything
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      sm90::mbar_arrive_expect_tx(&sm.tile_full, 4 * n_consumers * kStepBoxBytes);
+      tma_tile(sm.q[0], sm.q[1], &maps.q, &sm.tile_full, q0, h, b, n_consumers);
+      tma_tile(sm.dout[0], sm.dout[1], &maps.dout, &sm.tile_full, q0, h, b, n_consumers);
     }
-    __syncthreads();
-
+    for (int it = 0; it < n_steps; ++it) {
+      const int s = it % kWgStages;
+      const int k0 = it * kWgStep;
+      sm90::mbar_wait(&sm.empty[s], ((it / kWgStages) & 1) ^ 1);
+      if (p.kv_seg != nullptr) {
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int qh = half * 32;  // first query of this half in the tile
-      float st[4][4], dpt[4][4];  // S^T and dP^T: 16 keys x 32 queries
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.f;
-        dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
-      }
-      mma_abt<4>(st, k_s + wrow * kStride, q_s + qh * kStride, g, t4);    // K Q^T
-      mma_abt<4>(dpt, v_s + wrow * kStride, do_s + qh * kStride, g, t4);  // V dO^T
-
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = qh + j * 8 + t4 * 2 + e;  // query in the tile
-          bool keep0 = true, keep1 = true;
-          if (p.q_seg != nullptr) {
-            keep0 = kvseg0 == qseg_s[c];
-            keep1 = kvseg1 == qseg_s[c];
-          }
-          if (p.causal) {
-            keep0 = keep0 && (key0 <= q0 + c);
-            keep1 = keep1 && (key1 <= q0 + c);
-          }
-          const float lse = lse_s[c], di = di_s[c];
-          const float p0 = expf(st[j][e] * p.sm_scale + (keep0 ? 0.f : kMaskValue) - lse);
-          const float p1 = expf(st[j][2 + e] * p.sm_scale + (keep1 ? 0.f : kMaskValue) - lse);
-          st[j][e] = p0;  // st now holds P^T, dpt dS^T
-          st[j][2 + e] = p1;
-          dpt[j][e] = (dpt[j][e] - di) * p0 * p.sm_scale;
-          dpt[j][2 + e] = (dpt[j][2 + e] - di) * p1 * p.sm_scale;
+        for (int i = 0; i < kWgStep / 32; ++i) {
+          sm.kvseg[s][lane + 32 * i] = p.kv_seg[(long long)b * p.Sk + k0 + lane + 32 * i];
         }
       }
-
-      // dV += P^T dO and dK += dS^T Q, 16 queries of k-depth at a time
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        const uint32_t ap[4] = {pack_bf16x2(st[2 * kk][0], st[2 * kk][1]),
-                                pack_bf16x2(st[2 * kk][2], st[2 * kk][3]),
-                                pack_bf16x2(st[2 * kk + 1][0], st[2 * kk + 1][1]),
-                                pack_bf16x2(st[2 * kk + 1][2], st[2 * kk + 1][3])};
-        mma_rows_trans(dv, ap, do_s + (qh + kk * 16) * kStride, lane);
-        const uint32_t as[4] = {pack_bf16x2(dpt[2 * kk][0], dpt[2 * kk][1]),
-                                pack_bf16x2(dpt[2 * kk][2], dpt[2 * kk][3]),
-                                pack_bf16x2(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
-                                pack_bf16x2(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
-        mma_rows_trans(dk, as, q_s + (qh + kk * 16) * kStride, lane);
+      if (lane == 0) {
+        sm90::mbar_arrive_expect_tx(&sm.full[s], 4 * kStepBoxBytes);
+        tma_rows(sm.k[s][0], sm.k[s][1], &maps.k, &sm.full[s], k0, h, b);
+        tma_rows(sm.v[s][0], sm.v[s][1], &maps.v, &sm.full[s], k0, h, b);
+      } else {
+        sm90::mbar_arrive(&sm.full[s]);
       }
     }
-  }
-
-  bf16* dkg = static_cast<bf16*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
-  bf16* dvg = static_cast<bf16*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
+  } else {
+    // ------------------------------------------------------------ consumers
+    sm90::regs_alloc<240>();
+    if (wg >= n_consumers) return;  // all 64 rows past Sq
+    const int tid = threadIdx.x & 127;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t4 = lane & 3;
+    const int r_lo = q0 + 64 * wg;                 // the warpgroup's first query
+    const int row0 = r_lo + 16 * (tid >> 5) + g;  // the two queries this thread holds
+    const int row1 = row0 + 8;
+    const long long stat = ((long long)b * p.H + h) * p.Sq;
+    DqRows rows;
+    rows.row0 = row0;
+    rows.row1 = row1;
+    rows.lse0 = p.lse[stat + row0];
+    rows.lse1 = p.lse[stat + row1];
+    rows.di0 = p.di[stat + row0];
+    rows.di1 = p.di[stat + row1];
+    rows.qseg0 = p.q_seg != nullptr ? p.q_seg[(long long)b * p.Sq + row0] : 0;
+    rows.qseg1 = p.q_seg != nullptr ? p.q_seg[(long long)b * p.Sq + row1] : 0;
+    rows.t4 = t4;
+    float dq[64];
 #pragma unroll
-  for (int n = 0; n < kMmaD / 8; ++n) {
-    const int d = n * 8 + t4 * 2;
-    *reinterpret_cast<__nv_bfloat162*>(dkg + (long long)key0 * p.dk_ss + d) =
-        __floats2bfloat162_rn(dk[n][0], dk[n][1]);
-    *reinterpret_cast<__nv_bfloat162*>(dkg + (long long)key1 * p.dk_ss + d) =
-        __floats2bfloat162_rn(dk[n][2], dk[n][3]);
-    *reinterpret_cast<__nv_bfloat162*>(dvg + (long long)key0 * p.dv_ss + d) =
-        __floats2bfloat162_rn(dv[n][0], dv[n][1]);
-    *reinterpret_cast<__nv_bfloat162*>(dvg + (long long)key1 * p.dv_ss + d) =
-        __floats2bfloat162_rn(dv[n][2], dv[n][3]);
+    for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+    const uint32_t q_rows = sm90::smem_u32(sm.q[0]) + wg * 64 * 128;
+    const uint32_t do_rows = sm90::smem_u32(sm.dout[0]) + wg * 64 * 128;
+    const bool pingpong = n_consumers == 2;
+    if (pingpong && wg == 1) sm90::named_arrive(1, 256);
+    sm90::mbar_wait(&sm.tile_full, 0);
+
+    // dQ += dS_{it-1} K_{it-1} is still in flight while S_it and dP_it are
+    // issued; the one wait per tile covers both (groups complete in order)
+    uint32_t sa[4][4];  // dS as the A operand, 16 keys per slice
+    for (int it = 0; it < n_steps; ++it) {
+      const int s = it % kWgStages;
+      const int k0 = it * kWgStep;
+      sm90::mbar_wait(&sm.full[s], (it / kWgStages) & 1);
+
+      float sc[32], dp[32];
+      const uint32_t k_base = sm90::smem_u32(sm.k[s][0]);
+      if (pingpong) sm90::named_sync(1 + wg, 256);
+      sm90::wgmma_fence();
+      k_major_products(sc, q_rows, k_base);
+      k_major_products(dp, do_rows, sm90::smem_u32(sm.v[s][0]));
+      sm90::wgmma_commit();
+      if (pingpong) sm90::named_arrive(2 - wg, 256);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+      sm90::fence_regs(dp);
+      sm90::fence_regs(dq);
+      sm90::fence_regs(sa);
+      if (it > 0) {
+        __syncwarp();
+        if (lane == 0) sm90::mbar_arrive(&sm.empty[(it - 1) % kWgStages]);
+      }
+
+      if ((p.causal && k0 + kWgStep - 1 > r_lo) || p.kv_seg != nullptr) {
+        dq_scores<true>(sc, dp, sm.kvseg[s], p, k0, rows, sa);
+      } else {
+        dq_scores<false>(sc, dp, sm.kvseg[s], p, k0, rows, sa);
+      }
+
+      if (pingpong) sm90::named_sync(1 + wg, 256);
+      sm90::fence_regs(dq);
+      sm90::wgmma_fence();
+      rs_products(dq, sa, k_base);
+      sm90::wgmma_commit();
+      if (pingpong && !(wg == 1 && it == n_steps - 1)) sm90::named_arrive(2 - wg, 256);
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dq);
+    sm90::fence_regs(sa);
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&sm.empty[(n_steps - 1) % kWgStages]);
+
+    store_rows(static_cast<bf16*>(p.dq) + b * p.dq_sb + h * p.dq_sh, p.dq_ss, row0, row1, t4, dq);
   }
 }
 
@@ -668,24 +828,42 @@ cudaError_t launch_cuda_core(const BwdParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-cudaError_t launch_mma(const BwdParams& p, cudaStream_t stream) {
-  cudaError_t err = launch_di<bf16, kMmaD>(p, stream);
-  if (err != cudaSuccess) return err;
-  const size_t smem = mma_smem_bytes();
-  static bool smem_attr_set = false;
-  if (!smem_attr_set) {
-    if ((err = allow_smem(dkv_mma_kernel, smem)) != cudaSuccess) return err;
-    if ((err = allow_smem(dq_mma_kernel, smem)) != cudaSuccess) return err;
-    smem_attr_set = true;
+template <typename Smem, typename K>
+cudaError_t launch_pass(K kernel, int tiles, const BwdParams& p, const BwdMaps& maps,
+                        bool* smem_attr_set, cudaStream_t stream) {
+  const size_t smem = sizeof(Smem) + 1024;
+  if (!*smem_attr_set) {
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    *smem_attr_set = true;
   }
-  dkv_mma_kernel<<<dim3(p.Sk / kBlock, p.H, p.B), kMmaThreads, smem, stream>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  dq_mma_kernel<<<dim3(p.Sq / kBlock, p.H, p.B), kMmaThreads, smem, stream>>>(p);
+  kernel<<<dim3(tiles, p.H, p.B), kWgThreads, smem, stream>>>(p, maps);
   return cudaGetLastError();
 }
 
-bool rows_16b_aligned(const void* ptr, long long sb, long long ss, long long sh) {
-  // 16-byte vector loads of bf16 rows: base and every row start aligned
+cudaError_t launch_wgmma(const BwdParams& p, cudaStream_t stream) {
+  BwdMaps maps;  // both passes read the same four tensors through 64-row boxes
+  cudaError_t err;
+  using sm90::encode_bsnh;
+  if ((err = encode_bsnh(&maps.q, p.q, p.B, p.Sq, p.H, p.q_sb, p.q_ss, p.q_sh, kWgStep)) ||
+      (err = encode_bsnh(&maps.k, p.k, p.B, p.Sk, p.H, p.k_sb, p.k_ss, p.k_sh, kWgStep)) ||
+      (err = encode_bsnh(&maps.v, p.v, p.B, p.Sk, p.H, p.v_sb, p.v_ss, p.v_sh, kWgStep)) ||
+      (err = encode_bsnh(&maps.dout, p.dout, p.B, p.Sq, p.H, p.do_sb, p.do_ss, p.do_sh,
+                         kWgStep))) {
+    return err;
+  }
+  if ((err = launch_di<bf16, 128>(p, stream)) != cudaSuccess) return err;
+  static bool dkv_attr = false, dq_attr = false;
+  err = launch_pass<DkvSmem>(dkv_wgmma_kernel, (p.Sk + kWgTile - 1) / kWgTile, p, maps, &dkv_attr,
+                             stream);
+  if (err != cudaSuccess) return err;
+  return launch_pass<DqSmem>(dq_wgmma_kernel, (p.Sq + kWgTile - 1) / kWgTile, p, maps, &dq_attr,
+                             stream);
+}
+
+bool rows_aligned(const void* ptr, long long sb, long long ss, long long sh) {
+  // base and every row start 16-byte aligned: TMA's rule for global
+  // addresses and strides (and the 4-byte stores of the outputs)
   return (reinterpret_cast<uintptr_t>(ptr) % 16 == 0) && sb % 8 == 0 && ss % 8 == 0 &&
          sh % 8 == 0;
 }
@@ -695,17 +873,28 @@ bool rows_16b_aligned(const void* ptr, long long sb, long long ss, long long sh)
 extern "C" {
 
 // Returns 0 on success, a cudaError_t value on a CUDA failure, or -1 for an
-// argument the kernel does not take (the Python wrapper checks these first).
-// strides: 24 element strides, (batch, seq, head) for q, k, v, out, dout, dq,
-// dk, dv in turn. di: (B, H, Sq) fp32 scratch. dtype: 0 = float32, 1 = bfloat16.
+// argument the chosen route does not take (the Python wrapper picks the route
+// and checks the rest first). strides: 24 element strides, (batch, seq, head)
+// for q, k, v, out, dout, dq, dk, dv in turn. di: (B, H, Sq) fp32 scratch.
+// dtype: 0 = float32, 1 = bfloat16. route: 0 = cuda_core, 2 = wgmma (bf16,
+// head_dim 128, TMA-eligible rows).
 int galv_flash_attn_bwd(const void* q, const void* k, const void* v, const void* o,
                         const void* dout, const float* lse, void* dq, void* dk, void* dv,
                         float* di, const int* q_seg, const int* kv_seg,
                         const long long* strides, int B, int H, int Sq, int Sk, int D,
-                        int dtype, float sm_scale, int causal, int device, void* stream) {
-  if (Sq % kBlock != 0 || Sk % kBlock != 0 || B < 1 || H < 1 || Sq < 1 || Sk < 1) return -1;
+                        int dtype, float sm_scale, int causal, int route, int device,
+                        void* stream) {
+  if (Sq % 64 != 0 || Sk % 64 != 0 || B < 1 || H < 1 || Sq < 1 || Sk < 1) return -1;
   if (D != 128 && D != 256) return -1;
   if (dtype != 0 && dtype != 1) return -1;
+  const void* ptrs[8] = {q, k, v, o, dout, dq, dk, dv};
+  bool aligned = true;
+  for (int i = 0; i < 8; ++i) {
+    aligned = aligned && rows_aligned(ptrs[i], strides[3 * i], strides[3 * i + 1],
+                                      strides[3 * i + 2]);
+  }
+  if (route == 2 && !(dtype == 1 && D == 128 && aligned)) return -1;
+  if (route != 0 && route != 2) return -1;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   BwdParams p;
@@ -722,14 +911,8 @@ int galv_flash_attn_bwd(const void* q, const void* k, const void* v, const void*
   p.sm_scale = sm_scale;
   p.causal = causal;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const void* ptrs[8] = {q, k, v, o, dout, dq, dk, dv};
-  bool aligned = true;
-  for (int i = 0; i < 8; ++i) {
-    aligned = aligned && rows_16b_aligned(ptrs[i], strides[3 * i], strides[3 * i + 1],
-                                          strides[3 * i + 2]);
-  }
-  if (dtype == 1 && D == kMmaD && aligned) {
-    err = launch_mma(p, s);
+  if (route == 2) {
+    err = launch_wgmma(p, s);
   } else if (dtype == 1) {
     err = D == 128 ? launch_cuda_core<bf16, 128>(p, s) : launch_cuda_core<bf16, 256>(p, s);
   } else {
@@ -739,7 +922,7 @@ int galv_flash_attn_bwd(const void* q, const void* k, const void* v, const void*
 }
 
 const char* galv_cuda_error_string(int code) {
-  if (code == -1) return "argument not supported by the flash-attention backward kernel";
+  if (code == -1) return "argument not supported by the flash-attention backward kernel on this route";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

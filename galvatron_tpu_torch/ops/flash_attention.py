@@ -4,21 +4,27 @@ their plain versions, and the autograd Function that joins them.
 Replaces the TPU kernel ``galvatron_tpu/ops/attention.py::_pallas_flash``
 (jax.experimental.pallas.ops.tpu.flash_attention): its forward ``pallas_call``
 becomes ``csrc/flash_attn_fwd.cu``, its two backward ``pallas_call``s (dkv and
-dq) become ``csrc/flash_attn_bwd.cu``, both for sm_90a. Each source's header
-note gives the bound and the design: bf16 inputs with 16-byte-aligned rows run
-on the tensor cores, fp32 inputs and unaligned bf16 rows (and, for the
-backward, head_dim 256) on the CUDA cores. Each source is compiled with
-``nvcc`` into a shared library with a plain C interface at first use, keyed by
-a hash of the source and the flags, under ``build/galvatron_tpu_torch/``
-beside the package, and loaded with ``ctypes``.
+dq) become ``csrc/flash_attn_bwd.cu``, both for sm_90a, sharing the Hopper
+building blocks of ``csrc/sm90.cuh``. `flash_route` picks the kernel from the
+inputs and the C side obeys it: ``"wgmma"`` (bf16, head_dim 128, rows TMA can
+read: the serve and train paths) runs TMA + mbarrier + ``wgmma`` kernels with
+a producer warp; ``"mma"`` (forward only, bf16 head_dim 256 with aligned rows)
+runs ``mma.sync`` on the tensor cores; ``"cuda_core"`` (everything else) runs
+fp32 FMAs. Each source's header note gives the bound and the design. Each
+source is compiled with ``nvcc`` into a shared library with a plain C
+interface at first use, keyed by a hash of the source, the headers it
+includes and the flags, under ``build/galvatron_tpu_torch/`` beside the
+package, and loaded with ``ctypes``.
 
 `flash_attention_fwd` and `flash_attention_bwd` are the wrappers: on CPU
 tensors they compute the plain versions `flash_attention_fwd_reference` and
-`flash_attention_bwd_reference`; on CUDA tensors they launch the kernel or
-raise (bad argument, no ``nvcc``, build or launch failure) — there is no
-fallback. Each wrapper's ``launches`` attribute counts its kernel launches.
-`FlashAttention` is the ``torch.autograd.Function`` whose forward is the
-forward wrapper and whose backward is the backward wrapper.
+`flash_attention_bwd_reference`; on CUDA tensors they launch the kernel of
+their route or raise (bad argument, a forced route that does not take the
+inputs, no ``nvcc``, build or launch failure) — there is no fallback. Each
+wrapper's ``launches`` attribute counts its kernel launches and
+``last_route`` names the route of the last launch. `FlashAttention` is the
+``torch.autograd.Function`` whose forward is the forward wrapper and whose
+backward is the backward wrapper.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -44,6 +51,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "flash_attn_fwd.cu")
 BWD_SOURCE = os.path.join(_PKG_DIR, "csrc", "flash_attn_bwd.cu")
 SOURCES = (SOURCE, BWD_SOURCE)
+ROUTES = ("cuda_core", "mma", "wgmma")  # index = the route code of the C entry points
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "galvatron_tpu_torch")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -138,12 +146,32 @@ def find_nvcc() -> str:
         "kernels are built from %s at first use on a CUDA tensor" % ", ".join(SOURCES))
 
 
+def _included_headers(source: str) -> list:
+    """The local headers (``#include "..."``) `source` includes, transitively,
+    in the order first met."""
+    seen, todo = [], [source]
+    while todo:
+        with open(todo.pop(0)) as f:
+            names = re.findall(r'^\s*#\s*include\s*"([^"]+)"', f.read(), re.M)
+        for name in names:
+            path = os.path.join(os.path.dirname(source), name)
+            if path not in seen:
+                seen.append(path)
+                todo.append(path)
+    return seen
+
+
 def library_path(source: str = SOURCE) -> str:
-    """Where the build of `source` with the current flags goes."""
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Where the build of `source` with the current flags goes: keyed by the
+    source, every local header it includes and the flags, so an edited
+    header never reuses a stale build."""
+    h = hashlib.sha256()
+    for path in [source] + _included_headers(source):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(os.path.basename(source))[0]
-    return os.path.join(BUILD_DIR, "%s_%s.so" % (stem, digest))
+    return os.path.join(BUILD_DIR, "%s_%s.so" % (stem, h.hexdigest()[:16]))
 
 
 def build(source: str = SOURCE) -> str:
@@ -196,15 +224,44 @@ class _KernelLibrary:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _KERNEL = _KernelLibrary(SOURCE, "galv_flash_attn_fwd", [
     _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
-    _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P,
+    _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P,
 ])
 _BWD_KERNEL = _KernelLibrary(BWD_SOURCE, "galv_flash_attn_bwd", [
     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
-    _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P,
+    _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P,
 ])
 
 
 # ---------------------------------------------------------------- the wrappers
+def _tma_rows(t: torch.Tensor) -> bool:
+    """Base 16-byte aligned and every (batch, seq, head) stride a multiple of
+    8 elements: TMA's rule (global address and byte strides multiples of 16)."""
+    sb, ss, sh = t.stride()[:3]
+    return (t.data_ptr() % 16 | sb % 8 | ss % 8 | sh % 8) == 0
+
+
+def flash_route(tensors: Sequence[torch.Tensor], *, backward: bool = False) -> str:
+    """The kernel route for BSNH `tensors` (q, k, v, then for the backward
+    out and do): ``"wgmma"`` for bf16, head_dim 128, every sequence length a
+    multiple of 64 and every tensor TMA-readable (`_tma_rows`); ``"mma"``
+    (forward only) for bf16 head_dim 256 with the same rows; else
+    ``"cuda_core"``."""
+    q = tensors[0]
+    if q.dtype != torch.bfloat16 or not all(map(_tma_rows, tensors)):
+        return "cuda_core"
+    if q.shape[-1] == 128 and all(t.shape[1] % BLOCK == 0 for t in tensors):
+        return "wgmma"
+    if q.shape[-1] == 256 and not backward:
+        return "mma"
+    return "cuda_core"
+
+
+def _route_code(route: str) -> int:
+    if route not in ROUTES:
+        raise ValueError("flash attention route must be one of %s, got %r" % (ROUTES, route))
+    return ROUTES.index(route)
+
+
 def _check_cuda_args(q, k, v, segment_ids):
     tensors = [q, k, v] + (list(segment_ids) if segment_ids is not None else [])
     if any(t.device != q.device for t in tensors):
@@ -247,22 +304,29 @@ def _device_index(t: torch.Tensor) -> int:
     return t.device.index if t.device.index is not None else torch.cuda.current_device()
 
 
-def _raise_on(rc: int, lib, what: str) -> None:
+def _raise_on(rc: int, lib, what: str, route: str) -> None:
+    if rc == -1:
+        raise ValueError("flash attention %s: route %r does not take these inputs (%s)"
+                         % (what, route, lib.galv_cuda_error_string(rc).decode()))
     if rc != 0:
-        raise RuntimeError("flash attention %s kernel launch failed (%d): %s"
-                           % (what, rc, lib.galv_cuda_error_string(rc).decode()))
+        raise RuntimeError("flash attention %s kernel launch failed on route %r (%d): %s"
+                           % (what, route, rc, lib.galv_cuda_error_string(rc).decode()))
 
 
 def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
-    sm_scale: float, segment_ids: Optional[SegmentIds] = None,
+    sm_scale: float, segment_ids: Optional[SegmentIds] = None, route: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out (B, Sq, H, D), logsumexp (B, H, Sq) fp32). CPU tensors take the
-    plain version; CUDA tensors launch the kernel on the current stream."""
+    plain version; CUDA tensors launch the kernel of `route` (default
+    `flash_route`) on the current stream; a route that does not take the
+    inputs raises."""
     if _on_cpu([q, k, v] + (list(segment_ids) if segment_ids is not None else [])):
         return flash_attention_fwd_reference(q, k, v, causal=causal, sm_scale=sm_scale,
                                              segment_ids=segment_ids)
     _check_cuda_args(q, k, v, segment_ids)
+    route = route or flash_route([q, k, v])
+    code = _route_code(route)
     lib = _KERNEL.get()
     b, sq, h, d = q.shape
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
@@ -274,24 +338,28 @@ def flash_attention_fwd(
         segment_ids.q.data_ptr() if segment_ids is not None else None,
         segment_ids.kv.data_ptr() if segment_ids is not None else None,
         strides, b, h, sq, k.shape[1], d, _DTYPE_CODES[q.dtype], float(sm_scale),
-        int(bool(causal)), _device_index(q), torch.cuda.current_stream(q.device).cuda_stream,
+        int(bool(causal)), code, _device_index(q), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _raise_on(rc, lib, "forward")
+    _raise_on(rc, lib, "forward", route)
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.last_route = route
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.last_route = None
 
 
 def flash_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
     lse: torch.Tensor, do: torch.Tensor, *, causal: bool, sm_scale: float,
-    segment_ids: Optional[SegmentIds] = None,
+    segment_ids: Optional[SegmentIds] = None, route: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv), BSNH in the input dtype, from the forward's inputs, its
     out and logsumexp, and the cotangent `do` of out. CPU tensors take the
-    plain version; CUDA tensors launch the kernel on the current stream."""
+    plain version; CUDA tensors launch the kernels of `route` (default
+    `flash_route`) on the current stream; a route that does not take the
+    inputs raises."""
     seg = list(segment_ids) if segment_ids is not None else []
     if _on_cpu([q, k, v, out, lse, do] + seg):
         return flash_attention_bwd_reference(q, k, v, out, lse, do, causal=causal,
@@ -309,6 +377,8 @@ def flash_attention_bwd(
             or not lse.is_contiguous()):
         raise ValueError("flash attention backward: lse must be contiguous float32 "
                          "(%d, %d, %d) on %s" % (b, h, sq, q.device))
+    route = route or flash_route([q, k, v, out, do], backward=True)
+    code = _route_code(route)
     lib = _BWD_KERNEL.get()
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, h, d), dtype=q.dtype, device=q.device)
@@ -322,14 +392,16 @@ def flash_attention_bwd(
         segment_ids.q.data_ptr() if segment_ids is not None else None,
         segment_ids.kv.data_ptr() if segment_ids is not None else None,
         strides, b, h, sq, sk, d, _DTYPE_CODES[q.dtype], float(sm_scale), int(bool(causal)),
-        _device_index(q), torch.cuda.current_stream(q.device).cuda_stream,
+        code, _device_index(q), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _raise_on(rc, lib, "backward")
+    _raise_on(rc, lib, "backward", route)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.last_route = route
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.last_route = None
 
 
 class FlashAttention(torch.autograd.Function):

@@ -1,5 +1,7 @@
 """The port's hand-written CUDA kernels on the card: the flash-attention
-forward and backward against their plain versions, their argument checks,
+forward and backward against their plain versions on every route (the
+route each call took is asserted: bf16 head_dim 128 with TMA-readable rows
+runs "wgmma"), their argument checks,
 the autograd Function against autograd of the plain forward, a serve run
 whose prefills go through the forward and a train run whose steps go
 through both. Every test is marked ``cuda`` and skips where there is no GPU
@@ -64,12 +66,22 @@ def _rand(shape, seed, dtype):
     return torch.from_numpy(a).to("cuda", dtype)
 
 
+def _want_route(q, backward=False):
+    if q.dtype == torch.bfloat16 and q.shape[-1] == 128:
+        return "wgmma"
+    if q.dtype == torch.bfloat16 and not backward:
+        return "mma"
+    return "cuda_core"
+
+
 @pytest.mark.parametrize("s,hd,padded,causal,dtype", [
     (128, 128, False, True, torch.bfloat16),
     (512, 128, True, True, torch.bfloat16),
     (256, 256, True, False, torch.bfloat16),
     (256, 128, False, False, torch.bfloat16),
     (384, 128, True, True, torch.float32),
+    (576, 128, False, True, torch.bfloat16),  # S % 128 == 64: a half-empty last tile
+    (576, 128, True, False, torch.bfloat16),
 ])
 def test_flash_kernel_matches_plain_version(s, hd, padded, causal, dtype):
     """Kernel vs its plain version on the same inputs, every row, including
@@ -87,6 +99,7 @@ def test_flash_kernel_matches_plain_version(s, hd, padded, causal, dtype):
                                       segment_ids=seg)
     torch.cuda.synchronize()
     assert TF.flash_attention_fwd.launches == n0 + 1
+    assert TF.flash_attention_fwd.last_route == _want_route(q)
     ref, ref_lse = TF.flash_attention_fwd_reference(q, k, v, causal=causal, sm_scale=hd ** -0.5,
                                                     segment_ids=seg)
     tol = CS.TOL_FWD_BF16 if dtype == torch.bfloat16 else CS.TOL_FWD_FP32
@@ -103,6 +116,7 @@ def test_flash_kernel_reads_strided_bsnh_in_place():
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     assert not q.is_contiguous()
     out, _ = TF.flash_attention_fwd(q, k, v, causal=True, sm_scale=0.1)
+    assert TF.flash_attention_fwd.last_route == "wgmma"
     ref, _ = TF.flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
                                     causal=True, sm_scale=0.1)
     torch.cuda.synchronize()
@@ -123,6 +137,7 @@ def test_flash_kernel_unaligned_bf16_rows_take_the_cuda_core_path(causal):
     seg = TF.SegmentIds(q=ids, kv=ids)
     out, lse = TF.flash_attention_fwd(q, k, v, causal=causal, sm_scale=0.1, segment_ids=seg)
     torch.cuda.synchronize()
+    assert TF.flash_attention_fwd.last_route == "cuda_core"
     ref, ref_lse = TF.flash_attention_fwd_reference(q, k, v, causal=causal, sm_scale=0.1,
                                                     segment_ids=seg)
     assert _close(out, ref, CS.TOL_FWD_BF16)
@@ -182,6 +197,8 @@ def _bwd_case(b, s, nh, hd, dtype, padded, causal, seed=41):
     (256, 128, True, False, torch.bfloat16),
     (256, 256, True, True, torch.bfloat16),
     (384, 128, True, True, torch.float32),
+    (576, 128, False, True, torch.bfloat16),  # S % 128 == 64: a half-empty last tile
+    (576, 128, True, False, torch.bfloat16),
 ])
 def test_flash_bwd_kernel_matches_plain_version(s, hd, padded, causal, dtype):
     """Backward kernel vs its plain version on the same inputs (the
@@ -193,6 +210,7 @@ def test_flash_bwd_kernel_matches_plain_version(s, hd, padded, causal, dtype):
                                  segment_ids=seg)
     torch.cuda.synchronize()
     assert TF.flash_attention_bwd.launches == n0 + 1
+    assert TF.flash_attention_bwd.last_route == _want_route(q, backward=True)
     want = TF.flash_attention_bwd_reference(q, k, v, out, lse, do, causal=causal,
                                             sm_scale=hd ** -0.5, segment_ids=seg)
     tol = CS.TOL_BWD_BF16 if dtype == torch.bfloat16 else CS.TOL_BWD_FP32
@@ -213,6 +231,7 @@ def test_flash_bwd_kernel_reads_and_writes_strided_bsnh_in_place():
     out, do = od[:, :, 0], od[:, :, 1]
     _, lse = TF.flash_attention_fwd(q, k, v, causal=True, sm_scale=0.1)
     got = TF.flash_attention_bwd(q, k, v, out, lse, do, causal=True, sm_scale=0.1)
+    assert TF.flash_attention_bwd.last_route == "wgmma"
     want = TF.flash_attention_bwd(*(t.contiguous() for t in (q, k, v, out)), lse,
                                   do.contiguous(), causal=True, sm_scale=0.1)
     torch.cuda.synchronize()
@@ -233,10 +252,51 @@ def test_flash_bwd_kernel_unaligned_bf16_rows_take_the_cuda_core_path():
     got = TF.flash_attention_bwd(q, k, v, out, lse, do, causal=True, sm_scale=0.1,
                                  segment_ids=seg)
     torch.cuda.synchronize()
+    assert TF.flash_attention_bwd.last_route == "cuda_core"
     want = TF.flash_attention_bwd_reference(q, k, v, out, lse, do, causal=True, sm_scale=0.1,
                                             segment_ids=seg)
     for g, w in zip(got, want):
         assert _close(g, w, CS.TOL_BWD_BF16)
+
+
+def test_flash_kernels_at_the_train_micro_batch():
+    """B=4, S=2048 (the train path's micro-batch) through the wgmma route,
+    forward and backward against the plain versions."""
+    _need_cuda_kernel()
+    q, k, v, do, out, lse, _ = _bwd_case(4, 2048, 8, 128, torch.bfloat16, False, True, seed=91)
+    assert TF.flash_attention_fwd.last_route == "wgmma"
+    ref, ref_lse = TF.flash_attention_fwd_reference(q, k, v, causal=True, sm_scale=128 ** -0.5)
+    assert _close_and_faults_caught(out, ref, CS.TOL_FWD_BF16)
+    assert (lse - ref_lse).abs().max().item() <= TOL_LSE
+    got = TF.flash_attention_bwd(q, k, v, out, lse, do, causal=True, sm_scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    assert TF.flash_attention_bwd.last_route == "wgmma"
+    want = TF.flash_attention_bwd_reference(q, k, v, out, lse, do, causal=True,
+                                            sm_scale=128 ** -0.5)
+    for g, w in zip(got, want):
+        assert _close_and_faults_caught(g, w, CS.TOL_BWD_BF16)
+
+
+@pytest.mark.parametrize("why", ["unaligned", "fp32", "head_dim_256"])
+def test_forcing_wgmma_on_inputs_it_does_not_take_raises(why):
+    """A forced route that does not take the inputs raises; it launches
+    nothing and does not switch to another route."""
+    _need_cuda_kernel()
+    if why == "unaligned":
+        q = _rand((1, 256, 2, 129), 71, torch.bfloat16)[..., 1:]
+    elif why == "fp32":
+        q = _rand((1, 256, 2, 128), 71, torch.float32)
+    else:
+        q = _rand((1, 256, 2, 256), 71, torch.bfloat16)
+    _, lse = TF.flash_attention_fwd(q, q, q, causal=True, sm_scale=0.1)
+    n_fwd, n_bwd = TF.flash_attention_fwd.launches, TF.flash_attention_bwd.launches
+    routes = TF.flash_attention_fwd.last_route, TF.flash_attention_bwd.last_route
+    with pytest.raises(ValueError, match="wgmma"):
+        TF.flash_attention_fwd(q, q, q, causal=True, sm_scale=0.1, route="wgmma")
+    with pytest.raises(ValueError, match="wgmma"):
+        TF.flash_attention_bwd(q, q, q, q, lse, q, causal=True, sm_scale=0.1, route="wgmma")
+    assert (TF.flash_attention_fwd.launches, TF.flash_attention_bwd.launches) == (n_fwd, n_bwd)
+    assert (TF.flash_attention_fwd.last_route, TF.flash_attention_bwd.last_route) == routes
 
 
 @pytest.mark.parametrize("bad", ["lse_shape", "lse_dtype", "do_dtype", "out_shape", "device"])
