@@ -47,11 +47,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
    strategy JSON mixing per-layer remat (layers 0-3 full, 4-5
    dots_saveable, 6-7 none), 6 steps; asserts finite losses and the launch
    counts of both kernels.
+9. Train through the per-layer layout path: ``cli.train.main`` on the GPT
+   configuration of ``tools/train_cell.py``: GPT-6.7B width (h 4096, 32
+   heads, ffn 16384, vocab 50257, tied head) at depth 8 (cut from 32 for
+   memory: 6.7 B parameters are ~107 GB of fp32 state, depth 8 ~29 GB), the
+   same batch, steps and remat mix, layers 0-3 ZeRO-3 and the rest ZeRO-2,
+   at world size 1 through one-rank NCCL groups; then again with every
+   ``fsdp`` 0 (all ZeRO-2). Every step's loss of the two runs must agree
+   within 1e-3 relative; both kernels' launch counts are checked on the
+   ZeRO-3 run and the route of their last calls must be "wgmma".
 
-Each main path (serve, train) runs with the kernels' launch counts set to 0
-just before it and read just after. The last lines of standard output are
-the serve and train summaries, the ``kernels`` JSON line, the card line, and
-``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
+Each main path (serve, train, the GPT layout runs) runs with the kernels'
+launch counts set to 0 just before it and read just after. The last lines
+of standard output are the serve and train summaries, the ``kernels`` JSON
+line, the card line, and ``{"ok": true, "device": {...}}``. Details go to
+chiprun_out/chip_smoke.json.
 """
 
 import dataclasses
@@ -642,11 +652,62 @@ def train(torch, TF):
           "train launched the forward kernel %d times (expected %d = %d steps x %d chunks x "
           "(%d layers + %d recomputed)) and the backward %d times (expected %d)"
           % (fwd, want_fwd, C.STEPS, C.CHUNKS, C.LAYERS, remat, bwd, want_bwd))
+    check(summary["flash_routes"] == [{"fwd": {"wgmma": fwd}, "bwd": {"wgmma": bwd}}],
+          "train launches by route: %s (every one must be wgmma)" % summary["flash_routes"])
     torch.cuda.empty_cache()
     return dict(summary=summary, fwd_launches=fwd, bwd_launches=bwd, layers=C.LAYERS,
                 steps=C.STEPS, chunks=C.CHUNKS, global_bsz=C.GLOBAL_BSZ,
                 checkpoint=C.CHECKPOINT, remat_policy=C.REMAT_POLICY,
                 remat=",".join(p if c else "none" for c, p in zip(C.CHECKPOINT, C.REMAT_POLICY)))
+
+
+# ------------------------------------------------------------------ phase 9
+# At world 1 every group has one rank, so a collective that scales by the
+# group size (a reduce-scatter in place of a split, a sum over the wrong
+# axes) scales by 1 here: the two runs agreeing shows that the ZeRO-3 and
+# ZeRO-2 code runs on the card through NCCL, not that its gradients are
+# right. Layout correctness is held by tests/test_torch_parallel.py
+# (world 2 and 4 against the JAX package, on gloo or on GPUs over NCCL).
+TOL_LAYOUT_LOSS = 1e-3  # relative, ZeRO-3 vs ZeRO-2 runs of one model (bf16)
+
+
+def train_gpt_layouts(torch, TF):
+    from galvatron_tpu_torch.cli import train as cli_train
+    from galvatron_tpu_torch.tools import train_cell as C
+
+    runs = {}
+    for fsdp in (True, False):
+        argv = C.gpt_argv(C.write_gpt_strategy("chiprun_out", fsdp=fsdp))
+        torch.cuda.empty_cache()
+        TF.flash_attention_fwd.launches = 0
+        TF.flash_attention_bwd.launches = 0
+        summary = cli_train.main(argv)
+        runs["zero3" if fsdp else "zero2"] = dict(
+            summary=summary, fwd_launches=TF.flash_attention_fwd.launches,
+            bwd_launches=TF.flash_attention_bwd.launches, routes=summary["flash_routes"])
+        check(len(summary["losses"]) == C.STEPS
+              and all(math.isfinite(x) for x in summary["losses"]),
+              "gpt layout run (fsdp=%d) losses %s" % (fsdp, summary["losses"]))
+    on, off = runs["zero3"], runs["zero2"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(on["summary"]["losses"], off["summary"]["losses"])]
+    check(max(rel) <= TOL_LAYOUT_LOSS,
+          "gpt ZeRO-3 vs ZeRO-2 losses differ by %.3g relative (tol %.0e): %s vs %s"
+          % (max(rel), TOL_LAYOUT_LOSS, on["summary"]["losses"], off["summary"]["losses"]))
+    remat = sum(C.CHECKPOINT)
+    want_fwd = C.STEPS * C.CHUNKS * (C.LAYERS + remat)
+    want_bwd = C.STEPS * C.CHUNKS * C.LAYERS
+    for name, r in runs.items():
+        check((r["fwd_launches"], r["bwd_launches"]) == (want_fwd, want_bwd),
+              "gpt %s run launched the forward kernel %d times (expected %d) and the backward "
+              "%d times (expected %d)" % (name, r["fwd_launches"], want_fwd, r["bwd_launches"],
+                                          want_bwd))
+        check(r["routes"] == [{"fwd": {"wgmma": want_fwd}, "bwd": {"wgmma": want_bwd}}],
+              "gpt %s run's launches by route: %s (every one must be wgmma)" % (name, r["routes"]))
+    torch.cuda.empty_cache()
+    return dict(runs=runs, loss_rel_err=rel, tolerance=TOL_LAYOUT_LOSS, layers=C.LAYERS,
+                steps=C.STEPS, chunks=C.CHUNKS, global_bsz=C.GLOBAL_BSZ, fsdp=C.GPT_FSDP,
+                remat=",".join(p if c else "none" for c, p in zip(C.CHECKPOINT, C.REMAT_POLICY)),
+                fwd_launches=on["fwd_launches"], bwd_launches=on["bwd_launches"])
 
 
 def main():
@@ -686,6 +747,7 @@ def main():
     decode = decode_vs_recompute(torch, dev)
     served = serve(torch, TF)
     trained = train(torch, TF)
+    layouts = train_gpt_layouts(torch, TF)
     s, t = served["summary"], trained["summary"]
 
     def at_2048(rows, b):
@@ -707,16 +769,21 @@ def main():
             "tolerance": tol, "shapes": rows,
         }
 
+    z3, z2 = layouts["runs"]["zero3"], layouts["runs"]["zero2"]
     kernels = {"kernels": [
-        entry("flash_attn_fwd", SOURCE, shapes, trained["fwd_launches"],
-              {"serve": served["flash_launches"], "train": trained["fwd_launches"]}, TOL_FWD_BF16),
-        entry("flash_attn_bwd", BWD_SOURCE, bwd_shapes, trained["bwd_launches"],
-              {"serve": 0, "train": trained["bwd_launches"]}, TOL_BWD_BF16),
+        entry("flash_attn_fwd", SOURCE, shapes, z3["fwd_launches"],
+              {"serve": served["flash_launches"], "train": trained["fwd_launches"],
+               "train_gpt_zero3": z3["fwd_launches"], "train_gpt_zero2": z2["fwd_launches"]},
+              TOL_FWD_BF16),
+        entry("flash_attn_bwd", BWD_SOURCE, bwd_shapes, z3["bwd_launches"],
+              {"serve": 0, "train": trained["bwd_launches"],
+               "train_gpt_zero3": z3["bwd_launches"], "train_gpt_zero2": z2["bwd_launches"]},
+              TOL_BWD_BF16),
     ]}
     results = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                    build_s=build_s, ptxas=ptxas, wgmma_ptxas=wgmma_ptxas,
                    kernels=kernels["kernels"], grads=grads,
-                   decode=decode, serve=served, train=trained,
+                   decode=decode, serve=served, train=trained, train_gpt_layouts=layouts,
                    wall_s=time.perf_counter() - t_start)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -738,6 +805,18 @@ def main():
             t["steady_step_ms"], t["tokens_per_s"], t.get("mfu", float("nan")),
             t["peak_hbm_mb"] * 2**20 / 1e9, ["%.4f" % x for x in t["losses"]],
             trained["fwd_launches"], trained["bwd_launches"]))
+    for name, r in (("ZeRO-3 layers 0-3 + ZeRO-2", z3), ("ZeRO-2 everywhere", z2)):
+        g = r["summary"]
+        log("train gpt-6.7b width through the layout path (%d layers, bf16, seq 2048, global "
+            "batch %d in %d micro-batches, remat %s, %s, world 1) on %s: steady step %.1f ms, "
+            "%.0f tokens/s per GPU, MFU %.3f (989 TFLOP/s), peak memory %.1f GB, losses %s, "
+            "flash launches fwd %d / bwd %d" % (
+                layouts["layers"], layouts["global_bsz"], layouts["chunks"], layouts["remat"],
+                name, card, g["steady_step_ms"], g["tokens_per_s_per_gpu"],
+                g.get("mfu", float("nan")), g["peak_hbm_mb"] * 2**20 / 1e9,
+                ["%.5f" % x for x in g["losses"]], r["fwd_launches"], r["bwd_launches"]))
+    log("gpt layout runs: ZeRO-3 vs ZeRO-2 losses agree within %.3g relative (tol %.0e)"
+        % (max(layouts["loss_rel_err"]), layouts["tolerance"]))
     log(json.dumps(kernels))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

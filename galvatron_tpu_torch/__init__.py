@@ -6,9 +6,11 @@ paths mirror the reference's (``config/``, ``ops/``, ``models/``, ``serve/``,
 is found by name. It imports ``torch`` and nothing of JAX or of the
 reference package.
 
-This slice serves a causal LM on one device: strategy JSON -> model -> KV
-cache -> prefill/decode engine -> continuous batcher -> TTFT/TPOT summary.
-Prefill attention runs a hand-written CUDA flash-attention forward kernel
-(``csrc/flash_attn_fwd.cu``, wrapped by ``ops/flash_attention.py``) on CUDA
-tensors, and its plain PyTorch version on CPU tensors.
+It serves a causal LM (LLaMA, GPT-2) on one device and trains one on 1..N
+GPUs under a searched per-layer strategy (DP, ZeRO-2/3, Megatron TP with
+Megatron-SP, vocab TP; ``torchrun`` launches one process per GPU).
+Attention runs hand-written CUDA flash-attention kernels
+(``csrc/flash_attn_fwd.cu``, ``csrc/flash_attn_bwd.cu``, wrapped by
+``ops/flash_attention.py``) on CUDA tensors, and their plain PyTorch
+versions on CPU tensors.
 """

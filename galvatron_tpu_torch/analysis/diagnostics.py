@@ -25,8 +25,12 @@ CODES: Dict[str, Tuple[str, str]] = {
     "GLS004": (ERROR, "batch divisibility violation (global_bsz/chunks/dp)"),
     "GLS005": (ERROR, "invalid field value or flag"),
     "GLS006": (ERROR, "per-layer arrays disagree in length"),
+    "GLS007": (ERROR, "attention heads not divisible by tensor-parallel degree"),
+    "GLS008": (ERROR, "sequence length not divisible by its shard degree"),
+    "GLS009": (ERROR, "vocab size not divisible by vocab-parallel degree"),
     "GLS013": (ERROR, "unsupported comm-precision (quantized collectives) configuration"),
     "GLS014": (ERROR, "serve-infeasible configuration (latency bound, KV budget, or layout)"),
+    "GLS102": (WARNING, "expensive cross-layer redistribution between adjacent layers"),
     "GLS103": (WARNING, "suspicious but runnable configuration"),
 }
 

@@ -1,26 +1,122 @@
 """Strategy lint (``GLS***`` diagnostics) for the serve and train entry points.
 
 Port of what ``galvatron_tpu/analysis/strategy_lint.lint_hp`` reports
-without a cost model on layouts of world size 1: the structural errors
-(shared with ``HybridParallelConfig.validate``), the runnable-but-odd
-warnings (GLS103: inert pipeline type, tp_comm_mode, shadowed remat
-policy), in serve mode the GLS014 refusals of layouts a decode engine
-cannot realise (pp>1, ring cp, Ulysses sp), and in train mode the GLS103
-warnings on serve knobs and comm dtypes that cannot act. A strategy the
-reference refuses is refused here with the same codes, before any model is
-built. The checks that only fire on tp/cp/sp or vocab-parallel layouts
-(GLS007-009 divisibility, GLS102 resharding, Ulysses sp at tp=1) come with
-the slice that runs those layouts; the memory-budget check (GLS101) and the
-manual-TP and quantized-collective refusals with the slices that port the
-cost models and those paths.
+without a cost model: the structural errors (shared with
+``HybridParallelConfig.validate``), with a model config the model-aware
+divisibility errors (GLS007 heads vs tp, GLS008 sequence vs its shard
+degree, GLS009 vocab vs vocab tp), the adjacent-layer re-layout warning
+(GLS102), the runnable-but-odd warnings (GLS103: inert pipeline type,
+Ulysses sp at tp=1, tp_comm_mode, shadowed remat policy), in serve mode
+the GLS014 refusals of layouts a decode engine cannot realise (pp>1, ring
+cp, Ulysses sp), and in train mode the GLS103 warnings on serve knobs and
+comm dtypes that cannot act. A strategy the reference refuses is refused
+here with the same codes, in the same order, before any model is built.
+The memory-budget check (GLS101) and the manual-TP and
+quantized-collective refusals come with the slices that port the cost
+models and those paths.
+
+`train_refusals` lists what the port's trainer does not execute yet
+(pipelines, context parallelism, Ulysses, vocab sp/cp, manual TP modes),
+each with the ROADMAP item that brings it; the train path raises
+ValueError on them (``runtime.model_api.check_layout``).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Any, List, Optional
 
 from galvatron_tpu_torch.analysis import diagnostics as D
 from galvatron_tpu_torch.config.strategy import HybridParallelConfig
+
+
+def _model_aware_diagnostics(hp: HybridParallelConfig, model_cfg: Any) -> List[D.Diagnostic]:
+    """GLS007/GLS008/GLS009: divisibility of the model's head, sequence and
+    vocab dimensions by the per-layer shard degrees (fields absent from
+    `model_cfg` skip their check)."""
+    out: List[D.Diagnostic] = []
+    num_heads = getattr(model_cfg, "num_heads", None)
+    num_kv = getattr(model_cfg, "num_kv_heads", None) or num_heads
+    seq_len = getattr(model_cfg, "max_seq_len", None)
+    vocab = getattr(model_cfg, "vocab_size", None)
+    for i, s in enumerate(hp.layers):
+        if num_heads is not None and s.tp > 1:
+            if num_heads % s.tp != 0:
+                out.append(D.make("GLS007", "layer %d: num_heads=%d not divisible by tp=%d"
+                                  % (i, num_heads, s.tp), layer=i))
+            elif num_kv is not None and num_kv % s.tp != 0 and s.tp % num_kv != 0:
+                out.append(D.make(
+                    "GLS007", "layer %d: num_kv_heads=%d neither divides nor is divided by "
+                    "tp=%d; GQA heads will pad/replicate unevenly" % (i, num_kv, s.tp),
+                    layer=i, severity=D.WARNING))
+        if seq_len is not None:
+            if s.cp > 1 and seq_len % (2 * s.cp) != 0:
+                out.append(D.make(
+                    "GLS008", "layer %d: seq_len=%d not divisible by 2*cp=%d (ring "
+                    "attention's zigzag layout needs two blocks per rank)"
+                    % (i, seq_len, 2 * s.cp), layer=i))
+            shard = s.seq_shard_degree * (s.tp if (not s.sp and hp.sequence_parallel) else 1)
+            if shard > 1 and seq_len % shard != 0:
+                out.append(D.make(
+                    "GLS008", "layer %d: seq_len=%d not divisible by its sequence shard "
+                    "degree %d (cp=%d, %s)" % (
+                        i, seq_len, shard, s.cp,
+                        "ulysses tp=%d" % s.tp if s.sp else "megatron-sp tp=%d" % s.tp),
+                    layer=i))
+    if vocab is not None and hp.vocab_tp > 1 and vocab % hp.vocab_tp != 0:
+        out.append(D.make(
+            "GLS009", "vocab_size=%d not divisible by vocab_tp=%d; pad the vocab (e.g. to "
+            "%d) or lower vtp" % (vocab, hp.vocab_tp,
+                                  (vocab + hp.vocab_tp - 1) // hp.vocab_tp * hp.vocab_tp),
+            key="vtp"))
+    if seq_len is not None and hp.vocab_cp > 1 and seq_len % hp.vocab_cp != 0:
+        out.append(D.make("GLS008", "seq_len=%d not divisible by vocab_cp=%d (embed/head "
+                          "sequence sharding)" % (seq_len, hp.vocab_cp), key="vcp"))
+    return out
+
+
+def _relayout_diagnostics(hp: HybridParallelConfig) -> List[D.Diagnostic]:
+    """GLS102: adjacent layers whose activations live on different axes
+    re-lay them (an all-gather or all-to-all) on every micro-batch."""
+    out: List[D.Diagnostic] = []
+    for i in range(1, hp.num_layers):
+        a, b = hp.layers[i - 1], hp.layers[i]
+        if hp.stage_of_layer[i - 1] != hp.stage_of_layer[i]:
+            continue  # stage boundary: the p2p transfer reshards anyway
+        moves = []
+        if a.tp != b.tp or a.sp != b.sp:
+            moves.append("tp%s%d->tp%s%d" % ("/sp" if a.sp else "", a.tp,
+                                             "/sp" if b.sp else "", b.tp))
+        if a.cp != b.cp:
+            moves.append("cp%d->cp%d" % (a.cp, b.cp))
+        if a.tp == b.tp and a.tp > 1 and a.tp_consec != b.tp_consec:
+            moves.append("tp placement consec%d->consec%d" % (a.tp_consec, b.tp_consec))
+        if moves:
+            out.append(D.make(
+                "GLS102", "layers %d->%d reshard activations within a stage (%s): an "
+                "allgather/all-to-all per microbatch; consider aligning the run of layers"
+                % (i - 1, i, ", ".join(moves)), layer=i))
+    return out
+
+
+def train_refusals(hp: HybridParallelConfig) -> List[str]:
+    """What the port's trainer does not execute yet in `hp`, each with the
+    ROADMAP item (queue 1) that brings it; empty when it runs."""
+    out = []
+    if hp.pp > 1:
+        out.append("pp=%d (pipelines: ROADMAP queue 1 item 7)" % hp.pp)
+    cps = sorted({s.cp for s in hp.layers if s.cp > 1})
+    if cps:
+        out.append("cp=%s (ring context parallelism: ROADMAP queue 1 item 8)" % cps)
+    if any(s.sp and s.tp > 1 for s in hp.layers):
+        out.append("Ulysses sp (use_sp=1 with tp>1: ROADMAP queue 1 item 8)")
+    if hp.vocab_sp and hp.vocab_tp > 1:
+        out.append("vocab sp (vsp=1: ROADMAP queue 1 item 8)")
+    if hp.vocab_cp > 1:
+        out.append("vocab cp=%d (vcp: ROADMAP queue 1 item 8)" % hp.vocab_cp)
+    if hp.tp_comm_mode != "gspmd" and any(s.tp > 1 for s in hp.layers):
+        out.append("tp_comm_mode=%r (manual TP overlap: ROADMAP queue 1 item 10)"
+                   % hp.tp_comm_mode)
+    return out
 
 
 def _serve_diagnostics(hp: HybridParallelConfig) -> List[D.Diagnostic]:
@@ -53,11 +149,17 @@ def _serve_diagnostics(hp: HybridParallelConfig) -> List[D.Diagnostic]:
 
 
 def _warning_diagnostics(hp: HybridParallelConfig) -> List[D.Diagnostic]:
-    """GLS103: runnable but almost certainly not what was meant."""
-    out: List[D.Diagnostic] = []
+    """GLS102, then GLS103: runnable but almost certainly not what was
+    meant."""
+    out: List[D.Diagnostic] = _relayout_diagnostics(hp)
     if hp.pp == 1 and hp.pipeline_type == "pipedream_flush":
         out.append(D.make("GLS103", "pipeline_type='pipedream_flush' with pp=1 runs the "
                           "plain single-stage path; the flag is inert", key="pipeline_type"))
+    for i, s in enumerate(hp.layers):
+        if s.sp and s.tp == 1:
+            out.append(D.make("GLS103", "layer %d: use_sp=1 with tp=1 is a no-op (ulysses "
+                              "repurposes the tp axis)" % i, layer=i))
+            break
     if hp.tp_comm_mode != "gspmd" and all(s.tp <= 1 for s in hp.layers):
         out.append(D.make("GLS103", "tp_comm_mode=%r with tp=1 on every layer is inert: "
                           "there are no TP collectives to make visible or overlap"
@@ -97,14 +199,18 @@ def _train_diagnostics(hp: HybridParallelConfig) -> List[D.Diagnostic]:
 
 def lint_hp(
     hp: HybridParallelConfig,
+    model_cfg: Any = None,
     file: Optional[str] = None,
     mode: Optional[str] = None,
 ) -> D.DiagnosticReport:
-    """Lint an already-constructed config: structural checks, the GLS103
-    warnings, plus the GLS014 serve-feasibility layer when ``mode="serve"``
-    and the train-mode GLS103 warnings when ``mode="train"``."""
+    """Lint an already-constructed config: structural checks, with
+    `model_cfg` the model-aware GLS007-009, the GLS102/GLS103 warnings,
+    plus the GLS014 serve-feasibility layer when ``mode="serve"`` and the
+    train-mode GLS103 warnings when ``mode="train"``."""
     report = D.DiagnosticReport()
     report.extend(hp.structural_diagnostics())
+    if model_cfg is not None:
+        report.extend(_model_aware_diagnostics(hp, model_cfg))
     report.extend(_warning_diagnostics(hp))
     if mode == "serve":
         report.extend(_serve_diagnostics(hp))

@@ -4,10 +4,12 @@
                        (--device cuda|cpu, default cuda): drives a synthetic
                        or replayed load through the continuous batcher and
                        reports TTFT/TPOT percentiles and tokens/s
-    train              train on one device (--device cuda|cpu, default
-                       cuda): strategy -> lint -> model -> synthetic LM
-                       batches -> loss and gradients -> clip + Adam + weight
-                       decay for --train_iters steps, with a timing summary
+    train              train under a per-layer strategy on 1..N GPUs
+                       (torchrun --nproc_per_node N for N > 1; --device
+                       cuda|cpu, default cuda): strategy -> lint -> model
+                       shards -> synthetic LM batches -> loss and gradients
+                       -> clip + Adam + weight decay for --train_iters
+                       steps, with a timing summary from rank 0
 
 The reference's other subcommands (search, profile, profile-hardware, lint,
 report) come with later slices of the port.

@@ -40,8 +40,10 @@ def _add_model_args(p: argparse.ArgumentParser):
 
 
 def _add_parallel_args(p: argparse.ArgumentParser):
-    """GLOBAL-mode strategy flags; this slice executes world size 1 and
-    refuses any other layout with a ValueError."""
+    """GLOBAL-mode strategy flags. Training executes per-layer DP, ZeRO-2/3,
+    Megatron TP(+SP) and vocab TP at any world size and refuses pipelines,
+    context parallelism and Ulysses with a ValueError; serving runs world
+    size 1."""
     g = p.add_argument_group("parallel")
     g.add_argument("--pp_deg", type=int, default=1)
     g.add_argument("--global_tp_deg", type=int, default=1)
@@ -87,7 +89,9 @@ def _add_parallel_args(p: argparse.ArgumentParser):
     g.add_argument("--galvatron_config_path", type=str, default=None,
                    help="searched per-layer strategy JSON; overrides the GLOBAL flags above")
     g.add_argument("--world_size", type=int, default=None,
-                   help="devices to use (default 1; this slice runs world size 1 only)")
+                   help="devices to use; training takes the process group's world size "
+                        "(torchrun --nproc_per_node) and this, when given, must equal it; "
+                        "serving runs world size 1 only")
 
 
 def _add_device_arg(g):
@@ -183,20 +187,6 @@ def initialize_galvatron(argv: Optional[Sequence[str]] = None,
     args = build_parser(mode).parse_args(argv)
     args.galvatron_mode = mode
     return args
-
-
-def resolve_device(name: str) -> torch.device:
-    """``cuda`` -> the current CUDA device, raising when none is visible;
-    ``cpu`` -> the CPU. Never falls back from one to the other."""
-    if name == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "--device cuda: no CUDA device is visible (torch.cuda.is_available() "
-                "is False); pass --device cpu to run on the CPU")
-        return torch.device("cuda", torch.cuda.current_device())
-    if name == "cpu":
-        return torch.device("cpu")
-    raise ValueError("unknown device %r (cuda or cpu)" % name)
 
 
 # --------------------------------------------------------- args -> structures

@@ -25,9 +25,9 @@ from galvatron_tpu_torch.cli.arguments import (
     hp_config_from_args,
     initialize_galvatron,
     model_config_from_args,
-    resolve_device,
 )
 from galvatron_tpu_torch.obs import telemetry
+from galvatron_tpu_torch.runtime.distributed import local_device
 
 
 def serve(args) -> dict:
@@ -49,7 +49,7 @@ def serve(args) -> dict:
 
 
 def _serve(args) -> dict:
-    device = resolve_device(args.device)
+    device = local_device(args.device)
     fam, cfg = model_config_from_args(args)
     world = args.world_size or 1
     hp = hp_config_from_args(args, cfg.num_layers, world)
@@ -59,7 +59,8 @@ def _serve(args) -> dict:
     from galvatron_tpu_torch.analysis import strategy_lint as _slint
     from galvatron_tpu_torch.analysis.diagnostics import DiagnosticError
 
-    report = _slint.lint_hp(hp, file=getattr(args, "galvatron_config_path", None), mode="serve")
+    report = _slint.lint_hp(hp, model_cfg=cfg, file=getattr(args, "galvatron_config_path", None),
+                            mode="serve")
     for d in report.warnings:
         print("strategy lint: %s" % d.format())
     if not report.ok:
@@ -75,7 +76,7 @@ def _serve(args) -> dict:
     )
     from galvatron_tpu_torch.serve.kv_cache import KVCacheConfig, kv_bytes_per_slot
 
-    model = construct_hybrid_parallel_model(cfg, hp, device)
+    model = construct_hybrid_parallel_model(cfg, hp, device, mode="serve")
     params = model.init_params(args.seed)
 
     # cache geometry: CLI flags win, then the strategy JSON's serve knobs,

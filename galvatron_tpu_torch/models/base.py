@@ -14,16 +14,29 @@ the reference's head-major shapes:
 Forward code is plain functions over those modules and tensors, each the
 counterpart of the reference function of the same name. Parameters are
 kept in ``param_dtype`` (fp32) and cast to ``compute_dtype`` (bf16) at every
-use, as in the reference. The port runs one device: there are no sharding
-constraints. Per-layer remat follows the strategy (`run_layers`): the
-reference's ``jax.checkpoint`` policies become ``torch.utils.checkpoint``.
+use, as in the reference. Per-layer remat follows the strategy
+(`run_layers`): the reference's ``jax.checkpoint`` policies become
+``torch.utils.checkpoint``.
+
+Under a strategy (`build_layouts`), each rank holds the shard of every
+parameter that `model_param_specs` places on it (the reference's
+``layer_param_specs`` / ``model_param_specs``, entry for entry) and the
+forward runs on the rank's shards: `run_layers` re-lays the activation
+wherever ``act_spec`` changes between layers, a layer runs Megatron TP (with
+Megatron-SP) over its tp group (`parallel.tensor_parallel`), ZeRO-3 layers
+gather their weights over their dp group at entry (again in the remat
+replay) and reduce-scatter the gradients, and the embedding, the head and
+the cross entropy are vocab-parallel over the vocab tp group. Where the
+reference states a sharding constraint and lets XLA insert the collective,
+the port calls it (`parallel.comm`).
 """
 
 from __future__ import annotations
 
 import math
+import types
 from dataclasses import dataclass
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +47,10 @@ from galvatron_tpu_torch.config.strategy import HybridParallelConfig
 from galvatron_tpu_torch.ops.attention import core_attention
 from galvatron_tpu_torch.ops.norms import layer_norm, rms_norm
 from galvatron_tpu_torch.ops.rope import apply_rotary
+from galvatron_tpu_torch.parallel import comm
+from galvatron_tpu_torch.parallel import spec as S
+from galvatron_tpu_torch.parallel import tensor_parallel as T
+from galvatron_tpu_torch.parallel.mesh import LayerAxes, RankMesh, layer_axes, vocab_axes
 
 
 @dataclass
@@ -183,18 +200,24 @@ def init_model_params(cfg: TransformerConfig, generator: torch.Generator,
     (`tools/from_jax.py`)."""
     device = torch.device(device) if device is not None else generator.device
     model = TransformerLM(cfg, device)
-    proj_std = cfg.init_std / math.sqrt(2 * cfg.num_layers)
     for name, p in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf == "scale":
-            p.fill_(1.0)
-        elif leaf == "bias":
-            p.zero_()
-        elif name.endswith("wo.kernel") or name.endswith("wo_mlp.kernel"):
-            _normal_(p, proj_std, generator)
-        else:
-            _normal_(p, cfg.init_std, generator)
+        init_param_(name, p, cfg, generator)
     return model
+
+
+def init_param_(name: str, p: torch.Tensor, cfg: TransformerConfig,
+                generator: torch.Generator) -> None:
+    """The initializer of the parameter `name`, drawn into `p` (full shape);
+    `init_model_params` calls it in ``named_parameters`` order."""
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf == "scale":
+        p.fill_(1.0)
+    elif leaf == "bias":
+        p.zero_()
+    elif name.endswith("wo.kernel") or name.endswith("wo_mlp.kernel"):
+        _normal_(p, cfg.init_std / math.sqrt(2 * cfg.num_layers), generator)
+    else:
+        _normal_(p, cfg.init_std, generator)
 
 
 # ================================================================ primitives
@@ -214,6 +237,15 @@ def _proj(y: torch.Tensor, p: Dense, dtype) -> torch.Tensor:
     return out
 
 
+def _row_proj(y: torch.Tensor, p: Dense, dtype, tp: Optional[T.TPContext]) -> torch.Tensor:
+    """A row-parallel projection: the partial products are reduced over tp
+    (`tensor_parallel.exit_row`) before the bias, which is added once."""
+    out = T.exit_row(y @ p.kernel.to(dtype), tp)
+    if p.bias is not None:
+        out = out + p.bias.to(dtype)
+    return out
+
+
 def _activation(x, cfg: TransformerConfig):
     # swiglu is handled at the call site on the fused (..., 2, ffn) layout
     if cfg.activation == "gelu":
@@ -225,25 +257,30 @@ def _activation(x, cfg: TransformerConfig):
     raise ValueError(cfg.activation)
 
 
-def qkv_projection(p: TransformerLayer, y: torch.Tensor, cfg: TransformerConfig, dtype):
-    """y: (B, S, H) -> q (B, S, nh, hd), k/v (B, S, nkv, hd)."""
+def qkv_projection(p: TransformerLayer, y: torch.Tensor, cfg: TransformerConfig, dtype,
+                   tp: Optional[T.TPContext] = None):
+    """y: (B, S, H) -> q (B, S, nh, hd), k/v (B, S, nkv, hd); under TP the
+    rank's head shard (nh/tp, and nkv/tp or the one kv head it shares)."""
     if cfg.fused_qkv:
         qkv = _proj(y, p.wqkv, dtype)  # (B, S, 3, nh, hd)
         return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     q = _proj(y, p.wq, dtype)
     kv = _proj(y, p.wkv, dtype)  # (B, S, 2, nkv, hd)
+    if tp is not None and tp.kv_head is not None:
+        kv = kv[:, :, :, tp.kv_head:tp.kv_head + 1]
     return q, kv[:, :, 0], kv[:, :, 1]
 
 
-def _mlp(p: TransformerLayer, x, cfg: TransformerConfig, dtype):
+def _mlp(p: TransformerLayer, x, cfg: TransformerConfig, dtype,
+         tp: Optional[T.TPContext] = None):
     residual = x
     y = _norm(x, p.ln2, cfg) if cfg.pre_norm else x
-    wi_out = _proj(y, p.wi, dtype)
+    wi_out = _proj(T.enter_column(y, tp), p.wi, dtype)
     if cfg.activation == "swiglu":
         hmid = F.silu(wi_out[:, :, 0]) * wi_out[:, :, 1]
     else:
         hmid = _activation(wi_out, cfg)
-    x = residual + _proj(hmid, p.wo_mlp, dtype)
+    x = residual + _row_proj(hmid, p.wo_mlp, dtype, tp)
     if not cfg.pre_norm:
         x = _norm(x, p.ln2, cfg)
     return x
@@ -258,14 +295,17 @@ def layer_forward(
     *,
     attn_bias: Optional[torch.Tensor] = None,
     return_kv: bool = False,
+    tp: Optional[T.TPContext] = None,
 ):
-    """One transformer block on (B, S, H) activations. ``return_kv``
-    additionally returns this layer's post-rope (k, v) — the serving
-    prefill's cache-write side outputs."""
+    """One transformer block on (B, S, H) activations (B/dp and, under
+    Megatron-SP, S/tp of them with a layout; `positions` and `attn_bias`
+    cover the full sequence). ``return_kv`` additionally returns this
+    layer's post-rope (k, v) — the serving prefill's cache-write side
+    outputs."""
     dtype = cfg.compute_dtype
     residual = x
     y = _norm(x, p.ln1, cfg) if cfg.pre_norm else x
-    q, k, v = qkv_projection(p, y, cfg, dtype)
+    q, k, v = qkv_projection(p, T.enter_column(y, tp), cfg, dtype, tp)
     if cfg.position_type == "rope":
         q = apply_rotary(q, positions, cfg.rope_theta)
         k = apply_rotary(k, positions, cfg.rope_theta)
@@ -273,11 +313,11 @@ def layer_forward(
     # lower it to segment ids
     attn = core_attention(q, k, v, causal=cfg.causal, bias=attn_bias,
                           impl=cfg.attn_impl, bias_type="key_padding")
-    attn = attn.reshape(attn.shape[0], attn.shape[1], cfg.num_heads * cfg.head_dim)
-    x = residual + _proj(attn, p.wo, dtype)
+    attn = attn.reshape(attn.shape[0], attn.shape[1], attn.shape[2] * attn.shape[3])
+    x = residual + _row_proj(attn, p.wo, dtype, tp)
     if not cfg.pre_norm:
         x = _norm(x, p.ln1, cfg)
-    x = _mlp(p, x, cfg, dtype)
+    x = _mlp(p, x, cfg, dtype, tp)
     if return_kv:
         return x, (k, v)
     return x
@@ -330,21 +370,238 @@ def decode_layer_forward(
     return x, k_cache, v_cache
 
 
+# ================================================================== layouts
+# parameters that are replicated over tp but computed from sequence shards
+# under Megatron-SP, so their gradients are partial over tp
+_SP_PARTIAL = ("ln1.scale", "ln1.bias", "ln2.scale", "ln2.bias", "wo.bias", "wo_mlp.bias")
+_KV_REPLICATED = ("wkv.kernel", "wkv.bias")
+
+
+@dataclass(frozen=True)
+class ParamLayout:
+    """Where one parameter lives under a strategy: `spec` places the shard
+    a rank stores; ZeRO-3 shards dim `z3_dim` over `dp` and gathers it at
+    use; `dp` are the axes of its layer's data parallelism (ZeRO's group);
+    after the backward its gradient is a partial sum over `partial` (dp
+    for different data, plus tp where a tp-replicated parameter saw
+    sequence shards, or a replicated GQA kv projection saw one head)."""
+
+    spec: S.Spec
+    z3_dim: Optional[int]
+    dp: Tuple[str, ...]
+    partial: Tuple[str, ...]
+    zero_opt: bool
+
+
+def _kv_replicated(cfg: TransformerConfig, tp: int) -> bool:
+    """GQA with fewer kv heads than the tp degree: the kv projection is
+    replicated over tp and each rank uses the one kv head its query heads
+    share (the reference's GLS007 allows tp % num_kv_heads == 0)."""
+    if cfg.fused_qkv or tp == 1 or cfg.num_kv_heads % tp == 0:
+        return False
+    if tp % cfg.num_kv_heads:
+        raise ValueError("num_kv_heads=%d neither divides nor is divided by tp=%d"
+                         % (cfg.num_kv_heads, tp))
+    return True
+
+
+def _layer_placements(cfg: TransformerConfig, ax: LayerAxes,
+                      kv_rep: bool) -> Dict[str, Tuple[S.Spec, Optional[int]]]:
+    """(placement, the dim ZeRO-3 shards) per parameter of a layer, from
+    the column/row kernel builders: the multi-dim kernels keep the builders'
+    (in, out) entries on their first and head/ffn dims."""
+    (z3, tp), row = S.col_kernel_spec(ax), S.row_kernel_spec(ax)
+    r1 = (S.replicated_1d_spec(ax), 0)
+    kvtp = () if kv_rep else tp
+    out = {"ln1.scale": r1, "ln2.scale": r1}
+    if cfg.norm_type != "rmsnorm":
+        out.update({"ln1.bias": r1, "ln2.bias": r1})
+    if cfg.fused_qkv:
+        out["wqkv.kernel"] = ((z3, (), tp, ()), 0)
+        if cfg.qkv_bias:
+            out["wqkv.bias"] = (((), tp, ()), None)
+    else:
+        out["wq.kernel"] = ((z3, tp, ()), 0)
+        out["wkv.kernel"] = ((z3, (), kvtp, ()), 0)
+        if cfg.qkv_bias:
+            out["wq.bias"] = ((tp, ()), None)
+            out["wkv.bias"] = (((), kvtp, ()), None)
+    out["wo.kernel"] = (row, 1)
+    if cfg.out_bias:
+        out["wo.bias"] = r1
+    if cfg.activation == "swiglu":
+        out["wi.kernel"] = ((z3, (), tp), 0)
+        if cfg.mlp_bias:
+            out["wi.bias"] = (((), tp), None)
+    else:
+        out["wi.kernel"] = ((z3, tp), 0)
+        if cfg.mlp_bias:
+            out["wi.bias"] = (S.col_bias_spec(ax), None)
+    out["wo_mlp.kernel"] = (row, 1)
+    if cfg.mlp_bias:
+        out["wo_mlp.bias"] = r1
+    return out
+
+
+def _vocab_placements(cfg: TransformerConfig, ax: LayerAxes) -> Dict[str, Tuple[S.Spec, Optional[int]]]:
+    r1 = (S.replicated_1d_spec(ax), 0)
+    out = {"embed.wte": (S.vocab_embed_spec(ax), 1)}
+    if cfg.position_type == "learned":
+        out["embed.wpe"] = (S.replicated_spec(2), None)
+    if cfg.pre_norm:
+        out["final_norm.scale"] = r1
+        if cfg.norm_type != "rmsnorm":
+            out["final_norm.bias"] = r1
+    if not cfg.tie_embeddings:
+        # column-parallel over the vocab: vocab-parallel logits
+        out["lm_head.kernel"] = (S.spec(None, ax.tp), None)
+    return out
+
+
+def _param_layout(spec: S.Spec, z3_dim: Optional[int], ax: LayerAxes,
+                  partial_tp: bool) -> ParamLayout:
+    partial = tuple(ax.dp) + (tuple(ax.tp) if partial_tp else ())
+    return ParamLayout(spec=spec, z3_dim=z3_dim if ax.zero3 else None, dp=tuple(ax.dp),
+                       partial=tuple(sorted(partial)), zero_opt=ax.zero_opt)
+
+
+def _check_executable(ax: LayerAxes, what: str) -> None:
+    if ax.cp or ax.ulysses:
+        raise ValueError("%s: %s is not ported yet (ROADMAP queue 1 item 8, long "
+                         "context)" % (what, "cp" if ax.cp else "Ulysses sp"))
+
+
+def layer_param_layouts(cfg: TransformerConfig, ax: LayerAxes, tp_degree: int) -> Dict[str, ParamLayout]:
+    """ParamLayout per parameter of one layer, keyed by its name within the
+    layer (``wqkv.kernel``...); the reference's ``layer_param_specs``."""
+    _check_executable(ax, "layer")
+    kv_rep = _kv_replicated(cfg, tp_degree)
+    return {name: _param_layout(spec, z3_dim, ax, (ax.megatron_sp and name in _SP_PARTIAL)
+                                or (kv_rep and name in _KV_REPLICATED))
+            for name, (spec, z3_dim) in _layer_placements(cfg, ax, kv_rep).items()}
+
+
+def model_param_layouts(cfg: TransformerConfig, hp: HybridParallelConfig) -> Dict[str, ParamLayout]:
+    """ParamLayout per state-dict name of the whole model: the layers' and
+    the vocab layers' (embedding, final norm, untied head), which run under
+    the vocab axes (vocab_tp, embed_sdp)."""
+    vax = vocab_axes(hp)
+    _check_executable(vax, "vocab layers")
+    out = {name: _param_layout(spec, z3_dim, vax, vax.megatron_sp and name in (
+               "embed.wpe", "final_norm.scale", "final_norm.bias"))
+           for name, (spec, z3_dim) in _vocab_placements(cfg, vax).items()}
+    for i in range(cfg.num_layers):
+        for name, pl in layer_param_layouts(cfg, layer_axes(hp, i), hp.layers[i].tp).items():
+            out["layers.%d.%s" % (i, name)] = pl
+    return out
+
+
+def model_param_specs(cfg: TransformerConfig, hp: HybridParallelConfig) -> Dict[str, S.Spec]:
+    """The placement of every parameter (the reference's PartitionSpecs)."""
+    return {n: pl.spec for n, pl in model_param_layouts(cfg, hp).items()}
+
+
+@dataclass
+class Layout:
+    """How one layer, or the vocab layers, run on this rank: the tp context,
+    the placement of the activations it takes and returns (``act``), its
+    dp group, and the dims its ZeRO-3 parameters gather over dp (keyed by
+    name relative to the module the forward reads)."""
+
+    mesh: RankMesh
+    axes: LayerAxes
+    tp: T.TPContext
+    act: S.Spec
+    dp_group: Any
+    zero3: Dict[str, int]
+
+
+@dataclass
+class ModelLayouts:
+    vocab: Layout
+    layers: List[Layout]
+
+
+def _tp_context(mesh: RankMesh, ax: LayerAxes, cfg: TransformerConfig, tp_degree: int,
+                kv: bool = True) -> T.TPContext:
+    index = mesh.index(ax.tp)
+    kv_head = None
+    if kv and _kv_replicated(cfg, tp_degree):
+        kv_head = index // (tp_degree // cfg.num_kv_heads)
+    return T.TPContext(group=mesh.group_for(ax.tp), size=mesh.size(ax.tp), index=index,
+                       sequence_parallel=ax.megatron_sp, kv_head=kv_head)
+
+
+def build_layouts(cfg: TransformerConfig, hp: HybridParallelConfig, mesh: RankMesh) -> ModelLayouts:
+    """The runtime layout of every layer and of the vocab layers on this
+    rank (needs `mesh`'s process groups)."""
+    pls = model_param_layouts(cfg, hp)
+
+    def make(ax, prefix, tp_degree, kv=True):
+        z3 = {n[len(prefix):]: pl.z3_dim for n, pl in pls.items()
+              if n.startswith(prefix) and pl.z3_dim is not None}
+        return Layout(mesh=mesh, axes=ax, tp=_tp_context(mesh, ax, cfg, tp_degree, kv),
+                      act=S.act_spec(ax), dp_group=mesh.group_for(ax.dp), zero3=z3)
+
+    vocab = make(vocab_axes(hp), "", hp.vocab_tp, kv=False)
+    vocab.zero3 = {n: d for n, d in vocab.zero3.items() if not n.startswith("layers.")}
+    layers = [make(layer_axes(hp, i), "layers.%d." % i, hp.layers[i].tp)
+              for i in range(cfg.num_layers)]
+    return ModelLayouts(vocab=vocab, layers=layers)
+
+
+def gathered(module: nn.Module, layout: Optional[Layout], prefix: str = ""):
+    """The module's parameters as the forward reads them: ZeRO-3 shards are
+    all-gathered over the dp group (backward: reduce-scatter of the
+    gradient, `comm.gather_rs_bwd`); everything else is the stored tensor.
+    Returns `module` itself when nothing is gathered, else a namespace tree
+    with the same attribute names."""
+    if layout is None or not any(n.startswith(prefix) for n in layout.zero3):
+        return module
+    ns = types.SimpleNamespace()
+    for name, p in module._parameters.items():
+        dim = layout.zero3.get(prefix + name)
+        setattr(ns, name, p if p is None or dim is None
+                else comm.gather_rs_bwd(p, dim, layout.dp_group))
+    for name, child in module._modules.items():
+        setattr(ns, name, None if child is None else gathered(child, layout, prefix + name + "."))
+    for name, value in vars(module).items():  # plain attributes (a None bias)
+        if not name.startswith("_") and name != "training":
+            setattr(ns, name, value)
+    return ns
+
+
 # ============================================================== model forward
 def embed_tokens(p_embed: Embed, tokens: torch.Tensor, positions: torch.Tensor,
-                 cfg: TransformerConfig) -> torch.Tensor:
+                 cfg: TransformerConfig, vocab: Optional[Layout] = None) -> torch.Tensor:
     """Token (+ learned position) embedding. The lookup happens before the
     cast to the compute dtype — the same values as the reference's
-    cast-then-gather, without casting the whole table."""
-    x = p_embed.wte[tokens].to(cfg.compute_dtype)
+    cast-then-gather, without casting the whole table. Vocab-parallel over
+    the vocab tp group: each rank looks up the tokens of its vocab rows
+    (zeros elsewhere) and the partial embeddings are summed over tp — an
+    all-reduce, or under Megatron-SP a reduce-scatter onto sequence shards
+    (Megatron's VocabParallelEmbedding; the reference's one-hot einsum)."""
+    tp = vocab.tp if vocab is not None else None
+    if tp is None or tp.size == 1:
+        x = p_embed.wte[tokens].to(cfg.compute_dtype)
+    else:
+        rows = p_embed.wte.shape[0]
+        local = tokens - tp.index * rows
+        ok = (local >= 0) & (local < rows)
+        x = torch.where(ok[..., None], p_embed.wte[local.clamp(0, rows - 1)], 0.0)
+        x = T.exit_row(x.to(cfg.compute_dtype), tp)
     if cfg.position_type == "learned":
-        x = x + p_embed.wpe[positions].to(cfg.compute_dtype)
+        x = x + p_embed.wpe[T.seq_shard(positions, tp)].to(cfg.compute_dtype)
     return x
 
 
-def lm_logits(params: TransformerLM, x: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+def lm_logits(params: TransformerLM, x: torch.Tensor, cfg: TransformerConfig,
+              vocab: Optional[Layout] = None) -> torch.Tensor:
+    """Final norm and the LM head; vocab-parallel under a layout (each rank
+    the logits of its vocab rows, from the full sequence)."""
     if cfg.pre_norm:
         x = _norm(x, params.final_norm, cfg)
+    x = T.enter_column(x, vocab.tp if vocab is not None else None)
     if cfg.tie_embeddings:
         kernel = params.embed.wte.to(cfg.compute_dtype).t()
     else:
@@ -352,30 +609,59 @@ def lm_logits(params: TransformerLM, x: torch.Tensor, cfg: TransformerConfig) ->
     return x @ kernel
 
 
-def model_head(params: TransformerLM, x: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+def model_head(params: TransformerLM, x: torch.Tensor, cfg: TransformerConfig,
+               vocab: Optional[Layout] = None) -> torch.Tensor:
     """The family's output head. The port builds causal LMs only, so this
     is the reference's ``lm`` branch; the ``mlm`` and ``classification``
     heads come with the encoder families (TransformerLM refuses them)."""
     if cfg.head_type != "lm":
         raise ValueError("head_type %r is not ported yet" % cfg.head_type)
-    return lm_logits(params, x, cfg)
+    return lm_logits(params, x, cfg, vocab)
 
 
 def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                                 loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                                 loss_mask: Optional[torch.Tensor] = None,
+                                 vocab: Optional[Layout] = None) -> torch.Tensor:
     """Token-mean cross entropy in fp32, loss-mask weighted. The label logit
     is taken with a masked sum over the vocab, as in the reference (whose
-    form lets a vocab-sharded layout reduce shard-locally)."""
+    form lets a vocab-sharded layout reduce shard-locally).
+
+    Under a layout the logits are this rank's vocab columns of its rows:
+    the max, the sum of exponentials and the label logit are reduced over
+    the vocab tp group (Megatron's vocab_parallel_cross_entropy), and the
+    result is this rank's share of the global token mean — the sum over its
+    rows divided by the valid-token count of every dp rank — so the shares
+    sum to the reference's loss over the dp group."""
     logits32 = logits.float()
-    m = logits32.amax(dim=-1, keepdim=True)
-    lse = torch.log(torch.exp(logits32 - m).sum(dim=-1)) + m[..., 0]
-    vocab_iota = torch.arange(logits.shape[-1], device=logits.device)
+    if vocab is None:
+        m = logits32.amax(dim=-1, keepdim=True)
+        lse = torch.log(torch.exp(logits32 - m).sum(dim=-1)) + m[..., 0]
+        vocab_iota = torch.arange(logits.shape[-1], device=logits.device)
+        label_logit = torch.where(vocab_iota == labels[..., None], logits32, 0.0).sum(dim=-1)
+        losses = lse - label_logit
+        if loss_mask is None:
+            return losses.mean()
+        loss_mask = loss_mask.float()
+        return (losses * loss_mask).sum() / loss_mask.sum().clamp(min=1.0)
+    tp = vocab.tp
+    # the max is a shift that cancels in the loss: no gradient through it
+    m = logits32.detach().amax(dim=-1, keepdim=True)
+    if tp.size > 1:
+        m = comm.all_reduce(m, tp.group, op=torch.distributed.ReduceOp.MAX)
+    sumexp = torch.exp(logits32 - m).sum(dim=-1)
+    vocab_iota = torch.arange(logits.shape[-1], device=logits.device) + tp.index * logits.shape[-1]
     label_logit = torch.where(vocab_iota == labels[..., None], logits32, 0.0).sum(dim=-1)
-    losses = lse - label_logit
+    if tp.size > 1:
+        sumexp = comm.reduce_fwd(sumexp, tp.group)
+        label_logit = comm.reduce_fwd(label_logit, tp.group)
+    losses = torch.log(sumexp) + m[..., 0] - label_logit
     if loss_mask is None:
-        return losses.mean()
-    loss_mask = loss_mask.float()
-    return (losses * loss_mask).sum() / loss_mask.sum().clamp(min=1.0)
+        total, count = losses.sum(), torch.tensor(float(losses.numel()), device=losses.device)
+    else:
+        loss_mask = loss_mask.float()
+        total, count = (losses * loss_mask).sum(), loss_mask.sum()
+    count = comm.all_reduce(count.detach(), vocab.dp_group)
+    return total / count.clamp(min=1.0)
 
 
 # ----------------------------------------------------------------- remat
@@ -388,7 +674,8 @@ def _remat(fn, policy: str):
     save nothing and recompute the layer in the backward; "dots_saveable"
     keeps the matrix-product outputs (aten mm/bmm/addmm) and recomputes the
     rest. The flash-attention kernel is no aten op, so it is recomputed
-    under every policy, as jax recomputes the opaque ``pallas_call``."""
+    under every policy, as jax recomputes the opaque ``pallas_call``; so are
+    a layout's collectives (the ZeRO-3 gathers included)."""
     if policy in ("full", "nothing_saveable"):
         return lambda *args: checkpoint(fn, *args, use_reentrant=False)
     if policy == "dots_saveable":
@@ -396,6 +683,14 @@ def _remat(fn, policy: str):
             fn, *args, use_reentrant=False,
             context_fn=lambda: create_selective_checkpoint_contexts(list(_DOTS)))
     raise ValueError("unknown remat policy %r" % policy)
+
+
+def _batch_relayout(t: Optional[torch.Tensor], mesh: RankMesh, src: S.Spec, dst: S.Spec):
+    """Re-lay a side input (positions, attention bias) along its batch dim
+    only: it covers the full sequence in every layout."""
+    if t is None:
+        return None
+    return S.relayout(t, mesh, src[:1], dst[:1])
 
 
 def run_layers(
@@ -406,28 +701,50 @@ def run_layers(
     hp: Optional[HybridParallelConfig] = None,
     attn_bias: Optional[torch.Tensor] = None,
     collect_kv: bool = False,
+    layouts: Optional[ModelLayouts] = None,
 ):
     """The layer stack, one layer after another (the reference's scan over
     same-strategy layer runs is a Python loop here). With a strategy `hp`
     and gradients enabled, each layer runs under its own effective remat
     policy (``hp.layers[i].effective_remat_policy``, "none" runs it plainly).
-    ``collect_kv=True`` additionally returns one post-rope (k, v) pair per
-    layer, in layer order — the serving prefill's cache contents; that path
-    is forward-only and never remats."""
+    With `layouts`, `x` enters in the vocab layout and leaves in it, and is
+    re-laid at every boundary where ``act_spec`` changes (the reference's
+    per-layer sharding constraints); each layer runs its own TP and
+    ZeRO-3. ``collect_kv=True`` additionally returns one post-rope (k, v)
+    pair per layer, in layer order — the serving prefill's cache contents;
+    that path is forward-only, without layouts, and never remats."""
     kvs: List[Tuple[torch.Tensor, torch.Tensor]] = []
+    cur = layouts.vocab.act if layouts is not None else None
+    side = {}
     for i, lp in enumerate(params.layers):
         if collect_kv:
             x, kv = layer_forward(lp, x, positions, cfg, attn_bias=attn_bias, return_kv=True)
             kvs.append(kv)
             continue
+        lay = layouts.layers[i] if layouts is not None else None
+        pos, bias = positions, attn_bias
+        if lay is not None:
+            x = S.relayout(x, lay.mesh, cur, lay.act)
+            cur = lay.act
+            src = layouts.vocab.act
+            if lay.act[:1] not in side:
+                side[lay.act[:1]] = (_batch_relayout(positions, lay.mesh, src, lay.act),
+                                     _batch_relayout(attn_bias, lay.mesh, src, lay.act))
+            pos, bias = side[lay.act[:1]]
+
+        def fwd(x_, _lp=lp, _lay=lay, _pos=pos, _bias=bias):
+            return layer_forward(gathered(_lp, _lay), x_, _pos, cfg, attn_bias=_bias,
+                                 tp=_lay.tp if _lay is not None else None)
+
         policy = hp.layers[i].effective_remat_policy if hp is not None else "none"
         if policy == "none" or not torch.is_grad_enabled():
-            x = layer_forward(lp, x, positions, cfg, attn_bias=attn_bias)
+            x = fwd(x)
         else:
-            x = _remat(lambda x_, _lp=lp: layer_forward(_lp, x_, positions, cfg,
-                                                        attn_bias=attn_bias), policy)(x)
+            x = _remat(fwd, policy)(x)
     if collect_kv:
         return x, kvs
+    if layouts is not None:
+        x = S.relayout(x, layouts.vocab.mesh, cur, layouts.vocab.act)
     return x
 
 
@@ -443,20 +760,29 @@ def model_forward(
     cfg: TransformerConfig,
     attn_mask: Optional[torch.Tensor] = None,
     hp: Optional[HybridParallelConfig] = None,
+    layouts: Optional[ModelLayouts] = None,
 ) -> torch.Tensor:
-    """Full forward to logits."""
+    """Full forward to logits. With `layouts`, the inputs are this rank's
+    rows (full sequence) and the logits its vocab columns of those rows;
+    the vocab layers' ZeRO-3 weights are gathered once for the embedding
+    and the (tied) head."""
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
-    x = embed_tokens(params.embed, tokens, positions, cfg)
+    vocab = layouts.vocab if layouts is not None else None
+    top = gathered(params, vocab) if vocab is not None else params
+    x = embed_tokens(top.embed, tokens, positions, cfg, vocab)
     bias = padding_attn_bias(attn_mask) if attn_mask is not None else None
-    x = run_layers(params, x, positions, cfg, hp, attn_bias=bias)
-    return model_head(params, x, cfg)
+    x = run_layers(params, x, positions, cfg, hp, attn_bias=bias, layouts=layouts)
+    return model_head(top, x, cfg, vocab)
 
 
 def lm_loss_fn(params: TransformerLM, batch: dict, cfg: TransformerConfig,
-               hp: Optional[HybridParallelConfig] = None) -> torch.Tensor:
+               hp: Optional[HybridParallelConfig] = None,
+               layouts: Optional[ModelLayouts] = None) -> torch.Tensor:
     """batch: dict(tokens, positions, labels, loss_mask?, attn_mask?) ->
-    scalar fp32 token-mean cross entropy."""
+    scalar fp32 token-mean cross entropy (with `layouts`: this rank's share
+    of it, see `vocab_parallel_cross_entropy`)."""
     logits = model_forward(params, batch["tokens"], batch["positions"], cfg,
-                           attn_mask=batch.get("attn_mask"), hp=hp)
-    return vocab_parallel_cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+                           attn_mask=batch.get("attn_mask"), hp=hp, layouts=layouts)
+    return vocab_parallel_cross_entropy(logits, batch["labels"], batch.get("loss_mask"),
+                                        layouts.vocab if layouts is not None else None)

@@ -21,10 +21,10 @@ tensors they compute the plain versions `flash_attention_fwd_reference` and
 `flash_attention_bwd_reference`; on CUDA tensors they launch the kernel of
 their route or raise (bad argument, a forced route that does not take the
 inputs, no ``nvcc``, build or launch failure) — there is no fallback. Each
-wrapper's ``launches`` attribute counts its kernel launches and
-``last_route`` names the route of the last launch. `FlashAttention` is the
-``torch.autograd.Function`` whose forward is the forward wrapper and whose
-backward is the backward wrapper.
+wrapper's ``launches`` attribute counts its kernel launches, ``routes``
+counts them by route and ``last_route`` names the route of the last
+launch. `FlashAttention` is the ``torch.autograd.Function`` whose forward
+is the forward wrapper and whose backward is the backward wrapper.
 """
 
 from __future__ import annotations
@@ -342,11 +342,13 @@ def flash_attention_fwd(
     )
     _raise_on(rc, lib, "forward", route)
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.routes[route] = flash_attention_fwd.routes.get(route, 0) + 1
     flash_attention_fwd.last_route = route
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.routes = {}
 flash_attention_fwd.last_route = None
 
 
@@ -396,11 +398,13 @@ def flash_attention_bwd(
     )
     _raise_on(rc, lib, "backward", route)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.routes[route] = flash_attention_bwd.routes.get(route, 0) + 1
     flash_attention_bwd.last_route = route
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.routes = {}
 flash_attention_bwd.last_route = None
 
 

@@ -1,20 +1,33 @@
-"""Per-layer axis assignment, as pure arithmetic on the strategy.
+"""The rank grid, per-layer axis assignment and process groups.
 
-Port of the device-free half of ``galvatron_tpu/parallel/mesh.py``: the
-per-stage device block is factored into binary sub-axes ``m0 .. m{k-1}``
-(major -> minor) and each layer's strategy becomes an assignment of sub-axes
-to the tp, cp and dp roles. `config.strategy.layer_runs` groups layers by
-this *realised* assignment, so inert flag differences (``sp`` or
-``tp_consec`` at tp=1) do not split a run — exactly as in the reference.
+Port of ``galvatron_tpu/parallel/mesh.py``. The per-stage device block is
+factored into binary sub-axes ``m0 .. m{k-1}`` (major -> minor) and each
+layer's strategy becomes an assignment of sub-axes to the tp, cp and dp
+roles. `config.strategy.layer_runs` groups layers by this *realised*
+assignment, so inert flag differences (``sp`` or ``tp_consec`` at tp=1) do
+not split a run — exactly as in the reference.
 
-Building a device mesh (process groups) comes with the tp/dp slice; this
-module holds no device state.
+Where the reference builds one ``jax.sharding.Mesh`` and lets XLA derive the
+collectives, `build_mesh` lays the ranks out on the same grid, shape
+``(pp,) + subaxis_sizes(per_stage)`` in row-major order (the reference's
+``np.array(devices).reshape(shape)``), and `RankMesh.group_for` returns the
+``torch.distributed`` group over any tuple of sub-axes: the ranks that share
+this rank's coordinate on every other axis, ordered row-major over the named
+axes, so a dim sharded over axes ``(a, b)`` holds shard ``index(a, b) =
+coord[a] * size[b] + coord[b]`` on each rank, as a ``PartitionSpec`` entry
+``(a, b)`` does.
 """
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+PP_AXIS = "pp"
 
 
 def subaxis_sizes(per_stage: int) -> Tuple[int, ...]:
@@ -48,6 +61,19 @@ class LayerAxes:
     megatron_sp: bool = False
     zero3: bool = False
     zero_opt: bool = False  # optimizer state sharded over dp (zero1/2/3)
+
+    @property
+    def seq_axes(self) -> Tuple[str, ...]:
+        """Axes sharding the sequence dim of activations *between* layers:
+        cp always; plus tp when this layer does ulysses or megatron-sp."""
+        ax = tuple(self.cp)
+        if self.ulysses or self.megatron_sp:
+            ax += tuple(self.tp)
+        return ax
+
+    @property
+    def batch_axes(self) -> Tuple[str, ...]:
+        return self.dp
 
 
 def _assign(names, sizes, tp: int, cp: int, tp_consec: bool):
@@ -106,3 +132,149 @@ def vocab_axes(config) -> LayerAxes:
         config, config.vocab_tp, config.vocab_cp, bool(config.vocab_sp), True,
         bool(config.embed_sdp),
     )
+
+
+# ------------------------------------------------------------------ rank grid
+class RankMesh:
+    """This rank's place on the grid ``(pp, m0, .., m{k-1})`` and the
+    process groups over its sub-axes.
+
+    `grid` holds the global ranks in row-major order; `coord` maps each axis
+    name to this rank's coordinate. Groups are created by `create_groups`,
+    which every rank must call at the same point: ``new_group`` is collective
+    over the whole world, so the groups of EVERY subset of the stage's
+    sub-axes (the empty subset included: a one-rank group per rank) are made
+    up front, in one order on every rank, including the groups a rank is not
+    in (once per default group: later meshes reuse them). `group_for` then
+    only looks them up."""
+
+    def __init__(self, config, rank: int = 0, device=None):
+        per_stage = config.per_stage_devices
+        self.shape = (config.pp,) + subaxis_sizes(per_stage)
+        self.names = (PP_AXIS,) + subaxis_names(per_stage)
+        self.world_size = int(np.prod(self.shape))
+        if self.world_size != config.world_size:
+            raise ValueError("mesh shape %s holds %d ranks, the strategy asks for %d"
+                             % (self.shape, self.world_size, config.world_size))
+        if not 0 <= rank < self.world_size:
+            raise ValueError("rank %d outside a world of %d" % (rank, self.world_size))
+        self.rank = rank
+        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.grid = np.arange(self.world_size).reshape(self.shape)
+        self.sizes: Dict[str, int] = dict(zip(self.names, self.shape))
+        self.coord: Dict[str, int] = {
+            n: int(c) for n, c in zip(self.names, np.unravel_index(rank, self.shape))}
+        self._groups: Optional[Dict[Tuple[str, ...], object]] = None
+
+    # ------------------------------------------------------------ arithmetic
+    def _check(self, axes: Sequence[str]) -> Tuple[str, ...]:
+        axes = tuple(axes)
+        pos = [self.names.index(a) for a in axes]
+        if pos != sorted(set(pos)):
+            raise ValueError("axes %s must be distinct and in grid order %s" % (axes, self.names))
+        return axes
+
+    def size(self, axes: Sequence[str]) -> int:
+        return int(np.prod([self.sizes[a] for a in self._check(axes)], dtype=np.int64))
+
+    def index(self, axes: Sequence[str]) -> int:
+        """This rank's row-major index over `axes` (0 for no axes)."""
+        idx = 0
+        for a in self._check(axes):
+            idx = idx * self.sizes[a] + self.coord[a]
+        return idx
+
+    def ranks(self, axes: Sequence[str]) -> Tuple[int, ...]:
+        """The global ranks of this rank's group over `axes`, row-major."""
+        return self._cosets(self._check(axes))[self._coset_key(axes)]
+
+    def _coset_key(self, axes) -> Tuple[int, ...]:
+        return tuple(self.coord[n] for n in self.names if n not in axes)
+
+    def _cosets(self, axes: Tuple[str, ...]) -> Dict[Tuple[int, ...], Tuple[int, ...]]:
+        """Every group over `axes`, keyed by the coordinates of the other
+        axes, in row-major order of those coordinates."""
+        keep = [i for i, n in enumerate(self.names) if n in axes]
+        other = [i for i, n in enumerate(self.names) if n not in axes]
+        grid = np.transpose(self.grid, other + keep)
+        out = {}
+        for key in itertools.product(*[range(self.shape[i]) for i in other]):
+            out[tuple(key)] = tuple(int(r) for r in grid[key].reshape(-1))
+        return out
+
+    # ---------------------------------------------------------------- groups
+    def axis_subsets(self) -> Tuple[Tuple[str, ...], ...]:
+        subs = self.names[1:]  # pp groups come with the pipeline slice
+        return tuple(c for k in range(len(subs) + 1) for c in itertools.combinations(subs, k))
+
+    def create_groups(self) -> None:
+        """Create the groups of every subset of the sub-axes (see the class
+        note); a no-op once done."""
+        import torch.distributed as dist
+
+        from galvatron_tpu_torch.runtime.distributed import backend_for, subgroup
+
+        if self._groups is not None:
+            return
+        if not dist.is_initialized():
+            raise RuntimeError("RankMesh.create_groups needs an initialized process group "
+                               "(runtime/distributed.py)")
+        if dist.get_world_size() != self.world_size or dist.get_rank() != self.rank:
+            raise ValueError("process group is rank %d of %d; the mesh expects rank %d of %d"
+                             % (dist.get_rank(), dist.get_world_size(), self.rank,
+                                self.world_size))
+        backend = backend_for(self.device)
+        groups = {}
+        for axes in self.axis_subsets():
+            mine = self._coset_key(axes)
+            for key, ranks in self._cosets(axes).items():
+                g = subgroup(ranks, backend)
+                if key == mine:
+                    groups[axes] = g
+        self._groups = groups
+
+    def group_for(self, axes: Sequence[str]):
+        """The process group over `axes` (row-major). A mesh built before
+        its world of one had a default group creates its groups here, at
+        first use; with more ranks, groups must be created at one point on
+        every rank. The default group is the caller's
+        (`runtime.distributed.process_group`): this never creates one."""
+        import torch.distributed as dist
+
+        axes = self._check(axes)
+        if self._groups is None:
+            if self.world_size != 1:
+                raise RuntimeError("process groups of a %d-rank mesh must be created by "
+                                   "create_groups on every rank before use" % self.world_size)
+            if not dist.is_initialized():
+                raise RuntimeError("the layout path needs an initialized process group, even "
+                                   "at world size 1: run inside "
+                                   "runtime.distributed.process_group(device)")
+            self.create_groups()
+        return self._groups[axes]
+
+
+def build_mesh(config, rank: Optional[int] = None, device=None) -> RankMesh:
+    """The rank grid of `config` for this process: `rank` defaults to the
+    process group's rank (0 when none is initialized, which only a world of
+    one allows). With an initialized process group the groups are created
+    here, on every rank."""
+    import torch.distributed as dist
+
+    if rank is None:
+        if dist.is_initialized():
+            rank = dist.get_rank()
+            if dist.get_world_size() != config.world_size:
+                raise ValueError(
+                    "the strategy's world size is %d but the process group has %d ranks"
+                    % (config.world_size, dist.get_world_size()))
+        elif config.world_size != 1:
+            raise ValueError("world size %d needs an initialized process group: launch "
+                             "with torchrun --nproc_per_node %d" % (config.world_size,
+                                                                    config.world_size))
+        else:
+            rank = 0
+    mesh = RankMesh(config, rank, device)
+    if dist.is_initialized():
+        mesh.create_groups()
+    return mesh

@@ -1,45 +1,68 @@
-"""Model construction and the train step for one device.
+"""Model construction and the train step under a per-layer strategy.
 
-Port of ``galvatron_tpu/runtime/model_api.py`` for world size 1: the
-strategy is checked for what the port can execute, the returned model builds
-its parameters on the given device from a ``torch.Generator`` seeded by the
-caller, and `make_train_step` runs the reference's step: per-microbatch
-loss and gradients (chunked accumulation weighted by each microbatch's share
-of the valid tokens), then the optimizer chain. The per-layer tp/dp layouts
-(and with them process groups and ZeRO) come with later slices.
+Port of ``galvatron_tpu/runtime/model_api.py``. The reference builds one
+mesh, places every parameter by its ``PartitionSpec`` and jits a step whose
+collectives XLA derives; here each rank of a ``torch.distributed`` world
+(`runtime.distributed`) holds its shard of every parameter
+(``models.base.model_param_layouts``), runs the forward and backward on its
+rows of the global batch (`shard_batch`) and its shards, and calls the
+collectives itself:
+
+- ZeRO-3 layers gather their weights over their dp group at use and
+  reduce-scatter the gradients (``models.base.gathered``);
+- ZeRO-2 reduce-scatters each micro-batch's gradients over the layer's dp
+  group into a sharded accumulator; the update runs on the shard and the
+  parameter is all-gathered back;
+- every other gradient is all-reduced over exactly the axes it is partial
+  over: the layer's dp axes, plus its tp axes for the parameters that are
+  replicated over tp but saw sequence shards under Megatron-SP;
+- the loss is this rank's share of the global token mean, micro-batches
+  weighted by their valid tokens across all dp ranks, as the reference.
+
+Every collective runs even over a one-rank group, so a world of one drives
+the same code. `check_layout` names what this slice does not execute yet.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Callable, Dict
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch import nn
 
 from galvatron_tpu_torch.config.strategy import HybridParallelConfig
 from galvatron_tpu_torch.models import base as M
-from galvatron_tpu_torch.runtime.optimizer import AdamState, AdamW
+from galvatron_tpu_torch.parallel import comm
+from galvatron_tpu_torch.parallel import spec as S
+from galvatron_tpu_torch.parallel.mesh import RankMesh, build_mesh, vocab_axes
+from galvatron_tpu_torch.runtime.optimizer import AdamState, AdamW, moment_dim, moment_spec
 
 
-def check_single_device(hp: HybridParallelConfig) -> None:
-    """Raise ValueError unless `hp` is a layout this slice executes: world
-    size 1, so pp = tp = cp = 1 and no Ulysses sp on any layer."""
-    problems = []
-    if hp.world_size != 1:
-        problems.append("world_size=%d" % hp.world_size)
-    if hp.pp > 1:
-        problems.append("pp=%d" % hp.pp)
-    for name in ("tp", "cp", "sp"):
-        degrees = sorted({getattr(s, name) for s in hp.layers})
-        if any(d > (0 if name == "sp" else 1) for d in degrees):
-            problems.append("%s=%s" % (name, degrees))
-    if hp.vocab_tp > 1 or hp.vocab_cp > 1 or hp.vocab_sp:
-        problems.append("vocab tp/cp/sp=%d/%d/%d" % (hp.vocab_tp, hp.vocab_cp, hp.vocab_sp))
+def check_layout(hp: HybridParallelConfig, mode: str = "train") -> None:
+    """Raise ValueError unless this slice executes `hp`: in train mode any
+    world size with per-layer DP / ZeRO-2/3 / Megatron TP(+SP) / vocab TP,
+    but no pipeline, context parallelism, Ulysses or vocab sp/cp (each
+    named with the ROADMAP item that brings it); in serve mode world size 1
+    only."""
+    from galvatron_tpu_torch.analysis.strategy_lint import train_refusals
+
+    if mode == "serve":
+        if hp.world_size != 1 or hp.pp > 1 or any(s.tp > 1 or s.cp > 1 for s in hp.layers):
+            raise ValueError(
+                "galvatron_tpu_torch serves at world size 1 only; the strategy asks for "
+                "world_size=%d (the serve engine's tp/dp KV layouts come with ROADMAP "
+                "queue 1 item 3's serve follow-up)" % hp.world_size)
+        return
+    problems = train_refusals(hp)
     if problems:
-        raise ValueError(
-            "galvatron_tpu_torch runs world size 1 only in this slice; the "
-            "strategy asks for %s (the tp/dp layouts come in a later slice)"
-            % ", ".join(problems))
+        raise ValueError("galvatron_tpu_torch does not execute this strategy yet: %s"
+                         % "; ".join(problems))
+
+
+def _set_param(model: nn.Module, name: str, tensor: torch.Tensor) -> None:
+    owner, _, leaf = name.rpartition(".")
+    model.get_submodule(owner)._parameters[leaf] = nn.Parameter(tensor)
 
 
 @dataclass
@@ -47,28 +70,199 @@ class HybridParallelModel:
     cfg: M.TransformerConfig
     hp: HybridParallelConfig
     device: torch.device
+    mesh: RankMesh
+    param_layouts: Dict[str, M.ParamLayout]
+    _layouts: Optional[M.ModelLayouts] = field(default=None, repr=False)
+    _grad_spec_cache: Optional[Dict[str, S.Spec]] = field(default=None, repr=False)
+
+    # -------------------------------------------------------------- layouts
+    @property
+    def layouts(self) -> M.ModelLayouts:
+        """Per-layer runtime layouts (process groups; built at first use)."""
+        if self._layouts is None:
+            self._layouts = M.build_layouts(self.cfg, self.hp, self.mesh)
+        return self._layouts
+
+    def _dp_size(self, name: str) -> int:
+        return self.mesh.size(self.param_layouts[name].dp)
+
+    def moment_dim(self, name: str, shape) -> Optional[int]:
+        """The dim ZeRO-2 shards the moments of `name` over (None: none);
+        `shape` may be a shard's, the dim is found among unsharded dims."""
+        pl = self.param_layouts[name]
+        return moment_dim(pl.spec, shape, self._dp_size(name), pl.zero_opt, pl.z3_dim is not None)
+
+    def zero_axes_tree(self) -> Dict[str, Tuple[str, ...]]:
+        """Per parameter, the dp axes its Adam moments shard over (ZeRO)."""
+        return {n: pl.dp if pl.zero_opt else () for n, pl in self.param_layouts.items()}
+
+    def grad_accum_specs(self) -> Dict[str, S.Spec]:
+        """Per parameter, the placement of its accumulated gradient and of
+        its Adam moments: dp-sharded wherever ZeRO-2 applies."""
+        if self._grad_spec_cache is None:
+            self._grad_spec_cache = {
+                n: moment_spec(self.param_layouts[n].spec, p.dim(), self.moment_dim(n, p.shape),
+                               self.param_layouts[n].dp)
+                for n, p in M.TransformerLM(self.cfg, "meta").named_parameters()}
+        return self._grad_spec_cache
+
+    # --------------------------------------------------------------- params
+    def _shard(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        t = S.shard_tensor(full, self.param_layouts[name].spec, self.mesh)
+        return t if t.shape == full.shape else t.clone()
 
     def init_params(self, seed: int) -> M.TransformerLM:
-        """Fresh parameters on `self.device`, drawn from a torch.Generator
-        seeded with `seed`."""
+        """This rank's parameters on `self.device`. Each parameter is drawn
+        in full from a torch.Generator seeded with `seed` (in the order of
+        ``models.base.init_model_params``, so a world of one gets its exact
+        weights) and sliced, so every world size starts from the same
+        weights."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
-        return M.init_model_params(self.cfg, gen, self.device)
+        model = M.TransformerLM(self.cfg, "meta")
+        with torch.no_grad():
+            for name, p in list(model.named_parameters()):
+                full = torch.empty(p.shape, dtype=self.cfg.param_dtype, device=self.device)
+                M.init_param_(name, full, self.cfg, gen)
+                _set_param(model, name, self._shard(name, full))
+        return model
 
+    def shard_params(self, full: Dict[str, torch.Tensor]) -> M.TransformerLM:
+        """This rank's parameters from a full state dict (e.g. the JAX
+        tree through ``tools.from_jax.params_from_numpy``)."""
+        model = M.TransformerLM(self.cfg, "meta")
+        for name, _ in list(model.named_parameters()):
+            t = full[name].to(device=self.device, dtype=self.cfg.param_dtype)
+            _set_param(model, name, self._shard(name, t).clone())
+        return model
+
+    def gather_params(self, params: nn.Module) -> Dict[str, torch.Tensor]:
+        """The full state dict from every rank's shards (collective)."""
+        return {n: S.gather_tensor(p, self.param_layouts[n].spec, self.mesh)
+                for n, p in params.named_parameters()}
+
+    # ---------------------------------------------------------------- batch
+    def shard_batch(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """This rank's rows of the global batch: for each of the ``chunks``
+        micro-batches, its shard over the vocab layers' dp axes (the first
+        layout the activations take), micro-batch after micro-batch. Every
+        row keeps its full sequence: the vocab-parallel embedding and loss
+        read whole rows."""
+        vax = vocab_axes(self.hp)
+        n, i = self.mesh.size(vax.dp), self.mesh.index(vax.dp)
+        chunks = self.hp.chunks
+        out = {}
+        for k, v in batch.items():
+            b = v.shape[0]
+            if b % (chunks * n):
+                raise ValueError("batch of %d rows does not split into %d micro-batches over "
+                                 "%d dp ranks" % (b, chunks, n))
+            rest = tuple(v.shape[1:])
+            out[k] = v.reshape((chunks, n, b // (chunks * n)) + rest)[:, i].reshape((b // n,) + rest)
+        return out
+
+    # ------------------------------------------------------------ loss, grads
     def loss_fn(self, params: M.TransformerLM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return M.lm_loss_fn(params, batch, self.cfg, self.hp)
+        """This rank's share of the loss of its rows (`shard_batch`)."""
+        return M.lm_loss_fn(params, batch, self.cfg, self.hp, self.layouts)
 
+    def loss_and_grads(self, params: M.TransformerLM, batch: Dict[str, torch.Tensor]):
+        """(loss, grads) of the GLOBAL batch: the reference's loss over all
+        rows, and per parameter its synced gradient in the placement of
+        `grad_accum_specs` (this rank's shard)."""
+        local = self.shard_batch(batch)
+        for p in params.parameters():
+            p.grad = None
+        chunks = self.hp.chunks
+        mbs = [{k: v.chunk(chunks)[c] for k, v in local.items()} for c in range(chunks)]
+        # each microbatch loss is a mean over its own valid tokens (of every
+        # dp rank): weight it by its share of the step's valid tokens, so
+        # the chunked objective equals the chunks == 1 one
+        if "loss_mask" in local:
+            sums = torch.stack([mb["loss_mask"].float().sum() for mb in mbs])
+            sums = comm.all_reduce(sums, self.layouts.vocab.dp_group)
+            weights = sums / sums.sum().clamp(min=1.0)
+        else:
+            weights = torch.full((chunks,), 1.0 / chunks, device=self.device)
+        zero2 = {n: self.moment_dim(n, p.shape) for n, p in params.named_parameters()}
+        zero2 = {n: d for n, d in zero2.items() if d is not None}
+        named = dict(params.named_parameters())
+        acc: Dict[str, torch.Tensor] = {}
+        loss = torch.zeros((), device=self.device)
+        for c, mb in enumerate(mbs):
+            mb_loss = self.loss_fn(params, mb)
+            (mb_loss * weights[c]).backward()
+            loss = loss + mb_loss.detach() * weights[c]
+            # ZeRO-2: this micro-batch's gradient into the sharded accumulator
+            for n, d in zero2.items():
+                p = named[n]
+                shard = comm.reduce_scatter(p.grad, d, self.mesh.group_for(self.param_layouts[n].dp))
+                acc[n] = shard if n not in acc else acc[n].add_(shard)
+                p.grad = None
+        loss = comm.all_reduce(loss, self.layouts.vocab.dp_group)
+        grads = {}
+        for n, p in named.items():
+            pl = self.param_layouts[n]
+            if n in zero2 or pl.z3_dim is not None:
+                # the dp sum happened in the reduce-scatter
+                g = acc[n] if n in zero2 else p.grad
+                axes = tuple(a for a in pl.partial if a not in pl.dp)
+                if axes:
+                    torch.distributed.all_reduce(g, group=self.mesh.group_for(axes))
+            else:
+                g = p.grad
+                torch.distributed.all_reduce(g, group=self.mesh.group_for(pl.partial))
+            grads[n] = g
+        return loss, grads
+
+    def grad_sumsq(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The global sum of squares of sharded gradients, every element
+        counted once: each rank's shard sum is divided by the number of
+        ranks that hold the same shard, then summed over the world."""
+        specs = self.grad_accum_specs()
+        world = self.mesh.world_size
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        for n, g in grads.items():
+            axes = sorted({a for ax in specs[n] for a in ax}, key=self.mesh.names.index)
+            total = total + g.float().pow(2).sum() / (world // self.mesh.size(axes))
+        return comm.all_reduce(total, self.mesh.group_for(self.mesh.names[1:]))
+
+    def gather_grads(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Full gradients from every rank's shards (collective)."""
+        specs = self.grad_accum_specs()
+        return {n: S.gather_tensor(g, specs[n], self.mesh) for n, g in grads.items()}
+
+    # ------------------------------------------------------------ optimizer
     def init_opt_state(self, tx: AdamW, params: M.TransformerLM) -> AdamState:
-        return tx.init(params)
+        """Zero moments in the placement of `grad_accum_specs`."""
+        shapes = {}
+        for n, p in params.named_parameters():
+            d = self.moment_dim(n, p.shape)
+            shapes[n] = p.shape if d is None else \
+                p.shape[:d] + (p.shape[d] // self._dp_size(n),) + p.shape[d + 1:]
+        return AdamState(count=0,
+                         mu={n: torch.zeros(s, dtype=self.cfg.param_dtype, device=self.device)
+                             for n, s in shapes.items()},
+                         nu={n: torch.zeros(s, dtype=self.cfg.param_dtype, device=self.device)
+                             for n, s in shapes.items()})
+
+    def gather_opt_state(self, state: AdamState) -> AdamState:
+        """Full moments from every rank's shards (collective)."""
+        specs = self.grad_accum_specs()
+        full = lambda t, n: S.gather_tensor(t, specs[n], self.mesh)  # noqa: E731
+        return AdamState(count=state.count, mu={n: full(t, n) for n, t in state.mu.items()},
+                         nu={n: full(t, n) for n, t in state.nu.items()})
 
     def make_train_step(self, tx: AdamW, *, guard_anomalies: bool = False,
                         sdc_check: str = "off") -> Callable:
         """The (params, opt_state, batch) -> (params, opt_state, metrics)
-        step; params and opt_state are updated in place and returned.
-        metrics = {"loss", "grad_norm"}: the step's loss and the global norm
-        of the accumulated gradients before clipping, as device scalars.
-        The anomaly guard, the silent-corruption sentinel and the quantized
-        gradient sync are refused until their slices are ported."""
+        step on the GLOBAL batch (every rank passes the same one); params
+        and opt_state are this rank's shards, updated in place and
+        returned. metrics = {"loss", "grad_norm"}: the step's loss and the
+        global norm of the accumulated gradients before clipping, as device
+        scalars. The anomaly guard, the silent-corruption sentinel and the
+        quantized gradient sync are refused until their slices are
+        ported."""
         if guard_anomalies:
             raise ValueError("guard_anomalies is not ported yet: the anomaly guard comes "
                              "with the resilience slice of galvatron_tpu_torch")
@@ -77,35 +271,25 @@ class HybridParallelModel:
                              "sentinel comes with the resilience slice" % sdc_check)
         if any(s.grad_comm_dtype != "none" or s.param_comm_dtype != "none"
                for s in self.hp.layers):
-            raise ValueError("quantized gradient/parameter sync is not ported yet: it "
-                             "comes with the data-parallel slice of galvatron_tpu_torch")
-        chunks = self.hp.chunks
+            raise ValueError("quantized gradient/parameter sync is not ported yet: the "
+                             "data-parallel slice syncs in full precision; quantized "
+                             "collectives come with ROADMAP queue 1 item 10")
 
         def train_step(params, opt_state, batch):
-            for p in params.parameters():
-                p.grad = None
-            if chunks == 1:
-                loss = self.loss_fn(params, batch)
-                loss.backward()
-                loss = loss.detach()
-            else:
-                mbs = {k: v.reshape((chunks, v.shape[0] // chunks) + tuple(v.shape[1:]))
-                       for k, v in batch.items()}
-                # each microbatch loss is a mean over its own valid tokens:
-                # weight it by its share of the step's valid tokens, so the
-                # chunked objective equals the chunks == 1 one
-                if "loss_mask" in batch:
-                    sums = mbs["loss_mask"].float().sum(dim=tuple(range(1, mbs["loss_mask"].dim())))
-                    weights = sums / sums.sum().clamp(min=1.0)
+            loss, grads = self.loss_and_grads(params, batch)
+            targets, zero2 = {}, {}
+            for n, p in params.named_parameters():
+                d = self.moment_dim(n, p.shape)
+                if d is None:
+                    targets[n] = p
                 else:
-                    weights = torch.full((chunks,), 1.0 / chunks, device=batch["tokens"].device)
-                loss = torch.zeros((), device=batch["tokens"].device)
-                for c in range(chunks):
-                    mb_loss = self.loss_fn(params, {k: v[c] for k, v in mbs.items()})
-                    (mb_loss * weights[c]).backward()
-                    loss = loss + mb_loss.detach() * weights[c]
-            grads = {n: p.grad for n, p in params.named_parameters()}
-            grad_norm = tx.update(params, grads, opt_state)
+                    dp = self.param_layouts[n].dp
+                    targets[n] = p.data.chunk(self._dp_size(n), d)[self.mesh.index(dp)]
+                    zero2[n] = (p, d, self.mesh.group_for(dp))
+            grad_norm = tx.update(targets, grads, opt_state, sumsq=self.grad_sumsq)
+            with torch.no_grad():
+                for n, (p, d, group) in zero2.items():
+                    p.data.copy_(comm.all_gather(targets[n], d, group))
             for p in params.parameters():
                 p.grad = None
             return params, opt_state, {"loss": loss, "grad_norm": grad_norm}
@@ -117,6 +301,11 @@ def construct_hybrid_parallel_model(
     cfg: M.TransformerConfig,
     hp: HybridParallelConfig,
     device,
+    mode: str = "train",
 ) -> HybridParallelModel:
-    check_single_device(hp)
-    return HybridParallelModel(cfg=cfg, hp=hp, device=torch.device(device))
+    """The model of `hp` for this rank. With more than one rank, call it on
+    every rank at the same point: it creates the process groups."""
+    check_layout(hp, mode)
+    device = torch.device(device)
+    return HybridParallelModel(cfg=cfg, hp=hp, device=device, mesh=build_mesh(hp, device=device),
+                               param_layouts=M.model_param_layouts(cfg, hp))

@@ -1,9 +1,8 @@
-"""Optimizer and learning-rate schedule.
+"""Optimizer, learning-rate schedule and ZeRO state sharding.
 
-Port of ``galvatron_tpu/runtime/optimizer.py`` (the optimizer above the
-sharding helpers, which have no counterpart on one device). The reference
-builds an optax chain; this module computes the same chain with plain tensor
-code, in place:
+Port of ``galvatron_tpu/runtime/optimizer.py``. The reference builds an
+optax chain; this module computes the same chain with plain tensor code, in
+place:
 
     clip_by_global_norm(clip_grad) -> scale_by_adam(b1, b2, eps)
     -> add_decayed_weights(weight_decay, no decay on biases and norm scales)
@@ -13,13 +12,18 @@ and the same three schedules (optax's warmup-cosine, and linear or constant
 after a linear warmup). As in optax, the learning rate of a step is read at
 the count BEFORE the step increments it, so the first step takes
 ``schedule(0)`` (0.0 for the warmup schedules).
+
+Under ZeRO-1/2/3 the Adam moments are sharded over the layer's dp axes
+(`moment_dim`, the reference's ``_shard_moment_spec``): the update then runs
+on each rank's shard, and the global norm of the clip is summed over the
+shards (`AdamW.update`'s ``sumsq``), each element counted once.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -97,6 +101,33 @@ def weight_decay_mask(name: str) -> bool:
     return not ({"bias", "scale"} & set(name.split(".")))
 
 
+# ------------------------------------------------------------- state sharding
+def moment_dim(spec: Sequence[Tuple[str, ...]], shape: Sequence[int], dp_size: int,
+               zero_opt: bool, zero3: bool) -> Optional[int]:
+    """ZeRO-1/2: the dim of a parameter's moments (and accumulated
+    gradient) that the dp axes shard — the first dim that is unsharded
+    and divisible by the dp degree. None keeps the parameter's own
+    placement: pure DP, a ZeRO-3 parameter (already dp-sharded), or no dim
+    divides (the reference never pads)."""
+    if not zero_opt or zero3:
+        return None
+    for i, n in enumerate(shape):
+        ax = spec[i] if i < len(spec) else ()
+        if not ax and n % dp_size == 0:
+            return i
+    return None
+
+
+def moment_spec(spec: Sequence[Tuple[str, ...]], ndim: int, dim: Optional[int],
+                dp_axes: Tuple[str, ...]) -> Tuple[Tuple[str, ...], ...]:
+    """The placement of the moments: the parameter's, with the dp axes on
+    `dim` (the reference's ``_shard_moment_spec``)."""
+    out = list(spec) + [()] * (ndim - len(spec))
+    if dim is not None:
+        out[dim] = tuple(dp_axes)
+    return tuple(out)
+
+
 # ------------------------------------------------------------------ the chain
 @dataclass
 class AdamState:
@@ -117,19 +148,29 @@ class AdamW:
         self.args = args
         self.schedule = schedule
 
-    def init(self, params: nn.Module) -> AdamState:
-        named = list(params.named_parameters())
+    def init(self, params: Union[nn.Module, Mapping[str, torch.Tensor]]) -> AdamState:
+        named = _named(params)
         return AdamState(count=0,
                          mu={n: torch.zeros_like(p) for n, p in named},
                          nu={n: torch.zeros_like(p) for n, p in named})
 
     @torch.no_grad()
-    def update(self, params: nn.Module, grads: Dict[str, torch.Tensor],
-               state: AdamState) -> torch.Tensor:
+    def update(self, params: Union[nn.Module, Mapping[str, torch.Tensor]],
+               grads: Dict[str, torch.Tensor], state: AdamState,
+               sumsq: Optional[Callable[[Dict[str, torch.Tensor]], torch.Tensor]] = None
+               ) -> torch.Tensor:
+        """Update `params` (a module, or name -> tensor views such as ZeRO
+        shards) in place from `grads`; returns the global gradient norm
+        before clipping. `sumsq` (grads -> the global sum of squares) is how
+        a sharded layout counts every element once; by default the norm is
+        over the given tensors."""
         a = self.args
-        named = list(params.named_parameters())
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(grads[n].float()) for n, _ in named]))
+        named = _named(params)
+        if sumsq is None:
+            grad_norm = torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(grads[n].float()) for n, _ in named]))
+        else:
+            grad_norm = sumsq(grads).sqrt()
         clip_to = None
         if a.clip_grad and a.clip_grad > 0:
             norm = float(grad_norm)
@@ -151,6 +192,12 @@ class AdamW:
             p.add_(upd, alpha=-lr)
         state.count = count
         return grad_norm
+
+
+def _named(params):
+    if isinstance(params, nn.Module):
+        return list(params.named_parameters())
+    return list(params.items())
 
 
 def get_optimizer_and_scheduler(args: Optional[OptimizerArgs] = None) -> Tuple[AdamW, Schedule]:

@@ -11,6 +11,11 @@ moments cross the same way: optax's ``ScaleByAdamState`` (count, mu, nu —
 mu and nu are param-shaped trees) to the port's `AdamState` with
 `adam_state_from_numpy`, and back with `adam_state_to_numpy`. Tests use the
 bridge so both packages compute from identical weights and optimizer state.
+Any family's tree crosses as it is (GPT's qkv/out/mlp biases, LayerNorm
+biases and position table, and no separate head under its tied
+embedding). Under a sharded layout each rank keeps its shards of the full
+state dict (``runtime.model_api.HybridParallelModel.shard_params``;
+``gather_params`` and ``gather_opt_state`` go back).
 The module itself needs only numpy and torch.
 """
 

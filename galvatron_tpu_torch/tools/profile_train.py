@@ -2,11 +2,14 @@
 train step under ``torch.profiler``.
 
     python -m galvatron_tpu_torch.tools.profile_train \\
-        [--warmup 2] [--steps 2] [--top 15] [--trace_dir chiprun_out]
+        [--cell llama|gpt_zero3|gpt_zero2] [--warmup 2] [--steps 2] [--top 15] \\
+        [--trace_dir chiprun_out]
 
-The run is the configuration that ``chip_smoke.py`` trains
-(``tools/train_cell.py``; its strategy JSON is written into ``--trace_dir``
-or ``build/galvatron_tpu_torch``), built by ``cli.train.build``. After
+The run is a configuration that ``chip_smoke.py`` trains
+(``tools/train_cell.py``: the LLaMA cell, or the GPT cell through the layout
+path with layers 0-3 ZeRO-3 or with ZeRO-2 everywhere; its strategy JSON is
+written into ``--trace_dir`` or ``build/galvatron_tpu_torch``), built by
+``cli.train.build`` at world size 1. After
 ``--warmup`` untraced steps it traces ``--steps`` steps and prints the wall
 time per step, the device-busy time (the sum of kernel times the profiler
 records), the device's idle share, the device time by kind (the
@@ -31,6 +34,7 @@ _KINDS = (
     ("flash_attn_fwd", ("flash_fwd",)),
     ("flash_attn_bwd", ("BwdParams",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
+    ("collective", ("nccl",)),
 )
 
 
@@ -62,6 +66,7 @@ def breakdown(prof, wall_ms: float, steps: int, top: int) -> Dict:
 
 def main(argv: List[str] = None) -> Dict:
     p = argparse.ArgumentParser("galvatron_tpu_torch-profile_train")
+    p.add_argument("--cell", default="llama", choices=("llama", "gpt_zero3", "gpt_zero2"))
     p.add_argument("--warmup", type=int, default=2)
     p.add_argument("--steps", type=int, default=2)
     p.add_argument("--top", type=int, default=15)
@@ -70,17 +75,26 @@ def main(argv: List[str] = None) -> Dict:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train needs a CUDA GPU (torch.cuda.is_available() is False)")
 
-    from torch.profiler import ProfilerActivity, profile
-
     from galvatron_tpu_torch.cli import train as cli_train
     from galvatron_tpu_torch.cli.arguments import initialize_galvatron
+    from galvatron_tpu_torch.runtime import distributed
     from galvatron_tpu_torch.tools import train_cell
 
-    train_argv = train_cell.argv(train_cell.write_strategy(
-        args.trace_dir or os.path.join("build", "galvatron_tpu_torch")))
+    out_dir = args.trace_dir or os.path.join("build", "galvatron_tpu_torch")
+    if args.cell == "llama":
+        train_argv = train_cell.argv(train_cell.write_strategy(out_dir))
+    else:
+        train_argv = train_cell.gpt_argv(train_cell.write_gpt_strategy(
+            out_dir, fsdp=args.cell == "gpt_zero3"))
     targs = initialize_galvatron(train_argv, mode="train")
     torch.backends.cuda.matmul.allow_tf32 = False
-    run = cli_train.build(targs)
+    with distributed.process_group(targs.device) as device:
+        return _profile(args, cli_train.build(targs, device), train_argv)
+
+
+def _profile(args, run, train_argv) -> Dict:
+    from torch.profiler import ProfilerActivity, profile
+
     params, state, tx = run.params, run.opt_state, run.tx
     for _ in range(args.warmup):
         params, state, _ = run.step(params, state, next(run.data))
@@ -109,7 +123,7 @@ def main(argv: List[str] = None) -> Dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     hp = run.hp
-    out = {"device": torch.cuda.get_device_name(0), "argv": train_argv,
+    out = {"device": torch.cuda.get_device_name(0), "cell": args.cell, "argv": train_argv,
            "num_layers": run.cfg.num_layers, "global_bsz": hp.global_bsz, "chunks": hp.chunks,
            "seq_len": run.cfg.max_seq_len, "checkpoint": [s.checkpoint for s in hp.layers],
            "remat_policy": [s.remat_policy for s in hp.layers], "steps": args.steps,
@@ -118,7 +132,7 @@ def main(argv: List[str] = None) -> Dict:
     out["optimizer_ms_per_step"] = sum(update_ms) / len(update_ms)
     if args.trace_dir:
         os.makedirs(args.trace_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.trace_dir, "profile_train.json"))
+        prof.export_chrome_trace(os.path.join(args.trace_dir, "profile_train_%s.json" % args.cell))
     print("train step: wall %.2f ms, device busy %.2f ms, idle share %.3f" % (
         out["wall_ms_per_step"], out["device_busy_ms_per_step"], out["idle_share"]))
     for kind, ms in out["by_kind_ms_per_step"].items():

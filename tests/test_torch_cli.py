@@ -86,7 +86,7 @@ def test_serve_refuses_pipeline_with_gls014():
 
 def test_unported_family_names_the_later_slice():
     with pytest.raises(ValueError, match="not ported"):
-        S.main(["--device", "cpu", "--model_type", "gpt"])
+        S.main(["--device", "cpu", "--model_type", "bert"])
 
 
 def test_strategy_json_serve_knobs_set_the_cache(tmp_path):

@@ -361,3 +361,39 @@ def test_train_on_cuda_steps_through_both_kernels():
     # by the remat of the backward
     assert TF.flash_attention_fwd.launches - n_fwd == 3 * 2 * 2 * 2
     assert TF.flash_attention_bwd.launches - n_bwd == 3 * 2 * 2
+
+
+def test_gpt_layout_path_on_cuda_through_one_rank_nccl_groups(tmp_path, monkeypatch):
+    """A tiny GPT (head_dim 128, sequence 256) through the layout path on
+    the card: ZeRO-3 on layer 0 and ZeRO-2 elsewhere, over one-rank NCCL
+    groups, against the same run with every fsdp 0 — the same losses in
+    fp32 compute (the CLI's config with its compute dtype replaced), and
+    both kernels launched."""
+    import dataclasses
+    import json
+
+    def fp32(args, resolve=T.model_config_from_args):
+        fam, cfg = resolve(args)
+        return fam, dataclasses.replace(cfg, compute_dtype=torch.float32)
+
+    _need_cuda_kernel()
+    base = [
+        "--device", "cuda", "--model_type", "gpt", "--set_model_config_manually", "1",
+        "--hidden_size", "256", "--num_attention_heads", "2", "--num_layers", "2",
+        "--vocab_size", "96", "--seq_length", "256", "--global_train_batch_size", "2",
+        "--chunks", "2", "--train_iters", "3", "--lr", "1e-3",
+    ]
+    monkeypatch.setattr(T, "model_config_from_args", fp32)
+    losses = {}
+    for fsdp in ("1,0", "0,0"):
+        path = tmp_path / ("s%s.json" % fsdp.replace(",", ""))
+        path.write_text(json.dumps({
+            "pp_deg": 1, "tp_sizes_enc": "1,1", "tp_consecutive_flags": "1,1",
+            "dp_types_enc": fsdp, "default_dp_type": "zero2", "checkpoint": "1,0",
+            "global_bsz": 2, "chunks": 2}))
+        n_fwd, n_bwd = TF.flash_attention_fwd.launches, TF.flash_attention_bwd.launches
+        losses[fsdp] = T.main(base + ["--galvatron_config_path", str(path)])["losses"]
+        # 3 steps x 2 micro-batches x (2 layers + 1 recomputed), 2 layers backward
+        assert TF.flash_attention_fwd.launches - n_fwd == 3 * 2 * 3
+        assert TF.flash_attention_bwd.launches - n_bwd == 3 * 2 * 2
+    np.testing.assert_allclose(losses["1,0"], losses["0,0"], rtol=1e-5)

@@ -107,6 +107,7 @@ def test_build_key_covers_included_headers(tmp_path):
     ("void (anonymous namespace)::di_kernel<__nv_bfloat16, 128>((anonymous "
      "namespace)::BwdParams)", "flash_attn_bwd"),
     ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NTT", "matmul"),
+    ("ncclDevKernel_AllGather_RING_LL(ncclDevKernelArgsStorage<4096ul>)", "collective"),
 ])
 def test_profile_train_sorts_the_kernels_by_name(name, kind):
     assert kind_of(name) == kind

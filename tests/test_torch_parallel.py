@@ -1,0 +1,459 @@
+"""Port parity, per-layer layouts at world size 2 and 4 on gloo.
+
+The tiny GPT of ``tests/conftest.py`` (h 64, 4 heads, 4 layers, vocab 128)
+and a tiny GQA llama (for the kv-head splits) run every strategy of this
+slice in one spawned world per world size (``torchrun --standalone``, this
+file as the worker): each rank loads the
+same full weights, keeps its shards, computes the loss and gradients of one
+global batch (rows with uneven valid-token counts), and rank 0 writes the
+gathered results. They are held against the JAX package's UNSHARDED
+``lm_loss_fn`` / ``jax.grad`` on the CPU (ROADMAP queue 3: the unsharded
+reference, not the reference's manual TP paths):
+
+- loss within 2e-5 absolute;
+- every gathered gradient within 1e-4 * max|g| + 1e-6;
+- three train steps of the heterogeneous strategy (chunks 2, ZeRO-2
+  default): losses within 5e-5, gathered params and Adam moments within
+  5e-5 * the max of their tree against optax on one device;
+- a planted fault (a reduce-scatter in place of the slice in one
+  re-layout's backward) must fail the gradient check;
+- random init gives every world size the same weights, and re-layouts
+  there and back give every rank its shard.
+
+``python tests/test_torch_parallel.py --report DIR`` prints the tolerances
+the parity reached; the same workers run on GPUs (NCCL) with ``--device
+cuda`` (see the script's usage).
+
+The worker half of this file imports torch only.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+B, S_LEN, V = 8, 32, 128
+PAD = (0, 5, 11, 0, 3, 20, 0, 8)  # padded tail per row: uneven valid tokens
+GPT = dict(hidden_size=64, num_heads=4, num_layers=4, vocab_size=V, max_seq_len=64)
+# a GQA llama: one kv head, so tp 4 replicates the kv projection (the
+# reference's GLS007 case tp % num_kv_heads == 0) and tp 2 keeps it so
+LLAMA = dict(hidden_size=64, num_heads=4, num_kv_heads=1, num_layers=2, ffn_hidden=96,
+             vocab_size=V, max_seq_len=64)
+MODELS = ("gpt", "llama")
+OPT = dict(lr=1e-3, min_lr=1e-4, warmup_steps=1, total_steps=10)
+TRAJ_STEPS = 3
+LOSS_TOL, GRAD_REL, GRAD_ABS, TRAJ_TOL = 2e-5, 1e-4, 1e-6, 5e-5
+
+# (name, kwargs of HybridParallelConfig.uniform or a "layers" list, world)
+_L = dict  # a LayerStrategy's kwargs
+CASES = {
+    4: {
+        "dp4": dict(),
+        "zero2": dict(default_dp_type="zero2"),
+        "zero3": dict(sdp=1),
+        "tp2_megatron_sp": dict(tp=2),
+        "tp2_no_sp": dict(tp=2, sequence_parallel=False),
+        "tp2_nonconsec": dict(layers=[_L(tp=2, tp_consec=0)] * 4),
+        "tp4": dict(tp=4),
+        "vtp2_tied": dict(vocab_tp=2),
+        "vtp2_tied_embed_sdp": dict(vocab_tp=2, embed_sdp=1, tp=2),
+        "hetero": dict(layers=[_L(tp=2), _L(tp=4, fsdp=1), _L(fsdp=1), _L(checkpoint=1)],
+                       chunks=2, default_dp_type="zero2"),
+        # collectives inside selective (dots_saveable) and full remat replays
+        "tp2_zero3_remat": dict(layers=[_L(tp=2, fsdp=1, checkpoint=1,
+                                           remat_policy="dots_saveable"),
+                                        _L(tp=2, checkpoint=1)] * 2, chunks=2),
+        "llama_gqa_tp4_kv_replicated": dict(model="llama", tp=4, vocab_tp=2),
+        "llama_gqa_tp2_zero3": dict(model="llama", layers=[_L(tp=2, fsdp=1), _L(tp=4)]),
+    },
+    2: {
+        "dp2": dict(),
+        "tp2": dict(tp=2),
+    },
+}
+TRAJ_CASE = "hetero"
+FAULT_CASE = "hetero"
+INIT_SEED = 5
+# re-layouts of a (8, 32, 4) tensor at world 4 (sub-axes m0, m1), there and back
+RELAYOUTS = [
+    ((("m0", "m1"), (), ()), (("m0",), ("m1",), ())),   # dp4 -> tp2 with Megatron-SP
+    ((("m0",), ("m1",), ()), ((), ("m0", "m1"), ())),   # tp2+SP -> tp4+SP
+    ((("m1",), ("m0",), ()), (("m0",), ("m1",), ())),   # tp_consec 0 -> 1
+    (((), (), ()), (("m0", "m1"), (), ())),              # replicated -> dp4
+    ((("m0", "m1"), (), ()), (("m0", "m1"), (), ())),    # no change
+]
+
+
+def batch_np():
+    rng = np.random.RandomState(11)
+    tokens = rng.randint(0, V, (B, S_LEN))
+    loss_mask = np.ones((B, S_LEN), np.float32)
+    for row, pad in enumerate(PAD):
+        if pad:
+            loss_mask[row, -pad:] = 0.0
+    return tokens, np.roll(tokens, -1, axis=1), loss_mask
+
+
+# ======================================================================= worker
+def _hp(kw, world, num_layers):
+    from galvatron_tpu_torch.config.strategy import HybridParallelConfig, LayerStrategy
+
+    kw = dict(kw)
+    kw.pop("model", None)
+    layers = kw.pop("layers", None)
+    kw.setdefault("global_bsz", B)
+    if layers is None:
+        return HybridParallelConfig.uniform(world, num_layers, **kw)
+    return HybridParallelConfig(world_size=world, pp=1,
+                                layers=[LayerStrategy(**s) for s in layers], **kw)
+
+
+def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "cpu") -> None:
+    """One rank: every case of `world` on `device_name` (``cpu``: gloo;
+    ``cuda``: NCCL, one GPU per rank, fp32 without TF32)."""
+    import torch
+
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from galvatron_tpu_torch.models import base as TM
+    from galvatron_tpu_torch.parallel import comm
+    from galvatron_tpu_torch.runtime import distributed
+    from galvatron_tpu_torch.runtime.dataloader import prepare_batch
+    from galvatron_tpu_torch.runtime.model_api import construct_hybrid_parallel_model
+    from galvatron_tpu_torch.runtime.optimizer import AdamState, OptimizerArgs, \
+        get_optimizer_and_scheduler
+
+    from galvatron_tpu_torch.models.llama import llama_config
+
+    dev = distributed.local_device(device_name)
+    distributed.ensure_initialized(dev, timeout_s=120)
+    rank = distributed.rank()
+    data = np.load(inputs)
+    full = {m: {k[len(m) + 1:]: torch.from_numpy(data[k]).to(dev) for k in data.files
+                if k.startswith(m + "/")} for m in MODELS}
+    cfgs = {"gpt": TM.TransformerConfig(**GPT, compute_dtype=torch.float32),
+            "llama": llama_config("llama-0.3b", compute_dtype=torch.float32, **LLAMA)}
+    tokens, labels, loss_mask = batch_np()
+    batch = prepare_batch(None, tokens, labels, loss_mask, device=dev)
+    results = {}
+
+    def grads_of(name):
+        kw = CASES[world][name]
+        cfg = cfgs[kw.get("model", "gpt")]
+        model = construct_hybrid_parallel_model(cfg, _hp(kw, world, cfg.num_layers), dev)
+        params = model.shard_params(full[kw.get("model", "gpt")])
+        loss, grads = model.loss_and_grads(params, batch)
+        return model, params, float(loss), model.gather_grads(grads)
+
+    for name in CASES[world]:
+        _, _, loss, grads = grads_of(name)
+        results["%s/loss" % name] = np.float64(loss)
+        for n, g in grads.items():
+            results["%s/grad/%s" % (name, n)] = g.cpu().numpy()
+
+    if world == 4:
+        from galvatron_tpu_torch.config.strategy import HybridParallelConfig
+        from galvatron_tpu_torch.parallel import spec as TS
+        from galvatron_tpu_torch.parallel.mesh import build_mesh
+
+        mesh = build_mesh(HybridParallelConfig.uniform(4, 1), device=dev)
+        x = torch.arange(8 * 32 * 4, dtype=torch.float32, device=dev).reshape(8, 32, 4)
+        for i, (a, b) in enumerate(RELAYOUTS):
+            there = TS.relayout(TS.shard_tensor(x, a, mesh), mesh, a, b)
+            back = TS.relayout(there, mesh, b, a)
+            err = torch.stack([(there - TS.shard_tensor(x, b, mesh)).abs().max(),
+                               (back - TS.shard_tensor(x, a, mesh)).abs().max()])
+            torch.distributed.all_reduce(err, op=torch.distributed.ReduceOp.MAX)
+            results["relayout/%d" % i] = err.cpu().numpy()
+
+    # random init: every world size draws the same full weights as a
+    # one-rank init from the same generator
+    init_model = construct_hybrid_parallel_model(
+        cfgs["gpt"], _hp(CASES[world][TRAJ_CASE if TRAJ_CASE in CASES[world] else "dp2"], world,
+                         cfgs["gpt"].num_layers), dev)
+    for n, p in init_model.gather_params(init_model.init_params(INIT_SEED)).items():
+        results["init/%s" % n] = p.cpu().numpy()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(INIT_SEED)
+    for n, p in TM.init_model_params(cfgs["gpt"], gen, dev).named_parameters():
+        results["init_ref/%s" % n] = p.detach().cpu().numpy()
+
+    if TRAJ_CASE in CASES[world]:
+        cfg = cfgs["gpt"]
+        hp = _hp(CASES[world][TRAJ_CASE], world, cfg.num_layers)
+        model = construct_hybrid_parallel_model(cfg, hp, dev)
+        params = model.shard_params(full["gpt"])
+        tx, _ = get_optimizer_and_scheduler(OptimizerArgs(**OPT))
+        state = model.init_opt_state(tx, params)
+        step = model.make_train_step(tx)
+        losses = []
+        for _ in range(TRAJ_STEPS):
+            params, state, metrics = step(params, state, batch)
+            losses.append(float(metrics["loss"]))
+        results["traj/loss"] = np.asarray(losses)
+        for n, p in model.gather_params(params).items():
+            results["traj/param/%s" % n] = p.cpu().numpy()
+        moments = model.gather_opt_state(state)
+        assert isinstance(moments, AdamState) and moments.count == TRAJ_STEPS
+        for n in moments.mu:
+            results["traj/mu/%s" % n] = moments.mu[n].cpu().numpy()
+            results["traj/nu/%s" % n] = moments.nu[n].cpu().numpy()
+
+    if fault and FAULT_CASE in CASES[world]:
+        # the first re-layout's all-gather reduce-scatters its gradient
+        # instead of slicing it (the consumer is replicated, so this scales
+        # the gradient by the group size)
+        honest, calls = comm.gather_split_bwd, []
+
+        def faulty(x, dim, group):
+            calls.append(dim)
+            return comm.gather_rs_bwd(x, dim, group) if len(calls) == 1 else honest(x, dim, group)
+
+        comm.gather_split_bwd = faulty
+        try:
+            _, _, loss, grads = grads_of(FAULT_CASE)
+        finally:
+            comm.gather_split_bwd = honest
+        results["fault/loss"] = np.float64(loss)
+        for n, g in grads.items():
+            results["fault/grad/%s" % n] = g.cpu().numpy()
+
+    if rank == 0:
+        np.savez(out, **results)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+# ==================================================================== reference
+def _reference(tmp_dir):
+    """The JAX package's unsharded loss, gradients and trajectory, and the
+    weights file the workers load."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from galvatron_tpu.config.strategy import HybridParallelConfig as JHP
+    from galvatron_tpu.config.strategy import LayerStrategy as JLS
+    from galvatron_tpu.models import base as JM
+    from galvatron_tpu.runtime import dataloader as JD
+    from galvatron_tpu.runtime import model_api as JAPI
+    from galvatron_tpu.runtime import optimizer as JO
+    from galvatron_tpu_torch.tools.from_jax import _flatten
+
+    from galvatron_tpu.models.llama import llama_config
+
+    cfgs = {"gpt": JM.TransformerConfig(**GPT, compute_dtype=jnp.float32),
+            "llama": llama_config("llama-0.3b", compute_dtype=jnp.float32, **LLAMA)}
+    tokens, labels, loss_mask = batch_np()
+    jb = JD.prepare_batch(None, tokens, labels, loss_mask)
+    weights, out = {}, {}
+    for m, c in cfgs.items():
+        tree = jax.device_get(JM.init_model_params(jax.random.PRNGKey(0), c))
+        loss, grads = jax.value_and_grad(lambda p, _c=c: JM.lm_loss_fn(p, jb, _c))(tree)
+        flat_p, flat_g = {}, {}
+        _flatten(tree, "", flat_p)
+        _flatten(jax.device_get(grads), "", flat_g)
+        weights.update({"%s/%s" % (m, n): np.asarray(v, np.float32) for n, v in flat_p.items()})
+        out[m] = dict(loss=float(loss), grads={n: np.asarray(v) for n, v in flat_g.items()},
+                      tree=tree)
+    cfg, tree = cfgs["gpt"], out["gpt"]["tree"]
+
+    layers = CASES[4][TRAJ_CASE]["layers"]
+    hp = JHP(world_size=1, pp=1, layers=[JLS(checkpoint=s.get("checkpoint", 0)) for s in layers],
+             global_bsz=B, chunks=CASES[4][TRAJ_CASE]["chunks"])
+    model = JAPI.construct_hybrid_parallel_model(cfg, hp)
+    tx, _ = JO.get_optimizer_and_scheduler(JO.OptimizerArgs(**OPT))
+    params = jax.device_put(tree, model.shardings())
+    state = model.init_opt_state(tx, params)
+    step = model.make_train_step(tx, donate=False)
+    losses = []
+    for _ in range(TRAJ_STEPS):
+        params, state, metrics = step(params, state, jb)
+        losses.append(float(metrics["loss"]))
+    adam = next(s for s in state if isinstance(s, optax.ScaleByAdamState))
+    traj = {"loss": np.asarray(losses)}
+    for kind, t in (("param", params), ("mu", adam.mu), ("nu", adam.nu)):
+        flat = {}
+        _flatten(jax.device_get(t), "", flat)
+        traj.update({"%s/%s" % (kind, n): np.asarray(v) for n, v in flat.items()})
+    inputs = os.path.join(tmp_dir, "weights.npz")
+    np.savez(inputs, **weights)
+    return dict(models=out, traj=traj, inputs=inputs)
+
+
+def _launch(world, inputs, out, fault=True, timeout=240):
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("RANK", "WORLD_SIZE",
+                                                                     "LOCAL_RANK", "MASTER_"))}
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "1"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(world), os.path.abspath(__file__), "--worker", str(world),
+           inputs, out] + (["--fault"] if fault else [])
+    proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-8000:]
+    return dict(np.load(out))
+
+
+def grad_errors(got, want):
+    """Per gradient, max |got - want| over its limit 1e-4 * max|want| + 1e-6
+    (> 1 fails)."""
+    return {n: float(np.abs(got[n] - w).max() / (GRAD_REL * np.abs(w).max() + GRAD_ABS))
+            for n, w in want.items()}
+
+
+def report(tmp_dir, given=None):
+    """The tolerances the parity reached: per case the loss error and the
+    worst gradient's error as a share of its limit; the trajectory's loss
+    and tree-relative param/moment errors, and their worst per-tensor
+    relative error. `given` maps a world size to a worker's results file
+    (e.g. a run on GPUs, written with the weights of
+    ``--weights DIR``) instead of launching gloo ranks here."""
+    ref = _reference(tmp_dir)
+    for world in sorted(given or CASES, reverse=True):
+        res = dict(np.load(given[world])) if given else \
+            _launch(world, ref["inputs"], os.path.join(tmp_dir, "out%d.npz" % world))
+        for name, kw in CASES[world].items():
+            want = ref["models"][kw.get("model", "gpt")]
+            errs = grad_errors({n: res["%s/grad/%s" % (name, n)] for n in want["grads"]},
+                               want["grads"])
+            worst = max(errs, key=errs.get)
+            print("world %d %-28s loss err %.3g  worst gradient %s at %.3f of its limit"
+                  % (world, name, abs(float(res["%s/loss" % name]) - want["loss"]), worst,
+                     errs[worst]))
+        if world == 4:
+            traj = ref["traj"]
+            print("trajectory losses: max err %.3g" % np.abs(res["traj/loss"] - traj["loss"]).max())
+            for kind in ("param", "mu", "nu"):
+                keys = [k for k in traj if k.startswith(kind + "/")]
+                scale = max(float(np.abs(traj[k]).max()) for k in keys)
+                err = max(float(np.abs(res["traj/" + k] - traj[k]).max()) for k in keys)
+                rel = max(float(np.abs(res["traj/" + k] - traj[k]).max()
+                                / max(np.abs(traj[k]).max(), 1e-30)) for k in keys)
+                print("trajectory %-5s max err %.3g = %.3g of the tree max; worst per tensor "
+                      "%.3g of its own max" % (kind, err, err / scale, rel))
+            want = ref["models"]["gpt"]
+            errs = grad_errors({n: res["fault/grad/%s" % n] for n in want["grads"]},
+                               want["grads"])
+            print("planted fault: worst gradient at %.3f of its limit" % max(errs.values()))
+        print("world %d relayout round trips exact: %s; init equals a one-rank init: %s" % (
+            world, all(not res[k].any() for k in res if k.startswith("relayout/")),
+            all(np.array_equal(res["init/" + k[9:]], res[k]) for k in res
+                if k.startswith("init_ref/"))))
+
+
+USAGE = """usage:
+  test_torch_parallel.py --worker WORLD WEIGHTS OUT [--fault] [--device cuda]
+      one rank of a world (launch with torchrun --nproc_per_node WORLD)
+  test_torch_parallel.py --weights DIR
+      write the weights the workers load (DIR/weights.npz; needs jax)
+  test_torch_parallel.py --report DIR [WORLD=RESULTS.npz ...]
+      print the tolerances reached: gloo ranks launched here, or given
+      results of workers run elsewhere (e.g. on GPUs with --device cuda)"""
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, REPO)  # run as a script, the package is beside tests/
+    if len(sys.argv) > 2 and sys.argv[1] in ("--report", "--weights"):
+        os.environ.setdefault("JAX_PLATFORMS", "cpu")
+        os.makedirs(sys.argv[2], exist_ok=True)
+        if sys.argv[1] == "--weights":
+            print(_reference(sys.argv[2])["inputs"])
+        else:
+            report(sys.argv[2], {int(a.split("=")[0]): a.split("=", 1)[1]
+                                 for a in sys.argv[3:]} or None)
+        raise SystemExit(0)
+    if len(sys.argv) < 5 or sys.argv[1] != "--worker":
+        raise SystemExit(USAGE)
+    device = sys.argv[sys.argv.index("--device") + 1] if "--device" in sys.argv else "cpu"
+    _worker(int(sys.argv[2]), sys.argv[3], sys.argv[4], "--fault" in sys.argv[5:], device)
+    raise SystemExit(0)
+
+
+# ======================================================================== tests
+import pytest  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    return _reference(str(tmp_path_factory.mktemp("torch_parallel")))
+
+
+@pytest.fixture(scope="module")
+def world_results(reference, tmp_path_factory):
+    cache = {}
+
+    def get(world):
+        if world not in cache:
+            out = str(tmp_path_factory.mktemp("world%d" % world) / "out.npz")
+            cache[world] = _launch(world, reference["inputs"], out)
+        return cache[world]
+
+    return get
+
+
+CASE_IDS = [(w, n) for w in sorted(CASES, reverse=True) for n in CASES[w]]
+
+
+@pytest.mark.parametrize("world,name", CASE_IDS, ids=["w%d-%s" % c for c in CASE_IDS])
+def test_layout_loss_and_every_gradient_match_unsharded_reference(world, name, reference,
+                                                                  world_results):
+    res = world_results(world)
+    ref = reference["models"][CASES[world][name].get("model", "gpt")]
+    loss = float(res["%s/loss" % name])
+    assert abs(loss - ref["loss"]) <= LOSS_TOL, (loss, ref["loss"])
+    got = {n: res["%s/grad/%s" % (name, n)] for n in ref["grads"]}
+    errs = grad_errors(got, ref["grads"])
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= 1.0, "%s: %s at %.3g of its limit" % (name, worst, errs[worst])
+
+
+@pytest.mark.parametrize("world", sorted(CASES))
+def test_random_init_gives_every_world_size_the_same_weights(world, world_results):
+    """Each rank draws every full parameter from the seeded generator and
+    keeps its shard: the gathered weights equal a one-rank init
+    (``init_model_params``) from the same generator."""
+    res = world_results(world)
+    refs = [k for k in res if k.startswith("init_ref/")]
+    assert len(refs) > 10
+    for k in refs:
+        np.testing.assert_array_equal(res["init/" + k[len("init_ref/"):]], res[k], err_msg=k)
+
+
+@pytest.mark.parametrize("i", range(len(RELAYOUTS)))
+def test_relayout_round_trip_gives_each_rank_its_shard(i, world_results):
+    """Re-laying a tensor's shards from one placement to another and back
+    gives every rank exactly its shard under each (through the meet)."""
+    assert world_results(4)["relayout/%d" % i].tolist() == [0.0, 0.0], RELAYOUTS[i]
+
+
+def test_hetero_trajectory_matches_unsharded_optax(reference, world_results):
+    """Losses within 5e-5; params, mu and nu each within 5e-5 * the max of
+    their gathered tree. (Per tensor, a zero-initialized bias a few Adam
+    steps old differs by up to ~6e-4 of its own max, at world size 1 as
+    much as at 4: Adam's update divides near-cancelling moment sums, which
+    amplifies the gradients' fp32 reassociation noise. A layout fault —
+    a moment on the wrong shard, an update not gathered back — moves a
+    parameter by a whole update, ~lr = 1e-3.)"""
+    res, want = world_results(4), reference["traj"]
+    np.testing.assert_allclose(res["traj/loss"], want["loss"], rtol=0, atol=TRAJ_TOL)
+    for kind in ("param", "mu", "nu"):
+        keys = [k for k in want if k.startswith(kind + "/")]
+        scale = max(float(np.abs(want[k]).max()) for k in keys)
+        errs = {k: float(np.abs(res["traj/" + k] - want[k]).max()) for k in keys}
+        worst = max(errs, key=errs.get)
+        assert errs[worst] <= TRAJ_TOL * scale, (worst, errs[worst], scale)
+
+
+def test_planted_relayout_fault_fails_the_gradient_check(reference, world_results):
+    """A reduce-scatter in place of the slice in one re-layout's backward
+    leaves the loss as it was and scales gradients: the check must see it."""
+    res, ref = world_results(4), reference["models"]["gpt"]
+    assert abs(float(res["fault/loss"]) - ref["loss"]) <= LOSS_TOL
+    got = {n: res["fault/grad/%s" % n] for n in ref["grads"]}
+    errs = grad_errors(got, ref["grads"])
+    assert max(errs.values()) > 1.0, "the planted fault passed the gradient check"

@@ -28,6 +28,7 @@ from galvatron_tpu_torch.models import llama as TL
 from galvatron_tpu_torch.obs import flops as TFL
 from galvatron_tpu_torch.ops import flash_attention as TF
 from galvatron_tpu_torch.runtime import dataloader as TD
+from galvatron_tpu_torch.runtime import distributed as TDIST
 from galvatron_tpu_torch.runtime import model_api as TAPI
 from galvatron_tpu_torch.runtime import optimizer as TO
 from galvatron_tpu_torch.tools.from_jax import (
@@ -46,6 +47,14 @@ _MODELS = {
     "gqa": dict(hidden_size=256, num_heads=2, num_kv_heads=1, ffn_hidden=128),
 }
 _SEQ, _VOCAB = 256, 64
+
+
+@pytest.fixture
+def one_rank_group():
+    """The train step runs the layout path through one-rank groups of a
+    default process group that the caller owns, as `cli train` does."""
+    with TDIST.process_group("cpu"):
+        yield
 
 
 def _configs(name, num_layers=2):
@@ -236,6 +245,7 @@ _STEP_CASES = {
 }
 
 
+@pytest.mark.usefixtures("one_rank_group")
 @pytest.mark.parametrize("case", sorted(_STEP_CASES))
 def test_train_steps_match_reference(case):
     """Ten train steps in both packages on the same synthetic batches:
@@ -294,6 +304,7 @@ def test_train_step_refuses_the_unported_paths():
         quant.make_train_step(tx)
 
 
+@pytest.mark.usefixtures("one_rank_group")
 def test_train_step_weights_uneven_microbatches_like_reference():
     """Key-padded micro-batches with unequal valid-token counts: each
     microbatch loss is weighted by its share of the valid tokens, so one

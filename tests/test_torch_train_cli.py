@@ -4,6 +4,7 @@ flash Function's plain versions), the summary keys, the --device contract
 (cuda by default, never a silent CPU fallback), the train-mode lint and the
 flags the port refuses. The CUDA run is in tests/test_torch_cuda.py."""
 
+import dataclasses
 import json
 import math
 
@@ -28,7 +29,7 @@ FLASH = [
 ]
 SUMMARY_KEYS = {"avg_iter_ms", "p50_iter_ms", "steady_step_ms", "samples_per_s", "peak_hbm_mb",
                 "iters", "model_flops_per_step", "model_flops_per_s", "mfu", "losses",
-                "tokens_per_s", "device"}
+                "tokens_per_s", "device", "flash_routes"}
 
 
 def test_train_cpu_end_to_end_returns_summary(capsys):
@@ -78,7 +79,10 @@ def test_train_unported_flags_are_refused(flag):
 
 
 def test_train_multi_device_layout_is_refused_with_value_error():
-    with pytest.raises(ValueError, match="world size 1 only"):
+    """A world size other than the process group's (one rank here, no
+    torchrun) is refused (the layouts this slice does not run are refused
+    by check_layout, tests/test_torch_strategy.py)."""
+    with pytest.raises(ValueError, match="process group has 1 rank"):
         T.main(TINY + ["--device", "cpu", "--world_size", "2"])
 
 
@@ -95,7 +99,7 @@ def test_train_lint_warns_on_inert_serve_knobs(tmp_path, capsys):
 
 def test_train_unported_family_names_the_later_slice():
     with pytest.raises(ValueError, match="not ported"):
-        T.main(["--device", "cpu", "--model_type", "gpt"])
+        T.main(["--device", "cpu", "--model_type", "bert"])
 
 
 def test_train_cell_parses_to_its_per_layer_remat_and_lints_clean(tmp_path):
@@ -115,3 +119,100 @@ def test_train_cell_parses_to_its_per_layer_remat_and_lints_clean(tmp_path):
     assert [s.remat_policy for s in hp.layers] == C.REMAT_POLICY
     assert (hp.global_bsz, hp.chunks) == (C.GLOBAL_BSZ, C.CHUNKS)
     assert strategy_lint.lint_hp(hp, mode="train").diagnostics == []
+
+
+GPT_TINY = [
+    "--model_type", "gpt", "--set_model_config_manually", "1", "--hidden_size", "64",
+    "--num_attention_heads", "4", "--num_layers", "4", "--vocab_size", "128",
+    "--seq_length", "32", "--global_train_batch_size", "4", "--chunks", "2",
+    "--train_iters", "4", "--lr", "1e-3", "--device", "cpu",
+]
+
+
+def fp32_compute(model_config_from_args):
+    """`cli.arguments.model_config_from_args` with fp32 compute: the CLI
+    computes in bf16, where a sharded run's sums differ from a one-rank
+    run's by bf16 rounding; in fp32 they agree to ~1e-6."""
+    def resolve(args):
+        fam, cfg = model_config_from_args(args)
+        return fam, dataclasses.replace(cfg, compute_dtype=torch.float32)
+    return resolve
+
+
+def test_torchrun_two_ranks_run_a_mixed_strategy_json_like_one_rank(tmp_path, monkeypatch):
+    """``torchrun --nproc_per_node 2`` of the train CLI (`cli.train.main`,
+    through this file's worker: the CLI with fp32 compute) on gloo, a
+    strategy JSON mixing Megatron TP+SP (tp_consec 1 and 0), ZeRO-3, ZeRO-2
+    (the default), plain DP rows and vocab TP with the tied head: rank 0's
+    printed losses equal a one-rank run's within 2e-5."""
+    import os
+    import subprocess
+    import sys
+
+    path = tmp_path / "strategy.json"
+    path.write_text(json.dumps({
+        "pp_deg": 1, "tp_sizes_enc": "2,1,2,1", "tp_consecutive_flags": "1,1,0,1",
+        "dp_types_enc": "0,1,0,0", "checkpoint": "0,0,1,0", "default_dp_type": "zero2",
+        "vtp": 2, "global_bsz": 4, "chunks": 2,
+    }))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_"))}
+    env.update(PYTHONPATH=repo, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+         os.path.abspath(__file__)] + GPT_TINY
+        + ["--galvatron_config_path", str(path), "--world_size", "2"],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-6000:]
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("losses ")]
+    assert len(lines) == 1, proc.stdout  # rank 0 prints, rank 1 does not
+    got = [float(x) for x in lines[0].split()[1:]]
+    assert "'world_size': 2" in proc.stdout
+    # both ranks' route counts reach rank 0 (none on the CPU: plain versions)
+    assert "'flash_routes': [{'fwd': {}, 'bwd': {}}, {'fwd': {}, 'bwd': {}}]" in proc.stdout
+    monkeypatch.setattr(T, "model_config_from_args", fp32_compute(T.model_config_from_args))
+    want = T.main(GPT_TINY + ["--checkpoint", "0"])["losses"]
+    assert len(got) == len(want) == 4
+    assert max(abs(a - b) for a, b in zip(got, want)) <= 2e-5, (got, want)
+
+
+def test_gpt_train_cell_parses_to_its_layout_and_lints_clean(tmp_path):
+    """The GPT configuration chip_smoke.py trains through the layout path:
+    GPT-6.7B width at depth 8, layers 0-3 ZeRO-3 and the rest ZeRO-2, the
+    LLaMA cell's remat mix; and the same with every fsdp 0."""
+    from galvatron_tpu_torch.analysis import strategy_lint
+    from galvatron_tpu_torch.cli.arguments import hp_config_from_args, model_config_from_args
+    from galvatron_tpu_torch.tools import train_cell as C
+
+    for fsdp in (True, False):
+        args = T.initialize_galvatron(argv=C.gpt_argv(C.write_gpt_strategy(str(tmp_path), fsdp)),
+                                      mode="train")
+        _, cfg = model_config_from_args(args)
+        assert (cfg.num_layers, cfg.hidden_size, cfg.num_heads, cfg.ffn_hidden, cfg.vocab_size,
+                cfg.max_seq_len, cfg.tie_embeddings) == (8, 4096, 32, 16384, 50257, 2048, True)
+        hp = hp_config_from_args(args, cfg.num_layers, 1)
+        assert [hp.dp_type(i) for i in range(8)] == \
+            ["zero3" if (fsdp and f) else "zero2" for f in C.GPT_FSDP]
+        assert [s.remat_policy for s in hp.layers] == C.REMAT_POLICY
+        assert strategy_lint.lint_hp(hp, model_cfg=cfg, mode="train").diagnostics == []
+    # the 4-GPU strategy: every layout of the slice, refused by nothing; its
+    # re-layouts are GLS102 warnings
+    args = T.initialize_galvatron(argv=C.gpt_argv(C.write_gpt_world4_strategy(str(tmp_path))),
+                                  mode="train")
+    _, cfg = model_config_from_args(args)
+    hp = hp_config_from_args(args, cfg.num_layers, 4)
+    assert [s.tp for s in hp.layers] == C.GPT_WORLD4_TP
+    report = strategy_lint.lint_hp(hp, model_cfg=cfg, mode="train")
+    assert report.ok and {d.code for d in report.diagnostics} == {"GLS102"}
+    from galvatron_tpu_torch.runtime.model_api import check_layout
+
+    check_layout(hp)
+
+
+if __name__ == "__main__":
+    # a torchrun rank of the two-rank test: the train CLI with fp32 compute
+    import sys
+
+    T.model_config_from_args = fp32_compute(T.model_config_from_args)
+    T.main(sys.argv[1:])
