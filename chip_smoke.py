@@ -7,7 +7,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 1. Identify the card (nvidia-smi name and power limit); TF32 off.
 2. Build the flash-attention forward and backward kernels from csrc/ with
-   nvcc (sm_90a), one nvcc per source, both started together; fail if
+   nvcc (sm_90a), one nvcc per source, and the dataset index helper
+   (data/csrc/index_helpers.cpp) with g++, all started together; fail if
    ptxas reports a spill in any wgmma kernel or ignores a `setmaxnreg`
    (warning C7508).
 3. Hold the forward kernel against its plain PyTorch version on the card, in
@@ -45,7 +46,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    width at depth 8 (cut from 32: fp32 params, grads and Adam moments of 32
    layers take 108 GB), seq 2048, global batch 8 in 2 micro-batches, a
    strategy JSON mixing per-layer remat (layers 0-3 full, 4-5
-   dots_saveable, 6-7 none), 6 steps; asserts finite losses and the launch
+   dots_saveable, 6-7 none), 6 steps, with the default anomaly guard,
+   prefetch thread and drain window; asserts finite losses and the launch
    counts of both kernels.
 9. Train through the per-layer layout path: ``cli.train.main`` on the GPT
    configuration of ``tools/train_cell.py``: GPT-6.7B width (h 4096, 32
@@ -56,8 +58,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``fsdp`` 0 (all ZeRO-2). Every step's loss of the two runs must agree
    within 1e-3 relative; both kernels' launch counts are checked on the
    ZeRO-3 run and the route of their last calls must be "wgmma".
+10. Corpus, eval, checkpoint, resume: writes a corpus of 4,000 seeded
+   documents (lengths uniform in 256-4096, vocab 32000, ~35 MB) with
+   ``write_indexed_dataset``, and trains LLaMA-7B width at depth 2 (cut
+   from 32 so that a checkpoint of fp32 params and both Adam moments stays
+   ~8 GB; layer 0 full remat, layer 1 dots_saveable) through
+   ``cli.train.train``: 6 steps from ``--data_path`` with a valid-split
+   eval every 3 steps (2 batches) and a final test eval, saving at 3 and
+   6; then resumes from 3 to 6 under ``torch.use_deterministic_algorithms``
+   (both runs). It checks that every batch the prefetch thread copied to
+   the card equals the one the stream yielded, that the restored state's
+   digests (of the file's bytes and of the state on the card) equal the
+   saved ones, that the batches after the resume equal the first run's and
+   that the resumed losses equal the first run's bit for bit
+   (TOL_RESUME_LOSS); that a NaN planted in one step's loss (a resumed run
+   from step 6, through ``FaultHooks``) is skipped with every parameter,
+   moment and the Adam count bitwise unchanged; and that ``cli serve
+   --load`` serves 4 requests from the checkpoint, its first prefill's
+   logits within TOL_DECODE of the trained model's forward. The launch
+   counts are exact: each train step 2 x (2 + 2) forward and 2 x 2
+   backward; each eval pass 2 batches x 2 layers of the forward and no
+   backward; serve 2 layers x prefills; every launch ``wgmma``. Prints the
+   bytes and seconds of save and load; the step data is deleted afterwards
+   (the manifests stay under chiprun_out/phase10).
 
-Each main path (serve, train, the GPT layout runs) runs with the kernels'
+Each main path (serve, train, the GPT layout runs, and phase 10's train,
+resumed, guarded and serve-from-checkpoint runs) runs with the kernels'
 launch counts set to 0 just before it and read just after. The last lines
 of standard output are the serve and train summaries, the ``kernels`` JSON
 line, the card line, and ``{"ok": true, "device": {...}}``. Details go to
@@ -177,17 +203,23 @@ def identify_card():
 
 # ------------------------------------------------------------------ phase 2
 def build_kernels(TF):
-    """One nvcc per kernel source, all started together; returns
-    {source: (library path, seconds)} and the ptxas lines of each build."""
+    """One nvcc per kernel source and the g++ build of the dataset index
+    helper, all started together; returns {source: (library path,
+    seconds)} of the kernels, the ptxas lines of each build and the
+    helper's (path, seconds)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    def one(src):
+    from galvatron_tpu_torch.data import dataset as DS
+
+    def one(build, *src):
         t0 = time.perf_counter()
-        so = TF.build(src)
+        so = build(*src)
         return so, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(TF.SOURCES)) as ex:
-        built = dict(zip(TF.SOURCES, ex.map(one, TF.SOURCES)))
+    with ThreadPoolExecutor(len(TF.SOURCES) + 1) as ex:
+        helper = ex.submit(one, DS.build)
+        built = dict(zip(TF.SOURCES, ex.map(lambda src: one(TF.build, src), TF.SOURCES)))
+        helper = helper.result()
     ptxas, kernels = {}, {}
     for src, (so, _) in built.items():
         with open(so + ".log") as f:
@@ -196,7 +228,7 @@ def build_kernels(TF):
         ptxas[os.path.basename(src)] = [ln for ln in lines if "registers" in ln or "spill" in ln
                                         or "entry function" in ln or "C7508" in ln]
         kernels.update(ptxas_by_kernel(lines))
-    return built, ptxas, kernels
+    return built, ptxas, kernels, helper
 
 
 def ptxas_by_kernel(lines):
@@ -710,6 +742,314 @@ def train_gpt_layouts(torch, TF):
                 fwd_launches=on["fwd_launches"], bwd_launches=on["bwd_launches"])
 
 
+# ----------------------------------------------------------------- phase 10
+# LLaMA-7B width at depth 2 (cut from 32 so that a checkpoint of fp32
+# params and both Adam moments stays ~8 GB), the train cell's batch and
+# sequence, layer 0 under full remat and layer 1 under dots_saveable
+CORPUS_DOCS = 4000
+CORPUS_LEN = (256, 4096)  # document lengths, uniform
+CKPT_LAYERS = 2
+CKPT_CHECKPOINT = [1, 1]
+CKPT_REMAT = ["full", "dots_saveable"]
+CKPT_STEPS = 6
+CKPT_INTERVAL = 3
+EVAL_ITERS = 2
+NAN_STEP = CKPT_STEPS  # the planted NaN: the first step after a resume from the end
+SERVE_LOAD_REQUESTS = 4
+# the losses of the resumed steps against the uninterrupted run's: under
+# torch.use_deterministic_algorithms every op of the step has a
+# deterministic path on this card, and the kernels have no atomics, so the
+# losses must agree bit for bit (0.0); the check allows no difference
+TOL_RESUME_LOSS = 0.0
+
+
+def _phase10_argv(strategy, corpus, extra):
+    return [
+        "--model_type", "llama", "--model_size", "llama-7b", "--set_layernum_manually", "1",
+        "--num_layers", str(CKPT_LAYERS), "--mixed_precision", "bf16", "--device", "cuda",
+        "--global_train_batch_size", "8", "--chunks", "2", "--galvatron_config_path", strategy,
+        "--lr", "1e-4", "--lr_warmup_iters", "2", "--seed", str(SEED), "--data_path", corpus,
+    ] + list(extra)
+
+
+def corpus_checkpoint_resume(torch, TF):
+    """Train from a corpus with eval and checkpoints, resume, plant a NaN
+    step, serve from the checkpoint (see the module note, phase 10)."""
+    import hashlib
+    import shutil
+    import warnings
+
+    import numpy as np
+
+    from galvatron_tpu_torch.cli import serve as cli_serve
+    from galvatron_tpu_torch.cli import train as cli_train
+    from galvatron_tpu_torch.data import dataset as DS
+    from galvatron_tpu_torch.models import base as M
+    from galvatron_tpu_torch.models.llama import llama_config
+    from galvatron_tpu_torch.runtime import checkpoint as CK
+    from galvatron_tpu_torch.runtime.resilience import FaultHooks
+    from galvatron_tpu_torch.serve import engine as E
+
+    out = os.path.join("chiprun_out", "phase10")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    helper = DS.build()  # built in phase 2
+    rng = np.random.RandomState(SEED)
+    docs = [rng.randint(0, 32000, n).astype(np.int32)
+            for n in rng.randint(CORPUS_LEN[0], CORPUS_LEN[1] + 1, CORPUS_DOCS)]
+    corpus = os.path.join(out, "corpus")
+    DS.write_indexed_dataset(corpus, docs)
+    indexed = DS.IndexedDataset(corpus)
+    split_tokens = {k: int(indexed.doc_lens[v].sum())
+                    for k, v in DS.split_doc_ids(indexed.n_docs, "969,30,1").items()}
+    check(split_tokens["test"] > 2049, "test split holds %d tokens" % split_tokens["test"])
+    corpus_mb = os.path.getsize(corpus + ".bin") / 1e6
+    corpus_s = time.perf_counter() - t0
+    strategy = os.path.join(out, "strategy.json")
+    with open(strategy, "w") as f:
+        json.dump({"pp_deg": 1, "tp_sizes_enc": "1,1", "tp_consecutive_flags": "1,1",
+                   "dp_types_enc": "0,0", "checkpoint": ",".join(map(str, CKPT_CHECKPOINT)),
+                   "remat_policy": ",".join(CKPT_REMAT), "global_bsz": 8, "chunks": 2}, f)
+    ck = os.path.join(out, "ckpt")
+
+    def run(extra, hooks=None):
+        args = cli_train.initialize_galvatron(argv=_phase10_argv(strategy, corpus, extra),
+                                              mode="train")
+        args.fault_hooks = hooks
+        torch.cuda.empty_cache()
+        TF.flash_attention_fwd.launches = 0
+        TF.flash_attention_bwd.launches = 0
+        summary = cli_train.train(args)
+        return summary, (TF.flash_attention_fwd.launches, TF.flash_attention_bwd.launches)
+
+    def batch_hooks(record, first_step=None):
+        """Record each global batch the stream yields (a digest per step and
+        a CPU copy), and hold the batch each step receives on the card —
+        copied there by the prefetch thread on its own stream — against the
+        CPU copy of the same step. `first_step(params, opt_state)` runs
+        before the first step."""
+        pending = []
+
+        def wrap_data(it, start):
+            step = start
+            for b in it:
+                record[step] = hashlib.sha256(b"".join(
+                    b[k].numpy().tobytes() for k in sorted(b))).hexdigest()
+                pending.append({k: v.clone() for k, v in b.items()})
+                yield b
+                step += 1
+
+        def wrap_step(fn):
+            def step(params, opt_state, batch, *rest):
+                want = pending.pop(0)
+                same = all(torch.equal(batch[k].cpu(), want[k]) for k in want)
+                check(same and set(batch) == set(want),
+                      "a prefetched batch differs from the one the stream yielded")
+                record["prefetch_checked"] = record.get("prefetch_checked", 0) + 1
+                if first_step is not None and record.get("first") is None:
+                    record["first"] = first_step(params, opt_state)
+                return fn(params, opt_state, batch, *rest)
+            return step
+
+        return FaultHooks(wrap_data_iter=wrap_data, wrap_step_fn=wrap_step)
+
+    prev = torch.are_deterministic_algorithms_enabled()
+    import torch.utils.deterministic as det
+    prev_fill = det.fill_uninitialized_memory
+    det.fill_uninitialized_memory = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            batches1, batches2 = {}, {}
+            s1, l1 = run(["--train_iters", str(CKPT_STEPS), "--eval_interval",
+                          str(CKPT_INTERVAL), "--eval_iters", str(EVAL_ITERS), "--save", ck,
+                          "--save_interval", str(CKPT_INTERVAL)], batch_hooks(batches1))
+            saved = {c["iteration"]: c for c in s1["checkpoint_saves"]}
+            check(sorted(saved) == [CKPT_INTERVAL, CKPT_STEPS]
+                  and CK.intact_iterations(ck) == [CKPT_INTERVAL, CKPT_STEPS],
+                  "saves %s, intact %s" % (sorted(saved), CK.intact_iterations(ck)))
+            manifest = CK.read_manifest(ck, CKPT_INTERVAL)
+            check(manifest is not None and manifest["items"]["params"]["ranks"][0]["digest"]
+                  == saved[CKPT_INTERVAL]["digests"]["params"]["digest"],
+                  "manifest of step %d does not hold the saved digests" % CKPT_INTERVAL)
+            s2, l2 = run(["--train_iters", str(CKPT_STEPS), "--eval_interval",
+                          str(CKPT_INTERVAL), "--eval_iters", str(EVAL_ITERS), "--load", ck,
+                          "--load_iteration", str(CKPT_INTERVAL)],
+                         batch_hooks(batches2, lambda p, o: CK.state_digests(p, o)))
+        nondet = sorted({str(w.message).split("\n")[0][:160] for w in caught
+                         if "deterministic" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(prev)
+        det.fill_uninitialized_memory = prev_fill
+    restored = s2["checkpoint_restore"]
+    on_card = batches2["first"]
+    check(restored["iteration"] == CKPT_INTERVAL, "resumed at %s" % restored["iteration"])
+    for item in ("params", "opt_state"):
+        want = saved[CKPT_INTERVAL]["digests"][item]["digest"]
+        check(restored["digests"][item]["digest"] == want and on_card[item]["digest"] == want,
+              "%s: restored digest (file %s, on the card %s) != saved %s"
+              % (item, restored["digests"][item]["digest"][:12], on_card[item]["digest"][:12],
+                 want[:12]))
+    resumed_steps = list(range(CKPT_INTERVAL, CKPT_STEPS))
+    check(all(batches2[s] == batches1[s] for s in resumed_steps),
+          "batches after the resume differ from the first run's")
+    check(batches1["prefetch_checked"] == CKPT_STEPS
+          and batches2["prefetch_checked"] == len(resumed_steps),
+          "prefetched batches checked %s / %s times" % (batches1["prefetch_checked"],
+                                                       batches2["prefetch_checked"]))
+    loss_diff = [abs(a - b) for a, b in zip(s2["losses"], s1["losses"][CKPT_INTERVAL:])]
+    check(len(s1["losses"]) == CKPT_STEPS and len(s2["losses"]) == len(resumed_steps)
+          and all(math.isfinite(x) for x in s1["losses"] + s2["losses"]),
+          "losses %s / %s" % (s1["losses"], s2["losses"]))
+    check(max(loss_diff) <= TOL_RESUME_LOSS,
+          "resumed losses %s differ from the first run's %s by %.3g (tol %g)"
+          % (s2["losses"], s1["losses"][CKPT_INTERVAL:], max(loss_diff), TOL_RESUME_LOSS))
+    check(s2["valid_losses"][-1] == s1["valid_losses"][-1] and s2["test_loss"] == s1["test_loss"],
+          "eval after the resume: valid %s / %s, test %s / %s" % (
+              s2["valid_losses"], s1["valid_losses"], s2["test_loss"], s1["test_loss"]))
+
+    # launches: train steps, eval passes (forward alone), per run
+    per_step = (2 * (CKPT_LAYERS + sum(CKPT_CHECKPOINT)), 2 * CKPT_LAYERS)
+    eval_pass = EVAL_ITERS * CKPT_LAYERS
+    passes = (CKPT_STEPS // CKPT_INTERVAL + 1, (CKPT_STEPS - CKPT_INTERVAL) // CKPT_INTERVAL + 1)
+    train_data = [l1[0] - s1["eval_flash_launches"]["fwd"],
+                  l2[0] - s2["eval_flash_launches"]["fwd"]]
+    for i, (s, l, n_steps) in enumerate(((s1, l1, CKPT_STEPS), (s2, l2, len(resumed_steps)))):
+        check(s["eval_flash_launches"] == {"fwd": passes[i] * eval_pass, "bwd": 0},
+              "run %d: eval launched %s, expected fwd %d (%d passes x %d batches x %d layers) "
+              "and no bwd" % (i + 1, s["eval_flash_launches"], passes[i] * eval_pass,
+                              passes[i], EVAL_ITERS, CKPT_LAYERS))
+        check((train_data[i], l[1]) == (n_steps * per_step[0], n_steps * per_step[1]),
+              "run %d: train steps launched fwd %d / bwd %d, expected %d / %d" % (
+                  i + 1, train_data[i], l[1], n_steps * per_step[0], n_steps * per_step[1]))
+        check(s["flash_routes"] == [{"fwd": {"wgmma": l[0]}, "bwd": {"wgmma": l[1]}}],
+              "run %d launches by route: %s (every one must be wgmma)" % (i + 1, s["flash_routes"]))
+
+    # the planted NaN: resume from the end, one step whose loss is NaN
+    def poison(it, start):
+        for i, b in enumerate(it):
+            if start + i == NAN_STEP:
+                b = dict(b, loss_mask=torch.full(b["tokens"].shape, float("nan")))
+            yield b
+
+    snap = {}
+
+    def guarded(fn):
+        def step(params, opt_state, batch, *rest):
+            before = {n: p.detach().clone() for n, p in params.named_parameters()}
+            before.update({"mu/" + n: t.clone() for n, t in opt_state.mu.items()})
+            before.update({"nu/" + n: t.clone() for n, t in opt_state.nu.items()})
+            count = opt_state.count
+            params, opt_state, metrics = fn(params, opt_state, batch, *rest)
+            after = dict(params.named_parameters())
+            after.update({"mu/" + n: t for n, t in opt_state.mu.items()})
+            after.update({"nu/" + n: t for n, t in opt_state.nu.items()})
+            snap.update(anomalous=metrics["anomalous"], count=(count, opt_state.count),
+                        unchanged=all(torch.equal(before[n], after[n]) for n in before),
+                        leaves=len(before))
+            del before
+            return params, opt_state, metrics
+        return step
+
+    s3, l3 = run(["--train_iters", str(NAN_STEP + 1), "--load", ck],
+                 FaultHooks(wrap_data_iter=poison, wrap_step_fn=guarded))
+    check(snap.get("anomalous") is True and snap["unchanged"]
+          and snap["count"][0] == snap["count"][1] == CKPT_STEPS,
+          "planted NaN step: %s" % {k: v for k, v in snap.items()})
+    check(s3["resilience"]["anomalies_skipped"] == 1 and s3["losses"] == [],
+          "planted NaN step: summary %s, losses %s" % (s3["resilience"], s3["losses"]))
+
+    # serve the checkpoint: every request completes, the first prefill's
+    # logits match the trained model's forward
+    seen = {"prefills": 0, "first": None}
+
+    class Recording(E.ServeEngine):
+        def prefill(self, prompt, slot):
+            tok, logits = super().prefill(prompt, slot)
+            seen["prefills"] += 1
+            if seen["first"] is None:
+                seen["first"] = (list(prompt), np.array(logits))
+            return tok, logits
+
+    orig = E.ServeEngine
+    E.ServeEngine = Recording
+    routes0 = dict(TF.flash_attention_fwd.routes)
+    TF.flash_attention_fwd.launches = 0
+    try:
+        torch.cuda.empty_cache()
+        t_serve = time.perf_counter()
+        served = cli_serve.main([
+            "--model_type", "llama", "--model_size", "llama-7b", "--set_layernum_manually", "1",
+            "--num_layers", str(CKPT_LAYERS), "--mixed_precision", "bf16", "--device", "cuda",
+            "--serve_max_concurrency", "4", "--serve_page_size", "128",
+            "--num_requests", str(SERVE_LOAD_REQUESTS), "--prompt_len_min", "100",
+            "--prompt_len_max", "1500", "--max_new_tokens", "8", "--seed", str(SEED),
+            "--load", ck])
+        serve_s = time.perf_counter() - t_serve
+    finally:
+        E.ServeEngine = orig
+    serve_launches = TF.flash_attention_fwd.launches
+    serve_routes = {r: n - routes0.get(r, 0) for r, n in TF.flash_attention_fwd.routes.items()
+                    if n != routes0.get(r, 0)}
+    check(served["requests"] == SERVE_LOAD_REQUESTS and served["shed"] == 0,
+          "serve --load completed %d of %d requests" % (served["requests"], SERVE_LOAD_REQUESTS))
+    check(serve_launches == CKPT_LAYERS * seen["prefills"]
+          and serve_routes == {"wgmma": serve_launches},
+          "serve --load launched the forward %d times (%s), expected %d layers x %d prefills"
+          % (serve_launches, serve_routes, CKPT_LAYERS, seen["prefills"]))
+    cfg = llama_config("llama-7b", num_layers=CKPT_LAYERS, compute_dtype=torch.bfloat16)
+    full, meta = CK.load_full_params(ck, None, cfg)
+    trained = M.TransformerLM(cfg, "meta")
+    for n, _ in list(trained.named_parameters()):
+        owner, _, leaf = n.rpartition(".")
+        trained.get_submodule(owner)._parameters[leaf] = torch.nn.Parameter(
+            full[n].to("cuda"), requires_grad=False)
+    del full
+    prompt, logits = seen["first"]
+    with torch.inference_mode():
+        ref = M.model_forward(trained, torch.tensor([prompt], device="cuda"), None,
+                              dataclasses.replace(cfg, attn_impl="xla"))
+        ref = ref[0, -1].float().cpu().numpy()
+    serve_err = float(np.abs(logits - ref).max())
+    check(serve_err <= TOL_DECODE, "serve --load first prefill logits differ from the trained "
+          "model's forward by %.4f (tol %.2f)" % (serve_err, TOL_DECODE))
+    del trained
+    first_save, restore = saved[CKPT_INTERVAL], restored
+    sizes = {int(d): sum(os.path.getsize(os.path.join(ck, d, f)) for f in os.listdir(
+        os.path.join(ck, d))) for d in os.listdir(ck) if d.isdigit()}
+    # keep the manifests, drop the step data and the corpus (~8 GB, ~35 MB)
+    for d in os.listdir(ck):
+        if d.isdigit():
+            shutil.rmtree(os.path.join(ck, d))
+    for ext in (".bin", ".idx.npy"):
+        os.remove(corpus + ext)
+    torch.cuda.empty_cache()
+    return dict(
+        helper_library=os.path.relpath(helper), corpus_docs=CORPUS_DOCS,
+        corpus_mb=corpus_mb, corpus_s=corpus_s, split_tokens=split_tokens,
+        runs={"train": s1, "resume": s2, "nan": s3}, losses=s1["losses"],
+        resumed_losses=s2["losses"], resume_loss_diff=loss_diff,
+        resume_bitwise=max(loss_diff) == 0.0, tolerance=TOL_RESUME_LOSS,
+        nondeterministic_warnings=nondet,
+        valid_losses=s1["valid_losses"], test_loss=s1["test_loss"],
+        save={"bytes": first_save["bytes"], "seconds": first_save["seconds"],
+              "copy_s": first_save["copy_s"], "digest_s": first_save["digest_s"],
+              "write_s": first_save["write_s"], "file_bytes": sizes},
+        load={"bytes": restore["bytes"], "seconds": restore["seconds"],
+              "digest_s": restore["digest_s"]},
+        nan_step=dict(snap, summary=s3["resilience"]),
+        launches={"train_data": {"fwd": sum(train_data), "bwd": l1[1] + l2[1]},
+                  "eval": {"fwd": s1["eval_flash_launches"]["fwd"]
+                           + s2["eval_flash_launches"]["fwd"], "bwd": 0},
+                  "nan_run": {"fwd": l3[0], "bwd": l3[1]},
+                  "serve_load": {"fwd": serve_launches, "bwd": 0}},
+        serve=dict(summary=served, prefills=seen["prefills"], first_prefill_err=serve_err,
+                   tolerance=TOL_DECODE, seconds=serve_s, restored_iteration=meta["iteration"]),
+        wall_s=time.perf_counter() - t0)
+
+
 def main():
     try:
         import torch
@@ -730,8 +1070,10 @@ def main():
     log("card: %s | torch %s, CUDA %s, %d device(s)" % (
         card, torch.__version__, torch.version.cuda, torch.cuda.device_count()))
 
-    built, ptxas, ptxas_kernels = build_kernels(TF)
+    built, ptxas, ptxas_kernels, helper = build_kernels(TF)
     build_s = {os.path.basename(src): sec for src, (_, sec) in built.items()}
+    build_s["index_helpers.cpp"] = helper[1]
+    log("built %s in %.1f s (g++)" % (os.path.relpath(helper[0]), helper[1]))
     for src, (so, sec) in built.items():
         log("built %s in %.1f s\n  %s" % (os.path.relpath(so), sec,
                                           "\n  ".join(ptxas[os.path.basename(src)])))
@@ -748,6 +1090,7 @@ def main():
     served = serve(torch, TF)
     trained = train(torch, TF)
     layouts = train_gpt_layouts(torch, TF)
+    corpus = corpus_checkpoint_resume(torch, TF)
     s, t = served["summary"], trained["summary"]
 
     def at_2048(rows, b):
@@ -770,21 +1113,26 @@ def main():
         }
 
     z3, z2 = layouts["runs"]["zero3"], layouts["runs"]["zero2"]
+    c = corpus["launches"]
     kernels = {"kernels": [
         entry("flash_attn_fwd", SOURCE, shapes, z3["fwd_launches"],
               {"serve": served["flash_launches"], "train": trained["fwd_launches"],
-               "train_gpt_zero3": z3["fwd_launches"], "train_gpt_zero2": z2["fwd_launches"]},
+               "train_gpt_zero3": z3["fwd_launches"], "train_gpt_zero2": z2["fwd_launches"],
+               "train_data": c["train_data"]["fwd"], "eval": c["eval"]["fwd"],
+               "serve_load": c["serve_load"]["fwd"]},
               TOL_FWD_BF16),
         entry("flash_attn_bwd", BWD_SOURCE, bwd_shapes, z3["bwd_launches"],
               {"serve": 0, "train": trained["bwd_launches"],
-               "train_gpt_zero3": z3["bwd_launches"], "train_gpt_zero2": z2["bwd_launches"]},
+               "train_gpt_zero3": z3["bwd_launches"], "train_gpt_zero2": z2["bwd_launches"],
+               "train_data": c["train_data"]["bwd"], "eval": c["eval"]["bwd"],
+               "serve_load": c["serve_load"]["bwd"]},
               TOL_BWD_BF16),
     ]}
     results = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                    build_s=build_s, ptxas=ptxas, wgmma_ptxas=wgmma_ptxas,
                    kernels=kernels["kernels"], grads=grads,
                    decode=decode, serve=served, train=trained, train_gpt_layouts=layouts,
-                   wall_s=time.perf_counter() - t_start)
+                   corpus_checkpoint=corpus, wall_s=time.perf_counter() - t_start)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1, default=str)
@@ -798,25 +1146,61 @@ def main():
             served["decode_tick_ms_median"], served["weight_cast_ms_per_tick"],
             served["weight_cast_gb_per_tick"], served["peak_memory_gb"],
             served["flash_launches"], served["layers"], served["prefills"]))
+    # step ms: the median step period, end to end (previous step's end to
+    # this one's, idle included; tokens/s and MFU come from these periods).
+    # The numbers in brackets are the earlier loop's host-synced step times
+    # (sync, step, sync), without the guard and the prefetch thread.
+    # device: the stream's busy span of a step. loop wall: fenced wall of
+    # the post-warmup loop per step.
     log("train llama-7b width (%d layers, bf16, seq 2048, global batch %d in %d micro-batches, "
-        "remat %s) on %s: steady step %.1f ms, %.0f tokens/s, MFU %.3f (989 TFLOP/s), peak "
-        "memory %.1f GB, losses %s, flash launches fwd %d / bwd %d" % (
-            trained["layers"], trained["global_bsz"], trained["chunks"], trained["remat"], card,
-            t["steady_step_ms"], t["tokens_per_s"], t.get("mfu", float("nan")),
-            t["peak_hbm_mb"] * 2**20 / 1e9, ["%.4f" % x for x in t["losses"]],
-            trained["fwd_launches"], trained["bwd_launches"]))
-    for name, r in (("ZeRO-3 layers 0-3 + ZeRO-2", z3), ("ZeRO-2 everywhere", z2)):
+        "remat %s, anomaly guard and prefetch on) on %s: step %.1f ms end to end (before: "
+        "618-622 ms host-synced, without the guard and the prefetch thread), device %.1f "
+        "ms/step, loop wall %.1f ms/step, host blocked %.2f ms/step, %.0f tokens/s, MFU %.3f "
+        "(989 TFLOP/s), peak memory %.1f GB, losses %s, flash launches fwd %d / bwd %d"
+        % (trained["layers"], trained["global_bsz"], trained["chunks"], trained["remat"], card,
+           t["steady_step_ms"], t["device_step_ms"], t.get("wall_ms_per_iter", float("nan")),
+           t.get("host_blocked_ms", float("nan")), t["tokens_per_s"], t.get("mfu", float("nan")),
+           t["peak_hbm_mb"] * 2**20 / 1e9, ["%.4f" % x for x in t["losses"]],
+           trained["fwd_launches"], trained["bwd_launches"]))
+    for name, r, pr4 in (("ZeRO-3 layers 0-3 + ZeRO-2", z3, "782"),
+                         ("ZeRO-2 everywhere", z2, "746")):
         g = r["summary"]
         log("train gpt-6.7b width through the layout path (%d layers, bf16, seq 2048, global "
-            "batch %d in %d micro-batches, remat %s, %s, world 1) on %s: steady step %.1f ms, "
-            "%.0f tokens/s per GPU, MFU %.3f (989 TFLOP/s), peak memory %.1f GB, losses %s, "
-            "flash launches fwd %d / bwd %d" % (
+            "batch %d in %d micro-batches, remat %s, %s, world 1, guard and prefetch on) on %s: "
+            "step %.1f ms end to end (before: %s ms host-synced, without them), device %.1f "
+            "ms/step, %.0f tokens/s per GPU, MFU %.3f (989 TFLOP/s), "
+            "peak memory %.1f GB, losses %s, flash launches fwd %d / bwd %d" % (
                 layouts["layers"], layouts["global_bsz"], layouts["chunks"], layouts["remat"],
-                name, card, g["steady_step_ms"], g["tokens_per_s_per_gpu"],
+                name, card, g["steady_step_ms"], pr4, g["device_step_ms"],
+                g["tokens_per_s_per_gpu"],
                 g.get("mfu", float("nan")), g["peak_hbm_mb"] * 2**20 / 1e9,
                 ["%.5f" % x for x in g["losses"]], r["fwd_launches"], r["bwd_launches"]))
     log("gpt layout runs: ZeRO-3 vs ZeRO-2 losses agree within %.3g relative (tol %.0e)"
         % (max(layouts["loss_rel_err"]), layouts["tolerance"]))
+    r1 = corpus["runs"]["train"]
+    log("corpus, eval, checkpoint, resume (llama-7b width, %d layers, %d documents, %.1f MB) "
+        "on %s: step %.1f ms end to end, valid losses %s, test loss "
+        "%.5f; save %.2f GB in %.2f s (copy %.2f, digest %.2f, write %.2f), load %.2f GB in "
+        "%.2f s (digest %.2f); eval passes %s ms; resumed losses %s vs %s (%s); planted NaN "
+        "step skipped, state "
+        "unchanged (%d tensors); serve --load %d requests, first prefill logits within %.4f; "
+        "launches train %s, eval %s, serve %s; phase %.1f s" % (
+            CKPT_LAYERS, CORPUS_DOCS, corpus["corpus_mb"], card,
+            r1["steady_step_ms"], ["%.5f" % v for _, v in corpus["valid_losses"]],
+            corpus["test_loss"], corpus["save"]["bytes"] / 1e9, corpus["save"]["seconds"],
+            corpus["save"]["copy_s"], corpus["save"]["digest_s"], corpus["save"]["write_s"],
+            corpus["load"]["bytes"] / 1e9, corpus["load"]["seconds"], corpus["load"]["digest_s"],
+            ["%.1f" % x for x in r1["eval_pass_ms"]],
+            ["%.6f" % x for x in corpus["resumed_losses"]],
+            ["%.6f" % x for x in corpus["losses"][CKPT_INTERVAL:]],
+            "bitwise" if corpus["resume_bitwise"] else "max diff %.3g" % max(
+                corpus["resume_loss_diff"]),
+            corpus["nan_step"]["leaves"], corpus["serve"]["summary"]["requests"],
+            corpus["serve"]["first_prefill_err"], corpus["launches"]["train_data"],
+            corpus["launches"]["eval"], corpus["launches"]["serve_load"], corpus["wall_s"]))
+    if corpus["nondeterministic_warnings"]:
+        log("phase 10 ops without a deterministic path (warnings): %s"
+            % corpus["nondeterministic_warnings"])
     log(json.dumps(kernels))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,8 @@
 """Structured diagnostics raised by the strategy code and the serve lint.
 
 Port of the subset of ``galvatron_tpu/analysis/diagnostics.py`` that the
-strategy schema, the structural validator and the serve/train lint report
-through: `Diagnostic`, `make`, `did_you_mean`, `DiagnosticError` (still a
+strategy schema, the structural validator, the serve/train lint and the
+checkpoint layer (GLS2xx) report through: `Diagnostic`, `make`, `did_you_mean`, `DiagnosticError` (still a
 ``ValueError``) and `DiagnosticReport`. Codes and severities are the
 reference's, so a strategy refused by one package is refused with the same
 code by the other. Stdlib only.
@@ -32,6 +32,14 @@ CODES: Dict[str, Tuple[str, str]] = {
     "GLS014": (ERROR, "serve-infeasible configuration (latency bound, KV budget, or layout)"),
     "GLS102": (WARNING, "expensive cross-layer redistribution between adjacent layers"),
     "GLS103": (WARNING, "suspicious but runnable configuration"),
+    # ---- checkpoint portability and integrity (runtime/checkpoint.py) ----
+    "GLS201": (ERROR, "model-config digest mismatch between checkpoint and run"),
+    "GLS202": (ERROR, "optimizer state incompatible with the checkpoint's"),
+    "GLS204": (ERROR, "checkpoint lacks the provenance elastic resume requires"),
+    "GLS206": (ERROR, "cross-strategy relayout unsupported for this model family"),
+    "GLS210": (ERROR, "checkpoint step without a committed integrity manifest (torn save)"),
+    "GLS212": (ERROR, "malformed checkpoint manifest or inconsistent provenance"),
+    "GLS214": (ERROR, "checkpoint bytes no longer match the manifest's integrity digest"),
 }
 
 

@@ -1,17 +1,18 @@
 """Argument system for the port's entry points (serve and train modes).
 
 Port of the serve and train subsets of ``galvatron_tpu/cli/arguments.py``:
-the model flags, the GLOBAL-mode strategy flags, the serve flags, the
-training flags the one-device trainer acts on (iterations, learning rate and
-schedule, Adam, clipping, seed, log interval) and the two args -> structure
-functions. Flags whose modules are not ported yet are not defined, so
-argparse refuses them: ``--load``/``--save`` and the other checkpoint flags,
-``--data_path``/``--split``, ``--eval_*``, telemetry/tracing for training,
-prefetch/inflight/donation, resilience (anomaly guard, retries, elastic),
-sdc and autotune flags, ``--watchdog*``, ``--mesh_probe_interval``,
-``--migrate_on_degrade`` (serve resilience), the compilation-cache and
-multi-host bootstrap flags (JAX runtime only). The port adds
-``--device {cuda,cpu}``.
+the model flags, the GLOBAL-mode strategy flags, the serve flags (with
+``--load`` / ``--load_iteration``), the training flags (iterations, learning
+rate and schedule, Adam, clipping, seed, log interval; the corpus and its
+split, eval, checkpoints, the anomaly guard, preemption, retries, prefetch
+and the drain window, telemetry, memory snapshots) with the reference's
+defaults, and the two args -> structure functions. Flags whose modules are
+not ported yet are not defined, so argparse refuses them: sdc, autotune and
+elastic flags, ``--trace_lint``, ``--xla_trace`` and the other profiling
+flags, ``--watchdog*``, ``--mesh_probe_interval``, ``--migrate_on_degrade``
+(serve resilience), the compilation-cache and multi-host bootstrap flags
+(JAX runtime only). ``--donate_step`` takes 1 only (see its help). The port
+adds ``--device {cuda,cpu}``.
 """
 
 from __future__ import annotations
@@ -116,6 +117,78 @@ def _add_train_args(p: argparse.ArgumentParser):
     g.add_argument("--lr_warmup_iters", type=int, default=0)
     g.add_argument("--seed", type=int, default=1234)
     g.add_argument("--log_interval", type=int, default=1)
+    g.add_argument("--data_path", type=str, default=None,
+                   help="indexed dataset prefix (data/dataset.py write_indexed_dataset), or a "
+                        "blend 'W1 PREFIX1 W2 PREFIX2 ...'; default: synthetic data")
+    g.add_argument("--split", type=str, default="969,30,1",
+                   help="train/valid/test document weights over --data_path "
+                        "(Megatron --split semantics)")
+    g.add_argument("--eval_interval", type=int, default=0,
+                   help="run a valid-split eval pass every N iterations (0=off)")
+    g.add_argument("--eval_iters", type=int, default=5,
+                   help="batches averaged per eval pass (and for the final test-split eval)")
+    g.add_argument("--no_async_loop", dest="async_loop", action="store_false", default=True,
+                   help="fully host-serialized loop (no prefetch thread, every step drained "
+                        "at once); losses are bit-identical either way")
+    g.add_argument("--prefetch_batches", type=int, default=2,
+                   help="batches a background thread prepares and copies to the device "
+                        "(pinned memory, a side stream) ahead of the step that reads them "
+                        "(0 => prepare batches on the critical path)")
+    g.add_argument("--donate_step", type=int, default=1, choices=(1,),
+                   help="the port's step always updates params and Adam state in place, "
+                        "which is what donation buys the reference (one resident copy of "
+                        "the state); 0 (keep the step's inputs alive beside new outputs) "
+                        "is refused: nothing in the port reads the old state")
+    g.add_argument("--inflight_steps", type=int, default=2,
+                   help="steps whose metrics may stay undrained: the host goes on to the "
+                        "next step while the device finishes the last one's optimizer "
+                        "update, and timing, logs and the guard's strike count lag by at "
+                        "most this many steps (the skip itself is decided inside each step, "
+                        "at the host sync the gradient clip already makes; forced drain at "
+                        "eval/save/preemption boundaries; 0 => drain every step)")
+    g.add_argument("--save_profiled_memory", type=int, default=0,
+                   help="add device memory snapshots (torch.cuda.memory_stats) after the "
+                        "first step and at the end to the summary")
+    o = p.add_argument_group("observability")
+    o.add_argument("--telemetry", type=str, default=None,
+                   help="write the run's JSONL event stream (run_start, step, eval, "
+                        "checkpoint, anomaly, rollback, preemption, run_end) to this path")
+    o.add_argument("--telemetry_buffer", type=int, default=1024,
+                   help="bounded queue depth of the background telemetry writer")
+    c = p.add_argument_group("checkpointing")
+    c.add_argument("--save", type=str, default=None, help="checkpoint output dir")
+    c.add_argument("--load", type=str, default=None, help="checkpoint dir to resume from")
+    c.add_argument("--load_iteration", type=int, default=None)
+    c.add_argument("--save_interval", type=int, default=0, help="0 => only at end")
+    r = p.add_argument_group("resilience")
+    r.add_argument("--keep_latest_k", type=int, default=0,
+                   help="GC all but the newest K checkpoints after each save (0 => keep all)")
+    r.add_argument("--emergency_save", type=int, default=1,
+                   help="on SIGTERM/SIGINT, save a checkpoint at the next step boundary "
+                        "(needs --save) and exit cleanly")
+    r.add_argument("--anomaly_guard", type=int, default=1,
+                   help="skip updates whose loss/grad norm is NaN/Inf (or spikes past "
+                        "--loss_spike_factor) instead of training through them")
+    r.add_argument("--loss_spike_factor", type=float, default=0.0,
+                   help="treat loss > factor * EMA(accepted losses) as an anomaly "
+                        "(0 => NaN/Inf detection only)")
+    r.add_argument("--anomaly_min_history", type=int, default=5,
+                   help="accepted losses before the spike cap arms")
+    r.add_argument("--anomaly_max_strikes", type=int, default=3,
+                   help="consecutive anomalies before rolling back to the last checkpoint")
+    r.add_argument("--anomaly_max_rollbacks", type=int, default=3,
+                   help="rollbacks before giving up with an error")
+    r.add_argument("--anomaly_reseed", type=int, default=0,
+                   help="offset added to the data-stream step after each rollback, to step "
+                        "past a deterministically poisoned batch (0 => replay the same stream)")
+    r.add_argument("--ckpt_retries", type=int, default=2,
+                   help="retry budget (exponential backoff) for checkpoint save/restore and "
+                        "dataloader I/O")
+    r.add_argument("--ckpt_retry_backoff", type=float, default=0.5,
+                   help="base backoff delay in seconds")
+    r.add_argument("--verify_checkpoint", type=int, default=1,
+                   help="verify the integrity manifest on resume and fall back to the "
+                        "latest intact checkpoint")
 
 
 def _add_serve_args(p: argparse.ArgumentParser):
@@ -150,6 +223,11 @@ def _add_serve_args(p: argparse.ArgumentParser):
     g.add_argument("--telemetry", type=str, default=None,
                    help="write serve_request/decode_batch events to this JSONL")
     g.add_argument("--telemetry_buffer", type=int, default=1024)
+    g.add_argument("--load", type=str, default=None,
+                   help="serve the parameters of this train checkpoint directory (of any "
+                        "world size; the optimizer state is not read)")
+    g.add_argument("--load_iteration", type=int, default=None,
+                   help="checkpoint step to serve (default: the newest intact one)")
     r = p.add_argument_group("serving admission control")
     r.add_argument("--p99_ttft_ms", type=float, default=0.0,
                    help="shed (retryable) any pending request whose "

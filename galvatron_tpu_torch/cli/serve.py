@@ -1,7 +1,10 @@
 """``python -m galvatron_tpu_torch.cli serve`` — inference on one device.
 
 Port of ``galvatron_tpu/cli/serve.py``: builds the model from fresh weights
-(seeded by ``--seed``), the prefill/decode engine over the KV cache
+(seeded by ``--seed``) or the parameters of a train checkpoint (``--load``,
+``--load_iteration``: a checkpoint of any world size, its shards assembled
+into full tensors and checked against the manifest; the optimizer state is
+not read), the prefill/decode engine over the KV cache
 (serve/), drives a synthetic or replayed request load through the
 continuous batcher, and reports TTFT/TPOT percentiles and tokens/s.
 
@@ -12,8 +15,8 @@ The strategy is linted in serve mode first: pp>1, ring-cp and ulysses
 layouts refuse with GLS014, and any layout other than world size 1 refuses
 with a ValueError (the tp/dp serve layouts come in a later slice). The run
 happens on ``--device`` (default ``cuda``); with no GPU visible ``cuda``
-raises. Checkpoint restore, the serve watchdog and degraded-mesh migration
-are not ported yet and their flags are refused.
+raises. The serve watchdog and degraded-mesh migration are not ported yet
+and their flags are refused.
 """
 
 from __future__ import annotations
@@ -77,7 +80,16 @@ def _serve(args) -> dict:
     from galvatron_tpu_torch.serve.kv_cache import KVCacheConfig, kv_bytes_per_slot
 
     model = construct_hybrid_parallel_model(cfg, hp, device, mode="serve")
-    params = model.init_params(args.seed)
+    if getattr(args, "load", None):
+        from galvatron_tpu_torch.runtime import checkpoint as ckpt
+
+        full, meta = ckpt.load_full_params(args.load, args.load_iteration, cfg)
+        params = model.shard_params(full)
+        del full
+        print("restored %s at iteration %s into the serve layout"
+              % (args.load, meta.get("iteration")))
+    else:
+        params = model.init_params(args.seed)
 
     # cache geometry: CLI flags win, then the strategy JSON's serve knobs,
     # then defaults; pages default to covering the model's max_seq_len

@@ -1,14 +1,27 @@
 """``python -m galvatron_tpu_torch.cli train`` — training on 1..N GPUs.
 
-Port of the core of ``galvatron_tpu/cli/train.py``: the model config and the
-per-layer strategy from GLOBAL flags or a searched JSON
-(``--galvatron_config_path``) -> strategy lint (train mode, with the model
-config) -> model (this rank's shards) -> optimizer (clip + Adam + decoupled
-weight decay, warmup + decay schedule, ZeRO-sharded moments) -> the
-synthetic token stream of the reference (same batches for one seed, every
-rank takes its rows) -> ``--train_iters`` steps of chunked loss and
-gradients, each layer under its own layout and remat policy -> a summary
-with the reference's timing keys and the losses, printed by rank 0.
+Port of ``galvatron_tpu/cli/train.py``: the model config and the per-layer
+strategy from GLOBAL flags or a searched JSON (``--galvatron_config_path``)
+-> strategy lint (train mode, with the model config) -> model (this rank's
+shards) -> optimizer (clip + Adam + decoupled weight decay, warmup + decay
+schedule, ZeRO-sharded moments) -> optional resume (``--load``) -> the
+global batch stream: an indexed corpus (``--data_path``, its ``--split``)
+or the reference's synthetic stream, both pure functions of the step
+(every rank takes its rows), prepared and copied to the device by a
+prefetch thread -> ``--train_iters`` steps of chunked loss and gradients,
+each layer under its own layout and remat policy, drained up to
+``--inflight_steps`` behind -> a summary with the reference's timing keys,
+the losses and the resilience counters, printed by rank 0.
+
+At the loop's boundaries, as in the reference: a valid-split eval every
+``--eval_interval`` steps and a final test-split eval (forward only); a
+checkpoint every ``--save_interval`` steps and at the end
+(``runtime/checkpoint.py``: each rank writes its shards, rank 0 commits the
+manifest); the anomaly guard (``--anomaly_guard``: a non-finite or spiking
+step applies nothing, ``--anomaly_max_strikes`` consecutive ones roll back
+to the newest intact checkpoint and rewind the losses and the stream);
+SIGTERM/SIGINT save at the next boundary (``--emergency_save``, every rank
+agreeing on it through one all-reduced flag per step).
 
     python -m galvatron_tpu_torch.cli train --model_type gpt \\
         --model_size gpt-6.7b --set_layernum_manually 1 --num_layers 8 \\
@@ -22,16 +35,19 @@ The run happens on ``--device`` (default ``cuda``: ``nccl``, the GPU
 ``LOCAL_RANK``; ``cpu``: ``gloo``); with no GPU visible ``cuda`` raises.
 Attention at flash-eligible shapes (head_dim >= 128, a sequence that is a
 multiple of 128) goes through the hand-written flash-attention kernels,
-forward and backward, on each rank's heads. Pipelines, context parallelism
-and Ulysses refuse with a ValueError naming their ROADMAP item.
-Checkpoints, real data (``--data_path``), evaluation, telemetry and the
-resilience machinery are not ported yet, and their flags are refused.
+forward and backward, on each rank's heads (eval runs the forward alone).
+Pipelines, context parallelism and Ulysses refuse with a ValueError naming
+their ROADMAP item; so do the silent-corruption sentinel, the watchdog,
+elastic resume and the autotuner, whose flags argparse refuses.
 """
 
 from __future__ import annotations
 
+import math
+import time
+from collections import deque
 from dataclasses import dataclass
-from typing import Any, Callable, Iterator, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -41,12 +57,22 @@ from galvatron_tpu_torch.cli.arguments import (
     model_config_from_args,
 )
 from galvatron_tpu_torch.obs import flops as obs_flops
+from galvatron_tpu_torch.obs import telemetry
 from galvatron_tpu_torch.ops import flash_attention
-from galvatron_tpu_torch.profiler.runtime import RuntimeProfiler
+from galvatron_tpu_torch.profiler.runtime import RuntimeProfiler, device_memory_stats
+from galvatron_tpu_torch.runtime import checkpoint as ckpt
 from galvatron_tpu_torch.runtime import distributed
-from galvatron_tpu_torch.runtime.dataloader import get_train_iterator
+from galvatron_tpu_torch.runtime import resilience as rsl
+from galvatron_tpu_torch.runtime.dataloader import build_data_iterator
 from galvatron_tpu_torch.runtime.model_api import construct_hybrid_parallel_model
 from galvatron_tpu_torch.runtime.optimizer import OptimizerArgs, get_optimizer_and_scheduler
+from galvatron_tpu_torch.runtime.prefetch import (
+    DevicePlacer,
+    PrefetchIterator,
+    PrefetchStalledError,
+    consume,
+)
+from galvatron_tpu_torch.runtime.provenance import build_provenance
 
 
 def optimizer_args_from(args) -> OptimizerArgs:
@@ -66,30 +92,111 @@ def optimizer_args_from(args) -> OptimizerArgs:
 
 @dataclass
 class TrainRun:
-    """Everything one training run steps: the model config and strategy,
-    this rank's parameters and Adam state, the optimizer, the train step
-    and the synthetic batch stream (global batches: the step takes this
-    rank's rows)."""
+    """Everything one training run steps: the model family, config and
+    strategy, the model, this rank's parameters and Adam state, the
+    optimizer, the anomaly guard (None under ``--anomaly_guard 0``) and the
+    train step as ``cli train`` runs it (with the guard, the step takes the
+    guard's spike cap as a fourth argument: `step_args`)."""
+    fam: Any
     cfg: Any
     hp: Any
     device: torch.device
+    model: Any
     tx: Any
     params: Any
     opt_state: Any
+    guard: Optional[rsl.AnomalyGuard]
     step: Callable
-    data: Iterator
+
+    def step_args(self) -> tuple:
+        """The step's arguments after (params, opt_state, batch)."""
+        return (self.guard.spike_cap(),) if self.guard is not None else ()
+
+
+class BatchStream:
+    """The train batches on the device, from a start step: the corpus or
+    the synthetic stream (``runtime/dataloader.py``, a pure function of the
+    step: resume and rollback reopen it at a step), each global batch made
+    and copied to the device by a prefetch thread (``--prefetch_batches``;
+    0, or ``--no_async_loop``: made on the caller's thread). Building the
+    stream and reading a batch are retried under `retry_policy`; a stalled
+    prefetch thread is rebuilt once at the batch it stalled on (an exact
+    replay), a second stall raises. `hooks` (``FaultHooks``) may wrap the
+    CPU stream before the prefetch thread."""
+
+    def __init__(self, args, run: TrainRun, retry_policy=None, counters=None, hooks=None):
+        self.args, self.run, self.hooks = args, run, hooks
+        self.retry_policy, self.counters = retry_policy, counters
+        async_loop = bool(getattr(args, "async_loop", True))
+        self.depth = max(int(getattr(args, "prefetch_batches", 2) or 0), 0) if async_loop else 0
+        self.placer = DevicePlacer(run.device) if self.depth else None
+        self.prefetch = self.source = None
+        self.position = 0  # the stream index of the next batch
+
+    def _retry(self, fn, what):
+        return rsl.with_retry(fn, self.retry_policy, self.counters, description=what)
+
+    def _retrying(self, it_):
+        while True:
+            try:
+                b = self._retry(lambda: next(it_), "dataloader")
+            except StopIteration:
+                return
+            yield b
+
+    def open(self, start_step: int):
+        """(Re)build the stream at `start_step`, dropping whatever the old
+        prefetch thread had buffered."""
+        self.close()
+        run = self.run
+        it_ = self._retry(lambda: build_data_iterator(self.args, run.fam, run.cfg, run.hp,
+                                                      start_step=start_step),
+                          "dataloader build")
+        if self.hooks is not None and self.hooks.wrap_data_iter:
+            it_ = self.hooks.wrap_data_iter(it_, start_step)
+        if self.depth:
+            self.prefetch = PrefetchIterator(self._retrying(it_), depth=self.depth,
+                                             place_fn=self.placer)
+        else:
+            self.source = it_
+        self.position = start_step
+        return self
+
+    def close(self):
+        if self.prefetch is not None:
+            self.prefetch.close()
+        self.prefetch = self.source = None
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> dict:
+        if self.prefetch is not None:
+            try:
+                b = consume(next(self.prefetch))
+            except PrefetchStalledError as e:
+                telemetry.runtime_log("prefetch stalled at batch %d: %s; rebuilding the input "
+                                      "pipeline" % (self.position, e))
+                self.open(self.position)
+                b = consume(next(self.prefetch))
+        else:
+            b = self._retry(lambda: next(self.source), "dataloader")
+            b = {k: v.to(self.run.device) for k, v in b.items()}
+        self.position += 1
+        return b
 
 
 def build(args, device: Optional[torch.device] = None) -> TrainRun:
     """Strategy from the flags or the JSON -> train-mode lint -> model,
-    optimizer, parameters, Adam state, step and stream on `device` (by
+    optimizer, parameters, Adam state, guard and step on `device` (by
     default ``--device`` of a world of one; `train` passes the device of
-    this rank)."""
+    this rank). The batches come from a `BatchStream`."""
     if device is None:
         device = distributed.local_device(args.device)
     fam, cfg = model_config_from_args(args)
     if fam.data_kind != "lm":
-        raise ValueError("data_kind %r is not ported yet" % fam.data_kind)
+        raise ValueError("data_kind %r is not ported yet (the encoder and vision families "
+                         "come with ROADMAP queue 1 item 9)" % fam.data_kind)
     world = distributed.world_size()
     if args.world_size is not None and args.world_size != world:
         raise ValueError(
@@ -115,21 +222,40 @@ def build(args, device: Optional[torch.device] = None) -> TrainRun:
     model = construct_hybrid_parallel_model(cfg, hp, device)
     tx, _ = get_optimizer_and_scheduler(optimizer_args_from(args))
     params = model.init_params(args.seed)
+    guard = None
+    if getattr(args, "anomaly_guard", 0):
+        guard = rsl.AnomalyGuard(rsl.AnomalyGuardConfig(
+            spike_factor=getattr(args, "loss_spike_factor", 0.0),
+            min_history=getattr(args, "anomaly_min_history", 5),
+            max_strikes=getattr(args, "anomaly_max_strikes", 3),
+            max_rollbacks=getattr(args, "anomaly_max_rollbacks", 3)))
     return TrainRun(
-        cfg=cfg, hp=hp, device=device, tx=tx, params=params,
-        opt_state=model.init_opt_state(tx, params), step=model.make_train_step(tx),
-        data=get_train_iterator(hp, cfg.vocab_size, cfg.max_seq_len, seed=args.seed,
-                                device=device))
+        fam=fam, cfg=cfg, hp=hp, device=device, model=model, tx=tx, params=params,
+        opt_state=model.init_opt_state(tx, params), guard=guard,
+        step=model.make_train_step(tx, guard_anomalies=guard is not None))
 
 
 def train(args) -> dict:
     """Returns the summary dict: the profiler's timing keys (FLOPs and MFU
     per GPU), the per-step losses, tokens/s (all ranks and per GPU), the
-    flash kernels' launches by route on every rank, the device, the world
-    size and this process's rank. Runs inside a process group that it
-    tears down (`runtime.distributed.process_group`)."""
+    resilience counters, the eval losses, the checkpoint save/restore
+    sizes and times, the flash kernels' launches by route on every rank
+    (and this rank's eval launches), the device, the world size and this
+    process's rank. Runs inside a process group that it tears down
+    (`runtime.distributed.process_group`). With ``--telemetry`` rank 0
+    writes the run's JSONL event stream."""
     with distributed.process_group(args.device) as device:
-        return _train(args, device)
+        sink = None
+        if getattr(args, "telemetry", None) and distributed.rank() == 0:
+            sink = telemetry.JsonlSink(
+                args.telemetry, depth=max(int(getattr(args, "telemetry_buffer", 1024) or 1), 1))
+            telemetry.install(sink)
+        try:
+            return _train(args, device)
+        finally:
+            if sink is not None:
+                telemetry.uninstall(sink)
+                sink.close()
 
 
 def _flash_routes() -> dict:
@@ -151,33 +277,271 @@ def _routes_since(before: dict) -> list:
     return every
 
 
+def _any_rank(flag: bool, device) -> bool:
+    """True when `flag` is true on any rank (every rank must call it)."""
+    if distributed.world_size() == 1:
+        return flag
+    t = torch.tensor([1.0 if flag else 0.0], device=device)
+    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
+    return bool(t.item())
+
+
 def _train(args, device) -> dict:
     run = build(args, device)
     routes = _flash_routes()
-    cfg, hp = run.cfg, run.hp
+    cfg, hp, model, tx = run.cfg, run.hp, run.model, run.tx
     world = hp.world_size
     lead = distributed.rank() == 0
     device_kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    flops = obs_flops.train_step_flops(cfg, hp.global_bsz)
-    prof = RuntimeProfiler(
-        warmup=min(2, max(args.train_iters - 1, 0)),
-        device=device,
-        model_flops=flops / world if flops else flops,
-        peak_flops=obs_flops.peak_flops_for(device_kind),
-    )
+    step_flops = obs_flops.train_step_flops(cfg, hp.global_bsz)
+    peak_flops = obs_flops.peak_flops_for(device_kind)
+
+    # ------------------------------------------------------------ resilience
+    res = rsl.ResilienceCounters()
+    retry_policy = rsl.RetryPolicy(retries=max(getattr(args, "ckpt_retries", 2), 0),
+                                   base_delay_s=getattr(args, "ckpt_retry_backoff", 0.5))
+    hooks = getattr(args, "fault_hooks", None)  # test seam; None in production
+    guard, step_fn = run.guard, run.step
+    if hooks is not None and hooks.wrap_step_fn:
+        step_fn = hooks.wrap_step_fn(step_fn)
     params, opt_state = run.params, run.opt_state
-    losses = []
-    for it in range(args.train_iters):
-        batch = next(run.data)
-        prof.start(it)
-        params, opt_state, metrics = run.step(params, opt_state, batch)
-        prof.end(it, n_samples=hp.global_bsz)
+    provenance = build_provenance(hp, cfg, optimizer_args_from(args))
+
+    def load_from(ckpt_dir, iteration):
+        # restores in place into the live params and Adam state
+        return ckpt.load_checkpoint(
+            ckpt_dir, iteration, params_target=params, opt_state_target=opt_state, hp=hp,
+            model_cfg=cfg, verify_integrity=bool(getattr(args, "verify_checkpoint", 1)),
+            retry_policy=retry_policy, counters=res)
+
+    start_iter, restored = 0, None
+    if args.load:
+        _, _, meta = load_from(args.load, args.load_iteration)
+        start_iter = int(meta.get("iteration", 0))
+        res.torn_checkpoints_skipped += len(meta.get("torn_iterations", ()))
+        restored = dict(meta["restore"], iteration=start_iter)
+        if lead:
+            print("resumed from %s at iteration %d" % (args.load, start_iter))
+
+    telemetry.emit(
+        "run_start", model="%s_%s" % (args.model_type, args.model_size or run.fam.default_size),
+        world_size=world, strategy=hp.to_json_dict(), train_iters=args.train_iters,
+        global_bsz=hp.global_bsz, start_iter=start_iter, model_flops_per_step=step_flops,
+        peak_flops=peak_flops, device_kind=device_kind, pipeline_type=hp.pipeline_type,
+        num_layers=hp.num_layers, resumed_from=args.load or None, model_type=args.model_type,
+        hidden_size=cfg.hidden_size, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        ffn_hidden=cfg.ffn_hidden, vocab_size=cfg.vocab_size, seq_len=cfg.max_seq_len,
+        mixed_precision=hp.mixed_precision, activation=cfg.activation)
+
+    # ------------------------------------------------------- input pipeline
+    async_loop = bool(getattr(args, "async_loop", True))
+    inflight_window = max(int(getattr(args, "inflight_steps", 2) or 0), 0) if async_loop else 0
+    stream = BatchStream(args, run, retry_policy, res, hooks)
+
+    # ------------------------------------------------------------------ eval
+    # eval batches are made once up front (the same batches every pass; an
+    # empty valid or test split fails here, before any training)
+    eval_interval = getattr(args, "eval_interval", 0) or 0
+    eval_iters = max(getattr(args, "eval_iters", 5) or 0, 1)
+    eval_batches, eval_launches, eval_ms = {}, {"fwd": 0, "bwd": 0}, []
+    if eval_interval:
+        for split in ("valid", "test"):
+            it_ = build_data_iterator(args, run.fam, cfg, hp, split=split, device=device)
+            eval_batches[split] = [next(it_) for _ in range(eval_iters)]
+
+    def evaluate(split):
+        """Mean forward-only loss over the split's batches, drained once."""
+        n_fwd = flash_attention.flash_attention_fwd.launches
+        n_bwd = flash_attention.flash_attention_bwd.launches
+        t0 = time.perf_counter()
+        vals = [model.eval_loss(params, b) for b in eval_batches[split]]
+        loss = float(torch.stack(vals).sum()) / eval_iters
+        eval_ms.append((time.perf_counter() - t0) * 1e3)
+        eval_launches["fwd"] += flash_attention.flash_attention_fwd.launches - n_fwd
+        eval_launches["bwd"] += flash_attention.flash_attention_bwd.launches - n_bwd
+        return loss
+
+    prof = RuntimeProfiler(warmup=min(2, max(args.train_iters - 1, 0)), device=device,
+                           model_flops=step_flops / world if step_flops else step_flops,
+                           peak_flops=peak_flops)
+    save_memory = bool(getattr(args, "save_profiled_memory", 0))
+    preempt = rsl.PreemptionHandler().install() if getattr(args, "emergency_save", 0) else None
+    saves = []
+
+    def save_now(iteration: int, emergency: bool = False):
+        meta = {"iteration": iteration}
+        if emergency:
+            meta["emergency"] = True
+            meta["signal"] = interrupted
+        # collective: every rank retries its own write and they agree
+        with prof.boundary():
+            info = ckpt.save_checkpoint(
+                args.save, iteration, params, opt_state, hp, train_meta=meta,
+                keep_latest_k=getattr(args, "keep_latest_k", 0) or None, provenance=provenance,
+                meta={"model_type": args.model_type, "model_size": args.model_size},
+                retry_policy=retry_policy, counters=res)
+        saves.append({k: v for k, v in info.items() if k != "items"})
+        saves[-1].update(iteration=iteration, digests=info["items"])
+
+    losses, loss_iters, valid_losses = [], [], []  # loss_iters: rollback truncation
+    inflight = deque()  # (iteration, metrics) dispatched but not yet drained
+    interrupted = None
+    last_save = None
+    it = start_iter
+
+    def emit_step_event(d_it, metrics, loss, disp_ms):
+        if telemetry.active_sink() is None:
+            return
+        iter_ms = prof.all_times_ms[-1] if prof.all_times_ms else None
+        mem = device_memory_stats(device)
+        grad_norm = float(metrics["grad_norm"])
+        telemetry.emit(
+            "step", iter=d_it, loss=loss if math.isfinite(loss) else None, iter_ms=iter_ms,
+            dispatch_ms=disp_ms,
+            host_blocked_ms=prof.host_blocked_ms[-1] if d_it >= prof.warmup else None,
+            hbm_in_use_mb=mem["bytes_in_use"] / 2**20 or None,
+            hbm_peak_mb=mem["peak_bytes_in_use"] / 2**20 or None,
+            mfu=obs_flops.mfu(prof.model_flops, iter_ms, peak_flops),
+            model_flops_per_s=obs_flops.flops_per_s(prof.model_flops, iter_ms),
+            grad_norm=grad_norm if math.isfinite(grad_norm) else None)
+
+    def drain_one():
+        """Drain the oldest in-flight step: its time, log line, telemetry
+        and the guard's accounting. Returns (iteration, rollback_needed)."""
+        d_it, metrics, disp_ms = inflight.popleft()
+        prof.end(d_it, n_samples=hp.global_bsz)
         loss = float(metrics["loss"])
-        if lead and it % max(args.log_interval, 1) == 0:
-            prof.log_iteration(it, {"loss": loss, "grad_norm": float(metrics["grad_norm"])})
-        losses.append(loss)
+        if lead and d_it % max(args.log_interval, 1) == 0:
+            prof.log_iteration(d_it, {"loss": loss, "grad_norm": float(metrics["grad_norm"])})
+        emit_step_event(d_it, metrics, loss, disp_ms)
+        if save_memory and not prof.memory_snapshots:
+            prof.profile_memory(d_it, "after_step")
+        verdict = guard.observe(loss) if guard is not None else "ok"
+        if verdict == "ok":
+            losses.append(loss)
+            loss_iters.append(d_it)
+            return d_it, False
+        # the step itself applied nothing (guard_anomalies); only account
+        # and maybe roll back
+        res.anomalies_skipped += 1
+        telemetry.emit("anomaly_skip", iter=d_it, verdict=verdict,
+                       loss=loss if math.isfinite(loss) else None, strikes=guard.strikes)
+        if lead:
+            print("iteration %d: %s anomaly (loss %r) — update skipped (strike %d/%d)"
+                  % (d_it, verdict, loss, guard.strikes, guard.cfg.max_strikes))
+        return d_it, guard.should_roll_back
+
+    def drain_inflight(window: int) -> bool:
+        """Drain until at most `window` steps remain in flight (0: the
+        forced drain at eval/save/preemption boundaries). On a rollback the
+        rest of the window is discarded (it extends the abandoned
+        trajectory) and the state and stream are restored here. Returns True
+        iff a rollback happened."""
+        nonlocal it
+        while len(inflight) > window:
+            d_it, need_rollback = drain_one()
+            if not need_rollback:
+                continue
+            intact = ckpt.intact_iterations(args.save) if args.save else []
+            if res.rollbacks >= guard.cfg.max_rollbacks or not intact:
+                raise rsl.TrainingAnomalyError(
+                    "persistent training anomalies at iteration %d (%d consecutive; %d "
+                    "rollbacks used, %s checkpoints to roll back to)"
+                    % (d_it, guard.strikes, res.rollbacks, len(intact) if args.save else "no"))
+            res.rollbacks += 1
+            inflight.clear()
+            with prof.boundary():
+                _, _, meta = load_from(args.save, None)
+            it = int(meta.get("iteration", 0))
+            res.torn_checkpoints_skipped += len(meta.get("torn_iterations", ()))
+            while loss_iters and loss_iters[-1] >= it:
+                loss_iters.pop()
+                losses.pop()
+            while valid_losses and valid_losses[-1][0] > it:
+                valid_losses.pop()
+            offset = res.rollbacks * getattr(args, "anomaly_reseed", 0)
+            stream.open(it + offset)
+            guard.reset_after_rollback()
+            telemetry.emit("rollback", to_iter=it, at_iter=d_it, count=res.rollbacks,
+                           stream_offset=offset)
+            if lead:
+                print("rolled back to checkpoint iteration %d (rollback %d/%d, stream offset "
+                      "+%d)" % (it, res.rollbacks, guard.cfg.max_rollbacks, offset))
+            return True
+        return False
+
+    stream.open(start_iter)
+    try:
+        while True:
+            if interrupted is None and it < args.train_iters:
+                if hooks is not None and hooks.on_step:
+                    hooks.on_step(it)
+                if preempt is not None and _any_rank(preempt.triggered, device):
+                    # every rank stops at the same boundary
+                    interrupted = preempt.signal_name or "SIGTERM"
+                    telemetry.emit("preemption", signal=interrupted, iter=it)
+            if interrupted is not None or it >= args.train_iters:
+                # a rollback surfacing in the final drain resumes training,
+                # unless a preemption is exiting (its save takes priority)
+                if drain_inflight(0) and interrupted is None:
+                    continue
+                break
+            batch = next(stream)
+            prof.start(it)
+            # with the guard, the cap comes from the losses drained so far: it
+            # lags the step by at most `inflight_steps` (NaN/Inf gating is exact)
+            params, opt_state, metrics = step_fn(params, opt_state, batch, *run.step_args())
+            inflight.append((it, metrics, prof.dispatched(it)))
+            it += 1
+            if drain_inflight(inflight_window):
+                continue
+            if eval_interval and it % eval_interval == 0:
+                if drain_inflight(0):
+                    continue
+                with prof.boundary():
+                    vloss = evaluate("valid")
+                valid_losses.append((it, vloss))
+                telemetry.emit("eval", iter=it, split="valid", loss=vloss)
+                if lead:
+                    print("iteration %d: valid loss %.6f" % (it, vloss))
+            if args.save and args.save_interval and it % args.save_interval == 0:
+                if drain_inflight(0):
+                    continue
+                save_now(it)
+                last_save = it
+        if interrupted is not None and args.save and last_save != it:
+            save_now(it, emergency=True)
+            res.emergency_saves += 1
+            last_save = it
+            if lead:
+                print("emergency checkpoint at iteration %d (%s)" % (it, interrupted))
+        elif args.save and last_save != it:
+            save_now(it)
+            last_save = it
+        prof.loop_fence()
+    finally:
+        stream.close()
+        if preempt is not None:
+            preempt.uninstall()
+    if save_memory:
+        prof.profile_memory(it, "end")
     summary = prof.summary()
     summary["losses"] = losses
+    summary["loss_iters"] = loss_iters
+    summary["resilience"] = res.as_dict()
+    if interrupted is not None:
+        summary["interrupted"] = interrupted
+    if eval_interval:
+        summary["valid_losses"] = valid_losses
+        summary["test_loss"] = evaluate("test")
+        telemetry.emit("eval", iter=it, split="test", loss=summary["test_loss"])
+        if lead:
+            print("final test loss %.6f" % summary["test_loss"])
+    summary["eval_flash_launches"] = eval_launches
+    summary["eval_pass_ms"] = eval_ms
+    summary["checkpoint_saves"] = saves
+    if restored is not None:
+        summary["checkpoint_restore"] = restored
     summary["flash_routes"] = _routes_since(routes)
     summary["tokens_per_s"] = summary["samples_per_s"] * cfg.max_seq_len
     summary["tokens_per_s_per_gpu"] = summary["tokens_per_s"] / world
@@ -185,6 +549,10 @@ def _train(args, device) -> dict:
     summary["rank"] = distributed.rank()
     summary["device"] = str(device)
     summary["device_kind"] = device_kind
+    telemetry.emit("run_end", summary={
+        k: v for k, v in summary.items()
+        if k not in ("losses", "loss_iters", "valid_losses", "checkpoint_saves",
+                     "checkpoint_restore", "memory_snapshots")})
     return summary
 
 
@@ -192,7 +560,8 @@ def main(argv: Optional[list] = None):
     args = initialize_galvatron(argv=argv, mode="train")
     summary = train(args)
     if summary["rank"] == 0:
-        print({k: v for k, v in summary.items() if k != "losses"})
+        print({k: v for k, v in summary.items()
+               if k not in ("losses", "loss_iters", "checkpoint_saves", "checkpoint_restore")})
         print("losses %s" % " ".join(repr(x) for x in summary["losses"]))
     return summary
 

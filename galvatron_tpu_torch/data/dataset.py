@@ -1,0 +1,371 @@
+"""Indexed GPT dataset: memmapped token binaries + native sample-index helper.
+
+Port of the language-model half of ``galvatron_tpu/data/dataset.py``
+(Megatron's IndexedDataset / GPTDataset / blended-dataset design). Three
+indices, each a pure function of (corpus, seq_len, seed, epoch count), so a
+resumed run rebuilds them and the stream continues byte for byte:
+
+  doc_idx    — document ids repeated per epoch, shuffled (epoch-wise);
+  sample_idx — per sample, the (doc_idx position, token offset) where its
+               seq_len+1 window starts (native: ``data/csrc/index_helpers.cpp``);
+  shuffle_idx— permutation of samples.
+
+The on-disk format is the reference's, so both packages read one corpus:
+
+  <path>.bin     — flat int32 token stream
+  <path>.idx.npy — int64 document boundary offsets [n_docs + 1]
+
+The native helper (the port's own copy of the reference's C++ source) is
+built with ``g++`` at first use into ``build/galvatron_tpu_torch/``, keyed
+by a hash of the source and flags, and loaded with ``ctypes``; a failed
+build raises — there is no quiet numpy fallback on the data path.
+`_build_sample_idx_py` and `_build_blending_indices_py` are the plain
+versions the tests hold the native ones against. The T5 span corruption and
+the vision iterator wait for the encoder and vision families.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import threading
+from typing import Dict, Iterator, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from galvatron_tpu_torch.config.strategy import HybridParallelConfig
+from galvatron_tpu_torch.runtime.dataloader import prepare_batch
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG_DIR, "data", "csrc", "index_helpers.cpp")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "galvatron_tpu_torch")
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def library_path() -> str:
+    """Where the build of the helper goes: keyed by its source and flags."""
+    h = hashlib.sha256()
+    with open(SOURCE, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(CXX_FLAGS).encode())
+    return os.path.join(BUILD_DIR, "index_helpers_%s.so" % h.hexdigest()[:16])
+
+
+def build() -> str:
+    """Compile the helper if it has no build yet; returns the library path.
+    Raises RuntimeError when the compiler is missing or fails."""
+    so = library_path()
+    if os.path.exists(so):
+        return so
+    cxx = os.environ.get("CXX", "g++")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        try:
+            proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SOURCE],
+                                  capture_output=True, text=True, timeout=300)
+        except OSError as e:
+            raise RuntimeError("cannot build %s: %s (%s)" % (SOURCE, cxx, e)) from e
+        if proc.returncode != 0:
+            raise RuntimeError("%s failed (%d) on %s:\n%s"
+                               % (cxx, proc.returncode, SOURCE, proc.stdout + proc.stderr))
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return so
+
+
+def _load_helpers():
+    """The native helper, built at first use (raises if it cannot be)."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            lib.build_sample_idx.restype = ctypes.c_int64
+            lib.build_sample_idx.argtypes = [
+                ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
+            ]
+            lib.build_blending_indices.restype = None
+            lib.build_blending_indices.argtypes = [
+                ctypes.POINTER(ctypes.c_double), ctypes.c_int64, ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64),
+            ]
+            _lib = lib
+        return _lib
+
+
+def _build_sample_idx_py(doc_lens, doc_idx, seq_len, n_samples) -> np.ndarray:
+    """Plain version of the native helper, same contract."""
+    out = np.zeros((n_samples + 1, 2), np.int64)
+    pos, offset, sample = 0, 0, 0
+    n = len(doc_idx)
+    while sample < n_samples and pos < n:
+        remaining = seq_len
+        while remaining > 0 and pos < n:
+            doc_left = int(doc_lens[doc_idx[pos]]) - offset
+            if doc_left > remaining:
+                offset += remaining
+                remaining = 0
+            else:
+                remaining -= doc_left
+                pos += 1
+                offset = 0
+        if remaining > 0:
+            break
+        sample += 1
+        out[sample] = (pos, offset)
+    return out[: sample + 1]
+
+
+def build_sample_idx(doc_lens: np.ndarray, doc_idx: np.ndarray, seq_len: int,
+                     n_samples: int) -> np.ndarray:
+    """(n_emitted+1, 2) array of (doc_idx position, offset) boundaries."""
+    lib = _load_helpers()
+    doc_lens = np.ascontiguousarray(doc_lens, np.int32)
+    doc_idx = np.ascontiguousarray(doc_idx, np.int32)
+    out = np.zeros((n_samples + 1, 2), np.int64)
+    emitted = lib.build_sample_idx(
+        doc_lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        doc_idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        len(doc_idx), seq_len, n_samples,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+    )
+    return out[: emitted + 1]
+
+
+# ------------------------------------------------------------------ on disk
+def write_indexed_dataset(path: str, documents: Sequence[Sequence[int]]) -> None:
+    """Write documents (token id lists) as <path>.bin + <path>.idx.npy."""
+    offsets = np.zeros(len(documents) + 1, np.int64)
+    for i, d in enumerate(documents):
+        offsets[i + 1] = offsets[i] + len(d)
+    tokens = (np.concatenate([np.asarray(d, np.int32) for d in documents]) if documents
+              else np.zeros(0, np.int32))
+    tokens.tofile(path + ".bin")
+    np.save(path + ".idx.npy", offsets)
+
+
+class IndexedDataset:
+    """Memmapped flat token stream with document boundaries."""
+
+    def __init__(self, path: str):
+        bin_path, idx_path = path + ".bin", path + ".idx.npy"
+        if not os.path.exists(bin_path) or not os.path.exists(idx_path):
+            raise FileNotFoundError(
+                "indexed dataset %r needs %s and %s (write_indexed_dataset builds them)"
+                % (path, bin_path, idx_path))
+        self.tokens = np.memmap(bin_path, dtype=np.int32, mode="r")
+        self.offsets = np.load(idx_path)
+
+    @property
+    def n_docs(self) -> int:
+        return len(self.offsets) - 1
+
+    @property
+    def doc_lens(self) -> np.ndarray:
+        return (self.offsets[1:] - self.offsets[:-1]).astype(np.int32)
+
+    def doc(self, i: int) -> np.ndarray:
+        return self.tokens[self.offsets[i]: self.offsets[i + 1]]
+
+
+def split_doc_ids(n_docs: int, split: str) -> Dict[str, np.ndarray]:
+    """Contiguous train/valid/test document ranges from a weight string like
+    "969,30,1" (Megatron --split semantics); a pure function of (n_docs,
+    split), so a resumed run sees identical splits."""
+    weights = [float(w) for w in split.split(",")]
+    if len(weights) != 3 or any(w < 0 for w in weights) or sum(weights) <= 0:
+        raise ValueError("--split needs three non-negative weights, got %r" % split)
+    total = sum(weights)
+    bounds = np.cumsum([0.0] + [w / total for w in weights])
+    edges = np.round(bounds * n_docs).astype(np.int64)
+    edges[-1] = n_docs
+    return {name: np.arange(edges[i], edges[i + 1], dtype=np.int32)
+            for i, name in enumerate(("train", "valid", "test"))}
+
+
+class GPTDataset:
+    """Sampled LM windows over an IndexedDataset (Megatron GPTDataset
+    semantics: epoch-shuffled documents, overlapping seq_len+1 windows,
+    sample-level shuffle). `documents` restricts the dataset to a doc-id
+    subset (a range of `split_doc_ids`)."""
+
+    def __init__(self, indexed: IndexedDataset, seq_len: int, n_samples: int,
+                 seed: int = 1234, documents: Optional[np.ndarray] = None):
+        self.indexed = indexed
+        self.seq_len = seq_len
+        self.seed = seed
+        self.documents = (np.arange(indexed.n_docs, dtype=np.int32) if documents is None
+                          else np.asarray(documents, np.int32))
+        if len(self.documents) == 0:
+            raise ValueError("empty document subset (check the --split weights)")
+        doc_lens = indexed.doc_lens[self.documents]
+        total_tokens = int(doc_lens.sum())
+        if total_tokens <= seq_len:
+            raise ValueError("split has %d tokens; need > seq_len=%d" % (total_tokens, seq_len))
+        samples_per_epoch = max((total_tokens - 1) // seq_len, 1)
+        n_epochs = (n_samples + samples_per_epoch - 1) // samples_per_epoch + 1
+        rng = np.random.RandomState(seed)
+        doc_idx = np.concatenate([rng.permutation(len(self.documents)).astype(np.int32)
+                                  for _ in range(n_epochs)])
+        self.sample_idx = build_sample_idx(doc_lens, doc_idx, seq_len, n_samples)
+        self.doc_idx = doc_idx
+        n_avail = len(self.sample_idx) - 1
+        self.shuffle_idx = np.random.RandomState(seed + 1).permutation(n_avail)
+        self.n_samples = n_avail
+
+    def __len__(self) -> int:
+        return self.n_samples
+
+    def _doc(self, pos: int) -> np.ndarray:
+        return self.indexed.doc(int(self.documents[self.doc_idx[pos]]))
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        """seq_len+1 tokens (inputs + shifted target)."""
+        i = int(self.shuffle_idx[i % self.n_samples])
+        (p0, o0), (p1, o1) = self.sample_idx[i], self.sample_idx[i + 1]
+        if p0 == p1:
+            parts = [self._doc(p0)[o0: o1 + 1]]
+        else:
+            parts = [self._doc(p0)[o0:]]
+            for p in range(p0 + 1, p1):
+                parts.append(self._doc(p))
+            parts.append(self._doc(p1)[: o1 + 1])
+        out = np.concatenate(parts)
+        # the +1 target token may fall past the end of the walk: pad
+        # deterministically, as the reference does
+        if len(out) < self.seq_len + 1:
+            out = np.concatenate([out, np.zeros(self.seq_len + 1 - len(out), np.int32)])
+        return out[: self.seq_len + 1]
+
+
+def gpt_data_iterator(
+    data_path: str,
+    hp: HybridParallelConfig,
+    seq_len: int,
+    seed: int = 1234,
+    n_samples: Optional[int] = None,
+    start_step: int = 0,
+    split: str = "train",
+    split_weights: str = "969,30,1",
+) -> Iterator[Dict[str, torch.Tensor]]:
+    """Deterministic global-batch stream (CPU tensors) over one split of the
+    indexed dataset. `data_path` is one prefix or a Megatron-style blend
+    "W1 PREFIX1 W2 PREFIX2 ...". Batch content is a pure function of the
+    step index, so resume passes `start_step` (O(1) skip)."""
+    ds = _build_lm_dataset(data_path, seq_len, n_samples or 1_000_000, seed, split,
+                           split_weights)
+    step = start_step
+    while True:
+        window = np.stack([ds[step * hp.global_bsz + b] for b in range(hp.global_bsz)])
+        yield prepare_batch(hp, window[:, :-1], labels=window[:, 1:])
+        step += 1
+
+
+def gpt_train_iterator(data_path, hp, seq_len, seed=1234, n_samples=None, start_step=0):
+    """A train stream over the FULL corpus (no held-out splits)."""
+    return gpt_data_iterator(data_path, hp, seq_len, seed=seed, n_samples=n_samples,
+                             start_step=start_step, split="train", split_weights="1,0,0")
+
+
+# ---------------------------------------------------------- corpus blending
+def _blend_weights(weights: Sequence[float]) -> np.ndarray:
+    w = np.asarray(weights, np.float64)
+    if (w <= 0).any():
+        raise ValueError("blend weights must be positive, got %r" % (list(weights),))
+    return np.ascontiguousarray(w / w.sum())
+
+
+def _build_blending_indices_py(weights: Sequence[float], n_samples: int):
+    """Plain version of the native blend schedule: the greedy pick (argmin_k
+    (count_k+1)/w_k, first index on ties) is a merge of the per-dataset key
+    sequences (j+1)/w_k, so one lexsort over the same doubles gives the
+    same schedule, ties included."""
+    w = _blend_weights(weights)
+    caps = np.minimum(np.ceil(w * n_samples).astype(np.int64) + len(w) + 2, n_samples)
+    ks = np.repeat(np.arange(len(w), dtype=np.int32), caps)
+    js = np.concatenate([np.arange(c, dtype=np.int64) for c in caps])
+    prio = (js + 1).astype(np.float64) / w[ks]
+    order = np.lexsort((ks, prio))[:n_samples]
+    return ks[order].astype(np.int32), js[order].astype(np.int64)
+
+
+def build_blending_indices(weights: Sequence[float], n_samples: int):
+    """Greedy blend schedule (native): sample i draws from the dataset whose
+    running count lags its weight most, so every prefix of the stream tracks
+    the requested proportions. Returns (dataset_index, dataset_sample_index)."""
+    w = _blend_weights(weights)
+    ds_index = np.zeros(n_samples, np.int32)
+    ds_sample = np.zeros(n_samples, np.int64)
+    _load_helpers().build_blending_indices(
+        w.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), len(w), n_samples,
+        ds_index.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        ds_sample.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+    return ds_index, ds_sample
+
+
+def parse_blend(data_path: str):
+    """Megatron --data-path blend syntax: "W1 PREFIX1 W2 PREFIX2 ..." (or a
+    single prefix). Returns (weights, prefixes). A multi-token string whose
+    first token is not a number is ONE path containing whitespace."""
+    parts = data_path.split()
+    if len(parts) <= 1:
+        return [1.0], [data_path.strip() or data_path]
+    try:
+        float(parts[0])
+    except ValueError:
+        return [1.0], [data_path]
+    if len(parts) % 2 != 0:
+        raise ValueError("blended --data_path must alternate WEIGHT PREFIX pairs, got %r"
+                         % data_path)
+    weights = [float(parts[i]) for i in range(0, len(parts), 2)]
+    prefixes = [parts[i] for i in range(1, len(parts), 2)]
+    if any(not np.isfinite(w) or w <= 0 for w in weights):
+        raise ValueError("blend weights must be positive, got %r" % weights)
+    return weights, prefixes
+
+
+def _build_lm_dataset(data_path: str, seq_len: int, total: int, seed: int, split: str,
+                      split_weights: str):
+    """Single-corpus GPTDataset or weighted blend, per the --data_path form;
+    each blended corpus is sized to its weight share of `total` plus the
+    schedule's slack."""
+    weights, prefixes = parse_blend(data_path)
+    w = np.asarray(weights, np.float64)
+    w = w / w.sum()
+    per_corpus = []
+    for k, prefix in enumerate(prefixes):
+        indexed = IndexedDataset(prefix)
+        docs = split_doc_ids(indexed.n_docs, split_weights)[split]
+        n_k = total if len(prefixes) == 1 else int(np.ceil(w[k] * total)) + len(w) + 2
+        per_corpus.append(GPTDataset(indexed, seq_len, n_k, seed=seed + k, documents=docs))
+    return (per_corpus[0] if len(per_corpus) == 1
+            else BlendedGPTDataset(per_corpus, weights, total))
+
+
+class BlendedGPTDataset:
+    """Weighted blend of per-corpus GPTDatasets (each already restricted to
+    the requested split)."""
+
+    def __init__(self, datasets: List[GPTDataset], weights: Sequence[float], n_samples: int):
+        if len(datasets) != len(weights):
+            raise ValueError("need one weight per dataset")
+        self.datasets = datasets
+        self.ds_index, self.ds_sample = build_blending_indices(weights, n_samples)
+        self.n_samples = n_samples
+
+    def __len__(self):
+        return self.n_samples
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        i = i % self.n_samples
+        return self.datasets[int(self.ds_index[i])][int(self.ds_sample[i])]

@@ -1,0 +1,681 @@
+"""Sharded checkpoint save / resume with torn-write detection.
+
+Port of ``galvatron_tpu/runtime/checkpoint.py``. Every rank writes only its
+own shards — ZeRO-3 parameters, ZeRO-2 moments, TP and vocab-TP slices, each
+as the rank holds it — with ``torch.save``; nothing is gathered to rank 0.
+Layout under ``<dir>/`` (the reference's):
+
+    hybrid_parallel_config.json      the strategy of the newest save
+    meta.json                        model family/size, world size
+    <iteration>/rank<r>.pt           rank r's params and Adam state
+    <iteration>/train_meta.json      scalar train metadata
+    manifests/<iteration>.json       the integrity manifest (below)
+
+Integrity manifest
+------------------
+The manifest is the commit record: rank 0 writes it atomically (a tmp file,
+then ``os.replace``) only after every rank has finished writing, so a step
+directory without a manifest is torn. Per item (``params``, ``opt_state``,
+``train_meta``) it records
+
+    ``digest``       sha256 over every leaf's (name, dtype, shape, sha256 of
+                     its bytes), leaves in sorted name order, folded over
+                     the ranks in rank order;
+    ``spec_digest``  the same over (name, dtype, shape) only;
+    ``num_leaves``   the leaf count (all ranks);
+    ``ranks``        the three of them per rank.
+
+The leaves' own sha256s run on a thread pool (hashlib releases the GIL), so
+a digest of many GB costs about one pass over the bytes per core.
+``opt_state`` leaves are ``count``, ``mu/<name>`` and ``nu/<name>``. The
+manifest also carries the provenance block (``runtime/provenance.py``).
+
+`load_checkpoint` verifies each rank's bytes against its manifest record
+before they reach the model: a missing manifest (GLS210) or a digest
+mismatch (GLS214) marks the step torn (every step has a manifest once it
+committed: there is no other kind of directory), and — unless an iteration was named —
+the restore falls back to the newest intact step (every rank agreeing on
+the verdict). The strategy guard refuses a checkpoint of another strategy
+or world size with GLS206 (cross-strategy restore comes with ROADMAP queue
+1 item 11), another model with GLS201 and another optimizer tree with
+GLS202. `load_full_params` assembles the full parameters of a checkpoint of
+any world size in one process (``cli serve --load``).
+
+Saving is collective. Each rank's own write (its file, and rank 0's
+directory set-up and manifest) is retried under the caller's
+``RetryPolicy``, and every round's outcome is gathered, so all ranks retry
+together and raise together: a rank never re-enters a collective the
+others have left.
+
+Retention: `gc_checkpoints` (``--keep_latest_k``) deletes the oldest steps
+and their manifests, never a step being restored (``_RESTORING``) nor the
+newest intact step, and tolerates stray directories.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import shutil
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Dict, List, Mapping, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+from torch import nn
+
+from galvatron_tpu_torch.analysis import diagnostics as D
+from galvatron_tpu_torch.config.strategy import HybridParallelConfig
+from galvatron_tpu_torch.obs import telemetry
+from galvatron_tpu_torch.runtime.optimizer import AdamState
+from galvatron_tpu_torch.utils.jsonio import write_json_config
+
+MANIFEST_DIRNAME = "manifests"
+
+# test seam: called after every rank's write, before the manifest commit —
+# the torn-save window a preemption kill hits
+_before_manifest_write = None
+
+
+def _write_rank_file(host: Dict[str, Any], path: str) -> None:
+    """One rank's write of its shards (a test seam for write faults)."""
+    torch.save(host, path)
+
+# steps currently being restored: gc_checkpoints never deletes one
+_RESTORING: set = set()
+_RESTORING_LOCK = threading.Lock()
+
+
+class CheckpointIntegrityError(D.DiagnosticError, RuntimeError):
+    """A requested checkpoint step failed its integrity check (GLS210 /
+    GLS212 / GLS214)."""
+
+
+# ------------------------------------------------------------- collectives
+def _world() -> Tuple[int, int]:
+    if dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _barrier():
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
+def _gather(obj) -> list:
+    """Every rank's `obj`, in rank order."""
+    rank, world = _world()
+    if world == 1:
+        return [obj]
+    out = [None] * world
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def _agreed(fn, policy, counters, description: str):
+    """Run the rank-local `fn` on every rank until it has succeeded on all
+    of them. A rank whose attempt failed retries it under `policy` (a
+    ``runtime.resilience.RetryPolicy``; None: no retry); the others only
+    wait. Each round's outcome, the time spent and rank 0's jitter draw are
+    gathered, so every rank takes the same decision to retry, back off as
+    long, or raise."""
+    import random
+
+    from galvatron_tpu_torch.runtime import resilience as rsl
+
+    policy = policy or rsl.RetryPolicy(retries=0)
+    rank, _ = _world()
+    t0, attempt, done, mine = time.monotonic(), 0, False, None
+    while True:
+        err = None
+        if not done:
+            try:
+                fn()
+                done = True
+            except policy.retryable as e:
+                mine, err = e, "%s: %s" % (type(e).__name__, e)
+        rounds = _gather((err, time.monotonic() - t0, random.random()))
+        failed = {r: e for r, (e, _, _) in enumerate(rounds) if e is not None}
+        if not failed:
+            if attempt and counters is not None:
+                counters.retries_succeeded += 1
+            return
+        delay = min(policy.base_delay_s * policy.multiplier ** attempt, policy.max_delay_s)
+        if policy.jitter:
+            delay *= rounds[0][2]
+        elapsed = max(t for _, t, _ in rounds)
+        if attempt >= policy.retries or (policy.max_elapsed_s is not None
+                                         and elapsed + delay > policy.max_elapsed_s):
+            if counters is not None:
+                counters.retries_exhausted += 1
+            if rank in failed:
+                raise mine
+            raise OSError("%s failed on rank(s) %s: %s" % (
+                description, sorted(failed), "; ".join(failed.values())))
+        if counters is not None:
+            counters.retries += 1
+        if rank == 0:
+            print("resilience: %s failed on rank(s) %s (%s); retry %d/%d in %.2fs"
+                  % (description, sorted(failed), "; ".join(failed.values()), attempt + 1,
+                     policy.retries, delay))
+        telemetry.emit("retry", description=description, attempt=attempt + 1,
+                       error="; ".join(failed.values()), delay_s=delay)
+        time.sleep(delay)
+        attempt += 1
+
+
+def _from_rank0(obj):
+    _, world = _world()
+    if world == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+# ----------------------------------------------------------------- leaves
+def _param_leaves(params) -> Dict[str, torch.Tensor]:
+    if isinstance(params, nn.Module):
+        return {n: p.detach() for n, p in params.named_parameters()}
+    return {n: t.detach() for n, t in params.items()}
+
+
+def _opt_leaves(state: AdamState) -> Dict[str, torch.Tensor]:
+    out = {"count": torch.tensor(int(state.count), dtype=torch.int64)}
+    out.update({"mu/" + n: t.detach() for n, t in state.mu.items()})
+    out.update({"nu/" + n: t.detach() for n, t in state.nu.items()})
+    return out
+
+
+def _to_host(leaves: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Host tensors that own exactly their bytes (torch.save writes a view's
+    whole storage, so a view of a larger buffer is cloned)."""
+    out = {}
+    for n, t in leaves.items():
+        t = t.to("cpu").contiguous()
+        if t.untyped_storage().nbytes() != t.numel() * t.element_size():
+            t = t.clone()
+        out[n] = t
+    return out
+
+
+def _leaf_sha(t: torch.Tensor) -> str:
+    h = hashlib.sha256()
+    h.update(t.reshape(-1).view(torch.uint8).numpy().data)
+    return h.hexdigest()
+
+
+def tree_digests(leaves: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The manifest record of one rank's item: value digest, structure
+    digest and leaf count over host tensors (see the module note)."""
+    names = sorted(leaves)
+    with ThreadPoolExecutor(max(1, min(8, os.cpu_count() or 1))) as ex:
+        shas = list(ex.map(lambda n: _leaf_sha(leaves[n]), names))
+    value, spec = hashlib.sha256(), hashlib.sha256()
+    for n, sha in zip(names, shas):
+        t = leaves[n]
+        key = (n + str(t.dtype) + str(tuple(t.shape))).encode()
+        spec.update(key)
+        value.update(key + sha.encode())
+    return {"digest": value.hexdigest(), "spec_digest": spec.hexdigest(),
+            "num_leaves": len(names)}
+
+
+def _meta_digest(meta: Dict[str, Any]) -> Dict[str, Any]:
+    d = hashlib.sha256(json.dumps(meta, sort_keys=True).encode()).hexdigest()
+    return {"digest": d, "spec_digest": d, "num_leaves": 1}
+
+
+def _fold(records: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """One item's record over every rank's (rank order)."""
+    def cat(key):
+        return hashlib.sha256("".join(r[key] for r in records).encode()).hexdigest()
+    return {"digest": cat("digest"), "spec_digest": cat("spec_digest"),
+            "num_leaves": sum(r["num_leaves"] for r in records), "ranks": records}
+
+
+def state_digests(params, opt_state: Optional[AdamState] = None) -> Dict[str, Dict[str, Any]]:
+    """This rank's manifest records of live state (copied to the host):
+    what `save_checkpoint` would write into ``ranks[rank]``."""
+    out = {"params": tree_digests(_to_host(_param_leaves(params)))}
+    if opt_state is not None:
+        out["opt_state"] = tree_digests(_to_host(_opt_leaves(opt_state)))
+    return out
+
+
+# ----------------------------------------------------------------- manifests
+def _step_dir(ckpt_dir: str, iteration: int) -> str:
+    return os.path.join(ckpt_dir, str(int(iteration)))
+
+
+def _manifest_path(ckpt_dir: str, iteration: int) -> str:
+    return os.path.join(ckpt_dir, MANIFEST_DIRNAME, "%d.json" % iteration)
+
+
+def _rank_file(ckpt_dir: str, iteration: int, rank: int) -> str:
+    return os.path.join(_step_dir(ckpt_dir, iteration), "rank%d.pt" % rank)
+
+
+def _write_manifest(ckpt_dir: str, iteration: int, items: Dict[str, Dict[str, Any]],
+                    world: int, provenance: Optional[Dict[str, Any]] = None) -> None:
+    path = _manifest_path(ckpt_dir, iteration)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    payload = {"format": 1, "iteration": iteration, "saved_at": time.time(),
+               "world_size": world, "items": items}
+    if provenance is not None:
+        payload["provenance"] = provenance
+    tmp = path + ".tmp.%d" % os.getpid()
+    with open(tmp, "w") as f:
+        json.dump(payload, f, indent=1, sort_keys=True)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)  # atomic commit: manifest exists => save completed
+
+
+def _read_manifest_raising(ckpt_dir: str, iteration: int) -> Optional[Dict[str, Any]]:
+    """Like read_manifest, but lets OSErrors propagate so a caller can put a
+    retry policy around the read; only a missing file returns None."""
+    path = _manifest_path(ckpt_dir, iteration)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def read_manifest(ckpt_dir: str, iteration: int) -> Optional[Dict[str, Any]]:
+    try:
+        return _read_manifest_raising(ckpt_dir, iteration)
+    except (OSError, ValueError):
+        return None  # a torn manifest marks the step torn too
+
+
+def read_provenance(ckpt_dir: str, iteration: Optional[int] = None):
+    """(iteration, provenance) of the requested (or newest intact) step;
+    (None, None) when no manifest carries provenance."""
+    if iteration is not None:
+        prov = (read_manifest(ckpt_dir, iteration) or {}).get("provenance")
+        return (iteration, prov) if prov else (None, None)
+    for step in reversed(intact_iterations(ckpt_dir)):
+        m = read_manifest(ckpt_dir, step)
+        if m and m.get("provenance"):
+            return step, m["provenance"]
+    return None, None
+
+
+# ------------------------------------------------------------------- listing
+def all_iterations(ckpt_dir: str) -> List[int]:
+    """Step directories on disk (torn or not), ascending; stray entries are
+    ignored."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted(int(n) for n in os.listdir(ckpt_dir)
+                  if n.isdigit() and os.path.isdir(os.path.join(ckpt_dir, n)))
+
+
+def latest_iteration(ckpt_dir: str) -> Optional[int]:
+    steps = all_iterations(ckpt_dir)
+    return steps[-1] if steps else None
+
+
+def intact_iterations(ckpt_dir: str) -> List[int]:
+    """Saved steps whose manifest committed, ascending; the others are
+    torn."""
+    return [s for s in all_iterations(ckpt_dir) if read_manifest(ckpt_dir, s) is not None]
+
+
+# ---------------------------------------------------------------------- save
+def save_checkpoint(
+    ckpt_dir: str,
+    iteration: int,
+    params: Any,
+    opt_state: Optional[AdamState] = None,
+    hp: Optional[HybridParallelConfig] = None,
+    train_meta: Optional[Dict[str, Any]] = None,
+    keep_latest_k: Optional[int] = None,
+    provenance: Optional[Dict[str, Any]] = None,
+    meta: Optional[Dict[str, Any]] = None,
+    retry_policy: Any = None,
+    counters: Any = None,
+) -> Dict[str, Any]:
+    """Write this rank's params (a module or name -> tensor) and Adam state
+    at `iteration`, commit the manifest after every rank has written, then
+    GC to the newest `keep_latest_k`. Collective under a process group of
+    more than one rank: the writes are retried under `retry_policy`
+    (``counters`` counts the retries) with every rank agreeing, see
+    `_agreed`. Returns {"bytes", "seconds", "digest_s", "write_s",
+    "items"} of this rank's part."""
+    t0 = time.perf_counter()
+    rank, world = _world()
+    step_dir = _step_dir(ckpt_dir, iteration)
+
+    def set_up():
+        if rank != 0:
+            return
+        os.makedirs(os.path.join(ckpt_dir, MANIFEST_DIRNAME), exist_ok=True)
+        if hp is not None:
+            write_json_config(hp.to_json_dict(),
+                              os.path.join(ckpt_dir, "hybrid_parallel_config.json"))
+        write_json_config(dict(meta or {}, world_size=world), os.path.join(ckpt_dir, "meta.json"))
+        if os.path.isdir(step_dir):
+            # re-save of an existing step (e.g. after a rollback): replace it
+            # wholesale, its manifest first
+            try:
+                os.remove(_manifest_path(ckpt_dir, iteration))
+            except FileNotFoundError:
+                pass
+            shutil.rmtree(step_dir)
+        os.makedirs(step_dir)
+
+    def write():
+        _write_rank_file(host, _rank_file(ckpt_dir, iteration, rank))
+        if rank == 0 and train_meta:
+            write_json_config(train_meta, os.path.join(step_dir, "train_meta.json"))
+
+    def commit():
+        if rank == 0:
+            _write_manifest(ckpt_dir, iteration, items, world, provenance=provenance)
+
+    _agreed(set_up, retry_policy, counters, "checkpoint set-up")
+    host = {"params": _to_host(_param_leaves(params))}
+    if opt_state is not None:
+        host["opt_state"] = _to_host(_opt_leaves(opt_state))
+    t1 = time.perf_counter()
+    mine = {name: tree_digests(leaves) for name, leaves in host.items()}
+    t2 = time.perf_counter()
+    _agreed(write, retry_policy, counters, "checkpoint write")
+    t3 = time.perf_counter()
+    everyone = _gather(mine)  # every rank has written its file
+    if _before_manifest_write is not None:
+        _before_manifest_write(iteration)
+    items = {name: _fold([r[name] for r in everyone]) for name in mine}
+    if train_meta:
+        items["train_meta"] = _meta_digest(train_meta)
+    _agreed(commit, retry_policy, counters, "manifest commit")
+    nbytes = sum(t.numel() * t.element_size() for leaves in host.values()
+                 for t in leaves.values())
+    telemetry.emit("checkpoint_save", iteration=iteration, path=ckpt_dir,
+                   duration_ms=(time.perf_counter() - t0) * 1e3,
+                   emergency=True if (train_meta and train_meta.get("emergency")) else None)
+    if keep_latest_k:
+        gc_checkpoints(ckpt_dir, keep_latest_k)
+        _barrier()
+    return {"bytes": nbytes, "seconds": time.perf_counter() - t0, "copy_s": t1 - t0,
+            "digest_s": t2 - t1, "write_s": t3 - t2, "items": mine}
+
+
+def gc_checkpoints(ckpt_dir: str, keep_latest_k: int, protect: Any = ()) -> List[int]:
+    """Delete all but the newest `keep_latest_k` steps and their manifests
+    (rank 0 only); returns the deleted iterations. Never deletes a step being
+    restored, one in `protect`, or the newest intact step."""
+    if keep_latest_k <= 0 or _world()[0] != 0:
+        return []
+    with _RESTORING_LOCK:
+        keep = set(protect) | set(_RESTORING)
+    intact = intact_iterations(ckpt_dir)
+    if intact:
+        keep.add(max(intact))
+    steps = all_iterations(ckpt_dir)
+    doomed = steps[:-keep_latest_k] if keep_latest_k < len(steps) else []
+    deleted = []
+    for step in doomed:
+        if step in keep:
+            continue
+        try:
+            os.remove(_manifest_path(ckpt_dir, step))
+        except OSError:
+            pass
+        try:
+            shutil.rmtree(_step_dir(ckpt_dir, step))
+        except OSError as e:
+            telemetry.runtime_log("checkpoint gc: could not delete step %d: %s" % (step, e))
+            continue
+        deleted.append(step)
+    if deleted:
+        telemetry.emit("checkpoint_gc", deleted=deleted, path=ckpt_dir)
+    return deleted
+
+
+# ---------------------------------------------------------------------- load
+def _diag(code: str, message: str, cls=D.DiagnosticError):
+    return cls([D.make(code, message)])
+
+
+def check_strategy(prov: Optional[Dict[str, Any]], manifest: Dict[str, Any],
+                   hp: Optional[HybridParallelConfig], model_cfg: Any = None) -> None:
+    """Refuse a checkpoint this run cannot restore in place: another world
+    size or strategy (GLS206), another model (GLS201)."""
+    world = int(manifest.get("world_size", 1))
+    if hp is not None:
+        saved = (prov or {}).get("strategy")
+        if world != hp.world_size or (saved is not None and saved != hp.to_json_dict()):
+            raise _diag("GLS206", "the checkpoint was written at world size %d under another "
+                        "strategy than this run's (world size %d); restoring across "
+                        "strategies comes with the elastic slice (ROADMAP queue 1 item 11): "
+                        "resume with the strategy of the checkpoint's provenance"
+                        % (world, hp.world_size))
+    if model_cfg is not None and prov and prov.get("model_digest"):
+        from galvatron_tpu_torch.runtime.provenance import model_config_digest
+
+        if prov["model_digest"] != model_config_digest(model_cfg):
+            raise _diag("GLS201", "the checkpoint's model-config digest differs from this "
+                        "run's model: it was written for another architecture")
+
+
+def _copy_into(target: Dict[str, torch.Tensor], saved: Dict[str, torch.Tensor], what: str):
+    if set(target) != set(saved):
+        missing, extra = sorted(set(target) - set(saved)), sorted(set(saved) - set(target))
+        raise _diag("GLS202", "%s: the checkpoint's leaves differ from the target's "
+                    "(missing %s, unexpected %s)" % (what, missing[:3], extra[:3]))
+    with torch.no_grad():
+        for n, t in target.items():
+            s = saved[n]
+            if tuple(s.shape) != tuple(t.shape) or s.dtype != t.dtype:
+                raise _diag("GLS202", "%s: leaf %s is %s %s in the checkpoint, %s %s here"
+                            % (what, n, s.dtype, tuple(s.shape), t.dtype, tuple(t.shape)))
+            t.copy_(s)
+
+
+def _verify(manifest: Dict[str, Any], rank: int,
+            loaded: Dict[str, Any]) -> Optional[Tuple[str, str]]:
+    """None when this rank's restored items match their manifest records,
+    else (GLS code, reason)."""
+    for name, got in loaded.items():
+        ranks = manifest.get("items", {}).get(name, {}).get("ranks")
+        if not isinstance(ranks, list) or len(ranks) <= rank:
+            return "GLS212", "malformed manifest: no record of item %r for rank %d" % (name, rank)
+        want = ranks[rank]
+        if want.get("num_leaves") != got["num_leaves"]:
+            return "GLS214", "item %r: leaf count %s != manifest %s" % (
+                name, got["num_leaves"], want.get("num_leaves"))
+        if want.get("spec_digest") != got["spec_digest"]:
+            return "GLS214", "item %r: dtypes or shapes differ from the manifest" % name
+        if want.get("digest") != got["digest"]:
+            return "GLS214", "item %r: content digest mismatch" % name
+    return None
+
+
+def _read_rank(ckpt_dir: str, step: int, rank: int) -> Dict[str, Any]:
+    # mapped, not read: only the leaves a caller touches are paged in
+    return torch.load(_rank_file(ckpt_dir, step, rank), map_location="cpu", weights_only=True,
+                      mmap=True)
+
+
+def load_checkpoint(
+    ckpt_dir: str,
+    iteration: Optional[int] = None,
+    *,
+    params_target: Any,
+    opt_state_target: Optional[AdamState] = None,
+    hp: Optional[HybridParallelConfig] = None,
+    model_cfg: Any = None,
+    strict_strategy: bool = True,
+    verify_integrity: bool = True,
+    retry_policy: Any = None,
+    counters: Any = None,
+):
+    """Restore (params, opt_state, train_meta) of this rank in place into
+    `params_target` (a module or name -> tensor) and `opt_state_target`.
+    Collective under a process group of more than one rank.
+
+    Each candidate step — the named `iteration`, else every step newest
+    first — must have a committed manifest whose records match this rank's
+    restored bytes (every rank agreeing); a torn step is skipped (reported
+    in ``meta["torn_iterations"]``) unless it was named, which raises
+    `CheckpointIntegrityError` (GLS210 / GLS214). `retry_policy` and
+    `counters` (``runtime.resilience``) put backoff around the manifest
+    reads and the file reads. With `strict_strategy` a checkpoint of
+    another strategy or world refuses (GLS206); `model_cfg` adds the model
+    digest check (GLS201). Without `verify_integrity` the byte digests are
+    not checked; the committed manifest is still required. Returns
+    (params_target, opt_state or None, meta) with ``meta["restore"]`` =
+    {"bytes", "seconds", "digest_s"}."""
+    from galvatron_tpu_torch.runtime import resilience as rsl
+
+    t0 = time.perf_counter()
+    rank, _ = _world()
+
+    def retrying(fn, what):
+        return rsl.with_retry(fn, retry_policy, counters, description=what) \
+            if retry_policy is not None else fn()
+
+    def manifest_of(step):
+        """(manifest, None) or (None, (GLS code, reason))."""
+        try:
+            m = retrying(lambda: _read_manifest_raising(ckpt_dir, step), "manifest read")
+        except ValueError as e:
+            return None, ("GLS212", "malformed manifest: %s" % e)
+        except OSError as e:
+            return None, ("GLS210", "unreadable manifest: %s" % e)
+        if m is None:
+            return None, ("GLS210", "no committed manifest (torn save)")
+        return m, None
+
+    explicit = iteration is not None
+    candidates = _from_rank0([iteration] if explicit else sorted(all_iterations(ckpt_dir),
+                                                                   reverse=True))
+    if not candidates:
+        raise FileNotFoundError("no checkpoint found under %s" % ckpt_dir)
+    torn: Dict[int, str] = {}
+    out = None
+    want_opt = _opt_leaves(opt_state_target) if opt_state_target is not None else None
+    for step in candidates:
+        manifest, reason = manifest_of(step)
+        if manifest is not None:
+            if strict_strategy:
+                check_strategy(manifest.get("provenance"), manifest, hp, model_cfg)
+            rec = manifest.get("items", {}).get("opt_state")
+            if want_opt is not None and rec is not None and len(rec.get("ranks", ())) > rank:
+                mine = rec["ranks"][rank]["num_leaves"]
+                if mine != len(want_opt):
+                    raise _diag("GLS202", "saved opt_state has %s leaves on rank %d but the "
+                                "optimizer here expects %d: resume with the optimizer the "
+                                "checkpoint was written with" % (mine, rank, len(want_opt)))
+        loaded = None
+        if reason is None:
+            with _RESTORING_LOCK:
+                _RESTORING.add(step)
+            try:
+                loaded = retrying(lambda s=step: _read_rank(ckpt_dir, s, rank), "checkpoint read")
+            except Exception as e:  # noqa: BLE001 — a torn or unreadable step
+                reason = "GLS214", "restore failed: %s: %s" % (type(e).__name__, e)
+            finally:
+                with _RESTORING_LOCK:
+                    _RESTORING.discard(step)
+        digests = {}
+        if reason is None and verify_integrity:
+            t_d = time.perf_counter()
+            digests = {name: tree_digests(leaves) for name, leaves in loaded.items()}
+            digest_s = time.perf_counter() - t_d
+            reason = _verify(manifest, rank, digests)
+        verdicts = _gather(reason)
+        reason = next((r for r in verdicts if r is not None), None)
+        if reason is not None:
+            code, why = reason
+            if explicit:
+                raise _diag(code, "checkpoint %s step %d failed integrity verification: %s"
+                            % (ckpt_dir, step, why), CheckpointIntegrityError)
+            torn[step] = why
+            continue
+        out = (step, loaded, manifest, digests, digest_s if digests else 0.0)
+        break
+    if out is None:
+        raise FileNotFoundError("no intact checkpoint under %s (torn steps skipped: %s)"
+                                % (ckpt_dir, dict(sorted(torn.items()))))
+    step, loaded, manifest, digests, digest_s = out
+    _copy_into(_param_leaves(params_target), loaded["params"], "params")
+    opt_state = None
+    if opt_state_target is not None and "opt_state" in loaded:
+        saved = loaded["opt_state"]
+        _copy_into({n: t for n, t in want_opt.items() if n != "count"},
+                   {n: t for n, t in saved.items() if n != "count"}, "opt_state")
+        opt_state_target.count = int(saved["count"])
+        opt_state = opt_state_target
+    meta_path = os.path.join(_step_dir(ckpt_dir, step), "train_meta.json")
+    meta: Dict[str, Any] = {}
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+    meta.setdefault("iteration", step)
+    if torn:
+        meta["torn_iterations"] = sorted(torn)
+        telemetry.runtime_log("checkpoint: fell back to intact step %d; skipped torn steps %s"
+                              % (step, sorted(torn)))
+    nbytes = sum(t.numel() * t.element_size() for leaves in loaded.values()
+                 for t in leaves.values())
+    meta["restore"] = {"bytes": nbytes, "seconds": time.perf_counter() - t0,
+                       "digest_s": digest_s, "digests": digests}
+    telemetry.emit("checkpoint_restore", iteration=int(meta["iteration"]), path=ckpt_dir,
+                   duration_ms=(time.perf_counter() - t0) * 1e3,
+                   torn_skipped=len(torn) or None)
+    return params_target, opt_state, meta
+
+
+def load_full_params(ckpt_dir: str, iteration: Optional[int],
+                     cfg) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+    """The FULL parameters of a checkpoint of any world size, assembled in
+    this process from every rank's file and verified against the manifest
+    (the optimizer state is not read): name -> CPU tensor, and the train
+    metadata. Needs the manifest's provenance (GLS204) for the saved
+    strategy; `cfg` must be the checkpoint's model (GLS201)."""
+    from galvatron_tpu_torch.models import base as M
+    from galvatron_tpu_torch.parallel import spec as S
+    from galvatron_tpu_torch.parallel.mesh import RankMesh
+
+    if iteration is None:
+        intact = intact_iterations(ckpt_dir)
+        if not intact:
+            raise FileNotFoundError("no intact checkpoint under %s" % ckpt_dir)
+        iteration = intact[-1]
+    manifest = read_manifest(ckpt_dir, iteration)
+    if manifest is None:
+        raise _diag("GLS210", "checkpoint %s step %d has no committed manifest (torn save)"
+                    % (ckpt_dir, iteration), CheckpointIntegrityError)
+    prov = manifest.get("provenance")
+    if not prov or not prov.get("strategy"):
+        raise _diag("GLS204", "checkpoint %s step %d carries no provenance: its strategy, and "
+                    "so where each rank's shards belong, is unknown" % (ckpt_dir, iteration))
+    check_strategy(prov, manifest, None, cfg)
+    world = int(manifest.get("world_size", prov.get("world_size", 1)))
+    saved_hp = HybridParallelConfig.from_json(dict(prov["strategy"]), world_size=world)
+    layouts = M.model_param_layouts(cfg, saved_hp)
+    full = {n: torch.empty(p.shape, dtype=cfg.param_dtype)
+            for n, p in M.TransformerLM(cfg, "meta").named_parameters()}
+    for r in range(world):
+        shards = _read_rank(ckpt_dir, iteration, r)["params"]
+        bad = _verify(manifest, r, {"params": tree_digests(shards)})
+        if bad is not None:
+            raise _diag(bad[0], "checkpoint %s step %d, rank %d: %s"
+                        % (ckpt_dir, iteration, r, bad[1]), CheckpointIntegrityError)
+        mesh = RankMesh(saved_hp, r)
+        for n, t in shards.items():
+            S.shard_tensor(full[n], layouts[n].spec, mesh).copy_(t)
+    meta_path = os.path.join(_step_dir(ckpt_dir, iteration), "train_meta.json")
+    meta = {"iteration": iteration}
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta.update(json.load(f))
+    return full, meta

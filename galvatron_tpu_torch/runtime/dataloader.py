@@ -1,10 +1,13 @@
-"""Input pipeline: batch preparation and the synthetic token stream.
+"""Input pipeline: batch preparation, the synthetic token stream and the
+choice between it and an indexed corpus.
 
 Port of ``galvatron_tpu/runtime/dataloader.py`` for the token-stream (``lm``)
 families. `RandomTextDataset` draws from the same ``np.random.RandomState``
 stream as the reference, so both packages see identical token batches for
-one seed. The zigzag context-parallel layout is refused until the CP slice
-of the port; the indexed datasets come with the ``--data_path`` slice.
+one seed; `build_data_iterator` (the LM branch of the function of that
+name in the reference's ``cli/train.py``) picks the indexed corpus of ``--data_path``
+(``data/dataset.py``) or that stream, per split. The zigzag
+context-parallel layout is refused until the CP slice of the port.
 """
 
 from __future__ import annotations
@@ -79,3 +82,30 @@ def get_train_iterator(
     """The stream is a pure function of the step index: `start_step` skips
     ahead in O(1)."""
     return RandomTextDataset(vocab_size, seq_len, seed=seed).iterator(hp, start_step, device)
+
+
+# synthetic streams have no documents to split: each split is a disjoint,
+# deterministic stream of its own seed (the reference's offsets)
+SPLIT_SEED_OFFSETS = {"train": 0, "valid": 7919, "test": 15838}
+
+
+def build_data_iterator(args, fam, cfg, hp: HybridParallelConfig, start_step: int = 0,
+                        split: str = "train", device="cpu") -> Iterator[Dict[str, torch.Tensor]]:
+    """The global-batch stream of one split: the indexed corpus of
+    ``args.data_path`` (``--split`` document weights) when given, else the
+    synthetic stream. Both are pure functions of the step index, so
+    `start_step` resumes in O(1). Only the ``lm`` data kind is ported."""
+    if fam.data_kind != "lm":
+        raise ValueError("data_kind %r is not ported yet" % fam.data_kind)
+    if getattr(args, "data_path", None):
+        from galvatron_tpu_torch.data.dataset import gpt_data_iterator
+
+        it = gpt_data_iterator(args.data_path, hp, seq_len=cfg.max_seq_len, seed=args.seed,
+                               start_step=start_step, split=split,
+                               split_weights=getattr(args, "split", "969,30,1"))
+        if torch.device(device).type == "cpu":
+            return it
+        return ({k: v.to(device) for k, v in b.items()} for b in it)
+    return get_train_iterator(hp, cfg.vocab_size, cfg.max_seq_len,
+                              seed=args.seed + SPLIT_SEED_OFFSETS.get(split, 0),
+                              start_step=start_step, device=device)

@@ -253,6 +253,15 @@ class HybridParallelModel:
         return AdamState(count=state.count, mu={n: full(t, n) for n, t in state.mu.items()},
                          nu={n: full(t, n) for n, t in state.nu.items()})
 
+    def eval_loss(self, params: M.TransformerLM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The loss of the GLOBAL batch, forward only (the reference's
+        ``eval_loss``): this rank's rows in one forward under
+        ``torch.no_grad`` (no residuals kept, no backward kernel), the
+        shares summed over the vocab layers' dp group."""
+        with torch.no_grad():
+            loss = self.loss_fn(params, self.shard_batch(batch))
+            return comm.all_reduce(loss, self.layouts.vocab.dp_group)
+
     def make_train_step(self, tx: AdamW, *, guard_anomalies: bool = False,
                         sdc_check: str = "off") -> Callable:
         """The (params, opt_state, batch) -> (params, opt_state, metrics)
@@ -260,23 +269,45 @@ class HybridParallelModel:
         and opt_state are this rank's shards, updated in place and
         returned. metrics = {"loss", "grad_norm"}: the step's loss and the
         global norm of the accumulated gradients before clipping, as device
-        scalars. The anomaly guard, the silent-corruption sentinel and the
-        quantized gradient sync are refused until their slices are
-        ported."""
-        if guard_anomalies:
-            raise ValueError("guard_anomalies is not ported yet: the anomaly guard comes "
-                             "with the resilience slice of galvatron_tpu_torch")
+        scalars.
+
+        With `guard_anomalies` the step takes a fourth argument, the spike
+        cap (default +inf), and reports ``metrics["anomalous"]``: a step
+        whose loss or gradient norm is non-finite, or whose loss exceeds the
+        cap, applies nothing — params, both Adam moments, the ZeRO-2 shards
+        and the Adam count stay bitwise as they were (the reference's
+        keep-old select). The verdict is max-reduced over the world so every
+        rank takes it, then read on the host in one transfer with the
+        gradient norm, which the clip uses: the guarded step syncs once, as
+        the unguarded one does for the clip. The silent-corruption sentinel and the quantized gradient sync
+        are refused until their slices are ported."""
         if sdc_check != "off":
             raise ValueError("sdc_check=%r is not ported yet: the silent-corruption "
-                             "sentinel comes with the resilience slice" % sdc_check)
+                             "sentinel comes with the resilience slice (ROADMAP queue 1 "
+                             "item 11)" % sdc_check)
         if any(s.grad_comm_dtype != "none" or s.param_comm_dtype != "none"
                for s in self.hp.layers):
             raise ValueError("quantized gradient/parameter sync is not ported yet: the "
                              "data-parallel slice syncs in full precision; quantized "
                              "collectives come with ROADMAP queue 1 item 10")
+        world_group = self.mesh.group_for(self.mesh.names[1:])
 
-        def train_step(params, opt_state, batch):
+        def train_step(params, opt_state, batch, spike_cap=float("inf")):
             loss, grads = self.loss_and_grads(params, batch)
+            grad_norm = self.grad_sumsq(grads).sqrt()
+            metrics = {"loss": loss, "grad_norm": grad_norm}
+            norm_value = None
+            if guard_anomalies:
+                bad = (~torch.isfinite(loss) | ~torch.isfinite(grad_norm)
+                       | (loss > spike_cap)).float()
+                torch.distributed.all_reduce(bad, op=torch.distributed.ReduceOp.MAX,
+                                             group=world_group)
+                bad_value, norm_value = torch.stack([bad, grad_norm.float()]).tolist()
+                metrics["anomalous"] = bad_value > 0
+                if metrics["anomalous"]:
+                    for p in params.parameters():
+                        p.grad = None
+                    return params, opt_state, metrics
             targets, zero2 = {}, {}
             for n, p in params.named_parameters():
                 d = self.moment_dim(n, p.shape)
@@ -286,13 +317,13 @@ class HybridParallelModel:
                     dp = self.param_layouts[n].dp
                     targets[n] = p.data.chunk(self._dp_size(n), d)[self.mesh.index(dp)]
                     zero2[n] = (p, d, self.mesh.group_for(dp))
-            grad_norm = tx.update(targets, grads, opt_state, sumsq=self.grad_sumsq)
+            tx.update(targets, grads, opt_state, grad_norm=grad_norm, grad_norm_value=norm_value)
             with torch.no_grad():
                 for n, (p, d, group) in zero2.items():
                     p.data.copy_(comm.all_gather(targets[n], d, group))
             for p in params.parameters():
                 p.grad = None
-            return params, opt_state, {"loss": loss, "grad_norm": grad_norm}
+            return params, opt_state, metrics
 
         return train_step
 

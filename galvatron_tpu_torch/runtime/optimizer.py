@@ -157,23 +157,26 @@ class AdamW:
     @torch.no_grad()
     def update(self, params: Union[nn.Module, Mapping[str, torch.Tensor]],
                grads: Dict[str, torch.Tensor], state: AdamState,
-               sumsq: Optional[Callable[[Dict[str, torch.Tensor]], torch.Tensor]] = None
-               ) -> torch.Tensor:
+               sumsq: Optional[Callable[[Dict[str, torch.Tensor]], torch.Tensor]] = None,
+               grad_norm: Optional[torch.Tensor] = None,
+               grad_norm_value: Optional[float] = None) -> torch.Tensor:
         """Update `params` (a module, or name -> tensor views such as ZeRO
         shards) in place from `grads`; returns the global gradient norm
         before clipping. `sumsq` (grads -> the global sum of squares) is how
         a sharded layout counts every element once; by default the norm is
-        over the given tensors."""
+        over the given tensors. A caller that has the norm already passes
+        it as `grad_norm`, and the clip reads it on the host unless it is
+        given there too (`grad_norm_value`)."""
         a = self.args
         named = _named(params)
-        if sumsq is None:
+        if grad_norm is None and sumsq is None:
             grad_norm = torch.linalg.vector_norm(
                 torch.stack([torch.linalg.vector_norm(grads[n].float()) for n, _ in named]))
-        else:
+        elif grad_norm is None:
             grad_norm = sumsq(grads).sqrt()
         clip_to = None
         if a.clip_grad and a.clip_grad > 0:
-            norm = float(grad_norm)
+            norm = float(grad_norm) if grad_norm_value is None else grad_norm_value
             if not norm < a.clip_grad:
                 clip_to = norm
         count = state.count + 1

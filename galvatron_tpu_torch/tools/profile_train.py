@@ -9,7 +9,10 @@ The run is a configuration that ``chip_smoke.py`` trains
 (``tools/train_cell.py``: the LLaMA cell, or the GPT cell through the layout
 path with layers 0-3 ZeRO-3 or with ZeRO-2 everywhere; its strategy JSON is
 written into ``--trace_dir`` or ``build/galvatron_tpu_torch``), built by
-``cli.train.build`` at world size 1. After
+``cli.train.build`` at world size 1 and stepped as ``cli train`` steps it:
+the same step (with the anomaly guard as the flags set it, on by default)
+on batches from the same prefetched stream (``cli.train.BatchStream``).
+After
 ``--warmup`` untraced steps it traces ``--steps`` steps and prints the wall
 time per step, the device-busy time (the sum of kernel times the profiler
 records), the device's idle share, the device time by kind (the
@@ -89,19 +92,23 @@ def main(argv: List[str] = None) -> Dict:
     targs = initialize_galvatron(train_argv, mode="train")
     torch.backends.cuda.matmul.allow_tf32 = False
     with distributed.process_group(targs.device) as device:
-        return _profile(args, cli_train.build(targs, device), train_argv)
+        run = cli_train.build(targs, device)
+        stream = cli_train.BatchStream(targs, run).open(0)
+        try:
+            return _profile(args, run, stream, train_argv)
+        finally:
+            stream.close()
 
 
-def _profile(args, run, train_argv) -> Dict:
+def _profile(args, run, stream, train_argv) -> Dict:
     from torch.profiler import ProfilerActivity, profile
 
     params, state, tx = run.params, run.opt_state, run.tx
     for _ in range(args.warmup):
-        params, state, _ = run.step(params, state, next(run.data))
-    batches = [next(run.data) for _ in range(args.steps)]
+        params, state, _ = run.step(params, state, next(stream), *run.step_args())
 
     # the optimizer update's device time, from events around tx.update
-    # (which already synchronises once, reading the gradient norm)
+    # (the step has synchronised once before it, reading the gradient norm)
     update, update_ms = tx.update, []
 
     def timed_update(*a, **kw):
@@ -118,8 +125,8 @@ def _profile(args, run, train_argv) -> Dict:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for batch in batches:
-            params, state, metrics = run.step(params, state, batch)
+        for _ in range(args.steps):
+            params, state, metrics = run.step(params, state, next(stream), *run.step_args())
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     hp = run.hp
@@ -127,6 +134,7 @@ def _profile(args, run, train_argv) -> Dict:
            "num_layers": run.cfg.num_layers, "global_bsz": hp.global_bsz, "chunks": hp.chunks,
            "seq_len": run.cfg.max_seq_len, "checkpoint": [s.checkpoint for s in hp.layers],
            "remat_policy": [s.remat_policy for s in hp.layers], "steps": args.steps,
+           "guard": run.guard is not None, "prefetch_batches": stream.depth,
            "loss": float(metrics["loss"])}
     out.update(breakdown(prof, wall, args.steps, args.top))
     out["optimizer_ms_per_step"] = sum(update_ms) / len(update_ms)

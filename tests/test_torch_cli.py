@@ -64,7 +64,7 @@ def test_default_device_is_cuda_and_never_falls_back():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--load", "/tmp/ckpt"], ["--watchdog", "5"], ["--mesh_probe_interval", "1"],
+    ["--watchdog", "5"], ["--mesh_probe_interval", "1"],
     ["--migrate_on_degrade", "1"], ["--elastic_strategy", "x.json"],
     ["--elastic_memory_gb", "16"], ["--compile_cache", "1"],
 ])

@@ -397,3 +397,60 @@ def test_gpt_layout_path_on_cuda_through_one_rank_nccl_groups(tmp_path, monkeypa
         assert TF.flash_attention_fwd.launches - n_fwd == 3 * 2 * 3
         assert TF.flash_attention_bwd.launches - n_bwd == 3 * 2 * 2
     np.testing.assert_allclose(losses["1,0"], losses["0,0"], rtol=1e-5)
+
+
+def test_device_placer_copies_batches_on_a_side_stream():
+    """The prefetch thread's placement: pinned host memory, a copy on the
+    placer's side stream, the consumer's stream waiting on its event; every
+    batch arrives equal to its source, in order, while the main stream is
+    busy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the placer copies to the card")
+    from galvatron_tpu_torch.runtime.prefetch import DevicePlacer, PrefetchIterator, consume
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    src = [{"tokens": torch.randint(0, 32000, (8, 2048)),
+            "positions": torch.arange(2048).expand(8, 2048)} for _ in range(6)]
+    placer = DevicePlacer(dev)
+    pf = PrefetchIterator(iter(src), depth=2, place_fn=placer)
+    busy = torch.randn(4096, 4096, device=dev)
+    for want in src:
+        busy = busy @ busy / 64.0  # keep the consumer's stream occupied
+        got = consume(next(pf))
+        assert got["tokens"].device == dev and got["tokens"].is_contiguous()
+        for k in want:
+            assert torch.equal(got[k].cpu(), want[k])
+    pf.close()
+    assert placer.stream != torch.cuda.current_stream(dev)
+
+
+def test_train_from_corpus_with_eval_save_and_resume_on_cuda(tmp_path):
+    """The corpus path on the card at a tiny size (head_dim 128, sequence
+    256: both kernels): eval launches the forward alone, the checkpoint
+    round-trips and the resumed losses equal the uninterrupted run's."""
+    _need_cuda_kernel()
+    from galvatron_tpu_torch.data.dataset import write_indexed_dataset
+
+    rng = np.random.RandomState(0)
+    corpus = str(tmp_path / "corpus")
+    write_indexed_dataset(corpus, [rng.randint(0, 64, rng.randint(100, 900)).tolist()
+                                   for _ in range(200)])
+    argv = [
+        "--device", "cuda", "--model_type", "llama", "--set_model_config_manually", "1",
+        "--hidden_size", "256", "--num_attention_heads", "2", "--ffn_hidden_size", "256",
+        "--num_layers", "2", "--vocab_size", "64", "--seq_length", "256",
+        "--global_train_batch_size", "2", "--chunks", "2", "--lr", "1e-3",
+        "--lr_decay_style", "constant", "--data_path", corpus, "--split", "80,10,10",
+        "--eval_interval", "2", "--eval_iters", "1",
+    ]
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        full = T.main(argv + ["--train_iters", "4"])
+        T.main(argv + ["--train_iters", "2", "--save", str(tmp_path / "ck")])
+        resumed = T.main(argv + ["--train_iters", "4", "--load", str(tmp_path / "ck")])
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert full["eval_flash_launches"] == {"fwd": 3 * 2, "bwd": 0}  # 3 passes x 1 x 2 layers
+    assert resumed["losses"] == full["losses"][2:]
+    assert resumed["test_loss"] == full["test_loss"]

@@ -18,7 +18,11 @@ reference, not the reference's manual TP paths):
 - a planted fault (a reduce-scatter in place of the slice in one
   re-layout's backward) must fail the gradient check;
 - random init gives every world size the same weights, and re-layouts
-  there and back give every rank its shard.
+  there and back give every rank its shard;
+- at world 2, the train CLI under a strategy of Megatron TP (tp 2),
+  ZeRO-3 and ZeRO-2 layers saves at step 3 (each rank its shards) and a
+  resumed run's losses equal an uninterrupted run's bit for bit; resuming
+  that checkpoint under another strategy is refused with GLS206.
 
 ``python tests/test_torch_parallel.py --report DIR`` prints the tolerances
 the parity reached; the same workers run on GPUs (NCCL) with ``--device
@@ -222,10 +226,85 @@ def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "
         for n, g in grads.items():
             results["fault/grad/%s" % n] = g.cpu().numpy()
 
+    if world == 2:
+        results.update(_checkpoint_cases(os.path.join(os.path.dirname(out), "ckpt_w2"),
+                                         device_name))
+
     if rank == 0:
         np.savez(out, **results)
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
+
+
+# the layout of the world-2 save/resume cases: tp 2, ZeRO-3, ZeRO-2, tp 2
+CKPT_STRATEGY = {"pp_deg": 1, "tp_sizes_enc": "2,1,1,2", "tp_consecutive_flags": "1,1,1,1",
+                 "dp_types_enc": "0,1,0,0", "default_dp_type": "zero2", "global_bsz": 4,
+                 "chunks": 2}
+CKPT_ARGV = ["--model_type", "gpt", "--set_model_config_manually", "1", "--hidden_size", "64",
+             "--num_attention_heads", "4", "--num_layers", "4", "--vocab_size", "128",
+             "--seq_length", "32", "--global_train_batch_size", "4", "--chunks", "2",
+             "--lr", "1e-3", "--lr_decay_style", "constant", "--log_interval", "100",
+             "--world_size", "2"]
+
+
+def _checkpoint_cases(ckpt_dir: str, device_name: str) -> dict:
+    """The train CLI at world 2 (inside the worker's process group): an
+    uninterrupted 6-step run, a 3-step run that saves (rank 1's first write
+    of its file fails: both ranks retry together), its resume to 6, and a
+    resume under another strategy."""
+    import json
+
+    import torch
+
+    from galvatron_tpu_torch.analysis.diagnostics import DiagnosticError
+    from galvatron_tpu_torch.cli import train as T
+    from galvatron_tpu_torch.runtime import checkpoint as ck
+
+    rank = torch.distributed.get_rank()
+    strategies = {}
+    for name, dp_types in (("mixed", CKPT_STRATEGY["dp_types_enc"]), ("other", "0,0,0,0")):
+        path = "%s_%s.json" % (ckpt_dir, name)
+        if rank == 0:
+            with open(path, "w") as f:
+                json.dump(dict(CKPT_STRATEGY, dp_types_enc=dp_types), f)
+        strategies[name] = path
+    torch.distributed.barrier()
+
+    def train(steps, strategy="mixed", extra=()):
+        argv = CKPT_ARGV + ["--device", device_name, "--train_iters", str(steps),
+                            "--galvatron_config_path", strategies[strategy]] + list(extra)
+        return T.train(T.initialize_galvatron(argv=argv, mode="train"))
+
+    full = train(6)
+    honest, faults = ck._write_rank_file, []
+
+    def flaky(host, path):
+        if rank == 1 and not faults:
+            faults.append(path)
+            raise OSError("injected write failure on rank 1")
+        return honest(host, path)
+
+    ck._write_rank_file = flaky
+    try:
+        first = train(3, extra=["--save", ckpt_dir, "--ckpt_retry_backoff", "0.01"])
+    finally:
+        ck._write_rank_file = honest
+    retries = [None] * 2
+    torch.distributed.all_gather_object(retries, (len(faults), first["resilience"]["retries"]))
+    resumed = train(6, extra=["--load", ckpt_dir])
+    try:
+        train(6, strategy="other", extra=["--load", ckpt_dir])
+        refused = "none"
+    except DiagnosticError as e:
+        refused = ",".join(d.code for d in e.diagnostics)
+    return {"ckpt/full": np.asarray(full["losses"]), "ckpt/first": np.asarray(first["losses"]),
+            "ckpt/resumed": np.asarray(resumed["losses"]),
+            "ckpt/start": np.int64(resumed["checkpoint_restore"]["iteration"]),
+            "ckpt/ranks": np.int64(len(os.listdir(os.path.join(ckpt_dir, "3"))) - 1),
+            "ckpt/refused": np.asarray(refused),
+            "ckpt/write_faults": np.asarray([f for f, _ in retries]),
+            "ckpt/save_retries": np.asarray([r for _, r in retries])}
+
 
 
 # ==================================================================== reference
@@ -457,3 +536,27 @@ def test_planted_relayout_fault_fails_the_gradient_check(reference, world_result
     got = {n: res["fault/grad/%s" % n] for n in ref["grads"]}
     errs = grad_errors(got, ref["grads"])
     assert max(errs.values()) > 1.0, "the planted fault passed the gradient check"
+
+
+def test_world2_layout_save_and_resume_is_bitwise(world_results):
+    """tp 2 + ZeRO-3 + ZeRO-2 at world 2 through the train CLI: each rank
+    writes its shards (two rank files), the resumed losses equal the
+    uninterrupted run's bit for bit."""
+    res = world_results(2)
+    assert int(res["ckpt/ranks"]) == 2 and int(res["ckpt/start"]) == 3
+    assert len(res["ckpt/full"]) == 6 and np.isfinite(res["ckpt/full"]).all()
+    np.testing.assert_array_equal(res["ckpt/first"], res["ckpt/full"][:3])
+    np.testing.assert_array_equal(res["ckpt/resumed"], res["ckpt/full"][3:])
+
+
+def test_world2_save_retries_one_ranks_failed_write_together(world_results):
+    """Rank 1's first write fails: both ranks count the retry (they retried
+    the write round together, no collective left unmatched), and the
+    checkpoint the retry committed resumes bitwise (above)."""
+    res = world_results(2)
+    assert res["ckpt/write_faults"].tolist() == [0, 1]
+    assert res["ckpt/save_retries"].tolist() == [1, 1]
+
+
+def test_world2_resume_under_another_strategy_is_refused(world_results):
+    assert str(world_results(2)["ckpt/refused"]) == "GLS206"

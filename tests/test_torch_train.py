@@ -295,8 +295,6 @@ def test_train_step_refuses_the_unported_paths():
     model = TAPI.construct_hybrid_parallel_model(tcfg, THP.uniform(1, 2), "cpu")
     tx, _ = TO.get_optimizer_and_scheduler()
     with pytest.raises(ValueError, match="resilience slice"):
-        model.make_train_step(tx, guard_anomalies=True)
-    with pytest.raises(ValueError, match="resilience slice"):
         model.make_train_step(tx, sdc_check="digest")
     quant = TAPI.construct_hybrid_parallel_model(
         tcfg, THP(world_size=1, pp=1, layers=[TLS(grad_comm_dtype="int8")] * 2), "cpu")

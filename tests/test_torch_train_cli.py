@@ -2,7 +2,8 @@
 flags, and a strategy JSON with per-layer remat whose attention takes the
 flash Function's plain versions), the summary keys, the --device contract
 (cuda by default, never a silent CPU fallback), the train-mode lint and the
-flags the port refuses. The CUDA run is in tests/test_torch_cuda.py."""
+flags the port refuses (its corpus, eval, checkpoint, guard and telemetry
+flags are driven in tests/test_torch_resume.py). The CUDA run is in tests/test_torch_cuda.py."""
 
 import dataclasses
 import json
@@ -68,10 +69,8 @@ def test_train_default_device_is_cuda_and_never_falls_back():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--data_path", "/tmp/corpus"], ["--save", "/tmp/ckpt"], ["--load", "/tmp/ckpt"],
-    ["--eval_interval", "5"], ["--telemetry", "x.jsonl"], ["--anomaly_guard", "1"],
-    ["--sdc_check", "digest"], ["--autotune", "observe"], ["--prefetch_batches", "2"],
-    ["--elastic", "resume"], ["--serve_page_size", "16"],
+    ["--sdc_check", "digest"], ["--autotune", "observe"], ["--elastic", "resume"],
+    ["--serve_page_size", "16"],
 ])
 def test_train_unported_flags_are_refused(flag):
     with pytest.raises(SystemExit):
