@@ -13,20 +13,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (warning C7508).
 3. Hold the forward kernel against its plain PyTorch version on the card, in
    bf16, at B=1, nh=32, hd=128, S in {128, 512, 576, 1536, 2048}, causal,
-   with and without a key-padding tail, and at B=4, S=2048 (the train
-   micro-batch), on ALL rows (plus one fp32 and one head_dim-256 case), each
-   element within a limit scaled by its own row (TOL_FWD_BF16); two planted
-   faults (a zeroed first or last tile) must fail the same check. Every
-   bf16 head_dim-128 case must have run the "wgmma" route. Times the kernel
-   (``ms``: 20 calls back to back between two CUDA events, over 20, median
-   of 5 runs, the kernel's time once the host's launch overhead runs ahead;
-   ``ms_single``: the median of 25 single calls, each between its own
-   events, as earlier versions of this script timed, host overhead
-   included), the plain version and, as a yardstick the port never calls,
-   torch's scaled_dot_product_attention, both ways.
+   with and without a key-padding tail, and at B=4 and B=2, S=2048 (the
+   micro-batches of phases 8-9 and of phase 11), on ALL rows (plus one fp32
+   and one head_dim-256 case), each element within a limit scaled by its own
+   row (TOL_FWD_BF16); two planted faults (a zeroed first or last tile) must
+   fail the same check. Every bf16 head_dim-128 case must have run the
+   "wgmma" route. Times the kernel (``ms``: 20 calls back to back between
+   two CUDA events, over 20, median of 5 runs, the kernel's time once the
+   host's launch overhead runs ahead; ``ms_single``: the median of 25 single
+   calls, each between its own events, as earlier versions of this script
+   timed, host overhead included), the plain version and, as a yardstick the
+   port never calls, torch's scaled_dot_product_attention, both ways.
 4. The same for the backward kernel: bf16, B=1, nh=32, hd=128, S in
-   {512, 576, 2048}, causal, with and without a key-padding tail, and B=4,
-   S=2048, every row and key of dq, dk and dv (plus one fp32 and one
+   {512, 576, 2048}, causal, with and without a key-padding tail, and B=4
+   and B=2 at S=2048, every row and key of dq, dk and dv (plus one fp32 and one
    head_dim-256 case), with the same row-scaled check, planted faults and
    route check; the yardstick is the backward of
    scaled_dot_product_attention (autograd of SDPA, its forward excluded).
@@ -81,10 +81,31 @@ Phases, in order; any failure exits non-zero and prints no result line:
    backward; serve 2 layers x prefills; every launch ``wgmma``. Prints the
    bytes and seconds of save and load; the step data is deleted afterwards
    (the manifests stay under chiprun_out/phase10).
+11. Pipelines on the card: the LLaMA configuration of phase 8 with the
+   global batch in 4 micro-batches and its remat counts laid out alike on
+   both stages (per stage full, full, dots_saveable, none: GPipe needs
+   stage-uniform strategies), at pp 2 divided 4,4, as a world of 2
+   whose two stages this one process hosts
+   (``parallel.pipeline.LocalTransport``), through the model API as ``cli
+   train`` steps it (guard on, the same synthetic batches): 6 steps under
+   GPipe and 6 under 1F1B, each step's loss within TOL_PP_LOSS and its
+   gradient norm (before the clip) within TOL_PP_GRAD_NORM, relative, of
+   the same configuration unpipelined (pp 1, the same weights, batches and
+   micro-batches); then the GPT configuration of phase 9 divided 5,3 under
+   1F1B (its tied table on both stages, summed through the transport), 3
+   steps against its unpipelined run. Every run's launch counts are exact
+   (steps x micro-batches x (layers + remat layers) forward, x layers
+   backward: the pipeline keeps each micro-batch's graph under the
+   per-layer remat, as the unpipelined run does) and every launch is
+   ``wgmma``; each run's peak memory is printed. A planted fault, the
+   1F1B run again with stage 1's weights put back after every step, must
+   fail the same comparison. The host runs the stages one after another,
+   so these step times say nothing of the bubble.
 
-Each main path (serve, train, the GPT layout runs, and phase 10's train,
-resumed, guarded and serve-from-checkpoint runs) runs with the kernels'
-launch counts set to 0 just before it and read just after. The last lines
+Each main path (serve, train, the GPT layout runs, phase 10's train,
+resumed, guarded and serve-from-checkpoint runs, and phase 11's runs)
+runs with the kernels' launch counts set to 0 just before it and read just
+after. The last lines
 of standard output are the serve and train summaries, the ``kernels`` JSON
 line, the card line, and ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json.
@@ -352,7 +373,9 @@ def check_kernel(torch, TF, dev):
         for padded in (False, True):
             cases.append(dict(b=1, s=s, nh=32, hd=128, padded=padded, causal=True,
                               dtype=torch.bfloat16))
-    cases.append(dict(b=4, s=2048, nh=32, hd=128, padded=False, causal=True, dtype=torch.bfloat16))
+    for b in (4, 2):
+        cases.append(dict(b=b, s=2048, nh=32, hd=128, padded=False, causal=True,
+                          dtype=torch.bfloat16))
     cases.append(dict(b=1, s=576, nh=32, hd=128, padded=True, causal=False, dtype=torch.bfloat16))
     cases.append(dict(b=1, s=512, nh=32, hd=128, padded=True, causal=False, dtype=torch.bfloat16))
     cases.append(dict(b=1, s=512, nh=32, hd=128, padded=True, causal=True, dtype=torch.float32))
@@ -417,7 +440,8 @@ def check_bwd_kernel(torch, TF, dev):
     gen.manual_seed(SEED + 1)
     cases = [dict(b=1, s=s, nh=32, hd=128, padded=padded, dtype=torch.bfloat16)
              for s in (512, 576, 2048) for padded in (False, True)]
-    cases.append(dict(b=4, s=2048, nh=32, hd=128, padded=False, dtype=torch.bfloat16))
+    for b in (4, 2):
+        cases.append(dict(b=b, s=2048, nh=32, hd=128, padded=False, dtype=torch.bfloat16))
     cases.append(dict(b=1, s=512, nh=32, hd=128, padded=True, dtype=torch.float32))
     cases.append(dict(b=1, s=512, nh=8, hd=256, padded=True, dtype=torch.bfloat16))
     results = []
@@ -496,7 +520,7 @@ def grads_in_place(torch, TF, dev):
 
     cfg = llama_config("llama-7b", num_layers=2, compute_dtype=torch.bfloat16)
     params = construct_hybrid_parallel_model(cfg, HybridParallelConfig.uniform(1, 2),
-                                             dev).init_params(SEED)
+                                             dev).init_params(SEED)[0]
     tokens = RandomTextDataset(cfg.vocab_size, cfg.max_seq_len, seed=SEED).batch(0, 1)
     batch = prepare_batch(None, tokens, device=dev)
 
@@ -546,7 +570,7 @@ def decode_vs_recompute(torch, dev):
 
     cfg = llama_config("llama-7b", num_layers=4, compute_dtype=torch.bfloat16)
     model = construct_hybrid_parallel_model(cfg, HybridParallelConfig.uniform(1, 4), dev)
-    params = model.init_params(SEED)
+    params = model.init_params(SEED)[0]
     kv = KVCacheConfig(max_slots=2, page_size=128, max_pages=4)
     engine = ServeEngine(cfg, params, kv, device=dev)
     plain_cfg = dataclasses.replace(cfg, attn_impl="xla")
@@ -877,7 +901,7 @@ def corpus_checkpoint_resume(torch, TF):
             s2, l2 = run(["--train_iters", str(CKPT_STEPS), "--eval_interval",
                           str(CKPT_INTERVAL), "--eval_iters", str(EVAL_ITERS), "--load", ck,
                           "--load_iteration", str(CKPT_INTERVAL)],
-                         batch_hooks(batches2, lambda p, o: CK.state_digests(p, o)))
+                         batch_hooks(batches2, lambda p, o: CK.state_digests(p[0], o[0])))
         nondet = sorted({str(w.message).split("\n")[0][:160] for w in caught
                          if "deterministic" in str(w.message)})
     finally:
@@ -938,15 +962,16 @@ def corpus_checkpoint_resume(torch, TF):
 
     def guarded(fn):
         def step(params, opt_state, batch, *rest):
-            before = {n: p.detach().clone() for n, p in params.named_parameters()}
-            before.update({"mu/" + n: t.clone() for n, t in opt_state.mu.items()})
-            before.update({"nu/" + n: t.clone() for n, t in opt_state.nu.items()})
-            count = opt_state.count
+            # one stage (pp 1): its module and Adam state
+            before = {n: p.detach().clone() for n, p in params[0].named_parameters()}
+            before.update({"mu/" + n: t.clone() for n, t in opt_state[0].mu.items()})
+            before.update({"nu/" + n: t.clone() for n, t in opt_state[0].nu.items()})
+            count = opt_state[0].count
             params, opt_state, metrics = fn(params, opt_state, batch, *rest)
-            after = dict(params.named_parameters())
-            after.update({"mu/" + n: t for n, t in opt_state.mu.items()})
-            after.update({"nu/" + n: t for n, t in opt_state.nu.items()})
-            snap.update(anomalous=metrics["anomalous"], count=(count, opt_state.count),
+            after = dict(params[0].named_parameters())
+            after.update({"mu/" + n: t for n, t in opt_state[0].mu.items()})
+            after.update({"nu/" + n: t for n, t in opt_state[0].nu.items()})
+            snap.update(anomalous=metrics["anomalous"], count=(count, opt_state[0].count),
                         unchanged=all(torch.equal(before[n], after[n]) for n in before),
                         leaves=len(before))
             del before
@@ -1050,6 +1075,148 @@ def corpus_checkpoint_resume(torch, TF):
         wall_s=time.perf_counter() - t0)
 
 
+# ----------------------------------------------------------------- phase 11
+# One process hosts both stages (each stage one device): it runs them one
+# after another, so a step takes the unpipelined step's time plus the
+# hand-offs; the bubble shows only with a GPU per stage.
+# Relative, each step against the unpipelined run (bf16). The schedules
+# run the same kernels on the same rows: only the gradient norm's sum
+# over stages, and through the clip the weights, differ by rounding. A
+# stage whose gradient is lost, or a tied table's two halves not summed,
+# moves the first step's norm; a stage that skips its update (the first
+# step's learning rate is 0), the third step's loss and norm. A planted
+# fault, a stage that never applies its update, must fail the check.
+TOL_PP_LOSS = 1e-4
+TOL_PP_GRAD_NORM = 2e-4
+
+
+def _hosted_run(torch, TF, argv, world, frozen_stage=None):
+    """Train the configuration of `argv` at `world` (= pp; every stage in
+    this process) through the model API, stepped as ``cli train`` steps it
+    (guard on); returns losses, gradient norms, launches, routes, step
+    times and peak memory. `frozen_stage` plants a fault: that stage's
+    weights are put back after every step, as if it never applied its
+    update."""
+    import gc
+
+    from galvatron_tpu_torch.cli import train as cli_train
+    from galvatron_tpu_torch.cli.arguments import (
+        hp_config_from_args,
+        initialize_galvatron,
+        model_config_from_args,
+    )
+    from galvatron_tpu_torch.runtime import distributed
+    from galvatron_tpu_torch.runtime.dataloader import build_data_iterator
+    from galvatron_tpu_torch.runtime.model_api import construct_hybrid_parallel_model
+    from galvatron_tpu_torch.runtime.optimizer import get_optimizer_and_scheduler
+
+    args = initialize_galvatron(argv=argv, mode="train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with distributed.process_group("cuda") as dev:
+        fam, cfg = model_config_from_args(args)
+        hp = hp_config_from_args(args, cfg.num_layers, world)
+        model = construct_hybrid_parallel_model(cfg, hp, dev,
+                                                transport="local" if hp.pp > 1 else "p2p")
+        tx, _ = get_optimizer_and_scheduler(cli_train.optimizer_args_from(args))
+        params = model.init_params(args.seed)
+        state = model.init_opt_state(tx, params)
+        step = model.make_train_step(tx, guard_anomalies=True)
+        batches = build_data_iterator(args, fam, cfg, hp, device=dev)
+        before = {k: dict(getattr(TF, "flash_attention_" + k).routes) for k in ("fwd", "bwd")}
+        TF.flash_attention_fwd.launches = 0
+        TF.flash_attention_bwd.launches = 0
+        losses, norms, step_ms = [], [], []
+        for _ in range(args.train_iters):
+            batch = next(batches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if frozen_stage is not None:
+                kept = [p.detach().clone() for p in params[frozen_stage].parameters()]
+            params, state, metrics = step(params, state, batch)
+            if frozen_stage is not None:
+                with torch.no_grad():
+                    for p, k in zip(params[frozen_stage].parameters(), kept):
+                        p.copy_(k)
+                del kept
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            check(not metrics["anomalous"], "pipeline run %s: step flagged anomalous (loss %r)"
+                  % (os.path.basename(args.galvatron_config_path), losses[-1]))
+        fwd, bwd = TF.flash_attention_fwd.launches, TF.flash_attention_bwd.launches
+        routes = {k: {r: n - before[k].get(r, 0)
+                      for r, n in getattr(TF, "flash_attention_" + k).routes.items()
+                      if n != before[k].get(r, 0)} for k in ("fwd", "bwd")}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        del params, state, step, model, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, grad_norms=norms, fwd_launches=fwd, bwd_launches=bwd, routes=routes,
+                step_ms=step_ms, steady_step_ms=statistics.median(step_ms[2:] or step_ms),
+                peak_memory_gb=peak_gb, pp=hp.pp, division=hp.pp_division,
+                pipeline_type=hp.pipeline_type, chunks=hp.chunks, steps=args.train_iters,
+                strategy=os.path.relpath(args.galvatron_config_path))
+
+
+def train_pipelines(torch, TF):
+    from galvatron_tpu_torch.tools import train_cell as C
+
+    t0 = time.perf_counter()
+    out = "chiprun_out"
+    argvs = {
+        "llama_pp1": (C.pp_argv(C.write_pp_strategy(out, [C.LAYERS])), 1),
+        "llama_pp2_gpipe": (C.pp_argv(C.write_pp_strategy(out, C.PP_DIVISION, "gpipe")), 2),
+        "llama_pp2_1f1b": (C.pp_argv(C.write_pp_strategy(out, C.PP_DIVISION,
+                                                         "pipedream_flush")), 2),
+        "gpt_pp1": (C.pp_argv(C.write_pp_strategy(out, [C.LAYERS], gpt=True), gpt=True), 1),
+        "gpt_pp2_53_1f1b": (C.pp_argv(C.write_pp_strategy(out, C.GPT_PP_DIVISION,
+                                                          "pipedream_flush", gpt=True),
+                                      gpt=True), 2),
+    }
+    runs = {name: _hosted_run(torch, TF, argv, world) for name, (argv, world) in argvs.items()}
+    remat = sum(C.PP_CHECKPOINT)
+    for name, r in runs.items():
+        check(all(math.isfinite(x) for x in r["losses"]) and len(r["losses"]) == r["steps"],
+              "%s losses %s" % (name, r["losses"]))
+        want = (r["steps"] * r["chunks"] * (C.LAYERS + remat), r["steps"] * r["chunks"] * C.LAYERS)
+        check((r["fwd_launches"], r["bwd_launches"]) == want,
+              "%s launched the forward kernel %d times and the backward %d times (expected %d "
+              "and %d = %d steps x %d micro-batches x (%d layers + %d recomputed) / x %d layers)"
+              % (name, r["fwd_launches"], r["bwd_launches"], want[0], want[1], r["steps"],
+                 r["chunks"], C.LAYERS, remat, C.LAYERS))
+        check(r["routes"] == {"fwd": {"wgmma": want[0]}, "bwd": {"wgmma": want[1]}},
+              "%s launches by route: %s (every one must be wgmma)" % (name, r["routes"]))
+    limits = (("losses", TOL_PP_LOSS), ("grad_norms", TOL_PP_GRAD_NORM))
+
+    def rel_errs(r, ref):
+        return {key: [abs(x - y) / abs(y) for x, y in zip(r[key], ref[key])] for key, _ in limits}
+
+    for name, ref in (("llama_pp2_gpipe", "llama_pp1"), ("llama_pp2_1f1b", "llama_pp1"),
+                      ("gpt_pp2_53_1f1b", "gpt_pp1")):
+        for key, rel in rel_errs(runs[name], runs[ref]).items():
+            runs[name][key + "_rel_err"] = rel
+        for key, tol in limits:
+            rel = runs[name][key + "_rel_err"]
+            check(max(rel) <= tol,
+                  "%s %s differ from the unpipelined run's by %.3g relative (tol %.0e): %s vs %s"
+                  % (name, key, max(rel), tol, runs[name][key], runs[ref][key]))
+    # the planted fault: under 1F1B, stage 1 never applies its update
+    planted = _hosted_run(torch, TF, *argvs["llama_pp2_1f1b"], frozen_stage=1)
+    planted_err = {key: max(rel) for key, rel in rel_errs(planted, runs["llama_pp1"]).items()}
+    check(any(planted_err[key] > tol for key, tol in limits),
+          "the pipeline check passes a planted fault (stage 1 never updates): relative errors %s"
+          % planted_err)
+    return dict(runs=runs, tolerance=TOL_PP_LOSS, grad_norm_tolerance=TOL_PP_GRAD_NORM,
+                planted_fault=dict(losses=planted["losses"], grad_norms=planted["grad_norms"],
+                                   max_rel_err=planted_err),
+                layers=C.LAYERS, chunks=C.PP_CHUNKS, global_bsz=C.GLOBAL_BSZ,
+                remat=",".join(p if c else "none"
+                               for c, p in zip(C.PP_CHECKPOINT, C.PP_REMAT_POLICY)),
+                wall_s=time.perf_counter() - t0)
+
+
 def main():
     try:
         import torch
@@ -1091,6 +1258,7 @@ def main():
     trained = train(torch, TF)
     layouts = train_gpt_layouts(torch, TF)
     corpus = corpus_checkpoint_resume(torch, TF)
+    pipelines = train_pipelines(torch, TF)
     s, t = served["summary"], trained["summary"]
 
     def at_2048(rows, b):
@@ -1114,25 +1282,29 @@ def main():
 
     z3, z2 = layouts["runs"]["zero3"], layouts["runs"]["zero2"]
     c = corpus["launches"]
+    pp_runs = pipelines["runs"]
     kernels = {"kernels": [
         entry("flash_attn_fwd", SOURCE, shapes, z3["fwd_launches"],
               {"serve": served["flash_launches"], "train": trained["fwd_launches"],
                "train_gpt_zero3": z3["fwd_launches"], "train_gpt_zero2": z2["fwd_launches"],
                "train_data": c["train_data"]["fwd"], "eval": c["eval"]["fwd"],
-               "serve_load": c["serve_load"]["fwd"]},
+               "serve_load": c["serve_load"]["fwd"],
+               **{"train_" + n: r["fwd_launches"] for n, r in pp_runs.items()}},
               TOL_FWD_BF16),
         entry("flash_attn_bwd", BWD_SOURCE, bwd_shapes, z3["bwd_launches"],
               {"serve": 0, "train": trained["bwd_launches"],
                "train_gpt_zero3": z3["bwd_launches"], "train_gpt_zero2": z2["bwd_launches"],
                "train_data": c["train_data"]["bwd"], "eval": c["eval"]["bwd"],
-               "serve_load": c["serve_load"]["bwd"]},
+               "serve_load": c["serve_load"]["bwd"],
+               **{"train_" + n: r["bwd_launches"] for n, r in pp_runs.items()}},
               TOL_BWD_BF16),
     ]}
     results = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                    build_s=build_s, ptxas=ptxas, wgmma_ptxas=wgmma_ptxas,
                    kernels=kernels["kernels"], grads=grads,
                    decode=decode, serve=served, train=trained, train_gpt_layouts=layouts,
-                   corpus_checkpoint=corpus, wall_s=time.perf_counter() - t_start)
+                   corpus_checkpoint=corpus, train_pipelines=pipelines,
+                   wall_s=time.perf_counter() - t_start)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1, default=str)
@@ -1201,6 +1373,26 @@ def main():
     if corpus["nondeterministic_warnings"]:
         log("phase 10 ops without a deterministic path (warnings): %s"
             % corpus["nondeterministic_warnings"])
+    for name, r in pp_runs.items():
+        log("pipeline %s (%s width, %d layers, pp %d divided %s, %s, %d steps, global batch %d "
+            "in %d micro-batches, remat %s, every stage on this card) on %s: step %.1f ms "
+            "(stages run one after another), peak memory %.1f GB, losses %s, gradient norms "
+            "%s%s, flash launches fwd %d / bwd %d" % (
+                name, "gpt-6.7b" if name.startswith("gpt") else "llama-7b",
+                pipelines["layers"], r["pp"], ",".join(map(str, r["division"])),
+                r["pipeline_type"] if r["pp"] > 1 else "unpipelined", r["steps"],
+                pipelines["global_bsz"], r["chunks"], pipelines["remat"], card,
+                r["steady_step_ms"], r["peak_memory_gb"], ["%.5f" % x for x in r["losses"]],
+                ["%.5f" % x for x in r["grad_norms"]],
+                ", max rel err vs unpipelined: loss %.3g, gradient norm %.3g" % (
+                    max(r["losses_rel_err"]), max(r["grad_norms_rel_err"]))
+                if "losses_rel_err" in r else "", r["fwd_launches"], r["bwd_launches"]))
+    log("phase 11 planted fault (1F1B, stage 1 never updates): max rel err vs unpipelined: "
+        "loss %.3g, gradient norm %.3g (limits %.0e, %.0e)" % (
+            pipelines["planted_fault"]["max_rel_err"]["losses"],
+            pipelines["planted_fault"]["max_rel_err"]["grad_norms"], TOL_PP_LOSS,
+            TOL_PP_GRAD_NORM))
+    log("phase 11 (pipelines) %.1f s" % pipelines["wall_s"])
     log(json.dumps(kernels))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -15,10 +15,12 @@ The memory-budget check (GLS101) and the manual-TP and
 quantized-collective refusals come with the slices that port the cost
 models and those paths.
 
-`train_refusals` lists what the port's trainer does not execute yet
-(pipelines, context parallelism, Ulysses, vocab sp/cp, manual TP modes),
-each with the ROADMAP item that brings it; the train path raises
-ValueError on them (``runtime.model_api.check_layout``).
+`train_refusals` lists what the port's trainer does not execute: a
+pipeline outside the reference engine's contract (GPipe:
+``validate_pipeline_config``; 1F1B: ``validate_1f1b_config``, with their
+messages), and what is not ported yet (context parallelism, Ulysses, vocab
+sp/cp, manual TP modes), each with the ROADMAP item that brings it; the
+train path raises ValueError on them (``runtime.model_api.check_layout``).
 """
 
 from __future__ import annotations
@@ -99,11 +101,22 @@ def _relayout_diagnostics(hp: HybridParallelConfig) -> List[D.Diagnostic]:
 
 
 def train_refusals(hp: HybridParallelConfig) -> List[str]:
-    """What the port's trainer does not execute yet in `hp`, each with the
-    ROADMAP item (queue 1) that brings it; empty when it runs."""
+    """What the port's trainer does not execute in `hp`: the pipeline
+    engine's refusal, then each unported feature with the ROADMAP item
+    (queue 1) that brings it; empty when it runs."""
     out = []
     if hp.pp > 1:
-        out.append("pp=%d (pipelines: ROADMAP queue 1 item 7)" % hp.pp)
+        # the pipeline's own contract, as the reference's engines refuse it
+        from galvatron_tpu_torch.parallel.pipeline import validate_pipeline_config
+        from galvatron_tpu_torch.parallel.pipeline_1f1b import validate_1f1b_config
+
+        try:
+            if hp.pipeline_type == "pipedream_flush":
+                validate_1f1b_config(hp)
+            else:
+                validate_pipeline_config(hp)
+        except ValueError as e:
+            out.append(str(e))
     cps = sorted({s.cp for s in hp.layers if s.cp > 1})
     if cps:
         out.append("cp=%s (ring context parallelism: ROADMAP queue 1 item 8)" % cps)

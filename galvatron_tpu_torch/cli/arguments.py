@@ -42,9 +42,10 @@ def _add_model_args(p: argparse.ArgumentParser):
 
 def _add_parallel_args(p: argparse.ArgumentParser):
     """GLOBAL-mode strategy flags. Training executes per-layer DP, ZeRO-2/3,
-    Megatron TP(+SP) and vocab TP at any world size and refuses pipelines,
-    context parallelism and Ulysses with a ValueError; serving runs world
-    size 1."""
+    Megatron TP(+SP), vocab TP and pipelines (``--pp_deg``, GPipe or 1F1B
+    by ``--pipeline_type``, one stage per process) at any world size, and
+    refuses context parallelism and Ulysses with a ValueError; serving runs
+    world size 1."""
     g = p.add_argument_group("parallel")
     g.add_argument("--pp_deg", type=int, default=1)
     g.add_argument("--global_tp_deg", type=int, default=1)
@@ -158,6 +159,9 @@ def _add_train_args(p: argparse.ArgumentParser):
     c = p.add_argument_group("checkpointing")
     c.add_argument("--save", type=str, default=None, help="checkpoint output dir")
     c.add_argument("--load", type=str, default=None, help="checkpoint dir to resume from")
+    c.add_argument("--distributed_checkpoint", type=int, default=1,
+                   help="accepted for the reference's command lines; checkpoints are "
+                        "always sharded, each rank writing its own shards")
     c.add_argument("--load_iteration", type=int, default=None)
     c.add_argument("--save_interval", type=int, default=0, help="0 => only at end")
     r = p.add_argument_group("resilience")

@@ -84,12 +84,12 @@ def _serve(args) -> dict:
         from galvatron_tpu_torch.runtime import checkpoint as ckpt
 
         full, meta = ckpt.load_full_params(args.load, args.load_iteration, cfg)
-        params = model.shard_params(full)
+        params = model.shard_params(full)[0]
         del full
         print("restored %s at iteration %s into the serve layout"
               % (args.load, meta.get("iteration")))
     else:
-        params = model.init_params(args.seed)
+        params = model.init_params(args.seed)[0]
 
     # cache geometry: CLI flags win, then the strategy JSON's serve knobs,
     # then defaults; pages default to covering the model's max_seq_len

@@ -36,9 +36,14 @@ The run happens on ``--device`` (default ``cuda``: ``nccl``, the GPU
 Attention at flash-eligible shapes (head_dim >= 128, a sequence that is a
 multiple of 128) goes through the hand-written flash-attention kernels,
 forward and backward, on each rank's heads (eval runs the forward alone).
-Pipelines, context parallelism and Ulysses refuse with a ValueError naming
-their ROADMAP item; so do the silent-corruption sentinel, the watchdog,
-elastic resume and the autotuner, whose flags argparse refuses.
+Under a pipeline (``pp_deg > 1``) each rank runs one stage, GPipe or 1F1B
+(``--pipeline_type pipedream_flush``), exchanging activations and
+cotangents with its neighbours (``parallel.pipeline.P2PTransport``); the
+logged loss is the last stage's, broadcast to every rank, and a checkpoint
+holds a tied table once. Context parallelism and Ulysses refuse with a
+ValueError naming their ROADMAP item; so do the silent-corruption sentinel,
+the watchdog, elastic resume and the autotuner, whose flags argparse
+refuses.
 """
 
 from __future__ import annotations
@@ -308,11 +313,16 @@ def _train(args, device) -> dict:
     provenance = build_provenance(hp, cfg, optimizer_args_from(args))
 
     def load_from(ckpt_dir, iteration):
-        # restores in place into the live params and Adam state
-        return ckpt.load_checkpoint(
-            ckpt_dir, iteration, params_target=params, opt_state_target=opt_state, hp=hp,
+        # restores in place into the live params and Adam state (a tied
+        # table's last-stage copy from the first stage's, which the
+        # checkpoint holds once)
+        p_view, o_view = model.checkpoint_view(params, opt_state)
+        out = ckpt.load_checkpoint(
+            ckpt_dir, iteration, params_target=p_view, opt_state_target=o_view, hp=hp,
             model_cfg=cfg, verify_integrity=bool(getattr(args, "verify_checkpoint", 1)),
             retry_policy=retry_policy, counters=res)
+        model.restore_tied(params, opt_state, o_view)
+        return out
 
     start_iter, restored = 0, None
     if args.load:
@@ -374,9 +384,10 @@ def _train(args, device) -> dict:
             meta["emergency"] = True
             meta["signal"] = interrupted
         # collective: every rank retries its own write and they agree
+        p_view, o_view = model.checkpoint_view(params, opt_state)
         with prof.boundary():
             info = ckpt.save_checkpoint(
-                args.save, iteration, params, opt_state, hp, train_meta=meta,
+                args.save, iteration, p_view, o_view, hp, train_meta=meta,
                 keep_latest_k=getattr(args, "keep_latest_k", 0) or None, provenance=provenance,
                 meta={"model_type": args.model_type, "model_size": args.model_size},
                 retry_policy=retry_policy, counters=res)

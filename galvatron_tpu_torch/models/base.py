@@ -153,18 +153,28 @@ class TransformerLayer(nn.Module):
 
 
 class Embed(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device):
+    """``wte`` and, for learned positions, ``wpe``; the last pipeline
+    stage's copy of a tied table holds ``wte`` alone (`positions` False)."""
+
+    def __init__(self, cfg: TransformerConfig, device, positions: bool = True):
         super().__init__()
         self.wte = _param((cfg.vocab_size, cfg.hidden_size), cfg, device)
         self.wpe = (_param((cfg.max_seq_len, cfg.hidden_size), cfg, device)
-                    if cfg.position_type == "learned" else None)
+                    if cfg.position_type == "learned" and positions else None)
 
 
 class TransformerLM(nn.Module):
     """The causal-LM parameter tree: ``embed``, ``layers``, ``final_norm``
-    (pre-norm models) and ``lm_head`` (untied models)."""
+    (pre-norm models) and ``lm_head`` (untied models).
 
-    def __init__(self, cfg: TransformerConfig, device):
+    A pipeline stage holds a part of it (`stage_model`): the layers of
+    `layer_ids` (a ``ModuleDict`` keyed by the global index, so the
+    state-dict names stay ``layers.<i>...``), the embedding when `first`,
+    the final norm and the head when `last`, and on the last stage of a
+    tied model its own copy of ``embed.wte`` for the head."""
+
+    def __init__(self, cfg: TransformerConfig, device, layer_ids=None, first: bool = True,
+                 last: bool = True):
         super().__init__()
         unsupported = [name for name, bad in (
             ("input_type=%r" % cfg.input_type, cfg.input_type != "tokens"),
@@ -177,11 +187,30 @@ class TransformerLM(nn.Module):
                 "this slice of the port builds token-input causal LMs only; "
                 "unsupported config fields: %s (the encoder families come with "
                 "a later slice)" % ", ".join(unsupported))
-        self.embed = Embed(cfg, device)
-        self.layers = nn.ModuleList(TransformerLayer(cfg, device) for _ in range(cfg.num_layers))
-        self.final_norm = Norm(cfg, device) if cfg.pre_norm else None
+        self.embed = (Embed(cfg, device, positions=first)
+                      if first or (last and cfg.tie_embeddings) else None)
+        if layer_ids is None:
+            self.layers = nn.ModuleList(TransformerLayer(cfg, device)
+                                        for _ in range(cfg.num_layers))
+        else:
+            self.layers = nn.ModuleDict({str(i): TransformerLayer(cfg, device) for i in layer_ids})
+        self.final_norm = Norm(cfg, device) if cfg.pre_norm and last else None
         self.lm_head = (Dense((cfg.hidden_size, cfg.vocab_size), None, cfg, device)
-                        if not cfg.tie_embeddings else None)
+                        if not cfg.tie_embeddings and last else None)
+
+
+def stage_model(cfg: TransformerConfig, hp: HybridParallelConfig, stage: int,
+                device) -> TransformerLM:
+    """The part of the model pipeline stage `stage` of `hp` holds."""
+    return TransformerLM(cfg, device, layer_ids=hp.layers_of_stage(stage), first=stage == 0,
+                         last=stage == hp.pp - 1)
+
+
+def layer_items(params) -> List[Tuple[int, Any]]:
+    """(global layer index, layer) of a whole model or of a stage's part."""
+    if isinstance(params.layers, nn.ModuleDict):
+        return [(int(k), v) for k, v in params.layers.items()]
+    return list(enumerate(params.layers))
 
 
 # ===================================================================== init
@@ -704,7 +733,9 @@ def run_layers(
     layouts: Optional[ModelLayouts] = None,
 ):
     """The layer stack, one layer after another (the reference's scan over
-    same-strategy layer runs is a Python loop here). With a strategy `hp`
+    same-strategy layer runs is a Python loop here); on a pipeline stage,
+    its own layers, each indexed by its global index in `hp` and
+    `layouts`. With a strategy `hp`
     and gradients enabled, each layer runs under its own effective remat
     policy (``hp.layers[i].effective_remat_policy``, "none" runs it plainly).
     With `layouts`, `x` enters in the vocab layout and leaves in it, and is
@@ -716,7 +747,7 @@ def run_layers(
     kvs: List[Tuple[torch.Tensor, torch.Tensor]] = []
     cur = layouts.vocab.act if layouts is not None else None
     side = {}
-    for i, lp in enumerate(params.layers):
+    for i, lp in layer_items(params):
         if collect_kv:
             x, kv = layer_forward(lp, x, positions, cfg, attn_bias=attn_bias, return_kv=True)
             kvs.append(kv)

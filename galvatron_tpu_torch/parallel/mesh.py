@@ -28,6 +28,8 @@ import numpy as np
 import torch
 
 PP_AXIS = "pp"
+# the key of the group of a rank's first- and last-stage peers (`group_for`)
+EMBED_GROUP = "embed"
 
 
 def subaxis_sizes(per_stage: int) -> Tuple[int, ...]:
@@ -145,8 +147,10 @@ class RankMesh:
     over the whole world, so the groups of EVERY subset of the stage's
     sub-axes (the empty subset included: a one-rank group per rank) are made
     up front, in one order on every rank, including the groups a rank is not
-    in (once per default group: later meshes reuse them). `group_for` then
-    only looks them up."""
+    in (once per default group: later meshes reuse them); with more than one
+    stage, then the pp groups (a rank's peers on every stage) and the
+    embedding groups (its first- and last-stage peers, ``EMBED_GROUP``).
+    `group_for` then only looks them up."""
 
     def __init__(self, config, rank: int = 0, device=None):
         per_stage = config.per_stage_devices
@@ -165,6 +169,23 @@ class RankMesh:
         self.coord: Dict[str, int] = {
             n: int(c) for n, c in zip(self.names, np.unravel_index(rank, self.shape))}
         self._groups: Optional[Dict[Tuple[str, ...], object]] = None
+        self.hosted = False
+
+    @classmethod
+    def hosted_stage(cls, config, stage: int, device=None) -> "RankMesh":
+        """Stage `stage` of a strategy whose stages hold one device each,
+        hosted with every other stage by one process
+        (``parallel.pipeline.LocalTransport``): its coordinate is the
+        stage's rank, and its one within-stage group (over no axes) is the
+        process's one-rank group. It has no pp or embedding group: the
+        transport moves and reduces across stages."""
+        if config.per_stage_devices != 1:
+            raise ValueError("one process hosts every stage only when each stage holds one "
+                             "device; this strategy gives each stage %d"
+                             % config.per_stage_devices)
+        mesh = cls(config, stage, device)
+        mesh.hosted = True
+        return mesh
 
     # ------------------------------------------------------------ arithmetic
     def _check(self, axes: Sequence[str]) -> Tuple[str, ...]:
@@ -202,10 +223,27 @@ class RankMesh:
             out[tuple(key)] = tuple(int(r) for r in grid[key].reshape(-1))
         return out
 
+    # ------------------------------------------------------------- pipeline
+    @property
+    def stage(self) -> int:
+        """This rank's pipeline stage (its pp coordinate)."""
+        return self.coord[PP_AXIS]
+
+    def stage_rank(self, stage: int) -> int:
+        """The global rank of `stage` with this rank's within-stage
+        coordinate: the neighbour a pipeline hands activations to (stage
+        + 1) and cotangents to (stage - 1)."""
+        if not 0 <= stage < self.shape[0]:
+            raise ValueError("stage %d outside a pipeline of %d" % (stage, self.shape[0]))
+        return int(self.grid[(stage,) + tuple(self.coord[n] for n in self.names[1:])])
+
     # ---------------------------------------------------------------- groups
     def axis_subsets(self) -> Tuple[Tuple[str, ...], ...]:
-        subs = self.names[1:]  # pp groups come with the pipeline slice
-        return tuple(c for k in range(len(subs) + 1) for c in itertools.combinations(subs, k))
+        """Every subset of the within-stage sub-axes, then, with more than
+        one stage, the pp axis alone (a rank's peers on every stage)."""
+        subs = self.names[1:]
+        out = tuple(c for k in range(len(subs) + 1) for c in itertools.combinations(subs, k))
+        return out + ((PP_AXIS,),) if self.shape[0] > 1 else out
 
     def create_groups(self) -> None:
         """Create the groups of every subset of the sub-axes (see the class
@@ -231,6 +269,14 @@ class RankMesh:
                 g = subgroup(ranks, backend)
                 if key == mine:
                     groups[axes] = g
+        if self.shape[0] > 1:
+            # per within-stage coordinate, the first and the last stage's
+            # ranks: the group that sums a tied table's two copies
+            mine = self._coset_key((PP_AXIS,))
+            for key, ranks in self._cosets((PP_AXIS,)).items():
+                g = subgroup((ranks[0], ranks[-1]), backend)
+                if key == mine:
+                    groups[EMBED_GROUP] = g
         self._groups = groups
 
     def group_for(self, axes: Sequence[str]):
@@ -241,7 +287,19 @@ class RankMesh:
         (`runtime.distributed.process_group`): this never creates one."""
         import torch.distributed as dist
 
+        if axes == EMBED_GROUP:
+            if self._groups is None or EMBED_GROUP not in self._groups:
+                raise RuntimeError("the embedding group exists on a multi-stage mesh once "
+                                   "create_groups ran")
+            return self._groups[EMBED_GROUP]
         axes = self._check(axes)
+        if self._groups is None and self.hosted:
+            from galvatron_tpu_torch.runtime.distributed import backend_for, subgroup
+
+            if not dist.is_initialized() or dist.get_world_size() != 1:
+                raise RuntimeError("a hosted stage runs in a process of its own: it needs an "
+                                   "initialized one-rank process group")
+            self._groups = {(): subgroup((0,), backend_for(self.device))}
         if self._groups is None:
             if self.world_size != 1:
                 raise RuntimeError("process groups of a %d-rank mesh must be created by "

@@ -41,6 +41,14 @@ or world size with GLS206 (cross-strategy restore comes with ROADMAP queue
 GLS202. `load_full_params` assembles the full parameters of a checkpoint of
 any world size in one process (``cli serve --load``).
 
+Under a pipeline each rank's file holds its stage's shards under their
+global names (``layers.<i>...``); the last stage leaves out its copy of a
+tied table, which the first stage's file holds
+(``HybridParallelModel.checkpoint_view``; ``restore_tied`` refills the copy
+after a load), so `load_full_params` reassembles the canonical layer list
+from the stages' files. A resume under another pp or division is another
+strategy (GLS206).
+
 Saving is collective. Each rank's own write (its file, and rank 0's
 directory set-up and manifest) is retried under the caller's
 ``RetryPolicy``, and every round's outcome is gathered, so all ranks retry

@@ -21,12 +21,27 @@ collectives itself:
 
 Every collective runs even over a one-rank group, so a world of one drives
 the same code. `check_layout` names what this slice does not execute yet.
+
+Under a pipeline (``pp > 1``) each rank holds its stage's part of the model
+(``models.base.stage_model``) and `loss_and_grads` runs the whole batch as
+``chunks`` micro-batches through the stage schedule of ``pipeline_type``
+(``parallel.pipeline``: GPipe; ``parallel.pipeline_1f1b``: 1F1B), as the
+reference does; the reductions above stay within the stage, and whatever
+crosses stages (activations, cotangents, the tied embedding's gradient
+sum, the gradient norm, the guard's verdict, the loss) goes through the
+model's transport. Without a pipeline the same path runs one stage, in the
+1F1B order (each micro-batch's forward, then its backward).
+
+Params, gradients and Adam states are per-stage mappings, keyed by the
+stage: one entry for a process that is one stage (``transport="p2p"``, or
+no pipeline), every stage for a process that hosts them all
+(``transport="local"``, each stage one device).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -35,16 +50,20 @@ from galvatron_tpu_torch.config.strategy import HybridParallelConfig
 from galvatron_tpu_torch.models import base as M
 from galvatron_tpu_torch.parallel import comm
 from galvatron_tpu_torch.parallel import spec as S
+from galvatron_tpu_torch.parallel import pipeline as PL
 from galvatron_tpu_torch.parallel.mesh import RankMesh, build_mesh, vocab_axes
+from galvatron_tpu_torch.parallel.pipeline_1f1b import one_f_one_b_order
 from galvatron_tpu_torch.runtime.optimizer import AdamState, AdamW, moment_dim, moment_spec
+
+TIED = "embed.wte"  # the table a tied model's first and last stage both hold
 
 
 def check_layout(hp: HybridParallelConfig, mode: str = "train") -> None:
     """Raise ValueError unless this slice executes `hp`: in train mode any
-    world size with per-layer DP / ZeRO-2/3 / Megatron TP(+SP) / vocab TP,
-    but no pipeline, context parallelism, Ulysses or vocab sp/cp (each
-    named with the ROADMAP item that brings it); in serve mode world size 1
-    only."""
+    world size with per-layer DP / ZeRO-2/3 / Megatron TP(+SP) / vocab TP
+    and GPipe or 1F1B pipelines within the reference's contracts, but no
+    context parallelism, Ulysses or vocab sp/cp (each named with the
+    ROADMAP item that brings it); in serve mode world size 1 only."""
     from galvatron_tpu_torch.analysis.strategy_lint import train_refusals
 
     if mode == "serve":
@@ -72,16 +91,40 @@ class HybridParallelModel:
     device: torch.device
     mesh: RankMesh
     param_layouts: Dict[str, M.ParamLayout]
-    _layouts: Optional[M.ModelLayouts] = field(default=None, repr=False)
+    transport: Optional[PL.Transport] = None  # default: this rank's stage, point to point
+    stage_meshes: Dict[int, RankMesh] = field(default_factory=dict)
+    _layouts: Dict[int, M.ModelLayouts] = field(default_factory=dict, repr=False)
     _grad_spec_cache: Optional[Dict[str, S.Spec]] = field(default=None, repr=False)
 
+    def __post_init__(self):
+        if not self.stage_meshes:
+            self.stage_meshes = {self.mesh.stage: self.mesh}
+        if self.transport is None:
+            self.transport = PL.P2PTransport(self.mesh)
+
+    # --------------------------------------------------------------- stages
+    @property
+    def stages(self) -> Tuple[int, ...]:
+        """The pipeline stages this process hosts: its own (one), or every
+        stage under a `LocalTransport`."""
+        return tuple(sorted(self.stage_meshes))
+
+    def _tied_copy(self, stage: int) -> bool:
+        """True for the last stage's copy of a tied table."""
+        return self.cfg.tie_embeddings and self.hp.pp > 1 and stage == self.hp.pp - 1
+
     # -------------------------------------------------------------- layouts
+    def layouts_of(self, stage: int) -> M.ModelLayouts:
+        """Per-layer runtime layouts of a hosted stage (process groups;
+        built at first use)."""
+        if stage not in self._layouts:
+            self._layouts[stage] = M.build_layouts(self.cfg, self.hp, self.stage_meshes[stage])
+        return self._layouts[stage]
+
     @property
     def layouts(self) -> M.ModelLayouts:
-        """Per-layer runtime layouts (process groups; built at first use)."""
-        if self._layouts is None:
-            self._layouts = M.build_layouts(self.cfg, self.hp, self.mesh)
-        return self._layouts
+        """The layouts of this process's (first hosted) stage."""
+        return self.layouts_of(self.stages[0])
 
     def _dp_size(self, name: str) -> int:
         return self.mesh.size(self.param_layouts[name].dp)
@@ -107,39 +150,65 @@ class HybridParallelModel:
         return self._grad_spec_cache
 
     # --------------------------------------------------------------- params
-    def _shard(self, name: str, full: torch.Tensor) -> torch.Tensor:
-        t = S.shard_tensor(full, self.param_layouts[name].spec, self.mesh)
+    def _shard(self, name: str, full: torch.Tensor, stage: int) -> torch.Tensor:
+        t = S.shard_tensor(full, self.param_layouts[name].spec, self.stage_meshes[stage])
         return t if t.shape == full.shape else t.clone()
 
-    def init_params(self, seed: int) -> M.TransformerLM:
-        """This rank's parameters on `self.device`. Each parameter is drawn
-        in full from a torch.Generator seeded with `seed` (in the order of
+    def _meta_model(self, stage: int) -> M.TransformerLM:
+        if self.hp.pp == 1:
+            return M.TransformerLM(self.cfg, "meta")
+        return M.stage_model(self.cfg, self.hp, stage, "meta")
+
+    def init_params(self, seed: int) -> Dict[int, nn.Module]:
+        """This process's parameters on `self.device`, per hosted stage.
+        Each parameter is drawn in full from a
+        torch.Generator seeded with `seed` (in the order of
         ``models.base.init_model_params``, so a world of one gets its exact
-        weights) and sliced, so every world size starts from the same
-        weights."""
+        weights) and sliced; a stage keeps the parameters it holds, so every
+        world size and pipeline division starts from the same weights."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
-        model = M.TransformerLM(self.cfg, "meta")
+        models = {s: self._meta_model(s) for s in self.stages}
+        held = {s: dict(m.named_parameters()) for s, m in models.items()}
         with torch.no_grad():
-            for name, p in list(model.named_parameters()):
+            for name, p in M.TransformerLM(self.cfg, "meta").named_parameters():
                 full = torch.empty(p.shape, dtype=self.cfg.param_dtype, device=self.device)
                 M.init_param_(name, full, self.cfg, gen)
-                _set_param(model, name, self._shard(name, full))
-        return model
+                holders = [s for s in self.stages if name in held[s]]
+                for k, s in enumerate(holders):
+                    t = self._shard(name, full, s)
+                    _set_param(models[s], name, t.clone() if k else t)
+        return models
 
-    def shard_params(self, full: Dict[str, torch.Tensor]) -> M.TransformerLM:
-        """This rank's parameters from a full state dict (e.g. the JAX
-        tree through ``tools.from_jax.params_from_numpy``)."""
-        model = M.TransformerLM(self.cfg, "meta")
-        for name, _ in list(model.named_parameters()):
-            t = full[name].to(device=self.device, dtype=self.cfg.param_dtype)
-            _set_param(model, name, self._shard(name, t).clone())
-        return model
+    def shard_params(self, full: Dict[str, torch.Tensor]) -> Dict[int, nn.Module]:
+        """This process's parameters, per hosted stage, from a full state
+        dict (e.g. the JAX tree through ``tools.from_jax.params_from_numpy``)."""
+        out = {}
+        for s in self.stages:
+            model = self._meta_model(s)
+            for name, _ in list(model.named_parameters()):
+                t = full[name].to(device=self.device, dtype=self.cfg.param_dtype)
+                _set_param(model, name, self._shard(name, t, s).clone())
+            out[s] = model
+        return out
 
-    def gather_params(self, params: nn.Module) -> Dict[str, torch.Tensor]:
+    def _gather_stages(self, per_stage: Dict[int, Dict[str, torch.Tensor]],
+                       specs: Dict[str, S.Spec]) -> Dict[str, torch.Tensor]:
+        """The full tensors of every stage from each hosted stage's shards
+        (collective over the stage, then over the pipeline)."""
+        mine = {s: {n: S.gather_tensor(t, specs[n], self.stage_meshes[s]) for n, t in d.items()}
+                for s, d in per_stage.items()}
+        out: Dict[str, torch.Tensor] = {}
+        for d in self.transport.gather(mine):
+            for n, t in d.items():
+                out.setdefault(n, t.to(self.device))
+        return out
+
+    def gather_params(self, params: Dict[int, nn.Module]) -> Dict[str, torch.Tensor]:
         """The full state dict from every rank's shards (collective)."""
-        return {n: S.gather_tensor(p, self.param_layouts[n].spec, self.mesh)
-                for n, p in params.named_parameters()}
+        specs = {n: pl.spec for n, pl in self.param_layouts.items()}
+        return self._gather_stages({s: dict(m.named_parameters()) for s, m in params.items()},
+                                   specs)
 
     # ---------------------------------------------------------------- batch
     def shard_batch(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -162,44 +231,35 @@ class HybridParallelModel:
         return out
 
     # ------------------------------------------------------------ loss, grads
-    def loss_fn(self, params: M.TransformerLM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """This rank's share of the loss of its rows (`shard_batch`)."""
-        return M.lm_loss_fn(params, batch, self.cfg, self.hp, self.layouts)
-
-    def loss_and_grads(self, params: M.TransformerLM, batch: Dict[str, torch.Tensor]):
-        """(loss, grads) of the GLOBAL batch: the reference's loss over all
-        rows, and per parameter its synced gradient in the placement of
-        `grad_accum_specs` (this rank's shard)."""
+    def _micro_batches(self, batch: Dict[str, torch.Tensor]) -> List[Dict[str, torch.Tensor]]:
         local = self.shard_batch(batch)
-        for p in params.parameters():
-            p.grad = None
         chunks = self.hp.chunks
-        mbs = [{k: v.chunk(chunks)[c] for k, v in local.items()} for c in range(chunks)]
-        # each microbatch loss is a mean over its own valid tokens (of every
-        # dp rank): weight it by its share of the step's valid tokens, so
-        # the chunked objective equals the chunks == 1 one
-        if "loss_mask" in local:
+        return [{k: v.chunk(chunks)[c] for k, v in local.items()} for c in range(chunks)]
+
+    def _mb_weights(self, mbs, layouts: M.ModelLayouts) -> torch.Tensor:
+        """Each micro-batch loss is a mean over its own valid tokens (of
+        every dp rank): weight it by its share of the step's valid tokens,
+        so the chunked objective equals the chunks == 1 one."""
+        if "loss_mask" in mbs[0]:
             sums = torch.stack([mb["loss_mask"].float().sum() for mb in mbs])
-            sums = comm.all_reduce(sums, self.layouts.vocab.dp_group)
-            weights = sums / sums.sum().clamp(min=1.0)
-        else:
-            weights = torch.full((chunks,), 1.0 / chunks, device=self.device)
-        zero2 = {n: self.moment_dim(n, p.shape) for n, p in params.named_parameters()}
-        zero2 = {n: d for n, d in zero2.items() if d is not None}
-        named = dict(params.named_parameters())
-        acc: Dict[str, torch.Tensor] = {}
-        loss = torch.zeros((), device=self.device)
-        for c, mb in enumerate(mbs):
-            mb_loss = self.loss_fn(params, mb)
-            (mb_loss * weights[c]).backward()
-            loss = loss + mb_loss.detach() * weights[c]
-            # ZeRO-2: this micro-batch's gradient into the sharded accumulator
-            for n, d in zero2.items():
-                p = named[n]
-                shard = comm.reduce_scatter(p.grad, d, self.mesh.group_for(self.param_layouts[n].dp))
-                acc[n] = shard if n not in acc else acc[n].add_(shard)
-                p.grad = None
-        loss = comm.all_reduce(loss, self.layouts.vocab.dp_group)
+            sums = comm.all_reduce(sums, layouts.vocab.dp_group)
+            return sums / sums.sum().clamp(min=1.0)
+        return torch.full((len(mbs),), 1.0 / len(mbs), device=self.device)
+
+    def _zero2_dims(self, module: nn.Module) -> Dict[str, int]:
+        dims = {n: self.moment_dim(n, p.shape) for n, p in module.named_parameters()}
+        return {n: d for n, d in dims.items() if d is not None}
+
+    def _accumulate_zero2(self, named, zero2, acc, mesh: RankMesh) -> None:
+        """ZeRO-2: one micro-batch's gradient into the sharded accumulator."""
+        for n, d in zero2.items():
+            p = named[n]
+            shard = comm.reduce_scatter(p.grad, d, mesh.group_for(self.param_layouts[n].dp))
+            acc[n] = shard if n not in acc else acc[n].add_(shard)
+            p.grad = None
+
+    def _synced_grads(self, named, zero2, acc, mesh: RankMesh) -> Dict[str, torch.Tensor]:
+        """Each gradient summed over the axes it is partial over."""
         grads = {}
         for n, p in named.items():
             pl = self.param_layouts[n]
@@ -208,68 +268,199 @@ class HybridParallelModel:
                 g = acc[n] if n in zero2 else p.grad
                 axes = tuple(a for a in pl.partial if a not in pl.dp)
                 if axes:
-                    torch.distributed.all_reduce(g, group=self.mesh.group_for(axes))
+                    torch.distributed.all_reduce(g, group=mesh.group_for(axes))
             else:
                 g = p.grad
-                torch.distributed.all_reduce(g, group=self.mesh.group_for(pl.partial))
+                torch.distributed.all_reduce(g, group=mesh.group_for(pl.partial))
             grads[n] = g
+        return grads
+
+    def _schedule(self, stage: int, backward: bool) -> List[PL.Step]:
+        """The stage's order: 1F1B under ``pipedream_flush`` and without a
+        pipeline (each micro-batch's forward, then its backward), else
+        GPipe (every forward, then every backward; forwards only for
+        eval)."""
+        pp, chunks = self.hp.pp, self.hp.chunks
+        if backward and (self.hp.pipeline_type == "pipedream_flush" or pp == 1):
+            return one_f_one_b_order(pp, chunks, stage)
+        return PL.gpipe_order(pp, chunks, stage, backward)
+
+    def _boundary(self, mbs) -> PL.BoundaryFn:
+        """(shape, dtype) of a micro-batch's activation between stages: its
+        rows, its sequence shard in the vocab layout, the hidden width."""
+        seq = self.mesh.size(vocab_axes(self.hp).seq_axes)
+
+        def boundary(mb: int):
+            rows, length = mbs[mb]["tokens"].shape[:2]
+            return (rows, length // seq, self.cfg.hidden_size), self.cfg.compute_dtype
+        return boundary
+
+    def _run_pipeline(self, params: Dict[int, nn.Module], batch: Dict[str, torch.Tensor],
+                      backward: bool):
+        """Every micro-batch of `batch` through the stage schedules (with
+        `backward`, each stage's ZeRO-2 accumulation after each backward).
+        Returns the loss, broadcast from the last stage, and per hosted
+        stage (named params, ZeRO-2 dims, ZeRO-2 accumulators)."""
+        mbs = self._micro_batches(batch)
+        last = self.hp.pp - 1
+        runners = {s: PL.StageRunner(s, m, self.cfg, self.hp, self.layouts_of(s))
+                   for s, m in params.items()}
+        weights = self._mb_weights(mbs, self.layouts_of(last)) if last in runners else None
+        state = {}
+        for s, m in params.items():
+            if backward:
+                for p in m.parameters():
+                    p.grad = None
+            state[s] = (dict(m.named_parameters()), self._zero2_dims(m), {})
+
+        def forward(s, mb, x_in):
+            return runners[s].forward(mb, mbs[mb], x_in, weights[mb] if s == last else None)
+
+        def backward_fn(s, mb, grad):
+            out = runners[s].backward(mb, grad)
+            named, zero2, acc = state[s]
+            self._accumulate_zero2(named, zero2, acc, self.stage_meshes[s])
+            return out
+
+        self.transport.run({s: self._schedule(s, backward) for s in params}, forward,
+                           backward_fn, self._boundary(mbs))
+        losses = {s: comm.all_reduce(r.loss, self.layouts_of(s).vocab.dp_group) if s == last
+                  else torch.zeros((), device=self.device) for s, r in runners.items()}
+        return self.transport.from_last(losses)[self.stages[0]], state
+
+    def loss_and_grads(self, params: Dict[int, nn.Module], batch: Dict[str, torch.Tensor]):
+        """(loss, grads) of the GLOBAL batch: the reference's loss over all
+        rows, and per hosted stage, per parameter its synced gradient in the
+        placement of `grad_accum_specs` (this rank's shard)."""
+        loss, state = self._run_pipeline(params, batch, backward=True)
+        grads = {s: self._synced_grads(named, zero2, acc, self.stage_meshes[s])
+                 for s, (named, zero2, acc) in state.items()}
+        ends = {s: grads[s][TIED] for s in grads
+                if self.cfg.tie_embeddings and self.hp.pp > 1 and s in (0, self.hp.pp - 1)}
+        if ends:
+            for s, g in self.transport.sum_tied(ends).items():
+                grads[s][TIED] = g
         return loss, grads
 
-    def grad_sumsq(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def _world_max(self, t: torch.Tensor) -> torch.Tensor:
+        """The max of `t` over every rank: over the stage, then the stages."""
+        t = comm.all_reduce(t, self.mesh.group_for(self.mesh.names[1:]),
+                            op=torch.distributed.ReduceOp.MAX)
+        return self.transport.reduce({s: t for s in self.stages}, "max")[self.stages[0]]
+
+    def grad_sumsq(self, grads) -> torch.Tensor:
         """The global sum of squares of sharded gradients, every element
         counted once: each rank's shard sum is divided by the number of
-        ranks that hold the same shard, then summed over the world."""
+        ranks of its stage that hold the same shard and summed over the
+        stage, then over the stages (without the last stage's copy of a
+        tied table)."""
         specs = self.grad_accum_specs()
-        world = self.mesh.world_size
-        total = torch.zeros((), dtype=torch.float32, device=self.device)
-        for n, g in grads.items():
-            axes = sorted({a for ax in specs[n] for a in ax}, key=self.mesh.names.index)
-            total = total + g.float().pow(2).sum() / (world // self.mesh.size(axes))
-        return comm.all_reduce(total, self.mesh.group_for(self.mesh.names[1:]))
+        per_stage = self.mesh.world_size // self.hp.pp
+        totals = {}
+        for s, stage_grads in grads.items():
+            mesh = self.stage_meshes[s]
+            total = torch.zeros((), dtype=torch.float32, device=self.device)
+            for n, g in stage_grads.items():
+                if n == TIED and self._tied_copy(s):
+                    continue
+                axes = sorted({a for ax in specs[n] for a in ax}, key=mesh.names.index)
+                total = total + g.float().pow(2).sum() / (per_stage // mesh.size(axes))
+            totals[s] = comm.all_reduce(total, mesh.group_for(mesh.names[1:]))
+        return self.transport.reduce(totals)[self.stages[0]]
 
-    def gather_grads(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def gather_grads(self, grads) -> Dict[str, torch.Tensor]:
         """Full gradients from every rank's shards (collective)."""
-        specs = self.grad_accum_specs()
-        return {n: S.gather_tensor(g, specs[n], self.mesh) for n, g in grads.items()}
+        return self._gather_stages(grads, self.grad_accum_specs())
 
     # ------------------------------------------------------------ optimizer
-    def init_opt_state(self, tx: AdamW, params: M.TransformerLM) -> AdamState:
-        """Zero moments in the placement of `grad_accum_specs`."""
-        shapes = {}
-        for n, p in params.named_parameters():
-            d = self.moment_dim(n, p.shape)
-            shapes[n] = p.shape if d is None else \
-                p.shape[:d] + (p.shape[d] // self._dp_size(n),) + p.shape[d + 1:]
-        return AdamState(count=0,
-                         mu={n: torch.zeros(s, dtype=self.cfg.param_dtype, device=self.device)
-                             for n, s in shapes.items()},
-                         nu={n: torch.zeros(s, dtype=self.cfg.param_dtype, device=self.device)
-                             for n, s in shapes.items()})
+    def init_opt_state(self, tx: AdamW, params: Dict[int, nn.Module]) -> Dict[int, AdamState]:
+        """Zero moments in the placement of `grad_accum_specs`, per hosted
+        stage."""
+        out = {}
+        for s, m in params.items():
+            shapes = {}
+            for n, p in m.named_parameters():
+                d = self.moment_dim(n, p.shape)
+                shapes[n] = p.shape if d is None else \
+                    p.shape[:d] + (p.shape[d] // self._dp_size(n),) + p.shape[d + 1:]
+            out[s] = AdamState(
+                count=0,
+                mu={n: torch.zeros(shape, dtype=self.cfg.param_dtype, device=self.device)
+                    for n, shape in shapes.items()},
+                nu={n: torch.zeros(shape, dtype=self.cfg.param_dtype, device=self.device)
+                    for n, shape in shapes.items()})
+        return out
 
-    def gather_opt_state(self, state: AdamState) -> AdamState:
+    def gather_opt_state(self, state: Dict[int, AdamState]) -> AdamState:
         """Full moments from every rank's shards (collective)."""
         specs = self.grad_accum_specs()
-        full = lambda t, n: S.gather_tensor(t, specs[n], self.mesh)  # noqa: E731
-        return AdamState(count=state.count, mu={n: full(t, n) for n, t in state.mu.items()},
-                         nu={n: full(t, n) for n, t in state.nu.items()})
+        return AdamState(count=state[self.stages[0]].count,
+                         mu=self._gather_stages({s: st.mu for s, st in state.items()}, specs),
+                         nu=self._gather_stages({s: st.nu for s, st in state.items()}, specs))
 
-    def eval_loss(self, params: M.TransformerLM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    # ---------------------------------------------------------- checkpoints
+    def checkpoint_view(self, params: Dict[int, nn.Module],
+                        opt_state: Optional[Dict[int, AdamState]] = None):
+        """What this rank's checkpoint file holds of its stage's state: all
+        of it, but the last stage's copy of a tied table and of its moments
+        (the first stage saves them once; `restore_tied` refills the copy
+        after a load). Returns (module, AdamState) or name -> tensor views;
+        a rank file holds one stage, so a process that hosts every stage
+        has none."""
+        if len(params) != 1:
+            raise ValueError("a checkpoint holds one stage per rank; this process hosts "
+                             "stages %s" % sorted(params))
+        (s, module), = params.items()
+        state = opt_state[s] if opt_state is not None else None
+        if not self._tied_copy(s):
+            return module, state
+        view = {n: p for n, p in module.named_parameters() if n != TIED}
+        if state is None:
+            return view, None
+        return view, AdamState(count=state.count,
+                               mu={n: t for n, t in state.mu.items() if n != TIED},
+                               nu={n: t for n, t in state.nu.items() if n != TIED})
+
+    def restore_tied(self, params: Dict[int, nn.Module], opt_state: Dict[int, AdamState],
+                     loaded: AdamState) -> None:
+        """After a load into `checkpoint_view`'s views (`loaded`: the Adam
+        state view): the Adam count from the view, and under a pipeline the
+        last stage's copy of a tied table, and of its moments, from the
+        first stage's (collective over those two stages)."""
+        for st in opt_state.values():
+            st.count = loaded.count
+        if not (self.cfg.tie_embeddings and self.hp.pp > 1):
+            return
+        ends = [s for s in params if s in (0, self.hp.pp - 1)]
+        tensors = {s: [dict(params[s].named_parameters())[TIED].data,
+                       opt_state[s].mu[TIED], opt_state[s].nu[TIED]] for s in ends}
+        for k in range(3):
+            self.transport.first_to_last({s: ts[k] for s, ts in tensors.items()})
+
+    def eval_loss(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The loss of the GLOBAL batch, forward only (the reference's
-        ``eval_loss``): this rank's rows in one forward under
-        ``torch.no_grad`` (no residuals kept, no backward kernel), the
-        shares summed over the vocab layers' dp group."""
+        ``eval_loss``), under ``torch.no_grad`` (no residuals kept, no
+        backward kernel): this rank's rows in one forward, the shares summed
+        over the vocab layers' dp group; under a pipeline, the forward-only
+        GPipe schedule over ``chunks`` micro-batches weighted by their valid
+        tokens (the reference's ``make_pipelined_loss``), the last stage's
+        loss on every stage."""
         with torch.no_grad():
-            loss = self.loss_fn(params, self.shard_batch(batch))
+            if self.hp.pp > 1:
+                return self._run_pipeline(params, batch, backward=False)[0]
+            loss = M.lm_loss_fn(params[0], self.shard_batch(batch), self.cfg, self.hp,
+                                self.layouts)
             return comm.all_reduce(loss, self.layouts.vocab.dp_group)
 
     def make_train_step(self, tx: AdamW, *, guard_anomalies: bool = False,
                         sdc_check: str = "off") -> Callable:
         """The (params, opt_state, batch) -> (params, opt_state, metrics)
         step on the GLOBAL batch (every rank passes the same one); params
-        and opt_state are this rank's shards, updated in place and
-        returned. metrics = {"loss", "grad_norm"}: the step's loss and the
-        global norm of the accumulated gradients before clipping, as device
-        scalars.
+        and opt_state are this process's shards per hosted stage, updated in
+        place and returned. metrics = {"loss",
+        "grad_norm"}: the step's loss and the global norm of the accumulated
+        gradients before clipping, as device scalars, the same on every
+        stage.
 
         With `guard_anomalies` the step takes a fourth argument, the spike
         cap (default +inf), and reports ``metrics["anomalous"]``: a step
@@ -279,8 +470,10 @@ class HybridParallelModel:
         keep-old select). The verdict is max-reduced over the world so every
         rank takes it, then read on the host in one transfer with the
         gradient norm, which the clip uses: the guarded step syncs once, as
-        the unguarded one does for the clip. The silent-corruption sentinel and the quantized gradient sync
-        are refused until their slices are ported."""
+        the unguarded one does for the clip. Each stage updates its own
+        parameters; a tied table's two copies get the same gradient, so they
+        stay bitwise equal. The silent-corruption sentinel and the quantized
+        gradient sync are refused until their slices are ported."""
         if sdc_check != "off":
             raise ValueError("sdc_check=%r is not ported yet: the silent-corruption "
                              "sentinel comes with the resilience slice (ROADMAP queue 1 "
@@ -290,7 +483,6 @@ class HybridParallelModel:
             raise ValueError("quantized gradient/parameter sync is not ported yet: the "
                              "data-parallel slice syncs in full precision; quantized "
                              "collectives come with ROADMAP queue 1 item 10")
-        world_group = self.mesh.group_for(self.mesh.names[1:])
 
         def train_step(params, opt_state, batch, spike_cap=float("inf")):
             loss, grads = self.loss_and_grads(params, batch)
@@ -298,31 +490,35 @@ class HybridParallelModel:
             metrics = {"loss": loss, "grad_norm": grad_norm}
             norm_value = None
             if guard_anomalies:
-                bad = (~torch.isfinite(loss) | ~torch.isfinite(grad_norm)
-                       | (loss > spike_cap)).float()
-                torch.distributed.all_reduce(bad, op=torch.distributed.ReduceOp.MAX,
-                                             group=world_group)
+                bad = self._world_max((~torch.isfinite(loss) | ~torch.isfinite(grad_norm)
+                                       | (loss > spike_cap)).float())
                 bad_value, norm_value = torch.stack([bad, grad_norm.float()]).tolist()
                 metrics["anomalous"] = bad_value > 0
                 if metrics["anomalous"]:
-                    for p in params.parameters():
-                        p.grad = None
+                    for m in params.values():
+                        for p in m.parameters():
+                            p.grad = None
                     return params, opt_state, metrics
-            targets, zero2 = {}, {}
-            for n, p in params.named_parameters():
-                d = self.moment_dim(n, p.shape)
-                if d is None:
-                    targets[n] = p
-                else:
-                    dp = self.param_layouts[n].dp
-                    targets[n] = p.data.chunk(self._dp_size(n), d)[self.mesh.index(dp)]
-                    zero2[n] = (p, d, self.mesh.group_for(dp))
-            tx.update(targets, grads, opt_state, grad_norm=grad_norm, grad_norm_value=norm_value)
-            with torch.no_grad():
-                for n, (p, d, group) in zero2.items():
-                    p.data.copy_(comm.all_gather(targets[n], d, group))
-            for p in params.parameters():
-                p.grad = None
+            elif len(params) > 1:
+                norm_value = float(grad_norm)  # one host read for every stage's clip
+            for s, m in params.items():
+                mesh = self.stage_meshes[s]
+                targets, zero2 = {}, {}
+                for n, p in m.named_parameters():
+                    d = self.moment_dim(n, p.shape)
+                    if d is None:
+                        targets[n] = p
+                    else:
+                        dp = self.param_layouts[n].dp
+                        targets[n] = p.data.chunk(self._dp_size(n), d)[mesh.index(dp)]
+                        zero2[n] = (p, d, mesh.group_for(dp))
+                tx.update(targets, grads[s], opt_state[s], grad_norm=grad_norm,
+                          grad_norm_value=norm_value)
+                with torch.no_grad():
+                    for n, (p, d, group) in zero2.items():
+                        p.data.copy_(comm.all_gather(targets[n], d, group))
+                for p in m.parameters():
+                    p.grad = None
             return params, opt_state, metrics
 
         return train_step
@@ -333,10 +529,23 @@ def construct_hybrid_parallel_model(
     hp: HybridParallelConfig,
     device,
     mode: str = "train",
+    transport: str = "p2p",
 ) -> HybridParallelModel:
     """The model of `hp` for this rank. With more than one rank, call it on
-    every rank at the same point: it creates the process groups."""
+    every rank at the same point: it creates the process groups. `transport` is
+    "p2p" (one stage per process, the process group's ranks; what ``cli
+    train`` runs) or "local" (under a pipeline, this process hosts every
+    stage of a strategy whose stages hold one device each, in a one-rank
+    process group)."""
     check_layout(hp, mode)
     device = torch.device(device)
-    return HybridParallelModel(cfg=cfg, hp=hp, device=device, mesh=build_mesh(hp, device=device),
-                               param_layouts=M.model_param_layouts(cfg, hp))
+    layouts = M.model_param_layouts(cfg, hp)
+    if transport not in ("p2p", "local"):
+        raise ValueError("transport %r: 'p2p' or 'local'" % transport)
+    if hp.pp > 1 and transport == "local":
+        meshes = {s: RankMesh.hosted_stage(hp, s, device) for s in range(hp.pp)}
+        return HybridParallelModel(cfg=cfg, hp=hp, device=device, mesh=meshes[0],
+                                   param_layouts=layouts, transport=PL.LocalTransport(hp.pp),
+                                   stage_meshes=meshes)
+    mesh = build_mesh(hp, device=device)
+    return HybridParallelModel(cfg=cfg, hp=hp, device=device, mesh=mesh, param_layouts=layouts)

@@ -13,7 +13,9 @@ mu and nu are param-shaped trees) to the port's `AdamState` with
 bridge so both packages compute from identical weights and optimizer state.
 Any family's tree crosses as it is (GPT's qkv/out/mlp biases, LayerNorm
 biases and position table, and no separate head under its tied
-embedding). Under a sharded layout each rank keeps its shards of the full
+embedding). A pipelined tree, whose layers the reference stacks over its
+stages (``stages``), is read back into the canonical ``layers`` list
+(`unstack_tree`). Under a sharded layout each rank keeps its shards of the full
 state dict (``runtime.model_api.HybridParallelModel.shard_params``;
 ``gather_params`` and ``gather_opt_state`` go back).
 The module itself needs only numpy and torch.
@@ -41,9 +43,27 @@ def _flatten(tree: Any, prefix: str, out: Dict[str, Any]) -> None:
         out[prefix[:-1]] = tree
 
 
-def params_from_numpy(tree: Any, device="cpu") -> Dict[str, torch.Tensor]:
+def unstack_tree(tree: Mapping, hp) -> Dict[str, Any]:
+    """A pipelined reference tree, whose layers sit in ``stages`` (one tree
+    per within-stage slot, leaves stacked over pp, the short stages of an
+    uneven division zero-padded), -> the canonical tree with ``layers``
+    (``parallel.pipeline.unstack_params`` under the strategy `hp`)."""
+    from galvatron_tpu_torch.parallel.pipeline import unstack_params
+
+    out = {k: v for k, v in tree.items() if k != "stages"}
+    out["layers"] = unstack_params(tree["stages"], hp)
+    return out
+
+
+def params_from_numpy(tree: Any, device="cpu", hp=None) -> Dict[str, torch.Tensor]:
     """Nested param tree with numpy leaves -> flat state dict on `device`
-    (load it with ``TransformerLM.load_state_dict``)."""
+    (load it with ``TransformerLM.load_state_dict``). A pipelined tree
+    (``stages``) needs its strategy `hp` and comes back canonical."""
+    if isinstance(tree, Mapping) and "stages" in tree:
+        if hp is None:
+            raise ValueError("a tree with 'stages' is laid out by its pipeline strategy: "
+                             "pass hp to unstack it")
+        tree = unstack_tree(tree, hp)
     flat: Dict[str, Any] = {}
     _flatten(tree, "", flat)
     return {name: torch.from_numpy(np.array(leaf, copy=True)).to(device)

@@ -84,7 +84,7 @@ def main(argv: List[str] = None) -> Dict:
     cfg = llama_config(args.model_size, **overrides)
     model = construct_hybrid_parallel_model(
         cfg, HybridParallelConfig.uniform(1, cfg.num_layers), dev, mode="serve")
-    params = model.init_params(args.seed)
+    params = model.init_params(args.seed)[0]
     max_pages = -(-cfg.max_seq_len // args.page_size)
     kv = KVCacheConfig(max_slots=args.slots, page_size=args.page_size, max_pages=max_pages)
     engine = ServeEngine(cfg, params, kv, device=dev, rng_seed=args.seed)

@@ -18,6 +18,19 @@ world size 1 over one-rank process groups. `write_gpt_strategy(fsdp=False)`
 is the same strategy with every ``fsdp`` 0, and `write_gpt_world4_strategy`
 runs the same model on 4 GPUs (``torchrun --nproc_per_node 4``) under a mix
 of every layout of the slice.
+
+Pipelines on one card (``chip_smoke.py`` phase 11): the LLaMA
+configuration with the global batch in ``PP_CHUNKS`` micro-batches, at pp
+2 divided 4,4 (`write_pp_strategy`), as a world of 2 that one process
+hosts (``parallel.pipeline.LocalTransport``), under GPipe and 1F1B, beside
+the same configuration unpipelined (division ``[8]``, pp 1). Its remat mix
+has phase 8's counts (4 layers ``full``, 2 ``dots_saveable``, 2 none) laid
+out the same on both stages, as GPipe requires (the reference's
+``validate_pipeline_config``): per stage ``full, full, dots_saveable,
+none``. The GPT
+configuration divided 5,3 under 1F1B for ``GPT_PP_STEPS`` steps (its tied
+table on both stages). `pp_argv` gives the ``cli train`` flags of either
+model (the same flags train pp 4 on four GPUs under ``torchrun``).
 """
 
 from __future__ import annotations
@@ -112,3 +125,43 @@ def argv(strategy_path: str) -> List[str]:
         "--galvatron_config_path", strategy_path, "--train_iters", str(STEPS),
         "--lr", "1e-4", "--lr_warmup_iters", "2", "--seed", str(SEED),
     ]
+
+
+PP_CHUNKS = 4
+PP_DIVISION = [4, 4]
+PP_CHECKPOINT = [1, 1, 1, 0] * 2
+PP_REMAT_POLICY = ["full", "full", "dots_saveable", "full"] * 2
+GPT_PP_DIVISION = [5, 3]
+GPT_PP_STEPS = 3
+
+
+def write_pp_strategy(out_dir: str, division: List[int], pipeline_type: str = "gpipe",
+                      gpt: bool = False) -> str:
+    """Write the strategy JSON of a pipeline of `division` (``[LAYERS]``:
+    no pipeline) with the stage-uniform remat mix and ``PP_CHUNKS``
+    micro-batches (GPT: ZeRO-2 by default, as `write_gpt_strategy`) into
+    `out_dir`; returns its path."""
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "train_cell_%s_pp_%s_%s.json" % (
+        "gpt" if gpt else "llama", "_".join(map(str, division)), pipeline_type))
+    with open(path, "w") as f:
+        json.dump({"pp_deg": len(division), "pp_division": ",".join(map(str, division)),
+                   "pipeline_type": pipeline_type,
+                   "tp_sizes_enc": ",".join(["1"] * LAYERS),
+                   "tp_consecutive_flags": ",".join(["1"] * LAYERS),
+                   "dp_types_enc": ",".join(["0"] * LAYERS),
+                   "default_dp_type": "zero2" if gpt else "ddp",
+                   "checkpoint": ",".join(map(str, PP_CHECKPOINT)),
+                   "remat_policy": ",".join(PP_REMAT_POLICY),
+                   "global_bsz": GLOBAL_BSZ, "chunks": PP_CHUNKS}, f)
+    return path
+
+
+def pp_argv(strategy_path: str, gpt: bool = False) -> List[str]:
+    """The ``cli train`` arguments of a `write_pp_strategy` configuration
+    (``GPT_PP_STEPS`` steps for GPT)."""
+    base = gpt_argv(strategy_path) if gpt else argv(strategy_path)
+    base[base.index("--chunks") + 1] = str(PP_CHUNKS)
+    if gpt:
+        base[base.index("--train_iters") + 1] = str(GPT_PP_STEPS)
+    return base

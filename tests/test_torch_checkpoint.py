@@ -331,7 +331,7 @@ def test_full_params_need_provenance_and_match_the_model(tmp_path):
     cfg = _model_cfg()
     hp = HybridParallelConfig.uniform(1, 2, global_bsz=4)
     model = construct_hybrid_parallel_model(cfg, hp, "cpu")
-    params = model.init_params(3)
+    params = model.init_params(3)[0]
     d = str(tmp_path / "c")
     ck.save_checkpoint(d, 7, params, hp=hp, train_meta={"iteration": 7})
     with pytest.raises(DiagnosticError) as e:

@@ -198,9 +198,9 @@ def test_gpt_world_one_layout_train_steps_with_zero3_and_zero2_match_optax():
         assert abs(tm["loss"].item() - float(jm["loss"])) <= 1e-5 * float(jm["loss"])
         assert abs(tm["grad_norm"].item() - float(jm["grad_norm"])) <= 1e-4 * float(jm["grad_norm"])
     adam = next(s for s in jstate if isinstance(s, optax.ScaleByAdamState))
-    count, mu, nu = adam_state_to_numpy(tstate)
+    count, mu, nu = adam_state_to_numpy(tstate[0])
     assert count == 5
-    for got, want, tol in ((params_to_numpy(tparams), jparams, 1e-4), (mu, adam.mu, 1e-4),
+    for got, want, tol in ((params_to_numpy(tparams[0]), jparams, 1e-4), (mu, adam.mu, 1e-4),
                            (nu, adam.nu, 1e-4)):
         gl, wl = jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(jax.device_get(want))
         scale = max(float(np.abs(w).max()) for w in wl)

@@ -193,7 +193,7 @@ def test_placement_builders_match_the_reference():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(pp=2), "item 7"), (dict(cp=2), "item 8"), (dict(tp=2, sp=1), "item 8"),
+    (dict(pp=2, cp=2), "item 8"), (dict(cp=2), "item 8"), (dict(tp=2, sp=1), "item 8"),
     (dict(vocab_tp=2, vocab_sp=1), "item 8"), (dict(vocab_cp=2), "item 8"),
     (dict(tp=2, tp_comm_mode="overlap"), "item 10"),
 ])

@@ -22,7 +22,17 @@ reference, not the reference's manual TP paths):
 - at world 2, the train CLI under a strategy of Megatron TP (tp 2),
   ZeRO-3 and ZeRO-2 layers saves at step 3 (each rank its shards) and a
   resumed run's losses equal an uninterrupted run's bit for bit; resuming
-  that checkpoint under another strategy is refused with GLS206.
+  that checkpoint under another strategy is refused with GLS206;
+- pipelines through the point-to-point transport (one stage per rank,
+  ``batch_isend_irecv`` on gloo): GPipe and 1F1B, an uneven 2,2,1,1
+  division over four stages, ZeRO-3 with remat on every layer, tp 2 with
+  ZeRO-3 and vocab TP inside each stage, each against the unsharded
+  reference; a tied GPT under 1F1B (3,1 division) trains three steps
+  within the trajectory limits with both copies of its table bitwise
+  equal; and at world 2 a 1F1B pp 2 run saves through the train CLI
+  (the tied table once), resumes bit for bit, reassembles with
+  ``load_full_params`` into exactly the trained parameters, and refuses a
+  resume under pp 1 with GLS206.
 
 ``python tests/test_torch_parallel.py --report DIR`` prints the tolerances
 the parity reached; the same workers run on GPUs (NCCL) with ``--device
@@ -47,7 +57,9 @@ GPT = dict(hidden_size=64, num_heads=4, num_layers=4, vocab_size=V, max_seq_len=
 # reference's GLS007 case tp % num_kv_heads == 0) and tp 2 keeps it so
 LLAMA = dict(hidden_size=64, num_heads=4, num_kv_heads=1, num_layers=2, ffn_hidden=96,
              vocab_size=V, max_seq_len=64)
-MODELS = ("gpt", "llama")
+# the same llama at depth 6, for the uneven 2,2,1,1 division of four stages
+LLAMA6 = dict(LLAMA, num_layers=6)
+MODELS = ("gpt", "llama", "llama6")
 OPT = dict(lr=1e-3, min_lr=1e-4, warmup_steps=1, total_steps=10)
 TRAJ_STEPS = 3
 LOSS_TOL, GRAD_REL, GRAD_ABS, TRAJ_TOL = 2e-5, 1e-4, 1e-6, 5e-5
@@ -73,12 +85,30 @@ CASES = {
                                         _L(tp=2, checkpoint=1)] * 2, chunks=2),
         "llama_gqa_tp4_kv_replicated": dict(model="llama", tp=4, vocab_tp=2),
         "llama_gqa_tp2_zero3": dict(model="llama", layers=[_L(tp=2, fsdp=1), _L(tp=4)]),
+        # pipelines (one stage per rank pair or rank): ZeRO-3 + remat on
+        # every layer, an uneven division over four stages, and tp 2 with
+        # ZeRO-3 and vocab TP inside each stage
+        "pp2_zero3_remat_1f1b": dict(pp=2, sdp=1, checkpoint=1, chunks=2,
+                                     default_dp_type="zero2", pipeline_type="pipedream_flush"),
+        "pp4_uneven_1f1b": dict(model="llama6", pp=4, pp_division=[2, 2, 1, 1], chunks=4,
+                                pipeline_type="pipedream_flush"),
+        "pp2_tp2_zero3_vtp2_1f1b": dict(pp=2, layers=[_L(tp=2, fsdp=1, checkpoint=1),
+                                                      _L(tp=2)] * 2,
+                                        vocab_tp=2, chunks=2, default_dp_type="zero2",
+                                        pipeline_type="pipedream_flush"),
     },
     2: {
         "dp2": dict(),
         "tp2": dict(tp=2),
+        "pp2_gpipe": dict(pp=2, chunks=4),
+        "pp2_zero3_remat_1f1b": dict(pp=2, sdp=1, checkpoint=1, chunks=2,
+                                     pipeline_type="pipedream_flush"),
     },
 }
+# a tied GPT trained through a pipeline at world 2: its table lives on both
+# stages and must stay bitwise equal
+PP_TRAJ_CASE = dict(pp=2, pp_division=[3, 1], chunks=2, default_dp_type="zero2",
+                    pipeline_type="pipedream_flush")
 TRAJ_CASE = "hetero"
 FAULT_CASE = "hetero"
 INIT_SEED = 5
@@ -112,7 +142,7 @@ def _hp(kw, world, num_layers):
     kw.setdefault("global_bsz", B)
     if layers is None:
         return HybridParallelConfig.uniform(world, num_layers, **kw)
-    return HybridParallelConfig(world_size=world, pp=1,
+    return HybridParallelConfig(world_size=world, pp=kw.pop("pp", 1),
                                 layers=[LayerStrategy(**s) for s in layers], **kw)
 
 
@@ -140,7 +170,8 @@ def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "
     full = {m: {k[len(m) + 1:]: torch.from_numpy(data[k]).to(dev) for k in data.files
                 if k.startswith(m + "/")} for m in MODELS}
     cfgs = {"gpt": TM.TransformerConfig(**GPT, compute_dtype=torch.float32),
-            "llama": llama_config("llama-0.3b", compute_dtype=torch.float32, **LLAMA)}
+            "llama": llama_config("llama-0.3b", compute_dtype=torch.float32, **LLAMA),
+            "llama6": llama_config("llama-0.3b", compute_dtype=torch.float32, **LLAMA6)}
     tokens, labels, loss_mask = batch_np()
     batch = prepare_batch(None, tokens, labels, loss_mask, device=dev)
     results = {}
@@ -186,9 +217,8 @@ def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "
     for n, p in TM.init_model_params(cfgs["gpt"], gen, dev).named_parameters():
         results["init_ref/%s" % n] = p.detach().cpu().numpy()
 
-    if TRAJ_CASE in CASES[world]:
+    def trajectory(hp, key):
         cfg = cfgs["gpt"]
-        hp = _hp(CASES[world][TRAJ_CASE], world, cfg.num_layers)
         model = construct_hybrid_parallel_model(cfg, hp, dev)
         params = model.shard_params(full["gpt"])
         tx, _ = get_optimizer_and_scheduler(OptimizerArgs(**OPT))
@@ -198,14 +228,25 @@ def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "
         for _ in range(TRAJ_STEPS):
             params, state, metrics = step(params, state, batch)
             losses.append(float(metrics["loss"]))
-        results["traj/loss"] = np.asarray(losses)
+        results["%s/loss" % key] = np.asarray(losses)
         for n, p in model.gather_params(params).items():
-            results["traj/param/%s" % n] = p.cpu().numpy()
+            results["%s/param/%s" % (key, n)] = p.cpu().numpy()
         moments = model.gather_opt_state(state)
         assert isinstance(moments, AdamState) and moments.count == TRAJ_STEPS
         for n in moments.mu:
-            results["traj/mu/%s" % n] = moments.mu[n].cpu().numpy()
-            results["traj/nu/%s" % n] = moments.nu[n].cpu().numpy()
+            results["%s/mu/%s" % (key, n)] = moments.mu[n].cpu().numpy()
+            results["%s/nu/%s" % (key, n)] = moments.nu[n].cpu().numpy()
+        return model, params
+
+    if TRAJ_CASE in CASES[world]:
+        trajectory(_hp(CASES[world][TRAJ_CASE], world, cfgs["gpt"].num_layers), "traj")
+    if world == 2:
+        model, params = trajectory(_hp(PP_TRAJ_CASE, world, cfgs["gpt"].num_layers), "pptraj")
+        # every stage's copy of the tied table (the first and the last)
+        copies = [None] * world
+        mine = dict(params[model.mesh.stage].named_parameters()).get("embed.wte")
+        torch.distributed.all_gather_object(copies, None if mine is None else mine.detach().cpu())
+        results["pptraj/wte_copies"] = np.stack([c.numpy() for c in copies if c is not None])
 
     if fault and FAULT_CASE in CASES[world]:
         # the first re-layout's all-gather reduce-scatters its gradient
@@ -229,6 +270,8 @@ def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "
     if world == 2:
         results.update(_checkpoint_cases(os.path.join(os.path.dirname(out), "ckpt_w2"),
                                          device_name))
+        results.update(_pipeline_checkpoint_cases(
+            os.path.join(os.path.dirname(out), "ckpt_pp_w2"), device_name))
 
     if rank == 0:
         np.savez(out, **results)
@@ -307,6 +350,83 @@ def _checkpoint_cases(ckpt_dir: str, device_name: str) -> dict:
 
 
 
+# the world-2 pipeline save/resume: a tied GPT, 1F1B over stages of 3 and 1
+CKPT_PP_STRATEGY = {"pp_deg": 2, "pp_division": "3,1", "pipeline_type": "pipedream_flush",
+                    "tp_sizes_enc": "1,1,1,1", "tp_consecutive_flags": "1,1,1,1",
+                    "dp_types_enc": "0,0,0,0", "default_dp_type": "zero2", "global_bsz": 4,
+                    "chunks": 2}
+
+
+def _pipeline_checkpoint_cases(ckpt_dir: str, device_name: str) -> dict:
+    """The train CLI at world 2 under CKPT_PP_STRATEGY (one stage per rank):
+    an uninterrupted 6-step run, a 3-step run that saves (its final
+    parameters captured through the step seam), its resume to 6,
+    ``load_full_params`` of the checkpoint, and a resume under pp 1."""
+    import json
+
+    import torch
+
+    from galvatron_tpu_torch.analysis.diagnostics import DiagnosticError
+    from galvatron_tpu_torch.cli import train as T
+    from galvatron_tpu_torch.cli.arguments import hp_config_from_args, model_config_from_args
+    from galvatron_tpu_torch.runtime import checkpoint as ck
+    from galvatron_tpu_torch.runtime import distributed
+    from galvatron_tpu_torch.runtime.model_api import construct_hybrid_parallel_model
+    from galvatron_tpu_torch.runtime.resilience import FaultHooks
+
+    rank = torch.distributed.get_rank()
+    strategies = {}
+    for name, strategy in (("pp2", CKPT_PP_STRATEGY), ("pp1", CKPT_STRATEGY)):
+        path = "%s_%s.json" % (ckpt_dir, name)
+        if rank == 0:
+            with open(path, "w") as f:
+                json.dump(strategy, f)
+        strategies[name] = path
+    torch.distributed.barrier()
+    captured = []
+
+    def capture(step):
+        def wrapped(params, opt_state, batch, *rest):
+            out = step(params, opt_state, batch, *rest)
+            captured[:] = [out[0]]
+            return out
+        return wrapped
+
+    def args_of(steps, strategy="pp2", extra=()):
+        return T.initialize_galvatron(
+            argv=CKPT_ARGV + ["--device", device_name, "--train_iters", str(steps),
+                              "--galvatron_config_path", strategies[strategy]] + list(extra),
+            mode="train")
+
+    full = T.train(args_of(6))
+    args = args_of(3, extra=["--save", ckpt_dir])
+    args.fault_hooks = FaultHooks(wrap_step_fn=capture)
+    first = T.train(args)
+    resumed = T.train(args_of(6, extra=["--load", ckpt_dir]))
+    try:
+        T.train(args_of(6, strategy="pp1", extra=["--load", ckpt_dir]))
+        refused = "none"
+    except DiagnosticError as e:
+        refused = ",".join(d.code for d in e.diagnostics)
+    # the trained parameters, gathered from both stages, against the
+    # checkpoint reassembled in one process
+    _, cfg = model_config_from_args(args)
+    model = construct_hybrid_parallel_model(cfg, hp_config_from_args(args, cfg.num_layers, 2),
+                                            distributed.local_device(device_name))
+    trained = model.gather_params(captured[0])
+    loaded, _ = ck.load_full_params(ckpt_dir, 3, cfg)
+    same = sorted(trained) == sorted(loaded) and all(
+        torch.equal(trained[n].cpu(), loaded[n]) for n in loaded)
+    files = [sorted(ck._read_rank(ckpt_dir, 3, r)["params"]) for r in range(2)]
+    return {"ckpt_pp/full": np.asarray(full["losses"]),
+            "ckpt_pp/first": np.asarray(first["losses"]),
+            "ckpt_pp/resumed": np.asarray(resumed["losses"]),
+            "ckpt_pp/start": np.int64(resumed["checkpoint_restore"]["iteration"]),
+            "ckpt_pp/refused": np.asarray(refused),
+            "ckpt_pp/full_params_equal": np.bool_(same),
+            "ckpt_pp/wte_files": np.asarray(["embed.wte" in f for f in files])}
+
+
 # ==================================================================== reference
 def _reference(tmp_dir):
     """The JAX package's unsharded loss, gradients and trajectory, and the
@@ -326,7 +446,8 @@ def _reference(tmp_dir):
     from galvatron_tpu.models.llama import llama_config
 
     cfgs = {"gpt": JM.TransformerConfig(**GPT, compute_dtype=jnp.float32),
-            "llama": llama_config("llama-0.3b", compute_dtype=jnp.float32, **LLAMA)}
+            "llama": llama_config("llama-0.3b", compute_dtype=jnp.float32, **LLAMA),
+            "llama6": llama_config("llama-0.3b", compute_dtype=jnp.float32, **LLAMA6)}
     tokens, labels, loss_mask = batch_np()
     jb = JD.prepare_batch(None, tokens, labels, loss_mask)
     weights, out = {}, {}
@@ -419,6 +540,15 @@ def report(tmp_dir, given=None):
             errs = grad_errors({n: res["fault/grad/%s" % n] for n in want["grads"]},
                                want["grads"])
             print("planted fault: worst gradient at %.3f of its limit" % max(errs.values()))
+        if world == 2 and "pptraj/loss" in res:
+            traj = ref["traj"]
+            print("pipeline trajectory (tied GPT, 1F1B 3,1): losses max err %.3g; params max "
+                  "err %.3g of the tree max; tied copies bitwise equal: %s" % (
+                      np.abs(res["pptraj/loss"] - traj["loss"]).max(),
+                      max(float(np.abs(res["pptraj/" + k] - traj[k]).max()) for k in traj
+                          if k.startswith("param/"))
+                      / max(float(np.abs(traj[k]).max()) for k in traj if k.startswith("param/")),
+                      bool((res["pptraj/wte_copies"] == res["pptraj/wte_copies"][0]).all())))
         print("world %d relayout round trips exact: %s; init equals a one-rank init: %s" % (
             world, all(not res[k].any() for k in res if k.startswith("relayout/")),
             all(np.array_equal(res["init/" + k[9:]], res[k]) for k in res
@@ -560,3 +690,45 @@ def test_world2_save_retries_one_ranks_failed_write_together(world_results):
 
 def test_world2_resume_under_another_strategy_is_refused(world_results):
     assert str(world_results(2)["ckpt/refused"]) == "GLS206"
+
+
+def test_pipeline_trajectory_matches_unsharded_optax_with_tied_copies_bitwise_equal(
+        reference, world_results):
+    """A tied GPT under 1F1B at world 2 (stages of 3 and 1 layers, one per
+    rank): three steps within the limits of the hetero trajectory, and the
+    first and last stage's copies of the table bitwise equal after them
+    (both get the summed gradient, the same moments and the same update)."""
+    res, want = world_results(2), reference["traj"]
+    np.testing.assert_allclose(res["pptraj/loss"], want["loss"], rtol=0, atol=TRAJ_TOL)
+    for kind in ("param", "mu", "nu"):
+        keys = [k for k in want if k.startswith(kind + "/")]
+        scale = max(float(np.abs(want[k]).max()) for k in keys)
+        errs = {k: float(np.abs(res["pptraj/" + k] - want[k]).max()) for k in keys}
+        worst = max(errs, key=errs.get)
+        assert errs[worst] <= TRAJ_TOL * scale, (worst, errs[worst], scale)
+    copies = res["pptraj/wte_copies"]
+    assert copies.shape[0] == 2
+    np.testing.assert_array_equal(copies[0], copies[1])
+
+
+def test_world2_pipeline_save_and_resume_is_bitwise(world_results):
+    """1F1B pp 2 through the train CLI at world 2: the run that saved at 3
+    and its resume give the uninterrupted run's losses bit for bit."""
+    res = world_results(2)
+    assert int(res["ckpt_pp/start"]) == 3
+    assert len(res["ckpt_pp/full"]) == 6 and np.isfinite(res["ckpt_pp/full"]).all()
+    np.testing.assert_array_equal(res["ckpt_pp/first"], res["ckpt_pp/full"][:3])
+    np.testing.assert_array_equal(res["ckpt_pp/resumed"], res["ckpt_pp/full"][3:])
+
+
+def test_world2_pipeline_checkpoint_reassembles_and_holds_the_tied_table_once(world_results):
+    """``load_full_params`` of the pp 2 checkpoint is exactly the trained
+    model gathered from both stages; only the first stage's file holds the
+    tied table."""
+    res = world_results(2)
+    assert bool(res["ckpt_pp/full_params_equal"])
+    assert res["ckpt_pp/wte_files"].tolist() == [True, False]
+
+
+def test_world2_pipeline_resume_under_pp1_is_refused(world_results):
+    assert str(world_results(2)["ckpt_pp/refused"]) == "GLS206"

@@ -158,6 +158,8 @@ def test_preemption_handler_flags_sigterm():
 
 # ------------------------------------------------------------------ step level
 def _snapshot(params, state):
+    # one stage: its module and Adam state
+    params, state = params[0], state[0]
     out = {"p/" + n: p.detach().clone() for n, p in params.named_parameters()}
     out.update({"mu/" + n: t.clone() for n, t in state.mu.items()})
     out.update({"nu/" + n: t.clone() for n, t in state.nu.items()})
@@ -187,9 +189,9 @@ def test_spike_cap_and_nan_gate_the_update_inside_the_step(dp_type):
             assert count_after == count == 0
             for n in before:
                 assert torch.equal(before[n], after[n]), n
-            assert all(p.grad is None for p in params.parameters())
+            assert all(p.grad is None for p in params[0].parameters())
         params, state, m = step(params, state, batch, float("inf"))
-        assert m["anomalous"] is False and state.count == 1
+        assert m["anomalous"] is False and state[0].count == 1
         after, _ = _snapshot(params, state)
         assert max(float((after[n] - before[n]).abs().max()) for n in before) > 0
 

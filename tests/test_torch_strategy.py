@@ -87,12 +87,12 @@ def test_diagnostic_error_stays_a_value_error():
                                 dict(world_size=4, pp=2, tp=2), dict(world_size=2, cp=2),
                                 dict(world_size=2, tp=2, sp=1)])
 def test_runtime_refuses_layouts_beyond_one_device(kw):
-    """The train path executes world 2 and tp 2 (the per-layer layout
-    slice) and refuses pipelines, ring cp and Ulysses, naming the ROADMAP
-    item that brings each; serving stays at world size 1."""
+    """The train path executes world 2, tp 2 and pp 2 (the per-layer
+    layout and pipeline slices) and refuses ring cp and Ulysses, naming the
+    ROADMAP item that brings each; serving stays at world size 1."""
     world = kw.pop("world_size")
     hp = TC.HybridParallelConfig.uniform(world, 4, **kw)
-    refused = {"pp": "item 7", "cp": "item 8", "sp": "item 8"}
+    refused = {"cp": "item 8", "sp": "item 8"}
     which = [k for k in refused if kw.get(k, 0) > (0 if k == "sp" else 1)]
     if which:
         with pytest.raises(ValueError, match=refused[which[0]]):

@@ -265,7 +265,9 @@ def test_train_steps_match_reference(case):
     tmodel = TAPI.construct_hybrid_parallel_model(tcfg, hp_t, "cpu")
     ttx, _ = TO.get_optimizer_and_scheduler(TO.OptimizerArgs(**oargs))
     adam = next(s for s in jstate if isinstance(s, optax.ScaleByAdamState))
-    tstate = adam_state_from_numpy(adam.count, jax.device_get(adam.mu), jax.device_get(adam.nu))
+    tstate = {0: adam_state_from_numpy(adam.count, jax.device_get(adam.mu),
+                                       jax.device_get(adam.nu))}
+    params = {0: params}
     tstep = tmodel.make_train_step(ttx)
     jdata = JD.get_train_iterator(hp_j, _VOCAB, _SEQ, seed=7)
     tdata = TD.get_train_iterator(hp_t, _VOCAB, _SEQ, seed=7)
@@ -279,12 +281,12 @@ def test_train_steps_match_reference(case):
     np.testing.assert_allclose(tlosses, jlosses, rtol=_RTOL)
     # Adam divides by sqrt(nu): coordinates with tiny gradients amplify the
     # fp32 reassociation noise of the gradients into their updates
-    _assert_tree_close(params_to_numpy(params), jax.device_get(jparams), rtol=2e-5,
+    _assert_tree_close(params_to_numpy(params[0]), jax.device_get(jparams), rtol=2e-5,
                        what="param ")
     # the moments sum ten steps of gradients, each ~1e-5 apart (taken at
     # params that drifted apart by the above)
     adam = next(s for s in jstate if isinstance(s, optax.ScaleByAdamState))
-    count, mu, nu = adam_state_to_numpy(tstate)
+    count, mu, nu = adam_state_to_numpy(tstate[0])
     assert count == int(adam.count) == 10
     _assert_tree_close(mu, jax.device_get(adam.mu), rtol=5e-5, what="mu ")
     _assert_tree_close(nu, jax.device_get(adam.nu), rtol=5e-5, what="nu ")
@@ -329,6 +331,7 @@ def test_train_step_weights_uneven_microbatches_like_reference():
         jparams, jstate, JD.prepare_batch(None, tokens, labels, loss_mask, attn_mask))
     tmodel = TAPI.construct_hybrid_parallel_model(tcfg, hp_t, "cpu")
     ttx, _ = TO.get_optimizer_and_scheduler(TO.OptimizerArgs(**oargs))
+    params = {0: params}
     tstate = tmodel.init_opt_state(ttx, params)
     params, tstate, tm = tmodel.make_train_step(ttx)(
         params, tstate, TD.prepare_batch(None, tokens, labels, loss_mask, attn_mask))
@@ -339,6 +342,6 @@ def test_train_step_weights_uneven_microbatches_like_reference():
     # step moves every coordinate by ~lr * sign(g), so a near-zero gradient's
     # reassociation noise decides its whole update
     adam = next(s for s in jstate if isinstance(s, optax.ScaleByAdamState))
-    _, mu, nu = adam_state_to_numpy(tstate)
+    _, mu, nu = adam_state_to_numpy(tstate[0])
     _assert_tree_close(mu, jax.device_get(adam.mu), rtol=2e-5, what="mu ")
     _assert_tree_close(nu, jax.device_get(adam.nu), rtol=5e-5, what="nu ")
