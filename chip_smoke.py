@@ -8,15 +8,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
 1. Identify the card (nvidia-smi name and power limit); TF32 off.
 2. Build the flash-attention forward and backward kernels from csrc/ with
    nvcc (sm_90a), one nvcc per source, and the dataset index helper
-   (data/csrc/index_helpers.cpp) with g++, all started together; fail if
+   (data/csrc/index_helpers.cpp) and the search's DP core (csrc/dp_core.cpp)
+   with g++, all started together; fail if
    ptxas reports a spill in any wgmma kernel or ignores a `setmaxnreg`
    (warning C7508).
 3. Hold the forward kernel against its plain PyTorch version on the card, in
    bf16, at B=1, nh=32, hd=128, S in {128, 512, 576, 1536, 2048}, causal,
-   with and without a key-padding tail, and at B=4 and B=2, S=2048 (the
-   micro-batches of phases 8-9 and of phase 11), on ALL rows (plus one fp32
-   and one head_dim-256 case), each element within a limit scaled by its own
-   row (TOL_FWD_BF16); two planted faults (a zeroed first or last tile) must
+   with and without a key-padding tail, and at B=4, B=2 and B=8, S=2048
+   (the micro-batches of phases 8-9 and of phase 11, and phase 12's
+   profile batch), on ALL rows (plus one fp32 and one head_dim-256 case),
+   each element within a limit scaled by its own row (TOL_FWD_BF16); two
+   planted faults (a zeroed first or last tile) must
    fail the same check. Every bf16 head_dim-128 case must have run the
    "wgmma" route. Times the kernel (``ms``: 20 calls back to back between
    two CUDA events, over 20, median of 5 runs, the kernel's time once the
@@ -25,9 +27,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    timed, host overhead included), the plain version and, as a yardstick the
    port never calls, torch's scaled_dot_product_attention, both ways.
 4. The same for the backward kernel: bf16, B=1, nh=32, hd=128, S in
-   {512, 576, 2048}, causal, with and without a key-padding tail, and B=4
-   and B=2 at S=2048, every row and key of dq, dk and dv (plus one fp32 and one
-   head_dim-256 case), with the same row-scaled check, planted faults and
+   {512, 576, 2048}, causal, with and without a key-padding tail, and B=4,
+   B=2 and B=8 at S=2048, every row and key of dq, dk and dv (plus one fp32
+   and one head_dim-256 case), with the same row-scaled check, planted faults and
    route check; the yardstick is the backward of
    scaled_dot_product_attention (autograd of SDPA, its forward excluded).
 5. Gradients in place: LLaMA-7B width at depth 2, bf16, one micro-batch of
@@ -101,11 +103,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
    1F1B run again with stage 1's weights put back after every step, must
    fail the same comparison. The host runs the stages one after another,
    so these step times say nothing of the bubble.
+12. Galvatron's loop on the card, through the CLI entry points, on phase
+   8's model (LLaMA-7B width, depth 8, seq 2048, bf16): ``cli profile``
+   (static mode, batch 8, layers 1 and 3, the remat fractions; the
+   allocator's and autograd's activation counts side by side; its flash
+   launches must equal what the differencing programs call for, all
+   ``wgmma``), ``cli profile-hardware`` at world 1 (the overlap file, no
+   all-reduce file), ``cli search`` at world 1 for global batch 8 in 2
+   micro-batches under LOOP_MEMORY_GB (the search must return a strategy
+   that checkpoints some layers and not all), ``cli train`` under the
+   emitted JSON for 6 steps (the train CLI's strategy must be the searched
+   one, the loss must fall, the launches must be exact and ``wgmma``, the
+   peak must stay under the budget), then ``profiler.validate``'s
+   predicted against measured step ms and peak GB, with their ratios.
 
 Each main path (serve, train, the GPT layout runs, phase 10's train,
-resumed, guarded and serve-from-checkpoint runs, and phase 11's runs)
-runs with the kernels' launch counts set to 0 just before it and read just
-after. The last lines
+resumed, guarded and serve-from-checkpoint runs, phase 11's runs, and
+phase 12's profile and train) runs with the kernels' launch counts set to
+0 just before it and read just after. The last lines
 of standard output are the serve and train summaries, the ``kernels`` JSON
 line, the card line, and ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json.
@@ -224,23 +239,25 @@ def identify_card():
 
 # ------------------------------------------------------------------ phase 2
 def build_kernels(TF):
-    """One nvcc per kernel source and the g++ build of the dataset index
-    helper, all started together; returns {source: (library path,
-    seconds)} of the kernels, the ptxas lines of each build and the
-    helper's (path, seconds)."""
+    """One nvcc per kernel source and the g++ builds of the dataset index
+    helper and the search's DP core, all started together; returns {source:
+    (library path, seconds)} of the kernels, the ptxas lines of each build
+    and the two host libraries' ((path, seconds), (path, seconds))."""
     from concurrent.futures import ThreadPoolExecutor
 
     from galvatron_tpu_torch.data import dataset as DS
+    from galvatron_tpu_torch.search import dynamic_programming as DP
 
     def one(build, *src):
         t0 = time.perf_counter()
         so = build(*src)
         return so, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(TF.SOURCES) + 1) as ex:
+    with ThreadPoolExecutor(len(TF.SOURCES) + 2) as ex:
         helper = ex.submit(one, DS.build)
+        dp_core = ex.submit(one, DP.build)
         built = dict(zip(TF.SOURCES, ex.map(lambda src: one(TF.build, src), TF.SOURCES)))
-        helper = helper.result()
+        helper = (helper.result(), dp_core.result())
     ptxas, kernels = {}, {}
     for src, (so, _) in built.items():
         with open(so + ".log") as f:
@@ -373,7 +390,7 @@ def check_kernel(torch, TF, dev):
         for padded in (False, True):
             cases.append(dict(b=1, s=s, nh=32, hd=128, padded=padded, causal=True,
                               dtype=torch.bfloat16))
-    for b in (4, 2):
+    for b in (4, 2, 8):
         cases.append(dict(b=b, s=2048, nh=32, hd=128, padded=False, causal=True,
                           dtype=torch.bfloat16))
     cases.append(dict(b=1, s=576, nh=32, hd=128, padded=True, causal=False, dtype=torch.bfloat16))
@@ -440,7 +457,7 @@ def check_bwd_kernel(torch, TF, dev):
     gen.manual_seed(SEED + 1)
     cases = [dict(b=1, s=s, nh=32, hd=128, padded=padded, dtype=torch.bfloat16)
              for s in (512, 576, 2048) for padded in (False, True)]
-    for b in (4, 2):
+    for b in (4, 2, 8):
         cases.append(dict(b=b, s=2048, nh=32, hd=128, padded=False, dtype=torch.bfloat16))
     cases.append(dict(b=1, s=512, nh=32, hd=128, padded=True, dtype=torch.float32))
     cases.append(dict(b=1, s=512, nh=8, hd=256, padded=True, dtype=torch.bfloat16))
@@ -1216,6 +1233,187 @@ def train_pipelines(torch, TF):
                                for c, p in zip(C.PP_CHECKPOINT, C.PP_REMAT_POLICY)),
                 wall_s=time.perf_counter() - t0)
 
+# ----------------------------------------------------------------- phase 12
+# Galvatron's loop on the card, through the CLI entry points: profile the
+# model, profile the hardware, search a strategy, train it. The model is
+# phase 8's: LLaMA-7B width at depth 8 (cut from 32 for memory), seq 2048,
+# global batch 8 in 2 micro-batches (fixed with --settle_bsz/--settle_chunk,
+# so that the budget and not the micro-batch count decides the remat).
+LOOP_DIR = os.path.join("chiprun_out", "phase12")
+LOOP_PROFILE_BSZ = 8
+LOOP_LAYERNUM = (1, 3)
+LOOP_WARMUP, LOOP_ITERS = 2, 5  # ModelProfileArgs' defaults
+# GB per GPU for the search: between the cost model's prediction for every
+# layer checkpointed and for none at this depth and batch (both printed),
+# so the search must checkpoint some layers and not all
+LOOP_MEMORY_GB = 44.0
+
+
+def profile_search_train(torch, TF):
+    """Phase 12 (see the module note): returns what it measured."""
+    import shutil
+
+    from galvatron_tpu_torch.cli import profile as cli_profile
+    from galvatron_tpu_torch.cli import search as cli_search
+    from galvatron_tpu_torch.cli import train as cli_train
+    from galvatron_tpu_torch.cli.arguments import hp_config_from_args, model_config_from_args
+    from galvatron_tpu_torch.config.strategy import HybridParallelConfig, LayerStrategy
+    from galvatron_tpu_torch.profiler import validate as V
+    from galvatron_tpu_torch.tools import train_cell as C
+    from galvatron_tpu_torch.utils.jsonio import read_json_config
+
+    t0 = time.perf_counter()
+    shutil.rmtree(LOOP_DIR, ignore_errors=True)
+    model = C.model_argv()
+    out = {}
+
+    # 1. profile: static mode, layers 1 and 3, batch 8, remat fractions
+    torch.cuda.empty_cache()
+    TF.flash_attention_fwd.launches, TF.flash_attention_bwd.launches = 0, 0
+    routes0 = {k: dict(v.routes) for k, v in (("fwd", TF.flash_attention_fwd),
+                                              ("bwd", TF.flash_attention_bwd))}
+    prof = cli_profile.main_model(model + [
+        "--device", "cuda", "--config_dir", LOOP_DIR, "--profile_mode", "static",
+        "--profile_batch_size", str(LOOP_PROFILE_BSZ), "--layernum_min", str(LOOP_LAYERNUM[0]),
+        "--layernum_max", str(LOOP_LAYERNUM[1]), "--profile_remat", "1"])
+    fwd, bwd = TF.flash_attention_fwd.launches, TF.flash_attention_bwd.launches
+    routes = {k: {r: n - routes0[k].get(r, 0) for r, n in v.routes.items()
+                  if n != routes0[k].get(r, 0)}
+              for k, v in (("fwd", TF.flash_attention_fwd), ("bwd", TF.flash_attention_bwd))}
+    lo, hi = LOOP_LAYERNUM
+    w, both = LOOP_WARMUP + LOOP_ITERS, lo + hi
+    # the programs the differencing runs, each at lo and at hi layers:
+    want_fwd = (w * both              # forward times (computation table)
+                + w * lo              # embedding+head time: the model at lo layers
+                + w * both            # forward times again (remat fractions)
+                + w * both            # forward+backward, no remat
+                + 3 * w * 2 * both    # full, nothing_saveable, dots_saveable: + recompute
+                + both + 2 * both)    # activation bytes: no remat, full remat
+    want_bwd = w * both + 3 * w * both + 2 * both
+    check((fwd, bwd) == (want_fwd, want_bwd),
+          "profile launched the forward kernel %d times and the backward %d times (expected "
+          "%d and %d)" % (fwd, bwd, want_fwd, want_bwd))
+    check(routes == {"fwd": {"wgmma": fwd}, "bwd": {"wgmma": bwd}},
+          "profile launches by route: %s (every one must be wgmma)" % routes)
+    comp, mem = prof["computation"], prof["memory"]
+    out["profile"] = dict(computation=comp, memory=mem, act_records=prof["act_records"],
+                          fwd_launches=fwd, bwd_launches=bwd)
+    for rec in prof["act_records"]:
+        check(rec["allocator"] is not None and rec["allocator"] > 0 and rec["saved"] > 0,
+              "activation measurement %s" % rec)
+
+    # 2. profile-hardware at world 1: no group of two, so no all-reduce file
+    hw = cli_profile.main_hardware(["--device", "cuda", "--config_dir", LOOP_DIR])
+    check(hw["world_size"] == 1, "profile-hardware ran at world %d" % hw["world_size"])
+    check(not os.path.exists(hw["paths"]["allreduce"]) and os.path.exists(hw["paths"]["overlap"]),
+          "profile-hardware at world 1 wrote %s" % sorted(os.listdir(LOOP_DIR)))
+    out["hardware"] = {k: v for k, v in hw.items() if k != "paths"}
+
+    # 3. search at world 1 for the phase-8 model under LOOP_MEMORY_GB
+    cfg = model_config_from_args(cli_train.initialize_galvatron(argv=C.argv(""), mode="train"))[1]
+    hw_tables = {k: read_json_config(p) for k, p in hw["paths"].items() if os.path.exists(p)}
+
+    def predicted_mb(ckpt):
+        hp = HybridParallelConfig(world_size=1, pp=1, layers=[LayerStrategy(checkpoint=ckpt)]
+                                  * C.LAYERS, global_bsz=C.GLOBAL_BSZ, chunks=C.CHUNKS)
+        return V.predict_memory_mb(hp, mem, cfg.max_seq_len, cfg.hidden_size)["total_mb"]
+
+    out["predicted_mb_uniform"] = {"no_remat": predicted_mb(0), "all_remat": predicted_mb(1)}
+    log("phase 12 cost model at %d layers, batch %d in %d: %.0f MB with no layer "
+        "checkpointed, %.0f MB with every layer (+512 MB runtime reserve in the search); "
+        "budget %.1f GB" % (C.LAYERS, C.GLOBAL_BSZ, C.CHUNKS,
+                            out["predicted_mb_uniform"]["no_remat"],
+                            out["predicted_mb_uniform"]["all_remat"], LOOP_MEMORY_GB))
+    strategy = os.path.join(LOOP_DIR, "searched_strategy.json")
+    os.environ["GALVATRON_WORLD_SIZE"] = "1"
+    try:
+        result = cli_search.main(model + [
+            "--config_dir", LOOP_DIR, "--memory_constraint", str(LOOP_MEMORY_GB),
+            "--settle_bsz", str(C.GLOBAL_BSZ), "--settle_chunk", str(C.CHUNKS),
+            "--output_config_path", strategy, "--log_dir", os.path.join(LOOP_DIR, "logs")])
+    finally:
+        del os.environ["GALVATRON_WORLD_SIZE"]
+    searched = HybridParallelConfig.from_json(strategy, world_size=1)
+    ckpt = [s.checkpoint for s in searched.layers]
+    check(0 < sum(ckpt) < len(ckpt),
+          "the search under %.1f GB checkpointed %d of %d layers (expected some, not all)"
+          % (LOOP_MEMORY_GB, sum(ckpt), len(ckpt)))
+    out["search"] = dict(cost_ms=result["cost"], strategy=read_json_config(strategy),
+                         checkpoint=ckpt, chunks=searched.chunks,
+                         fsdp=[s.fsdp for s in searched.layers])
+
+    # 4. train the emitted strategy, then predicted against measured
+    argv = C.argv(strategy)
+    args = cli_train.initialize_galvatron(argv=argv, mode="train")
+    trained_hp = hp_config_from_args(args, C.LAYERS, 1)
+    check((trained_hp.layers, trained_hp.pp, trained_hp.chunks, trained_hp.global_bsz)
+          == (searched.layers, searched.pp, searched.chunks, searched.global_bsz),
+          "the train CLI's strategy %s is not the searched one %s"
+          % (trained_hp.describe(), searched.describe()))
+    torch.cuda.empty_cache()
+    TF.flash_attention_fwd.launches, TF.flash_attention_bwd.launches = 0, 0
+    summary = cli_train.main(argv)
+    fwd, bwd = TF.flash_attention_fwd.launches, TF.flash_attention_bwd.launches
+    losses = summary["losses"]
+    check(len(losses) == C.STEPS and all(math.isfinite(x) for x in losses)
+          and losses[-1] < losses[0], "phase 12 train losses %s (must fall)" % losses)
+    want = (C.STEPS * searched.chunks * (C.LAYERS + sum(ckpt)),
+            C.STEPS * searched.chunks * C.LAYERS)
+    check((fwd, bwd) == want, "phase 12 train launched the forward kernel %d times and the "
+          "backward %d times (expected %d and %d)" % (fwd, bwd, *want))
+    check(summary["flash_routes"] == [{"fwd": {"wgmma": fwd}, "bwd": {"wgmma": bwd}}],
+          "phase 12 train launches by route: %s" % summary["flash_routes"])
+    budget_mb = LOOP_MEMORY_GB * 1024.0
+    check(summary["peak_hbm_mb"] <= budget_mb, "phase 12 train peak %.0f MB > the %.0f MB budget"
+          % (summary["peak_hbm_mb"], budget_mb))
+    out["train"] = dict(summary=summary, fwd_launches=fwd, bwd_launches=bwd)
+    torch.cuda.empty_cache()
+    tv, mv = V.validate(cfg, searched, comp, mem, hw_tables, device="cuda")
+    torch.cuda.empty_cache()
+    check(mv.measured_mb <= budget_mb, "phase 12 validation peak %.0f MB > the %.0f MB budget"
+          % (mv.measured_mb, budget_mb))
+    out["validate"] = dict(time=dict(predicted_ms=tv.predicted_ms, measured_ms=tv.measured_ms,
+                                     ratio=tv.ratio),
+                           memory=dict(predicted_mb=mv.predicted_mb, measured_mb=mv.measured_mb,
+                                       ratio=mv.ratio, layers_mb=mv.predicted_layers_mb,
+                                       other_mb=mv.predicted_other_mb))
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def log_loop(loop, card):
+    """Phase 12's lines."""
+    p = loop["profile"]
+    comp, mem = p["computation"], p["memory"]
+    act = mem["layertype_0"]["tp_activation_per_bsz_dict"]
+    log("phase 12 profile (llama-7b width, batch %d, seq 2048, bf16, layers %d and %d) on %s: "
+        "forward %.4f ms per layer per sample, embedding+head+loss %.4f ms per sample; "
+        "activation MB per layer per sample %s; stored: %.3f (no remat), %.3f (remat); "
+        "remat recompute fractions %s; flash launches fwd %d / bwd %d (all wgmma)" % (
+            LOOP_PROFILE_BSZ, LOOP_LAYERNUM[0], LOOP_LAYERNUM[1], card, comp["layertype_0"],
+            comp["other_time"], "; ".join(
+                "%s: allocator %.3f, saved tensors %.3f" % (
+                    "remat" if r["remat"] else "no remat", r["allocator"], r["saved"])
+                for r in p["act_records"]), act[1],
+            act["checkpoint"], comp["remat_recompute_frac"], p["fwd_launches"],
+            p["bwd_launches"]))
+    log("phase 12 hardware (world 1): %s" % loop["hardware"])
+    sr = loop["search"]
+    log("phase 12 search (world 1, %.1f GB, global batch 8 in %d): checkpoint %s, fsdp %s, "
+        "predicted %.1f ms/step" % (LOOP_MEMORY_GB, sr["chunks"], sr["checkpoint"], sr["fsdp"],
+                                    sr["cost_ms"]))
+    t = loop["train"]["summary"]
+    v = loop["validate"]
+    log("phase 12 train under the searched strategy on %s: step %.1f ms end to end, device "
+        "%.1f ms/step, peak memory %.2f GB, losses %s, flash launches fwd %d / bwd %d; "
+        "validate: step %.1f ms predicted, %.1f ms measured (ratio %.3f); peak %.2f GB "
+        "predicted, %.2f GB measured (ratio %.3f); phase %.1f s" % (
+            card, t["steady_step_ms"], t["device_step_ms"], t["peak_hbm_mb"] / 1024.0,
+            ["%.4f" % x for x in t["losses"]], loop["train"]["fwd_launches"],
+            loop["train"]["bwd_launches"], v["time"]["predicted_ms"], v["time"]["measured_ms"],
+            v["time"]["ratio"], v["memory"]["predicted_mb"] / 1024.0,
+            v["memory"]["measured_mb"] / 1024.0, v["memory"]["ratio"], loop["wall_s"]))
+
 
 def main():
     try:
@@ -1239,8 +1437,9 @@ def main():
 
     built, ptxas, ptxas_kernels, helper = build_kernels(TF)
     build_s = {os.path.basename(src): sec for src, (_, sec) in built.items()}
-    build_s["index_helpers.cpp"] = helper[1]
-    log("built %s in %.1f s (g++)" % (os.path.relpath(helper[0]), helper[1]))
+    for (so, sec), name in zip(helper, ("index_helpers.cpp", "dp_core.cpp")):
+        build_s[name] = sec
+        log("built %s in %.1f s (g++)" % (os.path.relpath(so), sec))
     for src, (so, sec) in built.items():
         log("built %s in %.1f s\n  %s" % (os.path.relpath(so), sec,
                                           "\n  ".join(ptxas[os.path.basename(src)])))
@@ -1259,6 +1458,7 @@ def main():
     layouts = train_gpt_layouts(torch, TF)
     corpus = corpus_checkpoint_resume(torch, TF)
     pipelines = train_pipelines(torch, TF)
+    loop = profile_search_train(torch, TF)
     s, t = served["summary"], trained["summary"]
 
     def at_2048(rows, b):
@@ -1266,7 +1466,8 @@ def main():
                     and r["dtype"] == "bfloat16" and r["causal"])
 
     def entry(name, source, rows, launches, by_path, tol):
-        head, b4 = at_2048(rows, 1), at_2048(rows, 4)
+        head = at_2048(rows, 1)
+        at_b = {"b%d" % b: at_2048(rows, b) for b in (4, 2, 8)}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": REPLACES,
             "launches": launches, "launches_by_path": by_path,
@@ -1275,8 +1476,11 @@ def main():
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "kernel_route": head["route"], "ms_single": head["ms_single"],
             "library_ms_single": head["library_ms_single"], "shape": head["shape"],
-            "b4": {k: b4[k] for k in ("shape", "route", "ms", "ms_single", "plain_ms",
-                                      "library_ms", "library_ms_single", "bound_ms", "bound_by")},
+            **{key: {k: r[k] for k in ("shape", "route", "ms", "ms_single", "plain_ms",
+                                       "library_ms", "library_ms_single", "bound_ms", "bound_by",
+                                       "max_abs_err", "limit_used" if "limit_used" in r
+                                       else "limit_used_by_grad")}
+               for key, r in at_b.items()},
             "tolerance": tol, "shapes": rows,
         }
 
@@ -1289,14 +1493,18 @@ def main():
                "train_gpt_zero3": z3["fwd_launches"], "train_gpt_zero2": z2["fwd_launches"],
                "train_data": c["train_data"]["fwd"], "eval": c["eval"]["fwd"],
                "serve_load": c["serve_load"]["fwd"],
-               **{"train_" + n: r["fwd_launches"] for n, r in pp_runs.items()}},
+               **{"train_" + n: r["fwd_launches"] for n, r in pp_runs.items()},
+               "profile": loop["profile"]["fwd_launches"],
+               "train_searched": loop["train"]["fwd_launches"]},
               TOL_FWD_BF16),
         entry("flash_attn_bwd", BWD_SOURCE, bwd_shapes, z3["bwd_launches"],
               {"serve": 0, "train": trained["bwd_launches"],
                "train_gpt_zero3": z3["bwd_launches"], "train_gpt_zero2": z2["bwd_launches"],
                "train_data": c["train_data"]["bwd"], "eval": c["eval"]["bwd"],
                "serve_load": c["serve_load"]["bwd"],
-               **{"train_" + n: r["bwd_launches"] for n, r in pp_runs.items()}},
+               **{"train_" + n: r["bwd_launches"] for n, r in pp_runs.items()},
+               "profile": loop["profile"]["bwd_launches"],
+               "train_searched": loop["train"]["bwd_launches"]},
               TOL_BWD_BF16),
     ]}
     results = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
@@ -1304,7 +1512,7 @@ def main():
                    kernels=kernels["kernels"], grads=grads,
                    decode=decode, serve=served, train=trained, train_gpt_layouts=layouts,
                    corpus_checkpoint=corpus, train_pipelines=pipelines,
-                   wall_s=time.perf_counter() - t_start)
+                   profile_search_train=loop, wall_s=time.perf_counter() - t_start)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1, default=str)
@@ -1393,6 +1601,7 @@ def main():
             pipelines["planted_fault"]["max_rel_err"]["grad_norms"], TOL_PP_LOSS,
             TOL_PP_GRAD_NORM))
     log("phase 11 (pipelines) %.1f s" % pipelines["wall_s"])
+    log_loop(loop, card)
     log(json.dumps(kernels))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

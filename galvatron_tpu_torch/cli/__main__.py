@@ -10,9 +10,26 @@
                        shards -> synthetic LM batches -> loss and gradients
                        -> clip + Adam + weight decay for --train_iters
                        steps, with a timing summary from rank 0
+    profile            profile the model's per-layer time and memory on the
+                       port's own layers (CUDA events and the allocator's
+                       peak on --device cuda, the default) into
+                       --config_dir
+    profile-hardware   profile collective bandwidths, the sp tables and the
+                       compute/communication overlap over NCCL (torchrun
+                       --nproc_per_node N for N > 1)
+    search             search the per-layer strategy over the profiles in
+                       --config_dir for GALVATRON_WORLD_SIZE devices
+                       (default 8; CPU only) and write its JSON, which
+                       `train --galvatron_config_path` runs
 
-The reference's other subcommands (search, profile, profile-hardware, lint,
-report) come with later slices of the port.
+The loop:
+    python -m galvatron_tpu_torch.cli profile-hardware
+    python -m galvatron_tpu_torch.cli profile --model_type llama ...
+    GALVATRON_WORLD_SIZE=N python -m galvatron_tpu_torch.cli search ... --output_config_path s.json
+    python -m galvatron_tpu_torch.cli train --galvatron_config_path s.json ...
+
+The reference's lint and report subcommands come with later slices of the
+port.
 """
 
 import sys
@@ -27,6 +44,12 @@ def main():
         from galvatron_tpu_torch.cli.serve import main as run
     elif cmd == "train":
         from galvatron_tpu_torch.cli.train import main as run
+    elif cmd == "search":
+        from galvatron_tpu_torch.cli.search import main as run
+    elif cmd == "profile":
+        from galvatron_tpu_torch.cli.profile import main_model as run
+    elif cmd == "profile-hardware":
+        from galvatron_tpu_torch.cli.profile import main_hardware as run
     else:
         print("unknown subcommand %r\n%s" % (cmd, __doc__))
         return 2

@@ -1,18 +1,34 @@
-"""Argument system for the port's entry points (serve and train modes).
+"""Argument system for the port's entry points.
 
-Port of the serve and train subsets of ``galvatron_tpu/cli/arguments.py``:
-the model flags, the GLOBAL-mode strategy flags, the serve flags (with
-``--load`` / ``--load_iteration``), the training flags (iterations, learning
-rate and schedule, Adam, clipping, seed, log interval; the corpus and its
-split, eval, checkpoints, the anomaly guard, preemption, retries, prefetch
-and the drain window, telemetry, memory snapshots) with the reference's
-defaults, and the two args -> structure functions. Flags whose modules are
-not ported yet are not defined, so argparse refuses them: sdc, autotune and
-elastic flags, ``--trace_lint``, ``--xla_trace`` and the other profiling
-flags, ``--watchdog*``, ``--mesh_probe_interval``, ``--migrate_on_degrade``
-(serve resilience), the compilation-cache and multi-host bootstrap flags
-(JAX runtime only). ``--donate_step`` takes 1 only (see its help). The port
-adds ``--device {cuda,cpu}``.
+Port of ``galvatron_tpu/cli/arguments.py`` for the modes the port runs:
+``serve``, ``train``, ``search``, ``profile`` and ``profile_hardware``.
+
+- serve and train: the model flags, the GLOBAL-mode strategy flags, the
+  serve flags (with ``--load`` / ``--load_iteration``), the training flags
+  (iterations, learning rate and schedule, Adam, clipping, seed, log
+  interval; the corpus and its split, eval, checkpoints, the anomaly guard,
+  preemption, retries, prefetch and the drain window, telemetry, memory
+  snapshots) with the reference's defaults;
+- search: ``--config_dir``, the model flags and the reference's search
+  flags with its defaults; ``--trace_lint`` is refused (the trace linter is
+  ROADMAP queue 1 item 12);
+- profile: ``--config_dir``, the model flags, the model-profiling flags
+  and ``--profile_type_model``; profile_hardware: ``--config_dir``, the
+  model flags and the hardware-profiling flags. Both add ``--device``.
+
+Four reference flags change nothing in the port, so they take their
+default only and refuse any other value: ``--profile_type_model`` (one
+profile run writes both tables), ``--profile_dp_type`` (the model profiler
+times one device) and ``--time_profile_mode`` / ``--memory_profile_mode``
+(the search reads the mode from the tables).
+
+Flags whose modules are not ported yet are not defined, so argparse
+refuses them: sdc, autotune and elastic flags, ``--trace_lint``,
+``--xla_trace``, ``--watchdog*``, ``--mesh_probe_interval``,
+``--migrate_on_degrade`` (serve resilience), the compilation-cache and
+multi-host bootstrap flags (JAX runtime only). ``--donate_step`` takes 1
+only (see its help). The port adds ``--device {cuda,cpu}`` to every mode
+that runs a model.
 """
 
 from __future__ import annotations
@@ -249,18 +265,155 @@ def _add_serve_args(p: argparse.ArgumentParser):
                         "predicted-TTFT shedder arms")
 
 
-MODES = ("serve", "train")
+def _add_profile_args(p: argparse.ArgumentParser):
+    g = p.add_argument_group("model profiling")
+    _add_device_arg(g)
+    g.add_argument("--profile_mode", type=str, default="static", choices=("static", "batch", "sequence"))
+    g.add_argument("--profile_batch_size", type=int, default=8)
+    g.add_argument("--profile_min_batch_size", type=int, default=1)
+    g.add_argument("--profile_max_batch_size", type=int, default=8)
+    g.add_argument("--batch_size_step", type=int, default=1)
+    g.add_argument("--profile_seq_length", type=int, default=None)
+    g.add_argument("--profile_min_seq_length", type=int, default=512)
+    g.add_argument("--profile_max_seq_length", type=int, default=2048)
+    g.add_argument("--seq_length_step", type=int, default=512)
+    g.add_argument("--layernum_min", type=int, default=1)
+    g.add_argument("--layernum_max", type=int, default=2)
+    g.add_argument("--max_tp_deg", type=int, default=8)
+    g.add_argument("--profile_dp_type", type=_default_only(
+        "zero3", "the model profiler times one device, under no dp type"), default="zero3")
+    g.add_argument("--profile_remat", type=int, nargs="?", const=1, default=0,
+                   help="also measure the per-remat-policy backward "
+                        "recompute fraction (remat_recompute_frac in the "
+                        "computation table; TimeCostModel's profiled "
+                        "override for the remat search axis); the bare "
+                        "flag means 1")
+    p.add_argument("--profile_type_model", dest="profile_type", type=_default_only(
+        "computation", "one profile run writes both the computation and the memory table"),
+        default="computation")
+
+
+def _add_hardware_args(p: argparse.ArgumentParser):
+    g = p.add_argument_group("hardware profiling")
+    _add_device_arg(g)
+    g.add_argument("--start_mb", type=float, default=1.0)
+    g.add_argument("--end_mb", type=float, default=64.0)
+    g.add_argument("--scale", type=int, default=2)
+    g.add_argument("--avg_or_min_or_first", type=str, default="avg", choices=("avg", "min", "first"))
+    g.add_argument("--max_pp_deg", type=int, default=8)
+    g.add_argument("--overlap_time_multiply", type=int, default=4)
+
+
+def _default_only(default: str, why: str):
+    """An argparse type for a reference flag the port does not act on: its
+    default parses, any other value is refused with `why`, so a reference
+    command line still parses and nothing is silently ignored."""
+    def parse(value: str) -> str:
+        if value != default:
+            raise argparse.ArgumentTypeError("only %r is accepted: %s" % (default, why))
+        return value
+    return parse
+
+
+def _trace_lint_flag(value: str) -> int:
+    if int(value):
+        raise argparse.ArgumentTypeError(
+            "the trace linter is not ported yet (ROADMAP queue 1 item 12)")
+    return 0
+
+
+def _add_search_args(p: argparse.ArgumentParser):
+    g = p.add_argument_group("search")
+    g.add_argument("--profile_seq_length", type=int, default=None,
+                   help="seq length the profiling tables were written at "
+                        "(must match --profile_seq_length of the profile run)")
+    g.add_argument("--memory_constraint", type=float, default=16.0, help="memory budget per GPU, GB")
+    g.add_argument("--search_space", type=str, default="full",
+                   choices=("full", "dp+tp", "dp+pp", "3d", "dp", "sdp", "tp", "pp"))
+    g.add_argument("--sp_space", type=str, default="tp", choices=("tp+sp", "tp", "sp"))
+    for name in ("dp", "tp", "vtp", "pp", "sdp", "ckpt", "tp_consec"):
+        g.add_argument("--disable_%s" % name, type=int, default=0)
+    g.add_argument("--enable_cp", type=int, default=0)
+    g.add_argument("--max_tp_deg_search", dest="search_max_tp_deg", type=int, default=8)
+    g.add_argument("--max_pp_deg_search", dest="search_max_pp_deg", type=int, default=8)
+    g.add_argument("--max_cp_deg", type=int, default=4)
+    g.add_argument("--min_bsz", type=int, default=8)
+    g.add_argument("--max_bsz", type=int, default=None)
+    g.add_argument("--bsz_scale", type=int, default=8)
+    g.add_argument("--settle_bsz", type=int, default=None)
+    g.add_argument("--settle_chunk", type=int, default=None)
+    g.add_argument("--fine_grained_mode", type=int, default=1)
+    g.add_argument("--use_pipeline_costmodel", type=int, default=0)
+    for flag in ("--time_profile_mode", "--memory_profile_mode"):
+        g.add_argument(flag, type=_default_only(
+            "static", "the search reads the profile's mode from its tables"), default="static")
+    g.add_argument("--parallel_search", type=int, default=0)
+    g.add_argument("--log_dir", type=str, default="logs")
+    g.add_argument("--output_config_path", type=str, default=None)
+    g.add_argument("--time_profile_path", type=str, default=None,
+                   help="explicit computation-profiling JSON to search on "
+                        "(overrides the per-model config-dir convention; "
+                        "pairs with --memory_profile_path)")
+    g.add_argument("--memory_profile_path", type=str, default=None,
+                   help="explicit memory-profiling JSON to search on "
+                        "(overrides the per-model config-dir convention; "
+                        "pairs with --time_profile_path)")
+    g.add_argument("--comm_quant", type=str, default="off",
+                   choices=("off", "bf16", "int8", "fp8_e4m3"),
+                   help="let the search choose per-layer grad/param comm "
+                        "precision (the trainer refuses quantized syncs "
+                        "until ROADMAP queue 1 item 10)")
+    g.add_argument("--comm_quant_block", type=int, default=64,
+                   help="blockwise-quantization block size priced by the "
+                        "cost models and emitted into the strategy JSON")
+    g.add_argument("--comm_quant_budget", type=float, default=1.0,
+                   help="max fraction of layers allowed a quantized "
+                        "gradient sync (1.0 = all)")
+    g.add_argument("--remat_search", type=int, nargs="?", const=1, default=0,
+                   help="let the search choose per-layer remat policies "
+                        "(none / dots_saveable / full); the bare flag means 1")
+    g.add_argument("--objective", type=str, default="train", choices=("train", "serve"),
+                   help="'train' maximises training throughput; 'serve' "
+                        "maximises decode tokens/s per GPU under the p99 "
+                        "latency bounds")
+    g.add_argument("--p99_ttft_ms", type=float, default=0.0,
+                   help="serve objective: p99 time-to-first-token bound, ms (0 = unbounded)")
+    g.add_argument("--p99_tpot_ms", type=float, default=0.0,
+                   help="serve objective: p99 time-per-output-token bound, ms (0 = unbounded)")
+    g.add_argument("--serve_max_concurrency", type=int, default=8,
+                   help="serve objective: decode slots the engine must hold KV for")
+    g.add_argument("--serve_page_size", type=int, default=16,
+                   help="serve objective: KV page granularity")
+    g.add_argument("--serve_hbm_gbps", type=float, default=100.0,
+                   help="per-device memory read bandwidth backing the decode roofline")
+    g.add_argument("--trace_lint", type=_trace_lint_flag, default=0,
+                   help="0 only: the JAX package's winner trace lint has no "
+                        "counterpart in the port yet (ROADMAP queue 1 item 12)")
+
+
+MODES = ("serve", "train", "search", "profile", "profile_hardware")
 
 
 def build_parser(mode: str = "serve") -> argparse.ArgumentParser:
-    """The parser of one entry point: model + strategy flags, then the
-    serve or the train flags."""
+    """The parser of one entry point: the model flags, then the strategy
+    and the serve or train flags, or the search, profile or hardware
+    profile flags."""
     if mode not in MODES:
         raise ValueError("unknown mode %r (one of %s)" % (mode, MODES))
     p = argparse.ArgumentParser("galvatron_tpu_torch-%s" % mode, allow_abbrev=False)
+    if mode in ("search", "profile", "profile_hardware"):
+        p.add_argument("--config_dir", type=str, default="configs",
+                       help="where profiled/searched JSON configs live")
     _add_model_args(p)
-    _add_parallel_args(p)
-    (_add_serve_args if mode == "serve" else _add_train_args)(p)
+    if mode in ("serve", "train"):
+        _add_parallel_args(p)
+        (_add_serve_args if mode == "serve" else _add_train_args)(p)
+    elif mode == "search":
+        _add_search_args(p)
+    elif mode == "profile":
+        _add_profile_args(p)
+    else:
+        _add_hardware_args(p)
     return p
 
 

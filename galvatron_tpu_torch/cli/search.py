@@ -1,0 +1,152 @@
+"""Search entry point: ``python -m galvatron_tpu_torch.cli search``.
+
+Port of ``galvatron_tpu/cli/search.py`` (the analogue of every reference
+model's ``search_dist.py``). Pure CPU: reads the profiled model and
+hardware JSONs under ``--config_dir``, runs the DP search for
+``GALVATRON_WORLD_SIZE`` devices (default 8) and writes the winning
+per-layer strategy JSON, which ``cli train --galvatron_config_path`` runs.
+
+One deliberate divergence from the JAX package: at world size 1 a missing
+``allreduce_bandwidth_1chips.json`` reads as ``{}``, which is what the
+hardware profiler measures on one device (it has no group of two to time,
+and writes no all-reduce file). At a world size above 1 a missing file
+raises, as in the JAX package: a multi-GPU search needs a multi-GPU
+profile.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+from galvatron_tpu_torch.cli.arguments import initialize_galvatron, model_config_from_args
+from galvatron_tpu_torch.search.engine import GalvatronSearchEngine, SearchArgs
+from galvatron_tpu_torch.utils.jsonio import read_json_config
+
+
+def search_args_from(args) -> SearchArgs:
+    return SearchArgs(
+        memory_constraint=args.memory_constraint,
+        search_space=args.search_space,
+        sp_space=args.sp_space,
+        disable_dp=bool(args.disable_dp),
+        disable_tp=bool(args.disable_tp),
+        disable_vtp=bool(args.disable_vtp),
+        disable_pp=bool(args.disable_pp),
+        disable_sdp=bool(args.disable_sdp),
+        disable_ckpt=bool(args.disable_ckpt),
+        disable_tp_consec=bool(args.disable_tp_consec),
+        disable_cp=not bool(args.enable_cp),
+        max_tp_deg=args.search_max_tp_deg,
+        max_pp_deg=args.search_max_pp_deg,
+        max_cp_deg=args.max_cp_deg,
+        min_bsz=args.min_bsz,
+        max_bsz=args.max_bsz,
+        bsz_scale=args.bsz_scale,
+        settle_bsz=args.settle_bsz,
+        settle_chunk=args.settle_chunk,
+        fine_grained_mode=bool(args.fine_grained_mode),
+        use_pipeline_costmodel=bool(args.use_pipeline_costmodel),
+        mixed_precision=args.mixed_precision == "bf16",
+        default_dp_type=getattr(args, "default_dp_type", "ddp"),
+        parallel_search=bool(args.parallel_search),
+        log_dir=args.log_dir,
+        comm_quant=args.comm_quant,
+        comm_quant_block=args.comm_quant_block,
+        comm_quant_budget=args.comm_quant_budget,
+        remat_search=bool(args.remat_search),
+        objective=args.objective,
+        p99_ttft_ms=args.p99_ttft_ms,
+        p99_tpot_ms=args.p99_tpot_ms,
+        serve_max_concurrency=args.serve_max_concurrency,
+        serve_page_size=args.serve_page_size,
+        serve_hbm_gbps=args.serve_hbm_gbps,
+        trace_lint=bool(args.trace_lint),
+    )
+
+
+def _hardware_paths(config_dir: str, ndev: int) -> dict:
+    tag = "%dchips" % ndev
+    return {
+        "allreduce": os.path.join(config_dir, "allreduce_bandwidth_%s.json" % tag),
+        "p2p": os.path.join(config_dir, "p2p_bandwidth_%s.json" % tag),
+        "sp": os.path.join(config_dir, "sp_time_%s.json" % tag),
+        "overlap": os.path.join(config_dir, "overlap_coefficient.json"),
+    }
+
+
+def _model_paths(args, fam, cfg) -> dict:
+    """Profiled-table paths, derived by the same profiler code that wrote
+    them (pass --profile_seq_length here iff the profile run used it)."""
+    from galvatron_tpu_torch.profiler.model import ModelProfileArgs, ModelProfiler
+
+    pargs = ModelProfileArgs(
+        mixed_precision=args.mixed_precision, config_dir=args.config_dir,
+        profile_seq_length=getattr(args, "profile_seq_length", None),
+    )
+    return ModelProfiler(cfg, model_name=args.model_type, args=pargs).config_paths()
+
+
+def _read_allreduce(path: str, world_size: int) -> dict:
+    if world_size == 1 and not os.path.exists(path):
+        return {}  # the one-device hardware profile writes no all-reduce file
+    return read_json_config(path)
+
+
+def search(args, world_size: Optional[int] = None) -> dict:
+    fam, cfg = model_config_from_args(args)
+    world_size = world_size or int(os.environ.get("GALVATRON_WORLD_SIZE", "8"))
+    layer_cfgs = [
+        {"hidden_size": cfg.hidden_size, "seq_len": cfg.max_seq_len,
+         "layer_num": cfg.num_layers}
+    ]
+    sargs = search_args_from(args)
+    if sargs.objective == "serve":
+        # GQA shrinks KV bytes by num_kv_heads/num_heads; the search engine
+        # itself never sees head counts, so resolve the ratio here
+        sargs.serve_kv_frac = float(cfg.num_kv_heads) / float(cfg.num_heads)
+    engine = GalvatronSearchEngine(
+        sargs,
+        world_size,
+        model_layer_configs=layer_cfgs,
+        config_dir=args.config_dir,
+        model_name=args.model_type,
+    )
+    mp = _model_paths(args, fam, cfg)
+    time_path = args.time_profile_path or mp["computation"]
+    mem_path = args.memory_profile_path or mp["memory"]
+    engine.set_model_profiles(read_json_config(time_path), read_json_config(mem_path))
+    hw = _hardware_paths(args.config_dir, world_size)
+    engine.set_hardware_profiles(
+        _read_allreduce(hw["allreduce"], world_size),
+        read_json_config(hw["p2p"]) if os.path.exists(hw["p2p"]) else None,
+        read_json_config(hw["overlap"]) if os.path.exists(hw["overlap"]) else None,
+        read_json_config(hw["sp"]) if os.path.exists(hw["sp"]) else None,
+    )
+    engine.initialize_search_engine()
+    if sargs.objective == "serve":
+        # raises DiagnosticError [GLS014] when no candidate satisfies the
+        # memory budget and p99 latency bounds
+        result = engine.serve_optimization()
+        sv = result["serve"]
+        print("serve winner: %.1f tok/s/gpu, prefill %.1f ms, decode %.2f ms"
+              "/token, %.0f MB/device (concurrency=%d, ctx=%d)"
+              % (sv["tokens_per_s_per_chip"], sv["prefill_ms"], sv["tpot_ms"],
+                 sv["memory_mb"], sv["concurrency"], sv["max_ctx"]))
+    else:
+        result = engine.parallelism_optimization()
+        if result is None:
+            raise RuntimeError("no feasible strategy under memory constraint %.1f GB"
+                               % args.memory_constraint)
+    path = engine.save_results(result, args.output_config_path)
+    print("saved searched strategy to %s" % path)
+    return result
+
+
+def main(argv=None):
+    args = initialize_galvatron(mode="search", argv=argv)
+    return search(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -27,10 +27,7 @@ the vision iterator wait for the encoder and vision families.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
-import tempfile
 import threading
 from typing import Dict, Iterator, List, Optional, Sequence
 
@@ -39,10 +36,11 @@ import torch
 
 from galvatron_tpu_torch.config.strategy import HybridParallelConfig
 from galvatron_tpu_torch.runtime.dataloader import prepare_batch
+from galvatron_tpu_torch.utils import native
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "data", "csrc", "index_helpers.cpp")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "galvatron_tpu_torch")
+BUILD_DIR = native.BUILD_DIR
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 _lib = None
 _lib_lock = threading.Lock()
@@ -50,37 +48,13 @@ _lib_lock = threading.Lock()
 
 def library_path() -> str:
     """Where the build of the helper goes: keyed by its source and flags."""
-    h = hashlib.sha256()
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
-    h.update(" ".join(CXX_FLAGS).encode())
-    return os.path.join(BUILD_DIR, "index_helpers_%s.so" % h.hexdigest()[:16])
+    return native.keyed_path(SOURCE, "index_helpers", CXX_FLAGS, BUILD_DIR)
 
 
 def build() -> str:
     """Compile the helper if it has no build yet; returns the library path.
     Raises RuntimeError when the compiler is missing or fails."""
-    so = library_path()
-    if os.path.exists(so):
-        return so
-    cxx = os.environ.get("CXX", "g++")
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        try:
-            proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SOURCE],
-                                  capture_output=True, text=True, timeout=300)
-        except OSError as e:
-            raise RuntimeError("cannot build %s: %s (%s)" % (SOURCE, cxx, e)) from e
-        if proc.returncode != 0:
-            raise RuntimeError("%s failed (%d) on %s:\n%s"
-                               % (cxx, proc.returncode, SOURCE, proc.stdout + proc.stderr))
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return so
+    return native.compile_shared(SOURCE, library_path(), CXX_FLAGS)
 
 
 def _load_helpers():

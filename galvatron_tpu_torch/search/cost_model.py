@@ -1,0 +1,958 @@
+"""Memory / time cost models for the strategy search.
+
+Port of ``galvatron_tpu/search/cost_model.py`` (a re-design of the
+reference's cost models, galvatron/core/search_engine/cost_model.py:
+MemoryCostModel :10-219, TimeCostModel :221-466, OtherTimeCostModel
+:468-658, pipeline_costmodel :695-768). The arithmetic is the JAX
+package's, term for term and in the same order, so for the same profiles
+both packages' costs are bitwise equal (float64 numpy throughout) and their
+searches pick the same strategies. What changes is where the coefficients
+come from: the port's profilers measure them on the GPU
+(``profiler/model.py``: CUDA events and the allocator's peak over the
+port's own layers; ``profiler/hardware.py``: NCCL collectives).
+
+- ZeRO-1/2/3 state ratios keep the reference's formulas (facts about
+  optimizer-state layout, cost_model.py:99-110), with `d` = the dp (or
+  tp*dp for ulysses) shard degree.
+- Activation accounting: every stage holds all `chunks` microbatch
+  stage-inputs (GPipe watermark) and the executing microbatch's internal
+  activations; with per-layer remat the stored share is the 'checkpoint'
+  profile entry.
+- Communication coefficients: ms/MB for all-reduce per group size x
+  consecutive ('_1') / strided ('_0') rank placement, per-degree all2all
+  tables for Ulysses, p2p coefficients for pipeline transfers.
+
+A "strategy" is the reference's list form: [pp, tp, dp, info] with info keys
+'fsdp', 'sp' (ulysses), 'cp', 'cpt' (activation ckpt), 'tp' (consecutive flag),
+'gcd'/'pcd' (comm precision) and 'rp' (remat policy for checkpointed layers,
+default "full" — the remat search dimension).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+
+from galvatron_tpu_torch.search.cost_model_args import (
+    ModelArgs,
+    ParallelArgs,
+    ProfileHardwareArgs,
+    ProfileModelArgs,
+    TrainArgs,
+    default_optimal_chunk_func,
+)
+
+
+def _info(strategy) -> dict:
+    return strategy[3] if len(strategy) > 3 else {}
+
+
+def _wire_bytes(dtype: str, block: int, full_bytes: float) -> float:
+    """Bytes per gradient/param element on the wire for one collective pass
+    under a comm-precision choice (mirrors
+    parallel/quant_collectives.wire_bytes_per_element; kept inline so the
+    search engine stays jax-free): quantized payloads carry 1 byte plus the
+    fp32 per-block scale amortised over the block."""
+    if dtype == "bf16":
+        return 2.0
+    if dtype in ("int8", "fp8_e4m3"):
+        return 1.0 + 4.0 / max(int(block), 1)
+    return full_bytes
+
+
+def _eval_fit(profile: Any, x: float) -> float:
+    """Evaluate a profiled quantity: scalar, (m, c) linear fit, or
+    (a, b, c) quadratic fit."""
+    if isinstance(profile, (int, float)):
+        return float(profile) * x
+    arr = np.asarray(profile, dtype=np.float64).ravel()
+    if arr.size == 2:
+        return float(arr[0] * x + arr[1])
+    if arr.size == 3:
+        return float(arr[0] * x * x + arr[1] * x + arr[2])
+    raise ValueError("unrecognised profile fit: %r" % (profile,))
+
+
+def _table_time(table: Dict, degree: int, message_mb: float) -> float:
+    """Per-collective time from a degree-keyed table of linear fits (ms/MB)."""
+    entry = table.get(degree, table.get(str(degree)))
+    if entry is None:
+        return float("inf")
+    if isinstance(entry, dict):
+        m, c = entry["popt"]
+        return float(m) * message_mb + float(c)
+    return float(entry) * message_mb
+
+
+def comm_coe(comm_coe_dict: Dict[str, float], degree: int,
+             consec: bool = True) -> float:
+    """ms/MB allreduce coefficient with minor/major axis placement fallback
+    (reference read_allreduce_bandwidth_config, utils/config_utils.py:59-79)."""
+    if degree <= 1:
+        return 0.0
+    for key in (("%d" % degree),) + (("%d_1" % degree,) if consec else ("%d_0" % degree,)):
+        if key in comm_coe_dict:
+            return float(comm_coe_dict[key])
+    # fall back to the other placement rather than failing
+    for key in ("%d_0" % degree, "%d_1" % degree):
+        if key in comm_coe_dict:
+            return float(comm_coe_dict[key])
+    raise KeyError("no allreduce coefficient for group size %d" % degree)
+
+
+class MemoryCostModel:
+    """Per-layer memory (MB) under one strategy + per-vtp 'other' memory."""
+
+    def __init__(
+        self,
+        strategy,
+        global_batch_size: int = 8,
+        mbsz: int = 1,
+        min_tp: int = 1,
+        max_tp: int = 8,
+        stage_idx: int = 0,
+        vsp: int = 0,
+        embed_sdp: bool = False,
+        model_args: ModelArgs = None,
+        train_args: TrainArgs = None,
+        parallel_args: ParallelArgs = None,
+        profile_model_args: ProfileModelArgs = None,
+        logger=None,
+    ):
+        self.strategy = strategy
+        self.pp_size, self.tp_size, self.dp_size = strategy[0], strategy[1], strategy[2]
+        info = _info(strategy)
+        self.ulysses = bool(info.get("sp", 0))
+        self.cp_size = int(info.get("cp", 1))
+        cpt = bool(info.get("cpt", info.get("ckpt", 0)))
+        # remat axis: what the checkpointed layer SAVES decides what it holds.
+        # rp="none" on a cpt=1 strategy degenerates to no checkpointing;
+        # "dots_saveable" keeps the layer input PLUS the dot outputs;
+        # "full"/"nothing_saveable" keep the input only.
+        self.remat_policy = str(info.get("rp", "full")) if cpt else "none"
+        self.checkpoint = cpt and self.remat_policy != "none"
+        self.fsdp = bool(info.get("fsdp", 0))
+        ma, ta, pa, pma = model_args, train_args, parallel_args, profile_model_args
+        self.args = ta
+
+        # shard degree for ZeRO state sharding: ulysses folds tp into dp
+        self.sdp_size = self.tp_size * self.dp_size if self.ulysses else self.dp_size
+
+        # chunks (microbatch count)
+        chunks = pa.chunks
+        if chunks is None:
+            f = pa.optimal_chunk_func or default_optimal_chunk_func
+            chunks = f(global_batch_size / self.dp_size, strategy, mbsz, min_tp)
+        local_bsz = global_batch_size / self.dp_size / self.cp_size
+        self.chunks = max(1, min(int(chunks), int(max(local_bsz, 1))))
+
+        # ---- ZeRO ratios (reference cost_model.py:99-110) -------------------
+        self.pipedream = self.pp_size > 1 and pa.pipeline_type == "pipedream_flush"
+        bias = 0.003  # partitioning overhead margin
+        if self.chunks == 1 and not self.pipedream:
+            if ta.mixed_precision:
+                self.zero2_ratio = lambda d: 7 / 8 * (1 / d + bias) + 1 / 8
+            else:
+                self.zero2_ratio = lambda d: 3 / 4 * (1 / d + bias) + 1 / 4
+            self.zero3_ratio = lambda d: 1 / d + bias
+        else:
+            # with grad accumulation the sharded-grad accumulator persists
+            if ta.mixed_precision:
+                self.zero2_ratio = lambda d: 6 / 8 * (1 / d + bias) + 2 / 8
+                self.zero3_ratio = lambda d: 7 / 8 * (1 / d + bias) + 1 / 8
+            else:
+                self.zero2_ratio = lambda d: 2 / 4 * (1 / d + bias) + 2 / 4
+                self.zero3_ratio = lambda d: 1 / 4 + 3 / 4 * (1 / d + bias)
+
+        # ---- parameter + model states (4x: param, grad, adam mu/nu) --------
+        self.parameter_size = ma.parameter_size if self.ulysses else ma.parameter_size / self.tp_size
+        if self.pipedream:
+            # 1F1B engine state decomposition (pipeline_1f1b.py): layer GRADS
+            # accumulate in a within-stage REPLICATED carry (the run_bwd pin),
+            # so the fp32 grad share is the FULL layer size regardless of
+            # tp/dp; master+adam moments shard over the layer's sdp degree
+            # under ZeRO; the compute-dtype param copy is local (and for
+            # ZeRO-3 exists transiently anyway via the per-tick gather).
+            p_local, p_full = self.parameter_size, ma.parameter_size
+            shard = 1 / self.sdp_size + bias
+            if self.fsdp:  # zero3
+                c_p, c_s = (0.5, 3.0) if ta.mixed_precision else (1.0, 3.0)
+            elif pa.use_zero2_for_dp:
+                c_p, c_s = (0.5, 3.0) if ta.mixed_precision else (1.0, 2.0)
+            else:
+                c_p, c_s = (3.5, 0.0) if ta.mixed_precision else (3.0, 0.0)
+            self.model_states_size = c_p * p_local + c_s * p_local * shard + p_full
+        else:
+            self.model_states_size = 4 * self.parameter_size
+            if self.fsdp:
+                self.model_states_size *= self.zero3_ratio(self.sdp_size)
+            elif pa.use_zero2_for_dp:
+                self.model_states_size *= self.zero2_ratio(self.sdp_size)
+
+        # ---- comm-precision buffers (quantized collectives) ----------------
+        # wire payload + per-block fp32 scales live alongside the fp32 value
+        # during a quantized sync: one layer's grads for 'gcd', the gathered
+        # compute copy's payload for 'pcd' (ZeRO-3 gather)
+        qblock = int(getattr(pa, "comm_quant_block", 64) or 64)
+        self.quant_buffer_mb = 0.0
+        for dt in (info.get("gcd", "none"), info.get("pcd", "none")):
+            if dt in ("int8", "fp8_e4m3"):
+                self.quant_buffer_mb += self.parameter_size * (
+                    1.0 + 4.0 / max(qblock, 1)) / 4.0
+        self.model_states_size += self.quant_buffer_mb
+
+        # ---- activations (scan-pipeline accounting, see module docstring) --
+        act = pma.tp_activation_per_bsz_dict
+        seq_shard = self.cp_size * (self.tp_size if self.ulysses else 1)
+        act_tp_key = self.tp_size if not self.ulysses else 1
+
+        def act_per_bsz(key):
+            v = act.get(key, act.get(str(key)))
+            if v is None:
+                raise KeyError("no activation profile for tp=%s" % key)
+            return float(v)
+
+        def act_live_per_bsz():
+            """Per-device per-sample live activation MB for THIS strategy:
+            prefer the profiler's MEASURED per-strategy rows (ulysses_k /
+            cp_k — multi-chip profiles write them; ulysses' all-to-all and
+            the ring's blockwise state do not follow the act/k division),
+            falling back to the derivation act(tp_key)/seq_shard."""
+            if self.ulysses and self.tp_size > 1:
+                m = act.get("ulysses_%d" % self.tp_size)
+                if m is not None:
+                    return float(m) / self.cp_size
+            elif self.tp_size == 1 and self.cp_size > 1:
+                m = act.get("cp_%d" % self.cp_size)
+                if m is not None:
+                    return float(m)
+            return act_per_bsz(act_tp_key) / seq_shard
+
+        def dots_extra_per_bsz():
+            """Extra saved-tensor MB per sample when the remat policy is
+            dots_saveable: beyond the layer input the policy pins every dot
+            output — qkv (3sh), attn-out (sh), mlp-up (4sh), mlp-down input
+            (sh) ≈ 9·seq·hidden elements (flash keeps scores out of HBM) —
+            all sharded tp-fold (head/ffn shard, or seq under ulysses) and
+            cp-fold. Prefers a profiled 'dots_saveable' row (per-sample MB at
+            tp=1, like 'checkpoint')."""
+            v = act.get("dots_saveable")
+            if v is None:
+                bytes_per = 2 if ta.mixed_precision else 4
+                v = 9.0 * ma.seq_length * ma.hidden_size * bytes_per / 1024 / 1024
+            return float(v) / (self.cp_size * self.tp_size)
+
+        dots_extra = (
+            dots_extra_per_bsz() if self.remat_policy == "dots_saveable" else 0.0
+        )
+
+        mb_bsz = local_bsz / self.chunks
+        ckpt_shard = seq_shard * (
+            self.tp_size if pa.sequence_parallel and not self.ulysses else 1
+        )
+        if self.pipedream:
+            # 1F1B engine watermark (parallel/pipeline_1f1b.py): live
+            # activations are ONE microbatch's stage internals (the backward
+            # vjp residuals; the layer input only, under remat) plus the
+            # engine's boundary buffers — the min(pp+1, chunks) stage-input
+            # stash, the y/dx/dy carries, and the per-tick (pp, 2, mb)
+            # all-gather — amortised over the stage's layers. Unlike the scan
+            # pipeline this never holds all `chunks` microbatches (reference
+            # 1F1B activation ratio, cost_model.py:85-97).
+            lps = max(1, int(round((ma.layer_num or self.pp_size) / self.pp_size)))
+            bytes_per = 2 if ta.mixed_precision else 4
+            input_act_mb = ma.seq_length * ma.hidden_size * bytes_per / 1024 / 1024
+            stash_slots = min(self.pp_size + 1, self.chunks)
+            bufs = 3 + 2 * self.pp_size + stash_slots
+            # boundary activations are sharded over batch (dp, already in
+            # local_bsz) and seq (cp + tp under ulysses/megatron-sp)
+            boundary_shard = self.cp_size * (
+                self.tp_size if (self.ulysses or pa.sequence_parallel) else 1
+            )
+            overhead = bufs * mb_bsz * input_act_mb / boundary_shard / lps
+            if self.checkpoint:
+                per_mb = (act_per_bsz("checkpoint") / ckpt_shard + dots_extra) * mb_bsz
+            else:
+                per_mb = act_live_per_bsz() * mb_bsz
+            self.activation_size = per_mb + overhead
+        elif self.checkpoint:
+            # per-layer share under remat is the layer input (plus the pinned
+            # dot outputs under dots_saveable); the single transient recompute
+            # buffer is global, not per-layer (reference cost_model.py:130-138)
+            held_bsz = local_bsz if self.pp_size > 1 else mb_bsz
+            self.activation_size = (
+                act_per_bsz("checkpoint") / ckpt_shard + dots_extra) * held_bsz
+        else:
+            # pp=1 grad-accum frees per-microbatch activations; the scan
+            # pipeline (pp>1) holds all chunks' stage inputs: model the full
+            # local batch when pp>1, one microbatch otherwise. The per-tp
+            # activation table already reflects megatron-sp sharding; divide
+            # by the extra seq sharding (cp, and tp when ulysses).
+            held_bsz = local_bsz if self.pp_size > 1 else mb_bsz
+            self.activation_size = act_live_per_bsz() * held_bsz
+
+        # ---- other (embed/cls) memory per candidate vocab-tp ---------------
+        self.other_memory_cost: Dict[int, List[float]] = {}
+        if pa.disable_vtp:
+            cand_vtp = [1]
+        else:
+            cand_vtp, k = [], min_tp
+            world = self.pp_size * self.tp_size * self.dp_size * self.cp_size
+            while k * self.pp_size <= world and k <= max_tp:
+                cand_vtp.append(k)
+                k *= 2
+        pp_off, pp_on = pma.other_memory_pp_off, pma.other_memory_pp_on
+
+        def get(d, k):
+            return d.get(k, d.get(str(k)))
+
+        for vtp in cand_vtp:
+            ms_off = get(pp_off.get("model_states", {}), 1 if vsp else vtp)
+            act_off = get(pp_off.get("activation", {}), vtp)
+            if ms_off is None or act_off is None:
+                continue
+            other_dp = self.tp_size * self.dp_size * self.cp_size // vtp
+            if vsp:
+                ratio = (
+                    self.zero3_ratio(self.tp_size * self.dp_size * self.cp_size)
+                    if embed_sdp
+                    else (self.zero2_ratio(self.tp_size * self.dp_size * self.cp_size) if pa.use_zero2_for_dp else 1.0)
+                )
+            else:
+                ratio = (
+                    self.zero3_ratio(other_dp)
+                    if embed_sdp
+                    else (self.zero2_ratio(other_dp) if pa.use_zero2_for_dp else 1.0)
+                )
+            other_bsz = global_batch_size * vtp / (self.tp_size * self.dp_size * self.cp_size)
+            per_stage = [0.0] * self.pp_size
+            if self.pp_size == 1:
+                per_stage[0] = ms_off * ratio + act_off * other_bsz
+            else:
+                first, last = pp_on.get("first_stage", {}), pp_on.get("last_stage", {})
+                ms_f = get(first.get("model_states", {}), 1 if vsp else vtp)
+                ms_l = get(last.get("model_states", {}), 1 if vsp else vtp)
+                a_f = get(first.get("activation", {}), vtp)
+                a_l = get(last.get("activation", {}), vtp)
+                if None in (ms_f, ms_l, a_f, a_l):
+                    continue
+                if self.pipedream:
+                    # 1F1B engine (pipeline_1f1b.py): vocab STATE is sharded
+                    # over ('pp',) + vocab_tp — 1/pp of the measured per-vtp
+                    # states on EVERY stage — plus the within-stage transient:
+                    # the per-step gathered compute copy and the replicated
+                    # grad accumulator (~ param + grad = half the 4x states),
+                    # plus one microbatch of embed+head activations per tick
+                    # on every stage (head/loss run redundantly everywhere).
+                    ms_total = ms_f + ms_l
+                    states = ms_total * ratio / self.pp_size
+                    transient = 0.5 * ms_total
+                    acts = (a_f + a_l) * other_bsz / self.chunks
+                    per_stage = [states + transient + acts] * self.pp_size
+                else:
+                    # scan pipeline embeds the whole batch up-front; embed on
+                    # the first stage, head on the last
+                    per_stage[0] = ms_f * ratio + a_f * other_bsz
+                    per_stage[-1] += ms_l * ratio + a_l * other_bsz
+            self.other_memory_cost[vtp] = [x + ta.runtime_context_mem for x in per_stage]
+
+    def get_memory_cost(self) -> Dict[str, Any]:
+        return {
+            "parameter": self.parameter_size,
+            "model_states": self.model_states_size,
+            "activation": self.activation_size,
+            "enc_total": self.model_states_size + self.activation_size,
+            "other": self.other_memory_cost,
+        }
+
+
+class TimeCostModel:
+    """Per-layer iteration time (ms) under one strategy (fwd + bwd + comms)."""
+
+    def __init__(
+        self,
+        strategy,
+        global_batch_size: int = 8,
+        no_comm: bool = False,
+        model_args: ModelArgs = None,
+        train_args: TrainArgs = None,
+        parallel_args: ParallelArgs = None,
+        profile_model_args: ProfileModelArgs = None,
+        profile_hardware_args: ProfileHardwareArgs = None,
+        logger=None,
+    ):
+        ma, ta, pa, pma, pha = model_args, train_args, parallel_args, profile_model_args, profile_hardware_args
+        self.pp_size, self.tp_size, self.dp_size = strategy[0], strategy[1], strategy[2]
+        info = _info(strategy)
+        self.ulysses = bool(info.get("sp", 0))
+        self.cp_size = int(info.get("cp", 1))
+        cpt = bool(info.get("cpt", info.get("ckpt", 0)))
+        # remat axis: recompute toll per policy as a fraction of the forward
+        # replayed inside the backward — 0 for "none" (nothing recomputed),
+        # 1 for "full"/"nothing_saveable" (whole forward replays), and an
+        # analytic ~0.35 for "dots_saveable" (the dots are pinned; only the
+        # cheap elementwise/softmax/layernorm tail replays). Profiled values
+        # (profile_computation's per-policy bwd measurement) override via
+        # ProfileModelArgs.remat_recompute_frac.
+        self.remat_policy = str(info.get("rp", "full")) if cpt else "none"
+        self.checkpoint = cpt and self.remat_policy != "none"
+        _frac_default = {"none": 0.0, "dots_saveable": 0.35,
+                         "full": 1.0, "nothing_saveable": 1.0}
+        _frac_prof = getattr(pma, "remat_recompute_frac", None) or {}
+        self.remat_frac = float(_frac_prof.get(
+            self.remat_policy, _frac_default.get(self.remat_policy, 1.0)))
+        self.fsdp = bool(info.get("fsdp", 0))
+        self.consec = bool(info.get("tp", 1))
+        self.layer_num = ma.layer_num or 24
+        self.bsz = global_batch_size / self.dp_size
+
+        # ---- compute ------------------------------------------------------
+        # both megatron-tp and ulysses shard per-device compute tp-fold
+        # (ulysses shards the sequence, tp the heads/ffn); cp shards the
+        # sequence cp-fold
+        per_shard_bsz = self.bsz / self.tp_size / self.cp_size
+        self.fct = _eval_fit(pma.forward_computation_time, per_shard_bsz) * self.layer_num
+        self.bct = self.fct * pha.bct_fct_coe
+        self.bct += self.fct * self.remat_frac  # policy-scaled recompute
+
+        # ---- dp (grad reduce) comm ---------------------------------------
+        # comm-precision axis (ROADMAP item 2): the strategy's per-layer
+        # wire dtypes scale the bytes actually moved — grad sync by 'gcd',
+        # the ZeRO-3 weight gather by 'pcd' — and quantized payloads pay a
+        # quantize/dequantize toll per pass (quant_overhead_coe), so a
+        # compute-dominated profile keeps fp32 while a bandwidth-dominated
+        # one flips to int8 (the search test pins both directions).
+        self.grad_comm_dtype = str(info.get("gcd", "none"))
+        self.param_comm_dtype = str(info.get("pcd", "none"))
+        qblock = int(getattr(pa, "comm_quant_block", 64) or 64)
+        full_bytes = 2.0 if ta.mixed_precision else 4.0
+        grad_wire = _wire_bytes(self.grad_comm_dtype, qblock, full_bytes)
+        param_wire = _wire_bytes(self.param_comm_dtype, qblock, full_bytes)
+        sdp = self.tp_size * self.dp_size if self.ulysses else self.dp_size
+        param_mb = ma.parameter_size if self.ulysses else ma.parameter_size / self.tp_size
+        # fp32-parameter-MB ring volume; the wire dtype scales actual bytes
+        base_msg = 2 * (sdp - 1) / max(sdp, 1) * param_mb * self.layer_num
+        self.dp_message_size = base_msg * grad_wire / 4.0
+        self.quant_overhead_ms = 0.0
+        qcoe = getattr(pha, "quant_overhead_coe", 0.0) or 0.0
+        if self.grad_comm_dtype in ("int8", "fp8_e4m3") and sdp > 1:
+            # quantize+dequant once for the reduce-scatter wire and once for
+            # the all-gather of the reduced shard (ZeRO++ schedule)
+            self.quant_overhead_ms += qcoe * 2.0 * param_mb * self.layer_num
+        self.no_comm = no_comm
+        if no_comm:
+            self.dp_message_size = 0.0
+            self.quant_overhead_ms = 0.0
+        # dp rides the axes tp doesn't occupy: consecutive tp => dp on major
+        # axes ('_0' placement) and vice versa
+        self.dc = comm_coe(pha.comm_coe_dict, sdp,
+                           consec=(not self.consec) if (self.tp_size > 1 and self.dp_size > 1 and not self.ulysses) else True)
+        self.dc_overlap = self.dc * pha.dp_overlap_coe
+        self.fsdp_allgather_message_size = (
+            0.5 * base_msg * param_wire / 4.0 if not no_comm else 0.0)
+        if self.fsdp and self.param_comm_dtype in ("int8", "fp8_e4m3") \
+                and sdp > 1 and not no_comm:
+            self.quant_overhead_ms += qcoe * param_mb * self.layer_num
+        self.pha, self.ta, self.pa = pha, ta, pa
+
+        # ---- tp collectives ----------------------------------------------
+        # megatron-sp layer: 2x(all-gather + reduce-scatter) fwd, same bwd ->
+        # total volume equals 4 allreduces of bsz*seq*hidden per layer
+        act_mb = self.bsz / self.cp_size * ma.seq_length * ma.hidden_size * (2 if ta.mixed_precision else 4) / 1024 / 1024
+        # the recompute replays the 2 forward collectives scaled by the
+        # policy's replayed fraction (1.5x total at full remat, 1x at none)
+        ncoll = 4 * (1.0 + 0.5 * self.remat_frac)
+        if self.ulysses:
+            # ulysses: 4 all2alls on the attention boundary per layer
+            per_msg = act_mb / self.tp_size
+            t = _table_time(pha.all2all_dict, self.tp_size, per_msg) if self.tp_size > 1 else 0.0
+            self.tp_communication_time = ncoll * t * self.layer_num
+        elif self.tp_size > 1:
+            if pha.allreduce_dict:
+                t = _table_time(pha.allreduce_dict, self.tp_size, act_mb)
+                self.tp_communication_time = ncoll * t * self.layer_num
+            else:
+                tc = comm_coe(pha.comm_coe_dict, self.tp_size, consec=self.consec)
+                vol = 2 * (self.tp_size - 1) / self.tp_size * act_mb * ncoll * self.layer_num
+                self.tp_communication_time = vol * tc
+        else:
+            self.tp_communication_time = 0.0
+
+        # ---- cp (ring attention) comm -------------------------------------
+        if self.cp_size > 1:
+            # K/V blocks rotate cp-1 times: 2 tensors, overlapped with block
+            # compute; charge the non-overlapped fraction via dp_overlap_coe
+            kv_mb = 2 * act_mb / self.cp_size
+            ccoe = comm_coe(pha.comm_coe_dict, self.cp_size)
+            ring_vol = (self.cp_size - 1) * kv_mb * self.layer_num
+            self.cp_communication_time = ring_vol * ccoe * max(pha.dp_overlap_coe - 1.0, 0.1)
+        else:
+            self.cp_communication_time = 0.0
+
+        # ---- pp p2p --------------------------------------------------------
+        self.p2p_message_size = 0.0
+        self.p2p_comm_coe = 0.0
+        if self.pp_size > 1 and pha.p2p_comm_coe_dict:
+            self.p2p_comm_coe = pha.p2p_comm_coe_dict.get(
+                self.pp_size, pha.p2p_comm_coe_dict.get(str(self.pp_size), 0.0)
+            )
+            self.p2p_message_size = (
+                self.pp_size * 2 * self.bsz * ma.seq_length * ma.hidden_size * (2 if ta.mixed_precision else 4) / 1024 / 1024
+            )
+
+    def bct_dp_overlap(self, dp_message_size, bct):
+        """Overlap model (reference cost_model.py:414-431): grad-reduce
+        collectives overlap backward compute; both slow down by their
+        overlap coefficients; the longer leg's remainder runs alone."""
+        pha = self.pha
+        dp_time = dp_message_size * self.dc_overlap
+        bct_time = bct * pha.bct_overlap_coe
+        if dp_time > bct_time:
+            overlap, rest = bct_time, (dp_message_size - bct_time / self.dc_overlap) * self.dc
+        else:
+            overlap, rest = dp_time, bct - dp_time / pha.bct_overlap_coe
+        return overlap, max(rest, 0.0)
+
+    def _gen_result_parts(self):
+        """(fwd, bwd) per layer with comm priced into the slot where it
+        actually occurs (VERDICT r4 item 8; replaces the compute-ratio
+        apportionment): DP grad allreduce and its overlap machinery ride the
+        BACKWARD; TP activation collectives are symmetric (2 fwd + 2 bwd per
+        layer, the ncoll=4 construction above) so they split 1:1 — except
+        under activation checkpointing, where the replayed forward
+        collectives land in the backward slot (ncoll x1.5 -> fwd share 1/3);
+        ZeRO-3 param gathers split 1:1 (fwd gather + bwd re-gather); ring-CP
+        comm splits 1:2 (the backward ring also rotates dk/dv); p2p splits
+        1:1 (activations fwd, grads bwd). Sums EXACTLY to the old gen_result
+        total — only the split sharpened."""
+        pha = self.pha
+        if self.no_comm:
+            # compute-only estimate (pipeline stage balancing)
+            fwd, bwd = self.fct, self.bct
+        else:
+            # replayed forward collectives land in the backward slot: fwd
+            # share 1/2 at remat_frac=0, 1/3 at remat_frac=1
+            tp_fwd_frac = 1.0 / (2.0 + self.remat_frac)
+            tp_f = self.tp_communication_time * tp_fwd_frac
+            tp_b = self.tp_communication_time * (1.0 - tp_fwd_frac)
+            if self.tp_size == 1 and self.dp_size > 1:
+                overlap, rest = self.bct_dp_overlap(self.dp_message_size, self.bct)
+                fwd = self.fct
+                bwd = overlap + rest + pha.extra_overhead
+            elif self.dp_size == 1 and self.tp_size > 1:
+                fwd = self.fct + tp_f
+                bwd = self.bct + tp_b
+            elif self.dp_size == 1 and self.tp_size == 1:
+                fwd, bwd = self.fct, self.bct
+            else:
+                # tp+dp: roughly half the backward overlaps with grad reduce
+                overlap, rest = self.bct_dp_overlap(self.dp_message_size, self.bct / 2)
+                fwd = self.fct + tp_f
+                bwd = self.bct / 2 + overlap + rest + tp_b + pha.extra_overhead
+            if self.fsdp:
+                half = self.fsdp_allgather_message_size * self.dc / 2.0
+                fwd += half
+                bwd += half
+            # quantize/dequantize toll of the comm-precision axis rides the
+            # backward beside the grad sync it belongs to
+            bwd += self.quant_overhead_ms
+            fwd += self.cp_communication_time / 3.0
+            bwd += self.cp_communication_time * 2.0 / 3.0
+            if self.pp_size > 1 and self.p2p_comm_coe:
+                half = self.p2p_message_size * self.p2p_comm_coe / 2.0
+                fwd += half
+                bwd += half
+        # normalise to per-layer cost (the DP sums per-layer values)
+        scale = pha.costmodel_coe / self.layer_num
+        return fwd * scale, bwd * scale
+
+    def gen_result_split(self):
+        """(fwd_ms, bwd_ms) per layer, summing to gen_result(): the tick-level
+        pipeline model prices forward and backward slots separately
+        (pipeline_1f1b.build_schedule — a tick may host one fwd AND one bwd)."""
+        return self._gen_result_parts()
+
+    def gen_result(self) -> float:
+        fwd, bwd = self._gen_result_parts()
+        return fwd + bwd
+
+
+class ServeTimeCostModel:
+    """Prefill/decode latency (ms) for one uniform serving strategy
+    (``--objective serve``, ROADMAP item 4).
+
+    Serving has no backward pass, so the train-time model does not apply;
+    the two phases sit on opposite ends of the roofline:
+
+    - Prefill (compute-bound): one request's full-prompt forward — the
+      profiled per-layer forward fit at one sequence, compute sharded
+      tp-fold exactly like TimeCostModel, plus the forward half of the
+      megatron-sp activation collectives (2 of the 4 per layer).
+    - Decode (bandwidth-bound): one step of a ``concurrency``-slot batch
+      emits one token per slot. Arithmetic intensity is ~1, so the step
+      floor is HBM reads: every device streams its weight shard plus its
+      slots' KV pages once per step (MB / (GB/s) ~= ms), plus one small
+      activation allreduce per layer under tp (priced from the profiled
+      table at the batch x one-token message, where the fit's latency
+      intercept dominates).
+
+    KV bytes approximate num_kv_heads*head_dim == hidden_size; pass
+    ``kv_frac = num_kv_heads / num_heads`` to shrink for GQA. The serve
+    engine rejects cp/ulysses/pp layouts (GLS014), so this model only
+    prices pp=1 tp x dp strategies; ZeRO-3 (fsdp) layouts additionally pay
+    a per-step weight all-gather that buries decode — priced, not banned,
+    so the search itself demonstrates why they lose.
+    """
+
+    def __init__(
+        self,
+        strategy,
+        *,
+        concurrency: int,
+        max_ctx: int,
+        hbm_gbps: float = 100.0,
+        kv_frac: float = 1.0,
+        model_args: ModelArgs = None,
+        train_args: TrainArgs = None,
+        profile_model_args: ProfileModelArgs = None,
+        profile_hardware_args: ProfileHardwareArgs = None,
+    ):
+        ma, ta, pma, pha = model_args, train_args, profile_model_args, profile_hardware_args
+        self.tp_size, self.dp_size = strategy[1], strategy[2]
+        info = _info(strategy)
+        self.fsdp = bool(info.get("fsdp", 0))
+        self.consec = bool(info.get("tp", 1))
+        self.layer_num = ma.layer_num or 24
+        bytes_per = 2.0 if ta.mixed_precision else 4.0
+
+        def tp_allreduce_ms(message_mb: float) -> float:
+            if self.tp_size <= 1:
+                return 0.0
+            if pha.allreduce_dict:
+                return _table_time(pha.allreduce_dict, self.tp_size, message_mb)
+            vol = 2 * (self.tp_size - 1) / self.tp_size * message_mb
+            return vol * comm_coe(pha.comm_coe_dict, self.tp_size, consec=self.consec)
+
+        # ---- prefill: one sequence, compute tp-sharded ---------------------
+        self.prefill_compute = (
+            _eval_fit(pma.forward_computation_time, 1.0 / self.tp_size) * self.layer_num
+        )
+        act_mb = ma.seq_length * ma.hidden_size * bytes_per / 1024 / 1024
+        self.prefill_comm = 2.0 * tp_allreduce_ms(act_mb) * self.layer_num
+
+        # ---- decode: HBM-read roofline -------------------------------------
+        param_mb_dev = ma.parameter_size * (bytes_per / 4.0) / self.tp_size * self.layer_num
+        slots_dev = concurrency / max(self.dp_size, 1)
+        kv_mb_dev = (
+            2.0 * slots_dev * max_ctx * ma.hidden_size * kv_frac * bytes_per
+            / self.tp_size / 1024 / 1024 * self.layer_num
+        )
+        self.decode_read_ms = (param_mb_dev + kv_mb_dev) / max(hbm_gbps, 1e-9)
+        tok_mb = slots_dev * ma.hidden_size * bytes_per / 1024 / 1024
+        self.decode_comm = 2.0 * tp_allreduce_ms(tok_mb) * self.layer_num
+        if self.fsdp and self.dp_size > 1:
+            # ZeRO-3: the full weight shard crosses the wire every step
+            gather_mb = (self.dp_size - 1) / self.dp_size * param_mb_dev
+            self.decode_comm += gather_mb * comm_coe(pha.comm_coe_dict, self.dp_size)
+
+    def gen_result(self) -> Dict[str, float]:
+        prefill_ms = self.prefill_compute + self.prefill_comm
+        decode_ms = self.decode_read_ms + self.decode_comm
+        return {
+            "prefill_ms": prefill_ms,
+            "decode_ms": decode_ms,
+            # first token = prompt forward + the sampling step's decode tick
+            "ttft_ms": prefill_ms + decode_ms,
+            "tpot_ms": decode_ms,
+        }
+
+
+def serve_memory_mb(
+    strategy,
+    *,
+    concurrency: int,
+    max_ctx: int,
+    kv_frac: float = 1.0,
+    model_args: ModelArgs = None,
+    train_args: TrainArgs = None,
+) -> float:
+    """Per-device resident MB for serving one layer type: the compute-dtype
+    weight shard plus the KV cache for this device's slots. No grads, no
+    optimizer states, and decode activations are one token — KV is the only
+    batch-scaling term (the runtime twin is
+    analysis/strategy_lint.serve_kv_mb_per_device, which sees real head
+    counts; here GQA enters through ``kv_frac``)."""
+    ma, ta = model_args, train_args
+    tp, dp = strategy[1], strategy[2]
+    info = _info(strategy)
+    bytes_per = 2.0 if ta.mixed_precision else 4.0
+    layer_param_mb = ma.parameter_size * (bytes_per / 4.0) / tp
+    param_mb = layer_param_mb * ma.layer_num
+    if info.get("fsdp", 0):
+        # ZeRO-3 shards the resident copy dp-fold but gathers one layer's
+        # full shard transiently every decode tick
+        param_mb = param_mb / max(dp, 1) + layer_param_mb
+    slots_dev = concurrency / max(dp, 1)
+    kv_mb = (
+        2.0 * slots_dev * max_ctx * ma.hidden_size * kv_frac * bytes_per
+        / tp / 1024 / 1024 * ma.layer_num
+    )
+    return param_mb + kv_mb
+
+
+class OtherTimeCostModel:
+    """Embedding/cls stage time per candidate vocab-tp (reference
+    OtherTimeCostModel, cost_model.py:468-658, re-derived): per affected
+    stage, compute time overlapped with the vocab-state gradient sync plus
+    the vocab-parallel collective —
+
+        stage_time = overlap(dp_fwd_comm, fct) + overlap(dp_bwd_comm, bct)
+                     + tp_message_time
+
+    - fct/bct: the PROFILED embed+head forward fit (other_time_profiled)
+      and its backward ratio; at pp>1 split evenly between the first stage
+      (embedding) and last stage (head), each with its own sequence length
+      (ref estimate_fct_time :572-590);
+    - tp message: one activation allreduce per direction over vocab-tp,
+      first stage priced at the first sequence length, last at the last
+      (ref estimate_tp_time :532-570); vsp shards instead of replicating,
+      so its collective rides the loss reduction (no extra term);
+    - dp sync: the embed/head parameter states (measured model-states MB /
+      4 = param MB) allreduced over the vocab dp group; under embed_sdp
+      (ZeRO-3) the forward re-gather adds a 0.5 factor and the backward
+      reduce-scatter+gather a 1.0 factor vs plain dp's (0, 0.5) (ref
+      estimate_dp_time :592-625);
+    - overlap: compute is slowed by dp_overlap_coe while the sync is in
+      flight; whichever finishes later bounds the stage (ref
+      get_overlap_time :634-645)."""
+
+    def __init__(
+        self,
+        mbsz: int = 1,
+        pp_deg: int = 2,
+        world_size: int = 8,
+        vsp: int = 0,
+        embed_sdp: bool = False,
+        min_tp: int = 1,
+        max_tp: int = 8,
+        sequence_length_list: List[int] = (512,),
+        model_args: ModelArgs = None,
+        train_args: TrainArgs = None,
+        parallel_args: ParallelArgs = None,
+        profile_model_args: ProfileModelArgs = None,
+        profile_hardware_args: ProfileHardwareArgs = None,
+        logger=None,
+    ):
+        ma, ta, pma, pha = model_args, train_args, profile_model_args, profile_hardware_args
+        seqs = list(sequence_length_list)
+        pp_off, pp_on = pma.other_memory_pp_off, pma.other_memory_pp_on
+
+        def get(d, key):
+            return d.get(key, d.get(str(key), 0.0)) or 0.0
+
+        coe_overlap = max(pha.dp_overlap_coe, 1.0)
+
+        def overlap(comm_t: float, comp_t: float) -> float:
+            comp_slow = comp_t * coe_overlap
+            if comp_slow > comm_t:
+                return comm_t + (comp_slow - comm_t) / coe_overlap
+            return comm_t
+
+        fwd_factor, bwd_factor = (0.5, 1.0) if embed_sdp else (0.0, 0.5)
+
+        self.cost: Dict[int, List[float]] = {}
+        k = min_tp
+        while k <= max_tp and (world_size // pp_deg) >= k:
+            fct = _eval_fit(pma.other_time_profiled, mbsz / k)
+            bct = fct * pha.bct_fct_coe
+
+            def tp_msg(seq_len: float) -> float:
+                """ONE one-way vocab-tp activation message (embed fwd allreduce
+                OR head bwd allreduce; reference per_tp_message_time,
+                cost_model.py:533-563 — no fwd+bwd doubling)."""
+                if k <= 1 or vsp:
+                    return 0.0
+                msg_mb = mbsz * seq_len * ma.hidden_size * (
+                    2 if ta.mixed_precision else 4
+                ) / 1024 / 1024
+                if pha.allreduce_dict:
+                    return _table_time(pha.allreduce_dict, k, msg_mb)
+                return (k - 1) / k * msg_mb * comm_coe(pha.comm_coe_dict, k)
+
+            # vocab dp group + ms/MB coefficient for the grad sync
+            dp_deg = max(world_size // pp_deg // (1 if vsp else k), 1)
+            dcoe = comm_coe(pha.comm_coe_dict, dp_deg) * (
+                (dp_deg - 1) / dp_deg if dp_deg > 1 else 0.0
+            )
+
+            def dp_sync(states_mb: float) -> Tuple[float, float]:
+                param_mb = states_mb / 4.0  # measured 4x states -> param grads
+                return param_mb * dcoe * fwd_factor, param_mb * dcoe * bwd_factor
+
+            if pp_deg == 1:
+                states = get(pp_off.get("model_states", {}), 1 if vsp else k)
+                cf, cb = dp_sync(states)
+                # reference tp_time at pp=1: sum over seqs + last again
+                # (cost_model.py:566-567 "For T5 model") — for a single-seq
+                # model this is 2 messages: embed fwd + head bwd allreduce
+                tp_t = sum(tp_msg(s) for s in seqs) + tp_msg(seqs[-1])
+                self.cost[k] = [overlap(cf, fct) + overlap(cb, bct) + tp_t]
+            else:
+                first = pp_on.get("first_stage", {})
+                last = pp_on.get("last_stage", {})
+                ms_f = get(first.get("model_states", {}), 1 if vsp else k)
+                ms_l = get(last.get("model_states", {}), 1 if vsp else k)
+                cf_f, cb_f = dp_sync(ms_f)
+                cf_l, cb_l = dp_sync(ms_l)
+                stage_f = (
+                    overlap(cf_f, fct / 2) + overlap(cb_f, bct / 2) + tp_msg(seqs[0])
+                )
+                stage_l = (
+                    overlap(cf_l, fct / 2) + overlap(cb_l, bct / 2) + tp_msg(seqs[-1])
+                )
+                self.cost[k] = [stage_f] + [0.0] * (pp_deg - 2) + [stage_l]
+            k *= 2
+
+    def gen_result(self) -> Dict[int, List[float]]:
+        return self.cost
+
+
+def get_time_cost_all_stages(layer_timecosts, pp_stage_division):
+    assert int(np.sum(pp_stage_division)) == len(layer_timecosts)
+    out, start = [], 0
+    for n in pp_stage_division:
+        out.append(float(np.sum(layer_timecosts[start : start + n])))
+        start += n
+    return out
+
+
+def schedule_total_time(stage_fwd, stage_bwd, pp: int, chunks: int) -> float:
+    """Total iteration time of the 1F1B engine's lockstep schedule.
+
+    Mirrors pipeline_1f1b.build_schedule's slot equations exactly (kept
+    dependency-free so the search engine stays jax-free; the mirror is pinned
+    by tests/search_engine/test_cost_model.py::test_schedule_mirror):
+
+      fwd(i, s) = s + i        for i < pp - s      (warmup)
+                  2 i + s      otherwise           (steady/cooldown)
+      bwd(j, s) = 2 j + 2 pp - s
+      T         = 2 chunks + 2 pp
+
+    Every stage executes every tick in lockstep (ONE cross-stage collective
+    per tick), so a tick costs the slowest stage's work that tick — a fwd
+    microbatch, a bwd microbatch, or both (the slot parities coincide in the
+    steady state). This prices warmup/steady/cooldown per stage instead of
+    the old max(stage) x ticks upper bound."""
+    total = 0.0
+    for t in range(2 * chunks + 2 * pp):
+        tick = 0.0
+        for s in range(pp):
+            c = 0.0
+            i = t - s
+            fw = 0 <= i < min(chunks, pp - s)
+            if not fw and i >= 0 and i % 2 == 0 and pp - s <= i // 2 < chunks:
+                fw = True
+            if fw:
+                c += stage_fwd[s]
+            j2 = t - 2 * pp + s
+            if j2 >= 0 and j2 % 2 == 0 and j2 // 2 < chunks:
+                c += stage_bwd[s]
+            tick = max(tick, c)
+        total += tick
+    return total
+
+
+def pipeline_costmodel(
+    timecostmodel,
+    layer_num_list,
+    model_args_list,
+    train_args_list,
+    parallel_args_list,
+    profile_model_args_list,
+    profile_hardware_args_list,
+    strategies,
+    partition,
+    chunks,
+    bsz,
+    min_tp,
+    other_time_cost,
+    logger=None,
+    return_stage_cost=False,
+):
+    """Whole-pipeline time estimate from per-layer costs (reference
+    cost_model.py:695-768): per-microbatch stage costs, scan-pipeline bubble
+    (chunks + pp - 1 ticks), grad-reduce tail."""
+    if strategies is None:
+        return ([np.inf] * len(partition), np.inf) if return_stage_cost else np.inf
+    layer_type_ids = []
+    for t, n in enumerate(layer_num_list):
+        layer_type_ids += [t] * n
+    chunks = int(max(1, chunks if not isinstance(chunks, list) else max(chunks)))
+    mb_bsz = bsz / chunks
+
+    cache: Dict[int, Dict[str, float]] = {t: {} for t in range(len(layer_num_list))}
+    from galvatron_tpu_torch.utils.strategy_utils import form_strategy
+
+    per_layer = []
+    for i, s in enumerate(strategies):
+        t = layer_type_ids[i]
+        key = form_strategy(s)
+        if key not in cache[t]:
+            cache[t][key] = timecostmodel(
+                s,
+                mb_bsz,
+                model_args=model_args_list[t],
+                train_args=train_args_list[t],
+                parallel_args=parallel_args_list[t],
+                profile_model_args=profile_model_args_list[t],
+                profile_hardware_args=profile_hardware_args_list[t],
+                logger=logger,
+            ).gen_result()
+        per_layer.append(cache[t][key])
+    stage_costs = get_time_cost_all_stages(per_layer, partition)
+    if other_time_cost is not None:
+        assert len(other_time_cost) == len(stage_costs)
+        stage_costs = [a + b / chunks for a, b in zip(stage_costs, other_time_cost)]
+    pipedream = bool(
+        parallel_args_list
+        and getattr(parallel_args_list[0], "pipeline_type", "gpipe") == "pipedream_flush"
+        and len(partition) > 1
+    )
+    if pipedream:
+        # exact tick pricing of the 1F1B engine's lockstep schedule: split
+        # each stage's per-microbatch cost into fwd/bwd slots and walk the
+        # slot equations (VERDICT r3 item 9; replaces max(stage)*ticks)
+        fwd_layer, bwd_layer = [], []
+        for i, s in enumerate(strategies):
+            t = layer_type_ids[i]
+            key = form_strategy(s)
+            f, b = cache[t][key + "#split"] if key + "#split" in cache[t] else cache[t].setdefault(
+                key + "#split",
+                timecostmodel(
+                    s, mb_bsz,
+                    model_args=model_args_list[t],
+                    train_args=train_args_list[t],
+                    parallel_args=parallel_args_list[t],
+                    profile_model_args=profile_model_args_list[t],
+                    profile_hardware_args=profile_hardware_args_list[t],
+                    logger=logger,
+                ).gen_result_split(),
+            )
+            fwd_layer.append(f)
+            bwd_layer.append(b)
+        stage_fwd = get_time_cost_all_stages(fwd_layer, partition)
+        stage_bwd = get_time_cost_all_stages(bwd_layer, partition)
+        if other_time_cost is not None:
+            # embed (first stage) / head (last stage) work runs on that
+            # stage's fwd slots: charged once per microbatch
+            stage_fwd = [a + b / chunks for a, b in zip(stage_fwd, other_time_cost)]
+        result = schedule_total_time(stage_fwd, stage_bwd, len(partition), chunks)
+    else:
+        # scan (GPipe) pipeline fill+drain: (chunks + pp - 1) ticks, each
+        # costing the slowest stage's fwd+bwd
+        ticks = chunks + len(partition) - 1
+        result = max(stage_costs) * ticks
+    if return_stage_cost:
+        return stage_costs, result
+    return result

@@ -9,6 +9,9 @@ Sequence 2048, global batch 8 in 2 micro-batches, bf16 compute, and a
 strategy JSON that mixes per-layer remat: layers 0-3 ``full``, 4-5
 ``dots_saveable``, 6-7 none. lr 1e-4 with 2 warmup steps over ``STEPS``.
 
+`model_argv` gives the LLaMA model's flags alone, for ``cli profile`` and
+``cli search`` (``chip_smoke.py`` phase 12, ``tools/loop_cell.py``).
+
 GPT-6.7B width (h 4096, 32 heads, head_dim 128, ffn 16384, vocab 50257,
 sequence 2048, the tied head) at depth 8, cut from 32 for the same reason
 (6.7 B parameters are ~107 GB of state; depth 8 is ~1.83 B, ~29 GB), with
@@ -116,12 +119,17 @@ def gpt_argv(strategy_path: str) -> List[str]:
     ]
 
 
+def model_argv() -> List[str]:
+    """The model flags of the LLaMA configuration (alone, as ``cli profile``
+    and ``cli search`` take them)."""
+    return ["--model_type", "llama", "--model_size", "llama-7b", "--set_layernum_manually", "1",
+            "--num_layers", str(LAYERS), "--mixed_precision", "bf16"]
+
+
 def argv(strategy_path: str) -> List[str]:
     """The ``cli train`` arguments of the configuration."""
-    return [
-        "--model_type", "llama", "--model_size", "llama-7b", "--set_layernum_manually", "1",
-        "--num_layers", str(LAYERS), "--mixed_precision", "bf16", "--device", "cuda",
-        "--global_train_batch_size", str(GLOBAL_BSZ), "--chunks", str(CHUNKS),
+    return model_argv() + [
+        "--device", "cuda", "--global_train_batch_size", str(GLOBAL_BSZ), "--chunks", str(CHUNKS),
         "--galvatron_config_path", strategy_path, "--train_iters", str(STEPS),
         "--lr", "1e-4", "--lr_warmup_iters", "2", "--seed", str(SEED),
     ]

@@ -32,7 +32,13 @@ reference, not the reference's manual TP paths):
   equal; and at world 2 a 1F1B pp 2 run saves through the train CLI
   (the tied table once), resumes bit for bit, reassembles with
   ``load_full_params`` into exactly the trained parameters, and refuses a
-  resume under pp 1 with GLS206.
+  resume under pp 1 with GLS206;
+- the hardware profiler (``profiler/hardware.py``) on the same world:
+  ``profile_all`` writes the JAX package's file names and keys (its
+  HardwareProfiler on a 2- and 4-device CPU mesh; the quantization toll
+  left out of the overlap file), and every collective it times (all-reduce,
+  all-gather, reduce-scatter, all-to-all, the p2p ring) computes the right
+  result on every group size and placement.
 
 ``python tests/test_torch_parallel.py --report DIR`` prints the tolerances
 the parity reached; the same workers run on GPUs (NCCL) with ``--device
@@ -273,10 +279,71 @@ def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "
         results.update(_pipeline_checkpoint_cases(
             os.path.join(os.path.dirname(out), "ckpt_pp_w2"), device_name))
 
+    results.update(_hardware_cases(os.path.join(os.path.dirname(out), "hw_w%d" % world), dev))
+
     if rank == 0:
         np.savez(out, **results)
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
+
+
+HW_ARGS = dict(start_mb=0.25, end_mb=0.5, warmup=1, iters=2, overlap_time_multiply=1)
+HW_KINDS = ("allreduce", "allgather", "reducescatter", "all2all", "sendrecv")
+
+
+def _json_keys(tree):
+    """A JSON table's key structure (nested dict keys; leaves dropped)."""
+    if isinstance(tree, dict):
+        return {str(k): _json_keys(v) for k, v in tree.items()}
+    return None
+
+
+def _hardware_cases(config_dir: str, dev) -> dict:
+    """`profile_all` into `config_dir` (its files' key structure), then one
+    call of every collective on every group size and placement held
+    against the values its ranks' messages give (max error over ranks)."""
+    import json
+
+    import torch
+
+    from galvatron_tpu_torch.profiler.hardware import HardwareProfileArgs, HardwareProfiler
+
+    prof = HardwareProfiler(HardwareProfileArgs(config_dir=config_dir, **HW_ARGS), dev)
+    prof.profile_all(write=True)
+    out = {}
+    if prof.rank == 0:
+        tables = {}
+        for name in sorted(os.listdir(config_dir)):
+            with open(os.path.join(config_dir, name)) as f:
+                tables[name] = _json_keys(json.load(f))
+        out["hw/tables"] = np.array(json.dumps(tables, sort_keys=True))
+    mb, errs = 0.25, {}
+    g = 2
+    while g <= prof.ndev:
+        for consec in (True, False):
+            groups = prof.group_ranks(g, consec)
+            ranks = next(r for r in groups if prof.rank in r)
+            me = ranks.index(prof.rank)
+            n = prof.message(mb).numel()
+            # each group rank's message, as `message` makes it on that rank
+            msgs = [torch.arange(n, dtype=torch.float32, device=dev) * 1e-9 + float(r)
+                    for r in ranks]
+            total = sum(msgs)
+            want = {
+                "allreduce": total,
+                "allgather": torch.cat(msgs),
+                "reducescatter": total[me * (n // g):(me + 1) * (n // g)],
+                "all2all": torch.cat([m[me * (n // g):(me + 1) * (n // g)] for m in msgs]),
+                "sendrecv": msgs[(me - 1) % g],
+            }
+            for kind in HW_KINDS:
+                got = prof.collective(kind, g, consec, prof.message(mb))()
+                err = torch.tensor([float((got - want[kind]).abs().max())], device=dev)
+                torch.distributed.all_reduce(err, op=torch.distributed.ReduceOp.MAX)
+                errs["%s/%d/%d" % (kind, g, int(consec))] = float(err.item())
+        g *= 2
+    out["hw/errors"] = np.array(json.dumps(errs, sort_keys=True))
+    return out
 
 
 # the layout of the world-2 save/resume cases: tp 2, ZeRO-3, ZeRO-2, tp 2
@@ -728,6 +795,40 @@ def test_world2_pipeline_checkpoint_reassembles_and_holds_the_tied_table_once(wo
     res = world_results(2)
     assert bool(res["ckpt_pp/full_params_equal"])
     assert res["ckpt_pp/wte_files"].tolist() == [True, False]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_hardware_profile_writes_the_jax_packages_files_and_keys(world, world_results, tmp_path):
+    """The port's `profile_all` at world N writes the files and keys the
+    JAX package's HardwareProfiler writes on an N-device CPU mesh, less the
+    quantization toll (the port leaves ``quant_overhead_coe`` to the
+    parser's default until the quantized collectives are ported)."""
+    import json
+
+    import jax
+
+    from galvatron_tpu.profiler.hardware import HardwareProfileArgs, HardwareProfiler
+
+    got = json.loads(str(world_results(world)["hw/tables"]))
+    HardwareProfiler(HardwareProfileArgs(config_dir=str(tmp_path), **HW_ARGS),
+                     devices=jax.devices()[:world]).profile_all(write=True)
+    want = {}
+    for name in sorted(os.listdir(tmp_path)):
+        with open(tmp_path / name) as f:
+            want[name] = _json_keys(json.load(f))
+    assert want["overlap_coefficient.json"].pop("quant_overhead_coe", "absent") is None
+    assert got == want
+    assert "allreduce_size_%d_consec_1" % world in got["allreduce_bandwidth_%dchips.json" % world]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_hardware_profile_collectives_compute_the_right_result(world, world_results):
+    import json
+
+    errs = json.loads(str(world_results(world)["hw/errors"]))
+    n_groups = {2: 2, 4: 4}[world]  # group sizes x placements
+    assert len(errs) == len(HW_KINDS) * n_groups
+    assert max(errs.values()) <= 1e-5, errs  # fp32 sums of values up to 6
 
 
 def test_world2_pipeline_resume_under_pp1_is_refused(world_results):
