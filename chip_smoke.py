@@ -25,7 +25,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    host's launch overhead runs ahead; ``ms_single``: the median of 25 single
    calls, each between its own events, as earlier versions of this script
    timed, host overhead included), the plain version and, as a yardstick the
-   port never calls, torch's scaled_dot_product_attention, both ways.
+   port never calls, torch's scaled_dot_product_attention, both ways (on a
+   padded case with the boolean attn_mask of the segment ids and the
+   causal mask, `sdpa_mask`).
 4. The same for the backward kernel: bf16, B=1, nh=32, hd=128, S in
    {512, 576, 2048}, causal, with and without a key-padding tail, and B=4,
    B=2 and B=8 at S=2048, every row and key of dq, dk and dv (plus one fp32
@@ -117,10 +119,37 @@ Phases, in order; any failure exits non-zero and prints no result line:
    peak must stay under the budget), then ``profiler.validate``'s
    predicted against measured step ms and peak GB, with their ratios.
 
+13. Long context on the card: ``ops/ring_attention.py`` through
+   ``LocalRing`` (the one card hosts every cp rank's shards; a hop is a
+   copy on the card), LLaMA-7B's 32 heads of 128, bf16, B=1, causal, cp 2
+   and 4, zigzag and ring, with and without a key-padding tail (the
+   cotangent zero on padded queries: the model uses no padded output),
+   one ring forward and one ring backward per case. At S=32768 (LC_SEQ)
+   the output, the merged logsumexp and dq/dk/dv are held against the
+   unsharded flash kernels on the same sequence (the backward kernel fed
+   the unsharded forward's own output and logsumexp); at S=8192
+   (LC_PLAIN_SEQ) against the plain ring version (its forward, and its
+   hand-written backward with the backward kernel's roundings, fed the
+   ring's merged output and logsumexp as phase 4 feeds the kernel's to
+   both backwards; those are held against the plain forward's); the
+   output on every row,
+   the logsumexp and gradients on the valid rows, with the row-scaled
+   limits, TOL_LSE and planted faults of phases 3-4. Each ring pass
+   launches each kernel exactly once per step and rank under zigzag (16
+   at cp 4) and
+   r + 1 times on rank r under ring, all on the ``wgmma`` route; those
+   launches form the ``long_context`` path. At S=32768 the ring's forward
+   and backward (every rank's blocks, the merges and the hops, summed) are
+   timed beside the unsharded kernels': the zigzag blocks cover the same
+   causal work, so the ratio is the decomposition's overhead. Phases 3-4
+   also check and time the blocks a cp 4 zigzag step gives the kernels
+   (RING_BLOCK_ROWS): causal 8192 and 4096, non-causal 8192x4096 and
+   4096x8192, and key segment ids that differ from the query ones.
+
 Each main path (serve, train, the GPT layout runs, phase 10's train,
-resumed, guarded and serve-from-checkpoint runs, phase 11's runs, and
-phase 12's profile and train) runs with the kernels' launch counts set to
-0 just before it and read just after. The last lines
+resumed, guarded and serve-from-checkpoint runs, phase 11's runs,
+phase 12's profile and train, and phase 13's ring runs) runs with the
+kernels' launch counts set to 0 just before it and read just after. The last lines
 of standard output are the serve and train summaries, the ``kernels`` JSON
 line, the card line, and ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json.
@@ -351,35 +380,90 @@ def check_route(torch, got, dtype, hd, case):
         check(got == "wgmma", "route %r, not wgmma, at %s" % (got, case))
 
 
-def admitted_pairs(torch, s, valid, causal):
-    """(query, key) pairs the masks admit, per (batch, head): the work a
-    flash kernel must do on these inputs."""
-    rows = torch.arange(s)
+def segment_ids(torch, b, s, valid, dev):
+    """(B, S) int32 ids: 1 on the first `valid` tokens, 0 on the tail."""
+    return (torch.arange(s, device=dev) < valid).to(torch.int32)[None].repeat(b, 1).contiguous()
+
+
+def sdpa_mask(torch, seg, causal):
+    """SDPA's boolean attn_mask (B, 1, Sq, Sk) for the kernels' segment ids
+    and causal mask (None without segment ids: SDPA takes is_causal)."""
+    if seg is None:
+        return None
+    mask = seg.q[:, None, :, None] == seg.kv[:, None, None, :]
     if causal:
-        per_row = rows + 1
-        if valid < s:
-            # valid rows see valid keys <= row; pad rows see pad keys <= row
-            per_row = torch.where(rows < valid, rows + 1, rows - valid + 1)
-    else:
-        per_row = torch.full((s,), s) if valid == s else torch.where(
-            rows < valid, torch.full((s,), valid), torch.full((s,), s - valid))
-    return int(per_row.sum().item())
+        sq, sk = mask.shape[-2:]
+        mask &= torch.ones((sq, sk), dtype=torch.bool, device=mask.device).tril()
+    return mask
 
 
-def bound_ms(torch, b, s, nh, hd, valid, causal, dtype, flops_per_dim=4.0, n_tensors=4):
+def admitted_pairs(torch, sq, sk, q_valid, kv_valid, causal):
+    """(query, key) pairs the masks admit, per (batch, head): the work a
+    flash kernel must do on these inputs (segment ids 1 on the valid
+    prefix of each side, 0 on its tail; causal by index)."""
+    qi, ki = torch.arange(sq)[:, None], torch.arange(sk)[None, :]
+    ok = (qi < q_valid) == (ki < kv_valid)
+    if causal:
+        ok &= ki <= qi
+    return int(ok.sum().item())
+
+
+def bound_ms(torch, b, sq, sk, nh, hd, q_valid, kv_valid, causal, dtype, flops_per_dim=4.0,
+             per_side=2):
     """Least time on the card: the larger of the operations (flops_per_dim
     * hd per admitted pair and head: 4 for the forward's two products, 10
     for the backward's five) at the dtype's peak, and the bytes of
-    n_tensors BSNH tensors (each read or written once) + lse at the memory
+    per_side BSNH tensors of the query length and as many of the key
+    length (each read or written once: q, out / k, v for the forward; q,
+    out, dout, dq / k, v, dk, dv for the backward) + lse at the memory
     rate."""
     elem = 2 if dtype == torch.bfloat16 else 4
-    flops = flops_per_dim * hd * admitted_pairs(torch, s, valid, causal) * nh * b
-    nbytes = n_tensors * b * s * nh * hd * elem + 4.0 * b * nh * s
-    if valid < s:
-        nbytes += 2 * 4.0 * b * s  # q and kv segment ids
+    flops = (flops_per_dim * hd * admitted_pairs(torch, sq, sk, q_valid, kv_valid, causal)
+             * nh * b)
+    nbytes = per_side * b * (sq + sk) * nh * hd * elem + 4.0 * b * nh * sq
+    if q_valid < sq or kv_valid < sk:
+        nbytes += 4.0 * b * (sq + sk)  # q and kv segment ids
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / H100_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops
+
+
+def ring_block_cases(torch):
+    """The blocks one ring step hands the kernels at phase 13's sizes
+    (RING_BLOCK_ROWS): causal diagonals, non-causal 2c x c and c x 2c
+    blocks, and blocks whose key segment ids differ from the query ones
+    (the visiting keys of another rank's padded shard)."""
+    two, one = RING_BLOCK_ROWS
+    cases = [dict(b=1, s=n, nh=32, hd=128, padded=False, causal=True, dtype=torch.bfloat16)
+             for n in (two, one)]
+    cases += [dict(b=1, s=two, sk=one, nh=32, hd=128, padded=False, causal=False,
+                   dtype=torch.bfloat16),
+              dict(b=1, s=one, sk=two, nh=32, hd=128, padded=False, causal=False,
+                   dtype=torch.bfloat16),
+              dict(b=1, s=one, sk=one, nh=32, hd=128, padded=True, kv_valid=one - one // 4,
+                   causal=True, dtype=torch.bfloat16),
+              dict(b=1, s=one, sk=two, nh=32, hd=128, padded=True, kv_valid=two - two // 4,
+                   causal=False, dtype=torch.bfloat16)]
+    return cases
+
+
+def case_inputs(torch, c, gen, dev, n_q):
+    """A phase-3/4 case's BSNH tensors (n_q of the query length, then k and
+    v), its lengths, valid prefixes and segment ids (None unpadded)."""
+    b, s, nh, hd, dtype = c["b"], c["s"], c["nh"], c["hd"], c["dtype"]
+    sk = c.get("sk", s)
+    q_side = [torch.randn((b, s, nh, hd), generator=gen, device=dev).to(dtype)
+              for _ in range(n_q)]
+    k, v = (torch.randn((b, sk, nh, hd), generator=gen, device=dev).to(dtype) for _ in range(2))
+    q_valid = c.get("q_valid", s - s // 8 - 3) if c["padded"] else s
+    kv_valid = c.get("kv_valid", q_valid if sk == s else sk - sk // 8 - 3) if c["padded"] else sk
+    seg = None
+    if c["padded"]:
+        from galvatron_tpu_torch.ops.flash_attention import SegmentIds
+
+        seg = SegmentIds(q=segment_ids(torch, b, s, q_valid, dev),
+                         kv=segment_ids(torch, b, sk, kv_valid, dev))
+    return q_side, k, v, sk, q_valid, kv_valid, seg
 
 
 def check_kernel(torch, TF, dev):
@@ -397,16 +481,11 @@ def check_kernel(torch, TF, dev):
     cases.append(dict(b=1, s=512, nh=32, hd=128, padded=True, causal=False, dtype=torch.bfloat16))
     cases.append(dict(b=1, s=512, nh=32, hd=128, padded=True, causal=True, dtype=torch.float32))
     cases.append(dict(b=1, s=512, nh=8, hd=256, padded=True, causal=True, dtype=torch.bfloat16))
+    cases += ring_block_cases(torch)
     results = []
     for c in cases:
         b, s, nh, hd, dtype, causal = c["b"], c["s"], c["nh"], c["hd"], c["dtype"], c["causal"]
-        q, k, v = (torch.randn((b, s, nh, hd), generator=gen, device=dev).to(dtype)
-                   for _ in range(3))
-        valid = s - s // 8 - 3 if c["padded"] else s
-        seg = None
-        if c["padded"]:
-            ids = (torch.arange(s, device=dev) < valid).to(torch.int32)[None].repeat(b, 1)
-            seg = TF.SegmentIds(q=ids.contiguous(), kv=ids.contiguous())
+        (q,), k, v, sk, valid, kv_valid, seg = case_inputs(torch, c, gen, dev, 1)
         scale = hd ** -0.5
         out, lse = TF.flash_attention_fwd(q, k, v, causal=causal, sm_scale=scale, segment_ids=seg)
         torch.cuda.synchronize()
@@ -424,27 +503,29 @@ def check_kernel(torch, TF, dev):
                                               segment_ids=seg)
         single, kernel = time_ms(torch, call), time_stream_ms(torch, call)
         plain = time_ms(torch, lambda: TF.flash_attention_fwd_reference(
-            q, k, v, causal=causal, sm_scale=scale, segment_ids=seg), reps=21 if b == 1 else 5)
-        library = library_single = None
-        if not c["padded"]:
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, is_causal=causal, scale=scale)
-            library_single, library = time_ms(torch, sdpa), time_stream_ms(torch, sdpa)
-        bms, by, flops = bound_ms(torch, b, s, nh, hd, valid, causal, dtype)
-        r = dict(shape=[b, s, nh, hd], dtype=str(dtype).replace("torch.", ""), causal=causal,
-                 valid_len=valid, route=route, max_abs_err=err, limit_used=used,
+            q, k, v, causal=causal, sm_scale=scale, segment_ids=seg),
+            reps=21 if b == 1 and s * sk <= 2048 * 2048 else 5)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        mask = sdpa_mask(torch, seg, causal)
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None, scale=scale)
+        library_single, library = time_ms(torch, sdpa), time_stream_ms(torch, sdpa)
+        bms, by, flops = bound_ms(torch, b, s, sk, nh, hd, valid, kv_valid, causal, dtype)
+        r = dict(shape=[b, s, nh, hd], kv_len=sk, dtype=str(dtype).replace("torch.", ""),
+                 causal=causal, valid_len=valid, kv_valid_len=kv_valid, route=route,
+                 max_abs_err=err, limit_used=used,
                  median_abs_ref=med, lse_err=lse_err, tolerance=tol, ms=kernel, ms_single=single,
                  plain_ms=plain, library_ms=library, library_ms_single=library_single,
                  bound_ms=bms, bound_by=by, gflop=flops / 1e9, tflops=flops / kernel / 1e9)
         results.append(r)
-        log("flash B=%d S=%d nh=%d hd=%d %s %s%s [%s]: err %.3g (%.2f of the limit, median |ref| "
-            "%.3g) lse %.3g | kernel %.4f ms (single calls %.4f), plain %.3f ms, sdpa %s ms, "
-            "bound %.4f ms (%s), %.1f TFLOP/s" % (
-                b, s, nh, hd, r["dtype"], "padded" if c["padded"] else "full",
+        log("flash B=%d S=%d%s nh=%d hd=%d %s %s%s [%s]: err %.3g (%.2f of the limit, median "
+            "|ref| %.3g) lse %.3g | kernel %.4f ms (single calls %.4f), plain %.3f ms, sdpa "
+            "%.4f/%.4f ms, bound %.4f ms (%s), %.1f TFLOP/s" % (
+                b, s, "" if sk == s else "x%d" % sk, nh, hd, r["dtype"],
+                "padded" if c["padded"] else "full",
                 "" if causal else " non-causal", route, err, used, med, lse_err,
                 kernel, single, plain,
-                "%.4f/%.4f" % (library, library_single) if library is not None else "-", bms, by,
+                library, library_single, bms, by,
                 r["tflops"]))
         del q, k, v, out, ref
     torch.cuda.empty_cache()
@@ -461,16 +542,12 @@ def check_bwd_kernel(torch, TF, dev):
         cases.append(dict(b=b, s=2048, nh=32, hd=128, padded=False, dtype=torch.bfloat16))
     cases.append(dict(b=1, s=512, nh=32, hd=128, padded=True, dtype=torch.float32))
     cases.append(dict(b=1, s=512, nh=8, hd=256, padded=True, dtype=torch.bfloat16))
+    cases += ring_block_cases(torch)
     results = []
     for c in cases:
-        b, s, nh, hd, dtype, causal = c["b"], c["s"], c["nh"], c["hd"], c["dtype"], True
-        q, k, v, do = (torch.randn((b, s, nh, hd), generator=gen, device=dev).to(dtype)
-                       for _ in range(4))
-        valid = s - s // 8 - 3 if c["padded"] else s
-        seg = None
-        if c["padded"]:
-            ids = (torch.arange(s, device=dev) < valid).to(torch.int32)[None].repeat(b, 1)
-            seg = TF.SegmentIds(q=ids.contiguous(), kv=ids.contiguous())
+        b, s, nh, hd, dtype, causal = (c["b"], c["s"], c["nh"], c["hd"], c["dtype"],
+                                       c.get("causal", True))
+        (q, do), k, v, sk, valid, kv_valid, seg = case_inputs(torch, c, gen, dev, 2)
         scale = hd ** -0.5
         out, lse = TF.flash_attention_fwd(q, k, v, causal=causal, sm_scale=scale, segment_ids=seg)
         got = TF.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, sm_scale=scale,
@@ -492,32 +569,36 @@ def check_bwd_kernel(torch, TF, dev):
         call = lambda: TF.flash_attention_bwd(*args, **kw)  # noqa: E731
         single, kernel = time_ms(torch, call), time_stream_ms(torch, call)
         plain = time_ms(torch, lambda: TF.flash_attention_bwd_reference(*args, **kw),
-                        reps=11 if b == 1 else 3)
-        library = library_single = None
-        if not c["padded"]:
-            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-            lo = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                                                  scale=scale)
-            dot = do.transpose(1, 2)
-            sdpa_bwd = lambda: torch.autograd.grad(lo, (qt, kt, vt), dot,  # noqa: E731
-                                                   retain_graph=True)
-            library_single, library = time_ms(torch, sdpa_bwd), time_stream_ms(torch, sdpa_bwd)
-            del qt, kt, vt, lo
-        bms, by, flops = bound_ms(torch, b, s, nh, hd, valid, causal, dtype, 10.0, 8)
-        r = dict(shape=[b, s, nh, hd], dtype=str(dtype).replace("torch.", ""), causal=causal,
-                 valid_len=valid, route=route, max_abs_err=max(errs.values()),
+                        reps=11 if b == 1 and s * sk <= 2048 * 2048 else 3)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        mask = sdpa_mask(torch, seg, causal)
+        lo = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None, scale=scale)
+        dot = do.transpose(1, 2)
+        sdpa_bwd = lambda: torch.autograd.grad(lo, (qt, kt, vt), dot,  # noqa: E731
+                                               retain_graph=True)
+        library_single, library = time_ms(torch, sdpa_bwd), time_stream_ms(torch, sdpa_bwd)
+        del qt, kt, vt, lo, mask
+        bms, by, flops = bound_ms(torch, b, s, sk, nh, hd, valid, kv_valid, causal, dtype, 10.0,
+                                  4)
+        r = dict(shape=[b, s, nh, hd], kv_len=sk, dtype=str(dtype).replace("torch.", ""),
+                 causal=causal, valid_len=valid, kv_valid_len=kv_valid, route=route,
+                 max_abs_err=max(errs.values()),
                  max_abs_err_by_grad=errs, limit_used_by_grad=used, median_abs_ref_by_grad=med,
                  tolerance=tol, ms=kernel, ms_single=single, plain_ms=plain,
                  library_ms=library, library_ms_single=library_single, bound_ms=bms, bound_by=by,
                  gflop=flops / 1e9, tflops=flops / kernel / 1e9)
         results.append(r)
-        log("flash bwd B=%d S=%d nh=%d hd=%d %s %s [%s]: err dq/dk/dv %.3g/%.3g/%.3g (of the "
-            "limit: %.2f/%.2f/%.2f; median |ref| %.3g/%.3g/%.3g) | kernel %.4f ms (single calls "
-            "%.4f), plain %.3f ms, sdpa bwd %s ms, bound %.4f ms (%s), %.1f TFLOP/s" % (
-                b, s, nh, hd, r["dtype"], "padded" if c["padded"] else "full", route, errs["dq"],
+        log("flash bwd B=%d S=%d%s nh=%d hd=%d %s %s%s [%s]: err dq/dk/dv %.3g/%.3g/%.3g (of "
+            "the limit: %.2f/%.2f/%.2f; median |ref| %.3g/%.3g/%.3g) | kernel %.4f ms (single "
+            "calls %.4f), plain %.3f ms, sdpa bwd %.4f/%.4f ms, bound %.4f ms (%s), "
+            "%.1f TFLOP/s" % (
+                b, s, "" if sk == s else "x%d" % sk, nh, hd, r["dtype"],
+                "padded" if c["padded"] else "full", "" if causal else " non-causal", route,
+                errs["dq"],
                 errs["dk"], errs["dv"], used["dq"], used["dk"], used["dv"], med["dq"],
                 med["dk"], med["dv"], kernel, single, plain,
-                "%.4f/%.4f" % (library, library_single) if library is not None else "-", bms, by,
+                library, library_single, bms, by,
                 r["tflops"]))
         del q, k, v, do, out, lse, got, want
     torch.cuda.empty_cache()
@@ -1381,6 +1462,188 @@ def profile_search_train(torch, TF):
     return out
 
 
+# ----------------------------------------------------------------- phase 13
+# long context on the card: LLaMA-7B's 32 heads of 128, bf16, B=1, every cp
+# rank's shards on this card (LocalRing: a hop is a copy on the card where
+# NCCL would carry it). LC_SEQ is checked against the unsharded kernel on the
+# same sequence, LC_PLAIN_SEQ against the plain ring version (fp32 logits a
+# key chunk at a time).
+LC_SEQ = 32768
+LC_PLAIN_SEQ = 8192
+LC_CPS = (2, 4)
+LC_MODES = ("zigzag", "ring")
+# the rows of the blocks a cp 4 zigzag step gives the kernels at LC_SEQ
+# (2c and c, c = LC_SEQ / 8): phases 3-4 check and time these shapes
+RING_BLOCK_ROWS = (8192, 4096)
+
+
+def ring_launches(mode, cp):
+    """Kernel calls of one ring pass over a cp-rank ring (every rank): one
+    per step and rank under zigzag, r + 1 on rank r under ring."""
+    return cp * cp if mode == "zigzag" else cp * (cp + 1) // 2
+
+
+def check_lse(torch, name, got, ref, case):
+    """Fail unless the (B, H, S) logsumexp `got` is within TOL_LSE of `ref`
+    and two planted faults (the last and the first tile of rows off by
+    log 2: one block merged twice) fail that check; returns the max err."""
+    err = (got - ref).abs().max().item()
+    check(err <= TOL_LSE, "%s lse err %.3g > %.3g at %s" % (name, err, TOL_LSE, case))
+    for rows in (slice(-TILE, None), slice(0, TILE)):
+        wrong = ref.clone()
+        wrong[..., rows] += math.log(2.0)
+        check((wrong - ref).abs().max().item() > TOL_LSE,
+              "%s lse check passes a planted fault at %s" % (name, case))
+    return err
+
+
+def long_context(torch, TF, dev):
+    """Phase 13 (see the module note): ring attention through LocalRing at
+    cp 2 and 4, both cp modes, causal, with and without a key-padding
+    tail (the cotangent zero on padded queries, whose outputs the model
+    does not use); one ring forward and one ring backward per case. At
+    LC_SEQ the output, the merged logsumexp and dq/dk/dv are held against
+    the unsharded kernels (the backward fed the unsharded forward's own
+    out and lse), at LC_PLAIN_SEQ against the plain ring (its backward fed
+    the ring's merged out and lse, which are held against the plain
+    forward's), with the phase 3-4 checks on the
+    valid rows; exact launch counts on the wgmma route; at LC_SEQ the
+    ring's forward and backward timed beside the unsharded kernel's."""
+    from galvatron_tpu_torch.ops import ring_attention as R
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 13)
+    nh, hd, dtype = 32, 128, torch.bfloat16
+    scale = hd ** -0.5
+    runs, launches = [], {"fwd": 0, "bwd": 0}
+    for s, against in ((LC_SEQ, "kernel"), (LC_PLAIN_SEQ, "plain")):
+        for cp in LC_CPS:
+            for mode in LC_MODES:
+                for padded in (False, True):
+                    case = dict(s=s, cp=cp, mode=mode, padded=padded, against=against)
+                    q, k, v, do = (torch.randn((1, s, nh, hd), generator=gen, device=dev)
+                                   .to(dtype) for _ in range(4))
+                    valid = s - s // 8 - 3 if padded else s
+                    do[:, valid:] = 0
+                    ids = segment_ids(torch, 1, s, valid, dev) if padded else None
+                    idx = torch.as_tensor(R.zigzag_permutation(s, cp) if mode == "zigzag"
+                                          else list(range(s)), device=dev)
+                    inv = torch.empty_like(idx)
+                    inv[idx] = torch.arange(s, device=dev)
+
+                    def shards(t, _idx=idx, _cp=cp):
+                        return dict(enumerate(x.contiguous() for x in t[:, _idx].chunk(_cp, 1)))
+
+                    def natural(parts, dim=1, _inv=inv):
+                        """Every rank's shard, back in sequence order."""
+                        return torch.cat([parts[r] for r in sorted(parts)], dim).index_select(
+                            dim, _inv)
+
+                    qs, ks, vs, dos = (shards(t) for t in (q, k, v, do))
+                    segs = shards(ids) if padded else None
+                    kw = dict(transport=R.LocalRing(cp), mode=mode, causal=True, sm_scale=scale)
+                    before = {w: dict(getattr(TF, "flash_attention_" + w).routes)
+                              for w in ("fwd", "bwd")}
+                    TF.flash_attention_fwd.launches = 0
+                    TF.flash_attention_bwd.launches = 0
+                    res = R.ring_forward(qs, ks, vs, segs, segs, **kw)
+                    outs = {r: o for r, (o, _) in res.items()}
+                    lses = {r: lse for r, (_, lse) in res.items()}
+                    grads = R.ring_backward(qs, ks, vs, outs, lses, dos, segs, segs, **kw)
+                    torch.cuda.synchronize()
+                    fwd_n, bwd_n = TF.flash_attention_fwd.launches, TF.flash_attention_bwd.launches
+                    want_n = ring_launches(mode, cp)
+                    check((fwd_n, bwd_n) == (want_n, want_n),
+                          "ring launched the forward kernel %d and the backward %d times, not "
+                          "%d each, at %s" % (fwd_n, bwd_n, want_n, case))
+                    for w in ("fwd", "bwd"):
+                        now = getattr(TF, "flash_attention_" + w).routes
+                        new = {r: n - before[w].get(r, 0) for r, n in now.items()
+                               if n != before[w].get(r, 0)}
+                        check(set(new) == {"wgmma"}, "ring %s routes %s at %s" % (w, new, case))
+                    launches["fwd"] += fwd_n
+                    launches["bwd"] += bwd_n
+                    got = [natural(outs)] + [natural({r: g[i] for r, g in grads.items()})
+                                             for i in range(3)]
+                    got_lse = natural(lses, 2)
+                    if against == "kernel":
+                        seg = TF.SegmentIds(ids, ids) if padded else None
+                        out_ref, lse_ref = TF.flash_attention_fwd(q, k, v, causal=True,
+                                                                  sm_scale=scale, segment_ids=seg)
+                        ref = [out_ref] + list(TF.flash_attention_bwd(
+                            q, k, v, out_ref, lse_ref, do, causal=True, sm_scale=scale,
+                            segment_ids=seg))
+                    else:
+                        positions = [torch.as_tensor(R.chunk_positions(mode, cp, r, s),
+                                                     device=dev)[None] for r in range(cp)]
+                        plain_args = [[d[r] for r in range(cp)] for d in (qs, ks, vs)]
+                        plain_segs = [segs[r] for r in range(cp)] if padded else None
+                        pouts, plses = R.ring_attention_reference(*plain_args, positions,
+                                                                  segment_ids=plain_segs)
+                        # the plain backward takes what the ring's kernels took,
+                        # the merged (out, lse), as phase 4 feeds the kernel's
+                        # to both backwards: the plain forward's bf16 out does
+                        # not round p before P.V as the forward kernel does, and
+                        # di = rowsum(out * dout) carries that difference into
+                        # every ds of a row, past the limit on rows whose dq
+                        # cancels. The merged out and lse are held against the
+                        # plain forward's below.
+                        pgrads = R.ring_attention_reference_bwd(
+                            *plain_args, [outs[r] for r in range(cp)],
+                            [lses[r] for r in range(cp)], [dos[r] for r in range(cp)],
+                            positions, segment_ids=plain_segs)
+                        ref = [natural(dict(enumerate(pouts)))] + [
+                            natural({r: g[i] for r, g in enumerate(pgrads)}) for i in range(3)]
+                        lse_ref = natural(dict(enumerate(plses)), 2)
+                        del pouts, plses, pgrads
+                    torch.cuda.synchronize()
+                    errs, used = {}, {}
+                    for name, g, w in zip(("out", "dq", "dk", "dv"), got, ref):
+                        check(bool(torch.isfinite(g.float()).all()),
+                              "ring %s not finite at %s" % (name, case))
+                        # the output on every row; the gradients on the valid
+                        # rows (the padded ones are zero through the cotangent)
+                        rows = slice(None) if name == "out" else slice(0, valid)
+                        errs[name], used[name], _ = check_against_plain(
+                            torch, "ring " + name, g[:, rows], w[:, rows],
+                            TOL_FWD_BF16 if name == "out" else TOL_BWD_BF16, case)
+                    errs["lse"] = check_lse(torch, "ring", got_lse[..., :valid],
+                                            lse_ref[..., :valid], case)
+                    run = dict(case, valid_len=valid, launches=want_n, max_abs_err=errs,
+                               limit_used=used)
+                    if against == "kernel" and not padded:
+                        ring_fwd = time_ms(torch, lambda: R.ring_forward(
+                            qs, ks, vs, None, None, **kw), reps=5, warmup=1)
+                        ring_bwd = time_ms(torch, lambda: R.ring_backward(
+                            qs, ks, vs, outs, lses, dos, None, None, **kw), reps=5, warmup=1)
+                        one_fwd = time_ms(torch, lambda: TF.flash_attention_fwd(
+                            q, k, v, causal=True, sm_scale=scale), reps=5, warmup=1)
+                        one_bwd = time_ms(torch, lambda: TF.flash_attention_bwd(
+                            q, k, v, out_ref, lse_ref, do, causal=True, sm_scale=scale),
+                            reps=5, warmup=1)
+                        run.update(ring_fwd_ms=ring_fwd, ring_bwd_ms=ring_bwd,
+                                   unsharded_fwd_ms=one_fwd, unsharded_bwd_ms=one_bwd,
+                                   fwd_ratio=ring_fwd / one_fwd, bwd_ratio=ring_bwd / one_bwd)
+                    runs.append(run)
+                    log("ring %s cp %d S=%d %s vs %s: err out/dq/dk/dv %s (of the limit %s), "
+                        "lse %.3g, launches %d fwd + %d bwd (wgmma)%s" % (
+                            mode, cp, s, "padded" if padded else "full",
+                            "the unsharded kernel" if against == "kernel" else "the plain ring",
+                            "/".join("%.3g" % errs[n] for n in used),
+                            "/".join("%.2f" % used[n] for n in used), errs["lse"], fwd_n, bwd_n,
+                            "; ring fwd %.2f ms vs unsharded %.2f ms (x%.3f), bwd %.2f vs %.2f "
+                            "ms (x%.3f)" % (run["ring_fwd_ms"], run["unsharded_fwd_ms"],
+                                            run["fwd_ratio"], run["ring_bwd_ms"],
+                                            run["unsharded_bwd_ms"], run["bwd_ratio"])
+                            if "fwd_ratio" in run else ""))
+                    del q, k, v, do, qs, ks, vs, dos, res, outs, lses, grads, got, got_lse
+                    del ref, lse_ref
+                    torch.cuda.empty_cache()
+    return dict(runs=runs, launches=launches, wall_s=time.perf_counter() - t0,
+                heads=nh, head_dim=hd)
+
+
 def log_loop(loop, card):
     """Phase 12's lines."""
     p = loop["profile"]
@@ -1459,6 +1722,7 @@ def main():
     corpus = corpus_checkpoint_resume(torch, TF)
     pipelines = train_pipelines(torch, TF)
     loop = profile_search_train(torch, TF)
+    lc = long_context(torch, TF, dev)
     s, t = served["summary"], trained["summary"]
 
     def at_2048(rows, b):
@@ -1495,7 +1759,8 @@ def main():
                "serve_load": c["serve_load"]["fwd"],
                **{"train_" + n: r["fwd_launches"] for n, r in pp_runs.items()},
                "profile": loop["profile"]["fwd_launches"],
-               "train_searched": loop["train"]["fwd_launches"]},
+               "train_searched": loop["train"]["fwd_launches"],
+               "long_context": lc["launches"]["fwd"]},
               TOL_FWD_BF16),
         entry("flash_attn_bwd", BWD_SOURCE, bwd_shapes, z3["bwd_launches"],
               {"serve": 0, "train": trained["bwd_launches"],
@@ -1504,7 +1769,8 @@ def main():
                "serve_load": c["serve_load"]["bwd"],
                **{"train_" + n: r["bwd_launches"] for n, r in pp_runs.items()},
                "profile": loop["profile"]["bwd_launches"],
-               "train_searched": loop["train"]["bwd_launches"]},
+               "train_searched": loop["train"]["bwd_launches"],
+               "long_context": lc["launches"]["bwd"]},
               TOL_BWD_BF16),
     ]}
     results = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
@@ -1512,7 +1778,8 @@ def main():
                    kernels=kernels["kernels"], grads=grads,
                    decode=decode, serve=served, train=trained, train_gpt_layouts=layouts,
                    corpus_checkpoint=corpus, train_pipelines=pipelines,
-                   profile_search_train=loop, wall_s=time.perf_counter() - t_start)
+                   profile_search_train=loop, long_context=lc,
+                   wall_s=time.perf_counter() - t_start)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1, default=str)
@@ -1602,6 +1869,15 @@ def main():
             TOL_PP_GRAD_NORM))
     log("phase 11 (pipelines) %.1f s" % pipelines["wall_s"])
     log_loop(loop, card)
+    timed = [r for r in lc["runs"] if "fwd_ratio" in r]
+    log("phase 13 long context (%d heads x %d, bf16, B=1, every cp rank on %s): %d ring runs "
+        "checked, launches fwd %d / bwd %d (all wgmma); ring/unsharded time at S=%d: %s; "
+        "phase %.1f s" % (
+            lc["heads"], lc["head_dim"], card, len(lc["runs"]), lc["launches"]["fwd"],
+            lc["launches"]["bwd"], LC_SEQ, "; ".join(
+                "%s cp %d fwd x%.3f bwd x%.3f" % (r["mode"], r["cp"], r["fwd_ratio"],
+                                                  r["bwd_ratio"]) for r in timed),
+            lc["wall_s"]))
     log(json.dumps(kernels))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,10 +17,11 @@ models and those paths.
 
 `train_refusals` lists what the port's trainer does not execute: a
 pipeline outside the reference engine's contract (GPipe:
-``validate_pipeline_config``; 1F1B: ``validate_1f1b_config``, with their
-messages), and what is not ported yet (context parallelism, Ulysses, vocab
-sp/cp, manual TP modes), each with the ROADMAP item that brings it; the
-train path raises ValueError on them (``runtime.model_api.check_layout``).
+``validate_pipeline_config``, which refuses cp as the reference does;
+1F1B: ``validate_1f1b_config``, with their messages), and what is not
+ported yet (the manual TP modes), with the ROADMAP item that brings it;
+the train path raises ValueError on them
+(``runtime.model_api.check_layout``).
 """
 
 from __future__ import annotations
@@ -103,7 +104,8 @@ def _relayout_diagnostics(hp: HybridParallelConfig) -> List[D.Diagnostic]:
 def train_refusals(hp: HybridParallelConfig) -> List[str]:
     """What the port's trainer does not execute in `hp`: the pipeline
     engine's refusal, then each unported feature with the ROADMAP item
-    (queue 1) that brings it; empty when it runs."""
+    (queue 1) that brings it; empty when it runs (context parallelism,
+    Ulysses and vocab sp/cp run)."""
     out = []
     if hp.pp > 1:
         # the pipeline's own contract, as the reference's engines refuse it
@@ -117,15 +119,6 @@ def train_refusals(hp: HybridParallelConfig) -> List[str]:
                 validate_pipeline_config(hp)
         except ValueError as e:
             out.append(str(e))
-    cps = sorted({s.cp for s in hp.layers if s.cp > 1})
-    if cps:
-        out.append("cp=%s (ring context parallelism: ROADMAP queue 1 item 8)" % cps)
-    if any(s.sp and s.tp > 1 for s in hp.layers):
-        out.append("Ulysses sp (use_sp=1 with tp>1: ROADMAP queue 1 item 8)")
-    if hp.vocab_sp and hp.vocab_tp > 1:
-        out.append("vocab sp (vsp=1: ROADMAP queue 1 item 8)")
-    if hp.vocab_cp > 1:
-        out.append("vocab cp=%d (vcp: ROADMAP queue 1 item 8)" % hp.vocab_cp)
     if hp.tp_comm_mode != "gspmd" and any(s.tp > 1 for s in hp.layers):
         out.append("tp_comm_mode=%r (manual TP overlap: ROADMAP queue 1 item 10)"
                    % hp.tp_comm_mode)

@@ -58,9 +58,10 @@ def _add_model_args(p: argparse.ArgumentParser):
 
 def _add_parallel_args(p: argparse.ArgumentParser):
     """GLOBAL-mode strategy flags. Training executes per-layer DP, ZeRO-2/3,
-    Megatron TP(+SP), vocab TP and pipelines (``--pp_deg``, GPipe or 1F1B
-    by ``--pipeline_type``, one stage per process) at any world size, and
-    refuses context parallelism and Ulysses with a ValueError; serving runs
+    Megatron TP(+SP), Ulysses (``--use-ulysses``), ring cp
+    (``--global_cp_deg``, ``--cp_mode``), vocab TP, sp and cp, and
+    pipelines (``--pp_deg``, GPipe or 1F1B by ``--pipeline_type``, one stage
+    per process; cp inside 1F1B only) at any world size; serving runs
     world size 1."""
     g = p.add_argument_group("parallel")
     g.add_argument("--pp_deg", type=int, default=1)

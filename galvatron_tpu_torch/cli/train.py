@@ -40,10 +40,15 @@ Under a pipeline (``pp_deg > 1``) each rank runs one stage, GPipe or 1F1B
 (``--pipeline_type pipedream_flush``), exchanging activations and
 cotangents with its neighbours (``parallel.pipeline.P2PTransport``); the
 logged loss is the last stage's, broadcast to every rank, and a checkpoint
-holds a tied table once. Context parallelism and Ulysses refuse with a
-ValueError naming their ROADMAP item; so do the silent-corruption sentinel,
-the watchdog, elastic resume and the autotuner, whose flags argparse
-refuses.
+holds a tied table once. Layers with cp > 1 run ring attention over
+their cp group (``--global_cp_deg`` / a JSON's ``cp_sizes_enc``, the
+batch zigzag-permuted under ``--cp_mode zigzag``), Ulysses layers
+(``--use-ulysses`` / ``use_sp``) their attention after an all-to-all over
+tp, and ``--vocab_sp`` / ``--vocab_cp`` shard the embedding's and the
+loss's sequence, each inside the 1F1B pipeline too (GPipe refuses cp, as
+the reference does). The silent-corruption sentinel, the watchdog,
+elastic resume and the autotuner refuse with a ValueError naming their
+ROADMAP item, or argparse refuses their flags.
 """
 
 from __future__ import annotations

@@ -26,7 +26,10 @@ wherever ``act_spec`` changes between layers, a layer runs Megatron TP (with
 Megatron-SP) over its tp group (`parallel.tensor_parallel`), ZeRO-3 layers
 gather their weights over their dp group at entry (again in the remat
 replay) and reduce-scatter the gradients, and the embedding, the head and
-the cross entropy are vocab-parallel over the vocab tp group. Where the
+the cross entropy are vocab-parallel over the vocab tp group. A layer with
+cp > 1 runs ring attention over its cp group (``ops/ring_attention.py``),
+a Ulysses layer its attention between two all-to-alls over tp, and vocab
+sp / vocab cp shard the embedding's and the loss's sequence. Where the
 reference states a sharding constraint and lets XLA insert the collective,
 the port calls it (`parallel.comm`).
 """
@@ -44,8 +47,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from galvatron_tpu_torch.config.strategy import HybridParallelConfig
-from galvatron_tpu_torch.ops.attention import core_attention
+from galvatron_tpu_torch.ops.attention import core_attention, padding_bias_to_segment_ids, repeat_kv
 from galvatron_tpu_torch.ops.norms import layer_norm, rms_norm
+from galvatron_tpu_torch.ops.ring_attention import P2PRing, RingTransport, ring_attention
 from galvatron_tpu_torch.ops.rope import apply_rotary
 from galvatron_tpu_torch.parallel import comm
 from galvatron_tpu_torch.parallel import spec as S
@@ -316,6 +320,64 @@ def _mlp(p: TransformerLayer, x, cfg: TransformerConfig, dtype,
 
 
 # ============================================================== layer forward
+@dataclass(frozen=True)
+class SeqContext:
+    """How a layer's attention sees a sharded sequence: ``ulysses`` is the
+    tp group of a Ulysses layer (all-to-all seq -> heads before attention,
+    heads -> seq after it), ``ring`` the transport of its cp ring, and
+    ``chunks`` the number of chunks of the batch's zigzag layout (2 *
+    max_cp of them over the whole sequence) that the attention's sequence
+    holds (1 outside zigzag)."""
+
+    ulysses: Any = None
+    ring: Optional[RingTransport] = None
+    cp_mode: str = "zigzag"
+    chunks: int = 1
+
+
+def zigzag_local_order(m: int) -> List[int]:
+    """The order that turns a sequence of `m` chunks of a zigzag layout
+    into the zigzag layout of its own degree: a rank's chunks (a, 2M-1-a,
+    a+1, 2M-2-a, ...) of a 2M-chunk zigzag are the chunks it holds under a
+    zigzag of fewer ranks, taken in the order [0, 2, .., m-2, m-1, .., 3,
+    1]; on one rank (m = 2M) that is the natural order."""
+    return list(range(0, m, 2)) + list(range(m - 1, 0, -2))
+
+
+def _take_chunks(x: torch.Tensor, order: List[int], dim: int) -> torch.Tensor:
+    """`x` with its `dim` cut into len(order) chunks, taken in `order`."""
+    return torch.cat([x.chunk(len(order), dim)[i] for i in order], dim)
+
+
+def _attention(q, k, v, cfg: TransformerConfig, attn_bias, seq: Optional[SeqContext]):
+    """Attention on (B, s, heads, hd) tensors that cover the sequence of a
+    rank's cp shard. Where the batch's zigzag layout cuts that sequence
+    into more chunks than the layer's own zigzag (a layer with a smaller
+    cp than another layer's, or none), q/k/v and the bias are first put in
+    the order of the layer's own zigzag (`zigzag_local_order`), so that a
+    causal mask by index, and the ring's blocks, follow the true positions,
+    and the output is put back. (The reference masks by index outside the
+    ring, which is wrong on a zigzag batch.) Under cp the ring runs on the
+    flash kernels; otherwise `core_attention`."""
+    order = zigzag_local_order(seq.chunks) if seq is not None and seq.chunks > 2 else None
+    if order is not None:
+        q, k, v = (_take_chunks(t, order, 1) for t in (q, k, v))
+        if attn_bias is not None:
+            attn_bias = _take_chunks(attn_bias, order, 3)
+    if seq is not None and seq.ring is not None:
+        ids = padding_bias_to_segment_ids(attn_bias) if attn_bias is not None else None
+        attn = ring_attention(q, k, v, transport=seq.ring, mode=seq.cp_mode, causal=cfg.causal,
+                              q_segment_ids=ids, kv_segment_ids=ids)
+    else:
+        # attn_bias is always padding_attn_bias output, so the flash path
+        # may lower it to segment ids
+        attn = core_attention(q, k, v, causal=cfg.causal, bias=attn_bias, impl=cfg.attn_impl,
+                              bias_type="key_padding")
+    if order is not None:
+        attn = _take_chunks(attn, sorted(range(len(order)), key=order.__getitem__), 1)
+    return attn
+
+
 def layer_forward(
     p: TransformerLayer,
     x: torch.Tensor,
@@ -325,23 +387,38 @@ def layer_forward(
     attn_bias: Optional[torch.Tensor] = None,
     return_kv: bool = False,
     tp: Optional[T.TPContext] = None,
+    seq: Optional[SeqContext] = None,
 ):
-    """One transformer block on (B, S, H) activations (B/dp and, under
-    Megatron-SP, S/tp of them with a layout; `positions` and `attn_bias`
-    cover the full sequence). ``return_kv`` additionally returns this
-    layer's post-rope (k, v) — the serving prefill's cache-write side
+    """One transformer block on (B, S, H) activations (B/dp and S/cp of
+    them under a layout, and S/tp more under Megatron-SP or Ulysses;
+    `positions` and `attn_bias` cover the sequence attention runs on:
+    S/cp). Under Ulysses (`seq.ulysses`) the weights are dense: q/k/v of
+    the rank's sequence shard go through an all-to-all to the whole
+    (cp-local) sequence and heads/tp, rope and attention run there, and the
+    output comes back before ``wo``. ``return_kv`` additionally returns
+    this layer's post-rope (k, v) — the serving prefill's cache-write side
     outputs."""
     dtype = cfg.compute_dtype
     residual = x
     y = _norm(x, p.ln1, cfg) if cfg.pre_norm else x
     q, k, v = qkv_projection(p, T.enter_column(y, tp), cfg, dtype, tp)
+    ulysses = seq.ulysses if seq is not None else None
+    if ulysses is not None:
+        if k.shape[2] % torch.distributed.get_world_size(ulysses):
+            # fewer kv heads than ranks: expand them before the split
+            k, v = (repeat_kv(t, q.shape[2] // k.shape[2]) for t in (k, v))
+        q, k, v = (comm.seq_to_heads(t, ulysses) for t in (q, k, v))
     if cfg.position_type == "rope":
+        # per token and head: the same after the all-to-all as before it
         q = apply_rotary(q, positions, cfg.rope_theta)
         k = apply_rotary(k, positions, cfg.rope_theta)
-    # attn_bias is always padding_attn_bias output, so the flash path may
-    # lower it to segment ids
-    attn = core_attention(q, k, v, causal=cfg.causal, bias=attn_bias,
-                          impl=cfg.attn_impl, bias_type="key_padding")
+    if return_kv and seq is not None and seq.ring is not None:
+        raise ValueError("return_kv is unsupported under ring context parallelism (cp>1): "
+                         "the ring never holds a layer's full k/v; serve refuses cp "
+                         "layouts (GLS014)")
+    attn = _attention(q, k, v, cfg, attn_bias, seq)
+    if ulysses is not None:
+        attn = comm.heads_to_seq(attn, ulysses)
     attn = attn.reshape(attn.shape[0], attn.shape[1], attn.shape[2] * attn.shape[3])
     x = residual + _row_proj(attn, p.wo, dtype, tp)
     if not cfg.pre_norm:
@@ -412,8 +489,10 @@ class ParamLayout:
     a rank stores; ZeRO-3 shards dim `z3_dim` over `dp` and gathers it at
     use; `dp` are the axes of its layer's data parallelism (ZeRO's group);
     after the backward its gradient is a partial sum over `partial` (dp
-    for different data, plus tp where a tp-replicated parameter saw
-    sequence shards, or a replicated GQA kv projection saw one head)."""
+    for different data, cp for different sequence shards, plus tp where a
+    tp-replicated parameter saw sequence shards: every parameter of a
+    Ulysses layer, the SP-replicated ones of a Megatron-SP layer, or a
+    replicated GQA kv projection that saw one head)."""
 
     spec: S.Spec
     z3_dim: Optional[int]
@@ -474,7 +553,8 @@ def _layer_placements(cfg: TransformerConfig, ax: LayerAxes,
 
 def _vocab_placements(cfg: TransformerConfig, ax: LayerAxes) -> Dict[str, Tuple[S.Spec, Optional[int]]]:
     r1 = (S.replicated_1d_spec(ax), 0)
-    out = {"embed.wte": (S.vocab_embed_spec(ax), 1)}
+    # vocab-dense under vocab sp, where ZeRO-3 shards the vocab
+    out = {"embed.wte": (S.vocab_embed_spec(ax), 0 if ax.ulysses else 1)}
     if cfg.position_type == "learned":
         out["embed.wpe"] = (S.replicated_spec(2), None)
     if cfg.pre_norm:
@@ -482,29 +562,24 @@ def _vocab_placements(cfg: TransformerConfig, ax: LayerAxes) -> Dict[str, Tuple[
         if cfg.norm_type != "rmsnorm":
             out["final_norm.bias"] = r1
     if not cfg.tie_embeddings:
-        # column-parallel over the vocab: vocab-parallel logits
-        out["lm_head.kernel"] = (S.spec(None, ax.tp), None)
+        # column-parallel over the vocab (vocab-parallel logits); dense
+        # under vocab sp, as ``logits_spec``
+        out["lm_head.kernel"] = (S.spec(None, None if ax.ulysses else ax.tp), None)
     return out
 
 
 def _param_layout(spec: S.Spec, z3_dim: Optional[int], ax: LayerAxes,
                   partial_tp: bool) -> ParamLayout:
-    partial = tuple(ax.dp) + (tuple(ax.tp) if partial_tp else ())
+    partial = tuple(ax.dp) + tuple(ax.cp) + (tuple(ax.tp) if partial_tp or ax.ulysses else ())
     return ParamLayout(spec=spec, z3_dim=z3_dim if ax.zero3 else None, dp=tuple(ax.dp),
                        partial=tuple(sorted(partial)), zero_opt=ax.zero_opt)
 
 
-def _check_executable(ax: LayerAxes, what: str) -> None:
-    if ax.cp or ax.ulysses:
-        raise ValueError("%s: %s is not ported yet (ROADMAP queue 1 item 8, long "
-                         "context)" % (what, "cp" if ax.cp else "Ulysses sp"))
-
-
 def layer_param_layouts(cfg: TransformerConfig, ax: LayerAxes, tp_degree: int) -> Dict[str, ParamLayout]:
     """ParamLayout per parameter of one layer, keyed by its name within the
-    layer (``wqkv.kernel``...); the reference's ``layer_param_specs``."""
-    _check_executable(ax, "layer")
-    kv_rep = _kv_replicated(cfg, tp_degree)
+    layer (``wqkv.kernel``...); the reference's ``layer_param_specs``
+    (Ulysses layers keep dense weights)."""
+    kv_rep = _kv_replicated(cfg, 1 if ax.ulysses else tp_degree)
     return {name: _param_layout(spec, z3_dim, ax, (ax.megatron_sp and name in _SP_PARTIAL)
                                 or (kv_rep and name in _KV_REPLICATED))
             for name, (spec, z3_dim) in _layer_placements(cfg, ax, kv_rep).items()}
@@ -515,7 +590,6 @@ def model_param_layouts(cfg: TransformerConfig, hp: HybridParallelConfig) -> Dic
     the vocab layers' (embedding, final norm, untied head), which run under
     the vocab axes (vocab_tp, embed_sdp)."""
     vax = vocab_axes(hp)
-    _check_executable(vax, "vocab layers")
     out = {name: _param_layout(spec, z3_dim, vax, vax.megatron_sp and name in (
                "embed.wpe", "final_norm.scale", "final_norm.bias"))
            for name, (spec, z3_dim) in _vocab_placements(cfg, vax).items()}
@@ -532,10 +606,16 @@ def model_param_specs(cfg: TransformerConfig, hp: HybridParallelConfig) -> Dict[
 
 @dataclass
 class Layout:
-    """How one layer, or the vocab layers, run on this rank: the tp context,
-    the placement of the activations it takes and returns (``act``), its
-    dp group, and the dims its ZeRO-3 parameters gather over dp (keyed by
-    name relative to the module the forward reads)."""
+    """How one layer, or the vocab layers, run on this rank: the (Megatron)
+    tp context, its sequence context (Ulysses, the cp ring), the placement
+    of the activations it takes and returns (``act``) and of its (batch,
+    seq) side inputs (``side``: a layer's positions and masks; the vocab
+    layers' tokens, labels and masks), its dp group, for the vocab layers
+    the group whose ranks hold the other tokens of the global batch
+    (``token_group``: dp and the sequence shards of ``side``, over which
+    the loss's token count and shares are summed), and the dims its ZeRO-3
+    parameters gather over dp (keyed by name relative to the module the
+    forward reads)."""
 
     mesh: RankMesh
     axes: LayerAxes
@@ -543,6 +623,9 @@ class Layout:
     act: S.Spec
     dp_group: Any
     zero3: Dict[str, int]
+    side: S.Spec = ((), ())
+    token_group: Any = None
+    seq: Optional[SeqContext] = None
 
 
 @dataclass
@@ -553,6 +636,10 @@ class ModelLayouts:
 
 def _tp_context(mesh: RankMesh, ax: LayerAxes, cfg: TransformerConfig, tp_degree: int,
                 kv: bool = True) -> T.TPContext:
+    if ax.ulysses:
+        # dense weights: no Megatron collective (the all-to-alls are the
+        # sequence context's)
+        return T.TPContext(group=None, size=1, index=0)
     index = mesh.index(ax.tp)
     kv_head = None
     if kv and _kv_replicated(cfg, tp_degree):
@@ -561,18 +648,30 @@ def _tp_context(mesh: RankMesh, ax: LayerAxes, cfg: TransformerConfig, tp_degree
                        sequence_parallel=ax.megatron_sp, kv_head=kv_head)
 
 
+def _seq_context(mesh: RankMesh, ax: LayerAxes, hp: HybridParallelConfig) -> SeqContext:
+    cp = mesh.size(ax.cp)
+    zigzag = hp.cp_mode == "zigzag" and hp.max_cp > 1
+    return SeqContext(ulysses=mesh.group_for(ax.tp) if ax.ulysses else None,
+                      ring=P2PRing(mesh.group_for(ax.cp)) if cp > 1 else None,
+                      cp_mode=hp.cp_mode, chunks=2 * hp.max_cp // cp if zigzag else 1)
+
+
 def build_layouts(cfg: TransformerConfig, hp: HybridParallelConfig, mesh: RankMesh) -> ModelLayouts:
     """The runtime layout of every layer and of the vocab layers on this
     rank (needs `mesh`'s process groups)."""
     pls = model_param_layouts(cfg, hp)
 
-    def make(ax, prefix, tp_degree, kv=True):
+    def make(ax, prefix, tp_degree, kv=True, vocab=False):
         z3 = {n[len(prefix):]: pl.z3_dim for n, pl in pls.items()
               if n.startswith(prefix) and pl.z3_dim is not None}
+        side = S.token_spec(ax) if vocab else S.side_spec(ax)
+        tokens = tuple(sorted(side[0] + side[1], key=mesh.names.index))
         return Layout(mesh=mesh, axes=ax, tp=_tp_context(mesh, ax, cfg, tp_degree, kv),
-                      act=S.act_spec(ax), dp_group=mesh.group_for(ax.dp), zero3=z3)
+                      act=S.act_spec(ax), dp_group=mesh.group_for(ax.dp), zero3=z3,
+                      side=side, token_group=mesh.group_for(tokens) if vocab else None,
+                      seq=None if vocab else _seq_context(mesh, ax, hp))
 
-    vocab = make(vocab_axes(hp), "", hp.vocab_tp, kv=False)
+    vocab = make(vocab_axes(hp), "", hp.vocab_tp, kv=False, vocab=True)
     vocab.zero3 = {n: d for n, d in vocab.zero3.items() if not n.startswith("layers.")}
     layers = [make(layer_axes(hp, i), "layers.%d." % i, hp.layers[i].tp)
               for i in range(cfg.num_layers)]
@@ -659,8 +758,10 @@ def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     the max, the sum of exponentials and the label logit are reduced over
     the vocab tp group (Megatron's vocab_parallel_cross_entropy), and the
     result is this rank's share of the global token mean — the sum over its
-    rows divided by the valid-token count of every dp rank — so the shares
-    sum to the reference's loss over the dp group."""
+    tokens divided by the valid-token count of every rank that holds other
+    tokens (dp, and the sequence shards of vocab cp and vocab sp) — so the
+    shares sum to the reference's loss over the layout's token group.
+    Under vocab sp the head is dense (the tp context has one rank)."""
     logits32 = logits.float()
     if vocab is None:
         m = logits32.amax(dim=-1, keepdim=True)
@@ -689,7 +790,7 @@ def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     else:
         loss_mask = loss_mask.float()
         total, count = (losses * loss_mask).sum(), loss_mask.sum()
-    count = comm.all_reduce(count.detach(), vocab.dp_group)
+    count = comm.all_reduce(count.detach(), vocab.token_group)
     return total / count.clamp(min=1.0)
 
 
@@ -714,12 +815,15 @@ def _remat(fn, policy: str):
     raise ValueError("unknown remat policy %r" % policy)
 
 
-def _batch_relayout(t: Optional[torch.Tensor], mesh: RankMesh, src: S.Spec, dst: S.Spec):
-    """Re-lay a side input (positions, attention bias) along its batch dim
-    only: it covers the full sequence in every layout."""
+def _side_relayout(t: Optional[torch.Tensor], mesh: RankMesh, src: S.Spec, dst: S.Spec):
+    """Re-lay a side input from one (batch, seq) placement to another:
+    positions (B, S), or an attention bias (B, 1, 1, S) whose last dim is
+    the sequence. Neither carries a gradient."""
     if t is None:
         return None
-    return S.relayout(t, mesh, src[:1], dst[:1])
+    if t.dim() == 4:
+        return S.relayout(t, mesh, (src[0], (), (), src[1]), (dst[0], (), (), dst[1]))
+    return S.relayout(t, mesh, src, dst)
 
 
 def run_layers(
@@ -740,10 +844,13 @@ def run_layers(
     policy (``hp.layers[i].effective_remat_policy``, "none" runs it plainly).
     With `layouts`, `x` enters in the vocab layout and leaves in it, and is
     re-laid at every boundary where ``act_spec`` changes (the reference's
-    per-layer sharding constraints); each layer runs its own TP and
-    ZeRO-3. ``collect_kv=True`` additionally returns one post-rope (k, v)
-    pair per layer, in layer order — the serving prefill's cache contents;
-    that path is forward-only, without layouts, and never remats."""
+    per-layer sharding constraints); `positions` and `attn_bias` enter in
+    the vocab layers' token placement and are re-laid to each layer's side
+    placement (its cp shard of the sequence); each layer runs its own TP,
+    Ulysses, cp ring and ZeRO-3. ``collect_kv=True`` additionally returns
+    one post-rope (k, v) pair per layer, in layer order — the serving
+    prefill's cache contents; that path is forward-only, without layouts,
+    and never remats."""
     kvs: List[Tuple[torch.Tensor, torch.Tensor]] = []
     cur = layouts.vocab.act if layouts is not None else None
     side = {}
@@ -757,15 +864,16 @@ def run_layers(
         if lay is not None:
             x = S.relayout(x, lay.mesh, cur, lay.act)
             cur = lay.act
-            src = layouts.vocab.act
-            if lay.act[:1] not in side:
-                side[lay.act[:1]] = (_batch_relayout(positions, lay.mesh, src, lay.act),
-                                     _batch_relayout(attn_bias, lay.mesh, src, lay.act))
-            pos, bias = side[lay.act[:1]]
+            src = layouts.vocab.side
+            if lay.side not in side:
+                side[lay.side] = (_side_relayout(positions, lay.mesh, src, lay.side),
+                                  _side_relayout(attn_bias, lay.mesh, src, lay.side))
+            pos, bias = side[lay.side]
 
         def fwd(x_, _lp=lp, _lay=lay, _pos=pos, _bias=bias):
             return layer_forward(gathered(_lp, _lay), x_, _pos, cfg, attn_bias=_bias,
-                                 tp=_lay.tp if _lay is not None else None)
+                                 tp=_lay.tp if _lay is not None else None,
+                                 seq=_lay.seq if _lay is not None else None)
 
         policy = hp.layers[i].effective_remat_policy if hp is not None else "none"
         if policy == "none" or not torch.is_grad_enabled():
@@ -794,7 +902,8 @@ def model_forward(
     layouts: Optional[ModelLayouts] = None,
 ) -> torch.Tensor:
     """Full forward to logits. With `layouts`, the inputs are this rank's
-    rows (full sequence) and the logits its vocab columns of those rows;
+    rows and sequence shard in the vocab layers' token placement
+    (``Layout.side``), and the logits its vocab columns of those tokens;
     the vocab layers' ZeRO-3 weights are gathered once for the embedding
     and the (tied) head."""
     if positions is None:

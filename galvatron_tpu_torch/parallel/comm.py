@@ -17,6 +17,8 @@ function                          forward                backward
 `rs_gather_bwd` (Megatron-SP out) reduce-scatter (sum)   all-gather along dim
 `reduce_fwd` (Megatron g)         all-reduce (sum)       identity
 `reduce_bwd` (Megatron f)         identity               all-reduce (sum)
+`seq_to_heads` (Ulysses in)       all-to-all seq->heads  all-to-all heads->seq
+`heads_to_seq` (Ulysses out)      all-to-all heads->seq  all-to-all seq->heads
 ================================  =====================  ======================
 
 An all-gather whose consumer is replicated over the group (a re-layout)
@@ -79,6 +81,20 @@ def split(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     if x.shape[dim] % n:
         raise ValueError("split of dim %d (size %d) over %d ranks" % (dim, x.shape[dim], n))
     return x.chunk(n, dim)[dist.get_group_rank(group, dist.get_rank())].contiguous()
+
+
+def all_to_all(x: torch.Tensor, scatter_dim: int, gather_dim: int, group) -> torch.Tensor:
+    """Cut `x` into the group's size of chunks along `scatter_dim`, send
+    chunk i to group rank i, and concatenate the chunks received along
+    `gather_dim`, in group-rank order."""
+    n = _size(group)
+    if x.shape[scatter_dim] % n:
+        raise ValueError("all-to-all of dim %d (size %d) over %d ranks"
+                         % (scatter_dim, x.shape[scatter_dim], n))
+    inp = torch.stack(x.chunk(n, scatter_dim)).contiguous()
+    out = torch.empty_like(inp)
+    dist.all_to_all_single(out, inp, group=group)
+    return torch.cat(out.unbind(0), dim=gather_dim)
 
 
 class _GatherSplitBwd(torch.autograd.Function):
@@ -144,6 +160,30 @@ class _ReduceBwd(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return all_reduce(g, ctx.group), None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scatter_dim, gather_dim, group):
+        ctx.dims, ctx.group = (scatter_dim, gather_dim), group
+        return all_to_all(x, scatter_dim, gather_dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        scatter_dim, gather_dim = ctx.dims
+        return all_to_all(g, gather_dim, scatter_dim, ctx.group), None, None, None
+
+
+def seq_to_heads(x, group):
+    """Ulysses before attention: (B, S/n, H, D) sequence shards -> (B, S,
+    H/n, D) head shards over the group's n ranks (the reference's head-spec
+    constraint, which XLA lowers to this all-to-all)."""
+    return _AllToAll.apply(x, 2, 1, group)
+
+
+def heads_to_seq(x, group):
+    """Ulysses after attention: (B, S, H/n, D) -> (B, S/n, H, D)."""
+    return _AllToAll.apply(x, 1, 2, group)
 
 
 def gather_split_bwd(x, dim: int, group):

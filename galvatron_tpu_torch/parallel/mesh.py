@@ -188,20 +188,33 @@ class RankMesh:
         return mesh
 
     # ------------------------------------------------------------ arithmetic
-    def _check(self, axes: Sequence[str]) -> Tuple[str, ...]:
+    def _check(self, axes: Sequence[str], grid_order: bool = True) -> Tuple[str, ...]:
         axes = tuple(axes)
         pos = [self.names.index(a) for a in axes]
-        if pos != sorted(set(pos)):
-            raise ValueError("axes %s must be distinct and in grid order %s" % (axes, self.names))
+        if len(set(pos)) != len(pos) or (grid_order and pos != sorted(pos)):
+            raise ValueError("axes %s must be distinct%s" % (
+                axes, " and in grid order %s" % (self.names,) if grid_order else ""))
         return axes
 
+    def in_grid_order(self, axes: Sequence[str]) -> bool:
+        pos = [self.names.index(a) for a in axes]
+        return pos == sorted(pos)
+
     def size(self, axes: Sequence[str]) -> int:
-        return int(np.prod([self.sizes[a] for a in self._check(axes)], dtype=np.int64))
+        """The number of ranks over `axes` (in any order)."""
+        return int(np.prod([self.sizes[a] for a in self._check(axes, grid_order=False)],
+                           dtype=np.int64))
 
     def index(self, axes: Sequence[str]) -> int:
         """This rank's row-major index over `axes` (0 for no axes)."""
+        return self.shard_index(self._check(axes))
+
+    def shard_index(self, axes: Sequence[str]) -> int:
+        """The shard of a dim placed on `axes` this rank holds: its
+        row-major index over them, major first, in the order given (a dim
+        on ``(cp, tp)`` with tp on the grid's major axes included)."""
         idx = 0
-        for a in self._check(axes):
+        for a in self._check(axes, grid_order=False):
             idx = idx * self.sizes[a] + self.coord[a]
         return idx
 

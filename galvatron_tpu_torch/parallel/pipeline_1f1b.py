@@ -34,7 +34,10 @@ def validate_1f1b_config(hp: HybridParallelConfig) -> None:
     """The reference's 1F1B contract: uneven divisions and per-stage
     heterogeneous strategies are allowed, every stage needs a layer, ring
     cp needs stage-uniform strategies, and the global batch splits into
-    ``chunks``. (The port does not run cp yet: ``train_refusals``.)"""
+    ``chunks``. Under that contract every cp rank of a stage runs the same
+    ring steps in the same order every tick: the cp ring's point-to-point
+    hops (on the layer's cp group) and the stage boundary's (on the
+    default group) never cross."""
     if hp.pp <= 1:
         return
     div = hp.pp_division

@@ -61,6 +61,27 @@ def act_spec(ax: LayerAxes, *, seq_dim: int = 1, ndim: int = 3) -> Spec:
     return tuple(entries)
 
 
+def token_seq_axes(ax: LayerAxes) -> Axes:
+    """The axes sharding the sequence of the tokens, positions and masks
+    a layer reads: cp, plus the tp axes under Ulysses, where the vocab
+    layers embed and score their own sequence shard (Megatron-SP gathers
+    the sequence over tp before it computes)."""
+    return tuple(ax.cp) + (tuple(ax.tp) if ax.ulysses else ())
+
+
+def side_spec(ax: LayerAxes) -> Spec:
+    """(batch, seq) side inputs of a transformer layer (positions,
+    key-padding masks): batch over dp, sequence over cp, the sequence
+    attention runs on (Ulysses and Megatron-SP gather it over tp first)."""
+    return (tuple(ax.batch_axes), tuple(ax.cp))
+
+
+def token_spec(ax: LayerAxes) -> Spec:
+    """(batch, seq) inputs of the vocab layers (tokens, positions,
+    labels, masks)."""
+    return (tuple(ax.batch_axes), token_seq_axes(ax))
+
+
 def logits_spec(ax: LayerAxes) -> Spec:
     """(batch, seq, vocab) logits: vocab over tp (the vocab-parallel head
     and loss); under vocab-SP (ulysses) the sequence stays tp-sharded and
@@ -126,6 +147,16 @@ def meet_spec(a: Spec, b: Spec, ndim: int) -> Spec:
     return tuple(out)
 
 
+def _groups(mesh: RankMesh, axes: Axes):
+    """The groups a collective over the dim shards of `axes` runs on, major
+    first: one group where the axes are in grid order (its group ranks are
+    the shard order), else one per axis (a dim on ``(cp, tp)`` with tp the
+    grid's major axis: gather tp's shards, then cp's)."""
+    if mesh.in_grid_order(axes):
+        return [mesh.group_for(axes)]
+    return [mesh.group_for((a,)) for a in axes]
+
+
 def relayout(x: torch.Tensor, mesh: RankMesh, from_spec: Spec, to_spec: Spec) -> torch.Tensor:
     """Re-lay `x` (this rank's shard under `from_spec`) as its shard under
     `to_spec`: first every dim drops the sub-axes past the meet (all-gather,
@@ -137,12 +168,12 @@ def relayout(x: torch.Tensor, mesh: RankMesh, from_spec: Spec, to_spec: Spec) ->
     meet = meet_spec(from_spec, to_spec, x.dim())
     for d in range(x.dim()):
         extra = from_spec[d][len(meet[d]):]
-        if extra:
-            x = comm.gather_split_bwd(x, d, mesh.group_for(extra))
+        for group in reversed(_groups(mesh, extra) if extra else []):
+            x = comm.gather_split_bwd(x, d, group)
     for d in range(x.dim()):
         extra = to_spec[d][len(meet[d]):]
-        if extra:
-            x = comm.split_gather_bwd(x, d, mesh.group_for(extra))
+        for group in _groups(mesh, extra) if extra else []:
+            x = comm.split_gather_bwd(x, d, group)
     return x
 
 
@@ -165,7 +196,7 @@ def shard_tensor(full: torch.Tensor, s: Spec, mesh: RankMesh) -> torch.Tensor:
     out = full
     for d, ax in enumerate(_pad(s, full.dim())):
         if ax:
-            out = out.chunk(mesh.size(ax), d)[mesh.index(ax)]
+            out = out.chunk(mesh.size(ax), d)[mesh.shard_index(ax)]
     return out
 
 
@@ -173,6 +204,6 @@ def gather_tensor(local: torch.Tensor, s: Spec, mesh: RankMesh) -> torch.Tensor:
     """The full tensor from every rank's shard under `s` (no gradient)."""
     out = local.detach()
     for d, ax in enumerate(_pad(s, local.dim())):
-        if ax:
-            out = comm.all_gather(out, d, mesh.group_for(ax))
+        for group in reversed(_groups(mesh, ax) if ax else []):
+            out = comm.all_gather(out, d, group)
     return out

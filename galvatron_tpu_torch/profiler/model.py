@@ -27,9 +27,10 @@ kernels on the card):
   is what the caller asks for (``--device cpu``), never a fallback.
 
 Per-tp activation rows are act/k, as the JAX package's one-process profile
-writes them; its measured ``ulysses_k`` and ``cp_k`` rows wait for context
-parallelism (ROADMAP queue 1 item 8). The T5 and Swin profilers wait for
-their families (item 9).
+writes them; its measured ``ulysses_k`` and ``cp_k`` rows need a k-rank
+world to profile and are not ported yet (ROADMAP queue 1, the rest of item
+8): the search prices those axes with the act/k rows. The T5 and Swin
+profilers wait for their families (item 9).
 
 The output files and their schema are the JAX package's:
   computation_profiling_<prec>_hidden<h>_head<nh>_seqlen<s>_<model>.json

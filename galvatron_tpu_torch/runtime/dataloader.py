@@ -6,8 +6,16 @@ families. `RandomTextDataset` draws from the same ``np.random.RandomState``
 stream as the reference, so both packages see identical token batches for
 one seed; `build_data_iterator` (the LM branch of the function of that
 name in the reference's ``cli/train.py``) picks the indexed corpus of ``--data_path``
-(``data/dataset.py``) or that stream, per split. The zigzag
-context-parallel layout is refused until the CP slice of the port.
+(``data/dataset.py``) or that stream, per split.
+
+`prepare_batch` applies the zigzag context-parallel layout, as the
+reference does: under ``cp_mode="zigzag"`` with any cp > 1 (a layer's or
+vocab cp) it permutes every field of the batch along the sequence once
+(``ops.ring_attention.zigzag_permutation`` at ``max_cp``), so cp rank r
+holds chunks r and 2cp-1-r and every ring step does equal work. The model
+is permutation-equivariant given the per-token positions; the attention
+outside the ring follows the permuted sequence's true causal structure
+(``models.base._attention``).
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ import numpy as np
 import torch
 
 from galvatron_tpu_torch.config.strategy import HybridParallelConfig
+from galvatron_tpu_torch.ops.ring_attention import zigzag_permutation
 
 
 def prepare_batch(
@@ -30,10 +39,10 @@ def prepare_batch(
 ) -> Dict[str, torch.Tensor]:
     """tokens (B, S) -> model batch dict on `device`: tokens, positions,
     labels (the tokens rolled by one, the last position masked out of the
-    loss) and the optional masks."""
-    if hp is not None and hp.cp_mode == "zigzag" and hp.max_cp > 1:
-        raise ValueError("zigzag context parallelism (cp=%d) is not ported yet: it comes "
-                         "with the CP slice of galvatron_tpu_torch" % hp.max_cp)
+    loss) and the optional masks, zigzag-permuted along the sequence when
+    the strategy uses zigzag context parallelism. Key-padding masks
+    (`attn_mask`) must come through here under zigzag cp, so that their
+    order matches the permuted tokens."""
     tokens = np.asarray(tokens)
     b, s = tokens.shape
     if labels is None:
@@ -50,6 +59,9 @@ def prepare_batch(
         batch["loss_mask"] = torch.from_numpy(np.asarray(loss_mask, np.float32))
     if attn_mask is not None:
         batch["attn_mask"] = torch.from_numpy(np.asarray(attn_mask, np.float32))
+    if hp is not None and hp.cp_mode == "zigzag" and hp.max_cp > 1:
+        idx = torch.from_numpy(zigzag_permutation(s, hp.max_cp))
+        batch = {k: v[:, idx] for k, v in batch.items()}
     return {k: v.to(device) for k, v in batch.items()}
 
 

@@ -14,13 +14,22 @@ collectives itself:
   group into a sharded accumulator; the update runs on the shard and the
   parameter is all-gathered back;
 - every other gradient is all-reduced over exactly the axes it is partial
-  over: the layer's dp axes, plus its tp axes for the parameters that are
-  replicated over tp but saw sequence shards under Megatron-SP;
+  over: the layer's dp and cp axes, plus its tp axes for the parameters
+  that are replicated over tp but saw sequence shards (every parameter of
+  a Ulysses layer, the Megatron-SP-replicated ones);
 - the loss is this rank's share of the global token mean, micro-batches
-  weighted by their valid tokens across all dp ranks, as the reference.
+  weighted by their valid tokens across all ranks that hold other tokens
+  (dp, and the sequence shards of vocab cp and vocab sp), as the
+  reference.
+
+A layer with cp > 1 runs ring attention over its cp group
+(``ops/ring_attention.py``), a Ulysses layer two all-to-alls over its tp
+group; under ``cp_mode="zigzag"`` the batch arrives permuted
+(``runtime.dataloader.prepare_batch``) and `shard_batch` cuts each row's
+sequence over the vocab layers' token axes.
 
 Every collective runs even over a one-rank group, so a world of one drives
-the same code. `check_layout` names what this slice does not execute yet.
+the same code. `check_layout` names what this slice does not execute.
 
 Under a pipeline (``pp > 1``) each rank holds its stage's part of the model
 (``models.base.stage_model``) and `loss_and_grads` runs the whole batch as
@@ -60,10 +69,10 @@ TIED = "embed.wte"  # the table a tied model's first and last stage both hold
 
 def check_layout(hp: HybridParallelConfig, mode: str = "train") -> None:
     """Raise ValueError unless this slice executes `hp`: in train mode any
-    world size with per-layer DP / ZeRO-2/3 / Megatron TP(+SP) / vocab TP
-    and GPipe or 1F1B pipelines within the reference's contracts, but no
-    context parallelism, Ulysses or vocab sp/cp (each named with the
-    ROADMAP item that brings it); in serve mode world size 1 only."""
+    world size with per-layer DP / ZeRO-2/3 / Megatron TP(+SP) / Ulysses /
+    ring cp / vocab TP, sp and cp, and GPipe or 1F1B pipelines within the
+    reference's contracts (``analysis.strategy_lint.train_refusals``); in
+    serve mode world size 1 only."""
     from galvatron_tpu_torch.analysis.strategy_lint import train_refusals
 
     if mode == "serve":
@@ -212,13 +221,16 @@ class HybridParallelModel:
 
     # ---------------------------------------------------------------- batch
     def shard_batch(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """This rank's rows of the global batch: for each of the ``chunks``
-        micro-batches, its shard over the vocab layers' dp axes (the first
-        layout the activations take), micro-batch after micro-batch. Every
-        row keeps its full sequence: the vocab-parallel embedding and loss
-        read whole rows."""
+        """This rank's tokens of the global batch: for each of the
+        ``chunks`` micro-batches, its shard over the vocab layers' dp axes
+        (the first layout the activations take), micro-batch after
+        micro-batch, and of each row its sequence shard over the vocab
+        layers' token axes (vocab cp, plus vocab tp under vocab sp; the
+        vocab-parallel embedding and loss read the whole cp shard)."""
         vax = vocab_axes(self.hp)
         n, i = self.mesh.size(vax.dp), self.mesh.index(vax.dp)
+        seq_axes = S.token_seq_axes(vax)
+        m, j = self.mesh.size(seq_axes), self.mesh.shard_index(seq_axes)
         chunks = self.hp.chunks
         out = {}
         for k, v in batch.items():
@@ -227,7 +239,13 @@ class HybridParallelModel:
                 raise ValueError("batch of %d rows does not split into %d micro-batches over "
                                  "%d dp ranks" % (b, chunks, n))
             rest = tuple(v.shape[1:])
-            out[k] = v.reshape((chunks, n, b // (chunks * n)) + rest)[:, i].reshape((b // n,) + rest)
+            v = v.reshape((chunks, n, b // (chunks * n)) + rest)[:, i].reshape((b // n,) + rest)
+            if m > 1:
+                if v.shape[1] % m:
+                    raise ValueError("%s: sequence of %d does not split over %d vocab sequence "
+                                     "shards (GLS008)" % (k, v.shape[1], m))
+                v = v.chunk(m, 1)[j]
+            out[k] = v
         return out
 
     # ------------------------------------------------------------ loss, grads
@@ -238,11 +256,12 @@ class HybridParallelModel:
 
     def _mb_weights(self, mbs, layouts: M.ModelLayouts) -> torch.Tensor:
         """Each micro-batch loss is a mean over its own valid tokens (of
-        every dp rank): weight it by its share of the step's valid tokens,
-        so the chunked objective equals the chunks == 1 one."""
+        every rank of the token group): weight it by its share of the
+        step's valid tokens, so the chunked objective equals the chunks ==
+        1 one."""
         if "loss_mask" in mbs[0]:
             sums = torch.stack([mb["loss_mask"].float().sum() for mb in mbs])
-            sums = comm.all_reduce(sums, layouts.vocab.dp_group)
+            sums = comm.all_reduce(sums, layouts.vocab.token_group)
             return sums / sums.sum().clamp(min=1.0)
         return torch.full((len(mbs),), 1.0 / len(mbs), device=self.device)
 
@@ -287,8 +306,10 @@ class HybridParallelModel:
 
     def _boundary(self, mbs) -> PL.BoundaryFn:
         """(shape, dtype) of a micro-batch's activation between stages: its
-        rows, its sequence shard in the vocab layout, the hidden width."""
-        seq = self.mesh.size(vocab_axes(self.hp).seq_axes)
+        rows, its sequence shard in the vocab layout (the tokens' shard,
+        cut over tp once more under vocab Megatron-SP), the hidden width."""
+        vax = vocab_axes(self.hp)
+        seq = self.mesh.size(vax.seq_axes) // self.mesh.size(S.token_seq_axes(vax))
 
         def boundary(mb: int):
             rows, length = mbs[mb]["tokens"].shape[:2]
@@ -324,7 +345,7 @@ class HybridParallelModel:
 
         self.transport.run({s: self._schedule(s, backward) for s in params}, forward,
                            backward_fn, self._boundary(mbs))
-        losses = {s: comm.all_reduce(r.loss, self.layouts_of(s).vocab.dp_group) if s == last
+        losses = {s: comm.all_reduce(r.loss, self.layouts_of(s).vocab.token_group) if s == last
                   else torch.zeros((), device=self.device) for s, r in runners.items()}
         return self.transport.from_last(losses)[self.stages[0]], state
 
@@ -440,8 +461,8 @@ class HybridParallelModel:
     def eval_loss(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The loss of the GLOBAL batch, forward only (the reference's
         ``eval_loss``), under ``torch.no_grad`` (no residuals kept, no
-        backward kernel): this rank's rows in one forward, the shares summed
-        over the vocab layers' dp group; under a pipeline, the forward-only
+        backward kernel): this rank's tokens in one forward, the shares
+        summed over the vocab layers' token group; under a pipeline, the forward-only
         GPipe schedule over ``chunks`` micro-batches weighted by their valid
         tokens (the reference's ``make_pipelined_loss``), the last stage's
         loss on every stage."""
@@ -450,7 +471,7 @@ class HybridParallelModel:
                 return self._run_pipeline(params, batch, backward=False)[0]
             loss = M.lm_loss_fn(params[0], self.shard_batch(batch), self.cfg, self.hp,
                                 self.layouts)
-            return comm.all_reduce(loss, self.layouts.vocab.dp_group)
+            return comm.all_reduce(loss, self.layouts.vocab.token_group)
 
     def make_train_step(self, tx: AdamW, *, guard_anomalies: bool = False,
                         sdc_check: str = "off") -> Callable:

@@ -193,12 +193,18 @@ def test_placement_builders_match_the_reference():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(pp=2, cp=2), "item 8"), (dict(cp=2), "item 8"), (dict(tp=2, sp=1), "item 8"),
-    (dict(vocab_tp=2, vocab_sp=1), "item 8"), (dict(vocab_cp=2), "item 8"),
+    (dict(pp=2, cp=2), "1F1B engine"), (dict(cp=2), None), (dict(tp=2, sp=1), None),
+    (dict(vocab_tp=2, vocab_sp=1), None), (dict(vocab_cp=2), None),
     (dict(tp=2, tp_comm_mode="overlap"), "item 10"),
 ])
 def test_train_refuses_what_this_slice_does_not_run_naming_its_item(kw, item):
+    """Long context runs (cp, Ulysses, vocab sp and cp); cp under GPipe is
+    refused with the reference engine's message, the manual TP modes with
+    their ROADMAP item."""
     hp = TC.HybridParallelConfig.uniform(4, 4, **kw)
+    if item is None:
+        check_layout(hp)
+        return
     with pytest.raises(ValueError, match=item):
         check_layout(hp)
 

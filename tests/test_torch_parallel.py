@@ -33,6 +33,22 @@ reference, not the reference's manual TP paths):
   (the tied table once), resumes bit for bit, reassembles with
   ``load_full_params`` into exactly the trained parameters, and refuses a
   resume under pp 1 with GLS206;
+- long context: Ulysses (tp 2 and 4 with sp), ring cp in both
+  ``cp_mode``s, Ulysses with cp on one layer, vocab sp and vocab cp, a
+  mixed [cp2, cp1, tp2, Ulysses 2] zigzag strategy, a key-padded batch
+  under cp 2, cp and Ulysses inside 1F1B, each through ``prepare_batch``
+  (the zigzag permutation) against the unsharded reference on the natural
+  order, and ring layers (cp 4 padded, cp 2, Ulysses 2 with cp 2) of a
+  GPT at the flash kernels' head_dim 128 on 512 tokens, which on GPUs run
+  the kernels over NCCL; the reference's heterogeneous trajectory ([tp2, Ulysses 4,
+  cp2 + ZeRO-3, remat]) trains three steps within the trajectory limits;
+  at world 2 the divergence case: with query/key weights scaled by 8 the
+  port's [cp2, cp1] zigzag loss matches the unsharded loss, while the JAX
+  package's sharded run of the same strategy, whose attention outside the
+  ring masks the permuted sequence by index, is off by at least 100 times
+  the port's error; a cp 2 + Ulysses + vocab sp save through the train
+  CLI resumes bit for bit; and the train CLI runs the plan ``cli search
+  --sp_space tp+sp --enable_cp 1`` writes for a world of 2;
 - the hardware profiler (``profiler/hardware.py``) on the same world:
   ``profile_all`` writes the JAX package's file names and keys (its
   HardwareProfiler on a 2- and 4-device CPU mesh; the quantization toll
@@ -49,6 +65,7 @@ The worker half of this file imports torch only.
 
 from __future__ import annotations
 
+import json
 import os
 import subprocess
 import sys
@@ -65,7 +82,17 @@ LLAMA = dict(hidden_size=64, num_heads=4, num_kv_heads=1, num_layers=2, ffn_hidd
              vocab_size=V, max_seq_len=64)
 # the same llama at depth 6, for the uneven 2,2,1,1 division of four stages
 LLAMA6 = dict(LLAMA, num_layers=6)
-MODELS = ("gpt", "llama", "llama6")
+# the GPT with its query and key weights scaled by SHARP: attention sharp
+# enough that a wrong causal mask moves the loss well past the limits
+SHARP = 8.0
+# a GPT at the flash kernels' shape (head_dim 128) on a longer sequence,
+# for ring layers on the card: every block of a cp 4 zigzag ring (S / 8
+# rows) a multiple of the kernels' 64-row tile
+GPT_HD128 = dict(hidden_size=256, num_heads=2, num_layers=2, vocab_size=V, max_seq_len=512)
+MODEL_SEQ = {"gpt_hd128": 512}  # the others take S_LEN
+MODELS = ("gpt", "llama", "llama6", "gpt_sharp", "gpt_hd128")
+# a key-padded batch (``attn_mask``): the padded tail of each row (PAD)
+# is also out of the loss
 OPT = dict(lr=1e-3, min_lr=1e-4, warmup_steps=1, total_steps=10)
 TRAJ_STEPS = 3
 LOSS_TOL, GRAD_REL, GRAD_ABS, TRAJ_TOL = 2e-5, 1e-4, 1e-6, 5e-5
@@ -102,6 +129,26 @@ CASES = {
                                                       _L(tp=2)] * 2,
                                         vocab_tp=2, chunks=2, default_dp_type="zero2",
                                         pipeline_type="pipedream_flush"),
+        # long context: Ulysses over four ranks, Ulysses with cp (under
+        # remat: the ring and the all-to-alls replay in the backward), GQA
+        # kv heads expanded for Ulysses, cp and Ulysses inside 1F1B
+        "ulysses4": dict(tp=4, sp=1),
+        "ulysses2_cp2_remat": dict(tp=2, sp=1, cp=2, checkpoint=1, chunks=2),
+        "ulysses2_cp2_ring": dict(tp=2, sp=1, cp=2, cp_mode="ring"),
+        "llama_gqa_ulysses4_cp_vocab": dict(model="llama", tp=4, sp=1, vocab_cp=2,
+                                            vocab_tp=2, vocab_sp=1),
+        "cp4_zigzag_padded": dict(cp=4, padded=True),
+        # Megatron TP+SP with cp on the layers and on the vocab layers
+        "tp2_cp2_vtp2_vcp2": dict(tp=2, cp=2, vocab_tp=2, vocab_cp=2),
+        "pp2_cp2_1f1b": dict(pp=2, cp=2, chunks=2, pipeline_type="pipedream_flush"),
+        "pp2_tp2_ulysses_1f1b": dict(pp=2, layers=[_L(tp=2, sp=1), _L(tp=2)] * 2, vocab_tp=2,
+                                     chunks=2, default_dp_type="zero2",
+                                     pipeline_type="pipedream_flush"),
+        # ring layers at the kernels' shape: on GPUs the ring runs the flash
+        # kernels over NCCL (P2PRing)
+        "hd128_cp4_zigzag_padded": dict(model="gpt_hd128", cp=4, padded=True),
+        "hd128_cp2_zigzag": dict(model="gpt_hd128", cp=2),
+        "hd128_ulysses2_cp2": dict(model="gpt_hd128", tp=2, sp=1, cp=2),
     },
     2: {
         "dp2": dict(),
@@ -109,8 +156,22 @@ CASES = {
         "pp2_gpipe": dict(pp=2, chunks=4),
         "pp2_zero3_remat_1f1b": dict(pp=2, sdp=1, checkpoint=1, chunks=2,
                                      pipeline_type="pipedream_flush"),
+        "ulysses2": dict(tp=2, sp=1),
+        "cp2_zigzag": dict(cp=2),
+        "cp2_ring": dict(cp=2, cp_mode="ring"),
+        "vsp2": dict(vocab_tp=2, vocab_sp=1),
+        "vcp2": dict(vocab_cp=2),
+        "mixed_cp2_cp1_tp2_ulysses2": dict(layers=[_L(cp=2), _L(), _L(tp=2), _L(tp=2, sp=1)]),
+        "cp2_padded": dict(cp=2, padded=True),
+        "sharp_cp2_cp1": dict(model="gpt_sharp", layers=[_L(cp=2), _L()] * 2),
     },
 }
+# the divergence case and its strategy, run by the JAX package too
+DIVERGENCE_CASE = "sharp_cp2_cp1"
+# the reference's heterogeneous trajectory strategy (world 8 there), fed
+# through prepare_batch: the zigzag permutation for its cp 2 layer
+LC_TRAJ_CASE = dict(layers=[_L(tp=2), _L(tp=4, sp=1), _L(cp=2, fsdp=1), _L(checkpoint=1)],
+                    chunks=2, default_dp_type="zero2")
 # a tied GPT trained through a pipeline at world 2: its table lives on both
 # stages and must stay bitwise equal
 PP_TRAJ_CASE = dict(pp=2, pp_division=[3, 1], chunks=2, default_dp_type="zero2",
@@ -128,14 +189,27 @@ RELAYOUTS = [
 ]
 
 
-def batch_np():
+def batch_np(seq=S_LEN):
     rng = np.random.RandomState(11)
-    tokens = rng.randint(0, V, (B, S_LEN))
-    loss_mask = np.ones((B, S_LEN), np.float32)
+    tokens = rng.randint(0, V, (B, seq))
+    loss_mask = np.ones((B, seq), np.float32)
     for row, pad in enumerate(PAD):
         if pad:
             loss_mask[row, -pad:] = 0.0
     return tokens, np.roll(tokens, -1, axis=1), loss_mask
+
+
+def case_batch_np(padded=False, seq=S_LEN):
+    """(tokens, labels, loss_mask, attn_mask): with `padded` every row's PAD
+    tail is key padding too (attn_mask), as it is out of the loss."""
+    tokens, labels, loss_mask = batch_np(seq)
+    return tokens, labels, loss_mask, loss_mask.copy() if padded else None
+
+
+def _ref_key(kw):
+    """The unsharded reference a case is held against: its model, on the
+    padded batch where it asks for one."""
+    return kw.get("model", "gpt") + ("_padded" if kw.get("padded") else "")
 
 
 # ======================================================================= worker
@@ -144,6 +218,7 @@ def _hp(kw, world, num_layers):
 
     kw = dict(kw)
     kw.pop("model", None)
+    kw.pop("padded", None)
     layers = kw.pop("layers", None)
     kw.setdefault("global_bsz", B)
     if layers is None:
@@ -160,6 +235,7 @@ def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "
     torch.set_num_threads(1)
     torch.backends.cuda.matmul.allow_tf32 = False
     from galvatron_tpu_torch.models import base as TM
+    from galvatron_tpu_torch.ops.flash_attention import HEAD_DIMS
     from galvatron_tpu_torch.parallel import comm
     from galvatron_tpu_torch.runtime import distributed
     from galvatron_tpu_torch.runtime.dataloader import prepare_batch
@@ -178,19 +254,36 @@ def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "
     cfgs = {"gpt": TM.TransformerConfig(**GPT, compute_dtype=torch.float32),
             "llama": llama_config("llama-0.3b", compute_dtype=torch.float32, **LLAMA),
             "llama6": llama_config("llama-0.3b", compute_dtype=torch.float32, **LLAMA6)}
-    tokens, labels, loss_mask = batch_np()
-    batch = prepare_batch(None, tokens, labels, loss_mask, device=dev)
+    cfgs["gpt_sharp"] = cfgs["gpt"]
+    cfgs["gpt_hd128"] = TM.TransformerConfig(**GPT_HD128, compute_dtype=torch.float32)
+    batches = {(padded, seq): case_batch_np(padded, seq) for padded in (False, True)
+               for seq in {S_LEN, *MODEL_SEQ.values()}}
+    batch = prepare_batch(None, *batches[False, S_LEN][:3], device=dev)
     results = {}
+
+    def on_card(kw):
+        """False for a case the card cannot run: a ring layer of a model
+        whose head_dim is no kernel shape (the tiny models' 16), as the ring
+        has no plain path on the card."""
+        cfg = cfgs[kw.get("model", "gpt")]
+        return dev.type != "cuda" or cfg.hidden_size // cfg.num_heads in HEAD_DIMS or not any(
+            s.cp > 1 for s in _hp(kw, world, cfg.num_layers).layers)
 
     def grads_of(name):
         kw = CASES[world][name]
-        cfg = cfgs[kw.get("model", "gpt")]
-        model = construct_hybrid_parallel_model(cfg, _hp(kw, world, cfg.num_layers), dev)
-        params = model.shard_params(full[kw.get("model", "gpt")])
-        loss, grads = model.loss_and_grads(params, batch)
+        m = kw.get("model", "gpt")
+        cfg = cfgs[m]
+        hp = _hp(kw, world, cfg.num_layers)
+        model = construct_hybrid_parallel_model(cfg, hp, dev)
+        params = model.shard_params(full[m])
+        # the strategy's batch: zigzag-permuted under zigzag cp
+        loss, grads = model.loss_and_grads(params, prepare_batch(
+            hp, *batches[bool(kw.get("padded")), MODEL_SEQ.get(m, S_LEN)], device=dev))
         return model, params, float(loss), model.gather_grads(grads)
 
     for name in CASES[world]:
+        if not on_card(CASES[world][name]):
+            continue
         _, _, loss, grads = grads_of(name)
         results["%s/loss" % name] = np.float64(loss)
         for n, g in grads.items():
@@ -231,8 +324,9 @@ def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "
         state = model.init_opt_state(tx, params)
         step = model.make_train_step(tx)
         losses = []
+        hp_batch = prepare_batch(hp, *batches[False, S_LEN][:3], device=dev)
         for _ in range(TRAJ_STEPS):
-            params, state, metrics = step(params, state, batch)
+            params, state, metrics = step(params, state, hp_batch)
             losses.append(float(metrics["loss"]))
         results["%s/loss" % key] = np.asarray(losses)
         for n, p in model.gather_params(params).items():
@@ -246,6 +340,8 @@ def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "
 
     if TRAJ_CASE in CASES[world]:
         trajectory(_hp(CASES[world][TRAJ_CASE], world, cfgs["gpt"].num_layers), "traj")
+        if on_card(LC_TRAJ_CASE):
+            trajectory(_hp(LC_TRAJ_CASE, world, cfgs["gpt"].num_layers), "lctraj")
     if world == 2:
         model, params = trajectory(_hp(PP_TRAJ_CASE, world, cfgs["gpt"].num_layers), "pptraj")
         # every stage's copy of the tied table (the first and the last)
@@ -276,6 +372,11 @@ def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "
     if world == 2:
         results.update(_checkpoint_cases(os.path.join(os.path.dirname(out), "ckpt_w2"),
                                          device_name))
+        if dev.type != "cuda":  # ring layers at head_dim 16 (see on_card)
+            results.update(_checkpoint_cases(os.path.join(os.path.dirname(out), "ckpt_lc_w2"),
+                                             device_name, CKPT_LC_STRATEGY, "ckpt_lc"))
+            results.update(_loop_case(os.path.join(os.path.dirname(inputs), LOOP_PLAN),
+                                      device_name))
         results.update(_pipeline_checkpoint_cases(
             os.path.join(os.path.dirname(out), "ckpt_pp_w2"), device_name))
 
@@ -350,6 +451,10 @@ def _hardware_cases(config_dir: str, dev) -> dict:
 CKPT_STRATEGY = {"pp_deg": 1, "tp_sizes_enc": "2,1,1,2", "tp_consecutive_flags": "1,1,1,1",
                  "dp_types_enc": "0,1,0,0", "default_dp_type": "zero2", "global_bsz": 4,
                  "chunks": 2}
+# the long-context save/resume: Ulysses 2, cp 2 (one layer ZeRO-3),
+# Megatron tp 2, vocab sp, zigzag
+CKPT_LC_STRATEGY = dict(CKPT_STRATEGY, tp_sizes_enc="2,1,1,2", use_sp="1,0,0,0",
+                        cp_sizes_enc="1,2,2,1", vtp=2, vsp=1, cp_mode="zigzag")
 CKPT_ARGV = ["--model_type", "gpt", "--set_model_config_manually", "1", "--hidden_size", "64",
              "--num_attention_heads", "4", "--num_layers", "4", "--vocab_size", "128",
              "--seq_length", "32", "--global_train_batch_size", "4", "--chunks", "2",
@@ -357,11 +462,13 @@ CKPT_ARGV = ["--model_type", "gpt", "--set_model_config_manually", "1", "--hidde
              "--world_size", "2"]
 
 
-def _checkpoint_cases(ckpt_dir: str, device_name: str) -> dict:
-    """The train CLI at world 2 (inside the worker's process group): an
-    uninterrupted 6-step run, a 3-step run that saves (rank 1's first write
-    of its file fails: both ranks retry together), its resume to 6, and a
-    resume under another strategy."""
+def _checkpoint_cases(ckpt_dir: str, device_name: str, strategy=None,
+                      prefix: str = "ckpt") -> dict:
+    """The train CLI at world 2 (inside the worker's process group) under
+    `strategy` (default CKPT_STRATEGY): an uninterrupted 6-step run, a
+    3-step run that saves (rank 1's first write of its file fails: both
+    ranks retry together), its resume to 6, and a resume under another
+    strategy (every layer plain dp)."""
     import json
 
     import torch
@@ -371,12 +478,13 @@ def _checkpoint_cases(ckpt_dir: str, device_name: str) -> dict:
     from galvatron_tpu_torch.runtime import checkpoint as ck
 
     rank = torch.distributed.get_rank()
+    strategy = strategy or CKPT_STRATEGY
     strategies = {}
-    for name, dp_types in (("mixed", CKPT_STRATEGY["dp_types_enc"]), ("other", "0,0,0,0")):
+    for name, dp_types in (("mixed", strategy["dp_types_enc"]), ("other", "0,0,0,0")):
         path = "%s_%s.json" % (ckpt_dir, name)
         if rank == 0:
             with open(path, "w") as f:
-                json.dump(dict(CKPT_STRATEGY, dp_types_enc=dp_types), f)
+                json.dump(dict(strategy, dp_types_enc=dp_types), f)
         strategies[name] = path
     torch.distributed.barrier()
 
@@ -407,13 +515,36 @@ def _checkpoint_cases(ckpt_dir: str, device_name: str) -> dict:
         refused = "none"
     except DiagnosticError as e:
         refused = ",".join(d.code for d in e.diagnostics)
-    return {"ckpt/full": np.asarray(full["losses"]), "ckpt/first": np.asarray(first["losses"]),
-            "ckpt/resumed": np.asarray(resumed["losses"]),
-            "ckpt/start": np.int64(resumed["checkpoint_restore"]["iteration"]),
-            "ckpt/ranks": np.int64(len(os.listdir(os.path.join(ckpt_dir, "3"))) - 1),
-            "ckpt/refused": np.asarray(refused),
-            "ckpt/write_faults": np.asarray([f for f, _ in retries]),
-            "ckpt/save_retries": np.asarray([r for _, r in retries])}
+    out = {"full": np.asarray(full["losses"]), "first": np.asarray(first["losses"]),
+           "resumed": np.asarray(resumed["losses"]),
+           "start": np.int64(resumed["checkpoint_restore"]["iteration"]),
+           "ranks": np.int64(len(os.listdir(os.path.join(ckpt_dir, "3"))) - 1),
+           "refused": np.asarray(refused),
+           "write_faults": np.asarray([f for f, _ in retries]),
+           "save_retries": np.asarray([r for _, r in retries])}
+    return {"%s/%s" % (prefix, k): v for k, v in out.items()}
+
+
+# the plan `cli search --sp_space tp+sp --enable_cp 1` writes for a world of
+# 2 (`_loop_plan`), beside the weights; the world-2 worker trains it
+LOOP_PLAN = "loop_plan.json"
+LOOP_MODEL_ARGV = ["--model_type", "llama", "--set_model_config_manually", "1",
+                   "--hidden_size", "128", "--num_attention_heads", "2", "--ffn_hidden_size",
+                   "64", "--num_layers", "4", "--vocab_size", "64", "--seq_length", "64"]
+LOOP_STEPS = 3
+
+
+def _loop_case(plan: str, device_name: str) -> dict:
+    """The train CLI at world 2 on the searched plan, in fp32."""
+    from galvatron_tpu_torch.cli import train as T
+
+    with open(plan) as f:
+        bsz = json.load(f)["global_bsz"]
+    summary = T.train(T.initialize_galvatron(argv=LOOP_MODEL_ARGV + [
+        "--device", device_name, "--galvatron_config_path", plan, "--world_size", "2",
+        "--global_train_batch_size", str(bsz), "--train_iters", str(LOOP_STEPS),
+        "--lr", "1e-3", "--mixed_precision", "fp32", "--log_interval", "100"], mode="train"))
+    return {"loop/losses": np.asarray(summary["losses"])}
 
 
 
@@ -514,19 +645,46 @@ def _reference(tmp_dir):
 
     cfgs = {"gpt": JM.TransformerConfig(**GPT, compute_dtype=jnp.float32),
             "llama": llama_config("llama-0.3b", compute_dtype=jnp.float32, **LLAMA),
-            "llama6": llama_config("llama-0.3b", compute_dtype=jnp.float32, **LLAMA6)}
+            "llama6": llama_config("llama-0.3b", compute_dtype=jnp.float32, **LLAMA6),
+            "gpt_hd128": JM.TransformerConfig(**GPT_HD128, compute_dtype=jnp.float32)}
     tokens, labels, loss_mask = batch_np()
     jb = JD.prepare_batch(None, tokens, labels, loss_mask)
     weights, out = {}, {}
+
+    def unsharded(key, c, tree, batch):
+        loss, grads = jax.value_and_grad(lambda p: JM.lm_loss_fn(p, batch, c))(tree)
+        flat_g = {}
+        _flatten(jax.device_get(grads), "", flat_g)
+        out[key] = dict(loss=float(loss), grads={n: np.asarray(v) for n, v in flat_g.items()},
+                        tree=tree)
+
     for m, c in cfgs.items():
         tree = jax.device_get(JM.init_model_params(jax.random.PRNGKey(0), c))
-        loss, grads = jax.value_and_grad(lambda p, _c=c: JM.lm_loss_fn(p, jb, _c))(tree)
-        flat_p, flat_g = {}, {}
-        _flatten(tree, "", flat_p)
-        _flatten(jax.device_get(grads), "", flat_g)
+        unsharded(m, c, tree, JD.prepare_batch(None, *batch_np(MODEL_SEQ[m])) if m in MODEL_SEQ
+                  else jb)
+    # the GPT with sharpened attention (query and key kernels x SHARP)
+    sharp = jax.tree.map(np.array, out["gpt"]["tree"])
+    for lp in sharp["layers"]:
+        lp["wqkv"]["kernel"][:, :2] *= SHARP
+    unsharded("gpt_sharp", cfgs["gpt"], sharp, jb)
+    # the key-padded batch (attn_mask), natural order
+    unsharded("gpt_padded", cfgs["gpt"], out["gpt"]["tree"],
+              JD.prepare_batch(None, *case_batch_np(True)))
+    unsharded("gpt_hd128_padded", cfgs["gpt_hd128"], out["gpt_hd128"]["tree"],
+              JD.prepare_batch(None, *case_batch_np(True, MODEL_SEQ["gpt_hd128"])))
+    for m in MODELS:
+        flat_p = {}
+        _flatten(out[m]["tree"], "", flat_p)
         weights.update({"%s/%s" % (m, n): np.asarray(v, np.float32) for n, v in flat_p.items()})
-        out[m] = dict(loss=float(loss), grads={n: np.asarray(v) for n, v in flat_g.items()},
-                      tree=tree)
+    # the JAX package's own sharded run of the divergence case (two CPU
+    # devices; its batch zigzag-permuted by its prepare_batch)
+    kw = CASES[2][DIVERGENCE_CASE]
+    hp = JHP(world_size=2, pp=1, layers=[JLS(**s) for s in kw["layers"]], global_bsz=B)
+    model = JAPI.construct_hybrid_parallel_model(cfgs["gpt"], hp, jax.devices()[:2])
+    sharded_loss = jax.jit(model.loss_fn)(
+        jax.device_put(out["gpt_sharp"]["tree"], model.shardings()),
+        model.shard_batch(JD.prepare_batch(hp, tokens, labels, loss_mask)))
+    divergence = dict(jax_sharded_loss=float(sharded_loss))
     cfg, tree = cfgs["gpt"], out["gpt"]["tree"]
 
     layers = CASES[4][TRAJ_CASE]["layers"]
@@ -549,7 +707,61 @@ def _reference(tmp_dir):
         traj.update({"%s/%s" % (kind, n): np.asarray(v) for n, v in flat.items()})
     inputs = os.path.join(tmp_dir, "weights.npz")
     np.savez(inputs, **weights)
-    return dict(models=out, traj=traj, inputs=inputs)
+    _loop_plan(tmp_dir)
+    return dict(models=out, traj=traj, inputs=inputs, divergence=divergence)
+
+
+# a world-2 profile: the tiny llama's tables of tests/test_torch_profile.py
+# and two-rank collective tables
+LOOP_TIME = {"layertype_0": 4.7, "other_time": 0.4}
+LOOP_MEMORY = {
+    "layertype_0": {"parameter_size": 1.377, "tp_activation_per_bsz_dict": {
+        1: 4.0, 2: 2.0, 4: 1.0, 8: 0.5, "checkpoint": 0.25}},
+    "other_memory_pp_off": {"model_states": {1: 2.0, 2: 1.0, 4: 0.5, 8: 0.25},
+                            "activation": {1: 0.9, 2: 0.45, 4: 0.225, 8: 0.112}},
+    "other_memory_pp_on": {
+        "first_stage": {"model_states": {1: 1.0, 2: 0.5, 4: 0.25, 8: 0.125},
+                        "activation": {1: 0.45, 2: 0.225, 4: 0.112, 8: 0.056}},
+        "last_stage": {"model_states": {1: 1.0, 2: 0.5, 4: 0.25, 8: 0.125},
+                       "activation": {1: 0.45, 2: 0.225, 4: 0.112, 8: 0.056}}},
+}
+LOOP_HARDWARE = {
+    "allreduce_bandwidth_2chips.json": {"allreduce_size_2_consec_1": 130.0},
+    "p2p_bandwidth_2chips.json": {"pp_size_2": 160.0},
+    "sp_time_2chips.json": {"allreduce": {"2": {"popt": [0.02, 0.01]}},
+                            "all2all": {"2": {"popt": [0.01, 0.01]}}},
+    "overlap_coefficient.json": {"overlap_coe": 1.12},
+}
+
+
+def _loop_plan(tmp_dir: str) -> str:
+    """``cli search --sp_space tp+sp --enable_cp 1`` for a world of 2 over
+    the profile above; writes LOOP_PLAN beside the weights."""
+    from galvatron_tpu_torch.cli import search as TCLI
+
+    config_dir = os.path.join(tmp_dir, "loop_profile")
+    os.makedirs(config_dir, exist_ok=True)
+    tag = "bf16_hidden128_head2_seqlen64_llama"
+    for name, data in (("computation_profiling_%s.json" % tag, LOOP_TIME),
+                       ("memory_profiling_%s.json" % tag, LOOP_MEMORY),
+                       *LOOP_HARDWARE.items()):
+        with open(os.path.join(config_dir, name), "w") as f:
+            json.dump(data, f)
+    plan = os.path.join(tmp_dir, LOOP_PLAN)
+    old = os.environ.get("GALVATRON_WORLD_SIZE")
+    os.environ["GALVATRON_WORLD_SIZE"] = "2"
+    try:
+        TCLI.main(LOOP_MODEL_ARGV + ["--config_dir", config_dir, "--output_config_path", plan,
+                                     "--log_dir", os.path.join(tmp_dir, "loop_logs"),
+                                     "--memory_constraint", "0.6", "--settle_bsz", "8",
+                                     "--settle_chunk", "2", "--sp_space", "tp+sp",
+                                     "--enable_cp", "1"])
+    finally:
+        if old is None:
+            del os.environ["GALVATRON_WORLD_SIZE"]
+        else:
+            os.environ["GALVATRON_WORLD_SIZE"] = old
+    return plan
 
 
 def _launch(world, inputs, out, fault=True, timeout=240):
@@ -585,7 +797,11 @@ def report(tmp_dir, given=None):
         res = dict(np.load(given[world])) if given else \
             _launch(world, ref["inputs"], os.path.join(tmp_dir, "out%d.npz" % world))
         for name, kw in CASES[world].items():
-            want = ref["models"][kw.get("model", "gpt")]
+            if "%s/loss" % name not in res:
+                print("world %d %-28s not run (on the card: a ring layer at no kernel "
+                      "head_dim)" % (world, name))
+                continue
+            want = ref["models"][_ref_key(kw)]
             errs = grad_errors({n: res["%s/grad/%s" % (name, n)] for n in want["grads"]},
                                want["grads"])
             worst = max(errs, key=errs.get)
@@ -607,6 +823,14 @@ def report(tmp_dir, given=None):
             errs = grad_errors({n: res["fault/grad/%s" % n] for n in want["grads"]},
                                want["grads"])
             print("planted fault: worst gradient at %.3f of its limit" % max(errs.values()))
+            if "lctraj/loss" in res:
+                print("long-context trajectory: losses max err %.3g; params max err %.3g of the "
+                      "tree max" % (
+                          np.abs(res["lctraj/loss"] - traj["loss"]).max(),
+                          max(float(np.abs(res["lctraj/" + k] - traj[k]).max()) for k in traj
+                              if k.startswith("param/"))
+                          / max(float(np.abs(traj[k]).max()) for k in traj
+                                if k.startswith("param/"))))
         if world == 2 and "pptraj/loss" in res:
             traj = ref["traj"]
             print("pipeline trajectory (tied GPT, 1F1B 3,1): losses max err %.3g; params max "
@@ -616,6 +840,12 @@ def report(tmp_dir, given=None):
                           if k.startswith("param/"))
                       / max(float(np.abs(traj[k]).max()) for k in traj if k.startswith("param/")),
                       bool((res["pptraj/wte_copies"] == res["pptraj/wte_copies"][0]).all())))
+        if world == 2 and "%s/loss" % DIVERGENCE_CASE in res:
+            want = ref["models"]["gpt_sharp"]["loss"]
+            print("zigzag divergence ([cp2, cp1] x 2, weights x %g): JAX sharded loss off the "
+                  "unsharded by %.3g, the port's by %.3g" % (
+                      SHARP, abs(ref["divergence"]["jax_sharded_loss"] - want),
+                      abs(float(res["%s/loss" % DIVERGENCE_CASE]) - want)))
         print("world %d relayout round trips exact: %s; init equals a one-rank init: %s" % (
             world, all(not res[k].any() for k in res if k.startswith("relayout/")),
             all(np.array_equal(res["init/" + k[9:]], res[k]) for k in res
@@ -636,6 +866,10 @@ if __name__ == "__main__":
     sys.path.insert(0, REPO)  # run as a script, the package is beside tests/
     if len(sys.argv) > 2 and sys.argv[1] in ("--report", "--weights"):
         os.environ.setdefault("JAX_PLATFORMS", "cpu")
+        # the JAX package's sharded divergence run takes two CPU devices
+        flags = os.environ.get("XLA_FLAGS", "")
+        if "xla_force_host_platform_device_count" not in flags:
+            os.environ["XLA_FLAGS"] = (flags + " --xla_force_host_platform_device_count=8").strip()
         os.makedirs(sys.argv[2], exist_ok=True)
         if sys.argv[1] == "--weights":
             print(_reference(sys.argv[2])["inputs"])
@@ -679,7 +913,7 @@ CASE_IDS = [(w, n) for w in sorted(CASES, reverse=True) for n in CASES[w]]
 def test_layout_loss_and_every_gradient_match_unsharded_reference(world, name, reference,
                                                                   world_results):
     res = world_results(world)
-    ref = reference["models"][CASES[world][name].get("model", "gpt")]
+    ref = reference["models"][_ref_key(CASES[world][name])]
     loss = float(res["%s/loss" % name])
     assert abs(loss - ref["loss"]) <= LOSS_TOL, (loss, ref["loss"])
     got = {n: res["%s/grad/%s" % (name, n)] for n in ref["grads"]}
@@ -723,6 +957,60 @@ def test_hetero_trajectory_matches_unsharded_optax(reference, world_results):
         errs = {k: float(np.abs(res["traj/" + k] - want[k]).max()) for k in keys}
         worst = max(errs, key=errs.get)
         assert errs[worst] <= TRAJ_TOL * scale, (worst, errs[worst], scale)
+
+
+def test_long_context_hetero_trajectory_matches_unsharded_optax(reference, world_results):
+    """The reference's heterogeneous strategy ([tp2, Ulysses 4, cp2 +
+    ZeRO-3, remat], chunks 2, ZeRO-2), its batch zigzag-permuted by
+    prepare_batch: three steps within the limits of the trajectory above."""
+    res, want = world_results(4), reference["traj"]
+    np.testing.assert_allclose(res["lctraj/loss"], want["loss"], rtol=0, atol=TRAJ_TOL)
+    for kind in ("param", "mu", "nu"):
+        keys = [k for k in want if k.startswith(kind + "/")]
+        scale = max(float(np.abs(want[k]).max()) for k in keys)
+        errs = {k: float(np.abs(res["lctraj/" + k] - want[k]).max()) for k in keys}
+        worst = max(errs, key=errs.get)
+        assert errs[worst] <= TRAJ_TOL * scale, (worst, errs[worst], scale)
+
+
+def test_zigzag_divergence_of_the_reference_and_the_ports_fix(reference, world_results):
+    """[cp2, cp1] x 2 under zigzag with sharpened attention: the JAX
+    package's sharded loss is off its unsharded loss by at least 100 times
+    the port's error (its cp=1 layers mask the permuted sequence by
+    index), and the port's is within the layout limit (its attention
+    outside the ring puts the sequence in its true order first)."""
+    want = reference["models"]["gpt_sharp"]["loss"]
+    port_err = abs(float(world_results(2)["%s/loss" % DIVERGENCE_CASE]) - want)
+    jax_err = abs(reference["divergence"]["jax_sharded_loss"] - want)
+    assert port_err <= LOSS_TOL, port_err
+    assert jax_err >= 100 * port_err and jax_err > 10 * LOSS_TOL, (jax_err, port_err)
+
+
+def test_world2_long_context_save_and_resume_is_bitwise(world_results):
+    """Ulysses 2, cp 2 (a ZeRO-3 layer among them), Megatron tp 2 and
+    vocab sp under zigzag at world 2 through the train CLI: two rank files,
+    the resumed losses equal the uninterrupted run's bit for bit, and a
+    resume under every-layer dp is refused."""
+    res = world_results(2)
+    assert int(res["ckpt_lc/ranks"]) == 2 and int(res["ckpt_lc/start"]) == 3
+    assert len(res["ckpt_lc/full"]) == 6 and np.isfinite(res["ckpt_lc/full"]).all()
+    np.testing.assert_array_equal(res["ckpt_lc/first"], res["ckpt_lc/full"][:3])
+    np.testing.assert_array_equal(res["ckpt_lc/resumed"], res["ckpt_lc/full"][3:])
+    assert str(res["ckpt_lc/refused"]) == "GLS206"
+
+
+def test_world2_train_cli_runs_the_long_context_plan_the_search_writes(reference,
+                                                                       world_results):
+    """``cli search --sp_space tp+sp --enable_cp 1`` at world 2 writes a
+    plan with cp or sp layers (or vocab sp/cp); ``cli train`` runs it."""
+    from galvatron_tpu_torch.config.strategy import HybridParallelConfig
+
+    hp = HybridParallelConfig.from_json(
+        os.path.join(os.path.dirname(reference["inputs"]), LOOP_PLAN), world_size=2)
+    assert (any(s.cp > 1 or (s.sp and s.tp > 1) for s in hp.layers)
+            or hp.vocab_cp > 1 or (hp.vocab_sp and hp.vocab_tp > 1)), hp
+    losses = world_results(2)["loop/losses"]
+    assert len(losses) == LOOP_STEPS and np.isfinite(losses).all(), losses
 
 
 def test_planted_relayout_fault_fails_the_gradient_check(reference, world_results):

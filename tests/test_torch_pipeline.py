@@ -130,8 +130,8 @@ def _outcome(hp_cls, layer_cls, err, validate, world, layers, kw):
 @pytest.mark.parametrize("name", sorted(VALIDATION))
 def test_validators_refuse_what_the_reference_refuses(name):
     """The port's validator of the pipeline type gives the reference's
-    outcome; ``check_layout`` refuses exactly those (and cp, which the
-    port does not run yet: ROADMAP queue 1 item 8)."""
+    outcome; ``check_layout`` refuses exactly those (cp under GPipe
+    among them) and runs the rest (cp inside 1F1B among them)."""
     world, layers, kw = VALIDATION[name]
     one_f = kw["pipeline_type"] == "pipedream_flush"
     want, _ = _outcome(JHP, JLS, JDiagErr,
@@ -143,10 +143,10 @@ def test_validators_refuse_what_the_reference_refuses(name):
     assert got == want
     if hp is None:
         return
-    if got == "ok" and not any(s.get("cp", 1) > 1 for s in layers):
+    if got == "ok":
         check_layout(hp)
     else:
-        with pytest.raises(ValueError, match="item 8" if got == "ok" else got[1][:20]):
+        with pytest.raises(ValueError, match=got[1][:20]):
             check_layout(hp)
 
 

@@ -87,18 +87,12 @@ def test_diagnostic_error_stays_a_value_error():
                                 dict(world_size=4, pp=2, tp=2), dict(world_size=2, cp=2),
                                 dict(world_size=2, tp=2, sp=1)])
 def test_runtime_refuses_layouts_beyond_one_device(kw):
-    """The train path executes world 2, tp 2 and pp 2 (the per-layer
-    layout and pipeline slices) and refuses ring cp and Ulysses, naming the
-    ROADMAP item that brings each; serving stays at world size 1."""
+    """The train path executes world 2, tp 2, pp 2, ring cp and Ulysses
+    (the per-layer layout, pipeline and long-context slices); serving
+    stays at world size 1."""
     world = kw.pop("world_size")
     hp = TC.HybridParallelConfig.uniform(world, 4, **kw)
-    refused = {"cp": "item 8", "sp": "item 8"}
-    which = [k for k in refused if kw.get(k, 0) > (0 if k == "sp" else 1)]
-    if which:
-        with pytest.raises(ValueError, match=refused[which[0]]):
-            check_layout(hp)
-    else:
-        check_layout(hp)
+    check_layout(hp)
     with pytest.raises(ValueError, match="world size 1 only"):
         check_layout(hp, mode="serve")
 

@@ -220,10 +220,25 @@ def test_synthetic_batches_match_reference():
             np.testing.assert_array_equal(tb[k].numpy(), np.asarray(jb[k]), err_msg=k)
 
 
-def test_zigzag_context_parallel_batches_are_refused():
-    hp = THP.uniform(2, 2, cp=2, cp_mode="zigzag", global_bsz=2)
-    with pytest.raises(ValueError, match="CP slice"):
-        TD.prepare_batch(hp, _batch_np(0))
+@pytest.mark.parametrize("kw", [dict(cp=2), dict(cp=4), dict(cp=2, cp_mode="ring"),
+                                dict(vocab_cp=2), dict(tp=2, sp=1)],
+                         ids=["cp2", "cp4", "cp2_ring", "vcp2", "ulysses2"])
+def test_context_parallel_batches_match_reference(kw):
+    """Under zigzag cp (a layer's or vocab cp) both packages permute every
+    field of the batch, key-padding masks included, along the sequence in
+    the same order; ring cp and Ulysses leave it in order."""
+    tokens = _batch_np(0)
+    mask = np.ones(tokens.shape, np.float32)
+    mask[:, -5:] = 0.0
+    hp_t = THP.uniform(4, 2, global_bsz=4, **kw)
+    hp_j = JHP.uniform(4, 2, global_bsz=4, **kw)
+    tb = TD.prepare_batch(hp_t, tokens, attn_mask=mask)
+    jb = JD.prepare_batch(hp_j, tokens, attn_mask=mask)
+    assert sorted(tb) == sorted(jb)
+    for k in jb:
+        np.testing.assert_array_equal(tb[k].numpy(), np.asarray(jb[k]), err_msg=k)
+    permuted = hp_t.cp_mode == "zigzag" and hp_t.max_cp > 1
+    assert permuted == (not np.array_equal(tb["positions"][0].numpy(), np.arange(_SEQ)))
 
 
 def test_flops_accounting_matches_reference():
