@@ -83,8 +83,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    counts are exact: each train step 2 x (2 + 2) forward and 2 x 2
    backward; each eval pass 2 batches x 2 layers of the forward and no
    backward; serve 2 layers x prefills; every launch ``wgmma``. Prints the
-   bytes and seconds of save and load; the step data is deleted afterwards
-   (the manifests stay under chiprun_out/phase10).
+   bytes and seconds of save and load; the step data and the corpus stay
+   for phase 15, which deletes them (the manifests stay under
+   chiprun_out/phase10; the script deletes the rest on any failure too).
 11. Pipelines on the card: the LLaMA configuration of phase 8 with the
    global batch in 4 micro-batches and its remat counts laid out alike on
    both stages (per stage full, full, dots_saveable, none: GPipe needs
@@ -146,9 +147,48 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (RING_BLOCK_ROWS): causal 8192 and 4096, non-causal 8192x4096 and
    4096x8192, and key segment ids that differ from the query ones.
 
+14. The encoder families at published size and full depth
+   (``tools/train_cell.py``), through ``cli.train.main``: BERT-large (24
+   layers, sequence 512, post-norm, tied MLM head) 6 steps at global batch
+   32 in 2 micro-batches, every layer plain dp, then again with layers
+   0-11 ZeRO-3 and the rest ZeRO-2 (each step's loss within
+   TOL_LAYOUT_LOSS relative of the first run's); ViT-huge (32 layers, 197
+   positions, 1000 classes) 6 steps at global batch 64 in 2 micro-batches
+   from a vision shard of 512 seeded uint8 images that
+   ``write_vision_dataset`` writes (~77 MB, deleted afterwards). Neither
+   takes a flash kernel (head_dim 64 and 80; 197 positions): each run must
+   launch none. Gradients: BERT-large and ViT-huge width at depth 2, one
+   micro-batch (BERT 2 x 512 with a key-padding tail and token types; ViT
+   2 images), the loss and every parameter's gradient on the card (bf16)
+   against the port on the CPU (fp32) from the same weights, per parameter
+   ||g - g_cpu|| / ||g_cpu|| <= TOL_ENCODER_GRAD_REL, the loss within
+   TOL_ENCODER_LOSS. Then ``tools/profile_train.py --cell bert`` traces
+   two steady BERT steps: the plain attention's device share of a step.
+15. Elastic resume on one card, from phase 10's step-3 checkpoint
+   (LLaMA-7B width, depth 2, world 1, pp 1, ~8 GB): the same configuration
+   resumed plainly through the model API (the reference: 6 steps, 3-8);
+   then a pp 2 1F1B strategy, one layer a stage, both stages hosted by
+   this process, restores it across strategies (``load_checkpoint(...,
+   target=, allow_cross=True)``: the restored params, both moments and the
+   count, gathered one leaf at a time and cut again under the saved
+   strategy, reproduce the manifest's sha256 records; the restore's device
+   memory beyond the live state stays under four of the largest leaf) and
+   trains steps
+   3-5, each step's loss and gradient norm within TOL_PP_LOSS /
+   TOL_PP_GRAD_NORM of the reference's, and saves at step 6 (one file per
+   stage rank); ``cli train --elastic resume --elastic_strategy`` restores
+   that pp 2 checkpoint under pp 1 (world 2 -> 1) and trains steps 6-8
+   within TOL_PP_LOSS of the reference; ``cli train --elastic search`` at
+   world 1 under ELASTIC_BUDGET_GB (a budget under which the search must
+   remat) restores it under the searched plan, whose estimated memory must
+   fit, and trains 2 steps. Launch counts are exact on every run; restore
+   seconds and the host's peak resident memory during each restore are
+   printed.
+
 Each main path (serve, train, the GPT layout runs, phase 10's train,
 resumed, guarded and serve-from-checkpoint runs, phase 11's runs,
-phase 12's profile and train, and phase 13's ring runs) runs with the
+phase 12's profile and train, phase 13's ring runs, phase 14's encoder
+runs and phase 15's resumed runs) runs with the
 kernels' launch counts set to 0 just before it and read just after. The last lines
 of standard output are the serve and train summaries, the ``kernels`` JSON
 line, the card line, and ``{"ok": true, "device": {...}}``. Details go to
@@ -1142,14 +1182,10 @@ def corpus_checkpoint_resume(torch, TF):
     first_save, restore = saved[CKPT_INTERVAL], restored
     sizes = {int(d): sum(os.path.getsize(os.path.join(ck, d, f)) for f in os.listdir(
         os.path.join(ck, d))) for d in os.listdir(ck) if d.isdigit()}
-    # keep the manifests, drop the step data and the corpus (~8 GB, ~35 MB)
-    for d in os.listdir(ck):
-        if d.isdigit():
-            shutil.rmtree(os.path.join(ck, d))
-    for ext in (".bin", ".idx.npy"):
-        os.remove(corpus + ext)
+    # the step data and the corpus (~8 GB, ~35 MB) stay for phase 15
     torch.cuda.empty_cache()
     return dict(
+        ckpt=ck, corpus=corpus, strategy=strategy,
         helper_library=os.path.relpath(helper), corpus_docs=CORPUS_DOCS,
         corpus_mb=corpus_mb, corpus_s=corpus_s, split_tokens=split_tokens,
         runs={"train": s1, "resume": s2, "nan": s3}, losses=s1["losses"],
@@ -1678,6 +1714,461 @@ def log_loop(loop, card):
             v["memory"]["measured_mb"] / 1024.0, v["memory"]["ratio"], loop["wall_s"]))
 
 
+# ----------------------------------------------------------------- phase 14
+# BERT-large and ViT-huge width at depth 2, one micro-batch, bf16 on the
+# card against fp32 on the CPU from the same weights. Every matmul output
+# on the card rounds to bf16 (2^-9 relative) and the plain attention's
+# probabilities round to bf16 before the value product; through two layers
+# and the head those roundings leave a parameter's gradient a few 1e-3 off
+# the fp32 one in relative norm. The limit is phase 5's (two bf16 paths),
+# 5e-2: room for the leaves few tokens reach (the second token-type row,
+# the padded keys' rows) and still far below what a lost, doubled or
+# misplaced gradient gives (>= 1). The losses (~ln 30522, ~ln 1000) within
+# 1e-2, phase 5's.
+TOL_ENCODER_GRAD_REL = 5e-2
+TOL_ENCODER_LOSS = 1e-2
+ENCODER_GRAD_LAYERS = 2
+
+
+def _encoder_batch(torch, fam, cfg):
+    """One micro-batch on the CPU: BERT, 2 x 512 tokens with token types
+    (type 1 from a per-row split point), the second row's last 96 keys
+    padded and out of the loss; ViT, 2 standard-normal images."""
+    gen = torch.Generator().manual_seed(SEED)
+    if fam == "vit":
+        return {"pixels": torch.randn((2, cfg.image_size, cfg.image_size, cfg.num_channels),
+                                      generator=gen),
+                "labels": torch.randint(0, cfg.num_classes, (2,), generator=gen)}
+    s = cfg.max_seq_len
+    mask = torch.ones(2, s)
+    mask[1, s - 96:] = 0.0
+    return {"tokens": torch.randint(0, cfg.vocab_size, (2, s), generator=gen),
+            "positions": torch.arange(s).expand(2, s),
+            "labels": torch.randint(0, cfg.vocab_size, (2, s), generator=gen),
+            "loss_mask": mask, "attn_mask": mask.clone(),
+            "token_type_ids": (torch.arange(s)[None, :] >= torch.tensor([[200], [300]])).long()}
+
+
+def encoder_grads(torch, TF, fam):
+    """The loss and every gradient of one micro-batch at the family's
+    width and depth 2: the card (bf16) against the CPU (fp32)."""
+    from galvatron_tpu_torch.models import base as M
+    from galvatron_tpu_torch.models.bert import bert_config
+    from galvatron_tpu_torch.models.vit import vit_config
+    from galvatron_tpu_torch.tools import train_cell as C
+
+    make, size = (bert_config, C.BERT_SIZE) if fam == "bert" else (vit_config, C.VIT_SIZE)
+    cpu_cfg = make(size, num_layers=ENCODER_GRAD_LAYERS, compute_dtype=torch.float32)
+    card_cfg = make(size, num_layers=ENCODER_GRAD_LAYERS, compute_dtype=torch.bfloat16)
+    params = M.init_model_params(cpu_cfg, torch.Generator().manual_seed(SEED), "cpu")
+    batch = _encoder_batch(torch, fam, cpu_cfg)
+    t0 = time.perf_counter()
+    loss_cpu = M.loss_fn(params, batch, cpu_cfg)
+    loss_cpu.backward()
+    cpu_s = time.perf_counter() - t0
+    want = {n: p.grad for n, p in params.named_parameters()}
+    card = M.TransformerLM(card_cfg, "cuda")
+    card.load_state_dict(params.state_dict())
+    TF.flash_attention_fwd.launches = 0
+    TF.flash_attention_bwd.launches = 0
+    loss = M.loss_fn(card, {k: v.cuda() for k, v in batch.items()}, card_cfg)
+    loss.backward()
+    launches = (TF.flash_attention_fwd.launches, TF.flash_attention_bwd.launches)
+    rel = {n: float((p.grad.float().cpu() - want[n]).norm() / want[n].norm().clamp(min=1e-30))
+           for n, p in card.named_parameters()}
+    worst = max(rel, key=rel.get)
+    loss, loss_cpu = float(loss.detach()), float(loss_cpu.detach())
+    check(abs(loss - loss_cpu) <= TOL_ENCODER_LOSS,
+          "%s gradients: card loss %.6f vs CPU %.6f (tol %g)" % (fam, loss, loss_cpu,
+                                                                TOL_ENCODER_LOSS))
+    check(rel[worst] <= TOL_ENCODER_GRAD_REL,
+          "%s gradients: %s at %.3g relative to the CPU's (tol %g)" % (
+              fam, worst, rel[worst], TOL_ENCODER_GRAD_REL))
+    check(launches == (0, 0), "%s gradients launched the flash kernels %s times" % (fam, launches))
+    del card, params
+    torch.cuda.empty_cache()
+    return dict(loss=loss, loss_cpu=loss_cpu, worst=worst, worst_rel=rel[worst],
+                median_rel=statistics.median(rel.values()), leaves=len(rel), cpu_s=cpu_s,
+                launches=launches, tolerance=TOL_ENCODER_GRAD_REL)
+
+
+def encoder_families(torch, TF):
+    """BERT-large and ViT-huge at full size through the train CLI, the
+    gradient checks and the BERT step's trace (see the module note, phase
+    14)."""
+    import gc
+
+    from galvatron_tpu_torch.cli import train as cli_train
+    from galvatron_tpu_torch.tools import profile_train
+    from galvatron_tpu_torch.tools import train_cell as C
+
+    t0 = time.perf_counter()
+    out = os.path.join("chiprun_out", "phase14")
+    runs = {}
+
+    def run(name, argv):
+        gc.collect()
+        torch.cuda.empty_cache()
+        TF.flash_attention_fwd.launches = 0
+        TF.flash_attention_bwd.launches = 0
+        summary = cli_train.main(argv)
+        launches = (TF.flash_attention_fwd.launches, TF.flash_attention_bwd.launches)
+        check(len(summary["losses"]) == C.STEPS
+              and all(math.isfinite(x) for x in summary["losses"]),
+              "%s losses %s" % (name, summary["losses"]))
+        check(launches == (0, 0) and summary["flash_routes"] == [{"fwd": {}, "bwd": {}}],
+              "%s launched the flash kernels %s times (%s): its shapes take the plain path"
+              % (name, launches, summary["flash_routes"]))
+        runs[name] = dict(summary=summary, fwd_launches=launches[0], bwd_launches=launches[1])
+
+    run("bert_dp", C.bert_argv(C.write_bert_strategy(out)))
+    run("bert_zero3", C.bert_argv(C.write_bert_strategy(out, zero3=True)))
+    a, b = runs["bert_zero3"]["summary"]["losses"], runs["bert_dp"]["summary"]["losses"]
+    rel = [abs(x - y) / abs(y) for x, y in zip(a, b)]
+    check(max(rel) <= TOL_LAYOUT_LOSS, "bert ZeRO-3/ZeRO-2 vs dp losses differ by %.3g relative "
+          "(tol %.0e): %s vs %s" % (max(rel), TOL_LAYOUT_LOSS, a, b))
+    t_shard = time.perf_counter()
+    shard = C.write_vision_shard(out)
+    shard_s = time.perf_counter() - t_shard
+    shard_mb = os.path.getsize(shard + ".images.npy") / 1e6
+    try:
+        run("vit", C.vit_argv(shard))
+    finally:
+        for ext in (".images.npy", ".labels.npy"):
+            os.remove(shard + ext)
+    grads = {fam: encoder_grads(torch, TF, fam) for fam in ("bert", "vit")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    TF.flash_attention_fwd.launches = 0
+    TF.flash_attention_bwd.launches = 0
+    trace = profile_train.main(["--cell", "bert", "--warmup", "2", "--steps", "2"])
+    launches = (TF.flash_attention_fwd.launches, TF.flash_attention_bwd.launches)
+    check(launches == (0, 0), "the traced bert steps launched the flash kernels %s times"
+          % (launches,))
+    torch.cuda.empty_cache()
+    return dict(runs=runs, loss_rel_err=rel, tolerance=TOL_LAYOUT_LOSS, grads=grads,
+                trace={k: v for k, v in trace.items() if k != "argv"}, shard_mb=shard_mb,
+                shard_s=shard_s, images=C.VISION_IMAGES, steps=C.STEPS,
+                wall_s=time.perf_counter() - t0)
+
+
+# ----------------------------------------------------------------- phase 15
+# phase 10's configuration as a pp 2 1F1B pipeline, one layer a stage, and
+# the budget of the elastic search at world 1: the analytic estimate of the
+# unremat'ed plan is ~24.8 GB and that of one full-remat layer ~17.6 GB, so
+# the search must remat to fit
+ELASTIC_PP2 = {"pp_deg": 2, "pp_division": "1,1", "pipeline_type": "pipedream_flush",
+               "tp_sizes_enc": "1,1", "tp_consecutive_flags": "1,1", "dp_types_enc": "0,0",
+               "checkpoint": ",".join(map(str, CKPT_CHECKPOINT)),
+               "remat_policy": ",".join(CKPT_REMAT), "global_bsz": 8, "chunks": 2}
+ELASTIC_BUDGET_GB = 24.0
+ELASTIC_REF_STEPS = 6  # the plain resume from step 3: steps 3-8
+
+
+class RssPeak:
+    """The process's peak resident memory while the context is open,
+    sampled from /proc/self/statm every 5 ms (read only)."""
+
+    def __enter__(self):
+        import threading
+
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.before = self.peak = self._rss()
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._sample, daemon=True)
+        self.thread.start()
+        return self
+
+    def _rss(self):
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page
+
+    def _sample(self):
+        while not self.stop.wait(0.005):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join()
+        self.peak = max(self.peak, self._rss())
+
+    def as_dict(self):
+        return {"rss_before_gb": self.before / 1e9, "rss_peak_gb": self.peak / 1e9}
+
+
+def _resume_run(torch, TF, argv, world, load, iteration, steps, save=None):
+    """The configuration of `argv` at `world` (= pp; every stage in this
+    process) through the model API: restored from step `iteration` of
+    `load` (``load_checkpoint(..., target=, allow_cross=True)``: across
+    strategies when the step's differs), `steps` steps stepped as ``cli train`` steps them
+    (guard on) on the batches of its stream from `iteration`, then saved
+    at the end into `save` (one file per stage rank)."""
+    import gc
+
+    from galvatron_tpu_torch.cli import train as cli_train
+    from galvatron_tpu_torch.cli.arguments import (
+        hp_config_from_args,
+        initialize_galvatron,
+        model_config_from_args,
+    )
+    from galvatron_tpu_torch.models import base as M
+    from galvatron_tpu_torch.runtime import checkpoint as CK
+    from galvatron_tpu_torch.runtime import distributed
+    from galvatron_tpu_torch.runtime.dataloader import build_data_iterator
+    from galvatron_tpu_torch.runtime.model_api import construct_hybrid_parallel_model
+    from galvatron_tpu_torch.runtime.optimizer import get_optimizer_and_scheduler
+    from galvatron_tpu_torch.runtime.provenance import build_provenance
+
+    args = initialize_galvatron(argv=argv, mode="train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    with distributed.process_group("cuda") as dev:
+        fam, cfg = model_config_from_args(args)
+        hp = hp_config_from_args(args, cfg.num_layers, world)
+        model = construct_hybrid_parallel_model(cfg, hp, dev,
+                                                transport="local" if hp.pp > 1 else "p2p")
+        tx, _ = get_optimizer_and_scheduler(cli_train.optimizer_args_from(args))
+        params = model.init_params(args.seed + 1)  # overwritten by the restore
+        state = model.init_opt_state(tx, params)
+        torch.cuda.synchronize()
+        with RssPeak() as rss:
+            t0 = time.perf_counter()
+            _, _, meta = CK.load_checkpoint(load, iteration, params_target=params,
+                                            opt_state_target=state, target=model,
+                                            allow_cross=True, model_cfg=cfg)
+            torch.cuda.synchronize()
+            out["restore_s"] = time.perf_counter() - t0
+        out.update(rss.as_dict(), restore=meta["restore"])
+        extra = meta["restore"].get("device_extra_gb")
+        if extra is not None:
+            # across strategies: the continuity check gathers one leaf at a
+            # time, so its device memory beyond the live state stays within
+            # a few of the largest leaf
+            largest = max(p.numel() * p.element_size()
+                          for p in M.TransformerLM(cfg, "meta").parameters()) / 1e9
+            out.update(largest_leaf_gb=largest)
+            check(extra <= 4 * largest, "the restore's continuity check took %.3f GB of "
+                  "device memory beyond the live state (largest leaf %.3f GB)" % (extra, largest))
+        check(all(st.count == iteration for st in state.values()),
+              "restored Adam counts %s != %d" % ([st.count for st in state.values()], iteration))
+        step = model.make_train_step(tx, guard_anomalies=True)
+        batches = build_data_iterator(args, fam, cfg, hp, start_step=iteration, device=dev)
+        TF.flash_attention_fwd.launches = 0
+        TF.flash_attention_bwd.launches = 0
+        losses, norms = [], []
+        for _ in range(steps):
+            params, state, metrics = step(params, state, next(batches))
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+            check(not metrics["anomalous"], "resumed run: step flagged anomalous")
+        out.update(losses=losses, grad_norms=norms, fwd_launches=TF.flash_attention_fwd.launches,
+                   bwd_launches=TF.flash_attention_bwd.launches, pp=hp.pp,
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if save is not None:
+            info = CK.save_checkpoint(
+                save, iteration + steps, None, rank_views=model.checkpoint_views(params, state),
+                hp=hp, provenance=build_provenance(hp, cfg, cli_train.optimizer_args_from(args)),
+                train_meta={"iteration": iteration + steps})
+            out["save"] = {k: v for k, v in info.items() if k not in ("items", "ranks")}
+        del params, state, step, model, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def elastic_resume(torch, TF, phase10):
+    """Phase 10's checkpoint across pipeline layouts and world sizes (see
+    the module note, phase 15); deletes phase 10's step data and corpus and
+    this phase's checkpoint at its end."""
+    import gc
+    import shutil
+
+    from galvatron_tpu_torch.analysis.strategy_lint import estimate_stage_memory_mb
+    from galvatron_tpu_torch.cli import train as cli_train
+    from galvatron_tpu_torch.runtime import elastic as els
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join("chiprun_out", "phase15")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    ck10, corpus, pp1 = phase10["ckpt"], phase10["corpus"], phase10["strategy"]
+    pp2 = os.path.join(out_dir, "strategy_pp2.json")
+    with open(pp2, "w") as f:
+        json.dump(ELASTIC_PP2, f)
+    ck15 = os.path.join(out_dir, "ckpt")
+    per_step = (2 * (CKPT_LAYERS + sum(CKPT_CHECKPOINT)), 2 * CKPT_LAYERS)
+
+    def argv(strategy, extra=()):
+        return _phase10_argv(strategy, corpus, ["--train_iters", "9"] + list(extra))
+
+    def launches_ok(name, r, steps, want_per_step=per_step):
+        want = (steps * want_per_step[0], steps * want_per_step[1])
+        check((r["fwd_launches"], r["bwd_launches"]) == want,
+              "%s launched fwd %d / bwd %d, expected %d / %d" % (
+                  name, r["fwd_launches"], r["bwd_launches"], want[0], want[1]))
+
+    runs = {}
+    try:
+        # the reference: phase 10's strategy resumed plainly, steps 3-8
+        runs["pp1_plain"] = ref = _resume_run(torch, TF, argv(pp1), 1, ck10, CKPT_INTERVAL,
+                                              ELASTIC_REF_STEPS)
+        check(not ref["restore"].get("cross_strategy"), "the plain resume went across strategies")
+        # its first loss is the restored state's (the later ones follow the
+        # schedule of 9 steps, phase 10's of 6)
+        first = phase10["resumed_losses"][0]
+        check(abs(ref["losses"][0] - first) <= TOL_PP_LOSS * abs(first),
+              "the plain resume's first loss %r differs from phase 10's %r" % (
+                  ref["losses"][0], first))
+        launches_ok("pp1 plain resume", ref, ELASTIC_REF_STEPS)
+        # pp 1 -> pp 2: both stages on this card
+        runs["pp1_to_pp2"] = r2 = _resume_run(torch, TF, argv(pp2), 2, ck10, CKPT_INTERVAL,
+                                              CKPT_STEPS - CKPT_INTERVAL, save=ck15)
+        check(r2["restore"].get("cross_strategy") and r2["restore"]["saved_world_size"] == 1,
+              "pp 1 -> pp 2 restore: %s" % r2["restore"])
+        launches_ok("pp 2 resumed run", r2, CKPT_STEPS - CKPT_INTERVAL)
+        errs = {key: [abs(a - b) / abs(b) for a, b in zip(r2[key], ref[key])]
+                for key in ("losses", "grad_norms")}
+        r2["rel_err"] = errs
+        check(max(errs["losses"]) <= TOL_PP_LOSS and max(errs["grad_norms"]) <= TOL_PP_GRAD_NORM,
+              "pp 2 resumed run vs the plain resume: losses %s vs %s, norms %s vs %s" % (
+                  r2["losses"], ref["losses"], r2["grad_norms"], ref["grad_norms"]))
+        # pp 2 -> pp 1 through the CLI (world 2 -> 1), steps 6-8
+        gc.collect()
+        torch.cuda.empty_cache()
+        TF.flash_attention_fwd.launches = 0
+        TF.flash_attention_bwd.launches = 0
+        with RssPeak() as rss:
+            s3 = cli_train.train(cli_train.initialize_galvatron(argv=argv(pp1, [
+                "--elastic", "resume", "--elastic_strategy", pp1, "--load", ck15]), mode="train"))
+        r3 = runs["pp2_to_pp1_cli"] = dict(
+            summary=s3, fwd_launches=TF.flash_attention_fwd.launches,
+            bwd_launches=TF.flash_attention_bwd.launches, restore=s3["checkpoint_restore"],
+            **rss.as_dict())
+        check(r3["restore"].get("cross_strategy") and r3["restore"]["saved_world_size"] == 2
+              and r3["restore"]["iteration"] == CKPT_STEPS,
+              "pp 2 -> pp 1 restore: %s" % r3["restore"])
+        launches_ok("pp 1 CLI resume", r3, 9 - CKPT_STEPS)
+        rel = [abs(a - b) / abs(b) for a, b in zip(s3["losses"], ref["losses"][3:])]
+        r3["rel_err"] = rel
+        check(len(rel) == 3 and max(rel) <= TOL_PP_LOSS,
+              "pp 1 CLI resume losses %s vs the plain resume's %s" % (s3["losses"],
+                                                                     ref["losses"][3:]))
+        # --elastic search at world 1 under the budget: a remat plan that fits
+        search_argv = argv(pp1, ["--elastic", "search", "--elastic_memory_gb",
+                                 str(ELASTIC_BUDGET_GB), "--load", ck15])
+        search_argv[search_argv.index("--train_iters") + 1] = str(CKPT_STEPS + 2)
+        args = cli_train.initialize_galvatron(argv=search_argv, mode="train")
+        _, cfg = cli_train.model_config_from_args(args)
+        plan = els.resolve_resume_strategy(args, cfg, 1)
+        est_gb = max(estimate_stage_memory_mb(plan.hp, cfg)) / 1024.0
+        check(plan.action == "search" and any(s.checkpoint for s in plan.hp.layers)
+              and est_gb <= ELASTIC_BUDGET_GB,
+              "elastic search plan %s (estimate %.2f GB, budget %.1f GB)" % (
+                  plan.hp.to_json_dict(), est_gb, ELASTIC_BUDGET_GB))
+        gc.collect()
+        torch.cuda.empty_cache()
+        TF.flash_attention_fwd.launches = 0
+        TF.flash_attention_bwd.launches = 0
+        s4 = cli_train.train(args)
+        remat = sum(s.checkpoint for s in plan.hp.layers)
+        r4 = runs["search"] = dict(
+            summary=s4, fwd_launches=TF.flash_attention_fwd.launches,
+            bwd_launches=TF.flash_attention_bwd.launches, restore=s4["checkpoint_restore"],
+            plan=plan.hp.to_json_dict(), estimate_gb=est_gb, budget_gb=ELASTIC_BUDGET_GB)
+        check(len(s4["losses"]) == 2 and all(math.isfinite(x) for x in s4["losses"]),
+              "elastic search run losses %s" % s4["losses"])
+        launches_ok("elastic search run", r4, 2, (plan.hp.chunks * (CKPT_LAYERS + remat),
+                                                  plan.hp.chunks * CKPT_LAYERS))
+    finally:
+        shutil.rmtree(ck15, ignore_errors=True)
+        remove_phase10_data(phase10)
+    torch.cuda.empty_cache()
+    return dict(runs=runs, tolerance=TOL_PP_LOSS, grad_norm_tolerance=TOL_PP_GRAD_NORM,
+                pp2=ELASTIC_PP2, wall_s=time.perf_counter() - t0)
+
+
+def remove_phase10_data(phase10=None):
+    """Phase 10's step data and corpus (~8 GB): the manifests stay."""
+    import shutil
+
+    ck = os.path.join("chiprun_out", "phase10", "ckpt")
+    if os.path.isdir(ck):
+        for d in os.listdir(ck):
+            if d.isdigit():
+                shutil.rmtree(os.path.join(ck, d), ignore_errors=True)
+    for ext in (".bin", ".idx.npy"):
+        path = os.path.join("chiprun_out", "phase10", "corpus" + ext)
+        if os.path.exists(path):
+            os.remove(path)
+
+
+def log_encoders(enc, card):
+    for name, r in enc["runs"].items():
+        g = r["summary"]
+        vit = name == "vit"
+        log("train %s (%s, bf16, global batch %d in 2 micro-batches, %s) on %s: step %.1f ms "
+            "end to end, device %.1f ms/step, %.0f %s/s, MFU %.3f (989 TFLOP/s), peak memory "
+            "%.1f GB, losses %s, flash launches fwd %d / bwd %d" % (
+                "vit-huge" if vit else "bert-large",
+                "32 layers, 197 positions" if vit else "24 layers, seq 512",
+                64 if vit else 32, {"bert_dp": "every layer plain dp",
+                                    "bert_zero3": "layers 0-11 ZeRO-3, the rest ZeRO-2",
+                                    "vit": "plain dp, from a %d-image shard" % enc["images"]}[name],
+                card, g["steady_step_ms"], g["device_step_ms"],
+                g["samples_per_s"] if vit else g["tokens_per_s"], "images" if vit else "tokens",
+                g.get("mfu") or float("nan"), g["peak_hbm_mb"] * 2**20 / 1e9,
+                ["%.5f" % x for x in g["losses"]], r["fwd_launches"], r["bwd_launches"]))
+    log("bert dp vs ZeRO-3/ZeRO-2 losses agree within %.3g relative (tol %.0e)"
+        % (max(enc["loss_rel_err"]), enc["tolerance"]))
+    for fam, gr in enc["grads"].items():
+        log("%s width, depth 2, card (bf16) vs CPU (fp32): loss %.6f vs %.6f, worst gradient %s "
+            "at %.3g relative (median %.3g, %d leaves; tol %.0e)" % (
+                fam, gr["loss"], gr["loss_cpu"], gr["worst"], gr["worst_rel"], gr["median_rel"],
+                gr["leaves"], gr["tolerance"]))
+    tr = enc["trace"]
+    log("bert-large traced step (torch.profiler, 2 steps) on %s: wall %.1f ms, device busy %.1f "
+        "ms, idle share %.3f, plain attention %.1f ms = %.3f of busy, by kind %s; phase %.1f s"
+        % (card, tr["wall_ms_per_step"], tr["device_busy_ms_per_step"], tr["idle_share"],
+           tr["plain_attention_ms_per_step"], tr["plain_attention_share_of_busy"] or 0.0,
+           {k: round(v, 2) for k, v in tr["by_kind_ms_per_step"].items()}, enc["wall_s"]))
+
+
+def log_elastic(el, card):
+    r = el["runs"]
+    for name in ("pp1_plain", "pp1_to_pp2"):
+        x = r[name]
+        log("elastic %s (llama-7b width, 2 layers, from phase 10's step %d) on %s: restore %.2f "
+            "s (verify %.2f, move %.2f, continuity %.2f, %s leaves sha256-checked, device "
+            "memory %s GB beyond the live state), host RSS %.2f -> peak %.2f GB, losses %s, "
+            "gradient norms %s%s, peak memory %.1f GB%s" % (
+                name, CKPT_INTERVAL, card, x["restore_s"], x["restore"].get("verify_s", 0.0),
+                x["restore"].get("move_s", 0.0), x["restore"].get("continuity_s", 0.0),
+                x["restore"].get("leaves_checked", "no"), x["restore"].get("device_extra_gb"),
+                x["rss_before_gb"], x["rss_peak_gb"],
+                ["%.5f" % v for v in x["losses"]], ["%.5f" % v for v in x["grad_norms"]],
+                ", max rel err vs plain: loss %.3g, norm %.3g" % (
+                    max(x["rel_err"]["losses"]), max(x["rel_err"]["grad_norms"]))
+                if "rel_err" in x else "", x["peak_memory_gb"],
+                ", save %.2f GB in %.2f s" % (x["save"]["bytes"] / 1e9, x["save"]["seconds"])
+                if "save" in x else ""))
+    x = r["pp2_to_pp1_cli"]
+    log("elastic pp2 -> pp1 through cli train (world 2 -> 1) on %s: restore %.2f s (%s leaves "
+        "sha256-checked, device memory %s GB beyond the live state), host RSS peak %.2f GB "
+        "over the run, losses %s (max rel err vs plain %.3g)" % (
+            card, x["restore"]["seconds"], x["restore"]["leaves_checked"],
+            x["restore"].get("device_extra_gb"), x["rss_peak_gb"],
+            ["%.5f" % v for v in x["summary"]["losses"]], max(x["rel_err"])))
+    x = r["search"]
+    log("elastic search at world 1 under %.1f GB on %s: plan chunks %s, checkpoint %s, "
+        "estimate %.2f GB, measured peak %.1f GB, restore %.2f s, losses %s; phase %.1f s" % (
+            x["budget_gb"], card, x["plan"]["chunks"], x["plan"].get("checkpoint"),
+            x["estimate_gb"], x["summary"]["peak_hbm_mb"] * 2**20 / 1e9,
+            x["restore"]["seconds"], ["%.5f" % v for v in x["summary"]["losses"]],
+            el["wall_s"]))
+
+
 def main():
     try:
         import torch
@@ -1719,10 +2210,15 @@ def main():
     served = serve(torch, TF)
     trained = train(torch, TF)
     layouts = train_gpt_layouts(torch, TF)
-    corpus = corpus_checkpoint_resume(torch, TF)
-    pipelines = train_pipelines(torch, TF)
-    loop = profile_search_train(torch, TF)
-    lc = long_context(torch, TF, dev)
+    try:
+        corpus = corpus_checkpoint_resume(torch, TF)
+        pipelines = train_pipelines(torch, TF)
+        loop = profile_search_train(torch, TF)
+        lc = long_context(torch, TF, dev)
+        encoders = encoder_families(torch, TF)
+        elastic = elastic_resume(torch, TF, corpus)
+    finally:
+        remove_phase10_data()
     s, t = served["summary"], trained["summary"]
 
     def at_2048(rows, b):
@@ -1760,7 +2256,9 @@ def main():
                **{"train_" + n: r["fwd_launches"] for n, r in pp_runs.items()},
                "profile": loop["profile"]["fwd_launches"],
                "train_searched": loop["train"]["fwd_launches"],
-               "long_context": lc["launches"]["fwd"]},
+               "long_context": lc["launches"]["fwd"],
+               **{"train_" + n: r["fwd_launches"] for n, r in encoders["runs"].items()},
+               **{"elastic_" + n: r["fwd_launches"] for n, r in elastic["runs"].items()}},
               TOL_FWD_BF16),
         entry("flash_attn_bwd", BWD_SOURCE, bwd_shapes, z3["bwd_launches"],
               {"serve": 0, "train": trained["bwd_launches"],
@@ -1770,7 +2268,9 @@ def main():
                **{"train_" + n: r["bwd_launches"] for n, r in pp_runs.items()},
                "profile": loop["profile"]["bwd_launches"],
                "train_searched": loop["train"]["bwd_launches"],
-               "long_context": lc["launches"]["bwd"]},
+               "long_context": lc["launches"]["bwd"],
+               **{"train_" + n: r["bwd_launches"] for n, r in encoders["runs"].items()},
+               **{"elastic_" + n: r["bwd_launches"] for n, r in elastic["runs"].items()}},
               TOL_BWD_BF16),
     ]}
     results = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
@@ -1778,8 +2278,8 @@ def main():
                    kernels=kernels["kernels"], grads=grads,
                    decode=decode, serve=served, train=trained, train_gpt_layouts=layouts,
                    corpus_checkpoint=corpus, train_pipelines=pipelines,
-                   profile_search_train=loop, long_context=lc,
-                   wall_s=time.perf_counter() - t_start)
+                   profile_search_train=loop, long_context=lc, encoder_families=encoders,
+                   elastic_resume=elastic, wall_s=time.perf_counter() - t_start)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1, default=str)
@@ -1878,6 +2378,8 @@ def main():
                 "%s cp %d fwd x%.3f bwd x%.3f" % (r["mode"], r["cp"], r["fwd_ratio"],
                                                   r["bwd_ratio"]) for r in timed),
             lc["wall_s"]))
+    log_encoders(encoders, card)
+    log_elastic(elastic, card)
     log(json.dumps(kernels))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

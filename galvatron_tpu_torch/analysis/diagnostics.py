@@ -1,8 +1,8 @@
 """Structured diagnostics raised by the strategy code and the serve lint.
 
 Port of the subset of ``galvatron_tpu/analysis/diagnostics.py`` that the
-strategy schema, the structural validator, the serve/train lint and the
-checkpoint layer (GLS2xx) report through: `Diagnostic`, `make`, `did_you_mean`, `DiagnosticError` (still a
+strategy schema, the structural validator, the serve/train lint, the
+checkpoint layer and elastic resume (GLS2xx) report through: `Diagnostic`, `make`, `did_you_mean`, `DiagnosticError` (still a
 ``ValueError``) and `DiagnosticReport`. Codes and severities are the
 reference's, so a strategy refused by one package is refused with the same
 code by the other. Stdlib only.
@@ -30,12 +30,15 @@ CODES: Dict[str, Tuple[str, str]] = {
     "GLS009": (ERROR, "vocab size not divisible by vocab-parallel degree"),
     "GLS013": (ERROR, "unsupported comm-precision (quantized collectives) configuration"),
     "GLS014": (ERROR, "serve-infeasible configuration (latency bound, KV budget, or layout)"),
+    "GLS016": (ERROR, "state motion changed the layout-invariant integrity digest"),
     "GLS102": (WARNING, "expensive cross-layer redistribution between adjacent layers"),
     "GLS103": (WARNING, "suspicious but runnable configuration"),
     # ---- checkpoint portability and integrity (runtime/checkpoint.py) ----
     "GLS201": (ERROR, "model-config digest mismatch between checkpoint and run"),
     "GLS202": (ERROR, "optimizer state incompatible with the checkpoint's"),
+    "GLS203": (ERROR, "no feasible strategy for the surviving mesh under the memory budget"),
     "GLS204": (ERROR, "checkpoint lacks the provenance elastic resume requires"),
+    "GLS205": (ERROR, "world size changed but no replacement strategy was resolved"),
     "GLS206": (ERROR, "cross-strategy relayout unsupported for this model family"),
     "GLS210": (ERROR, "checkpoint step without a committed integrity manifest (torn save)"),
     "GLS212": (ERROR, "malformed checkpoint manifest or inconsistent provenance"),

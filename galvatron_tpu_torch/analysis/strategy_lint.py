@@ -11,9 +11,12 @@ the GLS014 refusals of layouts a decode engine cannot realise (pp>1, ring
 cp, Ulysses sp), and in train mode the GLS103 warnings on serve knobs and
 comm dtypes that cannot act. A strategy the reference refuses is refused
 here with the same codes, in the same order, before any model is built.
-The memory-budget check (GLS101) and the manual-TP and
-quantized-collective refusals come with the slices that port the cost
-models and those paths.
+The analytic memory tables (`_analytic_parameter_mb`,
+`_analytic_activation_dict`, `estimate_stage_memory_mb`, the reference's,
+pure arithmetic through the search's ``MemoryCostModel``) price a strategy
+for elastic resume's budget check (``runtime/elastic.py``, GLS203); the
+lint rule that reads them (GLS101) and the manual-TP and
+quantized-collective refusals come with the slices that port those paths.
 
 `train_refusals` lists what the port's trainer does not execute: a
 pipeline outside the reference engine's contract (GPipe:
@@ -26,7 +29,7 @@ the train path raises ValueError on them
 
 from __future__ import annotations
 
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 from galvatron_tpu_torch.analysis import diagnostics as D
 from galvatron_tpu_torch.config.strategy import HybridParallelConfig
@@ -152,6 +155,123 @@ def _serve_diagnostics(hp: HybridParallelConfig) -> List[D.Diagnostic]:
             ))
             break
     return out
+
+
+# ------------------------------------------------------ analytic memory tables
+def _analytic_parameter_mb(model_cfg: Any) -> Optional[float]:
+    """fp32 MB of one transformer layer's parameters, from the model config
+    alone (used when no profiled memory table is supplied)."""
+    h = getattr(model_cfg, "hidden_size", None)
+    nh = getattr(model_cfg, "num_heads", None)
+    if h is None or nh is None:
+        return None
+    nkv = getattr(model_cfg, "num_kv_heads", None) or nh
+    ffn = getattr(model_cfg, "ffn_hidden", None) or 4 * h
+    attn = h * h * (2.0 + 2.0 * nkv / nh)  # q,o full; k,v scaled by GQA
+    mlp_mats = 3 if getattr(model_cfg, "activation", "gelu") == "swiglu" else 2
+    mlp = mlp_mats * h * ffn
+    return (attn + mlp) * 4.0 / 2**20
+
+
+def _analytic_activation_dict(model_cfg: Any, max_tp: int) -> Optional[Dict[Any, float]]:
+    """Megatron-style per-sample live-activation MB per layer, keyed by tp
+    degree (+ 'checkpoint' = the layer input only). bf16 residual stream:
+    ~34*s*h bytes of intermediates + 5*a*s^2 of attention scores."""
+    h = getattr(model_cfg, "hidden_size", None)
+    nh = getattr(model_cfg, "num_heads", None)
+    s = getattr(model_cfg, "max_seq_len", None)
+    if h is None or nh is None or s is None:
+        return None
+    base = (34.0 * s * h + 5.0 * nh * s * s) / 2**20
+    d: Dict[Any, float] = {"checkpoint": 2.0 * s * h / 2**20}
+    t = 1
+    while t <= max_tp:
+        d[t] = base / t
+        t *= 2
+    return d
+
+
+def estimate_stage_memory_mb(
+    hp: HybridParallelConfig,
+    model_cfg: Any = None,
+    memory_profile: Optional[dict] = None,
+) -> Optional[List[float]]:
+    """Per-pipeline-stage estimated device memory (MB), priced through the
+    search engine's MemoryCostModel so the budget check and the search
+    agree on what fits. `memory_profile` is the profiler's memory JSON
+    (``layertype_0`` schema); without it, analytic tables derived from the
+    model config are used. Returns None when neither source has enough
+    information."""
+    from galvatron_tpu_torch.search.cost_model import MemoryCostModel
+    from galvatron_tpu_torch.search.cost_model_args import (
+        ModelArgs,
+        ParallelArgs,
+        ProfileModelArgs,
+        TrainArgs,
+    )
+
+    per_stage = hp.per_stage_devices
+    if memory_profile is not None and "layertype_0" in memory_profile:
+        lt = memory_profile["layertype_0"]
+        param_mb = float(lt["parameter_size"])
+        act_dict = dict(lt["tp_activation_per_bsz_dict"])
+    else:
+        param_mb = _analytic_parameter_mb(model_cfg) if model_cfg is not None else None
+        act_dict = (
+            _analytic_activation_dict(model_cfg, per_stage)
+            if model_cfg is not None else None
+        )
+    if param_mb is None or not act_dict:
+        return None
+    seq_len = getattr(model_cfg, "max_seq_len", 2048) if model_cfg is not None else 2048
+    hidden = getattr(model_cfg, "hidden_size", 1024) if model_cfg is not None else 1024
+    ma = ModelArgs(parameter_size=param_mb, seq_length=seq_len,
+                   hidden_size=hidden, layer_num=hp.num_layers)
+    ta = TrainArgs(mixed_precision=hp.mixed_precision == "bf16")
+    pa = ParallelArgs(
+        use_zero2_for_dp=hp.default_dp_type == "zero2",
+        sequence_parallel=hp.sequence_parallel,
+        chunks=hp.chunks,
+        pipeline_type=hp.pipeline_type,
+        disable_vtp=True,  # embed/head priced analytically below
+    )
+    stage_mb = [0.0] * hp.pp
+    for i, s in enumerate(hp.layers):
+        info: Dict[str, Any] = {}
+        if s.sp:
+            info["sp"] = 1
+        if s.cp > 1:
+            info["cp"] = s.cp
+        if s.fsdp:
+            info["fsdp"] = 1
+        if s.checkpoint:
+            info["cpt"] = 1
+            if s.remat_policy != "full":
+                info["rp"] = s.remat_policy
+        strategy = [hp.pp, s.tp, hp.dp(i), info]
+        cost = MemoryCostModel(
+            strategy, global_batch_size=hp.global_bsz,
+            mbsz=max(1, hp.global_bsz // max(1, hp.chunks)),
+            min_tp=1, max_tp=per_stage, model_args=ma, train_args=ta,
+            parallel_args=pa,
+            profile_model_args=ProfileModelArgs(tp_activation_per_bsz_dict=act_dict),
+        ).get_memory_cost()
+        stage_mb[hp.stage_of_layer[i]] += cost["enc_total"]
+    # embed/head states: vocab-parallel table(s), Adam fp32 states (~4x),
+    # sharded over vocab_tp (and over pp for the 1F1B storage layout)
+    vocab = getattr(model_cfg, "vocab_size", None) if model_cfg is not None else None
+    if vocab is not None:
+        tables = 1 if getattr(model_cfg, "tie_embeddings", True) else 2
+        vmb = tables * vocab * hidden * 4.0 * 4.0 / 2**20 / hp.vocab_tp
+        if hp.pp == 1:
+            stage_mb[0] += vmb
+        elif hp.pipeline_type == "pipedream_flush":
+            for st in range(hp.pp):
+                stage_mb[st] += vmb / hp.pp
+        else:
+            stage_mb[0] += vmb / tables
+            stage_mb[-1] += vmb / tables
+    return stage_mb
 
 
 def _warning_diagnostics(hp: HybridParallelConfig) -> List[D.Diagnostic]:

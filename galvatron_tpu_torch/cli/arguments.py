@@ -22,11 +22,17 @@ profile run writes both tables), ``--profile_dp_type`` (the model profiler
 times one device) and ``--time_profile_mode`` / ``--memory_profile_mode``
 (the search reads the mode from the tables).
 
+Train takes the elastic-resume flags (``--elastic {off,resume,search}``,
+``--elastic_strategy``, ``--elastic_memory_gb``) and ``--config_dir`` (the
+profiles an elastic search reads). Serve parses ``--elastic_strategy`` and
+``--elastic_memory_gb`` as the reference does; they act only with
+``--migrate_on_degrade``, which is refused.
+
 Flags whose modules are not ported yet are not defined, so argparse
-refuses them: sdc, autotune and elastic flags, ``--trace_lint``,
-``--xla_trace``, ``--watchdog*``, ``--mesh_probe_interval``,
-``--migrate_on_degrade`` (serve resilience), the compilation-cache and
-multi-host bootstrap flags (JAX runtime only). ``--donate_step`` takes 1
+refuses them: sdc and autotune flags, ``--trace_lint``, ``--xla_trace``,
+``--watchdog*``, ``--mesh_probe_interval``, ``--migrate_on_degrade``
+(serve resilience), the compilation-cache and multi-host bootstrap flags
+(JAX runtime only). ``--donate_step`` takes 1
 only (see its help). The port adds ``--device {cuda,cpu}`` to every mode
 that runs a model.
 """
@@ -210,6 +216,22 @@ def _add_train_args(p: argparse.ArgumentParser):
     r.add_argument("--verify_checkpoint", type=int, default=1,
                    help="verify the integrity manifest on resume and fall back to the "
                         "latest intact checkpoint")
+    # elastic resume (runtime/elastic.py): checkpoints carry a provenance
+    # block, so a run on another world or strategy restores across them
+    r.add_argument("--elastic", type=str, default="off", choices=("off", "resume", "search"),
+                   help="on --load: 'resume' restores under the --elastic_strategy JSON "
+                        "(or, on an unchanged world without one, the saved strategy), "
+                        "'search' re-runs the strategy search for the live world size "
+                        "under the saved memory budget; 'off' keeps the strict "
+                        "same-strategy check (GLS206)")
+    r.add_argument("--elastic_strategy", type=str, default=None,
+                   help="replacement strategy JSON (implies a cross-strategy restore; "
+                        "used by both --elastic modes when given)")
+    r.add_argument("--elastic_memory_gb", type=float, default=None,
+                   help="memory budget per GPU for the elastic re-search and the "
+                        "strategy file's check (default: the budget recorded in the "
+                        "checkpoint's provenance, else 16 GB); recorded into new "
+                        "checkpoints' provenance")
 
 
 def _add_serve_args(p: argparse.ArgumentParser):
@@ -264,6 +286,12 @@ def _add_serve_args(p: argparse.ArgumentParser):
     r.add_argument("--shed_min_samples", type=int, default=3,
                    help="prefills AND decode ticks observed before the "
                         "predicted-TTFT shedder arms")
+    r.add_argument("--elastic_strategy", type=str, default=None,
+                   help="replacement serve strategy JSON for a degraded mesh; acts only "
+                        "with --migrate_on_degrade (not ported: refused)")
+    r.add_argument("--elastic_memory_gb", type=float, default=None,
+                   help="memory budget per GPU for the degraded-world serve re-search; "
+                        "acts only with --migrate_on_degrade (not ported: refused)")
 
 
 def _add_profile_args(p: argparse.ArgumentParser):
@@ -402,7 +430,7 @@ def build_parser(mode: str = "serve") -> argparse.ArgumentParser:
     if mode not in MODES:
         raise ValueError("unknown mode %r (one of %s)" % (mode, MODES))
     p = argparse.ArgumentParser("galvatron_tpu_torch-%s" % mode, allow_abbrev=False)
-    if mode in ("search", "profile", "profile_hardware"):
+    if mode in ("search", "profile", "profile_hardware", "train"):
         p.add_argument("--config_dir", type=str, default="configs",
                        help="where profiled/searched JSON configs live")
     _add_model_args(p)

@@ -54,6 +54,9 @@ def serve(args) -> dict:
 def _serve(args) -> dict:
     device = local_device(args.device)
     fam, cfg = model_config_from_args(args)
+    if cfg.head_type != "lm":
+        raise ValueError("serving supports the generic causal-LM families only; %r has a %s "
+                         "head" % (fam.name, cfg.head_type))
     world = args.world_size or 1
     hp = hp_config_from_args(args, cfg.num_layers, world)
 

@@ -46,14 +46,27 @@ batch zigzag-permuted under ``--cp_mode zigzag``), Ulysses layers
 (``--use-ulysses`` / ``use_sp``) their attention after an all-to-all over
 tp, and ``--vocab_sp`` / ``--vocab_cp`` shard the embedding's and the
 loss's sequence, each inside the 1F1B pipeline too (GPipe refuses cp, as
-the reference does). The silent-corruption sentinel, the watchdog,
-elastic resume and the autotuner refuse with a ValueError naming their
-ROADMAP item, or argparse refuses their flags.
+the reference does). ``--model_type bert`` trains the MLM encoder on the
+token stream, ``--model_type vit`` the image classifier on a vision shard
+(``--data_path``, ``data.dataset.write_vision_dataset``) or synthetic
+pixels.
+
+Elastic resume (``--load`` with ``--elastic resume|search``,
+``runtime/elastic.py``): the strategy comes from the checkpoint's
+provenance (an unchanged world), ``--elastic_strategy`` or a search for
+this world, and the restore moves every rank's shards of the params and
+both Adam moments across strategies, world sizes and pipeline divisions
+(``runtime/checkpoint.py``); a refusal (GLS2xx) exits with code 2. A plain
+``--load`` under another strategy still refuses (GLS206). The
+silent-corruption sentinel, the watchdog, live migration and the
+autotuner refuse with a ValueError naming their ROADMAP item, or argparse
+refuses their flags.
 """
 
 from __future__ import annotations
 
 import math
+import sys
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -117,6 +130,7 @@ class TrainRun:
     opt_state: Any
     guard: Optional[rsl.AnomalyGuard]
     step: Callable
+    elastic_plan: Any = None  # runtime.elastic.ElasticPlan under --elastic
 
     def step_args(self) -> tuple:
         """The step's arguments after (params, opt_state, batch)."""
@@ -204,22 +218,33 @@ def build(args, device: Optional[torch.device] = None) -> TrainRun:
     if device is None:
         device = distributed.local_device(args.device)
     fam, cfg = model_config_from_args(args)
-    if fam.data_kind != "lm":
-        raise ValueError("data_kind %r is not ported yet (the encoder and vision families "
-                         "come with ROADMAP queue 1 item 9)" % fam.data_kind)
     world = distributed.world_size()
     if args.world_size is not None and args.world_size != world:
         raise ValueError(
             "--world_size %d but the process group has %d rank(s): launch one process "
             "per rank (torchrun --nproc_per_node %d -m galvatron_tpu_torch.cli train ...)"
             % (args.world_size, world, args.world_size))
-    hp = hp_config_from_args(args, cfg.num_layers, world)
+    lead = distributed.rank() == 0
+    elastic_plan = None
+    if args.load and getattr(args, "elastic", "off") != "off":
+        # the strategy for this world from the checkpoint's provenance, the
+        # replacement JSON or a search; the saved one on an unchanged world
+        from galvatron_tpu_torch.runtime import elastic as els
+
+        elastic_plan = els.resolve_resume_strategy(args, cfg, world,
+                                                   opt_args=optimizer_args_from(args))
+        hp = elastic_plan.hp
+        if lead and elastic_plan.cross_strategy:
+            print("elastic resume (%s): checkpoint strategy (world %d) -> new strategy "
+                  "(world %d)" % (elastic_plan.action, elastic_plan.saved_hp.world_size,
+                                  hp.world_size))
+    else:
+        hp = hp_config_from_args(args, cfg.num_layers, world)
 
     # fail fast on a bad strategy before anything is built
     from galvatron_tpu_torch.analysis import strategy_lint as _slint
     from galvatron_tpu_torch.analysis.diagnostics import DiagnosticError
 
-    lead = distributed.rank() == 0
     report = _slint.lint_hp(hp, model_cfg=cfg, mode="train",
                             file=getattr(args, "galvatron_config_path", None))
     for d in report.warnings if lead else ():
@@ -242,7 +267,8 @@ def build(args, device: Optional[torch.device] = None) -> TrainRun:
     return TrainRun(
         fam=fam, cfg=cfg, hp=hp, device=device, model=model, tx=tx, params=params,
         opt_state=model.init_opt_state(tx, params), guard=guard,
-        step=model.make_train_step(tx, guard_anomalies=guard is not None))
+        step=model.make_train_step(tx, guard_anomalies=guard is not None),
+        elastic_plan=elastic_plan)
 
 
 def train(args) -> dict:
@@ -315,19 +341,21 @@ def _train(args, device) -> dict:
     if hooks is not None and hooks.wrap_step_fn:
         step_fn = hooks.wrap_step_fn(step_fn)
     params, opt_state = run.params, run.opt_state
-    provenance = build_provenance(hp, cfg, optimizer_args_from(args))
+    plan = run.elastic_plan
+    budget = getattr(args, "elastic_memory_gb", None) or (
+        plan.provenance.get("memory_budget_gb") if plan is not None else None)
+    provenance = build_provenance(hp, cfg, optimizer_args_from(args), memory_budget_gb=budget)
 
     def load_from(ckpt_dir, iteration):
         # restores in place into the live params and Adam state (a tied
         # table's last-stage copy from the first stage's, which the
-        # checkpoint holds once)
-        p_view, o_view = model.checkpoint_view(params, opt_state)
-        out = ckpt.load_checkpoint(
-            ckpt_dir, iteration, params_target=p_view, opt_state_target=o_view, hp=hp,
-            model_cfg=cfg, verify_integrity=bool(getattr(args, "verify_checkpoint", 1)),
+        # checkpoint holds once); under --elastic a step of another
+        # strategy is restored across strategies
+        return ckpt.load_checkpoint(
+            ckpt_dir, iteration, params_target=params, opt_state_target=opt_state,
+            target=model, allow_cross=plan is not None, model_cfg=cfg,
+            verify_integrity=bool(getattr(args, "verify_checkpoint", 1)),
             retry_policy=retry_policy, counters=res)
-        model.restore_tied(params, opt_state, o_view)
-        return out
 
     start_iter, restored = 0, None
     if args.load:
@@ -336,7 +364,9 @@ def _train(args, device) -> dict:
         res.torn_checkpoints_skipped += len(meta.get("torn_iterations", ()))
         restored = dict(meta["restore"], iteration=start_iter)
         if lead:
-            print("resumed from %s at iteration %d" % (args.load, start_iter))
+            print("resumed from %s at iteration %d%s" % (
+                args.load, start_iter, " across strategies" if restored.get("cross_strategy")
+                else ""))
 
     telemetry.emit(
         "run_start", model="%s_%s" % (args.model_type, args.model_size or run.fam.default_size),
@@ -574,7 +604,20 @@ def _train(args, device) -> dict:
 
 def main(argv: Optional[list] = None):
     args = initialize_galvatron(argv=argv, mode="train")
-    summary = train(args)
+    try:
+        summary = train(args)
+    except Exception as e:
+        from galvatron_tpu_torch.analysis.diagnostics import DiagnosticError
+
+        if isinstance(e, DiagnosticError) and any(
+                d.code.startswith("GLS2") for d in e.diagnostics):
+            # the elastic-resume refusal contract: the diagnostics on stderr
+            # and exit code 2, so a supervisor tells "needs operator input"
+            # from "retry me"
+            for d in e.diagnostics:
+                print(d.format(), file=sys.stderr)
+            sys.exit(2)
+        raise
     if summary["rank"] == 0:
         print({k: v for k, v in summary.items()
                if k not in ("losses", "loss_iters", "checkpoint_saves", "checkpoint_restore")})

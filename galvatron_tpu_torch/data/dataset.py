@@ -20,8 +20,12 @@ built with ``g++`` at first use into ``build/galvatron_tpu_torch/``, keyed
 by a hash of the source and flags, and loaded with ``ctypes``; a failed
 build raises — there is no quiet numpy fallback on the data path.
 `_build_sample_idx_py` and `_build_blending_indices_py` are the plain
-versions the tests hold the native ones against. The T5 span corruption and
-the vision iterator wait for the encoder and vision families.
+versions the tests hold the native ones against.
+
+Vision shards (the reference's format): ``<path>.images.npy`` (NHWC uint8
+or float32) + ``<path>.labels.npy`` (int32), written by
+`write_vision_dataset` and read memmapped by `vision_data_iterator`. The
+T5 span corruption waits for the T5 family.
 """
 
 from __future__ import annotations
@@ -343,3 +347,63 @@ class BlendedGPTDataset:
     def __getitem__(self, i: int) -> np.ndarray:
         i = i % self.n_samples
         return self.datasets[int(self.ds_index[i])][int(self.ds_sample[i])]
+
+
+# ------------------------------------------------------------- vision shards
+def write_vision_dataset(path: str, images: np.ndarray, labels: np.ndarray) -> None:
+    """Write <path>.images.npy + <path>.labels.npy shards (uint8 or float32
+    NHWC images)."""
+    if len(images) != len(labels):
+        raise ValueError("images/labels length mismatch: %d vs %d" % (len(images), len(labels)))
+    np.save(path + ".images.npy", images)
+    np.save(path + ".labels.npy", np.asarray(labels, np.int32))
+
+
+def vision_data_iterator(
+    data_path: str,
+    hp: HybridParallelConfig,
+    image_size: int,
+    num_channels: int,
+    seed: int = 1234,
+    start_step: int = 0,
+    split: str = "train",
+    split_weights: str = "969,30,1",
+) -> Iterator[Dict[str, torch.Tensor]]:
+    """Global batches ({pixels (B, H, W, C) fp32 in [0, 1] for uint8
+    shards, labels (B,)}) over one split of a vision shard, memmapped; the
+    sample order is a per-epoch permutation of the split seeded by `seed` +
+    epoch, a pure function of the step, as in the reference."""
+    _, prefixes = parse_blend(data_path)
+    if len(prefixes) > 1:
+        raise ValueError("corpus blending (\"W1 PREFIX1 W2 PREFIX2 ...\") is not supported "
+                         "for vision datasets; got --data_path %r" % data_path)
+    data_path = prefixes[0]
+    img_path, lab_path = data_path + ".images.npy", data_path + ".labels.npy"
+    if not os.path.exists(img_path) or not os.path.exists(lab_path):
+        raise FileNotFoundError("vision dataset %r needs %s and %s (write_vision_dataset "
+                                "builds them)" % (data_path, img_path, lab_path))
+    images = np.load(img_path, mmap_mode="r")
+    labels = np.load(lab_path)
+    if images.shape[1:] != (image_size, image_size, num_channels):
+        raise ValueError("dataset images are %s; model expects (%d, %d, %d)"
+                         % (images.shape[1:], image_size, image_size, num_channels))
+    ids = split_doc_ids(len(images), split_weights)[split]
+    if len(ids) == 0:
+        raise ValueError("empty %s split over %d samples" % (split, len(images)))
+    n = len(ids)
+    step = start_step
+    cur_epoch, perm = -1, None
+    while True:
+        batch_ids = []
+        for b in range(hp.global_bsz):
+            epoch, off = divmod(step * hp.global_bsz + b, n)
+            if epoch != cur_epoch:  # a pure function of the epoch: resume-safe
+                perm = np.random.RandomState(seed + epoch).permutation(n)
+                cur_epoch = epoch
+            batch_ids.append(ids[perm[off]])
+        px = np.stack([images[int(j)] for j in batch_ids])
+        if px.dtype == np.uint8:
+            px = px.astype(np.float32) / 255.0
+        yield {"pixels": torch.from_numpy(np.ascontiguousarray(px, np.float32)),
+               "labels": torch.from_numpy(labels[np.asarray(batch_ids)].astype(np.int64))}
+        step += 1

@@ -1,10 +1,14 @@
-"""Generic decoder transformer: config, parameters, forward, loss and decode.
+"""Generic transformer: config, parameters, forward, loss and decode.
 
-Port of ``galvatron_tpu/models/base.py`` for the token-input causal LM. The model's
-parameters are ``nn.Module``s whose state-dict names are the reference's
-param-tree paths (``embed.wte``, ``layers.<i>.ln1.scale``,
-``layers.<i>.wqkv.kernel``, ``final_norm.scale``, ``lm_head.kernel``), with
-the reference's head-major shapes:
+Port of ``galvatron_tpu/models/base.py``: the token-input causal LM (GPT,
+LLaMA), the bidirectional post-norm encoder with token types, an embedding
+norm and an MLM head (BERT), and the patch-input encoder with a cls token
+and a classification head (ViT). The model's parameters are ``nn.Module``s
+whose state-dict names are the reference's param-tree paths (``embed.wte``,
+``embed.tte``, ``embed.patch.kernel``, ``embed.cls_token``,
+``embed.norm.scale``, ``layers.<i>.ln1.scale``, ``layers.<i>.wqkv.kernel``,
+``final_norm.scale``, ``head.transform.kernel``, ``head.bias``,
+``lm_head.kernel``), with the reference's head-major shapes:
 
 - fused QKV ``wqkv.kernel (h, 3, nh, hd)``, or ``wq.kernel (h, nh, hd)`` +
   ``wkv.kernel (h, 2, nkv, hd)`` for GQA;
@@ -82,14 +86,13 @@ class TransformerConfig:
     param_dtype: Any = torch.float32
     attn_impl: str = "auto"
     init_std: float = 0.02
-    # encoder-family extensions of the reference config; this slice ports
-    # the token-input causal-LM path only and refuses the rest at init
-    type_vocab_size: int = 0
-    embed_norm: bool = False
-    head_type: str = "lm"
+    # encoder-family extensions (BERT, ViT)
+    type_vocab_size: int = 0  # token-type embeddings
+    embed_norm: bool = False  # norm after the embedding sum
+    head_type: str = "lm"  # lm | mlm | classification
     num_classes: int = 0
-    pool_type: str = "cls"
-    input_type: str = "tokens"
+    pool_type: str = "cls"  # cls | mean (classification pooling)
+    input_type: str = "tokens"  # tokens | patches
     image_size: int = 224
     patch_size: int = 16
     num_channels: int = 3
@@ -157,50 +160,81 @@ class TransformerLayer(nn.Module):
 
 
 class Embed(nn.Module):
-    """``wte`` and, for learned positions, ``wpe``; the last pipeline
-    stage's copy of a tied table holds ``wte`` alone (`positions` False)."""
+    """Token input: ``wte``, ``wpe`` for learned positions, ``tte`` for
+    token types; patch input: ``patch`` (a dense on patchified pixels),
+    ``wpe`` and ``cls_token``; either with ``norm`` under `embed_norm`. The
+    last pipeline stage's copy of a tied table holds ``wte`` alone (`first`
+    False)."""
 
-    def __init__(self, cfg: TransformerConfig, device, positions: bool = True):
+    def __init__(self, cfg: TransformerConfig, device, first: bool = True):
         super().__init__()
-        self.wte = _param((cfg.vocab_size, cfg.hidden_size), cfg, device)
-        self.wpe = (_param((cfg.max_seq_len, cfg.hidden_size), cfg, device)
-                    if cfg.position_type == "learned" and positions else None)
+        h = cfg.hidden_size
+        self.wte = self.wpe = self.tte = self.patch = self.cls_token = self.norm = None
+        if cfg.input_type == "patches":
+            dim = cfg.patch_size * cfg.patch_size * cfg.num_channels
+            self.patch = Dense((dim, h), (h,), cfg, device)
+            self.wpe = _param((cfg.max_seq_len, h), cfg, device)
+            if cfg.use_cls_token:
+                self.cls_token = _param((h,), cfg, device)
+        else:
+            self.wte = _param((cfg.vocab_size, h), cfg, device)
+            if not first:
+                return
+            if cfg.position_type == "learned":
+                self.wpe = _param((cfg.max_seq_len, h), cfg, device)
+            if cfg.type_vocab_size:
+                self.tte = _param((cfg.type_vocab_size, h), cfg, device)
+        if cfg.embed_norm:
+            self.norm = Norm(cfg, device)
+
+
+class MLMHead(nn.Module):
+    """BERT's MLM head: ``transform`` (h, h) dense, ``norm``, and the
+    decoder's ``bias`` over the vocab (its kernel is the tied table, or
+    ``lm_head`` when untied)."""
+
+    def __init__(self, cfg: TransformerConfig, device):
+        super().__init__()
+        self.transform = Dense((cfg.hidden_size, cfg.hidden_size), (cfg.hidden_size,), cfg,
+                               device)
+        self.norm = Norm(cfg, device)
+        self.bias = _param((cfg.vocab_size,), cfg, device)
 
 
 class TransformerLM(nn.Module):
-    """The causal-LM parameter tree: ``embed``, ``layers``, ``final_norm``
-    (pre-norm models) and ``lm_head`` (untied models).
+    """The model's parameter tree: ``embed``, ``layers``, ``final_norm``
+    (pre-norm models), ``head`` (the MLM head, or the classification
+    dense) and ``lm_head`` (untied lm/mlm heads).
 
     A pipeline stage holds a part of it (`stage_model`): the layers of
     `layer_ids` (a ``ModuleDict`` keyed by the global index, so the
     state-dict names stay ``layers.<i>...``), the embedding when `first`,
-    the final norm and the head when `last`, and on the last stage of a
+    the final norm and the heads when `last`, and on the last stage of a
     tied model its own copy of ``embed.wte`` for the head."""
 
     def __init__(self, cfg: TransformerConfig, device, layer_ids=None, first: bool = True,
                  last: bool = True):
         super().__init__()
-        unsupported = [name for name, bad in (
-            ("input_type=%r" % cfg.input_type, cfg.input_type != "tokens"),
-            ("head_type=%r" % cfg.head_type, cfg.head_type != "lm"),
-            ("type_vocab_size", cfg.type_vocab_size != 0),
-            ("embed_norm", cfg.embed_norm),
-        ) if bad]
-        if unsupported:
-            raise ValueError(
-                "this slice of the port builds token-input causal LMs only; "
-                "unsupported config fields: %s (the encoder families come with "
-                "a later slice)" % ", ".join(unsupported))
-        self.embed = (Embed(cfg, device, positions=first)
-                      if first or (last and cfg.tie_embeddings) else None)
+        if cfg.head_type not in ("lm", "mlm", "classification"):
+            raise ValueError("unknown head_type %r" % cfg.head_type)
+        if cfg.input_type not in ("tokens", "patches"):
+            raise ValueError("unknown input_type %r" % cfg.input_type)
+        vocab_head = cfg.head_type in ("lm", "mlm")
+        tied_copy = last and vocab_head and cfg.tie_embeddings and cfg.input_type == "tokens"
+        self.embed = Embed(cfg, device, first=first) if first or tied_copy else None
         if layer_ids is None:
             self.layers = nn.ModuleList(TransformerLayer(cfg, device)
                                         for _ in range(cfg.num_layers))
         else:
             self.layers = nn.ModuleDict({str(i): TransformerLayer(cfg, device) for i in layer_ids})
         self.final_norm = Norm(cfg, device) if cfg.pre_norm and last else None
+        self.head = None
+        if last and cfg.head_type == "mlm":
+            self.head = MLMHead(cfg, device)
+        elif last and cfg.head_type == "classification":
+            self.head = Dense((cfg.hidden_size, cfg.num_classes), (cfg.num_classes,), cfg, device)
         self.lm_head = (Dense((cfg.hidden_size, cfg.vocab_size), None, cfg, device)
-                        if not cfg.tie_embeddings and last else None)
+                        if vocab_head and not cfg.tie_embeddings and last else None)
 
 
 def stage_model(cfg: TransformerConfig, hp: HybridParallelConfig, stage: int,
@@ -245,7 +279,7 @@ def init_param_(name: str, p: torch.Tensor, cfg: TransformerConfig,
     leaf = name.rsplit(".", 1)[-1]
     if leaf == "scale":
         p.fill_(1.0)
-    elif leaf == "bias":
+    elif leaf in ("bias", "cls_token"):
         p.zero_()
     elif name.endswith("wo.kernel") or name.endswith("wo_mlp.kernel"):
         _normal_(p, cfg.init_std / math.sqrt(2 * cfg.num_layers), generator)
@@ -357,9 +391,11 @@ def _attention(q, k, v, cfg: TransformerConfig, attn_bias, seq: Optional[SeqCont
     the order of the layer's own zigzag (`zigzag_local_order`), so that a
     causal mask by index, and the ring's blocks, follow the true positions,
     and the output is put back. (The reference masks by index outside the
-    ring, which is wrong on a zigzag batch.) Under cp the ring runs on the
-    flash kernels; otherwise `core_attention`."""
-    order = zigzag_local_order(seq.chunks) if seq is not None and seq.chunks > 2 else None
+    ring, which is wrong on a zigzag batch.) A bidirectional layer needs no
+    such order: no query's output depends on where its keys sit. Under cp
+    the ring runs on the flash kernels; otherwise `core_attention`."""
+    order = (zigzag_local_order(seq.chunks) if cfg.causal and seq is not None
+             and seq.chunks > 2 else None)
     if order is not None:
         q, k, v = (_take_chunks(t, order, 1) for t in (q, k, v))
         if attn_bias is not None:
@@ -552,20 +588,53 @@ def _layer_placements(cfg: TransformerConfig, ax: LayerAxes,
 
 
 def _vocab_placements(cfg: TransformerConfig, ax: LayerAxes) -> Dict[str, Tuple[S.Spec, Optional[int]]]:
+    """The reference's ``model_param_specs`` entries outside the layers."""
     r1 = (S.replicated_1d_spec(ax), 0)
-    # vocab-dense under vocab sp, where ZeRO-3 shards the vocab
-    out = {"embed.wte": (S.vocab_embed_spec(ax), 0 if ax.ulysses else 1)}
-    if cfg.position_type == "learned":
-        out["embed.wpe"] = (S.replicated_spec(2), None)
-    if cfg.pre_norm:
-        out["final_norm.scale"] = r1
+    dense2 = (S.replicated_spec(2), None)
+
+    def norm(prefix):
+        out[prefix + ".scale"] = r1
         if cfg.norm_type != "rmsnorm":
-            out["final_norm.bias"] = r1
-    if not cfg.tie_embeddings:
+            out[prefix + ".bias"] = r1
+
+    out: Dict[str, Tuple[S.Spec, Optional[int]]] = {}
+    if cfg.input_type == "patches":
+        out.update({"embed.patch.kernel": dense2, "embed.patch.bias": r1, "embed.wpe": dense2})
+        if cfg.use_cls_token:
+            out["embed.cls_token"] = r1
+    else:
+        # vocab-dense under vocab sp, where ZeRO-3 shards the vocab
+        out["embed.wte"] = (S.vocab_embed_spec(ax), 0 if ax.ulysses else 1)
+        if cfg.position_type == "learned":
+            out["embed.wpe"] = dense2
+        if cfg.type_vocab_size:
+            out["embed.tte"] = dense2
+    if cfg.embed_norm:
+        norm("embed.norm")
+    if cfg.pre_norm:
+        norm("final_norm")
+    vocab_col = None if ax.ulysses else ax.tp
+    if cfg.head_type == "classification":
+        out.update({"head.kernel": dense2, "head.bias": (S.replicated_spec(1), None)})
+    elif cfg.head_type == "mlm":
+        out.update({"head.transform.kernel": dense2, "head.transform.bias": r1})
+        norm("head.norm")
+        # the decoder bias follows the vocab-parallel logits
+        out["head.bias"] = (S.spec(vocab_col), None)
+    if cfg.head_type in ("lm", "mlm") and not cfg.tie_embeddings:
         # column-parallel over the vocab (vocab-parallel logits); dense
         # under vocab sp, as ``logits_spec``
-        out["lm_head.kernel"] = (S.spec(None, None if ax.ulysses else ax.tp), None)
+        out["lm_head.kernel"] = (S.spec(None, vocab_col), None)
     return out
+
+
+# vocab-layer parameters that run on the sequence shards of Megatron-SP
+# (before the head's gather, or after the embedding's slice), so their
+# gradients are partial over tp there
+_VOCAB_SP_PARTIAL = ("embed.wpe", "embed.tte", "embed.norm.scale", "embed.norm.bias",
+                     "embed.patch.kernel", "embed.patch.bias", "embed.cls_token",
+                     "final_norm.scale", "final_norm.bias", "head.transform.kernel",
+                     "head.transform.bias", "head.norm.scale", "head.norm.bias")
 
 
 def _param_layout(spec: S.Spec, z3_dim: Optional[int], ax: LayerAxes,
@@ -590,8 +659,7 @@ def model_param_layouts(cfg: TransformerConfig, hp: HybridParallelConfig) -> Dic
     the vocab layers' (embedding, final norm, untied head), which run under
     the vocab axes (vocab_tp, embed_sdp)."""
     vax = vocab_axes(hp)
-    out = {name: _param_layout(spec, z3_dim, vax, vax.megatron_sp and name in (
-               "embed.wpe", "final_norm.scale", "final_norm.bias"))
+    out = {name: _param_layout(spec, z3_dim, vax, vax.megatron_sp and name in _VOCAB_SP_PARTIAL)
            for name, (spec, z3_dim) in _vocab_placements(cfg, vax).items()}
     for i in range(cfg.num_layers):
         for name, pl in layer_param_layouts(cfg, layer_axes(hp, i), hp.layers[i].tp).items():
@@ -701,14 +769,17 @@ def gathered(module: nn.Module, layout: Optional[Layout], prefix: str = ""):
 
 # ============================================================== model forward
 def embed_tokens(p_embed: Embed, tokens: torch.Tensor, positions: torch.Tensor,
-                 cfg: TransformerConfig, vocab: Optional[Layout] = None) -> torch.Tensor:
-    """Token (+ learned position) embedding. The lookup happens before the
+                 cfg: TransformerConfig, vocab: Optional[Layout] = None,
+                 token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token (+ learned position, + token type) embedding, then the
+    embedding norm where the config has one. The lookup happens before the
     cast to the compute dtype — the same values as the reference's
     cast-then-gather, without casting the whole table. Vocab-parallel over
     the vocab tp group: each rank looks up the tokens of its vocab rows
     (zeros elsewhere) and the partial embeddings are summed over tp — an
     all-reduce, or under Megatron-SP a reduce-scatter onto sequence shards
-    (Megatron's VocabParallelEmbedding; the reference's one-hot einsum)."""
+    (Megatron's VocabParallelEmbedding; the reference's one-hot einsum),
+    where the position and type rows are looked up for the rank's shard."""
     tp = vocab.tp if vocab is not None else None
     if tp is None or tp.size == 1:
         x = p_embed.wte[tokens].to(cfg.compute_dtype)
@@ -720,7 +791,59 @@ def embed_tokens(p_embed: Embed, tokens: torch.Tensor, positions: torch.Tensor,
         x = T.exit_row(x.to(cfg.compute_dtype), tp)
     if cfg.position_type == "learned":
         x = x + p_embed.wpe[T.seq_shard(positions, tp)].to(cfg.compute_dtype)
+    if cfg.type_vocab_size:
+        tti = token_type_ids if token_type_ids is not None else torch.zeros_like(tokens)
+        x = x + p_embed.tte[T.seq_shard(tti, tp)].to(cfg.compute_dtype)
+    if cfg.embed_norm:
+        x = _norm(x, p_embed.norm, cfg)
     return x
+
+
+def patchify(pixels: torch.Tensor, patch: int) -> torch.Tensor:
+    """(B, H, W, C) image -> (B, N, patch*patch*C) patch vectors, row-major
+    over the patch grid; a dense on them is the stride-`patch` convolution
+    of HF ViT's patch embedding."""
+    b, hh, ww, c = pixels.shape
+    gh, gw = hh // patch, ww // patch
+    x = pixels.reshape(b, gh, patch, gw, patch, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, gh * gw, patch * patch * c)
+
+
+def embed_patches(p_embed: Embed, pixels: torch.Tensor, cfg: TransformerConfig,
+                  vocab: Optional[Layout] = None) -> torch.Tensor:
+    """ViT patch embedding: patchify, dense, [cls token], learned positions
+    (and the embedding norm). Under a layout it is computed on the rank's
+    rows over the whole sequence and sliced to the vocab layers' sequence
+    shard; the slice's gradient is the shard's own, so these parameters'
+    gradients are partial over the sequence axes, as a token embedding's
+    are."""
+    dtype = cfg.compute_dtype
+    x = _proj(patchify(pixels.to(dtype), cfg.patch_size), p_embed.patch, dtype)
+    if cfg.use_cls_token:
+        cls = p_embed.cls_token.to(dtype).expand(x.shape[0], 1, cfg.hidden_size)
+        x = torch.cat([cls, x], dim=1)
+    x = x + p_embed.wpe[:x.shape[1]].to(dtype)
+    if cfg.embed_norm:
+        x = _norm(x, p_embed.norm, cfg)
+    if vocab is not None and vocab.act[1]:
+        x = S.shard_tensor(x, ((), vocab.act[1], ()), vocab.mesh)
+    return x
+
+
+def embed_inputs(p_embed: Embed, batch: dict, cfg: TransformerConfig,
+                 vocab: Optional[Layout] = None) -> torch.Tensor:
+    """The family's embedding of a batch: ``pixels`` for patch input, else
+    ``tokens`` (+ ``positions``, ``token_type_ids``)."""
+    if cfg.input_type == "patches":
+        return embed_patches(p_embed, batch["pixels"], cfg, vocab)
+    return embed_tokens(p_embed, batch["tokens"], batch["positions"], cfg, vocab,
+                        token_type_ids=batch.get("token_type_ids"))
+
+
+def _vocab_kernel(params: TransformerLM, cfg: TransformerConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return params.embed.wte.to(cfg.compute_dtype).t()
+    return params.lm_head.kernel.to(cfg.compute_dtype)
 
 
 def lm_logits(params: TransformerLM, x: torch.Tensor, cfg: TransformerConfig,
@@ -730,21 +853,48 @@ def lm_logits(params: TransformerLM, x: torch.Tensor, cfg: TransformerConfig,
     if cfg.pre_norm:
         x = _norm(x, params.final_norm, cfg)
     x = T.enter_column(x, vocab.tp if vocab is not None else None)
-    if cfg.tie_embeddings:
-        kernel = params.embed.wte.to(cfg.compute_dtype).t()
-    else:
-        kernel = params.lm_head.kernel.to(cfg.compute_dtype)
-    return x @ kernel
+    return x @ _vocab_kernel(params, cfg)
+
+
+def _gather_head_seq(x: torch.Tensor, vocab: Layout) -> torch.Tensor:
+    """The whole sequence of the rank's rows for a head that pools it. The
+    sequence shards of the token group (cp, and tp under vocab sp) each
+    score their own copy with 1/n of the weight (`classification_loss`
+    counts every copy), so their gather sums the copies' gradients
+    (reduce-scatter backward); Megatron-SP's tp shards score identical
+    copies at full weight and take their own slice back."""
+    tokens = S.token_seq_axes(vocab.axes)
+    for a in reversed(vocab.act[1]):
+        gather = comm.gather_rs_bwd if a in tokens else comm.gather_split_bwd
+        x = gather(x, 1, vocab.mesh.group_for((a,)))
+    return x
 
 
 def model_head(params: TransformerLM, x: torch.Tensor, cfg: TransformerConfig,
                vocab: Optional[Layout] = None) -> torch.Tensor:
-    """The family's output head. The port builds causal LMs only, so this
-    is the reference's ``lm`` branch; the ``mlm`` and ``classification``
-    heads come with the encoder families (TransformerLM refuses them)."""
-    if cfg.head_type != "lm":
-        raise ValueError("head_type %r is not ported yet" % cfg.head_type)
-    return lm_logits(params, x, cfg, vocab)
+    """The family's output head (the reference's ``model_head``): the LM
+    head; the MLM head (transform, exact gelu, norm on the rank's
+    sequence shard, then the vocab-parallel decoder with its bias sharded
+    over vocab tp); or the classification head (the final norm on the
+    shard, the whole sequence gathered, cls or mean pooling, a dense to the
+    classes: (B, C) logits)."""
+    if cfg.head_type == "lm":
+        return lm_logits(params, x, cfg, vocab)
+    dtype = cfg.compute_dtype
+    if cfg.pre_norm:
+        x = _norm(x, params.final_norm, cfg)
+    if cfg.head_type == "mlm":
+        head = params.head
+        y = F.gelu(_proj(x, head.transform, dtype))
+        y = _norm(y, head.norm, cfg)
+        y = T.enter_column(y, vocab.tp if vocab is not None else None)
+        return y @ _vocab_kernel(params, cfg) + head.bias.to(dtype)
+    if cfg.head_type == "classification":
+        if vocab is not None and vocab.act[1]:
+            x = _gather_head_seq(x, vocab)
+        pooled = x[:, 0] if cfg.pool_type == "cls" else x.mean(dim=1)
+        return _proj(pooled, params.head, dtype)
+    raise ValueError(cfg.head_type)
 
 
 def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -892,6 +1042,23 @@ def padding_attn_bias(attn_mask: torch.Tensor) -> torch.Tensor:
     return (1.0 - attn_mask.float())[:, None, None, :] * -1e9
 
 
+def _trunk(params: TransformerLM, batch: dict, cfg: TransformerConfig,
+           hp: Optional[HybridParallelConfig], layouts: Optional[ModelLayouts]):
+    """(the vocab layers' view of `params`, the last layer's output) of a
+    batch: the embedding and the layer stack."""
+    if cfg.input_type == "tokens" and batch.get("positions") is None:
+        tokens = batch["tokens"]
+        batch = dict(batch, positions=torch.arange(tokens.shape[1], device=tokens.device)
+                     .expand(tokens.shape))
+    vocab = layouts.vocab if layouts is not None else None
+    top = gathered(params, vocab) if vocab is not None else params
+    x = embed_inputs(top.embed, batch, cfg, vocab)
+    mask = batch.get("attn_mask")
+    bias = padding_attn_bias(mask) if mask is not None else None
+    return top, run_layers(params, x, batch.get("positions"), cfg, hp, attn_bias=bias,
+                           layouts=layouts)
+
+
 def model_forward(
     params: TransformerLM,
     tokens: torch.Tensor,
@@ -900,29 +1067,73 @@ def model_forward(
     attn_mask: Optional[torch.Tensor] = None,
     hp: Optional[HybridParallelConfig] = None,
     layouts: Optional[ModelLayouts] = None,
+    token_type_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Full forward to logits. With `layouts`, the inputs are this rank's
-    rows and sequence shard in the vocab layers' token placement
-    (``Layout.side``), and the logits its vocab columns of those tokens;
-    the vocab layers' ZeRO-3 weights are gathered once for the embedding
-    and the (tied) head."""
-    if positions is None:
-        positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
-    vocab = layouts.vocab if layouts is not None else None
-    top = gathered(params, vocab) if vocab is not None else params
-    x = embed_tokens(top.embed, tokens, positions, cfg, vocab)
-    bias = padding_attn_bias(attn_mask) if attn_mask is not None else None
-    x = run_layers(params, x, positions, cfg, hp, attn_bias=bias, layouts=layouts)
-    return model_head(top, x, cfg, vocab)
+    """Full forward to logits; `tokens` are the pixels of a patch-input
+    model. With `layouts`, the inputs are this rank's rows and sequence
+    shard in the vocab layers' token placement (``Layout.side``; pixels:
+    its rows), and the logits its vocab columns of those tokens (or its
+    rows' class logits); the vocab layers' ZeRO-3 weights are gathered once
+    for the embedding and the (tied) head."""
+    key = "pixels" if cfg.input_type == "patches" else "tokens"
+    batch = {key: tokens, "positions": positions, "token_type_ids": token_type_ids,
+             "attn_mask": attn_mask}
+    top, x = _trunk(params, batch, cfg, hp, layouts)
+    return model_head(top, x, cfg, layouts.vocab if layouts is not None else None)
+
+
+def softmax_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-row softmax cross entropy of (B, C) logits and (B,) labels, in
+    fp32 (the reference's ``softmax_nll`` before its mean)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, labels.long()[:, None])[:, 0]
+
+
+def classification_loss(logits: torch.Tensor, labels: torch.Tensor,
+                        vocab: Optional[Layout] = None) -> torch.Tensor:
+    """Mean softmax cross entropy over the rows; under a layout this rank's
+    share of the global mean: its rows' sum over the row count of every
+    rank of the token group (dp, and the sequence shards that hold a copy
+    of the same rows), so the shares sum to the mean over that group."""
+    nll = softmax_nll(logits, labels)
+    if vocab is None:
+        return nll.mean()
+    count = comm.all_reduce(torch.tensor(float(nll.numel()), device=nll.device),
+                            vocab.token_group)
+    return nll.sum() / count
+
+
+def head_loss(top, x: torch.Tensor, batch: dict, cfg: TransformerConfig,
+              vocab: Optional[Layout] = None) -> torch.Tensor:
+    """The head and the family's loss on the last layer's output: token
+    cross entropy for lm/mlm heads, class cross entropy for
+    classification."""
+    logits = model_head(top, x, cfg, vocab)
+    if cfg.head_type == "classification":
+        return classification_loss(logits, batch["labels"], vocab)
+    return vocab_parallel_cross_entropy(logits, batch["labels"], batch.get("loss_mask"), vocab)
+
+
+def loss_fn(params: TransformerLM, batch: dict, cfg: TransformerConfig,
+            hp: Optional[HybridParallelConfig] = None,
+            layouts: Optional[ModelLayouts] = None) -> torch.Tensor:
+    """The family's loss of a batch (`lm_loss_fn` or
+    `classification_loss_fn`)."""
+    top, x = _trunk(params, batch, cfg, hp, layouts)
+    return head_loss(top, x, batch, cfg, layouts.vocab if layouts is not None else None)
 
 
 def lm_loss_fn(params: TransformerLM, batch: dict, cfg: TransformerConfig,
                hp: Optional[HybridParallelConfig] = None,
                layouts: Optional[ModelLayouts] = None) -> torch.Tensor:
-    """batch: dict(tokens, positions, labels, loss_mask?, attn_mask?) ->
-    scalar fp32 token-mean cross entropy (with `layouts`: this rank's share
-    of it, see `vocab_parallel_cross_entropy`)."""
-    logits = model_forward(params, batch["tokens"], batch["positions"], cfg,
-                           attn_mask=batch.get("attn_mask"), hp=hp, layouts=layouts)
-    return vocab_parallel_cross_entropy(logits, batch["labels"], batch.get("loss_mask"),
-                                        layouts.vocab if layouts is not None else None)
+    """batch: dict(tokens, positions, labels, loss_mask?, token_type_ids?,
+    attn_mask?) -> scalar fp32 token-mean cross entropy, for lm and mlm
+    heads (with `layouts`: this rank's share of it, see
+    `vocab_parallel_cross_entropy`)."""
+    return loss_fn(params, batch, cfg, hp, layouts)
+
+
+# batch: dict(pixels | tokens, labels (B,)) -> mean softmax cross entropy
+# over the classes (with layouts: this rank's share, see
+# `classification_loss`); the reference's name for `loss_fn`
+classification_loss_fn = loss_fn

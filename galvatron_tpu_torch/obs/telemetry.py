@@ -71,7 +71,7 @@ EVENT_SCHEMAS: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
     "checkpoint_save": (("iteration",), ("duration_ms", "emergency", "path")),
     "checkpoint_restore": (
         ("iteration",),
-        ("duration_ms", "path", "torn_skipped", "cross_strategy"),
+        ("duration_ms", "path", "torn_skipped", "cross_strategy", "device_extra_gb"),
     ),
     "checkpoint_gc": (("deleted",), ("path",)),
     # lifecycle: resilience

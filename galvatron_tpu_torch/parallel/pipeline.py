@@ -141,9 +141,10 @@ def gpipe_order(pp: int, chunks: int, stage: int, backward: bool = True) -> List
 class StageRunner:
     """One stage's micro-batches: `forward` from the batch (first stage) or
     a received activation, to the activation it sends (or, on the last
-    stage, the weighted loss); `backward` from the received cotangent (the
-    last stage from its loss) to the cotangent of its input. Each in-flight
-    micro-batch keeps (input, output) until its backward."""
+    stage, the weighted loss of the family's head); `backward` from the
+    received cotangent (the last stage from its loss) to the cotangent of
+    its input. Each in-flight micro-batch keeps (input, output) until its
+    backward."""
 
     def __init__(self, stage: int, params, cfg, hp: HybridParallelConfig, layouts):
         self.stage, self.params, self.cfg, self.hp, self.layouts = stage, params, cfg, hp, layouts
@@ -157,20 +158,16 @@ class StageRunner:
 
         cfg, vocab = self.cfg, self.layouts.vocab
         top = M.gathered(self.params, vocab)
-        positions = batch["positions"]
         if self.first:
-            x = M.embed_tokens(top.embed, batch["tokens"], positions, cfg, vocab)
+            x = M.embed_inputs(top.embed, batch, cfg, vocab)
         else:
             x = x_in.requires_grad_() if torch.is_grad_enabled() else x_in
         mask = batch.get("attn_mask")
         bias = M.padding_attn_bias(mask) if mask is not None else None
-        out = M.run_layers(self.params, x, positions, cfg, self.hp, attn_bias=bias,
+        out = M.run_layers(self.params, x, batch.get("positions"), cfg, self.hp, attn_bias=bias,
                            layouts=self.layouts)
         if self.last:
-            logits = M.model_head(top, out, cfg, vocab)
-            loss = M.vocab_parallel_cross_entropy(logits, batch["labels"],
-                                                  batch.get("loss_mask"), vocab)
-            out = loss * weight
+            out = M.head_loss(top, out, batch, cfg, vocab) * weight
             share = out.detach()
             self.loss = share if self.loss is None else self.loss + share
         if torch.is_grad_enabled():

@@ -222,16 +222,24 @@ class ModelProfiler:
         cfg = dataclasses.replace(
             self.cfg, num_layers=max(n_layers, 1), max_seq_len=max(seq, self.cfg.max_seq_len)
         )
-        gen = self._generator()
-        params = M.init_model_params(cfg, gen, self._device)
+        gen, dev = self._generator(), self._device
+        params = M.init_model_params(cfg, gen, dev)
         params.layers = params.layers[:n_layers]
-        tokens = torch.randint(0, cfg.vocab_size, (bsz, seq), generator=gen, device=self._device)
-        batch = {
-            "tokens": tokens,
-            "positions": torch.arange(seq, device=self._device).expand(bsz, seq),
-            "labels": torch.roll(tokens, -1, 1),
-        }
-        return (lambda p, b: M.lm_loss_fn(p, b, cfg)), params, batch
+        if cfg.input_type == "patches":
+            batch = {
+                "pixels": torch.randn((bsz, cfg.image_size, cfg.image_size, cfg.num_channels),
+                                      generator=gen, device=dev),
+                "labels": torch.randint(0, max(cfg.num_classes, 1), (bsz,), generator=gen,
+                                        device=dev),
+            }
+        else:
+            tokens = torch.randint(0, cfg.vocab_size, (bsz, seq), generator=gen, device=dev)
+            batch = {
+                "tokens": tokens,
+                "positions": torch.arange(seq, device=dev).expand(bsz, seq),
+                "labels": torch.roll(tokens, -1, 1),
+            }
+        return (lambda p, b: M.loss_fn(p, b, cfg)), params, batch
 
     # ---------------------------------------------------------- measurements
     def _time(self, fn, args) -> float:
@@ -357,10 +365,11 @@ class ModelProfiler:
         """(embed_mb, head_mb, rest_mb, act_total_mb) for the 'other' tables."""
         loss, params, batch = self._full_model(0, bsz, seq)
         embed_mb = _module_bytes(params.embed) / MB
-        if self.cfg.tie_embeddings:
-            head_mb = embed_mb + _module_bytes(params.lm_head) / MB
+        heads = _module_bytes(params.lm_head) + _module_bytes(params.head)
+        if self.cfg.head_type in ("lm", "mlm") and self.cfg.tie_embeddings:
+            head_mb = embed_mb + _module_bytes(params.head) / MB
         else:
-            head_mb = _module_bytes(params.lm_head) / MB
+            head_mb = heads / MB
         rest_mb = _module_bytes(params.final_norm) / MB
         act_total = self._measured(self._grad_bytes(loss, params, (batch,)))
         return embed_mb, head_mb, rest_mb, max(act_total, 1024.0) / MB

@@ -36,10 +36,22 @@ mismatch (GLS214) marks the step torn (every step has a manifest once it
 committed: there is no other kind of directory), and — unless an iteration was named —
 the restore falls back to the newest intact step (every rank agreeing on
 the verdict). The strategy guard refuses a checkpoint of another strategy
-or world size with GLS206 (cross-strategy restore comes with ROADMAP queue
-1 item 11), another model with GLS201 and another optimizer tree with
-GLS202. `load_full_params` assembles the full parameters of a checkpoint of
-any world size in one process (``cli serve --load``).
+or world size with GLS206, another model with GLS201 and another optimizer
+tree with GLS202. `load_full_params` / `load_full_state` assemble the full
+parameters (and Adam state) of a checkpoint of any world size and strategy
+in one process (``cli serve --load``).
+
+Across strategies (``load_checkpoint(..., target=model, allow_cross=True)``,
+what ``cli train --elastic`` calls): the saved strategy comes from the
+step's provenance (GLS204 without one); each saved rank's file is verified
+against its manifest record by one process; then every process fills each
+shard of its live params and of both Adam moments (ZeRO-2 moment shards
+included) from the regions of the saved ranks' memory-mapped files that
+overlap it (`SavedShards`), reading no other bytes. Last, the port's form
+of the reference's digest-continuity check (GLS016): the live leaves,
+gathered one at a time and cut again under the saved strategy, must
+reproduce every saved rank's manifest record. A step of the model's own
+strategy takes the plain path.
 
 Under a pipeline each rank's file holds its stage's shards under their
 global names (``layers.<i>...``); the last stage leaves out its copy of a
@@ -47,7 +59,8 @@ tied table, which the first stage's file holds
 (``HybridParallelModel.checkpoint_view``; ``restore_tied`` refills the copy
 after a load), so `load_full_params` reassembles the canonical layer list
 from the stages' files. A resume under another pp or division is another
-strategy (GLS206).
+strategy (GLS206 on a plain resume; renaming for the cross-strategy
+restore, since stage files key layers by their global index).
 
 Saving is collective. Each rank's own write (its file, and rank 0's
 directory set-up and manifest) is retried under the caller's
@@ -223,14 +236,20 @@ def tree_digests(leaves: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     names = sorted(leaves)
     with ThreadPoolExecutor(max(1, min(8, os.cpu_count() or 1))) as ex:
         shas = list(ex.map(lambda n: _leaf_sha(leaves[n]), names))
+    return _fold_leaves({n: (str(leaves[n].dtype), tuple(leaves[n].shape), sha)
+                         for n, sha in zip(names, shas)})
+
+
+def _fold_leaves(leaves: Mapping[str, Tuple[str, tuple, str]]) -> Dict[str, Any]:
+    """A manifest record from each leaf's (dtype, shape, sha256)."""
     value, spec = hashlib.sha256(), hashlib.sha256()
-    for n, sha in zip(names, shas):
-        t = leaves[n]
-        key = (n + str(t.dtype) + str(tuple(t.shape))).encode()
+    for n in sorted(leaves):
+        dtype, shape, sha = leaves[n]
+        key = (n + dtype + str(tuple(shape))).encode()
         spec.update(key)
         value.update(key + sha.encode())
     return {"digest": value.hexdigest(), "spec_digest": spec.hexdigest(),
-            "num_leaves": len(names)}
+            "num_leaves": len(leaves)}
 
 
 def _meta_digest(meta: Dict[str, Any]) -> Dict[str, Any]:
@@ -348,16 +367,29 @@ def save_checkpoint(
     meta: Optional[Dict[str, Any]] = None,
     retry_policy: Any = None,
     counters: Any = None,
+    rank_views: Optional[Dict[int, Tuple[Any, Optional[AdamState]]]] = None,
 ) -> Dict[str, Any]:
     """Write this rank's params (a module or name -> tensor) and Adam state
     at `iteration`, commit the manifest after every rank has written, then
     GC to the newest `keep_latest_k`. Collective under a process group of
     more than one rank: the writes are retried under `retry_policy`
     (``counters`` counts the retries) with every rank agreeing, see
-    `_agreed`. Returns {"bytes", "seconds", "digest_s", "write_s",
-    "items"} of this rank's part."""
+    `_agreed`. A process that hosts every stage of a pipeline (one device
+    each, ``LocalTransport``) passes `rank_views` instead: {strategy rank:
+    (params, Adam state)} of every hosted stage
+    (``HybridParallelModel.checkpoint_views``), written as the files of a
+    world of ``len(rank_views)``. Returns {"bytes", "seconds", "digest_s",
+    "write_s", "items"} of this rank's part (of the first hosted rank's
+    with `rank_views`, and "ranks": every hosted rank's items)."""
     t0 = time.perf_counter()
     rank, world = _world()
+    if rank_views is None:
+        rank_views = {rank: (params, opt_state)}
+    elif world != 1:
+        raise ValueError("rank_views: one process writes every rank's file only in a "
+                         "process group of one (a hosted pipeline)")
+    else:
+        world = len(rank_views)
     step_dir = _step_dir(ckpt_dir, iteration)
 
     def set_up():
@@ -379,7 +411,8 @@ def save_checkpoint(
         os.makedirs(step_dir)
 
     def write():
-        _write_rank_file(host, _rank_file(ckpt_dir, iteration, rank))
+        for r, host in hosts.items():
+            _write_rank_file(host, _rank_file(ckpt_dir, iteration, r))
         if rank == 0 and train_meta:
             write_json_config(train_meta, os.path.join(step_dir, "train_meta.json"))
 
@@ -388,31 +421,40 @@ def save_checkpoint(
             _write_manifest(ckpt_dir, iteration, items, world, provenance=provenance)
 
     _agreed(set_up, retry_policy, counters, "checkpoint set-up")
-    host = {"params": _to_host(_param_leaves(params))}
-    if opt_state is not None:
-        host["opt_state"] = _to_host(_opt_leaves(opt_state))
+    hosts = {}
+    for r, (p, o) in sorted(rank_views.items()):
+        hosts[r] = {"params": _to_host(_param_leaves(p))}
+        if o is not None:
+            hosts[r]["opt_state"] = _to_host(_opt_leaves(o))
     t1 = time.perf_counter()
-    mine = {name: tree_digests(leaves) for name, leaves in host.items()}
+    mine = {r: {name: tree_digests(leaves) for name, leaves in host.items()}
+            for r, host in hosts.items()}
     t2 = time.perf_counter()
     _agreed(write, retry_policy, counters, "checkpoint write")
     t3 = time.perf_counter()
-    everyone = _gather(mine)  # every rank has written its file
+    records = {}
+    for d in _gather(mine):  # every rank has written its file
+        records.update(d)
     if _before_manifest_write is not None:
         _before_manifest_write(iteration)
-    items = {name: _fold([r[name] for r in everyone]) for name in mine}
+    first = min(hosts)
+    items = {name: _fold([records[r][name] for r in range(world)]) for name in mine[first]}
     if train_meta:
         items["train_meta"] = _meta_digest(train_meta)
     _agreed(commit, retry_policy, counters, "manifest commit")
-    nbytes = sum(t.numel() * t.element_size() for leaves in host.values()
-                 for t in leaves.values())
+    nbytes = sum(t.numel() * t.element_size() for host in hosts.values()
+                 for leaves in host.values() for t in leaves.values())
     telemetry.emit("checkpoint_save", iteration=iteration, path=ckpt_dir,
                    duration_ms=(time.perf_counter() - t0) * 1e3,
                    emergency=True if (train_meta and train_meta.get("emergency")) else None)
     if keep_latest_k:
         gc_checkpoints(ckpt_dir, keep_latest_k)
         _barrier()
-    return {"bytes": nbytes, "seconds": time.perf_counter() - t0, "copy_s": t1 - t0,
-            "digest_s": t2 - t1, "write_s": t3 - t2, "items": mine}
+    out = {"bytes": nbytes, "seconds": time.perf_counter() - t0, "copy_s": t1 - t0,
+           "digest_s": t2 - t1, "write_s": t3 - t2, "items": mine[first]}
+    if len(hosts) > 1:
+        out["ranks"] = mine
+    return out
 
 
 def gc_checkpoints(ckpt_dir: str, keep_latest_k: int, protect: Any = ()) -> List[int]:
@@ -452,25 +494,31 @@ def _diag(code: str, message: str, cls=D.DiagnosticError):
     return cls([D.make(code, message)])
 
 
-def check_strategy(prov: Optional[Dict[str, Any]], manifest: Dict[str, Any],
-                   hp: Optional[HybridParallelConfig], model_cfg: Any = None) -> None:
+def check_strategy(manifest: Dict[str, Any], hp: Optional[HybridParallelConfig],
+                   model_cfg: Any = None) -> None:
     """Refuse a checkpoint this run cannot restore in place: another world
     size or strategy (GLS206), another model (GLS201)."""
     world = int(manifest.get("world_size", 1))
-    if hp is not None:
-        saved = (prov or {}).get("strategy")
-        if world != hp.world_size or (saved is not None and saved != hp.to_json_dict()):
-            raise _diag("GLS206", "the checkpoint was written at world size %d under another "
-                        "strategy than this run's (world size %d); restoring across "
-                        "strategies comes with the elastic slice (ROADMAP queue 1 item 11): "
-                        "resume with the strategy of the checkpoint's provenance"
-                        % (world, hp.world_size))
+    if hp is not None and not _same_strategy(manifest, hp):
+        raise _diag("GLS206", "the checkpoint was written at world size %d under another "
+                    "strategy than this run's (world size %d): resume with the strategy of "
+                    "the checkpoint's provenance, or restore across strategies with "
+                    "--elastic resume|search" % (world, hp.world_size))
+    prov = manifest.get("provenance")
     if model_cfg is not None and prov and prov.get("model_digest"):
         from galvatron_tpu_torch.runtime.provenance import model_config_digest
 
         if prov["model_digest"] != model_config_digest(model_cfg):
             raise _diag("GLS201", "the checkpoint's model-config digest differs from this "
                         "run's model: it was written for another architecture")
+
+
+def _same_strategy(manifest: Dict[str, Any], hp: HybridParallelConfig) -> bool:
+    """Whether a step was written at `hp`'s world size under `hp` (a step
+    without provenance: by its world size alone)."""
+    saved = (manifest.get("provenance") or {}).get("strategy")
+    return (int(manifest.get("world_size", 1)) == hp.world_size
+            and (saved is None or saved == hp.to_json_dict()))
 
 
 def _copy_into(target: Dict[str, torch.Tensor], saved: Dict[str, torch.Tensor], what: str):
@@ -512,6 +560,265 @@ def _read_rank(ckpt_dir: str, step: int, rank: int) -> Dict[str, Any]:
                       mmap=True)
 
 
+def _saved_strategy(manifest: Dict[str, Any], ckpt_dir: str,
+                    iteration: int) -> HybridParallelConfig:
+    """The strategy a committed step was written under (its provenance:
+    GLS204 without one)."""
+    prov = manifest.get("provenance")
+    if not prov or not prov.get("strategy"):
+        raise _diag("GLS204", "checkpoint %s step %d carries no provenance: its strategy, and "
+                    "so where each rank's shards belong, is unknown" % (ckpt_dir, iteration))
+    world = int(manifest.get("world_size", prov.get("world_size", 1)))
+    return HybridParallelConfig.from_json(dict(prov["strategy"]), world_size=world)
+
+
+# ------------------------------------------------------ cross-strategy restore
+Region = Tuple[Tuple[int, int], ...]
+
+
+def _region(shape, spec, mesh) -> Region:
+    """The [start, stop) per dim of the full tensor that `mesh`'s rank holds
+    under `spec` (equal contiguous chunks, chunk i on shard index i)."""
+    out = []
+    for d, n in enumerate(shape):
+        ax = spec[d] if d < len(spec) else ()
+        k = mesh.size(ax) if ax else 1
+        i = mesh.shard_index(ax) if ax else 0
+        out.append((i * (n // k), (i + 1) * (n // k)))
+    return tuple(out)
+
+
+def _overlap(a: Region, b: Region) -> Optional[Region]:
+    out = tuple((max(x0, y0), min(x1, y1)) for (x0, x1), (y0, y1) in zip(a, b))
+    return None if any(lo >= hi for lo, hi in out) else out
+
+
+def _within(region: Region, outer: Region) -> Tuple[slice, ...]:
+    """`region`'s index in a tensor that holds `outer`."""
+    return tuple(slice(lo - o0, hi - o0) for (lo, hi), (o0, _) in zip(region, outer))
+
+
+def _saved_specs(cfg, hp: HybridParallelConfig) -> Dict[str, Dict[str, Any]]:
+    """Per item (``params``, ``mu``, ``nu``) and parameter, its placement
+    under `hp`: the parameter's layout, and for the Adam moments that layout
+    dp-sharded on `moment_dim` wherever ZeRO-2 applies
+    (``HybridParallelModel.grad_accum_specs``)."""
+    from galvatron_tpu_torch.models import base as M
+    from galvatron_tpu_torch.parallel.mesh import RankMesh
+    from galvatron_tpu_torch.runtime.optimizer import moment_dim, moment_spec
+
+    layouts = M.model_param_layouts(cfg, hp)
+    mesh = RankMesh(hp, 0)
+    moments = {}
+    for n, p in M.TransformerLM(cfg, "meta").named_parameters():
+        pl = layouts[n]
+        d = moment_dim(pl.spec, p.shape, mesh.size(pl.dp), pl.zero_opt, pl.z3_dim is not None)
+        moments[n] = moment_spec(pl.spec, p.dim(), d, pl.dp)
+    return {"params": {n: pl.spec for n, pl in layouts.items()}, "mu": moments, "nu": moments}
+
+
+def _rank_leaves(f: Dict[str, Any]):
+    """(item, parameter name, (file item, key)) of each tensor leaf of a
+    rank file but the Adam count; item is ``params``, ``mu`` or ``nu``."""
+    for n in f["params"]:
+        yield "params", n, ("params", n)
+    for k in f.get("opt_state", {}):
+        if k != "count":
+            item, n = k.split("/", 1)
+            yield item, n, ("opt_state", k)
+
+
+class SavedShards:
+    """The shards of a checkpoint step in every saved rank's (memory-mapped)
+    file, located in the full tensors by the saved strategy: for each
+    (item, name) the distinct regions the saved ranks hold (replicas once),
+    so a reader copies each byte it needs from one file and pages in
+    nothing else."""
+
+    def __init__(self, files: Dict[int, Dict[str, Any]], saved_hp: HybridParallelConfig, cfg):
+        from galvatron_tpu_torch.models import base as M
+        from galvatron_tpu_torch.parallel.mesh import RankMesh
+
+        self.shapes = {n: tuple(p.shape) for n, p in M.TransformerLM(cfg, "meta")
+                       .named_parameters()}
+        specs = _saved_specs(cfg, saved_hp)
+        self.files = files
+        self.sources: Dict[Tuple[str, str], Dict[Region, Tuple[int, Tuple[str, str]]]] = {}
+        self.counts = set()
+        for r, f in files.items():
+            mesh = RankMesh(saved_hp, r)
+            if "count" in f.get("opt_state", {}):
+                self.counts.add(int(f["opt_state"]["count"]))
+            for item, n, key in _rank_leaves(f):
+                reg = _region(self.shapes[n], specs[item][n], mesh)
+                self.sources.setdefault((item, n), {}).setdefault(reg, (r, key))
+
+    def fill(self, item: str, name: str, out: torch.Tensor, region: Region) -> None:
+        """Copy the saved bytes of `region` of the full tensor into `out`
+        (which holds that region); every element must be covered (GLS202
+        otherwise)."""
+        if (item, name) not in self.sources:
+            raise _diag("GLS202", "%s/%s: the checkpoint holds no such leaf" % (item, name))
+        covered = 0
+        with torch.no_grad():
+            for reg, (r, (rec, key)) in self.sources[(item, name)].items():
+                ov = _overlap(region, reg)
+                if ov is None:
+                    continue
+                src = self.files[r][rec][key][_within(ov, reg)]
+                if src.dtype != out.dtype:
+                    raise _diag("GLS202", "%s/%s is %s in the checkpoint, %s here"
+                                % (item, name, src.dtype, out.dtype))
+                out[_within(ov, region)].copy_(src)
+                covered += src.numel()
+        if covered != out.numel():
+            raise _diag("GLS202", "%s/%s: the saved shards cover %d of the %d elements of "
+                        "the target's shard" % (item, name, covered, out.numel()))
+
+
+def _continuity(manifest: Dict[str, Any], files: Dict[int, Dict[str, Any]],
+                saved_hp: HybridParallelConfig, target: Any, params: Dict[int, nn.Module],
+                opt_state: Optional[Dict[int, AdamState]]) -> Tuple[List[str], int]:
+    """The reference's GLS016 digest-continuity check, held against the
+    manifest: each live leaf, gathered under its canonical name one leaf at
+    a time, is cut again under the saved strategy for every saved rank
+    that holds it (``parallel.spec.shard_tensor``, not the regions the
+    restore copied by), and every saved rank's records must come out as
+    its manifest's. Each leaf is hashed by one process (replicas once), on
+    the host, while the next is gathered. Returns the records that differ
+    and the number of leaves this process hashed."""
+    from galvatron_tpu_torch.parallel import spec as S
+    from galvatron_tpu_torch.parallel.mesh import RankMesh
+
+    rank, world = _world()
+    specs = _saved_specs(target.cfg, saved_hp)
+    live = {"params": {s: dict(m.named_parameters()) for s, m in params.items()}}
+    live_specs = {"params": {n: pl.spec for n, pl in target.param_layouts.items()}}
+    if opt_state is not None:
+        live.update(mu={s: st.mu for s, st in opt_state.items()},
+                    nu={s: st.nu for s, st in opt_state.items()})
+        live_specs["mu"] = live_specs["nu"] = target.grad_accum_specs()
+    meshes = {r: RankMesh(saved_hp, r) for r in files}
+    holders: Dict[Tuple[str, str], list] = {}
+    for r, f in files.items():
+        for item, n, key in _rank_leaves(f):
+            if item in live:
+                holders.setdefault((item, n), []).append((r, key))
+
+    def shas(item, n, full):
+        out, seen = [], {}
+        for r, (rec, key) in holders[(item, n)]:
+            shard = S.shard_tensor(full, specs[item][n], meshes[r])
+            at = (shard.storage_offset(), tuple(shard.shape), shard.stride())
+            if at not in seen:
+                seen[at] = _leaf_sha(shard.contiguous())
+            out.append((r, rec, key, str(shard.dtype), tuple(shard.shape), seen[at]))
+        return out
+
+    mine, pending = [], []
+    workers = max(1, min(8, os.cpu_count() or 1))
+    # hashlib releases the GIL; at most `workers` + 1 leaves wait on the host
+    with ThreadPoolExecutor(workers) as ex:
+        for i, (item, n) in enumerate(sorted(holders)):
+            full = target.gather_leaf(live[item], n, live_specs[item][n])  # collective
+            if i % world == rank:
+                pending.append(ex.submit(shas, item, n, full))
+            del full
+            while len(pending) > workers:
+                mine += pending.pop(0).result()
+        for fut in pending:
+            mine += fut.result()
+    checked = len(mine)
+    if opt_state is not None and rank == 0:
+        count = torch.tensor(int(next(iter(opt_state.values())).count), dtype=torch.int64)
+        mine += [(r, "opt_state", "count", str(count.dtype), (), _leaf_sha(count))
+                 for r, f in files.items() if "count" in f.get("opt_state", {})]
+    records: Dict[Tuple[int, str], Dict[str, Tuple[str, tuple, str]]] = {}
+    for part in _gather(mine):
+        for r, rec, key, dtype, shape, sha in part:
+            records.setdefault((r, rec), {})[key] = (dtype, shape, sha)
+    bad = []
+    for (r, rec), leaves in sorted(records.items()):
+        want = manifest["items"][rec]["ranks"][r]
+        got = _fold_leaves(leaves)
+        if any(got[k] != want.get(k) for k in ("digest", "spec_digest", "num_leaves")):
+            bad.append("rank %d %s" % (r, rec))
+    return bad, checked
+
+
+def _restore_across(ckpt_dir: str, step: int, manifest: Dict[str, Any],
+                    saved_hp: HybridParallelConfig, target: Any, params: Dict[int, nn.Module],
+                    opt_state: Optional[Dict[int, AdamState]], verify: bool):
+    """Restore `step`, written under `saved_hp`, into the live shards of
+    `target` (every hosted stage of this process): (None, restore stats),
+    or ((code, reason), None) when the saved bytes fail their manifest.
+
+    1. Integrity on the bytes as saved: saved rank r's file is verified
+       against its manifest record by process r mod world (all agree).
+    2. Each target shard of a parameter and of both moments (ZeRO-2 moment
+       shards included) is filled from the saved ranks' shards that overlap
+       it; the count from the files. A pipeline division change is
+       renaming: stage files key layers by their global index, and the last
+       stage's copy of a tied table comes from the first stage's file.
+    3. Continuity (`_continuity`, GLS016): the restored leaves, cut again
+       under the saved strategy, reproduce the manifest's records."""
+    rank, world = _world()
+    t0 = time.perf_counter()
+    reason = None
+    if verify:
+        for r in range(rank, saved_hp.world_size, world):
+            loaded = _read_rank(ckpt_dir, step, r)
+            reason = _verify(manifest, r, {k: tree_digests(v) for k, v in loaded.items()})
+            if reason is not None:
+                break
+    reason = next((x for x in _gather(reason) if x is not None), None)
+    if reason is not None:
+        return reason, None
+    verify_s = time.perf_counter() - t0
+    files = {r: _read_rank(ckpt_dir, step, r) for r in range(saved_hp.world_size)}
+    saved = SavedShards(files, saved_hp, target.cfg)
+    moment_specs = target.grad_accum_specs()
+    if opt_state is not None and not saved.counts:
+        raise _diag("GLS202", "checkpoint %s step %d holds no optimizer state" % (ckpt_dir, step))
+    t1 = time.perf_counter()
+    for s, module in params.items():
+        mesh = target.stage_meshes[s]
+        for n, p in module.named_parameters():
+            saved.fill("params", n, p.data, _region(saved.shapes[n],
+                                                    target.param_layouts[n].spec, mesh))
+            if opt_state is not None:
+                reg = _region(saved.shapes[n], moment_specs[n], mesh)
+                saved.fill("mu", n, opt_state[s].mu[n], reg)
+                saved.fill("nu", n, opt_state[s].nu[n], reg)
+        if opt_state is not None:
+            opt_state[s].count = min(saved.counts)
+    t2 = time.perf_counter()
+    dev = next(next(iter(params.values())).parameters()).device
+    if dev.type == "cuda":  # what the check takes beyond the live state
+        torch.cuda.synchronize(dev)
+        live_bytes = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    bad, checked = _continuity(manifest, files, saved_hp, target, params, opt_state)
+    extra_gb = None
+    if dev.type == "cuda":
+        extra_gb = (torch.cuda.max_memory_allocated(dev) - live_bytes) / 1e9
+    if len(saved.counts) > 1:
+        bad.append("count: the saved ranks hold counts %s" % sorted(saved.counts))
+    if bad:
+        raise _diag("GLS016", "cross-strategy restore of %s step %d does not reproduce the "
+                    "manifest's records of %s" % (ckpt_dir, step, bad[:4]))
+    nbytes = sum(t.numel() * t.element_size() for m in params.values() for t in m.parameters())
+    if opt_state is not None:
+        nbytes += sum(2 * t.numel() * t.element_size() for st in opt_state.values()
+                      for t in st.mu.values())
+    return None, {"bytes": nbytes, "verify_s": verify_s, "move_s": t2 - t1,
+                  "continuity_s": time.perf_counter() - t2, "digest_s": verify_s,
+                  "cross_strategy": True, "leaves_checked": checked,
+                  "device_extra_gb": extra_gb,
+                  "saved_world_size": saved_hp.world_size,
+                  "saved_strategy": saved_hp.to_json_dict()}
+
+
 def load_checkpoint(
     ckpt_dir: str,
     iteration: Optional[int] = None,
@@ -524,10 +831,22 @@ def load_checkpoint(
     verify_integrity: bool = True,
     retry_policy: Any = None,
     counters: Any = None,
+    target: Any = None,
+    allow_cross: bool = False,
 ):
     """Restore (params, opt_state, train_meta) of this rank in place into
     `params_target` (a module or name -> tensor) and `opt_state_target`.
     Collective under a process group of more than one rank.
+
+    With `target` (the live ``HybridParallelModel``, whose strategy is then
+    `hp`), `params_target` and `opt_state_target` are its per-stage params
+    and Adam states. A step of the target's strategy is copied into this
+    rank's checkpoint view (``checkpoint_view``; the tied table's
+    last-stage copy is refilled by ``restore_tied``). A step of another
+    strategy or world size, and any step into a process that hosts every
+    stage of a pipeline (it has no one rank's file), is restored across
+    strategies (`_restore_across`) — the former only with `allow_cross`
+    (``--elastic``), else it refuses with GLS206.
 
     Each candidate step — the named `iteration`, else every step newest
     first — must have a committed manifest whose records match this rank's
@@ -536,11 +855,11 @@ def load_checkpoint(
     `CheckpointIntegrityError` (GLS210 / GLS214). `retry_policy` and
     `counters` (``runtime.resilience``) put backoff around the manifest
     reads and the file reads. With `strict_strategy` a checkpoint of
-    another strategy or world refuses (GLS206); `model_cfg` adds the model
-    digest check (GLS201). Without `verify_integrity` the byte digests are
-    not checked; the committed manifest is still required. Returns
-    (params_target, opt_state or None, meta) with ``meta["restore"]`` =
-    {"bytes", "seconds", "digest_s"}."""
+    another strategy or world refuses (GLS206) unless `allow_cross`;
+    `model_cfg` adds the model digest check (GLS201). Without
+    `verify_integrity` the byte digests are not checked; the committed
+    manifest is still required. Returns (params_target, opt_state or None,
+    meta) with ``meta["restore"]`` = {"bytes", "seconds", "digest_s", ...}."""
     from galvatron_tpu_torch.runtime import resilience as rsl
 
     t0 = time.perf_counter()
@@ -567,34 +886,53 @@ def load_checkpoint(
                                                                    reverse=True))
     if not candidates:
         raise FileNotFoundError("no checkpoint found under %s" % ckpt_dir)
+    stages = None
+    if target is not None:
+        hp, stages = target.hp, (params_target, opt_state_target)
+        params_target = opt_state_target = None  # a hosted pipeline has no one rank view
+        if len(stages[0]) == 1:
+            params_target, opt_state_target = target.checkpoint_view(*stages)
     torn: Dict[int, str] = {}
     out = None
     want_opt = _opt_leaves(opt_state_target) if opt_state_target is not None else None
     for step in candidates:
         manifest, reason = manifest_of(step)
+        across = False
         if manifest is not None:
             if strict_strategy:
-                check_strategy(manifest.get("provenance"), manifest, hp, model_cfg)
+                check_strategy(manifest, None if allow_cross else hp, model_cfg)
+            across = stages is not None and (params_target is None
+                                             or not _same_strategy(manifest, hp))
             rec = manifest.get("items", {}).get("opt_state")
-            if want_opt is not None and rec is not None and len(rec.get("ranks", ())) > rank:
+            if (not across and want_opt is not None and rec is not None
+                    and len(rec.get("ranks", ())) > rank):
                 mine = rec["ranks"][rank]["num_leaves"]
                 if mine != len(want_opt):
                     raise _diag("GLS202", "saved opt_state has %s leaves on rank %d but the "
                                 "optimizer here expects %d: resume with the optimizer the "
                                 "checkpoint was written with" % (mine, rank, len(want_opt)))
-        loaded = None
+        loaded, stats, digests, digest_s = None, None, {}, 0.0
         if reason is None:
             with _RESTORING_LOCK:
                 _RESTORING.add(step)
             try:
-                loaded = retrying(lambda s=step: _read_rank(ckpt_dir, s, rank), "checkpoint read")
+                if across:
+                    # collective: its verdict is every rank's, and an error
+                    # raises (a rank that went on would wait for the others)
+                    reason, stats = _restore_across(
+                        ckpt_dir, step, manifest, _saved_strategy(manifest, ckpt_dir, step),
+                        target, *stages, verify_integrity)
+                else:
+                    loaded = retrying(lambda s=step: _read_rank(ckpt_dir, s, rank),
+                                      "checkpoint read")
             except Exception as e:  # noqa: BLE001 — a torn or unreadable step
+                if across:
+                    raise
                 reason = "GLS214", "restore failed: %s: %s" % (type(e).__name__, e)
             finally:
                 with _RESTORING_LOCK:
                     _RESTORING.discard(step)
-        digests = {}
-        if reason is None and verify_integrity:
+        if reason is None and loaded is not None and verify_integrity:
             t_d = time.perf_counter()
             digests = {name: tree_digests(leaves) for name, leaves in loaded.items()}
             digest_s = time.perf_counter() - t_d
@@ -608,20 +946,30 @@ def load_checkpoint(
                             % (ckpt_dir, step, why), CheckpointIntegrityError)
             torn[step] = why
             continue
-        out = (step, loaded, manifest, digests, digest_s if digests else 0.0)
+        out = step, loaded, stats, digests, digest_s
         break
     if out is None:
         raise FileNotFoundError("no intact checkpoint under %s (torn steps skipped: %s)"
                                 % (ckpt_dir, dict(sorted(torn.items()))))
-    step, loaded, manifest, digests, digest_s = out
-    _copy_into(_param_leaves(params_target), loaded["params"], "params")
+    step, loaded, stats, digests, digest_s = out
     opt_state = None
-    if opt_state_target is not None and "opt_state" in loaded:
-        saved = loaded["opt_state"]
-        _copy_into({n: t for n, t in want_opt.items() if n != "count"},
-                   {n: t for n, t in saved.items() if n != "count"}, "opt_state")
-        opt_state_target.count = int(saved["count"])
-        opt_state = opt_state_target
+    if stats is not None:
+        params_target, opt_state = stages
+    else:
+        _copy_into(_param_leaves(params_target), loaded["params"], "params")
+        if opt_state_target is not None and "opt_state" in loaded:
+            saved = loaded["opt_state"]
+            _copy_into({n: t for n, t in want_opt.items() if n != "count"},
+                       {n: t for n, t in saved.items() if n != "count"}, "opt_state")
+            opt_state_target.count = int(saved["count"])
+            opt_state = opt_state_target
+        nbytes = sum(t.numel() * t.element_size() for leaves in loaded.values()
+                     for t in leaves.values())
+        stats = {"bytes": nbytes, "digest_s": digest_s, "digests": digests}
+        if stages is not None:
+            if opt_state is not None:
+                target.restore_tied(*stages, opt_state)
+            params_target, opt_state = stages[0], stages[1] if opt_state is not None else None
     meta_path = os.path.join(_step_dir(ckpt_dir, step), "train_meta.json")
     meta: Dict[str, Any] = {}
     if os.path.exists(meta_path):
@@ -632,23 +980,23 @@ def load_checkpoint(
         meta["torn_iterations"] = sorted(torn)
         telemetry.runtime_log("checkpoint: fell back to intact step %d; skipped torn steps %s"
                               % (step, sorted(torn)))
-    nbytes = sum(t.numel() * t.element_size() for leaves in loaded.values()
-                 for t in leaves.values())
-    meta["restore"] = {"bytes": nbytes, "seconds": time.perf_counter() - t0,
-                       "digest_s": digest_s, "digests": digests}
-    telemetry.emit("checkpoint_restore", iteration=int(meta["iteration"]), path=ckpt_dir,
-                   duration_ms=(time.perf_counter() - t0) * 1e3,
-                   torn_skipped=len(torn) or None)
+    meta["restore"] = dict(stats, seconds=time.perf_counter() - t0)
+    _emit_restore(int(meta["iteration"]), ckpt_dir, meta["restore"], len(torn))
     return params_target, opt_state, meta
 
 
-def load_full_params(ckpt_dir: str, iteration: Optional[int],
-                     cfg) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
-    """The FULL parameters of a checkpoint of any world size, assembled in
-    this process from every rank's file and verified against the manifest
-    (the optimizer state is not read): name -> CPU tensor, and the train
-    metadata. Needs the manifest's provenance (GLS204) for the saved
-    strategy; `cfg` must be the checkpoint's model (GLS201)."""
+def _emit_restore(iteration: int, ckpt_dir: str, stats: Dict[str, Any], torn: int):
+    """The ``checkpoint_restore`` telemetry event of a restore's stats."""
+    telemetry.emit("checkpoint_restore", iteration=iteration, path=ckpt_dir,
+                   duration_ms=stats["seconds"] * 1e3, torn_skipped=torn or None,
+                   cross_strategy=True if stats.get("cross_strategy") else None,
+                   device_extra_gb=stats.get("device_extra_gb"))
+
+
+def _full_state(ckpt_dir: str, iteration: Optional[int], cfg, moments: bool):
+    """Every saved rank's file verified against the manifest, and its
+    shards copied into the full tensors where the saved strategy puts them
+    (``parallel.spec.shard_tensor``)."""
     from galvatron_tpu_torch.models import base as M
     from galvatron_tpu_torch.parallel import spec as S
     from galvatron_tpu_torch.parallel.mesh import RankMesh
@@ -662,28 +1010,56 @@ def load_full_params(ckpt_dir: str, iteration: Optional[int],
     if manifest is None:
         raise _diag("GLS210", "checkpoint %s step %d has no committed manifest (torn save)"
                     % (ckpt_dir, iteration), CheckpointIntegrityError)
-    prov = manifest.get("provenance")
-    if not prov or not prov.get("strategy"):
-        raise _diag("GLS204", "checkpoint %s step %d carries no provenance: its strategy, and "
-                    "so where each rank's shards belong, is unknown" % (ckpt_dir, iteration))
-    check_strategy(prov, manifest, None, cfg)
-    world = int(manifest.get("world_size", prov.get("world_size", 1)))
-    saved_hp = HybridParallelConfig.from_json(dict(prov["strategy"]), world_size=world)
-    layouts = M.model_param_layouts(cfg, saved_hp)
-    full = {n: torch.empty(p.shape, dtype=cfg.param_dtype)
-            for n, p in M.TransformerLM(cfg, "meta").named_parameters()}
-    for r in range(world):
-        shards = _read_rank(ckpt_dir, iteration, r)["params"]
-        bad = _verify(manifest, r, {"params": tree_digests(shards)})
+    saved_hp = _saved_strategy(manifest, ckpt_dir, iteration)
+    check_strategy(manifest, None, cfg)
+    specs = _saved_specs(cfg, saved_hp)
+    items = ("params", "mu", "nu") if moments else ("params",)
+    full = {item: {n: torch.empty(p.shape, dtype=cfg.param_dtype)
+                   for n, p in M.TransformerLM(cfg, "meta").named_parameters()}
+            for item in items}
+    counts = set()
+    for r in range(saved_hp.world_size):
+        loaded = _read_rank(ckpt_dir, iteration, r)
+        kept = {k: loaded[k] for k in ("params", "opt_state") if k in loaded
+                and (moments or k == "params")}
+        bad = _verify(manifest, r, {k: tree_digests(v) for k, v in kept.items()})
         if bad is not None:
             raise _diag(bad[0], "checkpoint %s step %d, rank %d: %s"
                         % (ckpt_dir, iteration, r, bad[1]), CheckpointIntegrityError)
         mesh = RankMesh(saved_hp, r)
-        for n, t in shards.items():
-            S.shard_tensor(full[n], layouts[n].spec, mesh).copy_(t)
+        for item, n, (rec, key) in _rank_leaves(kept):
+            S.shard_tensor(full[item][n], specs[item][n], mesh).copy_(kept[rec][key])
+        if "count" in kept.get("opt_state", {}):
+            counts.add(int(kept["opt_state"]["count"]))
+    state = None
+    if moments:
+        if len(counts) != 1:
+            raise _diag("GLS202", "checkpoint %s step %d: the saved ranks hold Adam counts %s"
+                        % (ckpt_dir, iteration, sorted(counts)))
+        state = AdamState(count=counts.pop(), mu=full["mu"], nu=full["nu"])
     meta_path = os.path.join(_step_dir(ckpt_dir, iteration), "train_meta.json")
     meta = {"iteration": iteration}
     if os.path.exists(meta_path):
         with open(meta_path) as f:
             meta.update(json.load(f))
-    return full, meta
+    return full["params"], state, meta
+
+
+def load_full_params(ckpt_dir: str, iteration: Optional[int],
+                     cfg) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+    """The FULL parameters of a checkpoint of any world size and strategy,
+    assembled in this process from every rank's file and verified against
+    the manifest (the optimizer state is not read): name
+    -> CPU tensor, and the train metadata. Needs the manifest's provenance
+    (GLS204) for the saved strategy; `cfg` must be the checkpoint's model
+    (GLS201)."""
+    params, _, meta = _full_state(ckpt_dir, iteration, cfg, moments=False)
+    return params, meta
+
+
+def load_full_state(ckpt_dir: str, iteration: Optional[int],
+                    cfg) -> Tuple[Dict[str, torch.Tensor], AdamState, Dict[str, Any]]:
+    """`load_full_params` with the Adam state: the full parameters, an
+    AdamState of the full moments (ZeRO-2 shards reassembled) and the
+    count, and the train metadata."""
+    return _full_state(ckpt_dir, iteration, cfg, moments=True)

@@ -1,12 +1,14 @@
 """Input pipeline: batch preparation, the synthetic token stream and the
 choice between it and an indexed corpus.
 
-Port of ``galvatron_tpu/runtime/dataloader.py`` for the token-stream (``lm``)
-families. `RandomTextDataset` draws from the same ``np.random.RandomState``
-stream as the reference, so both packages see identical token batches for
-one seed; `build_data_iterator` (the LM branch of the function of that
-name in the reference's ``cli/train.py``) picks the indexed corpus of ``--data_path``
-(``data/dataset.py``) or that stream, per split.
+Port of ``galvatron_tpu/runtime/dataloader.py`` for the token-stream
+(``lm``) and image (``vision``) families. `RandomTextDataset` and
+`get_vision_train_iterator` draw from the same ``np.random.RandomState``
+streams as the reference, so both packages see identical batches for one
+seed; `build_data_iterator` (the function of that name in the reference's
+``cli/train.py``, without T5's seq2seq branch) picks the indexed corpus or
+the vision shard of ``--data_path`` (``data/dataset.py``) or the synthetic
+stream, per split.
 
 `prepare_batch` applies the zigzag context-parallel layout, as the
 reference does: under ``cp_mode="zigzag"`` with any cp > 1 (a layer's or
@@ -96,6 +98,22 @@ def get_train_iterator(
     return RandomTextDataset(vocab_size, seq_len, seed=seed).iterator(hp, start_step, device)
 
 
+def get_vision_train_iterator(
+    hp: HybridParallelConfig, image_size: int, num_channels: int, num_classes: int,
+    seed: int = 1234, start_step: int = 0, device="cpu",
+) -> Iterator[Dict[str, torch.Tensor]]:
+    """Synthetic image-classification stream: {pixels (B, H, W, C) standard
+    normal fp32, labels (B,)}, a pure function of the step."""
+    step = start_step
+    while True:
+        rng = np.random.RandomState(seed + step)
+        pixels = rng.randn(hp.global_bsz, image_size, image_size, num_channels).astype(np.float32)
+        labels = rng.randint(0, num_classes, (hp.global_bsz,))
+        yield {"pixels": torch.from_numpy(pixels).to(device),
+               "labels": torch.from_numpy(labels.astype(np.int64)).to(device)}
+        step += 1
+
+
 # synthetic streams have no documents to split: each split is a disjoint,
 # deterministic stream of its own seed (the reference's offsets)
 SPLIT_SEED_OFFSETS = {"train": 0, "valid": 7919, "test": 15838}
@@ -105,19 +123,28 @@ def build_data_iterator(args, fam, cfg, hp: HybridParallelConfig, start_step: in
                         split: str = "train", device="cpu") -> Iterator[Dict[str, torch.Tensor]]:
     """The global-batch stream of one split: the indexed corpus of
     ``args.data_path`` (``--split`` document weights) when given, else the
-    synthetic stream. Both are pure functions of the step index, so
-    `start_step` resumes in O(1). Only the ``lm`` data kind is ported."""
-    if fam.data_kind != "lm":
-        raise ValueError("data_kind %r is not ported yet" % fam.data_kind)
+    synthetic stream of the family's data kind (``lm``: tokens; ``vision``:
+    pixels and labels). Both are pure functions of the step index, so
+    `start_step` resumes in O(1)."""
+    if fam.data_kind not in ("lm", "vision"):
+        raise ValueError("data_kind %r is not ported yet (T5's seq2seq comes with its "
+                         "family)" % fam.data_kind)
+    split_seed = args.seed + SPLIT_SEED_OFFSETS.get(split, 0)
     if getattr(args, "data_path", None):
-        from galvatron_tpu_torch.data.dataset import gpt_data_iterator
+        from galvatron_tpu_torch.data import dataset
 
-        it = gpt_data_iterator(args.data_path, hp, seq_len=cfg.max_seq_len, seed=args.seed,
-                               start_step=start_step, split=split,
-                               split_weights=getattr(args, "split", "969,30,1"))
+        kw = dict(seed=args.seed, start_step=start_step, split=split,
+                  split_weights=getattr(args, "split", "969,30,1"))
+        if fam.data_kind == "vision":
+            it = dataset.vision_data_iterator(args.data_path, hp, image_size=cfg.image_size,
+                                              num_channels=cfg.num_channels, **kw)
+        else:
+            it = dataset.gpt_data_iterator(args.data_path, hp, seq_len=cfg.max_seq_len, **kw)
         if torch.device(device).type == "cpu":
             return it
         return ({k: v.to(device) for k, v in b.items()} for b in it)
-    return get_train_iterator(hp, cfg.vocab_size, cfg.max_seq_len,
-                              seed=args.seed + SPLIT_SEED_OFFSETS.get(split, 0),
+    if fam.data_kind == "vision":
+        return get_vision_train_iterator(hp, cfg.image_size, cfg.num_channels, cfg.num_classes,
+                                         seed=split_seed, start_step=start_step, device=device)
+    return get_train_iterator(hp, cfg.vocab_size, cfg.max_seq_len, seed=split_seed,
                               start_step=start_step, device=device)

@@ -213,6 +213,15 @@ class HybridParallelModel:
                 out.setdefault(n, t.to(self.device))
         return out
 
+    def gather_leaf(self, per_stage: Dict[int, Dict[str, torch.Tensor]], name: str,
+                    spec: S.Spec) -> torch.Tensor:
+        """One full tensor, on the host, from the shards of `name` in the
+        hosted stages' dicts (collective, like `_gather_stages`, but one
+        leaf's worth of device memory at a time)."""
+        mine = {s: {name: S.gather_tensor(d[name], spec, self.stage_meshes[s])}
+                if name in d else {} for s, d in per_stage.items()}
+        return next(d[name] for d in self.transport.gather(mine) if name in d).cpu()
+
     def gather_params(self, params: Dict[int, nn.Module]) -> Dict[str, torch.Tensor]:
         """The full state dict from every rank's shards (collective)."""
         specs = {n: pl.spec for n, pl in self.param_layouts.items()}
@@ -224,9 +233,11 @@ class HybridParallelModel:
         """This rank's tokens of the global batch: for each of the
         ``chunks`` micro-batches, its shard over the vocab layers' dp axes
         (the first layout the activations take), micro-batch after
-        micro-batch, and of each row its sequence shard over the vocab
-        layers' token axes (vocab cp, plus vocab tp under vocab sp; the
-        vocab-parallel embedding and loss read the whole cp shard)."""
+        micro-batch, and of each (B, S) field's rows their sequence shard
+        over the vocab layers' token axes (vocab cp, plus vocab tp under
+        vocab sp; the vocab-parallel embedding and loss read the whole cp
+        shard). Pixels and rank-1 labels shard over the rows only (the
+        reference's ``_batch_spec_for``)."""
         vax = vocab_axes(self.hp)
         n, i = self.mesh.size(vax.dp), self.mesh.index(vax.dp)
         seq_axes = S.token_seq_axes(vax)
@@ -240,7 +251,7 @@ class HybridParallelModel:
                                  "%d dp ranks" % (b, chunks, n))
             rest = tuple(v.shape[1:])
             v = v.reshape((chunks, n, b // (chunks * n)) + rest)[:, i].reshape((b // n,) + rest)
-            if m > 1:
+            if m > 1 and v.dim() == 2:
                 if v.shape[1] % m:
                     raise ValueError("%s: sequence of %d does not split over %d vocab sequence "
                                      "shards (GLS008)" % (k, v.shape[1], m))
@@ -307,12 +318,17 @@ class HybridParallelModel:
     def _boundary(self, mbs) -> PL.BoundaryFn:
         """(shape, dtype) of a micro-batch's activation between stages: its
         rows, its sequence shard in the vocab layout (the tokens' shard,
-        cut over tp once more under vocab Megatron-SP), the hidden width."""
+        cut over tp once more under vocab Megatron-SP; for pixels, the
+        patch sequence's shard), the hidden width."""
         vax = vocab_axes(self.hp)
         seq = self.mesh.size(vax.seq_axes) // self.mesh.size(S.token_seq_axes(vax))
 
         def boundary(mb: int):
-            rows, length = mbs[mb]["tokens"].shape[:2]
+            if "pixels" in mbs[mb]:
+                rows = mbs[mb]["pixels"].shape[0]
+                length = self.cfg.max_seq_len // self.mesh.size(S.token_seq_axes(vax))
+            else:
+                rows, length = mbs[mb]["tokens"].shape[:2]
             return (rows, length // seq, self.cfg.hidden_size), self.cfg.compute_dtype
         return boundary
 
@@ -430,17 +446,26 @@ class HybridParallelModel:
         has none."""
         if len(params) != 1:
             raise ValueError("a checkpoint holds one stage per rank; this process hosts "
-                             "stages %s" % sorted(params))
-        (s, module), = params.items()
-        state = opt_state[s] if opt_state is not None else None
-        if not self._tied_copy(s):
-            return module, state
-        view = {n: p for n, p in module.named_parameters() if n != TIED}
-        if state is None:
-            return view, None
-        return view, AdamState(count=state.count,
-                               mu={n: t for n, t in state.mu.items() if n != TIED},
-                               nu={n: t for n, t in state.nu.items() if n != TIED})
+                             "stages %s (save them with checkpoint_views)" % sorted(params))
+        return next(iter(self.checkpoint_views(params, opt_state).values()))
+
+    def checkpoint_views(self, params: Dict[int, nn.Module],
+                         opt_state: Optional[Dict[int, AdamState]] = None):
+        """`checkpoint_view` of every hosted stage, keyed by the strategy
+        rank whose file holds it (the stage mesh's rank: this process's
+        rank, or under a `LocalTransport` the stage's index), for
+        ``save_checkpoint(..., rank_views=)``."""
+        out = {}
+        for s, module in params.items():
+            state = opt_state[s] if opt_state is not None else None
+            if not self._tied_copy(s):
+                out[self.stage_meshes[s].rank] = (module, state)
+                continue
+            view = {n: p for n, p in module.named_parameters() if n != TIED}
+            out[self.stage_meshes[s].rank] = (view, None if state is None else AdamState(
+                count=state.count, mu={n: t for n, t in state.mu.items() if n != TIED},
+                nu={n: t for n, t in state.nu.items() if n != TIED}))
+        return out
 
     def restore_tied(self, params: Dict[int, nn.Module], opt_state: Dict[int, AdamState],
                      loaded: AdamState) -> None:
@@ -469,8 +494,8 @@ class HybridParallelModel:
         with torch.no_grad():
             if self.hp.pp > 1:
                 return self._run_pipeline(params, batch, backward=False)[0]
-            loss = M.lm_loss_fn(params[0], self.shard_batch(batch), self.cfg, self.hp,
-                                self.layouts)
+            loss = M.loss_fn(params[0], self.shard_batch(batch), self.cfg, self.hp,
+                             self.layouts)
             return comm.all_reduce(loss, self.layouts.vocab.token_group)
 
     def make_train_step(self, tx: AdamW, *, guard_anomalies: bool = False,

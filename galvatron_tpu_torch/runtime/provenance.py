@@ -5,9 +5,10 @@ Port of ``galvatron_tpu/runtime/elastic.py``'s `build_provenance`,
 decide whether (and how) it may resume a checkpoint — the strategy JSON it
 was written under, the world size, the chunks and global batch, the
 precision, a digest of the model's architecture and of the optimizer's
-hyperparameters. Elastic re-planning (a new strategy for a changed world)
-comes with ROADMAP queue 1 item 11; this slice refuses a checkpoint of
-another strategy (``runtime/checkpoint.py``, GLS206) or model (GLS201).
+hyperparameters, and the memory budget an elastic re-search runs under.
+A plain resume refuses a checkpoint of another strategy
+(``runtime/checkpoint.py``, GLS206) or model (GLS201); ``--elastic
+resume|search`` re-plans from this block (``runtime/elastic.py``).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 from galvatron_tpu_torch.config.strategy import HybridParallelConfig
 
@@ -48,8 +49,8 @@ def optimizer_digest(opt_args: Any) -> str:
     return hashlib.sha256(_stable_json({k: str(v) for k, v in fields.items()}).encode()).hexdigest()
 
 
-def build_provenance(hp: HybridParallelConfig, model_cfg: Any, opt_args: Any = None
-                     ) -> Dict[str, Any]:
+def build_provenance(hp: HybridParallelConfig, model_cfg: Any, opt_args: Any = None,
+                     memory_budget_gb: Optional[float] = None) -> Dict[str, Any]:
     """The manifest's provenance block (the reference's keys; the port's
     ranks are its devices, so ``device_count`` is the world size)."""
     prov: Dict[str, Any] = {
@@ -65,4 +66,6 @@ def build_provenance(hp: HybridParallelConfig, model_cfg: Any, opt_args: Any = N
     if opt_args is not None:
         prov["optimizer"] = {"kind": type(opt_args).__name__,
                              "digest": optimizer_digest(opt_args)}
+    if memory_budget_gb:
+        prov["memory_budget_gb"] = float(memory_budget_gb)
     return prov

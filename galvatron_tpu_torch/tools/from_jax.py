@@ -13,7 +13,8 @@ mu and nu are param-shaped trees) to the port's `AdamState` with
 bridge so both packages compute from identical weights and optimizer state.
 Any family's tree crosses as it is (GPT's qkv/out/mlp biases, LayerNorm
 biases and position table, and no separate head under its tied
-embedding). A pipelined tree, whose layers the reference stacks over its
+embedding; BERT's ``embed.tte``, ``embed.norm`` and MLM ``head``; ViT's
+``embed.patch``, ``embed.cls_token`` and classification ``head``). A pipelined tree, whose layers the reference stacks over its
 stages (``stages``), is read back into the canonical ``layers`` list
 (`unstack_tree`). Under a sharded layout each rank keeps its shards of the full
 state dict (``runtime.model_api.HybridParallelModel.shard_params``;

@@ -34,6 +34,19 @@ none``. The GPT
 configuration divided 5,3 under 1F1B for ``GPT_PP_STEPS`` steps (its tied
 table on both stages). `pp_argv` gives the ``cli train`` flags of either
 model (the same flags train pp 4 on four GPUs under ``torchrun``).
+
+The encoder families at their published sizes and full depth
+(``chip_smoke.py`` phase 14): BERT-large (h 1024, 16 heads, head_dim 64,
+24 layers, ffn 4096, vocab 30522, sequence 512, post-norm, tied MLM head;
+~335 M parameters, ~5.4 GB of fp32 state) on the synthetic token stream,
+global batch 32 in 2 micro-batches (`write_bert_strategy`: every layer
+plain dp, or layers 0-11 ZeRO-3 and the rest ZeRO-2), and ViT-huge (h 1280,
+16 heads, head_dim 80, 32 layers, 16 x 16 patches of 224 x 224 images: 197
+positions, 1000 classes; ~632 M parameters, ~10.1 GB of state) from a
+vision shard of `VISION_IMAGES` seeded uint8 images (`write_vision_shard`,
+~77 MB), global batch 64 in 2 micro-batches. Neither shape takes the flash
+kernels (head_dim below 128; 197 is no multiple of 128): attention runs
+its plain path.
 """
 
 from __future__ import annotations
@@ -173,3 +186,61 @@ def pp_argv(strategy_path: str, gpt: bool = False) -> List[str]:
     if gpt:
         base[base.index("--train_iters") + 1] = str(GPT_PP_STEPS)
     return base
+
+
+BERT_SIZE, BERT_LAYERS, BERT_BSZ = "bert-large", 24, 32
+BERT_ZERO3_LAYERS = 12
+VIT_SIZE, VIT_BSZ = "vit-huge", 64
+VISION_IMAGES = 512
+ENCODER_CHUNKS = 2
+
+
+def write_bert_strategy(out_dir: str, zero3: bool = False) -> str:
+    """Write the BERT strategy JSON (every layer plain dp; with `zero3`,
+    layers 0-11 ZeRO-3 and the rest ZeRO-2) into `out_dir`."""
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "train_cell_bert_%s.json" % ("zero3" if zero3 else "dp"))
+    fsdp = [1 if zero3 and i < BERT_ZERO3_LAYERS else 0 for i in range(BERT_LAYERS)]
+    with open(path, "w") as f:
+        json.dump({"pp_deg": 1, "tp_sizes_enc": ",".join(["1"] * BERT_LAYERS),
+                   "tp_consecutive_flags": ",".join(["1"] * BERT_LAYERS),
+                   "dp_types_enc": ",".join(map(str, fsdp)),
+                   "default_dp_type": "zero2" if zero3 else "ddp",
+                   "global_bsz": BERT_BSZ, "chunks": ENCODER_CHUNKS}, f)
+    return path
+
+
+def bert_argv(strategy_path: str) -> List[str]:
+    """The ``cli train`` arguments of the BERT configuration."""
+    return ["--model_type", "bert", "--model_size", BERT_SIZE, "--mixed_precision", "bf16",
+            "--device", "cuda", "--global_train_batch_size", str(BERT_BSZ),
+            "--chunks", str(ENCODER_CHUNKS), "--galvatron_config_path", strategy_path,
+            "--train_iters", str(STEPS), "--lr", "1e-4", "--lr_warmup_iters", "2",
+            "--seed", str(SEED)]
+
+
+def write_vision_shard(out_dir: str, images: int = VISION_IMAGES) -> str:
+    """Write `images` seeded uint8 224 x 224 RGB images and labels over
+    1000 classes as a vision shard in `out_dir`; returns its prefix."""
+    import numpy as np
+
+    from galvatron_tpu_torch.data.dataset import write_vision_dataset
+
+    os.makedirs(out_dir, exist_ok=True)
+    prefix = os.path.join(out_dir, "vision_shard")
+    rng = np.random.RandomState(SEED)
+    write_vision_dataset(prefix, rng.randint(0, 256, (images, 224, 224, 3), dtype=np.uint8),
+                         rng.randint(0, 1000, images))
+    return prefix
+
+
+def vit_argv(data_path: str = None) -> List[str]:
+    """The ``cli train`` arguments of the ViT configuration: from the vision
+    shard `data_path` (all of it the train split), or synthetic pixels."""
+    out = ["--model_type", "vit", "--model_size", VIT_SIZE, "--mixed_precision", "bf16",
+           "--device", "cuda", "--global_train_batch_size", str(VIT_BSZ),
+           "--chunks", str(ENCODER_CHUNKS), "--train_iters", str(STEPS), "--lr", "1e-4",
+           "--lr_warmup_iters", "2", "--seed", str(SEED)]
+    if data_path:
+        out += ["--data_path", data_path, "--split", "1,0,0"]
+    return out

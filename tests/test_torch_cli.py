@@ -65,12 +65,23 @@ def test_default_device_is_cuda_and_never_falls_back():
 
 @pytest.mark.parametrize("flag", [
     ["--watchdog", "5"], ["--mesh_probe_interval", "1"],
-    ["--migrate_on_degrade", "1"], ["--elastic_strategy", "x.json"],
-    ["--elastic_memory_gb", "16"], ["--compile_cache", "1"],
+    ["--migrate_on_degrade", "1"], ["--compile_cache", "1"],
 ])
 def test_unported_flags_are_refused(flag):
     with pytest.raises(SystemExit):
         S.initialize_galvatron(argv=TINY + flag)
+
+
+@pytest.mark.parametrize("flag", [["--elastic_strategy", "x.json"],
+                                  ["--elastic_memory_gb", "16"]])
+def test_elastic_flags_parse_as_in_the_reference(flag):
+    """Serve parses the degraded-mesh flags as the JAX package's parser
+    does (they act only with --migrate_on_degrade, which is refused)."""
+    from galvatron_tpu.cli.arguments import initialize_galvatron as jax_parse
+
+    got, want = S.initialize_galvatron(argv=TINY + flag), jax_parse(mode="serve", argv=TINY + flag)
+    key = flag[0][2:]
+    assert getattr(got, key) == getattr(want, key) and getattr(got, key) is not None
 
 
 def test_multi_device_layout_is_refused_with_value_error():
@@ -86,7 +97,7 @@ def test_serve_refuses_pipeline_with_gls014():
 
 def test_unported_family_names_the_later_slice():
     with pytest.raises(ValueError, match="not ported"):
-        S.main(["--device", "cpu", "--model_type", "bert"])
+        S.main(["--device", "cpu", "--model_type", "t5"])
 
 
 def test_strategy_json_serve_knobs_set_the_cache(tmp_path):

@@ -158,7 +158,8 @@ def test_gpt_registry_entry():
     fam = get_family("gpt")
     assert fam.default_size == "gpt-0.3b" and fam.data_kind == "lm"
     assert fam.config_fn("gpt-6.7b").hidden_size == 4096
-    for name in ("gpt_fa", "llama_fa"):
+    assert get_family("gpt_fa").config_fn("gpt-0.3b").attn_impl == "flash"
+    for name in ("t5", "swin"):
         with pytest.raises(ValueError, match="not ported"):
             get_family(name)
 

@@ -22,7 +22,13 @@ reference, not the reference's manual TP paths):
 - at world 2, the train CLI under a strategy of Megatron TP (tp 2),
   ZeRO-3 and ZeRO-2 layers saves at step 3 (each rank its shards) and a
   resumed run's losses equal an uninterrupted run's bit for bit; resuming
-  that checkpoint under another strategy is refused with GLS206;
+  that checkpoint under another strategy with a plain ``--load`` is
+  refused with GLS206, and with ``--elastic resume --elastic_strategy``
+  restores across strategies (every layer plain dp, tp 1 everywhere, 1F1B
+  pp 2; the pp 2 checkpoint below under pp 1; and, in the pytest process,
+  at world 1): the restored params and both Adam moments equal the saved
+  ones bit for bit and the resumed losses stay within 5e-5 of the
+  uninterrupted run's;
 - pipelines through the point-to-point transport (one stage per rank,
   ``batch_isend_irecv`` on gloo): GPipe and 1F1B, an uneven 2,2,1,1
   division over four stages, ZeRO-3 with remat on every layer, tp 2 with
@@ -90,7 +96,15 @@ SHARP = 8.0
 # rows) a multiple of the kernels' 64-row tile
 GPT_HD128 = dict(hidden_size=256, num_heads=2, num_layers=2, vocab_size=V, max_seq_len=512)
 MODEL_SEQ = {"gpt_hd128": 512}  # the others take S_LEN
-MODELS = ("gpt", "llama", "llama6", "gpt_sharp", "gpt_hd128")
+# the encoder families: a post-norm BERT (token types, embedding norm, tied
+# MLM head) on a key-padded batch, and a ViT (12 x 12 images in 4 x 4
+# patches and a cls token: 10 positions, a classification head)
+BERT = dict(hidden_size=64, num_heads=4, num_layers=4, ffn_hidden=128, vocab_size=96,
+            max_seq_len=S_LEN)
+VIT = dict(hidden_size=64, num_heads=4, num_layers=4, ffn_hidden=128, image_size=12,
+           patch_size=4, num_classes=10)
+ENCODERS = ("bert", "vit")
+MODELS = ("gpt", "llama", "llama6", "gpt_sharp", "gpt_hd128") + ENCODERS
 # a key-padded batch (``attn_mask``): the padded tail of each row (PAD)
 # is also out of the loss
 OPT = dict(lr=1e-3, min_lr=1e-4, warmup_steps=1, total_steps=10)
@@ -149,6 +163,13 @@ CASES = {
         "hd128_cp4_zigzag_padded": dict(model="gpt_hd128", cp=4, padded=True),
         "hd128_cp2_zigzag": dict(model="gpt_hd128", cp=2),
         "hd128_ulysses2_cp2": dict(model="gpt_hd128", tp=2, sp=1, cp=2),
+        # the encoder families
+        "bert_tp2_vtp2_zero3": dict(model="bert", tp=2, vocab_tp=2, sdp=1),
+        "vit_tp2_zero2": dict(model="vit", tp=2, default_dp_type="zero2", chunks=2),
+        "bert_pp2_tp2_1f1b": dict(model="bert", pp=2, tp=2, vocab_tp=2, chunks=2,
+                                  pipeline_type="pipedream_flush"),
+        "vit_pp2_1f1b": dict(model="vit", pp=2, chunks=2, default_dp_type="zero2",
+                             pipeline_type="pipedream_flush"),
     },
     2: {
         "dp2": dict(),
@@ -164,6 +185,14 @@ CASES = {
         "mixed_cp2_cp1_tp2_ulysses2": dict(layers=[_L(cp=2), _L(), _L(tp=2), _L(tp=2, sp=1)]),
         "cp2_padded": dict(cp=2, padded=True),
         "sharp_cp2_cp1": dict(model="gpt_sharp", layers=[_L(cp=2), _L()] * 2),
+        "bert_tp2_vtp2_zero3": dict(model="bert", tp=2, vocab_tp=2, sdp=1),
+        "vit_tp2_zero2": dict(model="vit", tp=2, default_dp_type="zero2", chunks=2),
+        "bert_pp2_1f1b": dict(model="bert", pp=2, chunks=2, pipeline_type="pipedream_flush"),
+        "vit_pp2_1f1b": dict(model="vit", pp=2, chunks=4, pipeline_type="pipedream_flush"),
+        # a bidirectional ring over a key-padded batch, and the
+        # classification head over a sequence-sharded vocab layout
+        "bert_cp2_padded": dict(model="bert", cp=2),
+        "vit_vcp2": dict(model="vit", vocab_cp=2),
     },
 }
 # the divergence case and its strategy, run by the JAX package too
@@ -206,6 +235,23 @@ def case_batch_np(padded=False, seq=S_LEN):
     return tokens, labels, loss_mask, loss_mask.copy() if padded else None
 
 
+def encoder_batch_np(family):
+    """The encoder families' global batch: for BERT, tokens with token
+    types and key-padding tails (PAD, also out of the loss) and random
+    labels; for ViT, standard-normal pixels and class labels."""
+    rng = np.random.RandomState(13)
+    if family == "vit":
+        size = VIT["image_size"]
+        return {"pixels": rng.randn(B, size, size, 3).astype(np.float32),
+                "labels": rng.randint(0, VIT["num_classes"], (B,))}
+    tokens, _, mask = batch_np()
+    types = (np.arange(S_LEN)[None, :] >= rng.randint(4, S_LEN - 4, (B, 1))).astype(np.int64)
+    return {"tokens": tokens % BERT["vocab_size"],
+            "positions": np.broadcast_to(np.arange(S_LEN), (B, S_LEN)).copy(),
+            "labels": rng.randint(0, BERT["vocab_size"], (B, S_LEN)), "loss_mask": mask,
+            "attn_mask": mask.copy(), "token_type_ids": types}
+
+
 def _ref_key(kw):
     """The unsharded reference a case is held against: its model, on the
     padded batch where it asks for one."""
@@ -243,7 +289,9 @@ def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "
     from galvatron_tpu_torch.runtime.optimizer import AdamState, OptimizerArgs, \
         get_optimizer_and_scheduler
 
+    from galvatron_tpu_torch.models.bert import bert_config
     from galvatron_tpu_torch.models.llama import llama_config
+    from galvatron_tpu_torch.models.vit import vit_config
 
     dev = distributed.local_device(device_name)
     distributed.ensure_initialized(dev, timeout_s=120)
@@ -256,6 +304,8 @@ def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "
             "llama6": llama_config("llama-0.3b", compute_dtype=torch.float32, **LLAMA6)}
     cfgs["gpt_sharp"] = cfgs["gpt"]
     cfgs["gpt_hd128"] = TM.TransformerConfig(**GPT_HD128, compute_dtype=torch.float32)
+    cfgs["bert"] = bert_config("bert-base", compute_dtype=torch.float32, **BERT)
+    cfgs["vit"] = vit_config("vit-base", compute_dtype=torch.float32, **VIT)
     batches = {(padded, seq): case_batch_np(padded, seq) for padded in (False, True)
                for seq in {S_LEN, *MODEL_SEQ.values()}}
     batch = prepare_batch(None, *batches[False, S_LEN][:3], device=dev)
@@ -276,9 +326,12 @@ def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "
         hp = _hp(kw, world, cfg.num_layers)
         model = construct_hybrid_parallel_model(cfg, hp, dev)
         params = model.shard_params(full[m])
-        # the strategy's batch: zigzag-permuted under zigzag cp
-        loss, grads = model.loss_and_grads(params, prepare_batch(
-            hp, *batches[bool(kw.get("padded")), MODEL_SEQ.get(m, S_LEN)], device=dev))
+        if m in ENCODERS:
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in encoder_batch_np(m).items()}
+        else:  # the strategy's batch: zigzag-permuted under zigzag cp
+            batch = prepare_batch(hp, *batches[bool(kw.get("padded")), MODEL_SEQ.get(m, S_LEN)],
+                                  device=dev)
+        loss, grads = model.loss_and_grads(params, batch)
         return model, params, float(loss), model.gather_grads(grads)
 
     for name in CASES[world]:
@@ -515,14 +568,93 @@ def _checkpoint_cases(ckpt_dir: str, device_name: str, strategy=None,
         refused = "none"
     except DiagnosticError as e:
         refused = ",".join(d.code for d in e.diagnostics)
-    out = {"full": np.asarray(full["losses"]), "first": np.asarray(first["losses"]),
+    out = {}
+    if prefix == "ckpt":
+        # elastic resumes of the mixed checkpoint (every layer plain dp, tp
+        # 1 everywhere, 1F1B pp 2) against its plain resume, all in fp32
+        with fp32_compute():
+            ref = train(6, extra=["--load", ckpt_dir])["losses"]
+            for name, target in (("other", dict(strategy, dp_types_enc="0,0,0,0")),
+                                 ("tp1", dict(strategy, tp_sizes_enc="1,1,1,1")),
+                                 ("pp2", CKPT_PP_STRATEGY)):
+                out.update(_elastic_cases(ckpt_dir, name, target, ref, device_name))
+    out.update({"full": np.asarray(full["losses"]), "first": np.asarray(first["losses"]),
            "resumed": np.asarray(resumed["losses"]),
            "start": np.int64(resumed["checkpoint_restore"]["iteration"]),
            "ranks": np.int64(len(os.listdir(os.path.join(ckpt_dir, "3"))) - 1),
            "refused": np.asarray(refused),
            "write_faults": np.asarray([f for f, _ in retries]),
-           "save_retries": np.asarray([r for _, r in retries])}
+           "save_retries": np.asarray([r for _, r in retries]),
+           "dir": np.asarray(ckpt_dir)})
     return {"%s/%s" % (prefix, k): v for k, v in out.items()}
+
+
+class fp32_compute:
+    """``cli train`` with fp32 compute (the CLI computes in bf16; the
+    layout trajectory limits hold fp32 runs): the model config's compute
+    dtype replaced while the context is open."""
+
+    def __enter__(self):
+        import dataclasses
+
+        import torch
+
+        from galvatron_tpu_torch.cli import train as T
+
+        self.orig = orig = T.model_config_from_args
+
+        def fp32(args):
+            fam, cfg = orig(args)
+            return fam, dataclasses.replace(cfg, compute_dtype=torch.float32)
+        T.model_config_from_args = fp32
+
+    def __exit__(self, *exc):
+        from galvatron_tpu_torch.cli import train as T
+
+        T.model_config_from_args = self.orig
+
+
+def _elastic_cases(ckpt_dir: str, name: str, strategy: dict, ref_losses,
+                   device_name: str) -> dict:
+    """``cli train --elastic resume --elastic_strategy`` of the step-3
+    checkpoint under `strategy` at world 2: a zero-step run that saves the
+    restored state under `strategy` (rank 0 compares the full params and
+    moments of both checkpoints bitwise), then the run to step 6, whose
+    losses `ref_losses` holds under the saved strategy (a plain resume)."""
+    import torch
+
+    from galvatron_tpu_torch.cli import train as T
+    from galvatron_tpu_torch.cli.arguments import model_config_from_args
+    from galvatron_tpu_torch.runtime import checkpoint as ck
+
+    path = "%s_elastic_%s.json" % (ckpt_dir, name)
+    if torch.distributed.get_rank() == 0:
+        with open(path, "w") as f:
+            json.dump(strategy, f)
+    torch.distributed.barrier()
+
+    def train(steps, extra=()):
+        argv = CKPT_ARGV + ["--device", device_name, "--train_iters", str(steps), "--elastic",
+                            "resume", "--elastic_strategy", path, "--load", ckpt_dir]
+        return T.train(T.initialize_galvatron(argv=argv + list(extra), mode="train"))
+
+    again = "%s_elastic_%s" % (ckpt_dir, name)
+    restored = train(3, ["--save", again])
+    resumed = train(6)
+    same = False
+    if torch.distributed.get_rank() == 0:
+        _, cfg = model_config_from_args(T.initialize_galvatron(argv=CKPT_ARGV, mode="train"))
+        (pa, sa, _), (pb, sb, _) = (ck.load_full_state(d, 3, cfg) for d in (ckpt_dir, again))
+        same = sorted(pa) == sorted(pb) and sa.count == sb.count == 3 and all(
+            torch.equal(pa[n], pb[n]) and torch.equal(sa.mu[n], sb.mu[n])
+            and torch.equal(sa.nu[n], sb.nu[n]) for n in pa)
+    key = "elastic_%s/" % name
+    return {key + "losses": np.asarray(resumed["losses"]),
+            key + "ref": np.asarray(ref_losses),
+            key + "cross": np.bool_(restored["checkpoint_restore"]["cross_strategy"]
+                                    and resumed["checkpoint_restore"]["cross_strategy"]),
+            key + "restored_steps": np.int64(len(restored["losses"])),
+            key + "bitwise": np.bool_(same)}
 
 
 # the plan `cli search --sp_space tp+sp --enable_cp 1` writes for a world of
@@ -606,6 +738,9 @@ def _pipeline_checkpoint_cases(ckpt_dir: str, device_name: str) -> dict:
         refused = "none"
     except DiagnosticError as e:
         refused = ",".join(d.code for d in e.diagnostics)
+    with fp32_compute():
+        ref = T.train(args_of(6, extra=["--load", ckpt_dir]))["losses"]
+        elastic = _elastic_cases(ckpt_dir, "pp1", CKPT_STRATEGY, ref, device_name)
     # the trained parameters, gathered from both stages, against the
     # checkpoint reassembled in one process
     _, cfg = model_config_from_args(args)
@@ -616,7 +751,8 @@ def _pipeline_checkpoint_cases(ckpt_dir: str, device_name: str) -> dict:
     same = sorted(trained) == sorted(loaded) and all(
         torch.equal(trained[n].cpu(), loaded[n]) for n in loaded)
     files = [sorted(ck._read_rank(ckpt_dir, 3, r)["params"]) for r in range(2)]
-    return {"ckpt_pp/full": np.asarray(full["losses"]),
+    return {**{"ckpt_pp/" + k: v for k, v in elastic.items()},
+            "ckpt_pp/full": np.asarray(full["losses"]),
             "ckpt_pp/first": np.asarray(first["losses"]),
             "ckpt_pp/resumed": np.asarray(resumed["losses"]),
             "ckpt_pp/start": np.int64(resumed["checkpoint_restore"]["iteration"]),
@@ -641,7 +777,9 @@ def _reference(tmp_dir):
     from galvatron_tpu.runtime import optimizer as JO
     from galvatron_tpu_torch.tools.from_jax import _flatten
 
+    from galvatron_tpu.models.bert import bert_config
     from galvatron_tpu.models.llama import llama_config
+    from galvatron_tpu.models.vit import vit_config
 
     cfgs = {"gpt": JM.TransformerConfig(**GPT, compute_dtype=jnp.float32),
             "llama": llama_config("llama-0.3b", compute_dtype=jnp.float32, **LLAMA),
@@ -672,6 +810,19 @@ def _reference(tmp_dir):
               JD.prepare_batch(None, *case_batch_np(True)))
     unsharded("gpt_hd128_padded", cfgs["gpt_hd128"], out["gpt_hd128"]["tree"],
               JD.prepare_batch(None, *case_batch_np(True, MODEL_SEQ["gpt_hd128"])))
+    # the encoder families (bert: MLM loss; vit: classification loss)
+    for m, c, fn in (("bert", bert_config("bert-base", compute_dtype=jnp.float32, **BERT),
+                      JM.lm_loss_fn),
+                     ("vit", vit_config("vit-base", compute_dtype=jnp.float32, **VIT),
+                      JM.classification_loss_fn)):
+        tree = jax.device_get(JM.init_model_params(jax.random.PRNGKey(1), c))
+        batch = {k: jnp.asarray(v) for k, v in encoder_batch_np(m).items()}
+        loss, grads = jax.jit(jax.value_and_grad(lambda p, b, c=c, fn=fn: fn(p, b, c)))(
+            tree, batch)
+        flat_g = {}
+        _flatten(jax.device_get(grads), "", flat_g)
+        out[m] = dict(loss=float(loss), grads={n: np.asarray(v) for n, v in flat_g.items()},
+                      tree=tree)
     for m in MODELS:
         flat_p = {}
         _flatten(out[m]["tree"], "", flat_p)
@@ -1121,3 +1272,63 @@ def test_hardware_profile_collectives_compute_the_right_result(world, world_resu
 
 def test_world2_pipeline_resume_under_pp1_is_refused(world_results):
     assert str(world_results(2)["ckpt_pp/refused"]) == "GLS206"
+
+
+ELASTIC_CASES = ["ckpt/elastic_other", "ckpt/elastic_tp1", "ckpt/elastic_pp2",
+                 "ckpt_pp/elastic_pp1"]
+
+
+@pytest.mark.parametrize("case", ELASTIC_CASES)
+def test_world2_elastic_resume_restores_bitwise_and_continues(case, world_results):
+    """The step-3 checkpoint under another strategy at world 2 through
+    ``cli train --elastic resume``: a zero-step run's save holds the saved
+    params and moments bit for bit, and the run to step 6 stays within
+    the trajectory limit of the saved strategy's own resume (both fp32)."""
+    res = world_results(2)
+    assert bool(res[case + "/cross"]) and int(res[case + "/restored_steps"]) == 0
+    assert bool(res[case + "/bitwise"])
+    assert len(res[case + "/ref"]) == 3
+    np.testing.assert_allclose(res[case + "/losses"], res[case + "/ref"], rtol=0,
+                               atol=TRAJ_TOL)
+
+
+def test_world2_checkpoint_resumes_at_world1_in_the_pytest_process(world_results, tmp_path):
+    """The world-2 tp 2 + ZeRO-3 + ZeRO-2 checkpoint at world 1 (one gloo
+    rank here) under tp 1 with the same dp types: bitwise restore, then
+    the run to step 6 within the trajectory limit of the world-2 plain
+    resume (both fp32)."""
+    import torch
+
+    from galvatron_tpu_torch.cli import train as T
+    from galvatron_tpu_torch.cli.arguments import model_config_from_args
+    from galvatron_tpu_torch.runtime import checkpoint as ck
+
+    res = world_results(2)
+    ckpt_dir = str(res["ckpt/dir"])
+    path = str(tmp_path / "world1.json")
+    with open(path, "w") as f:
+        json.dump(dict(CKPT_STRATEGY, tp_sizes_enc="1,1,1,1"), f)
+    w = CKPT_ARGV.index("--world_size")
+    argv = CKPT_ARGV[:w] + CKPT_ARGV[w + 2:] + [
+        "--device", "cpu", "--elastic", "resume", "--elastic_strategy", path, "--load", ckpt_dir]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # beside JAX's CPU backend in this process
+    try:
+        restored = T.train(T.initialize_galvatron(
+            argv=argv + ["--train_iters", "3", "--save", str(tmp_path / "w1")], mode="train"))
+        with fp32_compute():
+            resumed = T.train(T.initialize_galvatron(argv=argv + ["--train_iters", "6"],
+                                                     mode="train"))
+    finally:
+        torch.set_num_threads(threads)
+    assert restored["losses"] == [] and restored["checkpoint_restore"]["cross_strategy"]
+    assert restored["checkpoint_restore"]["saved_world_size"] == 2
+    _, cfg = model_config_from_args(T.initialize_galvatron(argv=argv, mode="train"))
+    (pa, sa, _), (pb, sb, _) = (ck.load_full_state(d, 3, cfg) for d in (ckpt_dir,
+                                                                         str(tmp_path / "w1")))
+    assert sorted(pa) == sorted(pb) and sa.count == sb.count == 3
+    for n in pa:
+        assert torch.equal(pa[n], pb[n]) and torch.equal(sa.mu[n], sb.mu[n]) and \
+            torch.equal(sa.nu[n], sb.nu[n]), n
+    np.testing.assert_allclose(resumed["losses"], res["ckpt/elastic_other/ref"], rtol=0,
+                               atol=TRAJ_TOL)

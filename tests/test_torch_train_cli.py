@@ -69,12 +69,26 @@ def test_train_default_device_is_cuda_and_never_falls_back():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--sdc_check", "digest"], ["--autotune", "observe"], ["--elastic", "resume"],
-    ["--serve_page_size", "16"],
+    ["--sdc_check", "digest"], ["--autotune", "observe"], ["--serve_page_size", "16"],
 ])
 def test_train_unported_flags_are_refused(flag):
     with pytest.raises(SystemExit):
         T.initialize_galvatron(argv=TINY + flag, mode="train")
+
+
+@pytest.mark.parametrize("flag", [
+    ["--elastic", "resume"], ["--elastic", "search", "--elastic_memory_gb", "12.5"],
+    ["--elastic_strategy", "x.json", "--config_dir", "profiles"],
+])
+def test_train_elastic_flags_parse_as_in_the_reference(flag):
+    """The elastic-resume flags (and --config_dir, which an elastic search
+    reads) parse to the JAX package's values."""
+    from galvatron_tpu.cli.arguments import initialize_galvatron as jax_parse
+
+    got = T.initialize_galvatron(argv=TINY + flag, mode="train")
+    want = jax_parse(mode="train", argv=TINY + flag)
+    for key in ("elastic", "elastic_strategy", "elastic_memory_gb", "config_dir"):
+        assert getattr(got, key) == getattr(want, key), key
 
 
 def test_train_multi_device_layout_is_refused_with_value_error():
@@ -98,7 +112,7 @@ def test_train_lint_warns_on_inert_serve_knobs(tmp_path, capsys):
 
 def test_train_unported_family_names_the_later_slice():
     with pytest.raises(ValueError, match="not ported"):
-        T.main(["--device", "cpu", "--model_type", "bert"])
+        T.main(["--device", "cpu", "--model_type", "t5"])
 
 
 def test_train_cell_parses_to_its_per_layer_remat_and_lints_clean(tmp_path):
