@@ -184,11 +184,31 @@ Phases, in order; any failure exits non-zero and prints no result line:
    fit, and trains 2 steps. Launch counts are exact on every run; restore
    seconds and the host's peak resident memory during each restore are
    printed.
+16. The encoder-decoder and hierarchical families at published size and
+   full depth (``tools/train_cell.py``), through ``cli.train.main``:
+   T5-large (24 + 24 layers, d_model 1024, vocab 32128, tied) 6 steps at
+   global batch 32 in 4 micro-batches, encoder and decoder 512 tokens,
+   from span-corrupted windows of a seeded corpus (deleted afterwards; the
+   encoder streams end in key padding), every layer plain dp, then with
+   the encoder ZeRO-3 and the decoder ZeRO-2 (each step's loss within
+   TOL_LAYOUT_LOSS relative of the first run's), then pp 2 1F1B (an
+   encoder stage and a decoder stage, both hosted by this process) within
+   TOL_PP_LOSS of the pp 1 run; Swin-large (224, window 7, depths
+   2/2/18/2) 6 steps at global batch 64 in 2 micro-batches from the
+   512-image shard, then pp 2 1F1B divided 12/12 (the boundary inside Swin
+   stage 2) within TOL_PP_LOSS of it. Neither takes a flash kernel (T5's
+   attention always has a relative bias; Swin's window attention is
+   inline): every run must launch none. Gradients at full width cut in
+   depth (T5 one encoder and one decoder layer, 2 x 512 tokens with a
+   key-padding tail; Swin depths 2/1/1/1, a shifted block and every merge,
+   2 images): card (bf16) against the CPU (fp32), per parameter within
+   TOL_ENCODER_GRAD_REL, the loss within TOL_ENCODER_LOSS. Then
+   ``tools/profile_train.py --cell t5`` traces one steady T5-large step.
 
 Each main path (serve, train, the GPT layout runs, phase 10's train,
 resumed, guarded and serve-from-checkpoint runs, phase 11's runs,
 phase 12's profile and train, phase 13's ring runs, phase 14's encoder
-runs and phase 15's resumed runs) runs with the
+runs, phase 15's resumed runs and phase 16's T5 and Swin runs) runs with the
 kernels' launch counts set to 0 just before it and read just after. The last lines
 of standard output are the serve and train summaries, the ``kernels`` JSON
 line, the card line, and ``{"ok": true, "device": {...}}``. Details go to
@@ -1792,13 +1812,37 @@ def encoder_grads(torch, TF, fam):
                 launches=launches, tolerance=TOL_ENCODER_GRAD_REL)
 
 
+def _plain_cli_run(torch, TF, name, argv):
+    """``cli.train.main(argv)`` with the launch counts reset before it: its
+    losses finite, no flash launch (the run's shapes take the plain
+    path)."""
+    import gc
+
+    from galvatron_tpu_torch.cli import train as cli_train
+    from galvatron_tpu_torch.tools import train_cell as C
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    TF.flash_attention_fwd.launches = 0
+    TF.flash_attention_bwd.launches = 0
+    summary = cli_train.main(argv)
+    launches = (TF.flash_attention_fwd.launches, TF.flash_attention_bwd.launches)
+    check(len(summary["losses"]) == C.STEPS and all(math.isfinite(x) for x in summary["losses"]),
+          "%s losses %s" % (name, summary["losses"]))
+    check(launches == (0, 0) and summary["flash_routes"] == [{"fwd": {}, "bwd": {}}],
+          "%s launched the flash kernels %s times (%s): its shapes take the plain path"
+          % (name, launches, summary["flash_routes"]))
+    return dict(summary=summary, fwd_launches=launches[0], bwd_launches=launches[1],
+                wall_s=time.perf_counter() - t0)
+
+
 def encoder_families(torch, TF):
     """BERT-large and ViT-huge at full size through the train CLI, the
     gradient checks and the BERT step's trace (see the module note, phase
     14)."""
     import gc
 
-    from galvatron_tpu_torch.cli import train as cli_train
     from galvatron_tpu_torch.tools import profile_train
     from galvatron_tpu_torch.tools import train_cell as C
 
@@ -1807,19 +1851,7 @@ def encoder_families(torch, TF):
     runs = {}
 
     def run(name, argv):
-        gc.collect()
-        torch.cuda.empty_cache()
-        TF.flash_attention_fwd.launches = 0
-        TF.flash_attention_bwd.launches = 0
-        summary = cli_train.main(argv)
-        launches = (TF.flash_attention_fwd.launches, TF.flash_attention_bwd.launches)
-        check(len(summary["losses"]) == C.STEPS
-              and all(math.isfinite(x) for x in summary["losses"]),
-              "%s losses %s" % (name, summary["losses"]))
-        check(launches == (0, 0) and summary["flash_routes"] == [{"fwd": {}, "bwd": {}}],
-              "%s launched the flash kernels %s times (%s): its shapes take the plain path"
-              % (name, launches, summary["flash_routes"]))
-        runs[name] = dict(summary=summary, fwd_launches=launches[0], bwd_launches=launches[1])
+        runs[name] = _plain_cli_run(torch, TF, name, argv)
 
     run("bert_dp", C.bert_argv(C.write_bert_strategy(out)))
     run("bert_zero3", C.bert_argv(C.write_bert_strategy(out, zero3=True)))
@@ -1850,6 +1882,201 @@ def encoder_families(torch, TF):
                 trace={k: v for k, v in trace.items() if k != "argv"}, shard_mb=shard_mb,
                 shard_s=shard_s, images=C.VISION_IMAGES, steps=C.STEPS,
                 wall_s=time.perf_counter() - t0)
+
+
+# ----------------------------------------------------------------- phase 16
+T5_GRAD_SWIN_DEPTHS = (2, 1, 1, 1)  # a shifted block and every patch merge
+
+
+def _t5_swin_batch(torch, fam, cfg):
+    """One micro-batch on the CPU: T5, 2 x 512 encoder and decoder tokens,
+    the second row's last 96 encoder keys padded and its last 40 decoder
+    positions out of the loss; Swin, 2 standard-normal images."""
+    gen = torch.Generator().manual_seed(SEED)
+    if fam == "swin":
+        return {"pixels": torch.randn((2, cfg.image_size, cfg.image_size, cfg.num_channels),
+                                      generator=gen),
+                "labels": torch.randint(0, cfg.num_classes, (2,), generator=gen)}
+    s = cfg.max_seq_len
+    mask, loss_mask = torch.ones(2, s), torch.ones(2, s)
+    mask[1, s - 96:] = 0.0
+    loss_mask[1, s - 40:] = 0.0
+    return {"tokens": torch.randint(0, cfg.vocab_size, (2, s), generator=gen),
+            "dec_tokens": torch.randint(0, cfg.vocab_size, (2, s), generator=gen),
+            "labels": torch.randint(0, cfg.vocab_size, (2, s), generator=gen),
+            "attn_mask": mask, "loss_mask": loss_mask}
+
+
+def t5_swin_grads(torch, TF, fam):
+    """The loss and every gradient of one micro-batch at the family's full
+    width cut in depth: the card (bf16) against the CPU (fp32)."""
+    from galvatron_tpu_torch.models import swin as W
+    from galvatron_tpu_torch.models import t5 as T5
+    from galvatron_tpu_torch.tools import train_cell as C
+
+    if fam == "t5":
+        def make(dtype):
+            return T5.t5_config(C.T5_SIZE, num_enc_layers=1, num_dec_layers=1,
+                                compute_dtype=dtype)
+        init, tree, loss_fn = T5.init_t5_params, T5.T5Model, T5.t5_loss_fn
+    else:
+        def make(dtype):
+            return W.swin_config(C.SWIN_SIZE, depths=T5_GRAD_SWIN_DEPTHS, compute_dtype=dtype)
+        init, tree, loss_fn = W.init_swin_params, W.SwinModel, W.swin_loss_fn
+    cpu_cfg, card_cfg = make(torch.float32), make(torch.bfloat16)
+    params = init(cpu_cfg, torch.Generator().manual_seed(SEED), "cpu")
+    batch = _t5_swin_batch(torch, fam, cpu_cfg)
+    t0 = time.perf_counter()
+    loss_cpu = loss_fn(params, batch, cpu_cfg)
+    loss_cpu.backward()
+    cpu_s = time.perf_counter() - t0
+    want = {n: p.grad for n, p in params.named_parameters()}
+    card = tree(card_cfg, "cuda")
+    card.load_state_dict(params.state_dict())
+    TF.flash_attention_fwd.launches = 0
+    TF.flash_attention_bwd.launches = 0
+    loss = loss_fn(card, {k: v.cuda() for k, v in batch.items()}, card_cfg)
+    loss.backward()
+    launches = (TF.flash_attention_fwd.launches, TF.flash_attention_bwd.launches)
+    rel = {n: float((p.grad.float().cpu() - want[n]).norm() / want[n].norm().clamp(min=1e-30))
+           for n, p in card.named_parameters()}
+    worst = max(rel, key=rel.get)
+    loss, loss_cpu = float(loss.detach()), float(loss_cpu.detach())
+    check(abs(loss - loss_cpu) <= TOL_ENCODER_LOSS,
+          "%s gradients: card loss %.6f vs CPU %.6f (tol %g)" % (fam, loss, loss_cpu,
+                                                                TOL_ENCODER_LOSS))
+    check(rel[worst] <= TOL_ENCODER_GRAD_REL,
+          "%s gradients: %s at %.3g relative to the CPU's (tol %g)" % (
+              fam, worst, rel[worst], TOL_ENCODER_GRAD_REL))
+    check(launches == (0, 0), "%s gradients launched the flash kernels %s times" % (fam, launches))
+    del card, params
+    torch.cuda.empty_cache()
+    return dict(loss=loss, loss_cpu=loss_cpu, worst=worst, worst_rel=rel[worst],
+                median_rel=statistics.median(rel.values()), leaves=len(rel), cpu_s=cpu_s,
+                launches=launches, tolerance=TOL_ENCODER_GRAD_REL)
+
+
+def _rel_errs(a, b):
+    return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+
+
+def t5_swin_families(torch, TF):
+    """T5-large and Swin-large at full size through the train CLI and as
+    hosted pp 2 pipelines, the gradient checks and the T5 step's trace
+    (see the module note, phase 16)."""
+    import gc
+
+    from galvatron_tpu_torch.tools import profile_train
+    from galvatron_tpu_torch.tools import train_cell as C
+
+    t0 = time.perf_counter()
+    out = os.path.join("chiprun_out", "phase16")
+    runs, rel = {}, {}
+
+    def hosted(name, argv, ref):
+        t_run = time.perf_counter()
+        r = _hosted_run(torch, TF, argv, 2)
+        r["wall_s"] = time.perf_counter() - t_run
+        check(all(math.isfinite(x) for x in r["losses"]) and (r["fwd_launches"],
+                                                             r["bwd_launches"]) == (0, 0),
+              "%s: losses %s, flash launches fwd %d / bwd %d" % (
+                  name, r["losses"], r["fwd_launches"], r["bwd_launches"]))
+        r["losses_rel_err"] = _rel_errs(r["losses"], runs[ref]["summary"]["losses"])
+        check(max(r["losses_rel_err"]) <= TOL_PP_LOSS,
+              "%s losses %s differ from the pp 1 run's %s by %.3g relative (tol %.0e)" % (
+                  name, r["losses"], runs[ref]["summary"]["losses"], max(r["losses_rel_err"]),
+                  TOL_PP_LOSS))
+        runs[name] = r
+
+    t_data = time.perf_counter()
+    corpus = C.write_t5_corpus(out)
+    corpus_mb = sum(os.path.getsize(corpus + e) for e in (".bin", ".idx.npy")) / 1e6
+    data_s = time.perf_counter() - t_data
+    try:
+        runs["t5_dp"] = _plain_cli_run(torch, TF, "t5_dp", C.t5_argv(C.write_t5_strategy(out),
+                                                                    corpus))
+        runs["t5_zero"] = _plain_cli_run(torch, TF, "t5_zero", C.t5_argv(
+            C.write_t5_strategy(out, zero=True), corpus))
+        rel["t5_zero"] = _rel_errs(runs["t5_zero"]["summary"]["losses"],
+                                   runs["t5_dp"]["summary"]["losses"])
+        check(max(rel["t5_zero"]) <= TOL_LAYOUT_LOSS,
+              "t5 ZeRO-3/ZeRO-2 vs dp losses differ by %.3g relative (tol %.0e)"
+              % (max(rel["t5_zero"]), TOL_LAYOUT_LOSS))
+        hosted("t5_pp2", C.t5_argv(C.write_t5_strategy(out, pp=2), corpus), "t5_dp")
+    finally:
+        for ext in (".bin", ".idx.npy"):
+            if os.path.exists(corpus + ext):
+                os.remove(corpus + ext)
+    shard = C.write_vision_shard(out)
+    try:
+        runs["swin"] = _plain_cli_run(torch, TF, "swin", C.swin_argv(C.write_swin_strategy(out),
+                                                                    shard))
+        hosted("swin_pp2", C.swin_argv(C.write_swin_strategy(out, pp=2), shard), "swin")
+    finally:
+        for ext in (".images.npy", ".labels.npy"):
+            if os.path.exists(shard + ext):
+                os.remove(shard + ext)
+    t_grads = time.perf_counter()
+    grads = {fam: t5_swin_grads(torch, TF, fam) for fam in ("t5", "swin")}
+    grads_s = time.perf_counter() - t_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_trace = time.perf_counter()
+    TF.flash_attention_fwd.launches = 0
+    TF.flash_attention_bwd.launches = 0
+    trace = profile_train.main(["--cell", "t5", "--warmup", "1", "--steps", "1"])
+    launches = (TF.flash_attention_fwd.launches, TF.flash_attention_bwd.launches)
+    check(launches == (0, 0), "the traced t5 steps launched the flash kernels %s times"
+          % (launches,))
+    torch.cuda.empty_cache()
+    return dict(runs=runs, loss_rel_err=rel, tolerance=TOL_LAYOUT_LOSS,
+                pp_tolerance=TOL_PP_LOSS, grads=grads, corpus_mb=corpus_mb, data_s=data_s,
+                trace={k: v for k, v in trace.items() if k != "argv"}, steps=C.STEPS,
+                grads_s=grads_s, trace_s=time.perf_counter() - t_trace,
+                wall_s=time.perf_counter() - t0)
+
+
+def log_t5_swin(ts, card):
+    what = {"t5_dp": "t5-large, 24 + 24 layers, every layer plain dp, from span corruption",
+            "t5_zero": "t5-large, encoder ZeRO-3, decoder ZeRO-2",
+            "t5_pp2": "t5-large, pp 2 1F1B 24/24, both stages on this card",
+            "swin": "swin-large, 24 blocks, plain dp, from a 512-image shard",
+            "swin_pp2": "swin-large, pp 2 1F1B 12/12, both stages on this card"}
+    for name, r in ts["runs"].items():
+        t5 = name.startswith("t5")
+        if "summary" in r:
+            g = r["summary"]
+            log("train %s (bf16, global batch %d) on %s: step %.1f ms end to end, device %.1f "
+                "ms/step, %.0f %s/s, MFU %s, peak memory %.1f GB, losses %s, flash launches "
+                "fwd %d / bwd %d" % (
+                    what[name], 32 if t5 else 64, card, g["steady_step_ms"], g["device_step_ms"],
+                    g["tokens_per_s"] if t5 else g["images_per_s"], "tokens" if t5 else "images",
+                    "%.3f (989 TFLOP/s; %s)" % (g["mfu"], g["mfu_note"]) if g.get("mfu")
+                    else "none (no analytic count)", g["peak_hbm_mb"] * 2**20 / 1e9,
+                    ["%.5f" % x for x in g["losses"]], r["fwd_launches"], r["bwd_launches"]))
+        else:
+            log("train %s on %s: step %.1f ms (stages one after another), peak memory %.1f GB, "
+                "losses %s, max rel err vs pp 1 %.3g (tol %.0e), flash launches fwd %d / bwd %d"
+                % (what[name], card, r["steady_step_ms"], r["peak_memory_gb"],
+                   ["%.5f" % x for x in r["losses"]], max(r["losses_rel_err"]),
+                   ts["pp_tolerance"], r["fwd_launches"], r["bwd_launches"]))
+    log("t5 dp vs ZeRO-3/ZeRO-2 losses agree within %.3g relative (tol %.0e)"
+        % (max(ts["loss_rel_err"]["t5_zero"]), ts["tolerance"]))
+    for fam, gr in ts["grads"].items():
+        log("%s width, %s, card (bf16) vs CPU (fp32): loss %.6f vs %.6f, worst gradient %s at "
+            "%.3g relative (median %.3g, %d leaves; tol %.0e)" % (
+                fam, "1 + 1 layers" if fam == "t5" else "depths %s" % (T5_GRAD_SWIN_DEPTHS,),
+                gr["loss"], gr["loss_cpu"], gr["worst"], gr["worst_rel"], gr["median_rel"],
+                gr["leaves"], gr["tolerance"]))
+    tr = ts["trace"]
+    log("t5-large traced step (torch.profiler, 1 step) on %s: wall %.1f ms, device busy %.1f "
+        "ms, idle share %.3f, plain attention %.1f ms = %.3f of busy, by kind %s; phase %.1f s "
+        "(runs %s s, gradients %.1f s, trace %.1f s)"
+        % (card, tr["wall_ms_per_step"], tr["device_busy_ms_per_step"], tr["idle_share"],
+           tr["plain_attention_ms_per_step"], tr["plain_attention_share_of_busy"] or 0.0,
+           {k: round(v, 2) for k, v in tr["by_kind_ms_per_step"].items()}, ts["wall_s"],
+           {n: round(r["wall_s"], 1) for n, r in ts["runs"].items()}, ts["grads_s"],
+           ts["trace_s"]))
 
 
 # ----------------------------------------------------------------- phase 15
@@ -2219,6 +2446,7 @@ def main():
         elastic = elastic_resume(torch, TF, corpus)
     finally:
         remove_phase10_data()
+    t5_swin = t5_swin_families(torch, TF)
     s, t = served["summary"], trained["summary"]
 
     def at_2048(rows, b):
@@ -2258,7 +2486,8 @@ def main():
                "train_searched": loop["train"]["fwd_launches"],
                "long_context": lc["launches"]["fwd"],
                **{"train_" + n: r["fwd_launches"] for n, r in encoders["runs"].items()},
-               **{"elastic_" + n: r["fwd_launches"] for n, r in elastic["runs"].items()}},
+               **{"elastic_" + n: r["fwd_launches"] for n, r in elastic["runs"].items()},
+               **{"train_" + n: r["fwd_launches"] for n, r in t5_swin["runs"].items()}},
               TOL_FWD_BF16),
         entry("flash_attn_bwd", BWD_SOURCE, bwd_shapes, z3["bwd_launches"],
               {"serve": 0, "train": trained["bwd_launches"],
@@ -2270,7 +2499,8 @@ def main():
                "train_searched": loop["train"]["bwd_launches"],
                "long_context": lc["launches"]["bwd"],
                **{"train_" + n: r["bwd_launches"] for n, r in encoders["runs"].items()},
-               **{"elastic_" + n: r["bwd_launches"] for n, r in elastic["runs"].items()}},
+               **{"elastic_" + n: r["bwd_launches"] for n, r in elastic["runs"].items()},
+               **{"train_" + n: r["bwd_launches"] for n, r in t5_swin["runs"].items()}},
               TOL_BWD_BF16),
     ]}
     results = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
@@ -2279,7 +2509,8 @@ def main():
                    decode=decode, serve=served, train=trained, train_gpt_layouts=layouts,
                    corpus_checkpoint=corpus, train_pipelines=pipelines,
                    profile_search_train=loop, long_context=lc, encoder_families=encoders,
-                   elastic_resume=elastic, wall_s=time.perf_counter() - t_start)
+                   elastic_resume=elastic, t5_swin_families=t5_swin,
+                   wall_s=time.perf_counter() - t_start)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1, default=str)
@@ -2380,6 +2611,7 @@ def main():
             lc["wall_s"]))
     log_encoders(encoders, card)
     log_elastic(elastic, card)
+    log_t5_swin(t5_swin, card)
     log(json.dumps(kernels))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -40,6 +40,7 @@ CODES: Dict[str, Tuple[str, str]] = {
     "GLS204": (ERROR, "checkpoint lacks the provenance elastic resume requires"),
     "GLS205": (ERROR, "world size changed but no replacement strategy was resolved"),
     "GLS206": (ERROR, "cross-strategy relayout unsupported for this model family"),
+    "GLS207": (ERROR, "live in-memory strategy migration infeasible for this run"),
     "GLS210": (ERROR, "checkpoint step without a committed integrity manifest (torn save)"),
     "GLS212": (ERROR, "malformed checkpoint manifest or inconsistent provenance"),
     "GLS214": (ERROR, "checkpoint bytes no longer match the manifest's integrity digest"),

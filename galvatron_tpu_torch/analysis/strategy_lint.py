@@ -41,6 +41,8 @@ def _model_aware_diagnostics(hp: HybridParallelConfig, model_cfg: Any) -> List[D
     `model_cfg` skip their check)."""
     out: List[D.Diagnostic] = []
     num_heads = getattr(model_cfg, "num_heads", None)
+    if not isinstance(num_heads, int):
+        num_heads = None  # per-stage heads (Swin): its constructor checks each block's
     num_kv = getattr(model_cfg, "num_kv_heads", None) or num_heads
     seq_len = getattr(model_cfg, "max_seq_len", None)
     vocab = getattr(model_cfg, "vocab_size", None)
@@ -104,12 +106,27 @@ def _relayout_diagnostics(hp: HybridParallelConfig) -> List[D.Diagnostic]:
     return out
 
 
-def train_refusals(hp: HybridParallelConfig) -> List[str]:
+def family_refusals(hp: HybridParallelConfig, model_cfg: Any) -> List[str]:
+    """What a family with its own tree refuses in `hp`, as its reference
+    constructor does (T5: GPipe and the enc-dec pipeline contract; Swin:
+    cp and Ulysses at any pp, GPipe, heads that tp does not divide), plus
+    what the port's T5 does not execute yet."""
+    from galvatron_tpu_torch.models import swin, t5
+
+    if isinstance(model_cfg, t5.T5Config):
+        return t5.t5_refusals(model_cfg, hp)
+    if isinstance(model_cfg, swin.SwinConfig):
+        return swin.swin_refusals(model_cfg, hp)
+    return []
+
+
+def train_refusals(hp: HybridParallelConfig, model_cfg: Any = None) -> List[str]:
     """What the port's trainer does not execute in `hp`: the pipeline
-    engine's refusal, then each unported feature with the ROADMAP item
-    (queue 1) that brings it; empty when it runs (context parallelism,
-    Ulysses and vocab sp/cp run)."""
-    out = []
+    engine's refusal, the family's (`family_refusals`, with `model_cfg`),
+    then each unported feature with the ROADMAP item (queue 1) that brings
+    it; empty when it runs (context parallelism, Ulysses and vocab sp/cp
+    run)."""
+    out = family_refusals(hp, model_cfg) if model_cfg is not None else []
     if hp.pp > 1:
         # the pipeline's own contract, as the reference's engines refuse it
         from galvatron_tpu_torch.parallel.pipeline import validate_pipeline_config

@@ -528,5 +528,11 @@ def model_config_from_args(args):
             overrides["max_seq_len"] = args.seq_length
     if args.mixed_precision == "bf16":
         overrides.setdefault("compute_dtype", torch.bfloat16)
-    cfg = fam.config_fn(size, **overrides)
+    try:
+        cfg = fam.config_fn(size, **overrides)
+    except TypeError as e:
+        raise ValueError(
+            "model overrides %s not supported by family %r (%s); t5/swin use their own "
+            "config fields: pass sizes via --model_size or the family config_fn"
+            % (sorted(overrides), fam.name, e)) from None
     return fam, cfg

@@ -16,7 +16,7 @@ from galvatron_tpu_torch.cli.arguments import initialize_galvatron, model_config
 def profile_model(args) -> dict:
     from galvatron_tpu_torch.profiler.model import ModelProfileArgs, ModelProfiler
 
-    _, cfg = model_config_from_args(args)
+    fam, cfg = model_config_from_args(args)
     pargs = ModelProfileArgs(
         profile_mode=args.profile_mode,
         profile_batch_size=args.profile_batch_size,
@@ -35,11 +35,16 @@ def profile_model(args) -> dict:
         profile_remat=bool(args.profile_remat),
         device=args.device,
     )
-    prof = ModelProfiler(cfg, model_name=args.model_type, args=pargs)
+    if fam.make_profiler is not None:  # t5, swin: their layer types
+        prof = fam.make_profiler(cfg, args.model_type, pargs)
+    else:
+        prof = ModelProfiler(cfg, model_name=args.model_type, args=pargs)
     results = prof.profile_all(write=True)
     comp = results["computation"]
     print("per-layer forward (%s mode): %s ms/sample; embedding+head+loss: %.6g ms/sample"
-          % (args.profile_mode, comp["layertype_0"], comp["other_time"]))
+          % (args.profile_mode, ", ".join(str(comp["layertype_%d" % t])
+                                           for t in range(prof.layer_types)),
+             comp["other_time"]))
     for rec in prof.act_records:
         print("activation MB/layer/sample (%s): allocator %s, saved tensors %.3f"
               % ("remat" if rec["remat"] else "no remat",

@@ -84,6 +84,8 @@ def _model_paths(args, fam, cfg) -> dict:
         mixed_precision=args.mixed_precision, config_dir=args.config_dir,
         profile_seq_length=getattr(args, "profile_seq_length", None),
     )
+    if fam.make_profiler is not None:
+        return fam.make_profiler(cfg, args.model_type, pargs).config_paths()
     return ModelProfiler(cfg, model_name=args.model_type, args=pargs).config_paths()
 
 
@@ -96,21 +98,30 @@ def _read_allreduce(path: str, world_size: int) -> dict:
 def search(args, world_size: Optional[int] = None) -> dict:
     fam, cfg = model_config_from_args(args)
     world_size = world_size or int(os.environ.get("GALVATRON_WORLD_SIZE", "8"))
-    layer_cfgs = [
-        {"hidden_size": cfg.hidden_size, "seq_len": cfg.max_seq_len,
-         "layer_num": cfg.num_layers}
-    ]
+    if fam.layer_configs_fn is not None:
+        # multi-layer-type families (t5 enc/dec, swin per stage): the DP
+        # searches a strategy per layer across every type
+        layer_cfgs = fam.layer_configs_fn(cfg)
+    else:
+        layer_cfgs = [
+            {"hidden_size": cfg.hidden_size, "seq_len": cfg.max_seq_len,
+             "layer_num": cfg.num_layers}
+        ]
     sargs = search_args_from(args)
     if sargs.objective == "serve":
         # GQA shrinks KV bytes by num_kv_heads/num_heads; the search engine
         # itself never sees head counts, so resolve the ratio here
-        sargs.serve_kv_frac = float(cfg.num_kv_heads) / float(cfg.num_heads)
+        nkv, nh = getattr(cfg, "num_kv_heads", None), getattr(cfg, "num_heads", None)
+        if nkv and nh:
+            sargs.serve_kv_frac = float(nkv) / float(nh)
     engine = GalvatronSearchEngine(
         sargs,
         world_size,
         model_layer_configs=layer_cfgs,
         config_dir=args.config_dir,
         model_name=args.model_type,
+        align_type_boundaries=not fam.mid_stage_type_boundaries,
+        allow_sequence_sharding=fam.supports_sequence_sharding,
     )
     mp = _model_paths(args, fam, cfg)
     time_path = args.time_profile_path or mp["computation"]

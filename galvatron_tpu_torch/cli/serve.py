@@ -57,6 +57,9 @@ def _serve(args) -> dict:
     if cfg.head_type != "lm":
         raise ValueError("serving supports the generic causal-LM families only; %r has a %s "
                          "head" % (fam.name, cfg.head_type))
+    if fam.build is not None:
+        raise ValueError("serving supports the generic causal-LM families only; %r builds its "
+                         "own model tree" % fam.name)
     world = args.world_size or 1
     hp = hp_config_from_args(args, cfg.num_layers, world)
 

@@ -47,9 +47,14 @@ batch zigzag-permuted under ``--cp_mode zigzag``), Ulysses layers
 tp, and ``--vocab_sp`` / ``--vocab_cp`` shard the embedding's and the
 loss's sequence, each inside the 1F1B pipeline too (GPipe refuses cp, as
 the reference does). ``--model_type bert`` trains the MLM encoder on the
-token stream, ``--model_type vit`` the image classifier on a vision shard
-(``--data_path``, ``data.dataset.write_vision_dataset``) or synthetic
-pixels.
+token stream, ``--model_type vit`` and ``swin`` the image classifiers on a
+vision shard (``--data_path``, ``data.dataset.write_vision_dataset``) or
+synthetic pixels, ``--model_type t5`` the encoder-decoder on span-corrupted
+windows of the corpus (``data.dataset.t5_data_iterator``; encoder and
+decoder both ``max_seq_len`` long) or the synthetic seq2seq stream. T5 and
+Swin build their own trees (the family's ``build`` hook) and pipeline under
+1F1B only; their summary's MFU is the analytic count's (T5's leaves out
+cross-attention, ``mfu_note``; Swin has none, only ``images_per_s``).
 
 Elastic resume (``--load`` with ``--elastic resume|search``,
 ``runtime/elastic.py``): the strategy comes from the checkpoint's
@@ -254,7 +259,10 @@ def build(args, device: Optional[torch.device] = None) -> TrainRun:
     if lead:
         print(hp.describe())
 
-    model = construct_hybrid_parallel_model(cfg, hp, device)
+    if fam.build is not None:  # families with their own tree (t5, swin)
+        model = fam.build(cfg, hp, device)
+    else:
+        model = construct_hybrid_parallel_model(cfg, hp, device)
     tx, _ = get_optimizer_and_scheduler(optimizer_args_from(args))
     params = model.init_params(args.seed)
     guard = None
@@ -374,9 +382,11 @@ def _train(args, device) -> dict:
         global_bsz=hp.global_bsz, start_iter=start_iter, model_flops_per_step=step_flops,
         peak_flops=peak_flops, device_kind=device_kind, pipeline_type=hp.pipeline_type,
         num_layers=hp.num_layers, resumed_from=args.load or None, model_type=args.model_type,
-        hidden_size=cfg.hidden_size, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-        ffn_hidden=cfg.ffn_hidden, vocab_size=cfg.vocab_size, seq_len=cfg.max_seq_len,
-        mixed_precision=hp.mixed_precision, activation=cfg.activation)
+        hidden_size=getattr(cfg, "hidden_size", None), num_heads=getattr(cfg, "num_heads", None),
+        num_kv_heads=getattr(cfg, "num_kv_heads", None),
+        ffn_hidden=getattr(cfg, "ffn_hidden", None), vocab_size=getattr(cfg, "vocab_size", None),
+        seq_len=getattr(cfg, "max_seq_len", None), mixed_precision=hp.mixed_precision,
+        activation=getattr(cfg, "activation", None))
 
     # ------------------------------------------------------- input pipeline
     async_loop = bool(getattr(args, "async_loop", True))
@@ -589,8 +599,14 @@ def _train(args, device) -> dict:
     if restored is not None:
         summary["checkpoint_restore"] = restored
     summary["flash_routes"] = _routes_since(routes)
-    summary["tokens_per_s"] = summary["samples_per_s"] * cfg.max_seq_len
-    summary["tokens_per_s_per_gpu"] = summary["tokens_per_s"] / world
+    if getattr(cfg, "max_seq_len", None):
+        summary["tokens_per_s"] = summary["samples_per_s"] * cfg.max_seq_len
+        summary["tokens_per_s_per_gpu"] = summary["tokens_per_s"] / world
+    if run.fam.data_kind == "vision":
+        summary["images_per_s"] = summary["samples_per_s"]
+    note = obs_flops.flops_note(cfg)
+    if note:
+        summary["mfu_note"] = note
     summary["world_size"] = world
     summary["rank"] = distributed.rank()
     summary["device"] = str(device)

@@ -24,8 +24,11 @@ versions the tests hold the native ones against.
 
 Vision shards (the reference's format): ``<path>.images.npy`` (NHWC uint8
 or float32) + ``<path>.labels.npy`` (int32), written by
-`write_vision_dataset` and read memmapped by `vision_data_iterator`. The
-T5 span corruption waits for the T5 family.
+`write_vision_dataset` and read memmapped by `vision_data_iterator`.
+
+T5's span corruption (`t5_span_corrupt`, `t5_data_iterator`) reads the same
+corpora and blends: each raw window is corrupted with a generator seeded by
+its global sample index, so the stream is the reference's batch for batch.
 """
 
 from __future__ import annotations
@@ -347,6 +350,97 @@ class BlendedGPTDataset:
     def __getitem__(self, i: int) -> np.ndarray:
         i = i % self.n_samples
         return self.datasets[int(self.ds_index[i])][int(self.ds_sample[i])]
+
+
+# ------------------------------------------------------- T5 span corruption
+def t5_span_corrupt(tokens: np.ndarray, rng: np.random.RandomState, *, vocab_size: int,
+                    noise_density: float = 0.15, mean_span_len: float = 3.0,
+                    n_sentinels: int = 100):
+    """T5 span corruption of one token window (the reference's
+    T5MaskedWordPieceDataset objective, from the T5 paper's denoising
+    recipe): contiguous spans covering ~`noise_density` of the window are
+    each replaced by ONE sentinel id in the encoder stream; the decoder
+    target is [sentinel_i, span_i...] for every span, closed by a final
+    sentinel. Sentinels count down from vocab_size-1 (HF T5 extra_ids).
+    The draws from `rng` are the reference's, in its order.
+
+    Returns (enc_tokens, dec_target) as int32 arrays (variable length)."""
+    if not 0.0 < noise_density < 1.0:
+        raise ValueError("noise_density must be in (0, 1), got %r" % noise_density)
+    if mean_span_len <= 0:
+        raise ValueError("mean_span_len must be positive, got %r" % mean_span_len)
+    length = len(tokens)
+    n_noise = min(max(int(round(length * noise_density)), 1), max(length - 1, 1))
+    n_spans = max(int(round(n_noise / mean_span_len)), 1)
+    # feasibility: n_spans - 1 distinct cut points inside (0, n_noise) and
+    # n_spans distinct starts over the length - n_noise + 1 gap slots
+    n_spans = min(n_spans, n_noise, length - n_noise + 1)
+    cuts = (np.sort(rng.choice(np.arange(1, n_noise), size=n_spans - 1, replace=False))
+            if n_noise > n_spans else np.arange(1, n_spans))
+    span_lens = np.diff(np.concatenate([[0], cuts, [n_noise]]))
+    span_lens = span_lens[span_lens > 0]
+    n_gap = length - int(span_lens.sum())
+    starts_gap = np.sort(rng.choice(np.arange(n_gap + 1), size=len(span_lens), replace=False))
+    enc_parts, dec_parts = [], []
+    pos = gap_consumed = 0
+    for i, (g, sl) in enumerate(zip(starts_gap, span_lens)):
+        keep = g - gap_consumed
+        sentinel = np.asarray([vocab_size - 1 - (i % n_sentinels)], np.int32)
+        enc_parts += [tokens[pos:pos + keep], sentinel]
+        dec_parts += [sentinel, tokens[pos + keep:pos + keep + sl]]
+        pos += keep + sl
+        gap_consumed = g
+    enc_parts.append(tokens[pos:])
+    dec_parts.append(np.asarray([vocab_size - 1 - (len(span_lens) % n_sentinels)], np.int32))
+    return (np.concatenate(enc_parts).astype(np.int32),
+            np.concatenate(dec_parts).astype(np.int32))
+
+
+def t5_data_iterator(
+    data_path: str,
+    hp: HybridParallelConfig,
+    enc_seq_len: int,
+    dec_seq_len: int,
+    seed: int = 1234,
+    n_samples: Optional[int] = None,
+    start_step: int = 0,
+    split: str = "train",
+    split_weights: str = "969,30,1",
+    vocab_size: int = 32128,
+    noise_density: float = 0.15,
+    mean_span_len: float = 3.0,
+) -> Iterator[Dict[str, torch.Tensor]]:
+    """Span-corruption global batches (CPU tensors) over one split of an
+    indexed corpus or blend: the T5 contract (tokens, attn_mask,
+    dec_tokens, labels, loss_mask) at the fixed shapes (enc_seq_len,
+    dec_seq_len), truncated or padded. The decoder input is the target
+    shifted right behind the start id 0 (HF T5 ``_shift_right``). A pure
+    function of (corpus, weights, seed, step)."""
+    ds = _build_lm_dataset(data_path, enc_seq_len, n_samples or 1_000_000, seed, split,
+                           split_weights)
+    b_size = hp.global_bsz
+    step = start_step
+    while True:
+        enc = np.zeros((b_size, enc_seq_len), np.int64)
+        attn = np.zeros((b_size, enc_seq_len), np.float32)
+        dec_in = np.zeros((b_size, dec_seq_len), np.int64)
+        labels = np.zeros((b_size, dec_seq_len), np.int64)
+        lmask = np.zeros((b_size, dec_seq_len), np.float32)
+        for b in range(b_size):
+            i = step * b_size + b
+            rng = np.random.RandomState((seed * 1_000_003 + i) % (2**31 - 1))
+            e, d = t5_span_corrupt(ds[i][:enc_seq_len], rng, vocab_size=vocab_size,
+                                   noise_density=noise_density, mean_span_len=mean_span_len)
+            e, d = e[:enc_seq_len], d[:dec_seq_len]
+            enc[b, :len(e)] = e
+            attn[b, :len(e)] = 1.0
+            dec_in[b, 1:len(d)] = d[:len(d) - 1]
+            labels[b, :len(d)] = d
+            lmask[b, :len(d)] = 1.0
+        yield {k: torch.from_numpy(v) for k, v in (
+            ("tokens", enc), ("attn_mask", attn), ("dec_tokens", dec_in), ("labels", labels),
+            ("loss_mask", lmask))}
+        step += 1
 
 
 # ------------------------------------------------------------- vision shards

@@ -724,25 +724,31 @@ def _seq_context(mesh: RankMesh, ax: LayerAxes, hp: HybridParallelConfig) -> Seq
                       cp_mode=hp.cp_mode, chunks=2 * hp.max_cp // cp if zigzag else 1)
 
 
+def make_layout(cfg, hp: HybridParallelConfig, mesh: RankMesh, pls: Dict[str, ParamLayout],
+                ax: LayerAxes, prefix: str, tp_degree: int, kv: bool = True,
+                vocab: bool = False) -> Layout:
+    """The runtime layout of one layer (its parameters named `prefix`...
+    in `pls`), or of the vocab layers (`vocab`, prefix ""; the caller drops
+    the layers' entries from its ZeRO-3 dims)."""
+    z3 = {n[len(prefix):]: pl.z3_dim for n, pl in pls.items()
+          if n.startswith(prefix) and pl.z3_dim is not None}
+    side = S.token_spec(ax) if vocab else S.side_spec(ax)
+    tokens = tuple(sorted(side[0] + side[1], key=mesh.names.index))
+    return Layout(mesh=mesh, axes=ax, tp=_tp_context(mesh, ax, cfg, tp_degree, kv),
+                  act=S.act_spec(ax), dp_group=mesh.group_for(ax.dp), zero3=z3,
+                  side=side, token_group=mesh.group_for(tokens) if vocab else None,
+                  seq=None if vocab else _seq_context(mesh, ax, hp))
+
+
 def build_layouts(cfg: TransformerConfig, hp: HybridParallelConfig, mesh: RankMesh) -> ModelLayouts:
     """The runtime layout of every layer and of the vocab layers on this
     rank (needs `mesh`'s process groups)."""
     pls = model_param_layouts(cfg, hp)
-
-    def make(ax, prefix, tp_degree, kv=True, vocab=False):
-        z3 = {n[len(prefix):]: pl.z3_dim for n, pl in pls.items()
-              if n.startswith(prefix) and pl.z3_dim is not None}
-        side = S.token_spec(ax) if vocab else S.side_spec(ax)
-        tokens = tuple(sorted(side[0] + side[1], key=mesh.names.index))
-        return Layout(mesh=mesh, axes=ax, tp=_tp_context(mesh, ax, cfg, tp_degree, kv),
-                      act=S.act_spec(ax), dp_group=mesh.group_for(ax.dp), zero3=z3,
-                      side=side, token_group=mesh.group_for(tokens) if vocab else None,
-                      seq=None if vocab else _seq_context(mesh, ax, hp))
-
-    vocab = make(vocab_axes(hp), "", hp.vocab_tp, kv=False, vocab=True)
+    vocab = make_layout(cfg, hp, mesh, pls, vocab_axes(hp), "", hp.vocab_tp, kv=False,
+                        vocab=True)
     vocab.zero3 = {n: d for n, d in vocab.zero3.items() if not n.startswith("layers.")}
-    layers = [make(layer_axes(hp, i), "layers.%d." % i, hp.layers[i].tp)
-              for i in range(cfg.num_layers)]
+    layers = [make_layout(cfg, hp, mesh, pls, layer_axes(hp, i), "layers.%d." % i,
+                          hp.layers[i].tp) for i in range(cfg.num_layers)]
     return ModelLayouts(vocab=vocab, layers=layers)
 
 
@@ -1137,3 +1143,84 @@ def lm_loss_fn(params: TransformerLM, batch: dict, cfg: TransformerConfig,
 # over the classes (with layouts: this rank's share, see
 # `classification_loss`); the reference's name for `loss_fn`
 classification_loss_fn = loss_fn
+
+
+# ================================================================ model def
+class GenericDef:
+    """What the layout path (``runtime.model_api``) needs of a family's
+    parameter tree, for the generic transformer (`TransformerLM`). A family
+    with its own tree (``models.t5.T5Def``, ``models.swin.SwinDef``) gives
+    the same members:
+
+    - `tree` (the whole model, or pipeline stage `stage`'s part), with
+      `init_param_` (one parameter's initializer, drawn in full),
+      `param_layouts` and `build_layouts` (a stage mesh's runtime layouts,
+      with ``.vocab`` the layout the batch and the loss are in);
+    - `stage_body` (one micro-batch on a stage: the tuple of tensors that
+      crosses to the next stage, or on the last stage its loss) and
+      `boundary` (their shapes and dtypes at each stage boundary);
+    - `loss` (the unpipelined forward-only loss of a batch);
+    - `shared` (each parameter that more than one stage holds, with the
+      stages that hold it: their gradients are summed over them).
+    """
+
+    def __init__(self, cfg: TransformerConfig, hp: HybridParallelConfig):
+        self.cfg, self.hp = cfg, hp
+
+    def tree(self, device, stage: Optional[int] = None) -> TransformerLM:
+        if stage is None:
+            return TransformerLM(self.cfg, device)
+        return stage_model(self.cfg, self.hp, stage, device)
+
+    def init_param_(self, name: str, p: torch.Tensor, generator: torch.Generator) -> None:
+        init_param_(name, p, self.cfg, generator)
+
+    def param_layouts(self) -> Dict[str, ParamLayout]:
+        return model_param_layouts(self.cfg, self.hp)
+
+    def build_layouts(self, mesh: RankMesh) -> ModelLayouts:
+        return build_layouts(self.cfg, self.hp, mesh)
+
+    def shared(self) -> Dict[str, Tuple[int, ...]]:
+        cfg, pp = self.cfg, self.hp.pp
+        if (pp > 1 and cfg.tie_embeddings and cfg.head_type in ("lm", "mlm")
+                and cfg.input_type == "tokens"):
+            return {"embed.wte": (0, pp - 1)}
+        return {}
+
+    def loss(self, params: TransformerLM, batch: dict, layouts: ModelLayouts) -> torch.Tensor:
+        return loss_fn(params, batch, self.cfg, self.hp, layouts)
+
+    def stage_body(self, stage: int, params: TransformerLM, layouts: ModelLayouts):
+        """(batch, inputs) -> (activation,) or, on the last stage, the
+        head's loss: the embedding on the first stage, the stage's layers,
+        the head on the last."""
+        cfg, hp, vocab = self.cfg, self.hp, layouts.vocab
+        first, last = stage == 0, stage == hp.pp - 1
+
+        def body(batch, x_in):
+            top = gathered(params, vocab)
+            x = embed_inputs(top.embed, batch, cfg, vocab) if first else x_in[0]
+            mask = batch.get("attn_mask")
+            bias = padding_attn_bias(mask) if mask is not None else None
+            out = run_layers(params, x, batch.get("positions"), cfg, hp, attn_bias=bias,
+                             layouts=layouts)
+            return head_loss(top, out, batch, cfg, vocab) if last else (out,)
+        return body
+
+    def boundary(self, mbs, mesh: RankMesh):
+        """(shape, dtype) of a micro-batch's activation between stages: its
+        rows, its sequence shard in the vocab layout (the tokens' shard,
+        cut over tp once more under vocab Megatron-SP; for pixels, the
+        patch sequence's shard), the hidden width."""
+        cfg, vax = self.cfg, vocab_axes(self.hp)
+        tokens = mesh.size(S.token_seq_axes(vax))
+        seq = mesh.size(vax.seq_axes) // tokens
+
+        def boundary(mb: int, stage: int):
+            if "pixels" in mbs[mb]:
+                rows, length = mbs[mb]["pixels"].shape[0], cfg.max_seq_len // tokens
+            else:
+                rows, length = mbs[mb]["tokens"].shape[:2]
+            return [((rows, length // seq, cfg.hidden_size), cfg.compute_dtype)]
+        return boundary

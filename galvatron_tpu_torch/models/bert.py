@@ -7,7 +7,7 @@ normed before the first layer, and the MLM head (a dense transform, exact
 gelu, LayerNorm, then the decoder tied to the token table plus a vocab
 bias); vocab 30522, two token types. The HF converters
 (``convert_hf_bert``/``export_hf_bert``) come with the checkpoint-conversion
-slice (ROADMAP queue 1 item 9)."""
+slice (ROADMAP queue 1 item 9b)."""
 
 from __future__ import annotations
 

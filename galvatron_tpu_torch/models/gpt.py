@@ -5,7 +5,7 @@ presets and architecture — pre-norm LayerNorm (eps 1e-5) with bias, tanh
 gelu MLP, learned position embeddings, a head tied to the token embedding,
 and biases on the qkv, attention-out and MLP projections; vocab 50257. The
 HF state-dict converters (``convert_hf_gpt2``/``export_hf_gpt2``) come with
-the checkpoint-conversion slice (ROADMAP queue 1 item 9)."""
+the checkpoint-conversion slice (ROADMAP queue 1 item 9b)."""
 
 from __future__ import annotations
 

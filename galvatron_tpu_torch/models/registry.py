@@ -1,20 +1,22 @@
 """Model-family registry.
 
-Port of ``galvatron_tpu/models/registry.py`` for the families the port
-runs: ``llama``, ``gpt``, their ``_fa`` variants (the same families pinned
-to ``attn_impl="flash"``), ``bert`` (data kind ``lm``: the token stream)
-and ``vit`` (data kind ``vision``: pixels and class labels). The
-reference's other families are known by name and refused with the slice
-that brings them, so a typo and a family that is not ported yet fail
-differently.
+Port of ``galvatron_tpu/models/registry.py``: ``llama``, ``gpt``, their
+``_fa`` variants (the same families pinned to ``attn_impl="flash"``),
+``bert`` (data kind ``lm``: the token stream), ``vit`` (``vision``: pixels
+and class labels), ``t5`` (``seq2seq``: encoder and decoder token streams)
+and ``swin`` (``vision``). T5 and Swin have their own parameter trees and
+carry the reference's family hooks: a `build` constructor, the layer types
+the search prices (`layer_configs_fn`), their profiler (`make_profiler`),
+whether a layer-type boundary may fall inside a pipeline stage, and
+whether their attention has a sequence to shard.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
-from galvatron_tpu_torch.models import bert, gpt, llama, vit
+from galvatron_tpu_torch.models import bert, gpt, llama, swin, t5, vit
 
 
 @dataclass(frozen=True)
@@ -24,9 +26,22 @@ class ModelFamily:
     meta_configs: Dict[str, dict]
     default_size: str
     # which input pipeline the train entry point wires up: "lm" (token
-    # stream) or "vision" (pixels, labels); the reference's "seq2seq" comes
-    # with T5
+    # stream), "seq2seq" (encoder + decoder token streams) or "vision"
+    # (pixels, labels)
     data_kind: str = "lm"
+    # (cfg, hp, device, mode="train", transport="p2p") -> HybridParallelModel
+    # for a family with its own tree (t5, swin)
+    build: Optional[Callable] = None
+    # (cfg) -> [{"hidden_size", "seq_len", "layer_num"}, ...]: the layer
+    # types of the search's multi-layer-type path (t5 enc/dec, swin per stage)
+    layer_configs_fn: Optional[Callable] = None
+    # (cfg, model_name, args) -> the family's model profiler
+    make_profiler: Optional[Callable] = None
+    # whether a layer-type boundary may fall inside a pipeline stage (swin's
+    # merges may; t5's encoder/decoder boundary must be a stage boundary)
+    mid_stage_type_boundaries: bool = False
+    # whether the attention has a sequence that cp / Ulysses can shard
+    supports_sequence_sharding: bool = True
 
 
 def _fa(fn):
@@ -36,6 +51,23 @@ def _fa(fn):
         overrides.setdefault("attn_impl", "flash")
         return fn(*args, **overrides)
     return cfg_fa
+
+
+def _build(cfg, hp, device, mode: str = "train", transport: str = "p2p"):
+    """A family's own tree through the layout path: ``runtime.model_api``
+    picks its model def from the config (``model_def``), the counterpart
+    of the reference's ``construct_t5_model`` / ``construct_swin_model``."""
+    from galvatron_tpu_torch.runtime.model_api import construct_hybrid_parallel_model
+
+    return construct_hybrid_parallel_model(cfg, hp, device, mode=mode, transport=transport)
+
+
+def _profiler(name: str):
+    def make(cfg, model_name, args):
+        from galvatron_tpu_torch.profiler import model as P
+
+        return getattr(P, name)(cfg, model_name, args)
+    return make
 
 
 _REGISTRY: Dict[str, ModelFamily] = {
@@ -78,21 +110,34 @@ _REGISTRY: Dict[str, ModelFamily] = {
         default_size="vit-base",
         data_kind="vision",
     ),
+    "t5": ModelFamily(
+        name="t5",
+        config_fn=t5.t5_config,
+        meta_configs=t5.META_CONFIGS,
+        default_size="t5-base",
+        data_kind="seq2seq",
+        build=_build,
+        layer_configs_fn=t5.t5_layer_configs,
+        make_profiler=_profiler("T5ModelProfiler"),
+    ),
+    "swin": ModelFamily(
+        name="swin",
+        config_fn=swin.swin_config,
+        meta_configs=swin.META_CONFIGS,
+        default_size="swin-tiny",
+        data_kind="vision",
+        build=_build,
+        layer_configs_fn=swin.swin_layer_configs,
+        make_profiler=_profiler("SwinModelProfiler"),
+        mid_stage_type_boundaries=True,
+        supports_sequence_sharding=False,
+    ),
 }
-
-# families of the reference that a later slice of the port brings
-_NOT_PORTED = ("t5", "swin")
 
 
 def get_family(name: str) -> ModelFamily:
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in _NOT_PORTED:
-        raise ValueError(
-            "model family %r is not ported to galvatron_tpu_torch yet: the port "
-            "trains the %s families; T5 and Swin, with their own parameter trees and "
-            "pipelines, come with the next 'other families' slice (ROADMAP queue 1 "
-            "item 9)" % (name, ", ".join(family_names())))
     raise KeyError("unknown model family %r; known: %s" % (name, family_names()))
 
 

@@ -7,7 +7,7 @@ gelu, learned positions, and a classification head over 1000 classes on
 the cls token after the final norm. The patch convolution is a dense on
 patchified pixels (``models.base.patchify``). The HF converters
 (``convert_hf_vit``/``export_hf_vit``) come with the checkpoint-conversion
-slice (ROADMAP queue 1 item 9)."""
+slice (ROADMAP queue 1 item 9b)."""
 
 from __future__ import annotations
 

@@ -132,6 +132,17 @@ def train_step_flops(cfg: Any, global_bsz: int) -> Optional[float]:
     return fwd * (1.0 + BWD_FWD_RATIO)
 
 
+def flops_note(cfg: Any) -> Optional[str]:
+    """What the analytic count leaves out for this config, printed beside
+    its MFU: T5's cross-attention (the count takes the config's fields, as
+    the reference's does: both stacks as decoder-style layers); None for a
+    config it describes, or cannot count at all (Swin: no MFU)."""
+    if getattr(cfg, "num_dec_layers", None) and model_fwd_flops(cfg) is not None:
+        return ("analytic FLOPs leave out T5's cross-attention (and count every layer's "
+                "self-attention causal), as the reference's count does")
+    return None
+
+
 def mfu(flops_per_step: Optional[float], step_ms: Optional[float],
         peak_flops: Optional[float]) -> Optional[float]:
     """Model-FLOPs utilization; None when any input is unknown/degenerate."""

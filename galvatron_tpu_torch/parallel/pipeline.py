@@ -139,51 +139,50 @@ def gpipe_order(pp: int, chunks: int, stage: int, backward: bool = True) -> List
 
 # --------------------------------------------------------------- stage runner
 class StageRunner:
-    """One stage's micro-batches: `forward` from the batch (first stage) or
-    a received activation, to the activation it sends (or, on the last
-    stage, the weighted loss of the family's head); `backward` from the
-    received cotangent (the last stage from its loss) to the cotangent of
-    its input. Each in-flight micro-batch keeps (input, output) until its
-    backward."""
+    """One stage's micro-batches. `body(batch, inputs)` is the stage's
+    forward (a family's ``stage_body``): from the batch and the tuple of
+    tensors the previous stage sent (None on the first stage) to the tuple
+    it sends on, or on the last stage to the family's loss, which is
+    weighted here and summed into `loss`. `backward` runs from the
+    received cotangents (the last stage from its loss) and returns the
+    cotangents of its inputs. Each in-flight micro-batch keeps (inputs,
+    outputs) until its backward. An output may be an input passed on (a
+    pass-through leaf): autograd accumulates its cotangent into the
+    input's gradient with the rest."""
 
-    def __init__(self, stage: int, params, cfg, hp: HybridParallelConfig, layouts):
-        self.stage, self.params, self.cfg, self.hp, self.layouts = stage, params, cfg, hp, layouts
-        self.first, self.last = stage == 0, stage == hp.pp - 1
-        self.stash: Dict[int, Tuple[Optional[torch.Tensor], torch.Tensor]] = {}
+    def __init__(self, stage: int, body: Callable, hp: HybridParallelConfig):
+        self.body, self.last = body, stage == hp.pp - 1
+        self.stash: Dict[int, Tuple[Optional[Tuple[torch.Tensor, ...]], Any]] = {}
         self.loss: Optional[torch.Tensor] = None  # the last stage's weighted sum
 
-    def forward(self, mb: int, batch: Dict[str, torch.Tensor], x_in: Optional[torch.Tensor],
-                weight: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
-        from galvatron_tpu_torch.models import base as M
-
-        cfg, vocab = self.cfg, self.layouts.vocab
-        top = M.gathered(self.params, vocab)
-        if self.first:
-            x = M.embed_inputs(top.embed, batch, cfg, vocab)
-        else:
-            x = x_in.requires_grad_() if torch.is_grad_enabled() else x_in
-        mask = batch.get("attn_mask")
-        bias = M.padding_attn_bias(mask) if mask is not None else None
-        out = M.run_layers(self.params, x, batch.get("positions"), cfg, self.hp, attn_bias=bias,
-                           layouts=self.layouts)
+    def forward(self, mb: int, batch: Dict[str, torch.Tensor],
+                x_in: Optional[Tuple[torch.Tensor, ...]],
+                weight: Optional[torch.Tensor] = None):
+        grad = torch.is_grad_enabled()
+        if x_in is not None and grad:
+            x_in = tuple(t.requires_grad_() for t in x_in)
+        out = self.body(batch, x_in)
         if self.last:
-            out = M.head_loss(top, out, batch, cfg, vocab) * weight
+            out = out * weight
             share = out.detach()
             self.loss = share if self.loss is None else self.loss + share
-        if torch.is_grad_enabled():
-            self.stash[mb] = (None if self.first else x_in, out)
+        if grad:
+            self.stash[mb] = (x_in, out)
         return None if self.last else out
 
-    def backward(self, mb: int, grad: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    def backward(self, mb: int, grad: Optional[Tuple[torch.Tensor, ...]]):
         x_in, out = self.stash.pop(mb)
         torch.autograd.backward(out, grad)
-        return None if self.first else x_in.grad
+        return None if x_in is None else tuple(t.grad for t in x_in)
 
 
 # ------------------------------------------------------------------ transports
-# (stage, micro-batch, what it received) -> what it sends
-StepFn = Callable[[int, int, Optional[torch.Tensor]], Optional[torch.Tensor]]
-BoundaryFn = Callable[[int], Tuple[Tuple[int, ...], torch.dtype]]
+# (stage, micro-batch, the tuple it received) -> the tuple it sends
+StepFn = Callable[[int, int, Optional[Tuple[torch.Tensor, ...]]],
+                  Optional[Tuple[torch.Tensor, ...]]]
+# (micro-batch, stage) -> [(shape, dtype)] of each tensor stage `stage`
+# sends to stage + 1 (and of its cotangent coming back)
+BoundaryFn = Callable[[int, int], List[Tuple[Tuple[int, ...], torch.dtype]]]
 
 
 class Transport:
@@ -196,29 +195,36 @@ class Transport:
     def run(self, orders: Dict[int, List[Step]], forward: StepFn, backward: StepFn,
             boundary: BoundaryFn) -> None:
         """Run each hosted stage's schedule: ``forward(stage, mb, x_in)``
-        returns what a ``("fwd", mb)`` send carries (None on the last
-        stage), ``backward(stage, mb, grad)`` what a ``("bwd", mb)`` send
-        carries (None on the first); ``boundary(mb)`` is the (shape, dtype)
-        of micro-batch `mb`'s activation and cotangent at a boundary."""
+        returns the tuple a ``("fwd", mb)`` send carries (None on the last
+        stage), ``backward(stage, mb, grad)`` the tuple a ``("bwd", mb)``
+        send carries (None on the first); ``boundary(mb, s)`` is the
+        (shape, dtype) of each tensor micro-batch `mb` sends from stage
+        `s` to `s + 1` (its cotangent has the same)."""
         raise NotImplementedError
 
     def reduce(self, values: Dict[int, torch.Tensor], op: str = "sum") -> Dict[int, torch.Tensor]:
         """Sum (or max) over every stage."""
         raise NotImplementedError
 
-    def sum_tied(self, values: Dict[int, torch.Tensor]) -> Dict[int, torch.Tensor]:
-        """Sum the first and the last stage's values (a tied embedding's
-        two gradients); `values` holds the hosted ones of those two."""
+    def sum_shared(self, values: Dict[int, torch.Tensor], holders: Tuple[int, ...],
+                   like) -> Dict[int, torch.Tensor]:
+        """Sum the values of the stages `holders` (the gradients of a
+        parameter several stages hold: a tied embedding's copies, a table
+        that layers on several stages read); `values` holds the hosted
+        holders' ones and the sum comes back to each. `like` is the
+        (shape, dtype) of a value, for a stage that holds none."""
+        raise NotImplementedError
+
+    def copy_shared(self, values: Dict[int, torch.Tensor], holders: Tuple[int, ...],
+                    like) -> None:
+        """Copy the first holder's value into every other holder's, in
+        place (a shared parameter restored from the one copy a checkpoint
+        holds)."""
         raise NotImplementedError
 
     def from_last(self, values: Dict[int, torch.Tensor]) -> Dict[int, torch.Tensor]:
         """Every stage gets the last stage's value (the others pass a
         buffer of its shape)."""
-        raise NotImplementedError
-
-    def first_to_last(self, values: Dict[int, torch.Tensor]) -> None:
-        """Copy the first stage's value into the last stage's, in place (a
-        tied embedding restored from the copy a checkpoint holds)."""
         raise NotImplementedError
 
     def gather(self, values: Dict[int, Dict[str, torch.Tensor]]) -> List[Dict[str, torch.Tensor]]:
@@ -252,7 +258,8 @@ class LocalTransport(Transport):
                         if (s, pos[s]) not in posted:
                             for kind, mb in step.sends:
                                 dest = s + 1 if kind == "fwd" else s - 1
-                                mailbox[(kind, dest, mb)] = outbox[s].pop((kind, mb)).detach().clone()
+                                mailbox[(kind, dest, mb)] = tuple(
+                                    t.detach().clone() for t in outbox[s].pop((kind, mb)))
                             posted.add((s, pos[s]))
                         if not all((kind, s, mb) in mailbox for kind, mb in step.recvs):
                             break
@@ -279,16 +286,17 @@ class LocalTransport(Transport):
             total = torch.maximum(total, v) if op == "max" else total + v
         return {s: total.clone() for s in values}
 
-    def sum_tied(self, values):
-        total = values[0] + values[self.pp - 1]
-        return {0: total, self.pp - 1: total.clone()}
+    def sum_shared(self, values, holders, like):
+        total = sum(values[s] for s in holders)
+        return {s: total.clone() for s in holders}
 
     def from_last(self, values):
         return {s: values[self.pp - 1].clone() for s in values}
 
-    def first_to_last(self, values) -> None:
+    def copy_shared(self, values, holders, like) -> None:
         with torch.no_grad():
-            values[self.pp - 1].copy_(values[0])
+            for s in holders[1:]:
+                values[s].copy_(values[holders[0]])
 
     def gather(self, values):
         return [values[s] for s in range(self.pp)]
@@ -312,7 +320,7 @@ class P2PTransport(Transport):
         self.stages = (self.stage,)
         self.next = mesh.stage_rank(self.stage + 1) if self.stage < self.pp - 1 else None
         self.prev = mesh.stage_rank(self.stage - 1) if self.stage > 0 else None
-        self.first_rank, self.last_rank = mesh.stage_rank(0), mesh.stage_rank(self.pp - 1)
+        self.last_rank = mesh.stage_rank(self.pp - 1)
         self._pp_axes = (PP_AXIS,) if self.pp > 1 else ()
         if self.pp > 1:
             self.embed_group = mesh.group_for(EMBED_GROUP)
@@ -342,14 +350,16 @@ class P2PTransport(Transport):
             else:
                 ops = []
                 for kind, mb in step.sends:
-                    t = outbox.pop((kind, mb)).detach().contiguous()
-                    ops.append(dist.P2POp(dist.isend, t, self.next if kind == "fwd" else self.prev))
+                    for t in outbox.pop((kind, mb)):
+                        ops.append(dist.P2POp(dist.isend, t.detach().contiguous(),
+                                              self.next if kind == "fwd" else self.prev))
                 for kind, mb in step.recvs:
-                    shape, dtype = boundary(mb)
-                    buf = torch.empty(shape, dtype=dtype, device=self.mesh.device)
-                    ops.append(dist.P2POp(dist.irecv, buf,
-                                          self.prev if kind == "fwd" else self.next))
-                    inbox[(kind, mb)] = buf
+                    fwd = kind == "fwd"
+                    bufs = tuple(torch.empty(shape, dtype=dtype, device=self.mesh.device)
+                                 for shape, dtype in boundary(mb, self.stage - fwd))
+                    ops.extend(dist.P2POp(dist.irecv, buf, self.prev if fwd else self.next)
+                               for buf in bufs)
+                    inbox[(kind, mb)] = bufs
                 for work in dist.batch_isend_irecv(ops):
                     work.wait()
 
@@ -361,12 +371,25 @@ class P2PTransport(Transport):
                         group=self.pp_group)
         return {self.stage: v}
 
-    def sum_tied(self, values):
+    def _over(self, holders):
+        """(group, is this stage a member): the embedding group for the
+        first and the last stage, else the pp group, where a stage that
+        holds nothing takes part with zeros."""
+        if tuple(holders) == (0, self.pp - 1):
+            return self.embed_group, self.stage in holders
+        return self.pp_group, True
+
+    def sum_shared(self, values, holders, like):
         import torch.distributed as dist
 
-        v = values[self.stage]
-        dist.all_reduce(v, group=self.embed_group)
-        return {self.stage: v}
+        group, member = self._over(holders)
+        if not member:
+            return {}
+        v = values.get(self.stage)
+        if v is None:
+            v = torch.zeros(like[0], dtype=like[1], device=self.mesh.device)
+        dist.all_reduce(v, group=group)
+        return {self.stage: v} if self.stage in holders else {}
 
     def from_last(self, values):
         import torch.distributed as dist
@@ -375,11 +398,17 @@ class P2PTransport(Transport):
         dist.broadcast(v, src=self.last_rank, group=self.pp_group)
         return {self.stage: v}
 
-    def first_to_last(self, values) -> None:
+    def copy_shared(self, values, holders, like) -> None:
         import torch.distributed as dist
 
+        group, member = self._over(holders)
+        if not member:
+            return
+        v = values.get(self.stage)
+        if v is None:
+            v = torch.empty(like[0], dtype=like[1], device=self.mesh.device)
         with torch.no_grad():
-            dist.broadcast(values[self.stage], src=self.first_rank, group=self.embed_group)
+            dist.broadcast(v, src=self.mesh.stage_rank(holders[0]), group=group)
 
     def gather(self, values):
         import torch.distributed as dist

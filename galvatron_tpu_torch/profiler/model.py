@@ -29,8 +29,15 @@ kernels on the card):
 Per-tp activation rows are act/k, as the JAX package's one-process profile
 writes them; its measured ``ulysses_k`` and ``cp_k`` rows need a k-rank
 world to profile and are not ported yet (ROADMAP queue 1, the rest of item
-8): the search prices those axes with the act/k rows. The T5 and Swin
-profilers wait for their families (item 9).
+8): the search prices those axes with the act/k rows.
+
+`T5ModelProfiler` profiles T5's two layer types (layertype_0 the encoder
+layer, layertype_1 the decoder layer, differenced against a fixed encoder
+output so cross-attention lands in the decoder's cost); `SwinModelProfiler`
+one layer type per stage, each at its stage's resolution and width, with
+shifted blocks alternating as in the model. Both write the reference's file
+names and keys; the other-layers tables come from the model at zero
+layers (embedding, merges, norms, head).
 
 The output files and their schema are the JAX package's:
   computation_profiling_<prec>_hidden<h>_head<nh>_seqlen<s>_<model>.json
@@ -145,18 +152,15 @@ class SavedBytes:
 
 
 class ModelProfiler:
-    """Profiles one causal-LM family of the port (llama, gpt): one layer
-    type."""
+    """Profiles a family of the generic transformer (llama, gpt, bert,
+    vit): one layer type. Subclasses override `_stack_t`,
+    `_layer_param_bytes`, `_full_model` and `_other_model_state_tables`."""
 
     layer_types = 1
 
     def __init__(self, cfg, model_name: str = "model",
                  args: Optional[ModelProfileArgs] = None):
-        if not isinstance(cfg, M.TransformerConfig):
-            raise TypeError(
-                "ModelProfiler profiles the port's TransformerConfig families; the "
-                "T5 and Swin profilers come with their families (ROADMAP queue 1 "
-                "item 9)")
+        self._check_config(cfg)
         self.cfg = cfg
         self.model_name = model_name
         self.args = args or ModelProfileArgs()
@@ -182,39 +186,59 @@ class ModelProfiler:
             self.args.mixed_precision, c.hidden_size, c.num_heads, self._target_seq
         )
 
+    def _check_config(self, cfg) -> None:
+        if not isinstance(cfg, M.TransformerConfig):
+            raise TypeError("ModelProfiler profiles the port's TransformerConfig families "
+                            "(T5 and Swin have their own profilers)")
+
     def _generator(self) -> torch.Generator:
         return torch.Generator(device=self._device).manual_seed(0)
 
     # ------------------------------------------------------ stacks and models
+    def _init_layers(self, layers: nn.Module, init_fn) -> nn.Module:
+        gen = self._generator()
+        with torch.no_grad():
+            for name, p in layers.named_parameters():
+                init_fn(name, p, gen)
+        return layers
+
+    def _stack(self, layers: nn.Module, x: torch.Tensor, body, policy: str):
+        """(fwd, layers, (x,)): ``fwd(layers, x)`` runs ``body(j, layer, x)``
+        through the layers in order, each under the remat `policy` ("none":
+        plain), and sums the output."""
+        def fwd(layers, x):
+            for j, lp in enumerate(layers):
+                def step(x_, _j=j, _lp=lp):
+                    return body(_j, _lp, x_)
+
+                if policy == "none" or not torch.is_grad_enabled():
+                    x = step(x)
+                else:
+                    if self._saving is not None:
+                        self._saving.add(x)  # what the checkpoint keeps
+                    x = M._remat(step, policy)(x)
+            return x.float().sum()
+
+        return fwd, layers, (x,)
+
     def _stack_t(self, t: int, n: int, bsz: int, seq: int, policy: str = "none"):
         """An n-layer stack of layer type `t` (no embedding or head), its
         input, and its forward ``fwd(layers, x) -> scalar`` with every layer
         under the remat `policy` ("none": plain). Returns (fwd, layers,
         (x,))."""
         cfg = dataclasses.replace(self.cfg, num_layers=max(n, 1))
-        dev, gen = self._device, self._generator()
-        layers = nn.ModuleList(M.TransformerLayer(cfg, dev) for _ in range(n))
-        with torch.no_grad():
-            for name, p in layers.named_parameters():
-                M.init_param_(name, p, cfg, gen)
-        x = torch.randn((bsz, seq, cfg.hidden_size), generator=gen,
+        dev = self._device
+        layers = self._init_layers(nn.ModuleList(M.TransformerLayer(cfg, dev) for _ in range(n)),
+                                   lambda name, p, gen: M.init_param_(name, p, cfg, gen))
+        x = torch.randn((bsz, seq, cfg.hidden_size), generator=self._generator(),
                         device=dev).to(cfg.compute_dtype)
         positions = torch.arange(seq, device=dev).expand(bsz, seq)
+        return self._stack(layers, x, lambda j, lp, x_: M.layer_forward(lp, x_, positions, cfg),
+                           policy)
 
-        def fwd(layers, x):
-            for lp in layers:
-                def body(x_, _lp=lp):
-                    return M.layer_forward(_lp, x_, positions, cfg)
-
-                if policy == "none" or not torch.is_grad_enabled():
-                    x = body(x)
-                else:
-                    if self._saving is not None:
-                        self._saving.add(x)  # what the checkpoint keeps
-                    x = M._remat(body, policy)(x)
-            return x.float().sum()
-
-        return fwd, layers, (x,)
+    def _layer_param_bytes(self, t: int) -> int:
+        return _module_bytes(M.TransformerLayer(dataclasses.replace(self.cfg, num_layers=1),
+                                                "meta"))
 
     def _full_model(self, n_layers: int, bsz: int, seq: int):
         """(loss_fn, params, batch) for the whole model at `n_layers` layers:
@@ -423,8 +447,7 @@ class ModelProfiler:
             t *= 2
         out: Dict = {}
         for lt in range(self.layer_types):
-            cfg = dataclasses.replace(self.cfg, num_layers=1)
-            param_mb = _module_bytes(M.TransformerLayer(cfg, "meta")) / MB
+            param_mb = self._layer_param_bytes(lt) / MB
             act1 = self._act_bytes(lt, bsz, seq, remat=False) / MB
             act_ckpt = self._act_bytes(lt, bsz, seq, remat=True) / MB
             tp_act = {k: round(act1 / k, 3) for k in tps}
@@ -479,3 +502,139 @@ class ModelProfiler:
             for k, v in results.items():
                 write_json_config(v, paths[k])
         return results
+
+
+class T5ModelProfiler(ModelProfiler):
+    """T5's two layer types: layertype_0 the encoder layer, layertype_1 the
+    decoder layer, differenced against a FIXED encoder output so the
+    cross-attention cost lands in the decoder's type."""
+
+    layer_types = 2
+
+    def _check_config(self, cfg) -> None:
+        from galvatron_tpu_torch.models.t5 import T5Config
+
+        if not isinstance(cfg, T5Config):
+            raise TypeError("T5ModelProfiler needs a T5Config")
+
+    def _stack_t(self, t: int, n: int, bsz: int, seq: int, policy: str = "none"):
+        from galvatron_tpu_torch.models import t5 as T5
+
+        cfg, dev = self.cfg, self._device
+        layers = self._init_layers(
+            nn.ModuleList(T5.T5Layer(cfg, dev, decoder=t == 1) for _ in range(n)),
+            lambda name, p, gen: T5.init_param_(name, p, cfg, gen))
+        gen = self._generator()
+        x = torch.randn((bsz, seq, cfg.hidden_size), generator=gen, device=dev)
+        table = torch.randn((cfg.rel_buckets, cfg.num_heads), generator=gen, device=dev) * 0.02
+        bias = T5.rel_bias(table, seq, seq, cfg, bidirectional=t == 0)
+        if t == 0:
+            body = lambda j, lp, x_: T5.enc_layer_forward(lp, x_, cfg, bias)
+        else:
+            mem = torch.randn((bsz, seq, cfg.hidden_size), generator=gen,
+                              device=dev).to(cfg.compute_dtype)
+            body = lambda j, lp, x_: T5.dec_layer_forward(lp, x_, mem, cfg, bias)
+        return self._stack(layers, x.to(cfg.compute_dtype), body, policy)
+
+    def _layer_param_bytes(self, t: int) -> int:
+        from galvatron_tpu_torch.models.t5 import T5Layer
+
+        return _module_bytes(T5Layer(self.cfg, "meta", decoder=t == 1))
+
+    def _full_model(self, n_layers: int, bsz: int, seq: int):
+        from galvatron_tpu_torch.models import t5 as T5
+
+        cfg = dataclasses.replace(self.cfg, num_enc_layers=n_layers, num_dec_layers=n_layers)
+        gen, dev = self._generator(), self._device
+        params = T5.init_t5_params(cfg, gen, dev)
+        dec = torch.randint(0, cfg.vocab_size, (bsz, seq), generator=gen, device=dev)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (bsz, seq), generator=gen,
+                                         device=dev),
+                 "dec_tokens": dec, "labels": dec}
+        return (lambda p, b: T5.t5_loss_fn(p, b, cfg)), params, batch
+
+    def _other_model_state_tables(self, bsz: int, seq: int, tps: Sequence[int]):
+        loss, params, batch = self._full_model(0, bsz, seq)
+        embed_mb = _module_bytes(params.embed) / MB
+        rest_mb = _module_bytes(params) / MB - embed_mb
+        head_mb = embed_mb if self.cfg.tie_embeddings else _module_bytes(params.lm_head) / MB
+        act_total = self._measured(self._grad_bytes(loss, params, (batch,)))
+        return embed_mb, head_mb, rest_mb, max(act_total, 1024.0) / MB
+
+
+class SwinModelProfiler(ModelProfiler):
+    """One layer type per Swin stage: layertype_s is stage s's block at its
+    own resolution and width (the headline sequence is the stage-0 patch
+    grid's token count)."""
+
+    def _check_config(self, cfg) -> None:
+        from galvatron_tpu_torch.models.swin import SwinConfig
+
+        if not isinstance(cfg, SwinConfig):
+            raise TypeError("SwinModelProfiler needs a SwinConfig")
+
+    @property
+    def layer_types(self):  # type: ignore[override]
+        return self.cfg.num_stages
+
+    @property
+    def _target_seq(self) -> int:
+        return self.args.profile_seq_length or self.cfg.stage_resolution(0) ** 2
+
+    def _file_tag(self) -> str:
+        c = self.cfg
+        return "%s_hidden%d_head%d_seqlen%d" % (
+            self.args.mixed_precision, c.embed_dim, c.num_heads[0], self._target_seq)
+
+    def _stack_t(self, t: int, n: int, bsz: int, seq: int, policy: str = "none"):
+        # `seq` is unused: each stage has its resolution from the config
+        from galvatron_tpu_torch.models import swin as W
+
+        cfg, dev = self.cfg, self._device
+        layers = self._init_layers(nn.ModuleList(W.SwinBlock(cfg, t, dev) for _ in range(n)),
+                                   lambda name, p, gen: W.init_param_(name, p, cfg, gen))
+        res = cfg.stage_resolution(t)
+        x = torch.randn((bsz, res, res, cfg.stage_dim(t)), generator=self._generator(),
+                        device=dev).to(cfg.compute_dtype)
+        return self._stack(layers, x, lambda j, lp, x_: W.block_forward(lp, x_, cfg, t,
+                                                                         j % 2 == 1), policy)
+
+    def _layer_param_bytes(self, t: int) -> int:
+        from galvatron_tpu_torch.models.swin import SwinBlock
+
+        return _module_bytes(SwinBlock(self.cfg, t, "meta"))
+
+    def _full_model(self, n_layers: int, bsz: int, seq: int):
+        """The model at `n_layers` blocks per stage; at zero, the embedding,
+        the merges and the head alone."""
+        from galvatron_tpu_torch.models import swin as W
+
+        cfg = dataclasses.replace(self.cfg, depths=tuple(max(n_layers, 1) for _ in
+                                                         self.cfg.depths))
+        gen, dev = self._generator(), self._device
+        params = W.init_swin_params(cfg, gen, dev)
+        batch = {"pixels": torch.randn((bsz, cfg.image_size, cfg.image_size, cfg.num_channels),
+                                       generator=gen, device=dev),
+                 "labels": torch.randint(0, max(cfg.num_classes, 1), (bsz,), generator=gen,
+                                         device=dev)}
+        if n_layers:
+            return (lambda p, b: W.swin_loss_fn(p, b, cfg)), params, batch
+        params.blocks = nn.ModuleDict()
+
+        def loss(p, b):
+            dtype, res = cfg.compute_dtype, cfg.stage_resolution(0)
+            x = W._ln(M._proj(M.patchify(b["pixels"].to(dtype), cfg.patch_size), p.embed.patch,
+                              dtype), p.embed.norm, cfg).reshape(bsz, res, res, cfg.embed_dim)
+            for s in range(cfg.num_stages - 1):
+                x = W.patch_merge(p.merges[str(s)], x, cfg)
+            x = W._ln(x.reshape(bsz, -1, x.shape[-1]), p.final_norm, cfg)
+            return M.classification_loss(M._proj(x.mean(dim=1), p.head, dtype), b["labels"])
+        return loss, params, batch
+
+    def _other_model_state_tables(self, bsz: int, seq: int, tps: Sequence[int]):
+        loss, params, batch = self._full_model(0, bsz, seq)
+        embed_mb = _module_bytes(params.embed) / MB
+        head_mb = _module_bytes(params.head) / MB
+        rest_mb = (_module_bytes(params.merges) + _module_bytes(params.final_norm)) / MB
+        act_total = self._measured(self._grad_bytes(loss, params, (batch,)))
+        return embed_mb, head_mb, rest_mb, max(act_total, 1024.0) / MB

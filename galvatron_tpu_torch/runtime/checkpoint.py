@@ -603,14 +603,15 @@ def _saved_specs(cfg, hp: HybridParallelConfig) -> Dict[str, Dict[str, Any]]:
     under `hp`: the parameter's layout, and for the Adam moments that layout
     dp-sharded on `moment_dim` wherever ZeRO-2 applies
     (``HybridParallelModel.grad_accum_specs``)."""
-    from galvatron_tpu_torch.models import base as M
     from galvatron_tpu_torch.parallel.mesh import RankMesh
+    from galvatron_tpu_torch.runtime.model_api import model_def
     from galvatron_tpu_torch.runtime.optimizer import moment_dim, moment_spec
 
-    layouts = M.model_param_layouts(cfg, hp)
+    arch = model_def(cfg, hp)
+    layouts = arch.param_layouts()
     mesh = RankMesh(hp, 0)
     moments = {}
-    for n, p in M.TransformerLM(cfg, "meta").named_parameters():
+    for n, p in arch.tree("meta").named_parameters():
         pl = layouts[n]
         d = moment_dim(pl.spec, p.shape, mesh.size(pl.dp), pl.zero_opt, pl.z3_dim is not None)
         moments[n] = moment_spec(pl.spec, p.dim(), d, pl.dp)
@@ -636,10 +637,10 @@ class SavedShards:
     nothing else."""
 
     def __init__(self, files: Dict[int, Dict[str, Any]], saved_hp: HybridParallelConfig, cfg):
-        from galvatron_tpu_torch.models import base as M
         from galvatron_tpu_torch.parallel.mesh import RankMesh
+        from galvatron_tpu_torch.runtime.model_api import model_def
 
-        self.shapes = {n: tuple(p.shape) for n, p in M.TransformerLM(cfg, "meta")
+        self.shapes = {n: tuple(p.shape) for n, p in model_def(cfg, saved_hp).tree("meta")
                        .named_parameters()}
         specs = _saved_specs(cfg, saved_hp)
         self.files = files
@@ -744,6 +745,26 @@ def _continuity(manifest: Dict[str, Any], files: Dict[int, Dict[str, Any]],
         if any(got[k] != want.get(k) for k in ("digest", "spec_digest", "num_leaves")):
             bad.append("rank %d %s" % (r, rec))
     return bad, checked
+
+
+def same_pipeline_layout(a: HybridParallelConfig, b: HybridParallelConfig) -> bool:
+    """True when both strategies stage the layers alike (pp and division):
+    then a family's own tree has the same parameters on every stage."""
+    return a.pp == b.pp and (a.pp == 1 or list(a.pp_division) == list(b.pp_division))
+
+
+def check_family_layout(cfg, saved_hp: HybridParallelConfig, hp: HybridParallelConfig) -> None:
+    """GLS207: a family that builds its own tree (T5, Swin) is restored
+    across strategies only under the pipeline layout it was saved with, as
+    the reference's migration refuses them across layouts."""
+    from galvatron_tpu_torch.models.base import GenericDef
+    from galvatron_tpu_torch.runtime.model_api import model_def
+
+    if not isinstance(model_def(cfg, hp), GenericDef) and not same_pipeline_layout(saved_hp, hp):
+        raise _diag("GLS207", "restore across pipeline layouts (pp %d %s -> pp %d %s) is only "
+                    "supported for the generic transformer tree; this family builds its own "
+                    "params" % (saved_hp.pp, list(saved_hp.pp_division), hp.pp,
+                                list(hp.pp_division)))
 
 
 def _restore_across(ckpt_dir: str, step: int, manifest: Dict[str, Any],
@@ -917,11 +938,12 @@ def load_checkpoint(
                 _RESTORING.add(step)
             try:
                 if across:
+                    saved_hp = _saved_strategy(manifest, ckpt_dir, step)
+                    check_family_layout(target.cfg, saved_hp, target.hp)
                     # collective: its verdict is every rank's, and an error
                     # raises (a rank that went on would wait for the others)
-                    reason, stats = _restore_across(
-                        ckpt_dir, step, manifest, _saved_strategy(manifest, ckpt_dir, step),
-                        target, *stages, verify_integrity)
+                    reason, stats = _restore_across(ckpt_dir, step, manifest, saved_hp,
+                                                    target, *stages, verify_integrity)
                 else:
                     loaded = retrying(lambda s=step: _read_rank(ckpt_dir, s, rank),
                                       "checkpoint read")
@@ -997,9 +1019,9 @@ def _full_state(ckpt_dir: str, iteration: Optional[int], cfg, moments: bool):
     """Every saved rank's file verified against the manifest, and its
     shards copied into the full tensors where the saved strategy puts them
     (``parallel.spec.shard_tensor``)."""
-    from galvatron_tpu_torch.models import base as M
     from galvatron_tpu_torch.parallel import spec as S
     from galvatron_tpu_torch.parallel.mesh import RankMesh
+    from galvatron_tpu_torch.runtime.model_api import model_def
 
     if iteration is None:
         intact = intact_iterations(ckpt_dir)
@@ -1015,7 +1037,7 @@ def _full_state(ckpt_dir: str, iteration: Optional[int], cfg, moments: bool):
     specs = _saved_specs(cfg, saved_hp)
     items = ("params", "mu", "nu") if moments else ("params",)
     full = {item: {n: torch.empty(p.shape, dtype=cfg.param_dtype)
-                   for n, p in M.TransformerLM(cfg, "meta").named_parameters()}
+                   for n, p in model_def(cfg, saved_hp).tree("meta").named_parameters()}
             for item in items}
     counts = set()
     for r in range(saved_hp.world_size):

@@ -2,13 +2,14 @@
 choice between it and an indexed corpus.
 
 Port of ``galvatron_tpu/runtime/dataloader.py`` for the token-stream
-(``lm``) and image (``vision``) families. `RandomTextDataset` and
+(``lm``), encoder-decoder (``seq2seq``) and image (``vision``) families.
+`RandomTextDataset`, `get_seq2seq_train_iterator` and
 `get_vision_train_iterator` draw from the same ``np.random.RandomState``
 streams as the reference, so both packages see identical batches for one
 seed; `build_data_iterator` (the function of that name in the reference's
-``cli/train.py``, without T5's seq2seq branch) picks the indexed corpus or
-the vision shard of ``--data_path`` (``data/dataset.py``) or the synthetic
-stream, per split.
+``cli/train.py``) picks the indexed corpus (span-corrupted for
+``seq2seq``) or the vision shard of ``--data_path`` (``data/dataset.py``)
+or the synthetic stream, per split.
 
 `prepare_batch` applies the zigzag context-parallel layout, as the
 reference does: under ``cp_mode="zigzag"`` with any cp > 1 (a layer's or
@@ -114,6 +115,27 @@ def get_vision_train_iterator(
         step += 1
 
 
+def get_seq2seq_train_iterator(
+    hp: HybridParallelConfig, vocab_size: int, enc_seq_len: int, dec_seq_len: int,
+    seed: int = 1234, start_step: int = 0, device="cpu",
+) -> Iterator[Dict[str, torch.Tensor]]:
+    """Synthetic encoder-decoder stream: {tokens, dec_tokens, labels (the
+    decoder tokens rolled by one), loss_mask (the rolled last position
+    out)}, a pure function of the step."""
+    step = start_step
+    while True:
+        rng = np.random.RandomState(seed + step)
+        dec = rng.randint(0, vocab_size, (hp.global_bsz, dec_seq_len))
+        loss_mask = np.ones((hp.global_bsz, dec_seq_len), np.float32)
+        loss_mask[:, -1] = 0.0
+        tokens = rng.randint(0, vocab_size, (hp.global_bsz, enc_seq_len))
+        batch = {"tokens": tokens, "dec_tokens": dec, "labels": np.roll(dec, -1, axis=1),
+                 "loss_mask": loss_mask}
+        yield {k: torch.from_numpy(v if v.dtype == np.float32 else v.astype(np.int64)).to(device)
+               for k, v in batch.items()}
+        step += 1
+
+
 # synthetic streams have no documents to split: each split is a disjoint,
 # deterministic stream of its own seed (the reference's offsets)
 SPLIT_SEED_OFFSETS = {"train": 0, "valid": 7919, "test": 15838}
@@ -123,12 +145,12 @@ def build_data_iterator(args, fam, cfg, hp: HybridParallelConfig, start_step: in
                         split: str = "train", device="cpu") -> Iterator[Dict[str, torch.Tensor]]:
     """The global-batch stream of one split: the indexed corpus of
     ``args.data_path`` (``--split`` document weights) when given, else the
-    synthetic stream of the family's data kind (``lm``: tokens; ``vision``:
+    synthetic stream of the family's data kind (``lm``: tokens; ``seq2seq``:
+    encoder and decoder tokens, both ``max_seq_len`` long; ``vision``:
     pixels and labels). Both are pure functions of the step index, so
     `start_step` resumes in O(1)."""
-    if fam.data_kind not in ("lm", "vision"):
-        raise ValueError("data_kind %r is not ported yet (T5's seq2seq comes with its "
-                         "family)" % fam.data_kind)
+    if fam.data_kind not in ("lm", "seq2seq", "vision"):
+        raise ValueError("unknown data_kind %r" % fam.data_kind)
     split_seed = args.seed + SPLIT_SEED_OFFSETS.get(split, 0)
     if getattr(args, "data_path", None):
         from galvatron_tpu_torch.data import dataset
@@ -138,6 +160,10 @@ def build_data_iterator(args, fam, cfg, hp: HybridParallelConfig, start_step: in
         if fam.data_kind == "vision":
             it = dataset.vision_data_iterator(args.data_path, hp, image_size=cfg.image_size,
                                               num_channels=cfg.num_channels, **kw)
+        elif fam.data_kind == "seq2seq":
+            it = dataset.t5_data_iterator(args.data_path, hp, enc_seq_len=cfg.max_seq_len,
+                                          dec_seq_len=cfg.max_seq_len,
+                                          vocab_size=cfg.vocab_size, **kw)
         else:
             it = dataset.gpt_data_iterator(args.data_path, hp, seq_len=cfg.max_seq_len, **kw)
         if torch.device(device).type == "cpu":
@@ -146,5 +172,8 @@ def build_data_iterator(args, fam, cfg, hp: HybridParallelConfig, start_step: in
     if fam.data_kind == "vision":
         return get_vision_train_iterator(hp, cfg.image_size, cfg.num_channels, cfg.num_classes,
                                          seed=split_seed, start_step=start_step, device=device)
+    if fam.data_kind == "seq2seq":
+        return get_seq2seq_train_iterator(hp, cfg.vocab_size, cfg.max_seq_len, cfg.max_seq_len,
+                                          seed=split_seed, start_step=start_step, device=device)
     return get_train_iterator(hp, cfg.vocab_size, cfg.max_seq_len, seed=split_seed,
                               start_step=start_step, device=device)

@@ -11,7 +11,9 @@ with ``--elastic resume|search`` the train CLI calls
 2. refuses, with the reference's GLS2xx diagnostics (exit code 2 at the
    CLI), a checkpoint it cannot resume safely: another model (GLS201), no
    provenance (GLS204), a changed world with no way to pick a strategy
-   (GLS205), or no strategy that fits the budget (GLS203);
+   (GLS205), or no strategy that fits the budget (GLS203), and, for a
+   family that builds its own tree (T5, Swin), a strategy of another
+   pipeline layout (GLS207, as the reference's migration refuses it);
 3. on an unchanged world without ``--elastic_strategy`` returns the SAVED
    strategy (action "match"): the restore is the plain, bitwise one;
 4. otherwise takes the ``--elastic_strategy`` JSON (its analytic stage
@@ -332,6 +334,7 @@ def resolve_resume_strategy(
     report = _slint.lint_hp(hp, model_cfg=model_cfg)
     if not report.ok:
         raise D.DiagnosticError(report.errors)
+    ckpt.check_family_layout(model_cfg, saved_hp, hp)
     if action == "strategy_file":
         # the search held the budget itself; a hand-supplied strategy gets
         # the analytic check

@@ -41,6 +41,15 @@ sum, the gradient norm, the guard's verdict, the loss) goes through the
 model's transport. Without a pipeline the same path runs one stage, in the
 1F1B order (each micro-batch's forward, then its backward).
 
+The family's parameter tree comes from its model def (`model_def`:
+``models.base.GenericDef`` for the generic transformer, ``models.t5.T5Def``
+and ``models.swin.SwinDef`` for the families with their own trees): the
+tree of a stage, its placements and runtime layouts, the stage body, the
+shapes that cross each stage boundary (a tuple of tensors: T5's decoder
+stages send the encoder output beside their state; Swin's shapes change at
+each merge), and the parameters several stages hold, whose gradients are
+summed over those stages (a tied table, T5's shared tables).
+
 Params, gradients and Adam states are per-stage mappings, keyed by the
 stage: one entry for a process that is one stage (``transport="p2p"``, or
 no pipeline), every stage for a process that hosts them all
@@ -64,15 +73,26 @@ from galvatron_tpu_torch.parallel.mesh import RankMesh, build_mesh, vocab_axes
 from galvatron_tpu_torch.parallel.pipeline_1f1b import one_f_one_b_order
 from galvatron_tpu_torch.runtime.optimizer import AdamState, AdamW, moment_dim, moment_spec
 
-TIED = "embed.wte"  # the table a tied model's first and last stage both hold
+def model_def(cfg, hp: HybridParallelConfig):
+    """The family's view of its parameter tree for the layout path
+    (``models.base.GenericDef``'s members): T5's and Swin's own trees, else
+    the generic transformer's."""
+    from galvatron_tpu_torch.models import swin, t5
+
+    if isinstance(cfg, t5.T5Config):
+        return t5.T5Def(cfg, hp)
+    if isinstance(cfg, swin.SwinConfig):
+        return swin.SwinDef(cfg, hp)
+    return M.GenericDef(cfg, hp)
 
 
-def check_layout(hp: HybridParallelConfig, mode: str = "train") -> None:
+def check_layout(hp: HybridParallelConfig, mode: str = "train", cfg=None) -> None:
     """Raise ValueError unless this slice executes `hp`: in train mode any
     world size with per-layer DP / ZeRO-2/3 / Megatron TP(+SP) / Ulysses /
     ring cp / vocab TP, sp and cp, and GPipe or 1F1B pipelines within the
-    reference's contracts (``analysis.strategy_lint.train_refusals``); in
-    serve mode world size 1 only."""
+    reference's contracts, and what the family of `cfg` refuses
+    (``analysis.strategy_lint.train_refusals``); in serve mode world size 1
+    only."""
     from galvatron_tpu_torch.analysis.strategy_lint import train_refusals
 
     if mode == "serve":
@@ -82,7 +102,7 @@ def check_layout(hp: HybridParallelConfig, mode: str = "train") -> None:
                 "world_size=%d (the serve engine's tp/dp KV layouts come with ROADMAP "
                 "queue 1 item 3's serve follow-up)" % hp.world_size)
         return
-    problems = train_refusals(hp)
+    problems = train_refusals(hp, cfg)
     if problems:
         raise ValueError("galvatron_tpu_torch does not execute this strategy yet: %s"
                          % "; ".join(problems))
@@ -100,14 +120,18 @@ class HybridParallelModel:
     device: torch.device
     mesh: RankMesh
     param_layouts: Dict[str, M.ParamLayout]
+    arch: M.GenericDef = None  # the family's tree (`model_def`)
     transport: Optional[PL.Transport] = None  # default: this rank's stage, point to point
     stage_meshes: Dict[int, RankMesh] = field(default_factory=dict)
     _layouts: Dict[int, M.ModelLayouts] = field(default_factory=dict, repr=False)
     _grad_spec_cache: Optional[Dict[str, S.Spec]] = field(default=None, repr=False)
+    _shape_cache: Optional[Dict[str, Tuple[int, ...]]] = field(default=None, repr=False)
 
     def __post_init__(self):
         if not self.stage_meshes:
             self.stage_meshes = {self.mesh.stage: self.mesh}
+        if self.arch is None:
+            self.arch = model_def(self.cfg, self.hp)
         if self.transport is None:
             self.transport = PL.P2PTransport(self.mesh)
 
@@ -118,16 +142,18 @@ class HybridParallelModel:
         stage under a `LocalTransport`."""
         return tuple(sorted(self.stage_meshes))
 
-    def _tied_copy(self, stage: int) -> bool:
-        """True for the last stage's copy of a tied table."""
-        return self.cfg.tie_embeddings and self.hp.pp > 1 and stage == self.hp.pp - 1
+    def _copy(self, name: str, stage: int) -> bool:
+        """True for a stage's copy of a parameter that an earlier stage
+        also holds (a tied table's last-stage copy, T5's shared tables)."""
+        holders = self.arch.shared().get(name)
+        return holders is not None and stage != holders[0]
 
     # -------------------------------------------------------------- layouts
     def layouts_of(self, stage: int) -> M.ModelLayouts:
         """Per-layer runtime layouts of a hosted stage (process groups;
         built at first use)."""
         if stage not in self._layouts:
-            self._layouts[stage] = M.build_layouts(self.cfg, self.hp, self.stage_meshes[stage])
+            self._layouts[stage] = self.arch.build_layouts(self.stage_meshes[stage])
         return self._layouts[stage]
 
     @property
@@ -155,7 +181,7 @@ class HybridParallelModel:
             self._grad_spec_cache = {
                 n: moment_spec(self.param_layouts[n].spec, p.dim(), self.moment_dim(n, p.shape),
                                self.param_layouts[n].dp)
-                for n, p in M.TransformerLM(self.cfg, "meta").named_parameters()}
+                for n, p in self.arch.tree("meta").named_parameters()}
         return self._grad_spec_cache
 
     # --------------------------------------------------------------- params
@@ -163,26 +189,25 @@ class HybridParallelModel:
         t = S.shard_tensor(full, self.param_layouts[name].spec, self.stage_meshes[stage])
         return t if t.shape == full.shape else t.clone()
 
-    def _meta_model(self, stage: int) -> M.TransformerLM:
-        if self.hp.pp == 1:
-            return M.TransformerLM(self.cfg, "meta")
-        return M.stage_model(self.cfg, self.hp, stage, "meta")
+    def _meta_model(self, stage: int) -> nn.Module:
+        return self.arch.tree("meta", stage if self.hp.pp > 1 else None)
 
     def init_params(self, seed: int) -> Dict[int, nn.Module]:
         """This process's parameters on `self.device`, per hosted stage.
-        Each parameter is drawn in full from a
-        torch.Generator seeded with `seed` (in the order of
-        ``models.base.init_model_params``, so a world of one gets its exact
-        weights) and sliced; a stage keeps the parameters it holds, so every
-        world size and pipeline division starts from the same weights."""
+        Each parameter is drawn in full from a torch.Generator seeded with
+        `seed` (in the order of the family's whole tree: for the generic
+        family ``models.base.init_model_params``'s, so a world of one gets
+        its exact weights) and sliced; a stage keeps the parameters it
+        holds, so every world size and pipeline division starts from the
+        same weights."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
         models = {s: self._meta_model(s) for s in self.stages}
         held = {s: dict(m.named_parameters()) for s, m in models.items()}
         with torch.no_grad():
-            for name, p in M.TransformerLM(self.cfg, "meta").named_parameters():
+            for name, p in self.arch.tree("meta").named_parameters():
                 full = torch.empty(p.shape, dtype=self.cfg.param_dtype, device=self.device)
-                M.init_param_(name, full, self.cfg, gen)
+                self.arch.init_param_(name, full, gen)
                 holders = [s for s in self.stages if name in held[s]]
                 for k, s in enumerate(holders):
                     t = self._shard(name, full, s)
@@ -315,23 +340,6 @@ class HybridParallelModel:
             return one_f_one_b_order(pp, chunks, stage)
         return PL.gpipe_order(pp, chunks, stage, backward)
 
-    def _boundary(self, mbs) -> PL.BoundaryFn:
-        """(shape, dtype) of a micro-batch's activation between stages: its
-        rows, its sequence shard in the vocab layout (the tokens' shard,
-        cut over tp once more under vocab Megatron-SP; for pixels, the
-        patch sequence's shard), the hidden width."""
-        vax = vocab_axes(self.hp)
-        seq = self.mesh.size(vax.seq_axes) // self.mesh.size(S.token_seq_axes(vax))
-
-        def boundary(mb: int):
-            if "pixels" in mbs[mb]:
-                rows = mbs[mb]["pixels"].shape[0]
-                length = self.cfg.max_seq_len // self.mesh.size(S.token_seq_axes(vax))
-            else:
-                rows, length = mbs[mb]["tokens"].shape[:2]
-            return (rows, length // seq, self.cfg.hidden_size), self.cfg.compute_dtype
-        return boundary
-
     def _run_pipeline(self, params: Dict[int, nn.Module], batch: Dict[str, torch.Tensor],
                       backward: bool):
         """Every micro-batch of `batch` through the stage schedules (with
@@ -340,7 +348,7 @@ class HybridParallelModel:
         stage (named params, ZeRO-2 dims, ZeRO-2 accumulators)."""
         mbs = self._micro_batches(batch)
         last = self.hp.pp - 1
-        runners = {s: PL.StageRunner(s, m, self.cfg, self.hp, self.layouts_of(s))
+        runners = {s: PL.StageRunner(s, self.arch.stage_body(s, m, self.layouts_of(s)), self.hp)
                    for s, m in params.items()}
         weights = self._mb_weights(mbs, self.layouts_of(last)) if last in runners else None
         state = {}
@@ -360,7 +368,7 @@ class HybridParallelModel:
             return out
 
         self.transport.run({s: self._schedule(s, backward) for s in params}, forward,
-                           backward_fn, self._boundary(mbs))
+                           backward_fn, self.arch.boundary(mbs, self.mesh))
         losses = {s: comm.all_reduce(r.loss, self.layouts_of(s).vocab.token_group) if s == last
                   else torch.zeros((), device=self.device) for s, r in runners.items()}
         return self.transport.from_last(losses)[self.stages[0]], state
@@ -372,12 +380,24 @@ class HybridParallelModel:
         loss, state = self._run_pipeline(params, batch, backward=True)
         grads = {s: self._synced_grads(named, zero2, acc, self.stage_meshes[s])
                  for s, (named, zero2, acc) in state.items()}
-        ends = {s: grads[s][TIED] for s in grads
-                if self.cfg.tie_embeddings and self.hp.pp > 1 and s in (0, self.hp.pp - 1)}
-        if ends:
-            for s, g in self.transport.sum_tied(ends).items():
-                grads[s][TIED] = g
+        specs = self.grad_accum_specs()
+        for name, holders in self.arch.shared().items():
+            out = self.transport.sum_shared({s: grads[s][name] for s in grads if s in holders},
+                                            holders, self._like(name, specs[name]))
+            for s, g in out.items():
+                grads[s][name] = g
         return loss, grads
+
+    def _like(self, name: str, spec: S.Spec):
+        """(shape, dtype) of this rank's shard of `name` placed as `spec`."""
+        shape = self._full_shapes()[name]
+        return S.local_shape(shape, spec, self.mesh, name), self.cfg.param_dtype
+
+    def _full_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        if self._shape_cache is None:
+            self._shape_cache = {n: tuple(p.shape)
+                                 for n, p in self.arch.tree("meta").named_parameters()}
+        return self._shape_cache
 
     def _world_max(self, t: torch.Tensor) -> torch.Tensor:
         """The max of `t` over every rank: over the stage, then the stages."""
@@ -398,7 +418,7 @@ class HybridParallelModel:
             mesh = self.stage_meshes[s]
             total = torch.zeros((), dtype=torch.float32, device=self.device)
             for n, g in stage_grads.items():
-                if n == TIED and self._tied_copy(s):
+                if self._copy(n, s):
                     continue
                 axes = sorted({a for ax in specs[n] for a in ax}, key=mesh.names.index)
                 total = total + g.float().pow(2).sum() / (per_stage // mesh.size(axes))
@@ -439,8 +459,9 @@ class HybridParallelModel:
     def checkpoint_view(self, params: Dict[int, nn.Module],
                         opt_state: Optional[Dict[int, AdamState]] = None):
         """What this rank's checkpoint file holds of its stage's state: all
-        of it, but the last stage's copy of a tied table and of its moments
-        (the first stage saves them once; `restore_tied` refills the copy
+        of it, but a stage's copy of a shared parameter (the last stage's
+        copy of a tied table, T5's shared tables) and of its moments (the
+        first holder saves them once; `restore_tied` refills the copies
         after a load). Returns (module, AdamState) or name -> tensor views;
         a rank file holds one stage, so a process that hosts every stage
         has none."""
@@ -458,30 +479,34 @@ class HybridParallelModel:
         out = {}
         for s, module in params.items():
             state = opt_state[s] if opt_state is not None else None
-            if not self._tied_copy(s):
+            copies = {n for n in self.arch.shared() if self._copy(n, s)}
+            if not copies:
                 out[self.stage_meshes[s].rank] = (module, state)
                 continue
-            view = {n: p for n, p in module.named_parameters() if n != TIED}
+            view = {n: p for n, p in module.named_parameters() if n not in copies}
             out[self.stage_meshes[s].rank] = (view, None if state is None else AdamState(
-                count=state.count, mu={n: t for n, t in state.mu.items() if n != TIED},
-                nu={n: t for n, t in state.nu.items() if n != TIED}))
+                count=state.count, mu={n: t for n, t in state.mu.items() if n not in copies},
+                nu={n: t for n, t in state.nu.items() if n not in copies}))
         return out
 
     def restore_tied(self, params: Dict[int, nn.Module], opt_state: Dict[int, AdamState],
                      loaded: AdamState) -> None:
         """After a load into `checkpoint_view`'s views (`loaded`: the Adam
         state view): the Adam count from the view, and under a pipeline the
-        last stage's copy of a tied table, and of its moments, from the
-        first stage's (collective over those two stages)."""
+        copies of each shared parameter, and of its moments, from the first
+        holder's (collective over the holders)."""
         for st in opt_state.values():
             st.count = loaded.count
-        if not (self.cfg.tie_embeddings and self.hp.pp > 1):
-            return
-        ends = [s for s in params if s in (0, self.hp.pp - 1)]
-        tensors = {s: [dict(params[s].named_parameters())[TIED].data,
-                       opt_state[s].mu[TIED], opt_state[s].nu[TIED]] for s in ends}
-        for k in range(3):
-            self.transport.first_to_last({s: ts[k] for s, ts in tensors.items()})
+        specs = self.grad_accum_specs()
+        for name, holders in self.arch.shared().items():
+            hosted = [s for s in params if s in holders]
+            tensors = {s: [dict(params[s].named_parameters())[name].data,
+                           opt_state[s].mu[name], opt_state[s].nu[name]] for s in hosted}
+            likes = [self._like(name, self.param_layouts[name].spec)] + [
+                self._like(name, specs[name])] * 2
+            for k in range(3):
+                self.transport.copy_shared({s: ts[k] for s, ts in tensors.items()}, holders,
+                                           likes[k])
 
     def eval_loss(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The loss of the GLOBAL batch, forward only (the reference's
@@ -494,8 +519,7 @@ class HybridParallelModel:
         with torch.no_grad():
             if self.hp.pp > 1:
                 return self._run_pipeline(params, batch, backward=False)[0]
-            loss = M.loss_fn(params[0], self.shard_batch(batch), self.cfg, self.hp,
-                             self.layouts)
+            loss = self.arch.loss(params[0], self.shard_batch(batch), self.layouts)
             return comm.all_reduce(loss, self.layouts.vocab.token_group)
 
     def make_train_step(self, tx: AdamW, *, guard_anomalies: bool = False,
@@ -583,15 +607,17 @@ def construct_hybrid_parallel_model(
     train`` runs) or "local" (under a pipeline, this process hosts every
     stage of a strategy whose stages hold one device each, in a one-rank
     process group)."""
-    check_layout(hp, mode)
+    check_layout(hp, mode, cfg)
     device = torch.device(device)
-    layouts = M.model_param_layouts(cfg, hp)
+    arch = model_def(cfg, hp)
+    layouts = arch.param_layouts()
     if transport not in ("p2p", "local"):
         raise ValueError("transport %r: 'p2p' or 'local'" % transport)
     if hp.pp > 1 and transport == "local":
         meshes = {s: RankMesh.hosted_stage(hp, s, device) for s in range(hp.pp)}
         return HybridParallelModel(cfg=cfg, hp=hp, device=device, mesh=meshes[0],
                                    param_layouts=layouts, transport=PL.LocalTransport(hp.pp),
-                                   stage_meshes=meshes)
+                                   stage_meshes=meshes, arch=arch)
     mesh = build_mesh(hp, device=device)
-    return HybridParallelModel(cfg=cfg, hp=hp, device=device, mesh=mesh, param_layouts=layouts)
+    return HybridParallelModel(cfg=cfg, hp=hp, device=device, mesh=mesh, param_layouts=layouts,
+                               arch=arch)

@@ -14,9 +14,15 @@ bridge so both packages compute from identical weights and optimizer state.
 Any family's tree crosses as it is (GPT's qkv/out/mlp biases, LayerNorm
 biases and position table, and no separate head under its tied
 embedding; BERT's ``embed.tte``, ``embed.norm`` and MLM ``head``; ViT's
-``embed.patch``, ``embed.cls_token`` and classification ``head``). A pipelined tree, whose layers the reference stacks over its
-stages (``stages``), is read back into the canonical ``layers`` list
-(`unstack_tree`). Under a sharded layout each rank keeps its shards of the full
+``embed.patch``, ``embed.cls_token`` and classification ``head``; T5's
+``enc_layers`` / ``dec_layers`` with their ``cross`` attention, its two
+relative tables and two final norms, into ``models.t5.T5Model``; Swin's
+``blocks`` of per-stage widths, its ``merges`` and relative tables, into
+``models.swin.SwinModel``). A pipelined tree of the generic family, whose
+layers the reference stacks over its stages (``stages``), is read back into
+the canonical ``layers`` list (`unstack_tree`); T5's and Swin's pipelined
+trees (the reference's padded universal slots) are not read: the port
+never stacks them. Under a sharded layout each rank keeps its shards of the full
 state dict (``runtime.model_api.HybridParallelModel.shard_params``;
 ``gather_params`` and ``gather_opt_state`` go back).
 The module itself needs only numpy and torch.

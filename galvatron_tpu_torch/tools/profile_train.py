@@ -2,13 +2,14 @@
 train step under ``torch.profiler``.
 
     python -m galvatron_tpu_torch.tools.profile_train \\
-        [--cell llama|gpt_zero3|gpt_zero2|bert|vit] [--warmup 2] [--steps 2] \\
+        [--cell llama|gpt_zero3|gpt_zero2|bert|vit|t5] [--warmup 2] [--steps 2] \\
         [--top 15] [--trace_dir chiprun_out]
 
 The run is a configuration that ``chip_smoke.py`` trains
 (``tools/train_cell.py``: the LLaMA cell, the GPT cell through the layout
 path with layers 0-3 ZeRO-3 or with ZeRO-2 everywhere, BERT-large with
-every layer plain dp, or ViT-huge on synthetic pixels; its strategy JSON is
+every layer plain dp, ViT-huge on synthetic pixels, or T5-large with every
+layer plain dp on the synthetic seq2seq stream; its strategy JSON is
 written into ``--trace_dir`` or ``build/galvatron_tpu_torch``), built by
 ``cli.train.build`` at world size 1 and stepped as ``cli train`` steps it:
 the same step (with the anomaly guard as the flags set it, on by default)
@@ -95,7 +96,7 @@ def breakdown(prof, wall_ms: float, steps: int, top: int, seq_len: int) -> Dict:
 def main(argv: List[str] = None) -> Dict:
     p = argparse.ArgumentParser("galvatron_tpu_torch-profile_train")
     p.add_argument("--cell", default="llama",
-                   choices=("llama", "gpt_zero3", "gpt_zero2", "bert", "vit"))
+                   choices=("llama", "gpt_zero3", "gpt_zero2", "bert", "vit", "t5"))
     p.add_argument("--warmup", type=int, default=2)
     p.add_argument("--steps", type=int, default=2)
     p.add_argument("--top", type=int, default=15)
@@ -116,6 +117,8 @@ def main(argv: List[str] = None) -> Dict:
         train_argv = train_cell.bert_argv(train_cell.write_bert_strategy(out_dir))
     elif args.cell == "vit":
         train_argv = train_cell.vit_argv()
+    elif args.cell == "t5":
+        train_argv = train_cell.t5_argv(train_cell.write_t5_strategy(out_dir))
     else:
         train_argv = train_cell.gpt_argv(train_cell.write_gpt_strategy(
             out_dir, fsdp=args.cell == "gpt_zero3"))

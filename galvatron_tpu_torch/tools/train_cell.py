@@ -47,6 +47,21 @@ vision shard of `VISION_IMAGES` seeded uint8 images (`write_vision_shard`,
 ~77 MB), global batch 64 in 2 micro-batches. Neither shape takes the flash
 kernels (head_dim below 128; 197 is no multiple of 128): attention runs
 its plain path.
+
+The encoder-decoder and hierarchical families (``chip_smoke.py`` phase 16),
+at their published sizes and full depth: T5-large (d_model 1024, 16 heads x
+d_kv 64, d_ff 4096, relu, 24 + 24 layers, vocab 32128, tied; ~738 M
+parameters, ~11.8 GB of fp32 state), encoder and decoder 512 tokens long,
+global batch 32 in 4 micro-batches, from span-corrupted windows of a
+seeded corpus (`write_t5_corpus`; the corrupted encoder streams end in a
+key-padding tail), every layer plain dp or the encoder ZeRO-3 and the
+decoder ZeRO-2 (`write_t5_strategy`), and pp 2 (an encoder stage and a
+decoder stage) under 1F1B; Swin-large at 224 with window 7 (embed 192,
+depths 2/2/18/2, heads 6/12/24/48, 1000 classes; ~197 M parameters) from
+the vision shard, global batch 64 in 2 micro-batches, and pp 2 divided
+12/12 (the boundary inside Swin stage 2). T5 always has a relative bias
+and Swin computes its window attention inline: neither takes the flash
+kernels.
 """
 
 from __future__ import annotations
@@ -241,6 +256,92 @@ def vit_argv(data_path: str = None) -> List[str]:
            "--device", "cuda", "--global_train_batch_size", str(VIT_BSZ),
            "--chunks", str(ENCODER_CHUNKS), "--train_iters", str(STEPS), "--lr", "1e-4",
            "--lr_warmup_iters", "2", "--seed", str(SEED)]
+    if data_path:
+        out += ["--data_path", data_path, "--split", "1,0,0"]
+    return out
+
+
+T5_SIZE, T5_ENC_LAYERS, T5_LAYERS, T5_BSZ, T5_CHUNKS = "t5-large", 24, 48, 32, 4
+T5_CORPUS_DOCS = 600
+T5_CORPUS_LEN = (256, 2048)  # document lengths, uniform
+SWIN_SIZE, SWIN_LAYERS, SWIN_BSZ, SWIN_CHUNKS = "swin-large", 24, 64, 2
+
+
+def _write_json(out_dir: str, name: str, cfg: dict) -> str:
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, name)
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def _layers_json(n: int, fsdp: List[int], bsz: int, chunks: int, pp: int,
+                 default_dp_type: str) -> dict:
+    out = {"pp_deg": pp, "tp_sizes_enc": ",".join(["1"] * n),
+           "tp_consecutive_flags": ",".join(["1"] * n),
+           "dp_types_enc": ",".join(map(str, fsdp)), "default_dp_type": default_dp_type,
+           "global_bsz": bsz, "chunks": chunks}
+    if pp > 1:
+        out.update(pp_division=",".join([str(n // pp)] * pp), pipeline_type="pipedream_flush")
+    return out
+
+
+def write_t5_strategy(out_dir: str, zero: bool = False, pp: int = 1) -> str:
+    """Write the T5 strategy JSON (every layer plain dp; with `zero`, the
+    encoder layers ZeRO-3 and the decoder layers ZeRO-2; with `pp` 2, an
+    encoder stage and a decoder stage under 1F1B) into `out_dir`."""
+    fsdp = [1 if zero and i < T5_ENC_LAYERS else 0 for i in range(T5_LAYERS)]
+    return _write_json(out_dir, "train_cell_t5_%s_pp%d.json" % ("zero" if zero else "dp", pp),
+                       _layers_json(T5_LAYERS, fsdp, T5_BSZ, T5_CHUNKS, pp,
+                                    "zero2" if zero else "ddp"))
+
+
+def write_t5_corpus(out_dir: str) -> str:
+    """Write `T5_CORPUS_DOCS` seeded documents of random token ids (below
+    the 100 sentinel ids at the top of the vocab) as an indexed corpus in
+    `out_dir`; returns its prefix."""
+    import numpy as np
+
+    from galvatron_tpu_torch.data.dataset import write_indexed_dataset
+
+    os.makedirs(out_dir, exist_ok=True)
+    prefix = os.path.join(out_dir, "t5_corpus")
+    rng = np.random.RandomState(SEED)
+    lens = rng.randint(T5_CORPUS_LEN[0], T5_CORPUS_LEN[1] + 1, T5_CORPUS_DOCS)
+    write_indexed_dataset(prefix, [rng.randint(0, 32000, n) for n in lens])
+    return prefix
+
+
+def t5_argv(strategy_path: str, data_path: str = None) -> List[str]:
+    """The ``cli train`` arguments of the T5 configuration: span corruption
+    of the corpus `data_path` (all of it the train split), or the synthetic
+    seq2seq stream."""
+    out = ["--model_type", "t5", "--model_size", T5_SIZE, "--mixed_precision", "bf16",
+           "--device", "cuda", "--global_train_batch_size", str(T5_BSZ),
+           "--chunks", str(T5_CHUNKS), "--galvatron_config_path", strategy_path,
+           "--train_iters", str(STEPS), "--lr", "1e-4", "--lr_warmup_iters", "2",
+           "--seed", str(SEED)]
+    if data_path:
+        out += ["--data_path", data_path, "--split", "1,0,0"]
+    return out
+
+
+def write_swin_strategy(out_dir: str, pp: int = 1) -> str:
+    """Write the Swin strategy JSON (every block plain dp; with `pp` 2, two
+    stages of 12 blocks under 1F1B) into `out_dir`."""
+    return _write_json(out_dir, "train_cell_swin_pp%d.json" % pp,
+                       _layers_json(SWIN_LAYERS, [0] * SWIN_LAYERS, SWIN_BSZ, SWIN_CHUNKS, pp,
+                                    "ddp"))
+
+
+def swin_argv(strategy_path: str, data_path: str = None) -> List[str]:
+    """The ``cli train`` arguments of the Swin configuration: from the
+    vision shard `data_path`, or synthetic pixels."""
+    out = ["--model_type", "swin", "--model_size", SWIN_SIZE, "--mixed_precision", "bf16",
+           "--device", "cuda", "--global_train_batch_size", str(SWIN_BSZ),
+           "--chunks", str(SWIN_CHUNKS), "--galvatron_config_path", strategy_path,
+           "--train_iters", str(STEPS), "--lr", "1e-4", "--lr_warmup_iters", "2",
+           "--seed", str(SEED)]
     if data_path:
         out += ["--data_path", data_path, "--split", "1,0,0"]
     return out

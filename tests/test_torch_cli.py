@@ -96,7 +96,9 @@ def test_serve_refuses_pipeline_with_gls014():
 
 
 def test_unported_family_names_the_later_slice():
-    with pytest.raises(ValueError, match="not ported"):
+    """T5 trains in the port but, as in the reference, is not served: it
+    builds its own model tree."""
+    with pytest.raises(ValueError, match="causal-LM families only; 't5' builds its own"):
         S.main(["--device", "cpu", "--model_type", "t5"])
 
 

@@ -319,14 +319,14 @@ def test_registry_takes_the_ported_families_and_pins_the_fa_aliases():
     from galvatron_tpu.models import registry as JR
     from galvatron_tpu_torch.models.registry import get_family
 
-    for name in ("gpt_fa", "llama_fa", "bert", "vit"):
+    for name in ("gpt_fa", "llama_fa", "bert", "vit", "t5", "swin"):
         fam, jfam = get_family(name), JR.get_family(name)
         assert (fam.default_size, fam.data_kind) == (jfam.default_size, jfam.data_kind)
+        assert (fam.mid_stage_type_boundaries, fam.supports_sequence_sharding) == (
+            jfam.mid_stage_type_boundaries, jfam.supports_sequence_sharding)
+        assert (fam.build is None) == (jfam.build is None)
         got, want = (dataclasses.asdict(f.config_fn(f.default_size)) for f in (fam, jfam))
         for d in (got, want):
             d.pop("compute_dtype"), d.pop("param_dtype")
         assert got == want
     assert get_family("gpt_fa").config_fn("gpt-0.3b").attn_impl == "flash"
-    for name in ("t5", "swin"):
-        with pytest.raises(ValueError, match="not ported"):
-            get_family(name)

@@ -55,6 +55,12 @@ reference, not the reference's manual TP paths):
   the port's error; a cp 2 + Ulysses + vocab sp save through the train
   CLI resumes bit for bit; and the train CLI runs the plan ``cli search
   --sp_space tp+sp --enable_cp 1`` writes for a world of 2;
+- the families with their own trees, against the JAX package's
+  unsharded ``t5_loss_fn`` / ``swin_loss_fn`` at the reference's pp 2
+  gate sizes: T5 under tp 2 + ZeRO-3 + vocab tp 2 (Megatron-SP), Swin
+  under tp 2 + ZeRO-2, both as pp 2 x tp 2 1F1B pipelines at world 4 (the
+  reference's ``_cfg_t5_pp2`` / ``_cfg_swin_pp2``), and as pp 2 pipelines
+  at world 2: T5's (h, mem) channel and Swin's merged grid between ranks;
 - the hardware profiler (``profiler/hardware.py``) on the same world:
   ``profile_all`` writes the JAX package's file names and keys (its
   HardwareProfiler on a 2- and 4-device CPU mesh; the quantization toll
@@ -103,7 +109,16 @@ BERT = dict(hidden_size=64, num_heads=4, num_layers=4, ffn_hidden=128, vocab_siz
             max_seq_len=S_LEN)
 VIT = dict(hidden_size=64, num_heads=4, num_layers=4, ffn_hidden=128, image_size=12,
            patch_size=4, num_classes=10)
-ENCODERS = ("bert", "vit")
+# the families with their own trees, at the reference's pp 2 gate
+# configurations (``__graft_entry__``'s ``_cfg_t5_pp2`` / ``_cfg_swin_pp2``):
+# a T5 with an encoder and a decoder of two layers on a key-padded batch,
+# and a Swin of two stages (32 x 32 images: 8 x 8 and 4 x 4 patch grids,
+# window 4, a shifted block and a merge)
+T5 = dict(hidden_size=64, num_heads=4, head_dim=16, ffn_hidden=128, num_enc_layers=2,
+          num_dec_layers=2, vocab_size=256, max_seq_len=S_LEN)
+SWIN = dict(embed_dim=16, depths=(2, 2), num_heads=(2, 4), image_size=32, patch_size=4,
+            window=4, mlp_ratio=2.0, num_classes=10)
+ENCODERS = ("bert", "vit", "t5", "swin")  # each with its own batch (`encoder_batch_np`)
 MODELS = ("gpt", "llama", "llama6", "gpt_sharp", "gpt_hd128") + ENCODERS
 # a key-padded batch (``attn_mask``): the padded tail of each row (PAD)
 # is also out of the loss
@@ -170,6 +185,17 @@ CASES = {
                                   pipeline_type="pipedream_flush"),
         "vit_pp2_1f1b": dict(model="vit", pp=2, chunks=2, default_dp_type="zero2",
                              pipeline_type="pipedream_flush"),
+        # T5 and Swin: tp 2 under ZeRO-3 + vocab tp 2 (Megatron-SP) and
+        # under ZeRO-2; the reference's pp 2 x tp 2 gate configurations
+        "t5_tp2_zero3_vtp2": dict(model="t5", tp=2, sdp=1, vocab_tp=2),
+        "swin_tp2_zero2": dict(model="swin", tp=2, default_dp_type="zero2", chunks=2),
+        "t5_pp2_tp2_1f1b": dict(model="t5", pp=2, tp=2, chunks=2,
+                                pipeline_type="pipedream_flush"),
+        "swin_pp2_tp2_1f1b": dict(model="swin", pp=2, tp=2, chunks=2,
+                                  pipeline_type="pipedream_flush"),
+        # one layer a stage: T5's token table on stages 0, 2 and 3 and each
+        # relative table on two stages sum their gradients over the pp group
+        "t5_pp4_1f1b": dict(model="t5", pp=4, chunks=4, pipeline_type="pipedream_flush"),
     },
     2: {
         "dp2": dict(),
@@ -193,6 +219,9 @@ CASES = {
         # classification head over a sequence-sharded vocab layout
         "bert_cp2_padded": dict(model="bert", cp=2),
         "vit_vcp2": dict(model="vit", vocab_cp=2),
+        # T5's (h, mem) channel and Swin's merged grid between two ranks
+        "t5_pp2_1f1b": dict(model="t5", pp=2, chunks=4, pipeline_type="pipedream_flush"),
+        "swin_pp2_1f1b": dict(model="swin", pp=2, chunks=2, pipeline_type="pipedream_flush"),
     },
 }
 # the divergence case and its strategy, run by the JAX package too
@@ -236,15 +265,23 @@ def case_batch_np(padded=False, seq=S_LEN):
 
 
 def encoder_batch_np(family):
-    """The encoder families' global batch: for BERT, tokens with token
-    types and key-padding tails (PAD, also out of the loss) and random
-    labels; for ViT, standard-normal pixels and class labels."""
+    """The global batch of a family with its own batch: for BERT, tokens
+    with token types and key-padding tails (PAD, also out of the loss) and
+    random labels; for ViT and Swin, standard-normal pixels and class
+    labels; for T5, encoder tokens with PAD key-padding tails and decoder
+    tokens with PAD tails out of the loss."""
     rng = np.random.RandomState(13)
-    if family == "vit":
-        size = VIT["image_size"]
+    if family in ("vit", "swin"):
+        c = VIT if family == "vit" else SWIN
+        size = c["image_size"]
         return {"pixels": rng.randn(B, size, size, 3).astype(np.float32),
-                "labels": rng.randint(0, VIT["num_classes"], (B,))}
+                "labels": rng.randint(0, c["num_classes"], (B,))}
     tokens, _, mask = batch_np()
+    if family == "t5":
+        v = T5["vocab_size"]
+        return {"tokens": tokens % v, "attn_mask": mask.copy(),
+                "dec_tokens": rng.randint(0, v, (B, S_LEN)),
+                "labels": rng.randint(0, v, (B, S_LEN)), "loss_mask": mask[:, ::-1].copy()}
     types = (np.arange(S_LEN)[None, :] >= rng.randint(4, S_LEN - 4, (B, 1))).astype(np.int64)
     return {"tokens": tokens % BERT["vocab_size"],
             "positions": np.broadcast_to(np.arange(S_LEN), (B, S_LEN)).copy(),
@@ -291,6 +328,8 @@ def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "
 
     from galvatron_tpu_torch.models.bert import bert_config
     from galvatron_tpu_torch.models.llama import llama_config
+    from galvatron_tpu_torch.models.swin import swin_config
+    from galvatron_tpu_torch.models.t5 import t5_config
     from galvatron_tpu_torch.models.vit import vit_config
 
     dev = distributed.local_device(device_name)
@@ -306,6 +345,8 @@ def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "
     cfgs["gpt_hd128"] = TM.TransformerConfig(**GPT_HD128, compute_dtype=torch.float32)
     cfgs["bert"] = bert_config("bert-base", compute_dtype=torch.float32, **BERT)
     cfgs["vit"] = vit_config("vit-base", compute_dtype=torch.float32, **VIT)
+    cfgs["t5"] = t5_config("t5-test", compute_dtype=torch.float32, **T5)
+    cfgs["swin"] = swin_config("swin-test", compute_dtype=torch.float32, **SWIN)
     batches = {(padded, seq): case_batch_np(padded, seq) for padded in (False, True)
                for seq in {S_LEN, *MODEL_SEQ.values()}}
     batch = prepare_batch(None, *batches[False, S_LEN][:3], device=dev)
@@ -316,8 +357,9 @@ def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "
         whose head_dim is no kernel shape (the tiny models' 16), as the ring
         has no plain path on the card."""
         cfg = cfgs[kw.get("model", "gpt")]
-        return dev.type != "cuda" or cfg.hidden_size // cfg.num_heads in HEAD_DIMS or not any(
-            s.cp > 1 for s in _hp(kw, world, cfg.num_layers).layers)
+        return dev.type != "cuda" or not any(
+            s.cp > 1 for s in _hp(kw, world, cfg.num_layers).layers) or \
+            cfg.hidden_size // cfg.num_heads in HEAD_DIMS
 
     def grads_of(name):
         kw = CASES[world][name]
@@ -777,6 +819,8 @@ def _reference(tmp_dir):
     from galvatron_tpu.runtime import optimizer as JO
     from galvatron_tpu_torch.tools.from_jax import _flatten
 
+    from galvatron_tpu.models import swin as JSW
+    from galvatron_tpu.models import t5 as JT5
     from galvatron_tpu.models.bert import bert_config
     from galvatron_tpu.models.llama import llama_config
     from galvatron_tpu.models.vit import vit_config
@@ -811,11 +855,16 @@ def _reference(tmp_dir):
     unsharded("gpt_hd128_padded", cfgs["gpt_hd128"], out["gpt_hd128"]["tree"],
               JD.prepare_batch(None, *case_batch_np(True, MODEL_SEQ["gpt_hd128"])))
     # the encoder families (bert: MLM loss; vit: classification loss)
-    for m, c, fn in (("bert", bert_config("bert-base", compute_dtype=jnp.float32, **BERT),
-                      JM.lm_loss_fn),
-                     ("vit", vit_config("vit-base", compute_dtype=jnp.float32, **VIT),
-                      JM.classification_loss_fn)):
-        tree = jax.device_get(JM.init_model_params(jax.random.PRNGKey(1), c))
+    t5 = JT5.t5_config("t5-test", compute_dtype=jnp.float32, **T5)
+    swin = JSW.swin_config("swin-test", compute_dtype=jnp.float32, **SWIN)
+    for m, c, fn, init in (
+            ("bert", bert_config("bert-base", compute_dtype=jnp.float32, **BERT),
+             JM.lm_loss_fn, JM.init_model_params),
+            ("vit", vit_config("vit-base", compute_dtype=jnp.float32, **VIT),
+             JM.classification_loss_fn, JM.init_model_params),
+            ("t5", t5, JT5.t5_loss_fn, JT5.init_t5_params),
+            ("swin", swin, JSW.swin_loss_fn, JSW.init_swin_params)):
+        tree = jax.device_get(init(jax.random.PRNGKey(1), c))
         batch = {k: jnp.asarray(v) for k, v in encoder_batch_np(m).items()}
         loss, grads = jax.jit(jax.value_and_grad(lambda p, b, c=c, fn=fn: fn(p, b, c)))(
             tree, batch)
@@ -936,6 +985,28 @@ def grad_errors(got, want):
             for n, w in want.items()}
 
 
+def saved_reference(tmp_dir):
+    """The reference of ``--weights DIR`` (its losses, gradients,
+    trajectory and divergence, without the trees), read with numpy alone,
+    or None when DIR holds none."""
+    import pickle
+
+    path = os.path.join(tmp_dir, "reference.pkl")
+    if not os.path.exists(path):
+        return None
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def save_reference(tmp_dir, ref):
+    import pickle
+
+    kept = dict(ref, models={k: {n: v for n, v in m.items() if n != "tree"}
+                             for k, m in ref["models"].items()})
+    with open(os.path.join(tmp_dir, "reference.pkl"), "wb") as f:
+        pickle.dump(kept, f)
+
+
 def report(tmp_dir, given=None):
     """The tolerances the parity reached: per case the loss error and the
     worst gradient's error as a share of its limit; the trajectory's loss
@@ -943,7 +1014,7 @@ def report(tmp_dir, given=None):
     relative error. `given` maps a world size to a worker's results file
     (e.g. a run on GPUs, written with the weights of
     ``--weights DIR``) instead of launching gloo ranks here."""
-    ref = _reference(tmp_dir)
+    ref = (saved_reference(tmp_dir) if given else None) or _reference(tmp_dir)
     for world in sorted(given or CASES, reverse=True):
         res = dict(np.load(given[world])) if given else \
             _launch(world, ref["inputs"], os.path.join(tmp_dir, "out%d.npz" % world))
@@ -991,6 +1062,12 @@ def report(tmp_dir, given=None):
                           if k.startswith("param/"))
                       / max(float(np.abs(traj[k]).max()) for k in traj if k.startswith("param/")),
                       bool((res["pptraj/wte_copies"] == res["pptraj/wte_copies"][0]).all())))
+        for name in sorted({k.rsplit("/", 1)[0] for k in res if "/elastic_" in k}):
+            got, ref_losses = res[name + "/losses"], res[name + "/ref"]
+            print("world %d %s resume: restored state bitwise %s, across strategies %s, "
+                  "losses max err %.3g against the plain resume's" % (
+                      world, name, bool(res[name + "/bitwise"]), bool(res[name + "/cross"]),
+                      float(np.abs(got - ref_losses).max())))
         if world == 2 and "%s/loss" % DIVERGENCE_CASE in res:
             want = ref["models"]["gpt_sharp"]["loss"]
             print("zigzag divergence ([cp2, cp1] x 2, weights x %g): JAX sharded loss off the "
@@ -1007,10 +1084,13 @@ USAGE = """usage:
   test_torch_parallel.py --worker WORLD WEIGHTS OUT [--fault] [--device cuda]
       one rank of a world (launch with torchrun --nproc_per_node WORLD)
   test_torch_parallel.py --weights DIR
-      write the weights the workers load (DIR/weights.npz; needs jax)
+      write the weights the workers load (DIR/weights.npz; needs jax) and
+      the JAX package's reference (DIR/reference.pkl)
   test_torch_parallel.py --report DIR [WORLD=RESULTS.npz ...]
       print the tolerances reached: gloo ranks launched here, or given
-      results of workers run elsewhere (e.g. on GPUs with --device cuda)"""
+      results of workers run elsewhere (e.g. on GPUs with --device cuda),
+      against DIR/reference.pkl where --weights wrote one (numpy alone:
+      the report then runs beside the workers, without jax)"""
 
 
 if __name__ == "__main__":
@@ -1023,7 +1103,9 @@ if __name__ == "__main__":
             os.environ["XLA_FLAGS"] = (flags + " --xla_force_host_platform_device_count=8").strip()
         os.makedirs(sys.argv[2], exist_ok=True)
         if sys.argv[1] == "--weights":
-            print(_reference(sys.argv[2])["inputs"])
+            ref = _reference(sys.argv[2])
+            save_reference(sys.argv[2], ref)
+            print(ref["inputs"])
         else:
             report(sys.argv[2], {int(a.split("=")[0]): a.split("=", 1)[1]
                                  for a in sys.argv[3:]} or None)

@@ -200,19 +200,20 @@ def test_local_transport_moves_forward_down_and_backward_up(kind, pp, chunks):
     def forward(s, i, x):
         assert (x is None) == (s == 0)
         if x is not None:
-            assert x.tolist() == [s - 1, i, 0] and ("F", s - 1, i) in events
+            assert x[0].tolist() == [s - 1, i, 0] and ("F", s - 1, i) in events
         events.append(("F", s, i))
-        return None if s == pp - 1 else torch.tensor([s, i, 0])
+        return None if s == pp - 1 else (torch.tensor([s, i, 0]),)
 
     def backward(s, i, g):
         assert (g is None) == (s == pp - 1) and ("F", s, i) in events
         if g is not None:
-            assert g.tolist() == [s + 1, i, 1] and ("B", s + 1, i) in events
+            assert g[0].tolist() == [s + 1, i, 1] and ("B", s + 1, i) in events
         events.append(("B", s, i))
-        return None if s == 0 else torch.tensor([s, i, 1])
+        return None if s == 0 else (torch.tensor([s, i, 1]),)
 
     orders = {s: ORDERS[kind](pp, chunks, s) for s in range(pp)}
-    TPL.LocalTransport(pp).run(orders, forward, backward, lambda i: ((3,), torch.int64))
+    TPL.LocalTransport(pp).run(orders, forward, backward,
+                               lambda i, s: [((3,), torch.int64)])
     assert sorted(events) == sorted((k, s, i) for k in "FB" for s in range(pp)
                                     for i in range(chunks))
 

@@ -111,8 +111,11 @@ def test_train_lint_warns_on_inert_serve_knobs(tmp_path, capsys):
 
 
 def test_train_unported_family_names_the_later_slice():
-    with pytest.raises(ValueError, match="not ported"):
-        T.main(["--device", "cpu", "--model_type", "t5"])
+    """T5 trains in the port; the generic flags it has no field for refuse
+    as in the reference (T5 and Swin take their sizes from --model_size)."""
+    with pytest.raises(ValueError, match="not supported by family 't5'"):
+        T.main(["--device", "cpu", "--model_type", "t5", "--set_layernum_manually", "1",
+                "--num_layers", "2"])
 
 
 def test_train_cell_parses_to_its_per_layer_remat_and_lints_clean(tmp_path):
