@@ -204,11 +204,34 @@ Phases, in order; any failure exits non-zero and prints no result line:
    2 images): card (bf16) against the CPU (fp32), per parameter within
    TOL_ENCODER_GRAD_REL, the loss within TOL_ENCODER_LOSS. Then
    ``tools/profile_train.py --cell t5`` traces one steady T5-large step.
+17. A fine-tuning user's path from a published checkpoint, at full width
+   (nothing downloaded: the config.json is written from the published
+   numbers, the weights are seeded port parameters rounded to bf16 and
+   exported with ``export_hf_llama`` to a bf16 model.safetensors through
+   the port's own writer): LLaMA-7B (num_hidden_layers cut from 32 to 8) ->
+   ``tools.convert_checkpoint h2g`` (its params-only step 0 equal to the
+   seeded params bit for bit) -> a seeded text corpus through
+   ``tools.tokenize_corpus --tokenizer bytes --append-eod`` -> ``cli train
+   --load`` 3 steps at phase 8's batch (its losses, under deterministic
+   algorithms, bit for bit those of the same run started from the
+   in-memory params: a fresh optimizer), saving -> ``cli serve --load`` 4
+   requests -> g2h of
+   step 0 (the HF file's tensors back bit for bit) and of the trained step;
+   T5-large (24 + 24 layers) export -> h2g -> ``cli train --load`` 2 steps
+   on span-corrupted windows of the same corpus -> g2h (bitwise), with no
+   flash launch; then T5-large width, one encoder and one decoder layer on
+   T5_SEQ tokens with a key-padding tail: cp 2 and cp 4 (zigzag order) and
+   Ulysses 2 and 4 with every rank played by this process
+   (``models.t5.LocalSeq``), forward and backward against the unsharded
+   layers, per tensor within TOL_T5_SEQ_REL, times beside the unsharded
+   time, no flash launch. The seconds of each step and the host's peak RSS
+   are printed. Files go to build/phase17 (~45 GB at most), deleted after.
 
 Each main path (serve, train, the GPT layout runs, phase 10's train,
 resumed, guarded and serve-from-checkpoint runs, phase 11's runs,
 phase 12's profile and train, phase 13's ring runs, phase 14's encoder
-runs, phase 15's resumed runs and phase 16's T5 and Swin runs) runs with the
+runs, phase 15's resumed runs, phase 16's T5 and Swin runs and phase 17's
+runs from the converted checkpoints) runs with the
 kernels' launch counts set to 0 just before it and read just after. The last lines
 of standard output are the serve and train summaries, the ``kernels`` JSON
 line, the card line, and ``{"ok": true, "device": {...}}``. Details go to
@@ -2396,6 +2419,399 @@ def log_elastic(el, card):
             el["wall_s"]))
 
 
+# ----------------------------------------------------------------- phase 17
+# A fine-tuning user's path at full width: a published model's config.json
+# (written here from the published numbers; nothing is downloaded) and HF
+# weights made from seeded port parameters rounded to bf16, converted by the
+# CLI (h2g), trained and served from the conversion, exported back (g2h).
+# LLaMA-7B's numbers with num_hidden_layers cut from 32 to 8 (as phase 8 cuts
+# it): 1.88 B parameters, a 3.8 GB bf16 model.safetensors, a 7.5 GB fp32
+# params-only checkpoint. T5-large's numbers at full depth.
+LLAMA_7B_HF = {"model_type": "llama", "architectures": ["LlamaForCausalLM"],
+               "hidden_size": 4096, "intermediate_size": 11008, "num_attention_heads": 32,
+               "num_key_value_heads": 32, "num_hidden_layers": 8, "vocab_size": 32000,
+               "max_position_embeddings": 2048, "rms_norm_eps": 1e-6, "rope_theta": 10000.0,
+               "tie_word_embeddings": False, "torch_dtype": "bfloat16"}
+T5_LARGE_HF = {"model_type": "t5", "architectures": ["T5ForConditionalGeneration"],
+               "d_model": 1024, "d_ff": 4096, "num_heads": 16, "d_kv": 64, "num_layers": 24,
+               "num_decoder_layers": 24, "vocab_size": 32128,
+               "relative_attention_num_buckets": 32, "relative_attention_max_distance": 128,
+               "feed_forward_proj": "relu", "tie_word_embeddings": True,
+               "layer_norm_epsilon": 1e-6}
+HF_TRAIN_STEPS = 3
+HF_T5_STEPS = 2
+HF_SERVE_REQUESTS = 4
+HF_CORPUS_LINES = 6000  # ~4.8 MB of seeded text: ~4.8 M byte tokens
+# T5 sequence sharding on one card: T5-large width, one encoder and one
+# decoder layer, S encoder and decoder tokens, every rank played by this
+# process (models.t5.LocalSeq); bf16 card against the unsharded layers on
+# the card: the same products in the same dtypes, row and head blocks apart
+T5_SEQ = 4096
+T5_SEQ_PAD = 256  # the encoder's key-padding tail
+T5_SEQ_CASES = (("cp2_zigzag", 2, 1), ("cp4_zigzag", 4, 1), ("ulysses2", 1, 2),
+                ("ulysses4", 1, 4))
+TOL_T5_SEQ_REL = 2e-2  # per tensor, ||got - want|| / ||want||
+
+
+def _hf_dir(torch, path, config, params, export):
+    """An HF model directory of `params` (the port's state dict): the
+    config.json and a bf16 model.safetensors; returns its bytes."""
+    from galvatron_tpu_torch.models.hf_utils import write_safetensors
+
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f)
+    sd = {k: torch.from_numpy(v).to(torch.bfloat16) for k, v in export(params).items()}
+    write_safetensors(os.path.join(path, "model.safetensors"), sd)
+    return sd, os.path.getsize(os.path.join(path, "model.safetensors"))
+
+
+def _seeded_bf16_params(torch, cfg, layers):
+    """Seeded port parameters rounded to bf16 (kept fp32), on the host."""
+    from galvatron_tpu_torch.config.strategy import HybridParallelConfig
+    from galvatron_tpu_torch.runtime.model_api import construct_hybrid_parallel_model
+
+    model = construct_hybrid_parallel_model(cfg, HybridParallelConfig.uniform(1, layers), "cuda")
+    out = {n: p.detach().to(torch.bfloat16).float().cpu()
+           for n, p in model.init_params(SEED)[0].named_parameters()}
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bitwise(torch, got, want, what):
+    """Every tensor of `want` equal in `got`, bit for bit (fp32)."""
+    check(sorted(got) == sorted(want), "%s: names differ (%s)" % (
+        what, sorted(set(got) ^ set(want))[:4]))
+    bad = [n for n, t in want.items() if not torch.equal(got[n].float(), t.float())]
+    check(not bad, "%s: %d tensors differ, e.g. %s" % (what, len(bad), bad[:3]))
+
+
+def hf_finetune(torch, TF):
+    """HF checkpoint -> h2g -> train and serve from it -> g2h, for LLaMA-7B
+    width (depth 8) and T5-large (see the module note, phase 17)."""
+    import gc
+    import shutil
+    import warnings
+
+    import numpy as np
+
+    from galvatron_tpu_torch.cli import serve as cli_serve
+    from galvatron_tpu_torch.cli import train as cli_train
+    from galvatron_tpu_torch.models import llama as LL
+    from galvatron_tpu_torch.models import t5 as T5
+    from galvatron_tpu_torch.runtime import checkpoint as CK
+    from galvatron_tpu_torch.runtime.model_api import HybridParallelModel
+    from galvatron_tpu_torch.tools import convert_checkpoint as CONV
+    from galvatron_tpu_torch.tools import tokenize_corpus as TOK
+    from galvatron_tpu_torch.tools import train_cell as C
+
+    root = os.path.join("build", "phase17")  # ~45 GB at its largest: not chiprun_out
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t_phase = time.perf_counter()
+    secs, out = {}, {}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        secs[name] = time.perf_counter() - t0
+        log("phase 17 %s: %.1f s" % (name, secs[name]))
+        return r
+
+    def launches():
+        return TF.flash_attention_fwd.launches, TF.flash_attention_bwd.launches
+
+    def reset():
+        gc.collect()
+        torch.cuda.empty_cache()
+        TF.flash_attention_fwd.launches = 0
+        TF.flash_attention_bwd.launches = 0
+
+    import torch.utils.deterministic as det
+    prev_det, prev_fill = torch.are_deterministic_algorithms_enabled(), \
+        det.fill_uninitialized_memory
+    try:
+        with RssPeak() as rss, warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            # ------------------------------------------------ LLaMA-7B width
+            hf_dir, ck = os.path.join(root, "llama_hf"), os.path.join(root, "llama_h2g")
+            cfg = LL.llama_config_from_hf(_ns_config(LLAMA_7B_HF, "llama"))
+            params = step("init", lambda: _seeded_bf16_params(torch, cfg, cfg.num_layers))
+            hf_sd, hf_bytes = step("export_hf", lambda: _hf_dir(
+                torch, hf_dir, LLAMA_7B_HF, params, lambda p: LL.export_hf_llama(p, cfg)))
+            step("h2g", lambda: CONV.main(["h2g", "--model_type", "llama", "--hf_path", hf_dir,
+                                           "--output_dir", ck]))
+            ck_bytes = sum(os.path.getsize(os.path.join(ck, "0", f))
+                           for f in os.listdir(os.path.join(ck, "0")))
+            full, meta = step("verify_h2g", lambda: CK.load_full_params(ck, None, cfg))
+            items = CK.read_manifest(ck, 0)["items"]
+            check(meta.get("source") == "hf" and "params" in items and "opt_state" not in items,
+                  "h2g step 0: meta %s, manifest items %s" % (meta, sorted(items)))
+            _bitwise(torch, full, params, "h2g params vs the seeded params")
+            del full
+            corpus_txt = os.path.join(root, "corpus.txt")
+            rng = np.random.RandomState(SEED)
+            words = ["".join(chr(97 + c) for c in rng.randint(0, 26, n))
+                     for n in rng.randint(2, 10, 5000)]
+            with open(corpus_txt, "w") as f:
+                for _ in range(HF_CORPUS_LINES):
+                    f.write(" ".join(words[i] for i in rng.randint(0, len(words), 150)) + "\n")
+            prefix = os.path.join(root, "corpus")
+            tok = step("tokenize", lambda: TOK.main(["--input", corpus_txt, "--output", prefix,
+                                                     "--tokenizer", "bytes", "--append-eod"]))
+            argv = C.argv(C.write_strategy(root)) + ["--data_path", prefix, "--split", "1,0,0"]
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            det.fill_uninitialized_memory = False
+            reset()
+            trained_ck = os.path.join(root, "llama_trained")
+            loaded = step("train_load", lambda: cli_train.main(argv + [
+                "--train_iters", str(HF_TRAIN_STEPS), "--load", ck, "--save", trained_ck]))
+            train_launches = launches()
+            reset()
+            orig_init = HybridParallelModel.init_params
+            HybridParallelModel.init_params = lambda self, seed: self.shard_params(params)
+            try:
+                memory = step("train_memory", lambda: cli_train.main(argv + [
+                    "--train_iters", str(HF_TRAIN_STEPS)]))
+            finally:
+                HybridParallelModel.init_params = orig_init
+            torch.use_deterministic_algorithms(prev_det)
+            det.fill_uninitialized_memory = prev_fill
+            check(loaded["checkpoint_restore"].get("params_only")
+                  and len(loaded["losses"]) == HF_TRAIN_STEPS
+                  and all(math.isfinite(x) for x in loaded["losses"]),
+                  "train --load of the conversion: %s, losses %s" % (
+                      loaded.get("checkpoint_restore"), loaded["losses"]))
+            check(loaded["losses"] == memory["losses"],
+                  "losses from the conversion %r != from the in-memory params %r (a fresh "
+                  "optimizer in both)" % (loaded["losses"], memory["losses"]))
+            remat = sum(C.CHECKPOINT)
+            want = (HF_TRAIN_STEPS * C.CHUNKS * (C.LAYERS + remat),
+                    HF_TRAIN_STEPS * C.CHUNKS * C.LAYERS)
+            check(train_launches == want, "train --load launched %s, expected %s"
+                  % (train_launches, want))
+            reset()
+            served = step("serve_load", lambda: cli_serve.main(SERVE_ARGV + [
+                "--set_layernum_manually", "1", "--num_layers", str(cfg.num_layers),
+                "--num_requests", str(HF_SERVE_REQUESTS), "--load", ck]))
+            serve_launches = launches()
+            check(served["requests"] == HF_SERVE_REQUESTS and served["shed"] == 0
+                  and serve_launches[0] > 0 and serve_launches[1] == 0,
+                  "serve --load: %d requests, shed %d, launches %s" % (
+                      served["requests"], served["shed"], serve_launches))
+            back = os.path.join(root, "llama_back.bin")
+            step("g2h", lambda: CONV.main(["g2h", "--model_type", "llama", "--hf_config_path",
+                                           hf_dir, "--checkpoint_dir", ck, "--output_path", back]))
+            got = torch.load(back, map_location="cpu", weights_only=True, mmap=True)
+            _bitwise(torch, got, hf_sd, "g2h of step 0 vs the HF file")
+            del got
+            os.remove(back)
+            step("g2h_trained", lambda: CONV.main([
+                "g2h", "--model_type", "llama", "--hf_config_path", hf_dir, "--checkpoint_dir",
+                trained_ck, "--output_path", back]))
+            got = torch.load(back, map_location="cpu", weights_only=True, mmap=True)
+            trained, _ = CK.load_full_params(trained_ck, None, cfg)
+            check(torch.equal(got["model.norm.weight"], trained["final_norm.scale"])
+                  and not torch.equal(got["model.norm.weight"], hf_sd["model.norm.weight"].float()),
+                  "g2h of the trained step does not hold the trained norm")
+            del got, trained, hf_sd, params
+            os.remove(back)
+            for path in (ck, trained_ck, hf_dir):
+                shutil.rmtree(path)
+            out["llama"] = dict(
+                hf_gb=hf_bytes / 1e9, ckpt_gb=ck_bytes / 1e9,
+                h2g_gbps=hf_bytes / 1e9 / secs["h2g"], losses=loaded["losses"],
+                memory_losses=memory["losses"], restore=loaded["checkpoint_restore"],
+                step_ms=loaded["steady_step_ms"], tokens=tok,
+                launches={"train": train_launches, "serve": serve_launches},
+                serve=served)
+            # --------------------------------------------------- T5-large
+            hf_dir, ck = os.path.join(root, "t5_hf"), os.path.join(root, "t5_h2g")
+            tcfg = T5.t5_config_from_hf(_ns_config(T5_LARGE_HF, "t5"))
+            params = step("t5_init", lambda: _seeded_bf16_params(torch, tcfg, tcfg.num_layers))
+            hf_sd, t5_bytes = step("t5_export_hf", lambda: _hf_dir(
+                torch, hf_dir, T5_LARGE_HF, params, lambda p: T5.export_hf_t5(p, tcfg)))
+            step("t5_h2g", lambda: CONV.main(["h2g", "--model_type", "t5", "--hf_path", hf_dir,
+                                              "--output_dir", ck]))
+            full, _ = CK.load_full_params(ck, None, tcfg)
+            _bitwise(torch, full, params, "t5 h2g params vs the seeded params")
+            del full, params
+            reset()
+            t5_run = step("t5_train_load", lambda: cli_train.main(C.t5_argv(
+                C.write_t5_strategy(root), prefix) + ["--train_iters", str(HF_T5_STEPS),
+                                                      "--lr_warmup_iters", "1", "--load", ck]))
+            t5_launches = launches()
+            check(t5_launches == (0, 0) and len(t5_run["losses"]) == HF_T5_STEPS
+                  and all(math.isfinite(x) for x in t5_run["losses"])
+                  and t5_run["checkpoint_restore"].get("params_only"),
+                  "t5 train --load: losses %s, launches %s" % (t5_run["losses"], t5_launches))
+            back = os.path.join(root, "t5_back.bin")
+            step("t5_g2h", lambda: CONV.main(["g2h", "--model_type", "t5", "--hf_config_path",
+                                              hf_dir, "--checkpoint_dir", ck, "--output_path",
+                                              back]))
+            got = torch.load(back, map_location="cpu", weights_only=True, mmap=True)
+            _bitwise(torch, got, hf_sd, "t5 g2h of step 0 vs the HF file")
+            del got, hf_sd
+            out["t5"] = dict(hf_gb=t5_bytes / 1e9, losses=t5_run["losses"],
+                             step_ms=t5_run["steady_step_ms"], launches=t5_launches,
+                             h2g_gbps=t5_bytes / 1e9 / secs["t5_h2g"])
+    finally:
+        torch.use_deterministic_algorithms(prev_det)
+        det.fill_uninitialized_memory = prev_fill
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset()
+    seq = step("t5_seq_sharding", lambda: t5_seq_sharding(torch, TF))
+    out.update(seq=seq, seconds=secs, rss=rss.as_dict(), wall_s=time.perf_counter() - t_phase,
+               runs={"hf_llama_train": dict(fwd_launches=out["llama"]["launches"]["train"][0],
+                                            bwd_launches=out["llama"]["launches"]["train"][1]),
+                     "hf_llama_serve": dict(fwd_launches=out["llama"]["launches"]["serve"][0],
+                                            bwd_launches=0),
+                     "hf_t5_train": dict(fwd_launches=0, bwd_launches=0),
+                     "t5_seq_sharding": dict(fwd_launches=seq["launches"][0],
+                                             bwd_launches=seq["launches"][1])})
+    return out
+
+
+def _ns_config(config, family):
+    """A hand-written config.json's namespace (``read_hf_config``)."""
+    import tempfile
+
+    from galvatron_tpu_torch.models.hf_utils import read_hf_config
+
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(config, f)
+        return read_hf_config(d, family)
+
+
+def t5_seq_sharding(torch, TF, dev="cuda", n=T5_SEQ, pad=T5_SEQ_PAD, size="t5-large",
+                    timer=None):
+    """T5-large width, one encoder and one decoder layer on `n` tokens: cp
+    (zigzag order) and the Ulysses head split with every rank played by
+    this process, forward and backward, against the unsharded layers."""
+    from galvatron_tpu_torch.models import t5 as T5
+    from galvatron_tpu_torch.ops.ring_attention import zigzag_permutation
+
+    cfg = T5.t5_config(size, num_enc_layers=1, num_dec_layers=1)
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    model = T5.init_t5_params(cfg, gen, dev)
+    enc, dec = model.enc_layers["0"], model.dec_layers["0"]
+    h = cfg.hidden_size
+    timer = timer or (lambda fn: time_ms(torch, fn, reps=3, warmup=0))
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    x, y, mem = (randn(1, n, h).to(cfg.compute_dtype) for _ in range(3))
+    g_enc, g_dec = randn(1, n, h), randn(1, n, h)
+    kb = torch.zeros(1, 1, 1, n, device=dev)
+    kb[..., n - pad:] = -1e9
+    leaves = dict(model.named_parameters())
+
+    def run(cp, tp, zigzag):
+        """(outputs and gradients by name, ms of one forward + backward)."""
+        play = T5.LocalSeq(cp, tp) if cp * tp > 1 else None
+        order = torch.as_tensor(zigzag_permutation(n, cp), device=dev) if zigzag else \
+            torch.arange(n, device=dev)
+        inv = torch.argsort(order)
+        ins = {k: t.detach().clone().requires_grad_() for k, t in (("x", x), ("y", y),
+                                                                   ("mem", mem))}
+
+        def fwd():
+            xs, ys = ins["x"][:, order], ins["y"][:, order]
+            if play is None:
+                be = T5.rel_bias(model.enc_rel_bias, n, n, cfg, bidirectional=True) + kb
+                bd = T5.rel_bias(model.dec_rel_bias, n, n, cfg, bidirectional=False)
+                oe = T5.enc_layer_forward(enc, xs, cfg, be)
+                od = T5.dec_layer_forward(dec, ys, ins["mem"], cfg, bd, kb)
+            else:
+                r = cp * tp
+                be = play.bias(model.enc_rel_bias, order, 1, cfg, bidirectional=True,
+                               key_bias=kb[..., order])
+                bd = play.bias(model.dec_rel_bias, order, 1, cfg, bidirectional=False)
+                oe = play.rank_unshard(T5.enc_layer_forward(enc, play.rank_shards(xs), cfg, be,
+                                                            seq=play))
+                od = play.rank_unshard(T5.dec_layer_forward(
+                    dec, play.rank_shards(ys), ins["mem"].expand(r, n, h), cfg, bd,
+                    kb.expand(r, 1, 1, n), seq=play))
+            oe, od = oe[:, inv], od[:, inv]
+            loss = (oe.float() * g_enc).sum() + (od.float() * g_dec).sum()
+            return oe, od, loss
+
+        def once():
+            for p in leaves.values():
+                p.grad = None
+            for t in ins.values():
+                t.grad = None
+            oe, od, loss = fwd()
+            loss.backward()
+            return oe, od
+        once()  # warm-up
+        ms = timer(once)
+        oe, od = once()
+        got = {"enc_out": oe.detach().float(), "dec_out": od.detach().float()}
+        got.update({"d_" + k: t.grad.float() for k, t in ins.items()})
+        got.update({k: p.grad.float() for k, p in leaves.items() if p.grad is not None})
+        return got, ms
+
+    TF.flash_attention_fwd.launches = 0
+    TF.flash_attention_bwd.launches = 0
+    want, ms_ref = run(1, 1, False)
+    cases = {}
+    for name, cp, tp in T5_SEQ_CASES:
+        got, ms = run(cp, tp, name.endswith("zigzag"))
+        check(sorted(got) == sorted(want), "%s: gradients of %s" % (name, sorted(got)))
+        rel = {k: float((got[k] - w).norm() / w.norm().clamp(min=1e-30)) for k, w in want.items()}
+        worst = max(rel, key=rel.get)
+        check(rel[worst] <= TOL_T5_SEQ_REL, "t5 %s on one card: %s off the unsharded layers "
+              "by %.3g relative (tol %.0e)" % (name, worst, rel[worst], TOL_T5_SEQ_REL))
+        cases[name] = dict(cp=cp, tp=tp, ms=ms, ratio=ms / ms_ref, worst=worst,
+                           worst_rel=rel[worst])
+    fl = (TF.flash_attention_fwd.launches, TF.flash_attention_bwd.launches)
+    check(fl == (0, 0), "t5 sequence sharding launched the flash kernels %s times" % (fl,))
+    del model, want
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(seq=n, unsharded_ms=ms_ref, cases=cases, launches=fl, tolerance=TOL_T5_SEQ_REL)
+
+
+def log_hf_finetune(hf, card):
+    s, l5, l7 = hf["seconds"], hf["t5"], hf["llama"]
+    log("phase 17 llama-7b width (8 layers) from HF on %s: init %.1f s, export %.2f GB bf16 "
+        "safetensors %.1f s, h2g %.1f s (%.2f GB/s of HF file; %.2f GB fp32 params-only step), "
+        "h2g params bitwise (checked in %.1f s), tokenize %.1f s (%d docs, %d tokens), train "
+        "--load %d steps %.1f s (step %.1f ms, losses %s; restore %.1f s), losses bitwise "
+        "equal to the in-memory run's (%s, %.1f s), serve --load %d requests %.1f s (%.1f "
+        "tok/s), g2h step 0 %.1f s (bitwise), g2h trained step %.1f s; flash launches train "
+        "fwd %d / bwd %d, serve fwd %d" % (
+            card, s["init"], l7["hf_gb"], s["export_hf"], s["h2g"], l7["h2g_gbps"], l7["ckpt_gb"],
+            s["verify_h2g"], s["tokenize"], l7["tokens"]["n_docs"], l7["tokens"]["n_tokens"],
+            HF_TRAIN_STEPS, s["train_load"], l7["step_ms"], ["%.5f" % x for x in l7["losses"]],
+            l7["restore"]["seconds"], ["%r" % x for x in l7["memory_losses"]], s["train_memory"],
+            l7["serve"]["requests"], s["serve_load"], l7["serve"]["tokens_per_s"], s["g2h"],
+            s["g2h_trained"], l7["launches"]["train"][0], l7["launches"]["train"][1],
+            l7["launches"]["serve"][0]))
+    log("phase 17 t5-large from HF: export %.2f GB %.1f s, h2g %.1f s (%.2f GB/s), h2g params "
+        "bitwise, train --load %d steps %.1f s (step %.1f ms, losses %s), g2h step 0 %.1f s "
+        "(bitwise), flash launches %s" % (
+            l5["hf_gb"], s["t5_export_hf"], s["t5_h2g"], l5["h2g_gbps"], HF_T5_STEPS,
+            s["t5_train_load"], l5["step_ms"], ["%.5f" % x for x in l5["losses"]], s["t5_g2h"],
+            l5["launches"]))
+    q = hf["seq"]
+    log("phase 17 t5-large width, 1 + 1 layers, S=%d, every rank on %s: unsharded fwd+bwd "
+        "%.2f ms; %s; flash launches %s" % (
+            q["seq"], card, q["unsharded_ms"], "; ".join(
+                "%s %.2f ms (x%.3f, worst %s %.3g rel)" % (k, c["ms"], c["ratio"], c["worst"],
+                                                           c["worst_rel"])
+                for k, c in q["cases"].items()), q["launches"]))
+    log("phase 17 host RSS %.2f -> peak %.2f GB; phase %.1f s" % (
+        hf["rss"]["rss_before_gb"], hf["rss"]["rss_peak_gb"], hf["wall_s"]))
+
+
 def main():
     try:
         import torch
@@ -2447,6 +2863,7 @@ def main():
     finally:
         remove_phase10_data()
     t5_swin = t5_swin_families(torch, TF)
+    hf = hf_finetune(torch, TF)
     s, t = served["summary"], trained["summary"]
 
     def at_2048(rows, b):
@@ -2487,7 +2904,8 @@ def main():
                "long_context": lc["launches"]["fwd"],
                **{"train_" + n: r["fwd_launches"] for n, r in encoders["runs"].items()},
                **{"elastic_" + n: r["fwd_launches"] for n, r in elastic["runs"].items()},
-               **{"train_" + n: r["fwd_launches"] for n, r in t5_swin["runs"].items()}},
+               **{"train_" + n: r["fwd_launches"] for n, r in t5_swin["runs"].items()},
+               **{n: r["fwd_launches"] for n, r in hf["runs"].items()}},
               TOL_FWD_BF16),
         entry("flash_attn_bwd", BWD_SOURCE, bwd_shapes, z3["bwd_launches"],
               {"serve": 0, "train": trained["bwd_launches"],
@@ -2500,7 +2918,8 @@ def main():
                "long_context": lc["launches"]["bwd"],
                **{"train_" + n: r["bwd_launches"] for n, r in encoders["runs"].items()},
                **{"elastic_" + n: r["bwd_launches"] for n, r in elastic["runs"].items()},
-               **{"train_" + n: r["bwd_launches"] for n, r in t5_swin["runs"].items()}},
+               **{"train_" + n: r["bwd_launches"] for n, r in t5_swin["runs"].items()},
+               **{n: r["bwd_launches"] for n, r in hf["runs"].items()}},
               TOL_BWD_BF16),
     ]}
     results = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
@@ -2509,7 +2928,7 @@ def main():
                    decode=decode, serve=served, train=trained, train_gpt_layouts=layouts,
                    corpus_checkpoint=corpus, train_pipelines=pipelines,
                    profile_search_train=loop, long_context=lc, encoder_families=encoders,
-                   elastic_resume=elastic, t5_swin_families=t5_swin,
+                   elastic_resume=elastic, t5_swin_families=t5_swin, hf_finetune=hf,
                    wall_s=time.perf_counter() - t_start)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -2612,6 +3031,7 @@ def main():
     log_encoders(encoders, card)
     log_elastic(elastic, card)
     log_t5_swin(t5_swin, card)
+    log_hf_finetune(hf, card)
     log(json.dumps(kernels))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

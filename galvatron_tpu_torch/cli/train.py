@@ -62,7 +62,10 @@ provenance (an unchanged world), ``--elastic_strategy`` or a search for
 this world, and the restore moves every rank's shards of the params and
 both Adam moments across strategies, world sizes and pipeline divisions
 (``runtime/checkpoint.py``); a refusal (GLS2xx) exits with code 2. A plain
-``--load`` under another strategy still refuses (GLS206). The
+``--load`` under another strategy still refuses (GLS206), but for a step
+that holds params alone (``tools/convert_checkpoint h2g``): its full params
+are sharded into this run's layout, whatever it is, and the optimizer
+starts fresh at iteration 0, as in the reference. The
 silent-corruption sentinel, the watchdog, live migration and the
 autotuner refuse with a ValueError naming their ROADMAP item, or argparse
 refuses their flags.
@@ -354,11 +357,34 @@ def _train(args, device) -> dict:
         plan.provenance.get("memory_budget_gb") if plan is not None else None)
     provenance = build_provenance(hp, cfg, optimizer_args_from(args), memory_budget_gb=budget)
 
+    def load_params_only(ckpt_dir, step):
+        # a step without Adam state (tools/convert_checkpoint h2g): every
+        # rank assembles the full params (checked against the manifest) and
+        # keeps its shards of the live layout, under any strategy and world
+        # size; the optimizer state stays as it is (fresh at the start)
+        t0 = time.perf_counter()
+        full, meta = ckpt.load_full_params(ckpt_dir, step, cfg, strict_model=False)
+        with torch.no_grad():
+            for stage, module in params.items():
+                for name, p in module.named_parameters():
+                    p.copy_(model._shard(name, full[name].to(p.device, p.dtype), stage))
+        nbytes = sum(t.numel() * t.element_size() for t in full.values())
+        del full
+        meta["restore"] = {"bytes": nbytes, "params_only": True,
+                           "seconds": time.perf_counter() - t0}
+        ckpt._emit_restore(int(meta["iteration"]), ckpt_dir, meta["restore"], 0)
+        return params, None, meta
+
     def load_from(ckpt_dir, iteration):
         # restores in place into the live params and Adam state (a tied
         # table's last-stage copy from the first stage's, which the
         # checkpoint holds once); under --elastic a step of another
         # strategy is restored across strategies
+        step = iteration if iteration is not None else next(
+            iter(reversed(ckpt.intact_iterations(ckpt_dir))), None)
+        manifest = ckpt.read_manifest(ckpt_dir, step) if step is not None else None
+        if manifest is not None and "opt_state" not in manifest.get("items", {}):
+            return load_params_only(ckpt_dir, step)
         return ckpt.load_checkpoint(
             ckpt_dir, iteration, params_target=params, opt_state_target=opt_state,
             target=model, allow_cross=plan is not None, model_cfg=cfg,
@@ -374,6 +400,7 @@ def _train(args, device) -> dict:
         if lead:
             print("resumed from %s at iteration %d%s" % (
                 args.load, start_iter, " across strategies" if restored.get("cross_strategy")
+                else " (params only: a fresh optimizer)" if restored.get("params_only")
                 else ""))
 
     telemetry.emit(

@@ -36,7 +36,7 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -124,15 +124,30 @@ def build_sample_idx(doc_lens: np.ndarray, doc_idx: np.ndarray, seq_len: int,
 
 
 # ------------------------------------------------------------------ on disk
-def write_indexed_dataset(path: str, documents: Sequence[Sequence[int]]) -> None:
-    """Write documents (token id lists) as <path>.bin + <path>.idx.npy."""
-    offsets = np.zeros(len(documents) + 1, np.int64)
-    for i, d in enumerate(documents):
-        offsets[i + 1] = offsets[i] + len(d)
-    tokens = (np.concatenate([np.asarray(d, np.int32) for d in documents]) if documents
-              else np.zeros(0, np.int32))
-    tokens.tofile(path + ".bin")
-    np.save(path + ".idx.npy", offsets)
+def write_indexed_dataset(path: str, documents: Iterable[Sequence[int]]) -> int:
+    """Write documents (token id lists or arrays; any iterable, streamed one
+    document at a time) as <path>.bin + <path>.idx.npy; returns the
+    document count. A stale index goes first and the .bin is written under
+    a temporary name, moved into place once every document is in: a
+    failure midway (the iterable raising included) never leaves a new or
+    partial .bin paired with an old index."""
+    idx_path = path + ".idx.npy"
+    if os.path.exists(idx_path):
+        os.remove(idx_path)
+    tmp = path + ".bin.tmp"
+    offsets = [0]
+    try:
+        with open(tmp, "wb") as f:
+            for d in documents:
+                tokens = np.asarray(d, np.int32)
+                tokens.tofile(f)
+                offsets.append(offsets[-1] + len(tokens))
+        os.replace(tmp, path + ".bin")
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    np.save(idx_path, np.asarray(offsets, np.int64))
+    return len(offsets) - 1
 
 
 class IndexedDataset:

@@ -8,7 +8,9 @@ and ``swin`` (``vision``). T5 and Swin have their own parameter trees and
 carry the reference's family hooks: a `build` constructor, the layer types
 the search prices (`layer_configs_fn`), their profiler (`make_profiler`),
 whether a layer-type boundary may fall inside a pipeline stage, and
-whether their attention has a sequence to shard.
+whether their attention has a sequence to shard. Every family carries its
+HF bridge (`convert_from_hf`, `export_to_hf`, `config_from_hf`: the
+reference's hooks, ``tools/convert_checkpoint.py`` calls them).
 """
 
 from __future__ import annotations
@@ -42,6 +44,11 @@ class ModelFamily:
     mid_stage_type_boundaries: bool = False
     # whether the attention has a sequence that cp / Ulysses can shard
     supports_sequence_sharding: bool = True
+    # the HF bridge: (state_dict, cfg) -> the port's state dict; (params,
+    # cfg) -> HF state-dict arrays; (config namespace, **overrides) -> cfg
+    convert_from_hf: Optional[Callable] = None
+    export_to_hf: Optional[Callable] = None
+    config_from_hf: Optional[Callable] = None
 
 
 def _fa(fn):
@@ -77,6 +84,9 @@ _REGISTRY: Dict[str, ModelFamily] = {
         meta_configs=gpt.META_CONFIGS,
         default_size="gpt-0.3b",
         data_kind="lm",
+        convert_from_hf=gpt.convert_hf_gpt2,
+        export_to_hf=gpt.export_hf_gpt2,
+        config_from_hf=gpt.gpt_config_from_hf,
     ),
     "llama": ModelFamily(
         name="llama",
@@ -84,24 +94,36 @@ _REGISTRY: Dict[str, ModelFamily] = {
         meta_configs=llama.META_CONFIGS,
         default_size="llama-0.3b",
         data_kind="lm",
+        convert_from_hf=llama.convert_hf_llama,
+        export_to_hf=llama.export_hf_llama,
+        config_from_hf=llama.llama_config_from_hf,
     ),
     "gpt_fa": ModelFamily(
         name="gpt_fa",
         config_fn=_fa(gpt.gpt_config),
         meta_configs=gpt.META_CONFIGS,
         default_size="gpt-0.3b",
+        convert_from_hf=gpt.convert_hf_gpt2,
+        export_to_hf=gpt.export_hf_gpt2,
+        config_from_hf=_fa(gpt.gpt_config_from_hf),
     ),
     "llama_fa": ModelFamily(
         name="llama_fa",
         config_fn=_fa(llama.llama_config),
         meta_configs=llama.META_CONFIGS,
         default_size="llama-0.3b",
+        convert_from_hf=llama.convert_hf_llama,
+        export_to_hf=llama.export_hf_llama,
+        config_from_hf=_fa(llama.llama_config_from_hf),
     ),
     "bert": ModelFamily(
         name="bert",
         config_fn=bert.bert_config,
         meta_configs=bert.META_CONFIGS,
         default_size="bert-base",
+        convert_from_hf=bert.convert_hf_bert,
+        export_to_hf=bert.export_hf_bert,
+        config_from_hf=bert.bert_config_from_hf,
     ),
     "vit": ModelFamily(
         name="vit",
@@ -109,6 +131,9 @@ _REGISTRY: Dict[str, ModelFamily] = {
         meta_configs=vit.META_CONFIGS,
         default_size="vit-base",
         data_kind="vision",
+        convert_from_hf=vit.convert_hf_vit,
+        export_to_hf=vit.export_hf_vit,
+        config_from_hf=vit.vit_config_from_hf,
     ),
     "t5": ModelFamily(
         name="t5",
@@ -119,6 +144,9 @@ _REGISTRY: Dict[str, ModelFamily] = {
         build=_build,
         layer_configs_fn=t5.t5_layer_configs,
         make_profiler=_profiler("T5ModelProfiler"),
+        convert_from_hf=t5.convert_hf_t5,
+        export_to_hf=t5.export_hf_t5,
+        config_from_hf=t5.t5_config_from_hf,
     ),
     "swin": ModelFamily(
         name="swin",
@@ -131,6 +159,9 @@ _REGISTRY: Dict[str, ModelFamily] = {
         make_profiler=_profiler("SwinModelProfiler"),
         mid_stage_type_boundaries=True,
         supports_sequence_sharding=False,
+        convert_from_hf=swin.convert_hf_swin,
+        export_to_hf=swin.export_hf_swin,
+        config_from_hf=swin.swin_config_from_hf,
     ),
 }
 

@@ -28,9 +28,9 @@ the layout of the block before it. Under a pipeline (1F1B, equal
 divisions) a boundary may fall inside a stage or after a merge: each
 boundary carries the (rows, H, W, C) activation of its own resolution.
 
-The HF converters (``convert_hf_swin`` / ``export_hf_swin`` /
-``swin_config_from_hf``) wait for the checkpoint-conversion slice (ROADMAP
-queue 1 item 9b).
+The HF bridge (`swin_config_from_hf`, `convert_hf_swin`, `export_hf_swin`)
+maps SwinForImageClassification's stage blocks (each with its own relative
+table) and downsample layers onto ``blocks`` and ``merges``.
 """
 
 from __future__ import annotations
@@ -47,6 +47,7 @@ from torch import nn
 
 from galvatron_tpu_torch.config.strategy import HybridParallelConfig
 from galvatron_tpu_torch.models import base as M
+from galvatron_tpu_torch.models.hf_utils import params_state, stack_qkv, to_np, to_state_dict, to_t
 from galvatron_tpu_torch.ops.norms import layer_norm
 from galvatron_tpu_torch.parallel import spec as S
 from galvatron_tpu_torch.parallel import tensor_parallel as T
@@ -126,6 +127,23 @@ def swin_config(model_size: str = "swin-tiny", **overrides) -> SwinConfig:
     base = dict(META_CONFIGS[model_size])
     base.update(overrides)
     return SwinConfig(**base)
+
+
+def swin_config_from_hf(hf_config, num_classes: int = 1000, **overrides) -> SwinConfig:
+    return SwinConfig(
+        embed_dim=hf_config.embed_dim,
+        depths=tuple(hf_config.depths),
+        num_heads=tuple(hf_config.num_heads),
+        image_size=hf_config.image_size,
+        patch_size=hf_config.patch_size,
+        num_channels=hf_config.num_channels,
+        window=hf_config.window_size,
+        mlp_ratio=hf_config.mlp_ratio,
+        qkv_bias=hf_config.qkv_bias,
+        layernorm_eps=hf_config.layer_norm_eps,
+        num_classes=num_classes,
+        **overrides,
+    )
 
 
 # ================================================================= parameters
@@ -299,11 +317,12 @@ def patch_merge(p: PatchMerge, x: torch.Tensor, cfg: SwinConfig) -> torch.Tensor
 def swin_stage(params: SwinModel, batch: dict, cfg: SwinConfig, ids: Sequence[int],
                x_in: Optional[Tuple[torch.Tensor, ...]] = None, *,
                hp: Optional[HybridParallelConfig] = None,
-               layouts: Optional[M.ModelLayouts] = None):
+               layouts: Optional[M.ModelLayouts] = None, logits: bool = False):
     """The blocks `ids` of one pipeline stage (every block: the whole
     model) and the merges after them: the patch embedding on the first
-    stage, ``(x,)`` (B, H, W, C) out of a stage, the loss out of the last
-    one. Each block and the merge after it run in the block's layout."""
+    stage, ``(x,)`` (B, H, W, C) out of a stage, the loss (with `logits`
+    the class logits) out of the last one. Each block and the merge after
+    it run in the block's layout."""
     dtype = cfg.compute_dtype
     vocab = layouts.vocab if layouts is not None else None
     if 0 in ids:
@@ -335,8 +354,8 @@ def swin_stage(params: SwinModel, batch: dict, cfg: SwinConfig, ids: Sequence[in
     if cfg.num_layers - 1 not in ids:
         return (x,)
     x = _ln(x.reshape(x.shape[0], -1, x.shape[-1]), params.final_norm, cfg)
-    logits = M._proj(x.mean(dim=1), params.head, dtype)
-    return M.classification_loss(logits, batch["labels"], vocab)
+    out = M._proj(x.mean(dim=1), params.head, dtype)
+    return out if logits else M.classification_loss(out, batch["labels"], vocab)
 
 
 def swin_loss_fn(params: SwinModel, batch: dict, cfg: SwinConfig,
@@ -345,6 +364,92 @@ def swin_loss_fn(params: SwinModel, batch: dict, cfg: SwinConfig,
     """batch: dict(pixels (B, H, W, C), labels (B,)) -> mean softmax cross
     entropy over the classes (with `layouts`: this rank's share)."""
     return swin_stage(params, batch, cfg, range(cfg.num_layers), hp=hp, layouts=layouts)
+
+
+def swin_forward(params: SwinModel, pixels: torch.Tensor, cfg: SwinConfig) -> torch.Tensor:
+    """The unsharded class logits of (B, H, W, C) pixels (the reference's
+    ``swin_forward``)."""
+    return swin_stage(params, {"pixels": pixels}, cfg, range(cfg.num_layers), logits=True)
+
+
+# =============================================================== HF bridge
+_SWIN_DENSE = (("wo", "attention.output.dense"), ("wi", "intermediate.dense"),
+               ("wo_mlp", "output.dense"))
+_SWIN_NORMS = (("ln1", "layernorm_before"), ("ln2", "layernorm_after"))
+_SWIN_TOP = (("embed.patch.bias", "swin.embeddings.patch_embeddings.projection.bias"),
+             ("embed.norm.scale", "swin.embeddings.norm.weight"),
+             ("embed.norm.bias", "swin.embeddings.norm.bias"),
+             ("final_norm.scale", "swin.layernorm.weight"),
+             ("final_norm.bias", "swin.layernorm.bias"), ("head.bias", "classifier.bias"))
+
+
+def _hf_blocks(cfg: SwinConfig):
+    """(block index, its HF prefix, width, heads) of every block."""
+    for i in range(cfg.num_layers):
+        stage = cfg.stage_of_block(i)
+        d = i - int(np.sum(cfg.depths[:stage]))
+        yield (i, "swin.encoder.layers.%d.blocks.%d." % (stage, d), cfg.stage_dim(stage),
+               cfg.num_heads[stage])
+
+
+def convert_hf_swin(state_dict: Dict[str, Any], cfg: SwinConfig) -> Dict[str, torch.Tensor]:
+    """HF SwinForImageClassification state dict -> the port's state dict
+    (fp32)."""
+    g = lambda n: to_t(state_dict[n])
+    p = cfg.patch_size
+    conv = g("swin.embeddings.patch_embeddings.projection.weight")  # (E, C, P, P)
+    out = {mine: g(theirs) for mine, theirs in _SWIN_TOP}
+    out["embed.patch.kernel"] = conv.permute(2, 3, 1, 0).reshape(p * p * cfg.num_channels,
+                                                                    cfg.embed_dim)
+    out["head.kernel"] = g("classifier.weight").T
+    for i, pre, c, nh in _hf_blocks(cfg):
+        dst = "blocks.%d." % i
+        out[dst + "wqkv.kernel"], out[dst + "wqkv.bias"] = stack_qkv(
+            state_dict, pre + "attention.self.", c, nh, c // nh)
+        out[dst + "rel_bias"] = g(pre + "attention.self.relative_position_bias_table")
+        for mine, theirs in _SWIN_DENSE:
+            out[dst + mine + ".kernel"] = g(pre + theirs + ".weight").T
+            out[dst + mine + ".bias"] = g(pre + theirs + ".bias")
+        for mine, theirs in _SWIN_NORMS:
+            out[dst + mine + ".scale"] = g(pre + theirs + ".weight")
+            out[dst + mine + ".bias"] = g(pre + theirs + ".bias")
+    for s in range(cfg.num_stages - 1):
+        pre = "swin.encoder.layers.%d.downsample." % s
+        out["merges.%d.norm.scale" % s] = g(pre + "norm.weight")
+        out["merges.%d.norm.bias" % s] = g(pre + "norm.bias")
+        out["merges.%d.reduction.kernel" % s] = g(pre + "reduction.weight").T
+    return to_state_dict(out)
+
+
+def export_hf_swin(params, cfg: SwinConfig) -> Dict[str, np.ndarray]:
+    """The port's parameters -> HF SwinForImageClassification state-dict
+    arrays (fp32): the inverse of `convert_hf_swin`."""
+    sd = params_state(params)
+    a = lambda n: to_np(sd[n])
+    p, c0, e = cfg.patch_size, cfg.num_channels, cfg.embed_dim
+    out = {theirs: a(mine) for mine, theirs in _SWIN_TOP}
+    out["swin.embeddings.patch_embeddings.projection.weight"] = a(
+        "embed.patch.kernel").reshape(p, p, c0, e).transpose(3, 2, 0, 1)
+    out["classifier.weight"] = a("head.kernel").T
+    for i, pre, c, nh in _hf_blocks(cfg):
+        src = "blocks.%d." % i
+        qkv, qkv_b = a(src + "wqkv.kernel"), a(src + "wqkv.bias")
+        for j, role in enumerate(("query", "key", "value")):
+            out[pre + "attention.self.%s.weight" % role] = qkv[:, j].reshape(c, c).T
+            out[pre + "attention.self.%s.bias" % role] = qkv_b[j].reshape(c)
+        out[pre + "attention.self.relative_position_bias_table"] = a(src + "rel_bias")
+        for mine, theirs in _SWIN_DENSE:
+            out[pre + theirs + ".weight"] = a(src + mine + ".kernel").T
+            out[pre + theirs + ".bias"] = a(src + mine + ".bias")
+        for mine, theirs in _SWIN_NORMS:
+            out[pre + theirs + ".weight"] = a(src + mine + ".scale")
+            out[pre + theirs + ".bias"] = a(src + mine + ".bias")
+    for s in range(cfg.num_stages - 1):
+        pre = "swin.encoder.layers.%d.downsample." % s
+        out[pre + "norm.weight"] = a("merges.%d.norm.scale" % s)
+        out[pre + "norm.bias"] = a("merges.%d.norm.bias" % s)
+        out[pre + "reduction.weight"] = a("merges.%d.reduction.kernel" % s).T
+    return out
 
 
 # ================================================================ layouts

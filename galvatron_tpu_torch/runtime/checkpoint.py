@@ -1015,10 +1015,13 @@ def _emit_restore(iteration: int, ckpt_dir: str, stats: Dict[str, Any], torn: in
                    device_extra_gb=stats.get("device_extra_gb"))
 
 
-def _full_state(ckpt_dir: str, iteration: Optional[int], cfg, moments: bool):
+def _full_state(ckpt_dir: str, iteration: Optional[int], cfg, moments: bool,
+                strict_model: bool = True):
     """Every saved rank's file verified against the manifest, and its
     shards copied into the full tensors where the saved strategy puts them
-    (``parallel.spec.shard_tensor``)."""
+    (``parallel.spec.shard_tensor``); each leaf must fill its place of
+    `cfg`'s tree exactly (GLS202). Without `strict_model` a step whose
+    model digest differs from `cfg`'s is read all the same (a warning)."""
     from galvatron_tpu_torch.parallel import spec as S
     from galvatron_tpu_torch.parallel.mesh import RankMesh
     from galvatron_tpu_torch.runtime.model_api import model_def
@@ -1033,13 +1036,19 @@ def _full_state(ckpt_dir: str, iteration: Optional[int], cfg, moments: bool):
         raise _diag("GLS210", "checkpoint %s step %d has no committed manifest (torn save)"
                     % (ckpt_dir, iteration), CheckpointIntegrityError)
     saved_hp = _saved_strategy(manifest, ckpt_dir, iteration)
-    check_strategy(manifest, None, cfg)
+    try:
+        check_strategy(manifest, None, cfg)
+    except D.DiagnosticError as e:
+        if strict_model:
+            raise
+        telemetry.runtime_log("checkpoint %s step %d: %s; reading its leaves by name and "
+                              "shape" % (ckpt_dir, iteration, e.diagnostics[0].message))
     specs = _saved_specs(cfg, saved_hp)
     items = ("params", "mu", "nu") if moments else ("params",)
     full = {item: {n: torch.empty(p.shape, dtype=cfg.param_dtype)
                    for n, p in model_def(cfg, saved_hp).tree("meta").named_parameters()}
             for item in items}
-    counts = set()
+    counts, filled = set(), set()
     for r in range(saved_hp.world_size):
         loaded = _read_rank(ckpt_dir, iteration, r)
         kept = {k: loaded[k] for k in ("params", "opt_state") if k in loaded
@@ -1050,9 +1059,23 @@ def _full_state(ckpt_dir: str, iteration: Optional[int], cfg, moments: bool):
                         % (ckpt_dir, iteration, r, bad[1]), CheckpointIntegrityError)
         mesh = RankMesh(saved_hp, r)
         for item, n, (rec, key) in _rank_leaves(kept):
-            S.shard_tensor(full[item][n], specs[item][n], mesh).copy_(kept[rec][key])
+            saved = kept[rec][key]
+            if n not in full[item]:
+                raise _diag("GLS202", "checkpoint %s step %d holds %s %r, which this model "
+                            "has not" % (ckpt_dir, iteration, item, n))
+            place = S.shard_tensor(full[item][n], specs[item][n], mesh)
+            if tuple(place.shape) != tuple(saved.shape) or saved.dtype != place.dtype:
+                raise _diag("GLS202", "checkpoint %s step %d: %s %r is %s %s there, %s %s here"
+                            % (ckpt_dir, iteration, item, n, saved.dtype, tuple(saved.shape),
+                               place.dtype, tuple(place.shape)))
+            place.copy_(saved)
+            filled.add((item, n))
         if "count" in kept.get("opt_state", {}):
             counts.add(int(kept["opt_state"]["count"]))
+    missing = sorted(n for item in items for n in full[item] if (item, n) not in filled)
+    if missing:
+        raise _diag("GLS202", "checkpoint %s step %d lacks %s of this model"
+                    % (ckpt_dir, iteration, missing[:3]))
     state = None
     if moments:
         if len(counts) != 1:
@@ -1067,15 +1090,19 @@ def _full_state(ckpt_dir: str, iteration: Optional[int], cfg, moments: bool):
     return full["params"], state, meta
 
 
-def load_full_params(ckpt_dir: str, iteration: Optional[int],
-                     cfg) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+def load_full_params(ckpt_dir: str, iteration: Optional[int], cfg, strict_model: bool = True
+                     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
     """The FULL parameters of a checkpoint of any world size and strategy,
     assembled in this process from every rank's file and verified against
     the manifest (the optimizer state is not read): name
     -> CPU tensor, and the train metadata. Needs the manifest's provenance
     (GLS204) for the saved strategy; `cfg` must be the checkpoint's model
-    (GLS201)."""
-    params, _, meta = _full_state(ckpt_dir, iteration, cfg, moments=False)
+    (GLS201), or with `strict_model` False have its leaves' names and
+    shapes (GLS202): an HF conversion trained from (as the reference, which
+    checks no model there) under a config that may differ from the
+    converted one in what no leaf shows (its sequence length), and the HF
+    export."""
+    params, _, meta = _full_state(ckpt_dir, iteration, cfg, False, strict_model)
     return params, meta
 
 

@@ -61,6 +61,15 @@ reference, not the reference's manual TP paths):
   under tp 2 + ZeRO-2, both as pp 2 x tp 2 1F1B pipelines at world 4 (the
   reference's ``_cfg_t5_pp2`` / ``_cfg_swin_pp2``), and as pp 2 pipelines
   at world 2: T5's (h, mem) channel and Swin's merged grid between ranks;
+  T5 with its sequence sharded (cp 2 in either cp mode, on the natural
+  batch and on one in zigzag order with its true positions, Ulysses 2, cp
+  2 with vocab cp 2 and Ulysses 2 with vocab sp at world 2, Ulysses 2 with
+  cp 2 at world 4), and the plan ``cli search --sp_space tp+sp
+  --enable_cp 1`` writes for T5 at world 2 trained by ``cli train``;
+- a converted HF checkpoint (``tools/convert_checkpoint h2g``, params
+  only, written at world 1) loaded by ``cli train --load`` at world 2
+  under Megatron tp 2 with vocab tp 2 and ZeRO-3, without ``--elastic``:
+  its losses within the trajectory limit of the same load at world 1;
 - the hardware profiler (``profiler/hardware.py``) on the same world:
   ``profile_all`` writes the JAX package's file names and keys (its
   HardwareProfiler on a 2- and 4-device CPU mesh; the quantization toll
@@ -196,6 +205,9 @@ CASES = {
         # one layer a stage: T5's token table on stages 0, 2 and 3 and each
         # relative table on two stages sum their gradients over the pp group
         "t5_pp4_1f1b": dict(model="t5", pp=4, chunks=4, pipeline_type="pipedream_flush"),
+        # T5 under Ulysses 2 with cp 2 on every layer: the key/value gather
+        # over cp after the all-to-all, the relative table's head chunk
+        "t5_ulysses2_cp2": dict(model="t5", tp=2, sp=1, cp=2),
     },
     2: {
         "dp2": dict(),
@@ -222,6 +234,17 @@ CASES = {
         # T5's (h, mem) channel and Swin's merged grid between two ranks
         "t5_pp2_1f1b": dict(model="t5", pp=2, chunks=4, pipeline_type="pipedream_flush"),
         "swin_pp2_1f1b": dict(model="swin", pp=2, chunks=2, pipeline_type="pipedream_flush"),
+        # T5 with its sequence sharded: cp 2 in either mode (keys and values
+        # gathered, the bias rows of the rank's positions), Ulysses over tp
+        # 2, cp with vocab cp, Ulysses with vocab sp
+        "t5_cp2": dict(model="t5", cp=2),
+        "t5_cp2_ring": dict(model="t5", cp=2, cp_mode="ring"),
+        "t5_ulysses2": dict(model="t5", tp=2, sp=1),
+        "t5_cp2_vocab_cp": dict(model="t5", cp=2, vocab_cp=2),
+        "t5_ulysses2_vsp2": dict(model="t5", tp=2, sp=1, vocab_tp=2, vocab_sp=1),
+        # a batch in zigzag order with its true positions (``positions``,
+        # ``dec_positions``): the bias rows and the causal mask follow them
+        "t5_cp2_zigzag_batch": dict(model="t5", cp=2, zigzag_batch=True),
     },
 }
 # the divergence case and its strategy, run by the JAX package too
@@ -302,6 +325,7 @@ def _hp(kw, world, num_layers):
     kw = dict(kw)
     kw.pop("model", None)
     kw.pop("padded", None)
+    kw.pop("zigzag_batch", None)
     layers = kw.pop("layers", None)
     kw.setdefault("global_bsz", B)
     if layers is None:
@@ -355,9 +379,9 @@ def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "
     def on_card(kw):
         """False for a case the card cannot run: a ring layer of a model
         whose head_dim is no kernel shape (the tiny models' 16), as the ring
-        has no plain path on the card."""
+        has no plain path on the card (T5's cp layers take no ring)."""
         cfg = cfgs[kw.get("model", "gpt")]
-        return dev.type != "cuda" or not any(
+        return dev.type != "cuda" or kw.get("model") == "t5" or not any(
             s.cp > 1 for s in _hp(kw, world, cfg.num_layers).layers) or \
             cfg.hidden_size // cfg.num_heads in HEAD_DIMS
 
@@ -370,6 +394,12 @@ def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "
         params = model.shard_params(full[m])
         if m in ENCODERS:
             batch = {k: torch.from_numpy(v).to(dev) for k, v in encoder_batch_np(m).items()}
+            if kw.get("zigzag_batch"):
+                from galvatron_tpu_torch.ops.ring_attention import zigzag_permutation
+
+                order = torch.from_numpy(zigzag_permutation(S_LEN, hp.max_cp)).to(dev)
+                batch = {k: v[:, order] for k, v in batch.items()}
+                batch["positions"] = batch["dec_positions"] = order.expand(B, S_LEN)
         else:  # the strategy's batch: zigzag-permuted under zigzag cp
             batch = prepare_batch(hp, *batches[bool(kw.get("padded")), MODEL_SEQ.get(m, S_LEN)],
                                   device=dev)
@@ -474,6 +504,7 @@ def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "
                                       device_name))
         results.update(_pipeline_checkpoint_cases(
             os.path.join(os.path.dirname(out), "ckpt_pp_w2"), device_name))
+        results.update(_h2g_case(os.path.dirname(inputs), device_name))
 
     results.update(_hardware_cases(os.path.join(os.path.dirname(out), "hw_w%d" % world), dev))
 
@@ -708,6 +739,13 @@ LOOP_MODEL_ARGV = ["--model_type", "llama", "--set_model_config_manually", "1",
 LOOP_STEPS = 3
 
 
+# T5 through the same loop: its two layer types' tables, the search at
+# world 2 with --sp_space tp+sp --enable_cp 1, the train CLI on the plan
+T5_LOOP_PLAN = "t5_loop_plan.json"
+T5_LOOP_MODEL_ARGV = ["--model_type", "t5", "--model_size", "t5-test",
+                      "--set_seqlen_manually", "1", "--seq_length", "32"]
+
+
 def _loop_case(plan: str, device_name: str) -> dict:
     """The train CLI at world 2 on the searched plan, in fp32."""
     from galvatron_tpu_torch.cli import train as T
@@ -718,8 +756,75 @@ def _loop_case(plan: str, device_name: str) -> dict:
         "--device", device_name, "--galvatron_config_path", plan, "--world_size", "2",
         "--global_train_batch_size", str(bsz), "--train_iters", str(LOOP_STEPS),
         "--lr", "1e-3", "--mixed_precision", "fp32", "--log_interval", "100"], mode="train"))
-    return {"loop/losses": np.asarray(summary["losses"])}
+    out = {"loop/losses": np.asarray(summary["losses"])}
+    t5_plan = os.path.join(os.path.dirname(plan), T5_LOOP_PLAN)
+    with open(t5_plan) as f:
+        bsz = json.load(f)["global_bsz"]
+    summary = T.train(T.initialize_galvatron(argv=T5_LOOP_MODEL_ARGV + [
+        "--device", device_name, "--galvatron_config_path", t5_plan, "--world_size", "2",
+        "--global_train_batch_size", str(bsz), "--train_iters", str(LOOP_STEPS),
+        "--lr", "1e-3", "--log_interval", "100"], mode="train"))
+    out["t5_loop/losses"] = np.asarray(summary["losses"])
+    out["t5_loop/flash"] = np.asarray(json.dumps(summary["flash_routes"]))
+    return out
 
+
+
+# a converted HF LLaMA (``tools/convert_checkpoint h2g`` of seeded port
+# params exported to an HF directory: no transformers needed), loaded by
+# the train CLI at world 2 into Megatron tp 2 (layers 0-1, vocab tp 2) and
+# ZeRO-3 (layers 2-3), against the same load at world 1 in the pytest process
+H2G_DIR = "h2g_llama"
+H2G_HF = {"model_type": "llama", "hidden_size": 64, "num_attention_heads": 4,
+          "num_hidden_layers": 4, "intermediate_size": 96, "vocab_size": 128,
+          "max_position_embeddings": 32}
+H2G_ARGV = ["--model_type", "llama", "--set_model_config_manually", "1", "--hidden_size", "64",
+            "--num_attention_heads", "4", "--ffn_hidden_size", "96", "--num_layers", "4",
+            "--vocab_size", "128", "--seq_length", "32", "--global_train_batch_size", "4",
+            "--chunks", "2", "--train_iters", "2", "--lr", "1e-3", "--lr_decay_style",
+            "constant", "--log_interval", "100", "--mixed_precision", "fp32"]
+H2G_STRATEGY = {"pp_deg": 1, "tp_sizes_enc": "2,2,1,1", "tp_consecutive_flags": "1,1,1,1",
+                "dp_types_enc": "0,0,1,1", "vtp": 2, "global_bsz": 4, "chunks": 2}
+
+
+def _h2g_checkpoint(tmp_dir: str) -> str:
+    """The h2g step of a seeded LLaMA beside the weights; returns its dir."""
+    import torch
+
+    from galvatron_tpu_torch.config.strategy import HybridParallelConfig
+    from galvatron_tpu_torch.models.hf_utils import read_hf_config, write_safetensors
+    from galvatron_tpu_torch.models.llama import export_hf_llama, llama_config_from_hf
+    from galvatron_tpu_torch.runtime.model_api import construct_hybrid_parallel_model
+    from galvatron_tpu_torch.tools import convert_checkpoint as C
+
+    hf_dir = os.path.join(tmp_dir, "h2g_hf")
+    os.makedirs(hf_dir, exist_ok=True)
+    with open(os.path.join(hf_dir, "config.json"), "w") as f:
+        json.dump(H2G_HF, f)
+    cfg = llama_config_from_hf(read_hf_config(hf_dir, "llama"))
+    model = construct_hybrid_parallel_model(cfg, HybridParallelConfig.uniform(1, 4), "cpu")
+    params = model.init_params(9)[0]
+    write_safetensors(os.path.join(hf_dir, "model.safetensors"),
+                      {k: torch.from_numpy(v) for k, v in export_hf_llama(params, cfg).items()})
+    out = os.path.join(tmp_dir, H2G_DIR)
+    C.main(["h2g", "--model_type", "llama", "--hf_path", hf_dir, "--output_dir", out])
+    with open(os.path.join(tmp_dir, "h2g_strategy.json"), "w") as f:
+        json.dump(H2G_STRATEGY, f)
+    return out
+
+
+def _h2g_case(tmp_dir: str, device_name: str) -> dict:
+    """The train CLI at world 2 from the converted step under H2G_STRATEGY
+    (fp32 compute): a fresh optimizer from iteration 0."""
+    from galvatron_tpu_torch.cli import train as T
+
+    with fp32_compute():
+        summary = T.train(T.initialize_galvatron(argv=H2G_ARGV + [
+            "--device", device_name, "--world_size", "2", "--load",
+            os.path.join(tmp_dir, H2G_DIR), "--galvatron_config_path",
+            os.path.join(tmp_dir, "h2g_strategy.json")], mode="train"))
+    return {"h2g/losses": np.asarray(summary["losses"]),
+            "h2g/params_only": np.bool_(summary["checkpoint_restore"]["params_only"])}
 
 
 # the world-2 pipeline save/resume: a tied GPT, 1F1B over stages of 3 and 1
@@ -908,6 +1013,7 @@ def _reference(tmp_dir):
     inputs = os.path.join(tmp_dir, "weights.npz")
     np.savez(inputs, **weights)
     _loop_plan(tmp_dir)
+    _h2g_checkpoint(tmp_dir)
     return dict(models=out, traj=traj, inputs=inputs, divergence=divergence)
 
 
@@ -947,15 +1053,28 @@ def _loop_plan(tmp_dir: str) -> str:
                        *LOOP_HARDWARE.items()):
         with open(os.path.join(config_dir, name), "w") as f:
             json.dump(data, f)
+    # T5's two layer types, each with the llama's layer tables
+    t5_dir = os.path.join(tmp_dir, "t5_loop_profile")
+    os.makedirs(t5_dir, exist_ok=True)
+    tag = "bf16_hidden64_head4_seqlen32_t5"
+    t5_memory = dict(LOOP_MEMORY, layertype_1=LOOP_MEMORY["layertype_0"])
+    for name, data in (("computation_profiling_%s.json" % tag,
+                        dict(LOOP_TIME, layertype_1=LOOP_TIME["layertype_0"] * 1.3)),
+                       ("memory_profiling_%s.json" % tag, t5_memory),
+                       *LOOP_HARDWARE.items()):
+        with open(os.path.join(t5_dir, name), "w") as f:
+            json.dump(data, f)
     plan = os.path.join(tmp_dir, LOOP_PLAN)
     old = os.environ.get("GALVATRON_WORLD_SIZE")
     os.environ["GALVATRON_WORLD_SIZE"] = "2"
+    search = ["--memory_constraint", "0.6", "--settle_bsz", "8", "--settle_chunk", "2",
+              "--sp_space", "tp+sp", "--enable_cp", "1"]
     try:
         TCLI.main(LOOP_MODEL_ARGV + ["--config_dir", config_dir, "--output_config_path", plan,
-                                     "--log_dir", os.path.join(tmp_dir, "loop_logs"),
-                                     "--memory_constraint", "0.6", "--settle_bsz", "8",
-                                     "--settle_chunk", "2", "--sp_space", "tp+sp",
-                                     "--enable_cp", "1"])
+                                     "--log_dir", os.path.join(tmp_dir, "loop_logs")] + search)
+        TCLI.main(T5_LOOP_MODEL_ARGV + [
+            "--config_dir", t5_dir, "--output_config_path", os.path.join(tmp_dir, T5_LOOP_PLAN),
+            "--log_dir", os.path.join(tmp_dir, "t5_loop_logs")] + search)
     finally:
         if old is None:
             del os.environ["GALVATRON_WORLD_SIZE"]
@@ -1068,6 +1187,10 @@ def report(tmp_dir, given=None):
                   "losses max err %.3g against the plain resume's" % (
                       world, name, bool(res[name + "/bitwise"]), bool(res[name + "/cross"]),
                       float(np.abs(got - ref_losses).max())))
+        if "h2g/losses" in res:
+            print("world %d train --load of an h2g step under tp 2 + vocab tp 2 and ZeRO-3: "
+                  "losses %s (params only: %s)" % (world, res["h2g/losses"].tolist(),
+                                                   bool(res["h2g/params_only"])))
         if world == 2 and "%s/loss" % DIVERGENCE_CASE in res:
             want = ref["models"]["gpt_sharp"]["loss"]
             print("zigzag divergence ([cp2, cp1] x 2, weights x %g): JAX sharded loss off the "
@@ -1244,6 +1367,45 @@ def test_world2_train_cli_runs_the_long_context_plan_the_search_writes(reference
             or hp.vocab_cp > 1 or (hp.vocab_sp and hp.vocab_tp > 1)), hp
     losses = world_results(2)["loop/losses"]
     assert len(losses) == LOOP_STEPS and np.isfinite(losses).all(), losses
+
+
+def test_world2_train_loads_a_conversion_into_another_layout(reference, world_results):
+    """``cli train --load`` of an h2g step (params only, written at world
+    1) at world 2 under tp 2 + vocab tp 2 and ZeRO-3, without --elastic:
+    its losses within the trajectory limit of the same load at world 1 in
+    the pytest process (both fp32, a fresh optimizer)."""
+    import torch
+
+    from galvatron_tpu_torch.cli import train as T
+
+    res = world_results(2)
+    assert bool(res["h2g/params_only"])
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # beside JAX's CPU backend in this process
+    try:
+        with fp32_compute():
+            world1 = T.main(H2G_ARGV + ["--device", "cpu", "--load", os.path.join(
+                os.path.dirname(reference["inputs"]), H2G_DIR)])
+    finally:
+        torch.set_num_threads(threads)
+    assert world1["checkpoint_restore"]["params_only"]
+    np.testing.assert_allclose(res["h2g/losses"], world1["losses"], rtol=0, atol=TRAJ_TOL)
+
+
+def test_world2_train_cli_runs_the_t5_plan_the_search_writes(reference, world_results):
+    """``cli search`` of T5 at world 2 with ``--sp_space tp+sp --enable_cp
+    1`` writes a plan that shards T5's sequence (cp or Ulysses layers, or
+    vocab sp / cp); ``cli train`` runs it, on the plain attention."""
+    from galvatron_tpu_torch.config.strategy import HybridParallelConfig
+
+    hp = HybridParallelConfig.from_json(
+        os.path.join(os.path.dirname(reference["inputs"]), T5_LOOP_PLAN), world_size=2)
+    assert (any(s.cp > 1 or (s.sp and s.tp > 1) for s in hp.layers)
+            or hp.vocab_cp > 1 or (hp.vocab_sp and hp.vocab_tp > 1)), hp
+    res = world_results(2)
+    losses = res["t5_loop/losses"]
+    assert len(losses) == LOOP_STEPS and np.isfinite(losses).all(), losses
+    assert json.loads(str(res["t5_loop/flash"])) == [{"fwd": {}, "bwd": {}}] * 2
 
 
 def test_planted_relayout_fault_fails_the_gradient_check(reference, world_results):

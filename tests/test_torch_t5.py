@@ -433,3 +433,110 @@ def test_gpipe_and_a_misaligned_boundary_are_refused():
         "the encoder/decoder boundary must align")
     assert train_refusals(misaligned, cfg) == []
     assert lint_hp(gpipe, model_cfg=cfg, mode="train").ok
+
+
+# ------------------------------------------------------- sequence sharding
+def played_loss(params, batch, cfg, cp, tp, order=None):
+    """T5's loss with every rank of each layer's cp x Ulysses group played
+    by one process (``models.t5.LocalSeq``: the ranks' shards stacked along
+    the batch, the key/value all-gather over cp and the all-to-alls over tp
+    as those collectives move them). With `order` both streams come in that
+    order of the sequence, with their true positions: a zigzag batch."""
+    from galvatron_tpu_torch.models import base as TM
+
+    play = TT.LocalSeq(cp, tp)
+    rows, n = batch["tokens"].shape
+    pos = torch.arange(n) if order is None else torch.as_tensor(order)
+    b = {k: v[:, pos] for k, v in batch.items()}
+    key_bias = TM.padding_attn_bias(b["attn_mask"])
+    ranks = cp * tp
+
+    def stack(ids, x, mem, table, decoder):
+        bias = play.bias(table, pos, rows, cfg, bidirectional=not decoder,
+                         key_bias=None if decoder else key_bias)
+        x = play.rank_shards(x)
+        if decoder:  # every rank's cross-attention reads the whole encoder output
+            mem = mem[None].expand(ranks, *mem.shape).reshape(ranks * rows, *mem.shape[1:])
+            cross = key_bias[None].expand(ranks, *key_bias.shape).reshape(
+                ranks * rows, *key_bias.shape[1:])
+        for i in ids:
+            if decoder:
+                x = TT.dec_layer_forward(params.dec_layers[str(i)], x, mem, cfg, bias, cross,
+                                         seq=play)
+            else:
+                x = TT.enc_layer_forward(params.enc_layers[str(i)], x, cfg, bias, seq=play)
+        return play.rank_unshard(x)
+
+    h = TM.embed_tokens(params.embed, b["tokens"], None, cfg)
+    h = stack(range(cfg.num_enc_layers), h, None, params.enc_rel_bias, False)
+    mem = TT._rms(h, params.enc_norm, cfg)
+    h = TM.embed_tokens(params.embed, b["dec_tokens"], None, cfg)
+    h = stack(range(cfg.num_dec_layers), h, mem, params.dec_rel_bias, True)
+    return TT._head_loss(params, h, b, cfg, None)
+
+
+SEQ_SHARDING = {"cp2_zigzag": (2, 1, True), "cp2_ring": (2, 1, False),
+                "ulysses2": (1, 2, False), "ulysses2_cp2_zigzag": (2, 2, True)}
+
+
+@pytest.mark.parametrize("name", sorted(SEQ_SHARDING))
+def test_sequence_sharded_layers_played_in_one_process_match_the_jax_package(name, case):
+    """cp (zigzag: the batch in the zigzag order of ``prepare_batch`` with
+    its true positions; ring: natural order) and Ulysses, every rank played
+    by one process: the loss and every gradient within the limits above of
+    the JAX package's unsharded ``t5_loss_fn``."""
+    from galvatron_tpu_torch.ops.ring_attention import zigzag_permutation
+
+    cp, tp, zigzag = SEQ_SHARDING[name]
+    params = TT.T5Model(case["tcfg"], "cpu")
+    params.load_state_dict(params_from_numpy(case["tree"]))
+    loss = played_loss(params, torch_batch(case["batch"]), case["tcfg"], cp, tp,
+                       zigzag_permutation(S, cp) if zigzag else None)
+    loss.backward()
+    assert abs(float(loss.detach()) - case["loss"]) <= LOSS_TOL, (float(loss), case["loss"])
+    assert_grads_close({n: p.grad.numpy() for n, p in params.named_parameters()},
+                       case["grads"])
+
+
+def test_a_batch_in_zigzag_order_with_its_positions_gives_the_natural_loss(case):
+    """Both streams permuted into zigzag order and carrying their true
+    positions (``positions``, ``dec_positions``): the relative bias and the
+    decoder's causal mask follow the positions, so the loss and gradients
+    are the natural batch's (the JAX package's unsharded run)."""
+    from galvatron_tpu_torch.ops.ring_attention import zigzag_permutation
+
+    order = torch.from_numpy(zigzag_permutation(S, 2))
+    batch = {k: v[:, order] for k, v in torch_batch(case["batch"]).items()}
+    batch["positions"] = batch["dec_positions"] = order.expand(B, S)
+    params = TT.T5Model(case["tcfg"], "cpu")
+    params.load_state_dict(params_from_numpy(case["tree"]))
+    loss = TT.t5_loss_fn(params, batch, case["tcfg"])
+    loss.backward()
+    assert abs(float(loss.detach()) - case["loss"]) <= LOSS_TOL, (float(loss), case["loss"])
+    assert_grads_close({n: p.grad.numpy() for n, p in params.named_parameters()},
+                       case["grads"])
+
+
+def test_the_jax_packages_sharded_t5_matches_its_unsharded_run_on_its_own_batches(case):
+    """The reference computes the relative bias by index, and GSPMD gathers
+    the keys: on the batches its seq2seq streams make (natural order under
+    every cp mode: ``prepare_batch``'s zigzag permutation is the token
+    stream's) its cp 2 zigzag run equals its unsharded run. A batch in
+    zigzag order it reads by index, as if natural (the port's `positions`
+    and ``dec_positions`` carry the true order)."""
+    from galvatron_tpu.config.strategy import HybridParallelConfig as JHP
+    from galvatron_tpu.config.strategy import LayerStrategy as JLS
+    from galvatron_tpu.ops.ring_attention import zigzag_permutation
+
+    hp = JHP(world_size=2, pp=1, layers=[JLS(cp=2)] * 4, global_bsz=B, cp_mode="zigzag")
+    model = JT.construct_t5_model(case["jcfg"], hp, jax.devices()[:2])
+    params = jax.device_put(case["tree"], model.shardings())
+
+    def sharded(b):
+        return float(jax.jit(model.loss_fn)(params, model.shard_batch(
+            {k: jnp.asarray(v) for k, v in b.items()})))
+
+    assert abs(sharded(case["batch"]) - case["loss"]) <= LOSS_TOL
+    perm = zigzag_permutation(S, 2)
+    zig = {k: np.asarray(v)[:, perm] for k, v in case["batch"].items()}
+    assert abs(sharded(zig) - case["loss"]) > 100 * LOSS_TOL
