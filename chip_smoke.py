@@ -6,8 +6,9 @@
 Phases, in order; any failure exits non-zero and prints no result line:
 
 1. Identify the card (nvidia-smi name and power limit); TF32 off.
-2. Build the flash-attention forward and backward kernels from csrc/ with
-   nvcc (sm_90a), one nvcc per source, and the dataset index helper
+2. Build the flash-attention forward and backward kernels and the tree
+   fold from csrc/ with nvcc (sm_90a), one nvcc per source, and the
+   dataset index helper
    (data/csrc/index_helpers.cpp) and the search's DP core (csrc/dp_core.cpp)
    with g++, all started together; fail if
    ptxas reports a spill in any wgmma kernel or ignores a `setmaxnreg`
@@ -203,12 +204,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
    key-padding tail; Swin depths 2/1/1/1, a shifted block and every merge,
    2 images): card (bf16) against the CPU (fp32), per parameter within
    TOL_ENCODER_GRAD_REL, the loss within TOL_ENCODER_LOSS. Then
-   ``tools/profile_train.py --cell t5`` traces one steady T5-large step.
+   ``tools/profile_train.py --cell t5`` traces one steady T5-large step
+   (one micro-batch of 8).
 17. A fine-tuning user's path from a published checkpoint, at full width
    (nothing downloaded: the config.json is written from the published
    numbers, the weights are seeded port parameters rounded to bf16 and
    exported with ``export_hf_llama`` to a bf16 model.safetensors through
-   the port's own writer): LLaMA-7B (num_hidden_layers cut from 32 to 8) ->
+   the port's own writer): LLaMA-7B (num_hidden_layers cut from 32 to 2) ->
    ``tools.convert_checkpoint h2g`` (its params-only step 0 equal to the
    seeded params bit for bit) -> a seeded text corpus through
    ``tools.tokenize_corpus --tokenizer bytes --append-eod`` -> ``cli train
@@ -225,14 +227,44 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (``models.t5.LocalSeq``), forward and backward against the unsharded
    layers, per tensor within TOL_T5_SEQ_REL, times beside the unsharded
    time, no flash launch. The seconds of each step and the host's peak RSS
-   are printed. Files go to build/phase17 (~45 GB at most), deleted after.
+   are printed. Files go to build/phase17 (~25 GB at most), deleted after.
+   The LLaMA part runs at depth 2 (phase 10's strategy; depth 8 until the
+   resilience slice, cut to keep the script within its time).
+18. Resilience (``runtime/health.py``, ``runtime/sdc.py``,
+   ``runtime/elastic.migrate``, ``runtime/autotune.py``): (a) the
+   silent-corruption sentinel's fold kernel (``csrc/tree_fold.cu``)
+   against its plain version on the card, bitwise, on leaves of fp32,
+   bf16, fp16, fp64, int32, int64, uint8 and bool at odd lengths, an empty
+   leaf, all of them as one tree, and the LLaMA-7B-width depth-8 parameter
+   tree (a planted bit flip must change the fold), timed there beside its
+   bound (bytes / 3.35 TB/s), its plain version and two library
+   reductions over the same bytes; (b) phase 8's configuration for 4 steps
+   through ``cli.train.main`` with and without ``--sdc_check digest``
+   (deterministic algorithms): losses bitwise equal, one fold launch per
+   step, the step time of each; (c) a subprocess
+   (``tests/torch_fault_injection.py --scenario hang``, one full-width
+   LLaMA-7B layer, vocab 32000) whose step call 4 sleeps 4 s under
+   ``--watchdog``: it must fire, escalate, save and exit 3, and ``cli train
+   --elastic resume`` here continues from that save; (d) LLaMA-7B width at
+   depth 2, layer 0 ZeRO-3 and layer 1 ZeRO-2: SIGUSR1 at step 2 migrates in
+   memory to all ZeRO-2 (``--elastic_strategy``), the steps after it bit for
+   bit those of the step-2 save resumed under the target (the migration's
+   seconds and device memory beyond the live state printed); (e) LLaMA-7B
+   width at depth 4, every layer under full remat, ``--autotune apply``:
+   one swap to the searched winner and no swap back (predicted and measured
+   step printed); (f) ``cli serve`` with ``--watchdog`` on one LLaMA-7B
+   layer: a stalled decode tick drains and exits 3, SIGTERM drains and
+   exits 0. Each of (b)-(f) is a main path (counts reset before it). Phase
+   16's T5 trace records one micro-batch of 8 (the runs' 32 in 4) and phase
+   14's BERT trace one step after one warm-up, both cut for time.
 
 Each main path (serve, train, the GPT layout runs, phase 10's train,
 resumed, guarded and serve-from-checkpoint runs, phase 11's runs,
 phase 12's profile and train, phase 13's ring runs, phase 14's encoder
 runs, phase 15's resumed runs, phase 16's T5 and Swin runs and phase 17's
-runs from the converted checkpoints) runs with the
-kernels' launch counts set to 0 just before it and read just after. The last lines
+runs from the converted checkpoints, phase 18's runs) runs with the
+kernels' launch counts (the flash kernels' and the fold's) set to 0 just
+before it and read just after. The last lines
 of standard output are the serve and train summaries, the ``kernels`` JSON
 line, the card line, and ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json.
@@ -243,6 +275,7 @@ import json
 import math
 import os
 import random
+import signal
 import statistics
 import subprocess
 import sys
@@ -351,13 +384,15 @@ def identify_card():
 
 # ------------------------------------------------------------------ phase 2
 def build_kernels(TF):
-    """One nvcc per kernel source and the g++ builds of the dataset index
+    """One nvcc per kernel source (the flash forward and backward, the
+    sentinel's tree fold) and the g++ builds of the dataset index
     helper and the search's DP core, all started together; returns {source:
     (library path, seconds)} of the kernels, the ptxas lines of each build
     and the two host libraries' ((path, seconds), (path, seconds))."""
     from concurrent.futures import ThreadPoolExecutor
 
     from galvatron_tpu_torch.data import dataset as DS
+    from galvatron_tpu_torch.ops import tree_fold as TFold
     from galvatron_tpu_torch.search import dynamic_programming as DP
 
     def one(build, *src):
@@ -365,10 +400,11 @@ def build_kernels(TF):
         so = build(*src)
         return so, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(TF.SOURCES) + 2) as ex:
+    sources = tuple(TF.SOURCES) + (TFold.SOURCE,)
+    with ThreadPoolExecutor(len(sources) + 2) as ex:
         helper = ex.submit(one, DS.build)
         dp_core = ex.submit(one, DP.build)
-        built = dict(zip(TF.SOURCES, ex.map(lambda src: one(TF.build, src), TF.SOURCES)))
+        built = dict(zip(sources, ex.map(lambda src: one(TF.build, src), sources)))
         helper = (helper.result(), dp_core.result())
     ptxas, kernels = {}, {}
     for src, (so, _) in built.items():
@@ -1896,7 +1932,7 @@ def encoder_families(torch, TF):
     torch.cuda.empty_cache()
     TF.flash_attention_fwd.launches = 0
     TF.flash_attention_bwd.launches = 0
-    trace = profile_train.main(["--cell", "bert", "--warmup", "2", "--steps", "2"])
+    trace = profile_train.main(["--cell", "bert", "--warmup", "1", "--steps", "1"])
     launches = (TF.flash_attention_fwd.launches, TF.flash_attention_bwd.launches)
     check(launches == (0, 0), "the traced bert steps launched the flash kernels %s times"
           % (launches,))
@@ -1983,6 +2019,9 @@ def _rel_errs(a, b):
     return [abs(x - y) / abs(y) for x, y in zip(a, b)]
 
 
+T5_TRACE_BATCH = 8  # the T5 trace's global batch, one micro-batch
+
+
 def t5_swin_families(torch, TF):
     """T5-large and Swin-large at full size through the train CLI and as
     hosted pp 2 pipelines, the gradient checks and the T5 step's trace
@@ -2047,7 +2086,9 @@ def t5_swin_families(torch, TF):
     t_trace = time.perf_counter()
     TF.flash_attention_fwd.launches = 0
     TF.flash_attention_bwd.launches = 0
-    trace = profile_train.main(["--cell", "t5", "--warmup", "1", "--steps", "1"])
+    # one micro-batch of 8 (the runs' 32 in 4): a quarter of the ops to record
+    trace = profile_train.main(["--cell", "t5", "--warmup", "1", "--steps", "1",
+                                "--t5_batch", str(T5_TRACE_BATCH)])
     launches = (TF.flash_attention_fwd.launches, TF.flash_attention_bwd.launches)
     check(launches == (0, 0), "the traced t5 steps launched the flash kernels %s times"
           % (launches,))
@@ -2424,12 +2465,12 @@ def log_elastic(el, card):
 # (written here from the published numbers; nothing is downloaded) and HF
 # weights made from seeded port parameters rounded to bf16, converted by the
 # CLI (h2g), trained and served from the conversion, exported back (g2h).
-# LLaMA-7B's numbers with num_hidden_layers cut from 32 to 8 (as phase 8 cuts
-# it): 1.88 B parameters, a 3.8 GB bf16 model.safetensors, a 7.5 GB fp32
-# params-only checkpoint. T5-large's numbers at full depth.
+# LLaMA-7B's numbers with num_hidden_layers cut from 32 to 2 (as phase 10
+# cuts it): 0.67 B parameters, a 1.3 GB bf16 model.safetensors, a 2.7 GB
+# fp32 params-only checkpoint. T5-large's numbers at full depth.
 LLAMA_7B_HF = {"model_type": "llama", "architectures": ["LlamaForCausalLM"],
                "hidden_size": 4096, "intermediate_size": 11008, "num_attention_heads": 32,
-               "num_key_value_heads": 32, "num_hidden_layers": 8, "vocab_size": 32000,
+               "num_key_value_heads": 32, "num_hidden_layers": 2, "vocab_size": 32000,
                "max_position_embeddings": 2048, "rms_norm_eps": 1e-6, "rope_theta": 10000.0,
                "tie_word_embeddings": False, "torch_dtype": "bfloat16"}
 T5_LARGE_HF = {"model_type": "t5", "architectures": ["T5ForConditionalGeneration"],
@@ -2489,7 +2530,7 @@ def _bitwise(torch, got, want, what):
 
 def hf_finetune(torch, TF):
     """HF checkpoint -> h2g -> train and serve from it -> g2h, for LLaMA-7B
-    width (depth 8) and T5-large (see the module note, phase 17)."""
+    width (depth 2) and T5-large (see the module note, phase 17)."""
     import gc
     import shutil
     import warnings
@@ -2506,7 +2547,7 @@ def hf_finetune(torch, TF):
     from galvatron_tpu_torch.tools import tokenize_corpus as TOK
     from galvatron_tpu_torch.tools import train_cell as C
 
-    root = os.path.join("build", "phase17")  # ~45 GB at its largest: not chiprun_out
+    root = os.path.join("build", "phase17")  # ~25 GB at its largest: kept out of the output dir
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     t_phase = time.perf_counter()
@@ -2560,7 +2601,12 @@ def hf_finetune(torch, TF):
             prefix = os.path.join(root, "corpus")
             tok = step("tokenize", lambda: TOK.main(["--input", corpus_txt, "--output", prefix,
                                                      "--tokenizer", "bytes", "--append-eod"]))
-            argv = C.argv(C.write_strategy(root)) + ["--data_path", prefix, "--split", "1,0,0"]
+            # phase 10's depth-2 strategy (layer 0 full remat, layer 1
+            # dots_saveable) at phase 8's batch
+            argv = _llama_argv(_layers_strategy(
+                os.path.join(root, "strategy.json"), CKPT_CHECKPOINT, CKPT_REMAT,
+                [0] * cfg.num_layers), cfg.num_layers, HF_TRAIN_STEPS,
+                ["--data_path", prefix, "--split", "1,0,0"])
             torch.use_deterministic_algorithms(True, warn_only=True)
             det.fill_uninitialized_memory = False
             reset()
@@ -2586,9 +2632,8 @@ def hf_finetune(torch, TF):
             check(loaded["losses"] == memory["losses"],
                   "losses from the conversion %r != from the in-memory params %r (a fresh "
                   "optimizer in both)" % (loaded["losses"], memory["losses"]))
-            remat = sum(C.CHECKPOINT)
-            want = (HF_TRAIN_STEPS * C.CHUNKS * (C.LAYERS + remat),
-                    HF_TRAIN_STEPS * C.CHUNKS * C.LAYERS)
+            want = (HF_TRAIN_STEPS * 2 * (cfg.num_layers + sum(CKPT_CHECKPOINT)),
+                    HF_TRAIN_STEPS * 2 * cfg.num_layers)
             check(train_launches == want, "train --load launched %s, expected %s"
                   % (train_launches, want))
             reset()
@@ -2781,14 +2826,15 @@ def t5_seq_sharding(torch, TF, dev="cuda", n=T5_SEQ, pad=T5_SEQ_PAD, size="t5-la
 
 def log_hf_finetune(hf, card):
     s, l5, l7 = hf["seconds"], hf["t5"], hf["llama"]
-    log("phase 17 llama-7b width (8 layers) from HF on %s: init %.1f s, export %.2f GB bf16 "
+    log("phase 17 llama-7b width (%d layers) from HF on %s: init %.1f s, export %.2f GB bf16 "
         "safetensors %.1f s, h2g %.1f s (%.2f GB/s of HF file; %.2f GB fp32 params-only step), "
         "h2g params bitwise (checked in %.1f s), tokenize %.1f s (%d docs, %d tokens), train "
         "--load %d steps %.1f s (step %.1f ms, losses %s; restore %.1f s), losses bitwise "
         "equal to the in-memory run's (%s, %.1f s), serve --load %d requests %.1f s (%.1f "
         "tok/s), g2h step 0 %.1f s (bitwise), g2h trained step %.1f s; flash launches train "
         "fwd %d / bwd %d, serve fwd %d" % (
-            card, s["init"], l7["hf_gb"], s["export_hf"], s["h2g"], l7["h2g_gbps"], l7["ckpt_gb"],
+            LLAMA_7B_HF["num_hidden_layers"], card, s["init"], l7["hf_gb"], s["export_hf"],
+            s["h2g"], l7["h2g_gbps"], l7["ckpt_gb"],
             s["verify_h2g"], s["tokenize"], l7["tokens"]["n_docs"], l7["tokens"]["n_tokens"],
             HF_TRAIN_STEPS, s["train_load"], l7["step_ms"], ["%.5f" % x for x in l7["losses"]],
             l7["restore"]["seconds"], ["%r" % x for x in l7["memory_losses"]], s["train_memory"],
@@ -2811,6 +2857,500 @@ def log_hf_finetune(hf, card):
     log("phase 17 host RSS %.2f -> peak %.2f GB; phase %.1f s" % (
         hf["rss"]["rss_before_gb"], hf["rss"]["rss_peak_gb"], hf["wall_s"]))
 
+
+
+# ----------------------------------------------------------------- phase 18
+# the silent-corruption sentinel's fold kernel and the resilience paths
+FOLD_SOURCE = "galvatron_tpu_torch/csrc/tree_fold.cu"
+FOLD_REPLACES = "galvatron_tpu/runtime/sdc.py:76"  # tree_fold_metrics (a jnp loop, no Pallas)
+SDC_STEPS = 4  # b: the train cell (phase 8's configuration) with and without the digest
+MIG_LAYERS, MIG_STEPS, MIG_AT = 2, 5, 2  # d: SIGUSR1 at step 2 of 5
+MIG_FSDP = [1, 0]  # layer 0 ZeRO-3, layer 1 ZeRO-2 (default zero2) -> all ZeRO-2
+AUTOTUNE_LAYERS, AUTOTUNE_STEPS = 4, 16  # e: every layer under full remat at the start
+AUTOTUNE_BUDGET_GB = 70.0
+HANG_AT, HANG_S = 4, 4.0  # c: the step call that sleeps, and for how long
+SERVE_HANG_AT = 6  # f: the decode tick that sleeps HANG_S
+# one full-width LLaMA-7B layer (embedding and head at the full vocab: its
+# checkpoint with the Adam moments is 6.4 GB): the hang drill
+DRILL_FLAGS = ["--device", "cuda", "--hidden_size", "4096", "--num_attention_heads", "32",
+               "--ffn_hidden_size", "11008", "--vocab_size", "32000", "--seq_length", "2048",
+               "--num_layers", "1", "--mixed_precision", "bf16",
+               "--global_train_batch_size", "2", "--chunks", "1", "--lr", "1e-4"]
+WATCHDOG_FLAGS = ["--watchdog", "1", "--watchdog_factor", "2", "--watchdog_startup_s", "300"]
+
+
+def _layers_strategy(path, checkpoint, remat, fsdp, default_dp_type="ddp", chunks=2):
+    n = len(checkpoint)
+    with open(path, "w") as f:
+        json.dump({"pp_deg": 1, "tp_sizes_enc": ",".join(["1"] * n),
+                   "tp_consecutive_flags": ",".join(["1"] * n),
+                   "dp_types_enc": ",".join(map(str, fsdp)), "default_dp_type": default_dp_type,
+                   "checkpoint": ",".join(map(str, checkpoint)), "remat_policy": ",".join(remat),
+                   "global_bsz": 8, "chunks": chunks}, f)
+    return path
+
+
+def _llama_argv(strategy, layers, steps, extra=()):
+    return ["--model_type", "llama", "--model_size", "llama-7b", "--set_layernum_manually", "1",
+            "--num_layers", str(layers), "--mixed_precision", "bf16", "--device", "cuda",
+            "--global_train_batch_size", "8", "--chunks", "2", "--galvatron_config_path",
+            strategy, "--train_iters", str(steps), "--lr", "1e-4", "--lr_warmup_iters", "2",
+            "--seed", str(SEED)] + list(extra)
+
+
+class _Deterministic:
+    """``torch.use_deterministic_algorithms`` (warn only, uninitialized
+    memory not filled) while open: two runs of one configuration give the
+    same losses bit for bit (phase 10's condition)."""
+
+    def __init__(self, torch):
+        import torch.utils.deterministic as det
+
+        self.torch, self.det = torch, det
+
+    def __enter__(self):
+        self.prev = (self.torch.are_deterministic_algorithms_enabled(),
+                     self.det.fill_uninitialized_memory)
+        self.torch.use_deterministic_algorithms(True, warn_only=True)
+        self.det.fill_uninitialized_memory = False
+
+    def __exit__(self, *exc):
+        self.torch.use_deterministic_algorithms(self.prev[0])
+        self.det.fill_uninitialized_memory = self.prev[1]
+
+
+def _train_with_hooks(argv, hooks):
+    from galvatron_tpu_torch.cli import train as cli_train
+
+    args = cli_train.initialize_galvatron(argv=argv, mode="train")
+    args.fault_hooks = hooks
+    return cli_train.train(args)
+
+
+def _launch_counts(TF, TFold):
+    return (TF.flash_attention_fwd.launches, TF.flash_attention_bwd.launches,
+            TFold.tree_fold.launches)
+
+
+def _reset_counts(torch, TF, TFold):
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    TF.flash_attention_fwd.launches = TF.flash_attention_bwd.launches = 0
+    TFold.tree_fold.launches = 0
+
+
+def fold_kernel(torch):
+    """Phase 18a: the fold kernel against its plain version on the card,
+    bitwise, on leaves of every width and kind, odd lengths, an empty leaf,
+    all of them as one tree, and the LLaMA-7B-width depth-8 parameter
+    tree; a planted bit flip must change the fold. Times the kernel on the
+    depth-8 tree beside its bound, the plain version and two library
+    reductions over the same bytes."""
+    from galvatron_tpu_torch.config.strategy import HybridParallelConfig
+    from galvatron_tpu_torch.models import llama as LL
+    from galvatron_tpu_torch.ops import tree_fold as TFold
+    from galvatron_tpu_torch.runtime.model_api import construct_hybrid_parallel_model
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+
+    def randn(n, dtype):
+        return torch.randn(n, generator=gen, device=dev).to(dtype)
+
+    def randint(lo, hi, n, dtype):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev, dtype=dtype)
+
+    leaves = {
+        "fp32": randn(1_000_003, torch.float32), "bf16": randn(777_777, torch.bfloat16),
+        "fp16": randn(4097, torch.float16), "fp64": randn(1023, torch.float64),
+        "int32": randint(-2**31, 2**31 - 1, 123_457, torch.int32),
+        "int64": randint(-2**62, 2**62, 54_321, torch.int64),
+        "uint8": randint(0, 256, 333, torch.uint8),
+        "bool": torch.rand(4099, generator=gen, device=dev) > 0.5,
+        "empty": torch.zeros(0, device=dev),
+    }
+    cases = {name: [t] for name, t in leaves.items()}
+    cases["all"] = list(leaves.values())
+    rows = {}
+    for name, tree in cases.items():
+        n0 = TFold.tree_fold.launches
+        fold, sumsq = TFold.tree_fold(tree)
+        launched = TFold.tree_fold.launches - n0
+        ref_fold, ref_sumsq = TFold.tree_fold_reference(tree)
+        check(int(fold) == int(ref_fold), "fold kernel %s: 0x%08x != plain 0x%08x"
+              % (name, int(fold), int(ref_fold)))
+        check(launched == (1 if any(t.numel() for t in tree) else 0),
+              "fold kernel %s launched %d times" % (name, launched))
+        rows[name] = dict(fold=int(fold), launches=launched,
+                          sumsq_rel_err=abs(float(sumsq) - float(ref_sumsq))
+                          / max(abs(float(ref_sumsq)), 1e-30))
+    flipped = leaves["fp32"].clone()
+    flipped.view(torch.int32)[500_000] ^= 1 << 18
+    clean = int(TFold.tree_fold([leaves["fp32"]])[0])
+    check(int(TFold.tree_fold([flipped])[0]) != clean, "a planted bit flip left the fold as it was")
+    del leaves, cases, flipped
+
+    cfg = LL.llama_config("llama-7b", num_layers=8)
+    model = construct_hybrid_parallel_model(cfg, HybridParallelConfig.uniform(1, 8), "cuda")
+    tree = list(model.init_params(SEED)[0].parameters())
+    nbytes = TFold.tree_bytes(tree)
+    fold, sumsq = TFold.tree_fold(tree)
+    ref_fold, ref_sumsq = TFold.tree_fold_reference(tree)
+    check(int(fold) == int(ref_fold), "fold kernel on the depth-8 tree: 0x%08x != plain 0x%08x"
+          % (int(fold), int(ref_fold)))
+    rows["llama7b_depth8"] = dict(fold=int(fold), launches=1, bytes=nbytes,
+                                  sumsq_rel_err=abs(float(sumsq) - float(ref_sumsq))
+                                  / max(abs(float(ref_sumsq)), 1e-30))
+    ms = time_stream_ms(torch, lambda: TFold.tree_fold(tree))
+    ms_single = time_ms(torch, lambda: TFold.tree_fold(tree))
+    plain_ms = time_ms(torch, lambda: TFold.tree_fold_reference(tree), reps=3, warmup=1)
+    flat = torch.cat([p.detach().reshape(-1) for p in tree])
+    lib_fold_ms = time_stream_ms(torch, lambda: flat.view(torch.int32).sum(dtype=torch.int64))
+    lib_sumsq_ms = time_stream_ms(torch, lambda: flat.float().square().sum())
+    del flat, tree, model
+    TFold.tree_fold.launches = 0  # the comparisons count on no path
+    torch.cuda.empty_cache()
+    bound = nbytes / H100_BYTES_PER_S * 1e3
+    return dict(rows=rows, bytes=nbytes, ms=ms, ms_single=ms_single, plain_ms=plain_ms,
+                library_ms=lib_fold_ms + lib_sumsq_ms,
+                library_calls={"view(int32).sum(dtype=int64)": lib_fold_ms,
+                               "float().square().sum()": lib_sumsq_ms},
+                bound_ms=bound, bound_by="bytes", share_of_bound=bound / ms,
+                wall_s=time.perf_counter() - t0)
+
+
+def sdc_digest(torch, TF):
+    """Phase 18b: the train cell through ``cli.train.main`` without and
+    with ``--sdc_check digest`` (deterministic algorithms in both): the
+    losses bit for bit, one fold launch per step, the step time of each."""
+    from galvatron_tpu_torch.cli import train as cli_train
+    from galvatron_tpu_torch.ops import tree_fold as TFold
+    from galvatron_tpu_torch.tools import train_cell as C
+
+    t0 = time.perf_counter()
+    argv = C.argv(C.write_strategy(os.path.join("build", "phase18")))
+    argv[argv.index("--train_iters") + 1] = str(SDC_STEPS)
+    runs = {}
+    with _Deterministic(torch):
+        for name, extra in (("plain", []), ("digest", ["--sdc_check", "digest"])):
+            _reset_counts(torch, TF, TFold)
+            summary = cli_train.main(argv + extra)
+            fwd, bwd, folds = _launch_counts(TF, TFold)
+            runs[name] = dict(summary=summary, fwd_launches=fwd, bwd_launches=bwd,
+                              fold_launches=folds)
+    plain, digest = runs["plain"], runs["digest"]
+    check(digest["summary"]["losses"] == plain["summary"]["losses"],
+          "digest losses %r != the plain run's %r" % (digest["summary"]["losses"],
+                                                       plain["summary"]["losses"]))
+    check(digest["fold_launches"] == SDC_STEPS and plain["fold_launches"] == 0,
+          "fold launches: digest %d (expected %d, one per step), plain %d"
+          % (digest["fold_launches"], SDC_STEPS, plain["fold_launches"]))
+    check(digest["summary"]["resilience"]["sdc_checks"] == SDC_STEPS,
+          "sdc_checks %s" % digest["summary"]["resilience"])
+    remat = sum(C.CHECKPOINT)
+    want = (SDC_STEPS * C.CHUNKS * (C.LAYERS + remat), SDC_STEPS * C.CHUNKS * C.LAYERS)
+    for name, r in runs.items():
+        check((r["fwd_launches"], r["bwd_launches"]) == want,
+              "sdc %s run launched %s, expected %s" % (name, (r["fwd_launches"],
+                                                           r["bwd_launches"]), want))
+    return dict(runs=runs, steps=SDC_STEPS, layers=C.LAYERS,
+                overhead_ms=digest["summary"]["steady_step_ms"]
+                - plain["summary"]["steady_step_ms"], wall_s=time.perf_counter() - t0)
+
+
+def hang_exit(torch, TF):
+    """Phase 18c: a subprocess (``tests/torch_fault_injection.py --scenario
+    hang``) trains one full-width LLaMA-7B layer under ``--watchdog``; step
+    call 4 sleeps 4 s after its work: the watchdog fires, escalates, the
+    loop makes an emergency save at the next boundary and the process exits
+    3; then ``cli train --load --elastic resume`` here continues from that
+    save to the end."""
+    import shutil
+
+    from galvatron_tpu_torch.ops import tree_fold as TFold
+    from galvatron_tpu_torch.runtime import checkpoint as CK
+    from tests import torch_fault_injection as FI
+
+    t0 = time.perf_counter()
+    root = os.path.join("build", "phase18")
+    ckdir = os.path.join(root, "hang")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    os.makedirs(root, exist_ok=True)
+    steps = 8
+    env = dict(os.environ, PYTHONPATH=os.getcwd() + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    try:
+        t_sub = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.join("tests", "torch_fault_injection.py"), "--scenario",
+             "hang", "--train_iters", str(steps), "--save", ckdir, "--hang_at", str(HANG_AT),
+             "--hang_s", str(HANG_S), "--"] + DRILL_FLAGS + WATCHDOG_FLAGS
+            + ["--inflight_steps", "0"], capture_output=True, text=True, timeout=600, env=env)
+        sub_s = time.perf_counter() - t_sub
+        check(proc.returncode == 3, "the hang drill exited %d, expected 3:\n%s\n%s" % (
+            proc.returncode, proc.stdout[-3000:], proc.stderr[-3000:]))
+
+        def line(key):
+            return json.loads(next(x for x in proc.stdout.splitlines()
+                                   if x.startswith(key + "=")).split("=", 1)[1])
+
+        sub = line("SUMMARY")
+        hung = line("LOSSES")
+        saved = CK.intact_iterations(ckdir)
+        check(sub["interrupted"] == "watchdog" and sub["watchdog"]["escalated"]
+              and sub["resilience"]["emergency_saves"] == 1 and saved == [len(hung)],
+              "hang drill: %s, saved steps %s, %d losses" % (sub, saved, len(hung)))
+        _reset_counts(torch, TF, TFold)
+        t_res = time.perf_counter()
+        resumed = _train_with_hooks(FI.tiny_train_argv(steps, load=ckdir, extra=DRILL_FLAGS
+                                                       + ["--elastic", "resume"]), None)
+        res_s = time.perf_counter() - t_res
+        fwd, bwd, _ = _launch_counts(TF, TFold)
+        left = steps - saved[0]
+        check(resumed["checkpoint_restore"]["iteration"] == saved[0]
+              and len(resumed["losses"]) == left
+              and all(math.isfinite(x) for x in resumed["losses"]) and (fwd, bwd) == (left, left),
+              "resume after the hang: restore %s, losses %s, launches %s" % (
+                  resumed.get("checkpoint_restore"), resumed["losses"], (fwd, bwd)))
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    return dict(watchdog=sub["watchdog"], hung_losses=hung, saved=saved[0],
+                resumed_losses=resumed["losses"], subprocess_s=sub_s, resume_s=res_s,
+                fwd_launches=fwd, bwd_launches=bwd, wall_s=time.perf_counter() - t0)
+
+
+def live_migration(torch, TF):
+    """Phase 18d: LLaMA-7B width at depth 2, layer 0 ZeRO-3 and layer 1
+    ZeRO-2 (one-rank NCCL groups): SIGUSR1 at step 2 migrates the live
+    state in memory to every layer ZeRO-2 (``--elastic_strategy``, the
+    digest's continuity held across it) and trains on to step 5; against
+    it, a run that saves at step 2 and ``cli train --elastic resume`` of that
+    save under the same target. The steps before the swap equal the saving
+    run's and the steps after it the resumed run's, bit for bit
+    (deterministic algorithms)."""
+    import shutil
+
+    from galvatron_tpu_torch.ops import tree_fold as TFold
+    from galvatron_tpu_torch.runtime.resilience import FaultHooks
+
+    t0 = time.perf_counter()
+    root = os.path.join("build", "phase18")
+    os.makedirs(root, exist_ok=True)
+    ck = os.path.join(root, "migrate")
+    shutil.rmtree(ck, ignore_errors=True)
+    remat = ["full", "dots_saveable"]
+    source = _layers_strategy(os.path.join(root, "mig_from.json"), [1, 1], remat, MIG_FSDP,
+                              "zero2")
+    target = _layers_strategy(os.path.join(root, "mig_to.json"), [1, 1], remat,
+                              [0] * MIG_LAYERS, "zero2")
+    sent = {"done": False}
+
+    def on_step(it):
+        if it == MIG_AT and not sent["done"]:
+            sent["done"] = True
+            os.kill(os.getpid(), signal.SIGUSR1)
+
+    def on_term(it):
+        if it == MIG_AT:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    runs = {}
+    try:
+        with _Deterministic(torch):
+            _reset_counts(torch, TF, TFold)
+            runs["migrated"] = _train_with_hooks(_llama_argv(
+                source, MIG_LAYERS, MIG_STEPS, ["--elastic_strategy", target, "--sdc_check",
+                                                "digest"]), FaultHooks(on_step=on_step))
+            launches = _launch_counts(TF, TFold)
+            # the same run (its schedule is the migrated run's) stopped by
+            # SIGTERM at the swap's boundary: one emergency save there
+            runs["saved"] = _train_with_hooks(_llama_argv(source, MIG_LAYERS, MIG_STEPS,
+                                                          ["--save", ck]),
+                                              FaultHooks(on_step=on_term))
+            runs["resumed"] = _train_with_hooks(_llama_argv(
+                source, MIG_LAYERS, MIG_STEPS, ["--load", ck, "--elastic", "resume",
+                                                "--elastic_strategy", target]), None)
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    m = runs["migrated"]
+    mig = m.get("migrations") or [{}]
+    check([(x.get("reason"), x.get("iteration")) for x in mig] == [("sigusr1", MIG_AT)],
+          "migrations %s" % mig)
+    check(m["losses"][:MIG_AT] == runs["saved"]["losses"]
+          and m["losses"][MIG_AT:] == runs["resumed"]["losses"]
+          and runs["resumed"]["checkpoint_restore"].get("cross_strategy"),
+          "migrated losses %r vs saved %r + resumed %r" % (
+              m["losses"], runs["saved"]["losses"], runs["resumed"]["losses"]))
+    want = (MIG_STEPS * 2 * 2 * MIG_LAYERS, MIG_STEPS * 2 * MIG_LAYERS)
+    check(launches[:2] == want, "the migrated run launched %s, expected %s" % (launches[:2], want))
+    return dict(losses=m["losses"], seconds=mig[0]["seconds"],
+                device_extra_gb=mig[0]["device_extra_gb"], fwd_launches=launches[0],
+                bwd_launches=launches[1], fold_launches=launches[2],
+                step_ms=m["steady_step_ms"], wall_s=time.perf_counter() - t0)
+
+
+def autotune_swap(torch, TF):
+    """Phase 18e: LLaMA-7B width at depth 4 from a misspecified start (every
+    layer under full remat) with ``--autotune apply``: once the step time
+    settles, the re-search on the measured tables swaps once, in memory, to
+    its winner, and the next epoch finds it identical."""
+    from galvatron_tpu_torch.cli import train as cli_train
+    from galvatron_tpu_torch.ops import tree_fold as TFold
+
+    t0 = time.perf_counter()
+    root = os.path.join("build", "phase18")
+    os.makedirs(root, exist_ok=True)
+    strategy = _layers_strategy(os.path.join(root, "autotune_start.json"),
+                                [1] * AUTOTUNE_LAYERS, ["full"] * AUTOTUNE_LAYERS,
+                                [0] * AUTOTUNE_LAYERS)
+    _reset_counts(torch, TF, TFold)
+    summary = cli_train.main(_llama_argv(strategy, AUTOTUNE_LAYERS, AUTOTUNE_STEPS, [
+        "--autotune", "apply", "--autotune_window", "3", "--autotune_rel_std", "0.1",
+        "--elastic_memory_gb", str(AUTOTUNE_BUDGET_GB)]))
+    fwd, bwd, _ = _launch_counts(TF, TFold)
+    a = summary["autotune"]
+    epochs = a["epochs"]
+    check(a["swaps"] == 1 and epochs and epochs[0]["swapped"] and len(epochs) >= 2
+          and not any(e["swapped"] for e in epochs[1:]),
+          "autotune: %s" % json.dumps(a))
+    check(len(summary["losses"]) == AUTOTUNE_STEPS
+          and all(math.isfinite(x) for x in summary["losses"]), "losses %s" % summary["losses"])
+    winner = summary["strategy"]
+    return dict(epochs=epochs, strategy=winner, losses=summary["losses"],
+                migration=summary["migrations"][0], predicted_ms=epochs[0]["winner_ms"],
+                incumbent_ms=epochs[0]["incumbent_ms"],
+                measured_before_ms=epochs[0]["steady_step_ms"],
+                measured_after_ms=epochs[1]["steady_step_ms"], fwd_launches=fwd,
+                bwd_launches=bwd, wall_s=time.perf_counter() - t0)
+
+
+def serve_drains(torch, TF):
+    """Phase 18f: ``cli serve`` with ``--watchdog`` on one full-width
+    LLaMA-7B layer: decode tick 6 sleeps 4 s, the batcher drains and
+    ``main`` exits 3; then SIGTERM at decode step 3 drains and ``main``
+    returns (exit 0)."""
+    from galvatron_tpu_torch.cli import serve as cli_serve
+    from galvatron_tpu_torch.ops import tree_fold as TFold
+    from galvatron_tpu_torch.runtime.resilience import FaultHooks
+
+    t0 = time.perf_counter()
+    argv = SERVE_ARGV + ["--set_layernum_manually", "1", "--num_layers", "1", "--num_requests",
+                         "4", "--prompt_len_max", "300", "--max_new_tokens", "16"] \
+        + WATCHDOG_FLAGS
+    calls = {"n": 0}
+
+    def wrap(fn):
+        def stalled(*a, **kw):
+            out = fn(*a, **kw)
+            if calls["n"] == SERVE_HANG_AT:
+                time.sleep(HANG_S)
+            calls["n"] += 1
+            return out
+        return stalled
+
+    def on_step(tick):
+        if tick == 3:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    out, seen = {}, {}
+    orig_parse, orig_serve = cli_serve.initialize_galvatron, cli_serve.serve
+    for name, hooks in (("hang", FaultHooks(wrap_step_fn=wrap)),
+                        ("sigterm", FaultHooks(on_step=on_step))):
+        def parse(argv=None, mode="serve", hooks=hooks):
+            args = orig_parse(argv=argv, mode=mode)
+            args.fault_hooks = hooks
+            return args
+
+        def serve(args):
+            seen["summary"] = orig_serve(args)
+            return seen["summary"]
+
+        cli_serve.initialize_galvatron, cli_serve.serve = parse, serve
+        _reset_counts(torch, TF, TFold)
+        code = 0
+        try:
+            cli_serve.main(argv)
+        except SystemExit as e:
+            code = e.code
+        finally:
+            cli_serve.initialize_galvatron, cli_serve.serve = orig_parse, orig_serve
+        s = seen.pop("summary")
+        out[name] = dict(exit_code=code, drain=s["drain"], requests=s["requests"],
+                         shed=s["shed"], watchdog=s.get("watchdog"),
+                         fwd_launches=TF.flash_attention_fwd.launches)
+    h, t = out["hang"], out["sigterm"]
+    check(h["exit_code"] == 3 and h["drain"] == "watchdog" and h["watchdog"]["escalated"]
+          and h["requests"] + h["shed"] == 4, "serve hang drill: %s" % h)
+    check(t["exit_code"] == 0 and t["drain"] == "SIGTERM" and t["requests"] + t["shed"] == 4
+          and not (t["watchdog"] or {}).get("escalated"), "serve SIGTERM drill: %s" % t)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def resilience_paths(res):
+    """Phase 18's paths with their flash launches, for the kernels line."""
+    return {"sdc_plain": res["sdc"]["runs"]["plain"], "sdc_digest": res["sdc"]["runs"]["digest"],
+            "hang_resume": res["hang"], "migrate": res["migrate"], "autotune": res["autotune"],
+            "serve_watchdog": dict(res["serve"]["hang"], bwd_launches=0),
+            "serve_sigterm": dict(res["serve"]["sigterm"], bwd_launches=0)}
+
+
+def resilience(torch, TF):
+    """Phase 18: b-f (18a runs with the kernel checks)."""
+    t0 = time.perf_counter()
+    out = dict(sdc=sdc_digest(torch, TF), hang=hang_exit(torch, TF),
+               migrate=live_migration(torch, TF), autotune=autotune_swap(torch, TF),
+               serve=serve_drains(torch, TF))
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def log_resilience(fold, r, card):
+    rows = fold["rows"]
+    log("phase 18a fold kernel on %s: bitwise equal to its plain version on %s; a planted "
+        "flip changes the fold; llama-7b width depth 8 tree (%.2f GB): %.4f ms (single call "
+        "%.4f), bound %.4f ms (%.1f%% of it), plain %.2f ms, library %.4f ms as two calls %s; "
+        "sumsq rel err %.2e" % (
+            card, ", ".join(sorted(rows)), fold["bytes"] / 1e9, fold["ms"], fold["ms_single"],
+            fold["bound_ms"], 100 * fold["share_of_bound"], fold["plain_ms"],
+            fold["library_ms"], {k: round(v, 4) for k, v in fold["library_calls"].items()},
+            rows["llama7b_depth8"]["sumsq_rel_err"]))
+    s = r["sdc"]
+    log("phase 18b sdc digest (llama-7b width, %d layers, %d steps) on %s: losses bitwise equal "
+        "to the run without it; fold launches %d; step %.1f ms vs %.1f ms without (overhead "
+        "%.2f ms/step); phase %.1f s" % (
+            s["layers"], s["steps"], card, s["runs"]["digest"]["fold_launches"],
+            s["runs"]["digest"]["summary"]["steady_step_ms"],
+            s["runs"]["plain"]["summary"]["steady_step_ms"], s["overhead_ms"], s["wall_s"]))
+    h = r["hang"]
+    log("phase 18c hang drill on %s: watchdog fired %d, escalated (deadline %.2f s), emergency "
+        "save at %d, exit 3 (subprocess %.1f s); --elastic resume continued %d steps (%.1f s); "
+        "phase %.1f s" % (card, h["watchdog"]["fires"], h["watchdog"]["deadline_s"], h["saved"],
+                          h["subprocess_s"], len(h["resumed_losses"]), h["resume_s"],
+                          h["wall_s"]))
+    m = r["migrate"]
+    log("phase 18d live migration (llama-7b width, %d layers, ZeRO-3 + ZeRO-2 -> ZeRO-2) on %s: "
+        "SIGUSR1 at step %d, migrated in %.3f s, device memory beyond the live state %.3f GB, "
+        "losses bitwise equal to save + --elastic resume; fold launches %d; phase %.1f s" % (
+            MIG_LAYERS, card, MIG_AT, m["seconds"], m["device_extra_gb"] or float("nan"),
+            m["fold_launches"], m["wall_s"]))
+    a = r["autotune"]
+    log("phase 18e autotune apply (llama-7b width, %d layers, all full remat at the start) on "
+        "%s: swapped once at step %d to %s; incumbent %.1f ms, predicted winner %.1f ms, "
+        "measured %.1f -> %.1f ms; epochs %s; phase %.1f s" % (
+            AUTOTUNE_LAYERS, card, a["epochs"][0]["iteration"],
+            {k: a["strategy"][k] for k in ("checkpoint", "chunks")}, a["incumbent_ms"] or -1,
+            a["predicted_ms"] or -1, a["measured_before_ms"] or -1, a["measured_after_ms"] or -1,
+            [(e["iteration"], e["reason"]) for e in a["epochs"]], a["wall_s"]))
+    v = r["serve"]
+    log("phase 18f serve drills on %s: stalled tick -> drain %s, exit %d (%d served, %d shed); "
+        "SIGTERM -> drain %s, exit %d (%d served, %d shed); phase %.1f s" % (
+            card, v["hang"]["drain"], v["hang"]["exit_code"], v["hang"]["requests"],
+            v["hang"]["shed"], v["sigterm"]["drain"], v["sigterm"]["exit_code"],
+            v["sigterm"]["requests"], v["sigterm"]["shed"], v["wall_s"]))
 
 def main():
     try:
@@ -2864,6 +3404,8 @@ def main():
         remove_phase10_data()
     t5_swin = t5_swin_families(torch, TF)
     hf = hf_finetune(torch, TF)
+    fold = fold_kernel(torch)
+    res = resilience(torch, TF)
     s, t = served["summary"], trained["summary"]
 
     def at_2048(rows, b):
@@ -2905,7 +3447,8 @@ def main():
                **{"train_" + n: r["fwd_launches"] for n, r in encoders["runs"].items()},
                **{"elastic_" + n: r["fwd_launches"] for n, r in elastic["runs"].items()},
                **{"train_" + n: r["fwd_launches"] for n, r in t5_swin["runs"].items()},
-               **{n: r["fwd_launches"] for n, r in hf["runs"].items()}},
+               **{n: r["fwd_launches"] for n, r in hf["runs"].items()},
+               **{n: r["fwd_launches"] for n, r in resilience_paths(res).items()}},
               TOL_FWD_BF16),
         entry("flash_attn_bwd", BWD_SOURCE, bwd_shapes, z3["bwd_launches"],
               {"serve": 0, "train": trained["bwd_launches"],
@@ -2919,8 +3462,20 @@ def main():
                **{"train_" + n: r["bwd_launches"] for n, r in encoders["runs"].items()},
                **{"elastic_" + n: r["bwd_launches"] for n, r in elastic["runs"].items()},
                **{"train_" + n: r["bwd_launches"] for n, r in t5_swin["runs"].items()},
-               **{n: r["bwd_launches"] for n, r in hf["runs"].items()}},
+               **{n: r["bwd_launches"] for n, r in hf["runs"].items()},
+               **{n: r["bwd_launches"] for n, r in resilience_paths(res).items()}},
               TOL_BWD_BF16),
+        {"name": "tree_fold", "route": "cuda", "source": FOLD_SOURCE, "replaces": FOLD_REPLACES,
+         "launches": res["sdc"]["runs"]["digest"]["fold_launches"],
+         "launches_by_path": {"sdc_digest": res["sdc"]["runs"]["digest"]["fold_launches"],
+                              "sdc_plain": res["sdc"]["runs"]["plain"]["fold_launches"],
+                              "migrate": res["migrate"]["fold_launches"]},
+         "max_abs_err": 0, "ms": fold["ms"], "plain_ms": fold["plain_ms"],
+         "bound_ms": fold["bound_ms"], "bound_by": fold["bound_by"],
+         "library_ms": fold["library_ms"], "library_calls": fold["library_calls"],
+         "ms_single": fold["ms_single"], "bytes": fold["bytes"],
+         "tolerance": "bitwise (the fold; the sum of squares is not compared)",
+         "shapes": fold["rows"]},
     ]}
     results = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                    build_s=build_s, ptxas=ptxas, wgmma_ptxas=wgmma_ptxas,
@@ -2929,7 +3484,7 @@ def main():
                    corpus_checkpoint=corpus, train_pipelines=pipelines,
                    profile_search_train=loop, long_context=lc, encoder_families=encoders,
                    elastic_resume=elastic, t5_swin_families=t5_swin, hf_finetune=hf,
-                   wall_s=time.perf_counter() - t_start)
+                   fold_kernel=fold, resilience=res, wall_s=time.perf_counter() - t_start)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1, default=str)
@@ -3032,6 +3587,7 @@ def main():
     log_elastic(elastic, card)
     log_t5_swin(t5_swin, card)
     log_hf_finetune(hf, card)
+    log_resilience(fold, res, card)
     log(json.dumps(kernels))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -31,6 +31,7 @@ CODES: Dict[str, Tuple[str, str]] = {
     "GLS013": (ERROR, "unsupported comm-precision (quantized collectives) configuration"),
     "GLS014": (ERROR, "serve-infeasible configuration (latency bound, KV budget, or layout)"),
     "GLS016": (ERROR, "state motion changed the layout-invariant integrity digest"),
+    "GLS017": (ERROR, "online autotuner fighting a pinned strategy"),
     "GLS102": (WARNING, "expensive cross-layer redistribution between adjacent layers"),
     "GLS103": (WARNING, "suspicious but runnable configuration"),
     # ---- checkpoint portability and integrity (runtime/checkpoint.py) ----

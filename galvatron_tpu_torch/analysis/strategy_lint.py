@@ -340,16 +340,61 @@ def _train_diagnostics(hp: HybridParallelConfig) -> List[D.Diagnostic]:
     return out
 
 
+def _resilience_diagnostics(hp: HybridParallelConfig, sdc_check=None, sdc_interval=None,
+                            autotune=None, autotune_margin=None,
+                            elastic_strategy=None) -> List[D.Diagnostic]:
+    """The driver-state checks of the reference's lint: a vote sentinel the
+    layout downgrades to digest and an inert ``sdc_interval`` (GLS103),
+    ``--autotune apply`` against a pinned ``--elastic_strategy`` (GLS017),
+    autotune under a pipeline and an inert ``autotune_margin`` (GLS103)."""
+    out: List[D.Diagnostic] = []
+    if sdc_check == "vote":
+        from galvatron_tpu_torch.runtime.sdc import vote_reason
+
+        reason = vote_reason(hp)
+        if reason is not None:
+            out.append(D.make(
+                "GLS103", "sdc_check=vote downgrades to digest on this layout (%s): "
+                "cross-replica voting needs a full per-device parameter replica" % reason,
+                key="sdc_check"))
+    if sdc_interval and (sdc_check or "off") == "off":
+        out.append(D.make("GLS103", "sdc_interval is inert with sdc_check off: there is no "
+                          "integrity digest to emit", key="sdc_interval"))
+    mode = autotune or "off"
+    if mode == "apply" and elastic_strategy:
+        out.append(D.make(
+            "GLS017", "--autotune apply with a pinned --elastic_strategy: any strategy the "
+            "autotuner swaps to would be reverted by the next migration resolving back to the "
+            "pinned JSON; drop one of the two (observe mode composes fine)", key="autotune"))
+    if mode != "off" and hp.pp > 1:
+        out.append(D.make(
+            "GLS103", "autotune with pp=%d: the calibration splits the measured step by each "
+            "LayerRun's FLOPs share, which a pipeline's bubble does not follow, so the "
+            "measured tables are coarser" % hp.pp, key="autotune"))
+    if autotune_margin is not None and mode == "off":
+        out.append(D.make("GLS103", "autotune_margin is inert with autotune off: there is no "
+                          "re-search decision to apply the hysteresis to",
+                          key="autotune_margin"))
+    return out
+
+
 def lint_hp(
     hp: HybridParallelConfig,
     model_cfg: Any = None,
     file: Optional[str] = None,
     mode: Optional[str] = None,
+    sdc_check: Optional[str] = None,
+    sdc_interval: Optional[int] = None,
+    autotune: Optional[str] = None,
+    autotune_margin: Optional[float] = None,
+    elastic_strategy: Optional[str] = None,
 ) -> D.DiagnosticReport:
     """Lint an already-constructed config: structural checks, with
     `model_cfg` the model-aware GLS007-009, the GLS102/GLS103 warnings,
     plus the GLS014 serve-feasibility layer when ``mode="serve"`` and the
-    train-mode GLS103 warnings when ``mode="train"``."""
+    train-mode GLS103 warnings when ``mode="train"``; the train driver's
+    state (the sentinel, the autotuner, a pinned elastic strategy) adds
+    the reference's GLS103 / GLS017 checks of it."""
     report = D.DiagnosticReport()
     report.extend(hp.structural_diagnostics())
     if model_cfg is not None:
@@ -359,6 +404,8 @@ def lint_hp(
         report.extend(_serve_diagnostics(hp))
     elif mode == "train":
         report.extend(_train_diagnostics(hp))
+    report.extend(_resilience_diagnostics(hp, sdc_check, sdc_interval, autotune,
+                                          autotune_margin, elastic_strategy))
     if file:
         report.diagnostics = [
             D.Diagnostic(**{**d.__dict__, "file": d.file or file})

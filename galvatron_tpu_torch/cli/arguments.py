@@ -23,16 +23,22 @@ times one device) and ``--time_profile_mode`` / ``--memory_profile_mode``
 (the search reads the mode from the tables).
 
 Train takes the elastic-resume flags (``--elastic {off,resume,search}``,
-``--elastic_strategy``, ``--elastic_memory_gb``) and ``--config_dir`` (the
-profiles an elastic search reads). Serve parses ``--elastic_strategy`` and
-``--elastic_memory_gb`` as the reference does; they act only with
-``--migrate_on_degrade``, which is refused.
+``--elastic_strategy``, ``--elastic_memory_gb``), ``--config_dir`` (the
+profiles an elastic search reads) and the self-healing flags: the watchdog
+(``--watchdog``, ``--watchdog_factor``, ``--watchdog_startup_s``), the mesh
+probe (``--mesh_probe_interval``), live migration
+(``--migrate_on_degrade``), the silent-corruption sentinel
+(``--sdc_check``, ``--sdc_interval``, ``--sdc_strikes``) and the online
+autotuner (``--autotune``, ``--autotune_margin``, ``--autotune_window``,
+``--autotune_rel_std``). Serve takes the watchdog flags; it parses
+``--mesh_probe_interval``, ``--migrate_on_degrade``, ``--elastic_strategy``
+and ``--elastic_memory_gb`` as the reference does, but serve migration
+waits for the serve layouts (ROADMAP queue 1 item 3): a probe interval or
+``--migrate_on_degrade`` other than 0 is refused.
 
 Flags whose modules are not ported yet are not defined, so argparse
-refuses them: sdc and autotune flags, ``--trace_lint``, ``--xla_trace``,
-``--watchdog*``, ``--mesh_probe_interval``, ``--migrate_on_degrade``
-(serve resilience), the compilation-cache and multi-host bootstrap flags
-(JAX runtime only). ``--donate_step`` takes 1
+refuses them: ``--trace_lint``, ``--xla_trace``, the compilation-cache and
+multi-host bootstrap flags (JAX runtime only). ``--donate_step`` takes 1
 only (see its help). The port adds ``--device {cuda,cpu}`` to every mode
 that runs a model.
 """
@@ -232,6 +238,51 @@ def _add_train_args(p: argparse.ArgumentParser):
                         "strategy file's check (default: the budget recorded in the "
                         "checkpoint's provenance, else 16 GB); recorded into new "
                         "checkpoints' provenance")
+    # self-healing runs (runtime/health.py, runtime/elastic.migrate): the
+    # watchdog, the mesh-health probe and live in-memory migration
+    _add_watchdog_args(r, "a step", "makes an emergency save and exits 3", "step time",
+                       "the first steps build the kernels")
+    r.add_argument("--mesh_probe_interval", type=float, default=0.0,
+                   help="seconds between mesh-health probes at step boundaries (live ranks "
+                        "against the strategy's, plus one all-reduce under a timeout; 0 = "
+                        "off)")
+    r.add_argument("--migrate_on_degrade", type=int, default=0,
+                   help="when the mesh probe reports a degraded world (or the sdc vote "
+                        "quarantines a rank), live-migrate in memory to a strategy for the "
+                        "surviving ranks (--elastic_strategy if given, else a fresh search) "
+                        "instead of exiting; SIGUSR1 triggers the same migration by hand")
+    # silent-corruption sentinel (runtime/sdc.py)
+    r.add_argument("--sdc_check", type=str, default="off", choices=("off", "digest", "vote"),
+                   help="silent-data-corruption sentinel: 'digest' adds the layout-invariant "
+                        "fold of the params to every step (the fold kernel; bitwise "
+                        "transparent); 'vote' also folds every data-parallel replica's "
+                        "input params and compares them: a lying rank is localized, the "
+                        "step applies nothing, the replica is repaired from a healthy one "
+                        "and the step re-executed, and a repeat offender is quarantined "
+                        "into --migrate_on_degrade; downgrades to 'digest' with a log line "
+                        "when the layout has no dp replicas to vote with")
+    r.add_argument("--sdc_interval", type=int, default=None,
+                   help="emit the sdc_check telemetry heartbeat every N drained steps "
+                        "(default 1; the fold is computed every step regardless)")
+    r.add_argument("--sdc_strikes", type=int, default=2,
+                   help="consecutive mismatches naming the same rank before it is "
+                        "quarantined (each first repairs and re-executes; a tied vote only "
+                        "re-executes)")
+    # online autotuner (runtime/autotune.py)
+    r.add_argument("--autotune", type=str, default="off", choices=("off", "observe", "apply"),
+                   help="once the step time settles, fold the measured step back into the "
+                        "cost tables and search again: 'observe' logs the decision it would "
+                        "take, 'apply' swaps to the new winner in memory through live "
+                        "migration when it clears the hysteresis margin and the "
+                        "remaining-steps amortization check")
+    r.add_argument("--autotune_margin", type=float, default=None,
+                   help="hysteresis: the winner must beat the incumbent's predicted step "
+                        "by more than this fraction to swap (default 0.05)")
+    r.add_argument("--autotune_window", type=int, default=None,
+                   help="steps in the steady-state detector's window (default 5)")
+    r.add_argument("--autotune_rel_std", type=float, default=None,
+                   help="stdev/mean a window must stay under to count as settled "
+                        "(default 0.15)")
 
 
 def _add_serve_args(p: argparse.ArgumentParser):
@@ -286,12 +337,47 @@ def _add_serve_args(p: argparse.ArgumentParser):
     r.add_argument("--shed_min_samples", type=int, default=3,
                    help="prefills AND decode ticks observed before the "
                         "predicted-TTFT shedder arms")
+    _add_watchdog_args(r, "a prefill/decode tick", "gracefully drains the batcher and "
+                          "exits 3", "tick time", "first ticks build the kernels")
+    r.add_argument("--mesh_probe_interval", type=_serve_migration_flag(float), default=0.0,
+                   help="seconds between mesh-health probes between ticks; serve "
+                        "migration waits for the serve layouts (ROADMAP queue 1 item 3): "
+                        "only 0 is accepted")
+    r.add_argument("--migrate_on_degrade", type=_serve_migration_flag(int), default=0,
+                   help="re-plan serving for a degraded world in memory; waits for the "
+                        "serve layouts (ROADMAP queue 1 item 3): only 0 is accepted")
     r.add_argument("--elastic_strategy", type=str, default=None,
                    help="replacement serve strategy JSON for a degraded mesh; acts only "
-                        "with --migrate_on_degrade (not ported: refused)")
+                        "with --migrate_on_degrade (ROADMAP queue 1 item 3)")
     r.add_argument("--elastic_memory_gb", type=float, default=None,
                    help="memory budget per GPU for the degraded-world serve re-search; "
-                        "acts only with --migrate_on_degrade (not ported: refused)")
+                        "acts only with --migrate_on_degrade (ROADMAP queue 1 item 3)")
+
+
+def _serve_migration_flag(kind):
+    """A serve flag of degraded-mesh migration: 0 parses, anything else is
+    refused until serve layouts exist (the serve engine runs at world 1)."""
+    def parse(value: str):
+        v = kind(value)
+        if v:
+            raise argparse.ArgumentTypeError(
+                "serve migration waits for the serve layouts (ROADMAP queue 1 item 3): "
+                "the port serves at world size 1")
+        return v
+    return parse
+
+
+def _add_watchdog_args(r, unit: str, escalation: str, timed: str, startup: str):
+    r.add_argument("--watchdog", type=float, default=0.0,
+                   help="arm the watchdog with this additive floor in seconds (0 = off): "
+                        "%s making no progress for watchdog_factor * median(%s) + floor "
+                        "seconds first drains and retries, then %s" % (unit, timed, escalation))
+    r.add_argument("--watchdog_factor", type=float, default=4.0,
+                   help="k in the learned watchdog deadline k * median(%s) + --watchdog "
+                        "floor" % timed)
+    r.add_argument("--watchdog_startup_s", type=float, default=600.0,
+                   help="watchdog deadline before enough %ss have run to learn one (%s)"
+                        % (timed.split()[0], startup))
 
 
 def _add_profile_args(p: argparse.ArgumentParser):

@@ -15,12 +15,21 @@ The strategy is linted in serve mode first: pp>1, ring-cp and ulysses
 layouts refuse with GLS014, and any layout other than world size 1 refuses
 with a ValueError (the tp/dp serve layouts come in a later slice). The run
 happens on ``--device`` (default ``cuda``); with no GPU visible ``cuda``
-raises. The serve watchdog and degraded-mesh migration are not ported yet
-and their flags are refused.
+raises.
+
+Resilience, as in the reference: ``--watchdog`` arms
+``runtime/health.Watchdog`` around every prefill and decode tick; a first
+missed deadline is logged (the synchronous tick has returned by then), a
+second one drains the batcher gracefully (admitted requests finish or shed
+retryable, pending ones shed retryable) and `main` exits 3. SIGTERM or
+SIGINT drains the same way and exits 0. Degraded-mesh serve migration
+(``--mesh_probe_interval``, ``--migrate_on_degrade``) waits for the serve
+layouts (ROADMAP queue 1 item 3): the parser refuses any value but 0.
 """
 
 from __future__ import annotations
 
+import sys
 import time
 from typing import Optional
 
@@ -108,6 +117,11 @@ def _serve(args) -> dict:
         cfg, params, kv_cfg, device=device,
         temperature=args.temperature, rng_seed=args.seed,
     )
+    # fault-injection seam (absent in production): a test wraps the prefill
+    # and decode ticks (a stalled tick) and observes each scheduler step
+    hooks = getattr(args, "fault_hooks", None)
+    if hooks is not None and hooks.wrap_step_fn:
+        engine.decode_step = hooks.wrap_step_fn(engine.decode_step)
 
     if args.replay:
         reqs = replay_requests(args.replay, vocab_size=cfg.vocab_size, seed=args.seed)
@@ -121,6 +135,42 @@ def _serve(args) -> dict:
             max_new_tokens=args.max_new_tokens,
         )
 
+    # ------------------------------------------------------ resilience stack
+    from galvatron_tpu_torch.runtime import health as hlth
+    from galvatron_tpu_torch.runtime import resilience as rsl
+
+    wd = None
+    if getattr(args, "watchdog", 0):
+        wd = hlth.Watchdog(hlth.WatchdogConfig(
+            floor_s=float(args.watchdog),
+            factor=float(getattr(args, "watchdog_factor", 4.0)),
+            startup_deadline_s=float(getattr(args, "watchdog_startup_s", 600.0)),
+        )).start()
+    preempt = rsl.PreemptionHandler().install()
+    state = {"interrupted": None}
+
+    def control(b) -> Optional[str]:
+        """Polled once per scheduler iteration, in the train loop's
+        step-boundary order: hooks -> preemption -> watchdog. Returns a
+        drain reason to wind the batcher down, else None."""
+        if hooks is not None and hooks.on_step:
+            hooks.on_step(b.decode_steps)
+        if preempt.triggered:
+            state["interrupted"] = preempt.signal_name
+            telemetry.emit("preemption", signal=preempt.signal_name, iter=b.decode_steps)
+            return preempt.signal_name
+        if wd is not None:
+            if wd.abort_requested:
+                # a second missed deadline: graceful drain, exit 3 (main)
+                state["interrupted"] = "watchdog"
+                return "watchdog"
+            if wd.take_retry_request():
+                # a first missed deadline: the stalled tick has returned by
+                # now (the batcher is synchronous); log and go on
+                telemetry.runtime_log("serve watchdog: tick stalled past its deadline at "
+                                      "step %d; retrying" % b.decode_steps)
+        return None
+
     # shedding knobs: CLI flags win, then the strategy JSON's serve_* knobs
     batcher = ContinuousBatcher(
         engine, kv_cfg,
@@ -128,14 +178,24 @@ def _serve(args) -> dict:
         max_pending=getattr(args, "max_pending", 0) or hp.serve_max_pending,
         request_timeout_s=getattr(args, "request_timeout_s", 0.0) or 0.0,
         min_shed_samples=int(getattr(args, "shed_min_samples", 3) or 3),
+        watchdog=wd, control=control,
     )
     t0 = time.monotonic()
-    completed = batcher.run(reqs)
+    try:
+        completed = batcher.run(reqs)
+    finally:
+        preempt.uninstall()
+        if wd is not None:
+            wd.stop()
     wall = time.monotonic() - t0
 
     summary = summarize(completed, wall, world_size=hp.world_size, shed=batcher.shed)
     summary["decode_steps"] = batcher.decode_steps
     summary["drain"] = batcher.drain_reason
+    if state["interrupted"] is not None:
+        summary["interrupted"] = state["interrupted"]
+    if wd is not None:
+        summary["watchdog"] = wd.summary()
     summary["device"] = str(device)
     bytes_per = 2 if args.mixed_precision == "bf16" else 4
     summary["kv_mb_per_slot"] = kv_bytes_per_slot(
@@ -149,6 +209,9 @@ def _serve(args) -> dict:
             summary["shed"], summary["shed_retryable"],
             ", ".join("%s=%d" % kv for kv in
                       sorted(summary["shed_by_reason"].items()))))
+    if summary["drain"]:
+        print("drained (%s): %d completed, %d shed" % (
+            summary["drain"], summary["requests"], summary["shed"]))
     for name in ("ttft_ms", "tpot_ms"):
         p = summary[name]
         print("%s p50/p90/p99: %.1f / %.1f / %.1f"
@@ -158,7 +221,16 @@ def _serve(args) -> dict:
 
 def main(argv: Optional[list] = None):
     args = initialize_galvatron(argv=argv)
-    return serve(args)
+    summary = serve(args)
+    if (summary.get("watchdog") or {}).get("escalated"):
+        from galvatron_tpu_torch.runtime.health import WATCHDOG_EXIT_CODE
+
+        # the batcher drained after a wedged tick: "resume me", not "retry
+        # blindly"; a SIGTERM drain returns normally (exit 0)
+        print("serve watchdog escalated: batcher drained; exiting %d" % WATCHDOG_EXIT_CODE,
+              file=sys.stderr)
+        sys.exit(WATCHDOG_EXIT_CODE)
+    return summary
 
 
 if __name__ == "__main__":

@@ -65,16 +65,33 @@ both Adam moments across strategies, world sizes and pipeline divisions
 ``--load`` under another strategy still refuses (GLS206), but for a step
 that holds params alone (``tools/convert_checkpoint h2g``): its full params
 are sharded into this run's layout, whatever it is, and the optimizer
-starts fresh at iteration 0, as in the reference. The
-silent-corruption sentinel, the watchdog, live migration and the
-autotuner refuse with a ValueError naming their ROADMAP item, or argparse
-refuses their flags.
+starts fresh at iteration 0, as in the reference.
+
+A run that survives (the reference's self-healing loop, in its order at
+each step boundary: hooks -> preemption -> watchdog -> mesh probe ->
+migration -> autotune, every rank taking the same branch through one
+all-reduced flag vector, `_agree`): ``--watchdog`` (``runtime/health.py``:
+a missed learned deadline drains and retries, a second one makes an
+emergency save and `main` exits 3); ``--mesh_probe_interval`` (live ranks
+and a timed all-reduce; a degraded world under ``--migrate_on_degrade``
+migrates, a probe that times out exits 3 without a collective);
+``--sdc_check digest|vote`` (``runtime/sdc.py``: the fold kernel's digest
+every step; under vote a lying replica is repaired, the step re-executed
+and a repeat offender quarantined into a migration); live migration
+(``runtime/elastic.migrate``) on SIGUSR1, a degraded probe, a quarantine
+or an autotune swap, moving params and both Adam moments in memory at the
+same step, the departing ranks leaving (exit 0); ``--autotune
+observe|apply`` (``runtime/autotune.py``: once the step settles, a
+re-search on measured tables and, under apply, a swap).
 """
 
 from __future__ import annotations
 
 import math
+import os
+import signal
 import sys
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -139,6 +156,7 @@ class TrainRun:
     guard: Optional[rsl.AnomalyGuard]
     step: Callable
     elastic_plan: Any = None  # runtime.elastic.ElasticPlan under --elastic
+    sdc_mode: str = "off"  # the sentinel's mode as the step runs it (vote may downgrade)
 
     def step_args(self) -> tuple:
         """The step's arguments after (params, opt_state, batch)."""
@@ -218,6 +236,37 @@ class BatchStream:
         return b
 
 
+def make_step(args, run: "TrainRun", hooks=None):
+    """The train step for the run's current model and strategy, under the
+    sentinel mode of ``--sdc_check`` (vote downgrades to digest, with a log
+    line, where the layout has no dp replicas to vote on: the reference's
+    ``build_step_fn``); wrapped by the fault hooks when a test gives them.
+    Also the rebuild after a live migration."""
+    from galvatron_tpu_torch.runtime import sdc as sdc_mod
+
+    mode = run.sdc_mode
+    if mode == "vote":
+        reason = sdc_mod.vote_reason(run.hp)
+        if reason is not None:
+            telemetry.runtime_log("sdc_check=vote downgraded to digest: %s" % reason)
+            mode = "digest"
+    run.sdc_mode = mode
+    fn = run.model.make_train_step(run.tx, guard_anomalies=run.guard is not None,
+                                   sdc_check=mode)
+    if hooks is not None and hooks.wrap_step_fn:
+        fn = hooks.wrap_step_fn(fn)
+    run.step = fn
+    return fn
+
+
+def build_model(fam, cfg, hp, device):
+    """The model of `hp` on `device`: the family's own build for T5 and
+    Swin, else the generic constructor."""
+    if fam.build is not None:
+        return fam.build(cfg, hp, device)
+    return construct_hybrid_parallel_model(cfg, hp, device)
+
+
 def build(args, device: Optional[torch.device] = None) -> TrainRun:
     """Strategy from the flags or the JSON -> train-mode lint -> model,
     optimizer, parameters, Adam state, guard and step on `device` (by
@@ -254,7 +303,12 @@ def build(args, device: Optional[torch.device] = None) -> TrainRun:
     from galvatron_tpu_torch.analysis.diagnostics import DiagnosticError
 
     report = _slint.lint_hp(hp, model_cfg=cfg, mode="train",
-                            file=getattr(args, "galvatron_config_path", None))
+                            file=getattr(args, "galvatron_config_path", None),
+                            sdc_check=getattr(args, "sdc_check", None),
+                            sdc_interval=getattr(args, "sdc_interval", None),
+                            autotune=getattr(args, "autotune", None),
+                            autotune_margin=getattr(args, "autotune_margin", None),
+                            elastic_strategy=getattr(args, "elastic_strategy", None))
     for d in report.warnings if lead else ():
         print("strategy lint: %s" % d.format())
     if not report.ok:
@@ -262,10 +316,7 @@ def build(args, device: Optional[torch.device] = None) -> TrainRun:
     if lead:
         print(hp.describe())
 
-    if fam.build is not None:  # families with their own tree (t5, swin)
-        model = fam.build(cfg, hp, device)
-    else:
-        model = construct_hybrid_parallel_model(cfg, hp, device)
+    model = build_model(fam, cfg, hp, device)
     tx, _ = get_optimizer_and_scheduler(optimizer_args_from(args))
     params = model.init_params(args.seed)
     guard = None
@@ -275,11 +326,19 @@ def build(args, device: Optional[torch.device] = None) -> TrainRun:
             min_history=getattr(args, "anomaly_min_history", 5),
             max_strikes=getattr(args, "anomaly_max_strikes", 3),
             max_rollbacks=getattr(args, "anomaly_max_rollbacks", 3)))
-    return TrainRun(
+    run = TrainRun(
         fam=fam, cfg=cfg, hp=hp, device=device, model=model, tx=tx, params=params,
-        opt_state=model.init_opt_state(tx, params), guard=guard,
-        step=model.make_train_step(tx, guard_anomalies=guard is not None),
-        elastic_plan=elastic_plan)
+        opt_state=model.init_opt_state(tx, params), guard=guard, step=None,
+        elastic_plan=elastic_plan, sdc_mode=getattr(args, "sdc_check", "off") or "off")
+    make_step(args, run)
+    return run
+
+
+class WedgedWorldError(RuntimeError):
+    """The mesh probe's all-reduce did not complete in time: a rank is gone
+    and the communicator cannot be trusted. The driver issues no further
+    collective; `main` exits with ``runtime.health.WATCHDOG_EXIT_CODE`` and
+    the run resumes from its last committed checkpoint."""
 
 
 def train(args) -> dict:
@@ -288,9 +347,13 @@ def train(args) -> dict:
     resilience counters, the eval losses, the checkpoint save/restore
     sizes and times, the flash kernels' launches by route on every rank
     (and this rank's eval launches), the device, the world size and this
-    process's rank. Runs inside a process group that it tears down
-    (`runtime.distributed.process_group`). With ``--telemetry`` rank 0
-    writes the run's JSONL event stream."""
+    process's rank; with the watchdog, its summary, with the autotuner its
+    plans and swaps, with live migrations their records. A rank that left
+    the world in a migration returns ``{"departed": True, ...}``. Runs
+    inside a process group that it tears down
+    (`runtime.distributed.process_group`), unless the world wedged
+    (`WedgedWorldError`: no collective may run, the teardown included).
+    With ``--telemetry`` rank 0 writes the run's JSONL event stream."""
     with distributed.process_group(args.device) as device:
         sink = None
         if getattr(args, "telemetry", None) and distributed.rank() == 0:
@@ -299,6 +362,9 @@ def train(args) -> dict:
             telemetry.install(sink)
         try:
             return _train(args, device)
+        except WedgedWorldError:
+            distributed.abandon_group()
+            raise
         finally:
             if sink is not None:
                 telemetry.uninstall(sink)
@@ -324,38 +390,45 @@ def _routes_since(before: dict) -> list:
     return every
 
 
-def _any_rank(flag: bool, device) -> bool:
-    """True when `flag` is true on any rank (every rank must call it)."""
+def _agree(flags, device):
+    """The elementwise max of `flags` (floats) over every rank: one
+    all-reduce per step boundary, so every rank takes the same branch
+    (preemption, the watchdog's requests, a due probe, a migration request,
+    an autotune plan). Every rank must call it; a world of one skips the
+    collective."""
     if distributed.world_size() == 1:
-        return flag
-    t = torch.tensor([1.0 if flag else 0.0], device=device)
+        return list(flags)
+    t = torch.tensor(flags, dtype=torch.float64, device=device)
     torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
-    return bool(t.item())
+    return t.tolist()
 
 
 def _train(args, device) -> dict:
+    from galvatron_tpu_torch.analysis.diagnostics import DiagnosticError
+    from galvatron_tpu_torch.runtime import elastic as els
+    from galvatron_tpu_torch.runtime import health as hlth
+    from galvatron_tpu_torch.runtime import sdc as sdc_mod
+
+    hooks = getattr(args, "fault_hooks", None)  # test seam; None in production
     run = build(args, device)
+    if hooks is not None and hooks.wrap_step_fn:
+        make_step(args, run, hooks)
     routes = _flash_routes()
-    cfg, hp, model, tx = run.cfg, run.hp, run.model, run.tx
-    world = hp.world_size
-    lead = distributed.rank() == 0
+    cfg, tx = run.cfg, run.tx
     device_kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    step_flops = obs_flops.train_step_flops(cfg, hp.global_bsz)
+    step_flops = obs_flops.train_step_flops(cfg, run.hp.global_bsz)
     peak_flops = obs_flops.peak_flops_for(device_kind)
 
     # ------------------------------------------------------------ resilience
     res = rsl.ResilienceCounters()
     retry_policy = rsl.RetryPolicy(retries=max(getattr(args, "ckpt_retries", 2), 0),
                                    base_delay_s=getattr(args, "ckpt_retry_backoff", 0.5))
-    hooks = getattr(args, "fault_hooks", None)  # test seam; None in production
-    guard, step_fn = run.guard, run.step
-    if hooks is not None and hooks.wrap_step_fn:
-        step_fn = hooks.wrap_step_fn(step_fn)
-    params, opt_state = run.params, run.opt_state
+    guard = run.guard
     plan = run.elastic_plan
     budget = getattr(args, "elastic_memory_gb", None) or (
         plan.provenance.get("memory_budget_gb") if plan is not None else None)
-    provenance = build_provenance(hp, cfg, optimizer_args_from(args), memory_budget_gb=budget)
+    provenance = build_provenance(run.hp, cfg, optimizer_args_from(args), memory_budget_gb=budget)
+    sdc_interval = max(int(getattr(args, "sdc_interval", 0) or 1), 1)
 
     def load_params_only(ckpt_dir, step):
         # a step without Adam state (tools/convert_checkpoint h2g): every
@@ -365,15 +438,15 @@ def _train(args, device) -> dict:
         t0 = time.perf_counter()
         full, meta = ckpt.load_full_params(ckpt_dir, step, cfg, strict_model=False)
         with torch.no_grad():
-            for stage, module in params.items():
+            for stage, module in run.params.items():
                 for name, p in module.named_parameters():
-                    p.copy_(model._shard(name, full[name].to(p.device, p.dtype), stage))
+                    p.copy_(run.model._shard(name, full[name].to(p.device, p.dtype), stage))
         nbytes = sum(t.numel() * t.element_size() for t in full.values())
         del full
         meta["restore"] = {"bytes": nbytes, "params_only": True,
                            "seconds": time.perf_counter() - t0}
         ckpt._emit_restore(int(meta["iteration"]), ckpt_dir, meta["restore"], 0)
-        return params, None, meta
+        return run.params, None, meta
 
     def load_from(ckpt_dir, iteration):
         # restores in place into the live params and Adam state (a tied
@@ -386,10 +459,11 @@ def _train(args, device) -> dict:
         if manifest is not None and "opt_state" not in manifest.get("items", {}):
             return load_params_only(ckpt_dir, step)
         return ckpt.load_checkpoint(
-            ckpt_dir, iteration, params_target=params, opt_state_target=opt_state,
-            target=model, allow_cross=plan is not None, model_cfg=cfg,
+            ckpt_dir, iteration, params_target=run.params, opt_state_target=run.opt_state,
+            target=run.model, allow_cross=plan is not None, model_cfg=cfg,
             verify_integrity=bool(getattr(args, "verify_checkpoint", 1)),
-            retry_policy=retry_policy, counters=res)
+            retry_policy=retry_policy, counters=res,
+            sdc_check=run.sdc_mode != "off")
 
     start_iter, restored = 0, None
     if args.load:
@@ -397,7 +471,7 @@ def _train(args, device) -> dict:
         start_iter = int(meta.get("iteration", 0))
         res.torn_checkpoints_skipped += len(meta.get("torn_iterations", ()))
         restored = dict(meta["restore"], iteration=start_iter)
-        if lead:
+        if distributed.rank() == 0:
             print("resumed from %s at iteration %d%s" % (
                 args.load, start_iter, " across strategies" if restored.get("cross_strategy")
                 else " (params only: a fresh optimizer)" if restored.get("params_only")
@@ -405,15 +479,36 @@ def _train(args, device) -> dict:
 
     telemetry.emit(
         "run_start", model="%s_%s" % (args.model_type, args.model_size or run.fam.default_size),
-        world_size=world, strategy=hp.to_json_dict(), train_iters=args.train_iters,
-        global_bsz=hp.global_bsz, start_iter=start_iter, model_flops_per_step=step_flops,
-        peak_flops=peak_flops, device_kind=device_kind, pipeline_type=hp.pipeline_type,
-        num_layers=hp.num_layers, resumed_from=args.load or None, model_type=args.model_type,
+        world_size=run.hp.world_size, strategy=run.hp.to_json_dict(),
+        train_iters=args.train_iters, global_bsz=run.hp.global_bsz, start_iter=start_iter,
+        model_flops_per_step=step_flops, peak_flops=peak_flops, device_kind=device_kind,
+        pipeline_type=run.hp.pipeline_type, num_layers=run.hp.num_layers,
+        resumed_from=args.load or None, model_type=args.model_type,
         hidden_size=getattr(cfg, "hidden_size", None), num_heads=getattr(cfg, "num_heads", None),
         num_kv_heads=getattr(cfg, "num_kv_heads", None),
         ffn_hidden=getattr(cfg, "ffn_hidden", None), vocab_size=getattr(cfg, "vocab_size", None),
-        seq_len=getattr(cfg, "max_seq_len", None), mixed_precision=hp.mixed_precision,
+        seq_len=getattr(cfg, "max_seq_len", None), mixed_precision=run.hp.mixed_precision,
         activation=getattr(cfg, "activation", None))
+
+    # per-LayerRun cost-model predictions (obs/attribution.py): the
+    # telemetry's layer_run rows and the autotuner's FLOPs-share split
+    autotune_mode = getattr(args, "autotune", "off") or "off"
+    predictions = None
+
+    def predict(hp):
+        from galvatron_tpu_torch.obs import attribution
+
+        try:
+            rows = attribution.predict_layer_runs(cfg, hp)
+        except Exception as e:  # noqa: BLE001 - the analytic tables cannot price it
+            telemetry.emit("log", message="layer-run prediction skipped: %s" % e)
+            return None
+        for row in rows or ():
+            telemetry.emit("layer_run", **row)
+        return rows
+
+    if telemetry.active_sink() is not None or autotune_mode != "off":
+        predictions = predict(run.hp)
 
     # ------------------------------------------------------- input pipeline
     async_loop = bool(getattr(args, "async_loop", True))
@@ -428,7 +523,7 @@ def _train(args, device) -> dict:
     eval_batches, eval_launches, eval_ms = {}, {"fwd": 0, "bwd": 0}, []
     if eval_interval:
         for split in ("valid", "test"):
-            it_ = build_data_iterator(args, run.fam, cfg, hp, split=split, device=device)
+            it_ = build_data_iterator(args, run.fam, cfg, run.hp, split=split, device=device)
             eval_batches[split] = [next(it_) for _ in range(eval_iters)]
 
     def evaluate(split):
@@ -436,7 +531,7 @@ def _train(args, device) -> dict:
         n_fwd = flash_attention.flash_attention_fwd.launches
         n_bwd = flash_attention.flash_attention_bwd.launches
         t0 = time.perf_counter()
-        vals = [model.eval_loss(params, b) for b in eval_batches[split]]
+        vals = [run.model.eval_loss(run.params, b) for b in eval_batches[split]]
         loss = float(torch.stack(vals).sum()) / eval_iters
         eval_ms.append((time.perf_counter() - t0) * 1e3)
         eval_launches["fwd"] += flash_attention.flash_attention_fwd.launches - n_fwd
@@ -444,25 +539,81 @@ def _train(args, device) -> dict:
         return loss
 
     prof = RuntimeProfiler(warmup=min(2, max(args.train_iters - 1, 0)), device=device,
-                           model_flops=step_flops / world if step_flops else step_flops,
-                           peak_flops=peak_flops)
+                           model_flops=step_flops / run.hp.world_size if step_flops
+                           else step_flops, peak_flops=peak_flops)
     save_memory = bool(getattr(args, "save_profiled_memory", 0))
     preempt = rsl.PreemptionHandler().install() if getattr(args, "emergency_save", 0) else None
     saves = []
+
+    # -------------------------------------------------------- self-healing
+    # the watchdog (runtime/health.py): a monitor thread armed around every
+    # loop body, its deadline learned from the step time; a first miss asks
+    # for a drain and retry, a second one for the emergency-save exit (3)
+    wd = None
+    if getattr(args, "watchdog", 0):
+        wd = hlth.Watchdog(hlth.WatchdogConfig(
+            floor_s=float(args.watchdog),
+            factor=float(getattr(args, "watchdog_factor", 4.0)),
+            startup_deadline_s=float(getattr(args, "watchdog_startup_s", 600.0)),
+        )).start()
+    # the mesh probe: live ranks against the strategy's plus one timed
+    # all-reduce, at step boundaries every --mesh_probe_interval seconds
+    # (`probe_devices_fn` is the test seam for a simulated lost rank)
+    probe_fn = getattr(args, "probe_devices_fn", None) or (
+        hooks.probe_devices_fn if hooks is not None else None)
+
+    def new_monitor(interval_s):
+        return hlth.MeshHealthMonitor(interval_s=interval_s, devices_fn=probe_fn, device=device)
+
+    mesh_monitor = None
+    if getattr(args, "mesh_probe_interval", 0):
+        mesh_monitor = new_monitor(float(args.mesh_probe_interval))
+    # live-migration requests: SIGUSR1 (a manual re-plan), a degraded probe
+    # under --migrate_on_degrade or an sdc quarantine; consumed at the next
+    # step boundary, where params and Adam state are consistent
+    migrate_req = {"pending": False, "reason": None, "world": None, "survivors": None}
+    usr1 = {"seen": False}
+    prev_usr1 = None
+    if hasattr(signal, "SIGUSR1") and threading.current_thread() is threading.main_thread():
+        def _on_usr1(signum, frame):
+            usr1["seen"] = True
+
+        prev_usr1 = signal.signal(signal.SIGUSR1, _on_usr1)
+    migrations = []
+    # the silent-corruption sentinel (runtime/sdc.py): the strike ladder of
+    # the replica vote, the ranks it convicted and the recovery request
+    sdc_ladder = None
+    if run.sdc_mode == "vote":
+        sdc_ladder = sdc_mod.VoteLadder(strikes=max(int(getattr(args, "sdc_strikes", 2) or 2), 1))
+    sdc_quarantined = set()
+    sdc_req = {"pending": False, "votes": None, "tie_rounds": 0}
+    # the online autotuner (runtime/autotune.py)
+    tuner = None
+    if autotune_mode != "off":
+        from galvatron_tpu_torch.runtime import autotune as AT
+
+        tuner = AT.OnlineAutotuner(AT.AutotuneConfig(
+            mode=autotune_mode, margin=getattr(args, "autotune_margin", None) or 0.05,
+            window=getattr(args, "autotune_window", None) or 5,
+            rel_std=getattr(args, "autotune_rel_std", None) or 0.15))
 
     def save_now(iteration: int, emergency: bool = False):
         meta = {"iteration": iteration}
         if emergency:
             meta["emergency"] = True
             meta["signal"] = interrupted
-        # collective: every rank retries its own write and they agree
-        p_view, o_view = model.checkpoint_view(params, opt_state)
+        # collective: every rank retries its own write and they agree; the
+        # manifest records the state's layout-invariant folds beside the
+        # sha256s, which a restore under another strategy is held to
+        folds = {"params": sdc_mod.state_fold(run.model, run.params),
+                 "opt_state": sdc_mod.state_fold(run.model, run.params, run.opt_state)}
+        p_view, o_view = run.model.checkpoint_view(run.params, run.opt_state)
         with prof.boundary():
             info = ckpt.save_checkpoint(
-                args.save, iteration, p_view, o_view, hp, train_meta=meta,
+                args.save, iteration, p_view, o_view, run.hp, train_meta=meta,
                 keep_latest_k=getattr(args, "keep_latest_k", 0) or None, provenance=provenance,
                 meta={"model_type": args.model_type, "model_size": args.model_size},
-                retry_policy=retry_policy, counters=res)
+                retry_policy=retry_policy, counters=res, folds=folds)
         saves.append({k: v for k, v in info.items() if k != "items"})
         saves[-1].update(iteration=iteration, digests=info["items"])
 
@@ -489,16 +640,34 @@ def _train(args, device) -> dict:
             grad_norm=grad_norm if math.isfinite(grad_norm) else None)
 
     def drain_one():
-        """Drain the oldest in-flight step: its time, log line, telemetry
-        and the guard's accounting. Returns (iteration, rollback_needed)."""
+        """Drain the oldest in-flight step: its time, log line, telemetry,
+        the sentinel's and the guard's accounting. Returns (iteration,
+        rollback_needed)."""
         d_it, metrics, disp_ms = inflight.popleft()
-        prof.end(d_it, n_samples=hp.global_bsz)
+        prof.end(d_it, n_samples=run.hp.global_bsz)
+        if wd is not None:
+            # a drain is the loop's liveness signal and the deadline's data
+            wd.observe_step_time(prof.all_times_ms[-1])
+            wd.progress(d_it, inflight=len(inflight))
+        if tuner is not None:
+            tuner.observe_step(prof.all_times_ms[-1] if prof.all_times_ms else None,
+                               iteration=d_it)
         loss = float(metrics["loss"])
-        if lead and d_it % max(args.log_interval, 1) == 0:
+        if distributed.rank() == 0 and d_it % max(args.log_interval, 1) == 0:
             prof.log_iteration(d_it, {"loss": loss, "grad_norm": float(metrics["grad_norm"])})
         emit_step_event(d_it, metrics, loss, disp_ms)
         if save_memory and not prof.memory_snapshots:
             prof.profile_memory(d_it, "after_step")
+        if sdc_ladder is not None and metrics.get("sdc_mismatch"):
+            # the replicas disagreed: the step applied nothing and its loss
+            # came from a corrupt replica; record nothing, drain_inflight
+            # runs the repair / re-execute / quarantine ladder
+            sdc_req.update(pending=True, votes=metrics["sdc_votes"])
+            return d_it, False
+        if run.sdc_mode != "off" and "sdc_fold" in metrics and d_it % sdc_interval == 0:
+            fold, sumsq = sdc_mod.fold_value(metrics["sdc_fold"])
+            res.sdc_checks += 1
+            telemetry.emit("sdc_check", mode=run.sdc_mode, iter=d_it, fold=fold, sumsq=sumsq)
         verdict = guard.observe(loss) if guard is not None else "ok"
         if verdict == "ok":
             losses.append(loss)
@@ -509,20 +678,82 @@ def _train(args, device) -> dict:
         res.anomalies_skipped += 1
         telemetry.emit("anomaly_skip", iter=d_it, verdict=verdict,
                        loss=loss if math.isfinite(loss) else None, strikes=guard.strikes)
-        if lead:
+        if distributed.rank() == 0:
             print("iteration %d: %s anomaly (loss %r) — update skipped (strike %d/%d)"
                   % (d_it, verdict, loss, guard.strikes, guard.cfg.max_strikes))
         return d_it, guard.should_roll_back
 
+    def sdc_recover(d_it, votes):
+        """A drained step's replica vote disagreed. The step applied
+        nothing, and the loop drains it as soon as it is dispatched (no
+        later step has run), so the live state IS the mismatching step's
+        input. Vote on the host, repair the convicted replica from a
+        healthy one, reopen the stream at the mismatching step and run it
+        again: bitwise a clean run, because the fold is exact. A rank that
+        keeps striking is quarantined into the degraded-mesh migration."""
+        nonlocal it
+        ids = sdc_mod.vote_device_ids(run.model)
+        verdict = sdc_ladder.observe(votes, ids)
+        res.sdc_mismatches += 1
+        suspects = verdict["suspects"]
+        telemetry.emit("sdc_mismatch", iter=d_it, action=verdict["action"],
+                       suspects=suspects or None, folds=votes,
+                       strikes=verdict["strikes"] or None)
+        if distributed.rank() == 0:
+            print("iteration %d: replica vote mismatch (%s) — %s%s"
+                  % (d_it, " ".join("0x%08x" % v for v in votes), verdict["action"],
+                     " (suspect ranks %s)" % suspects if suspects else ""))
+        inflight.clear()
+        if suspects:
+            sdc_req["tie_rounds"] = 0
+            sdc_mod.repair_from_replica(run.model, run.params, run.opt_state, suspects)
+        else:
+            # detected but not localizable (a tie, e.g. dp=2): re-execute
+            # and hope the lie was transient, a bounded number of times
+            sdc_req["tie_rounds"] += 1
+            if sdc_req["tie_rounds"] > sdc_ladder.strikes:
+                raise rsl.TrainingAnomalyError(
+                    "replica folds keep disagreeing with no majority at iteration %d (%d "
+                    "consecutive tied votes); cannot localize the lying rank"
+                    % (d_it, sdc_req["tie_rounds"]))
+        res.sdc_reexecutions += 1
+        it = d_it
+        stream.open(d_it)
+        if verdict["quarantine"]:
+            sdc_quarantined.update(int(d) for d in verdict["quarantine"])
+            res.sdc_quarantines += 1
+            avail = [r for r in range(distributed.world_size()) if r not in sdc_quarantined]
+            telemetry.emit("sdc_quarantine", iter=d_it,
+                           device_ids=sorted(int(d) for d in verdict["quarantine"]),
+                           strikes=verdict["strikes"] or None, reason="replica_vote")
+            if distributed.rank() == 0:
+                print("iteration %d: rank(s) %s quarantined after %d consecutive strikes — "
+                      "%d rank(s) survive" % (d_it, sorted(verdict["quarantine"]),
+                                             sdc_ladder.strikes, len(avail)))
+            if mesh_monitor is not None:
+                mesh_monitor.quarantined_ids.update(verdict["quarantine"])
+            if getattr(args, "migrate_on_degrade", 0):
+                migrate_req.update(pending=True, reason="sdc_quarantine", world=len(avail),
+                                   survivors=avail)
+            else:
+                raise rsl.TrainingAnomalyError(
+                    "rank(s) %s convicted of silent corruption at iteration %d; restart "
+                    "without them or pass --migrate_on_degrade 1 to migrate off them in "
+                    "place" % (sorted(verdict["quarantine"]), d_it))
+
     def drain_inflight(window: int) -> bool:
         """Drain until at most `window` steps remain in flight (0: the
-        forced drain at eval/save/preemption boundaries). On a rollback the
-        rest of the window is discarded (it extends the abandoned
-        trajectory) and the state and stream are restored here. Returns True
-        iff a rollback happened."""
+        forced drain at eval/save/preemption boundaries). On a rollback or
+        an sdc recovery the rest of the window is discarded (it extends the
+        abandoned trajectory) and the state and stream are restored here.
+        Returns True iff that happened."""
         nonlocal it
         while len(inflight) > window:
             d_it, need_rollback = drain_one()
+            if sdc_req["pending"]:
+                sdc_req.update(pending=False)
+                sdc_recover(d_it, sdc_req["votes"])
+                return True
             if not need_rollback:
                 continue
             intact = ckpt.intact_iterations(args.save) if args.save else []
@@ -547,78 +778,320 @@ def _train(args, device) -> dict:
             guard.reset_after_rollback()
             telemetry.emit("rollback", to_iter=it, at_iter=d_it, count=res.rollbacks,
                            stream_offset=offset)
-            if lead:
+            if distributed.rank() == 0:
                 print("rolled back to checkpoint iteration %d (rollback %d/%d, stream offset "
                       "+%d)" % (it, res.rollbacks, guard.cfg.max_rollbacks, offset))
             return True
         return False
 
+    def do_migrate(reason, target_world=None, target_hp=None, survivors=None):
+        """Live migration (``runtime/elastic.migrate``) at a step boundary
+        with the window drained and the prefetch thread stopped: resolve a
+        strategy for the surviving ranks (``--elastic_strategy`` or a fresh
+        search; the autotuner passes its winner), move params and both Adam
+        moments onto it in memory, rebuild the step and reopen the stream
+        at the SAME step, as a save and an ``--elastic resume`` under the
+        target would continue. Returns "swapped", "departed" (this rank left
+        the world) or None (nothing to do); refusals raise GLS2xx
+        (GLS207 for what a live migration cannot do)."""
+        nonlocal provenance, mesh_monitor
+        if wd is not None:
+            wd.disarm()
+        if drain_inflight(0):
+            # a rollback or an sdc recovery won this boundary; the request is
+            # dropped (the next trigger raises it against the restored run)
+            return None
+        world = distributed.world_size()
+        avail = [r for r in (survivors if survivors is not None else range(world))
+                 if r not in sdc_quarantined]
+        if target_hp is not None:
+            new_hp, action, new_world = target_hp, "autotune", target_hp.world_size
+        else:
+            new_world = int(target_world or len(avail))
+            new_hp = action = None
+            last_err = None
+            for w in range(new_world, 0, -1):
+                try:
+                    new_hp, action = els.resolve_migration_strategy(args, cfg, w, run.hp)
+                    new_world = w
+                    break
+                except DiagnosticError as e:
+                    # a quarantined world (3 of 4 ranks) often has no strategy
+                    # at its exact size; shrink until one fits
+                    last_err = e
+                    if reason != "sdc_quarantine":
+                        raise
+            if new_hp is None:
+                raise last_err
+            if new_world < len(avail) and distributed.rank() == 0:
+                print("migration (%s): no feasible strategy for all %d surviving rank(s); "
+                      "migrating to %d" % (reason, len(avail), new_world))
+        if new_hp.to_json_dict() == run.hp.to_json_dict() and new_world == world:
+            telemetry.runtime_log("migration (%s): the resolved strategy is the running one; "
+                                  "nothing to swap" % reason)
+            return None
+        stream.close()
+        from_hp = run.hp
+        result = els.migrate(run.model, run.params, run.opt_state, new_hp,
+                             survivors=avail[:new_world], reason=reason, iteration=it,
+                             build_model=lambda c, h, d: build_model(run.fam, c, h, d),
+                             sdc_check=run.sdc_mode != "off")
+        record = {"reason": reason, "action": action, "iteration": it,
+                  "from_world": from_hp.world_size, "to_world": new_hp.world_size,
+                  "seconds": result.seconds, "device_extra_gb": result.device_extra_gb,
+                  "to_strategy": new_hp.to_json_dict()}
+        migrations.append(record)
+        if result.departed:
+            return "departed"
+        run.model, run.params, run.opt_state, run.hp = (result.model, result.params,
+                                                        result.opt_state, new_hp)
+        if run.sdc_mode != "off":
+            run.sdc_mode = getattr(args, "sdc_check", "off")  # vote again where it can
+        make_step(args, run, hooks)
+        provenance = build_provenance(run.hp, cfg, optimizer_args_from(args),
+                                      memory_budget_gb=getattr(args, "elastic_memory_gb", None))
+        sdc_quarantined.clear()  # the convicted ranks left; the survivors renumbered
+        if sdc_ladder is not None:
+            sdc_ladder.reset()
+        if mesh_monitor is not None:
+            mesh_monitor = new_monitor(mesh_monitor.interval_s)
+        stream.open(it)
+        if distributed.rank() == 0:
+            print("live migration (%s/%s) at iteration %d: world %d -> %d, %s, %.3f s"
+                  % (reason, action, it, from_hp.world_size, run.hp.world_size,
+                     "same pipeline layout" if result.same_layout else "pipeline relayout",
+                     result.seconds))
+        return "swapped"
+
+    def autotune_plan(steady_ms):
+        """One planning epoch of the online autotuner: fold the measured
+        steady step (agreed over the ranks) into the cost tables, search
+        again under the original budget with the global batch pinned and,
+        under ``apply``, swap through `do_migrate` when the predicted saving
+        clears the margin and amortizes over the remaining steps. Returns
+        what `do_migrate` returned (None when nothing was swapped)."""
+        nonlocal predictions
+        from galvatron_tpu_torch.runtime import autotune as AT
+
+        hp = run.hp
+        remaining = max(args.train_iters - it, 0)
+        budget_gb = getattr(args, "elastic_memory_gb", None) or \
+            provenance.get("memory_budget_gb") or els.DEFAULT_MEMORY_GB
+        from_json = hp.to_json_dict()
+        incumbent_ms = winner_ms = new_hp = tables = None
+        base = els.analytic_model_profiles(cfg, max_tp=hp.world_size)
+        if base is not None and steady_ms is not None:
+            # the port has no compiled-program memory figure: the memory
+            # tables stay as the base prices them
+            tables = AT.calibrate_from_run(cfg, hp, base[0], base[1], predictions or [],
+                                           steady_ms)
+        if tables is not None:
+            tcfg, mcfg = tables
+            try:
+                new_hp = els.search_surviving_strategy(
+                    cfg, hp.world_size, hp.global_bsz, budget_gb, model_type=args.model_type,
+                    config_dir=getattr(args, "config_dir", None),
+                    default_dp_type=hp.default_dp_type, time_config=tcfg, memory_config=mcfg,
+                    remat_search=True)
+            except Exception as e:  # noqa: BLE001 - a failed re-search must not kill the run
+                telemetry.runtime_log("autotune search failed: %s" % e)
+                new_hp = None
+            if new_hp is not None:
+                for k in ("scan_layers", "remat_policy", "tp_comm_mode", "tp_comm_quant",
+                          "mixed_precision"):
+                    setattr(new_hp, k, getattr(hp, k))
+                incumbent_ms = AT.predicted_step_ms(cfg, hp, tcfg, mcfg)
+                winner_ms = AT.predicted_step_ms(cfg, new_hp, tcfg, mcfg)
+        decision = tuner.decide(incumbent_ms, winner_ms, remaining,
+                                identical=new_hp is not None and new_hp.to_json_dict() == from_json,
+                                target_hp=new_hp)
+        outcome, wall_ms = None, 0.0
+        if decision.swap and tuner.config.mode == "apply":
+            t0 = time.perf_counter()
+            outcome = do_migrate("autotune", target_hp=decision.target_hp)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        swapped = outcome == "swapped"
+        telemetry.emit(
+            "autotune", action="plan", iter=it, mode=tuner.config.mode, reason=decision.reason,
+            steady_step_ms=steady_ms, incumbent_ms=incumbent_ms, winner_ms=winner_ms,
+            predicted_saving_ms=decision.predicted_saving_ms, margin=tuner.config.margin,
+            remaining_steps=remaining, swap_cost_ms=decision.swap_cost_ms,
+            swapped=int(swapped), from_strategy=from_json,
+            to_strategy=new_hp.to_json_dict() if new_hp is not None else None)
+        plans.append({"iteration": it, "reason": decision.reason, "swapped": swapped,
+                      "steady_step_ms": steady_ms, "incumbent_ms": incumbent_ms,
+                      "winner_ms": winner_ms,
+                      "to_strategy": new_hp.to_json_dict() if new_hp is not None else None})
+        if distributed.rank() == 0:
+            print("autotune (%s) at iteration %d: %s (steady %.2f ms, incumbent %s ms, winner "
+                  "%s ms)" % (tuner.config.mode, it, "swapping" if swapped else decision.reason,
+                              steady_ms or -1.0,
+                              "%.2f" % incumbent_ms if incumbent_ms else "-",
+                              "%.2f" % winner_ms if winner_ms else "-"))
+        if swapped:
+            tuner.mark_swapped(it, wall_ms, decision.predicted_saving_ms)
+            predictions = predict(run.hp)
+        return outcome
+
+    plans = []
+    departed = False
     stream.open(start_iter)
     try:
         while True:
             if interrupted is None and it < args.train_iters:
                 if hooks is not None and hooks.on_step:
                     hooks.on_step(it)
-                if preempt is not None and _any_rank(preempt.triggered, device):
-                    # every rank stops at the same boundary
-                    interrupted = preempt.signal_name or "SIGTERM"
+                # every rank takes the same branches: one agreement per boundary
+                flags = _agree([
+                    float(preempt is not None and preempt.triggered),
+                    float(wd is not None and wd.abort_requested),
+                    float(wd is not None and wd.retry_requested),
+                    float(mesh_monitor is not None and mesh_monitor.due()),
+                    float(usr1["seen"]),
+                    float(tuner is not None and tuner.plan_pending),
+                    (tuner.steady_step_ms() or 0.0) if tuner is not None else 0.0,
+                ], device)
+                usr1["seen"] = False
+                if flags[0]:
+                    interrupted = (preempt.signal_name if preempt is not None else None) \
+                        or "SIGTERM"
                     telemetry.emit("preemption", signal=interrupted, iter=it)
+                if wd is not None and interrupted is None:
+                    if flags[1]:
+                        # a second missed deadline: the emergency-save exit
+                        # (main() exits with the watchdog's code)
+                        interrupted = "watchdog"
+                    elif flags[2]:
+                        wd.take_retry_request()
+                        telemetry.runtime_log("watchdog: draining %d in-flight step(s) after "
+                                              "a stall at iteration %d" % (len(inflight), it))
+                        if drain_inflight(0):
+                            continue
+                if interrupted is None and flags[3]:
+                    verdict = mesh_monitor.probe()
+                    if verdict["status"] != "healthy":
+                        telemetry.emit("watchdog", action="mesh_probe", iter=it,
+                                       status=verdict["status"], expected=verdict["expected"],
+                                       live=verdict["live"],
+                                       missing_ids=verdict["missing_ids"] or None,
+                                       detail=verdict.get("error"))
+                        telemetry.runtime_log("mesh probe: %s (expected %d ranks, live %d)"
+                                              % (verdict["status"], verdict["expected"],
+                                                 verdict["live"]))
+                    if verdict["status"] == "wedged":
+                        raise WedgedWorldError(
+                            "mesh probe at iteration %d: %s; resume from the last committed "
+                            "checkpoint (--elastic resume)" % (it, verdict.get("error")))
+                    if verdict["status"] == "degraded" and getattr(args, "migrate_on_degrade", 0):
+                        migrate_req.update(pending=True, reason="degraded_mesh",
+                                           world=verdict["live"],
+                                           survivors=verdict["live_ids"])
+                if interrupted is None and (migrate_req["pending"] or flags[4]):
+                    req = dict(migrate_req) if migrate_req["pending"] else \
+                        {"reason": "sigusr1", "world": None, "survivors": None}
+                    migrate_req.update(pending=False)
+                    outcome = do_migrate(req["reason"], req["world"],
+                                         survivors=req["survivors"])
+                    if outcome == "departed":
+                        departed = True
+                        break
+                    continue
+                if interrupted is None and flags[5]:
+                    outcome = autotune_plan(flags[6] or None)
+                    if outcome == "departed":
+                        departed = True
+                        break
+                    if outcome is not None:
+                        continue
             if interrupted is not None or it >= args.train_iters:
                 # a rollback surfacing in the final drain resumes training,
                 # unless a preemption is exiting (its save takes priority)
                 if drain_inflight(0) and interrupted is None:
                     continue
+                if wd is not None:
+                    wd.disarm()  # the exit saves are not step work
                 break
+            if wd is not None:
+                wd.arm(it, "fetch", inflight=len(inflight))
             batch = next(stream)
             prof.start(it)
             # with the guard, the cap comes from the losses drained so far: it
             # lags the step by at most `inflight_steps` (NaN/Inf gating is exact)
-            params, opt_state, metrics = step_fn(params, opt_state, batch, *run.step_args())
+            run.params, run.opt_state, metrics = run.step(run.params, run.opt_state, batch,
+                                                          *run.step_args())
             inflight.append((it, metrics, prof.dispatched(it)))
+            if wd is not None:
+                wd.arm(it, "inflight", inflight=len(inflight))
             it += 1
-            if drain_inflight(inflight_window):
+            # a replica vote that disagreed is known at dispatch (the step
+            # read it in its one host transfer): recover now, before any
+            # step runs from the frozen state (a fault that stops lying
+            # would otherwise let a descendant apply an update out of turn)
+            window = 0 if metrics.get("sdc_mismatch") else inflight_window
+            if drain_inflight(window):
                 continue
             if eval_interval and it % eval_interval == 0:
                 if drain_inflight(0):
                     continue
+                if wd is not None:
+                    wd.disarm()  # eval passes are slow by design
                 with prof.boundary():
                     vloss = evaluate("valid")
                 valid_losses.append((it, vloss))
                 telemetry.emit("eval", iter=it, split="valid", loss=vloss)
-                if lead:
+                if distributed.rank() == 0:
                     print("iteration %d: valid loss %.6f" % (it, vloss))
             if args.save and args.save_interval and it % args.save_interval == 0:
                 if drain_inflight(0):
                     continue
+                if wd is not None:
+                    wd.disarm()  # checkpoint I/O has its own retry containment
                 save_now(it)
                 last_save = it
-        if interrupted is not None and args.save and last_save != it:
-            save_now(it, emergency=True)
-            res.emergency_saves += 1
-            last_save = it
-            if lead:
-                print("emergency checkpoint at iteration %d (%s)" % (it, interrupted))
-        elif args.save and last_save != it:
-            save_now(it)
-            last_save = it
-        prof.loop_fence()
+        if not departed:
+            if interrupted is not None and args.save and last_save != it:
+                save_now(it, emergency=True)
+                res.emergency_saves += 1
+                last_save = it
+                if distributed.rank() == 0:
+                    print("emergency checkpoint at iteration %d (%s)" % (it, interrupted))
+            elif args.save and last_save != it:
+                save_now(it)
+                last_save = it
+            prof.loop_fence()
     finally:
         stream.close()
         if preempt is not None:
             preempt.uninstall()
+        if wd is not None:
+            wd.stop()
+        if prev_usr1 is not None:
+            signal.signal(signal.SIGUSR1, prev_usr1)
+    if departed:
+        return {"departed": True, "losses": losses, "loss_iters": loss_iters,
+                "migrations": migrations, "resilience": res.as_dict(), "iteration": it,
+                "rank": None, "device": str(device)}
     if save_memory:
         prof.profile_memory(it, "end")
     summary = prof.summary()
     summary["losses"] = losses
     summary["loss_iters"] = loss_iters
     summary["resilience"] = res.as_dict()
+    if tuner is not None:
+        summary["autotune"] = {"plans": tuner.plans, "swaps": tuner.swaps, "epochs": plans}
+    if wd is not None:
+        summary["watchdog"] = wd.summary()
+    if migrations:
+        summary["migrations"] = migrations
+    if run.sdc_mode != "off" or getattr(args, "sdc_check", "off") != "off":
+        summary["sdc_mode"] = run.sdc_mode
     if interrupted is not None:
         summary["interrupted"] = interrupted
     if eval_interval:
         summary["valid_losses"] = valid_losses
         summary["test_loss"] = evaluate("test")
         telemetry.emit("eval", iter=it, split="test", loss=summary["test_loss"])
-        if lead:
+        if distributed.rank() == 0:
             print("final test loss %.6f" % summary["test_loss"])
     summary["eval_flash_launches"] = eval_launches
     summary["eval_pass_ms"] = eval_ms
@@ -628,27 +1101,38 @@ def _train(args, device) -> dict:
     summary["flash_routes"] = _routes_since(routes)
     if getattr(cfg, "max_seq_len", None):
         summary["tokens_per_s"] = summary["samples_per_s"] * cfg.max_seq_len
-        summary["tokens_per_s_per_gpu"] = summary["tokens_per_s"] / world
+        summary["tokens_per_s_per_gpu"] = summary["tokens_per_s"] / run.hp.world_size
     if run.fam.data_kind == "vision":
         summary["images_per_s"] = summary["samples_per_s"]
     note = obs_flops.flops_note(cfg)
     if note:
         summary["mfu_note"] = note
-    summary["world_size"] = world
+    summary["world_size"] = run.hp.world_size
     summary["rank"] = distributed.rank()
     summary["device"] = str(device)
     summary["device_kind"] = device_kind
+    summary["strategy"] = run.hp.to_json_dict()
     telemetry.emit("run_end", summary={
         k: v for k, v in summary.items()
         if k not in ("losses", "loss_iters", "valid_losses", "checkpoint_saves",
-                     "checkpoint_restore", "memory_snapshots")})
+                     "checkpoint_restore", "memory_snapshots", "migrations", "strategy",
+                     "autotune", "watchdog")})
     return summary
 
 
 def main(argv: Optional[list] = None):
+    from galvatron_tpu_torch.runtime.health import WATCHDOG_EXIT_CODE
+
     args = initialize_galvatron(argv=argv, mode="train")
     try:
         summary = train(args)
+    except WedgedWorldError as e:
+        # the world's collective did not complete: no save (it would need
+        # one), the exit code that says "resume me"
+        print("wedged world: %s; exiting %d" % (e, WATCHDOG_EXIT_CODE), file=sys.stderr)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(WATCHDOG_EXIT_CODE)
     except Exception as e:
         from galvatron_tpu_torch.analysis.diagnostics import DiagnosticError
 
@@ -661,10 +1145,21 @@ def main(argv: Optional[list] = None):
                 print(d.format(), file=sys.stderr)
             sys.exit(2)
         raise
+    if summary.get("departed"):
+        print("left the world in a live migration at iteration %d (%s)"
+              % (summary["iteration"], summary["migrations"][-1]["reason"]))
+        return summary
     if summary["rank"] == 0:
         print({k: v for k, v in summary.items()
                if k not in ("losses", "loss_iters", "checkpoint_saves", "checkpoint_restore")})
         print("losses %s" % " ".join(repr(x) for x in summary["losses"]))
+    if (summary.get("watchdog") or {}).get("escalated"):
+        # the run wedged, evacuated through the emergency save and stopped
+        # cleanly: exit 3 tells the supervisor "resume me, and read the
+        # watchdog events" rather than "retry blindly"
+        print("watchdog escalated: emergency state saved; exiting %d" % WATCHDOG_EXIT_CODE,
+              file=sys.stderr)
+        sys.exit(WATCHDOG_EXIT_CODE)
     return summary
 
 

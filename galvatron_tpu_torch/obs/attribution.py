@@ -1,0 +1,224 @@
+"""Predicted cost per LayerRun: what the search's cost models expect.
+
+Port of the prediction half of ``galvatron_tpu/obs/attribution.py``. For
+every `LayerRun` of a strategy (``config.strategy.layer_runs``: the layers
+that share one realised layout) it prices the per-iteration time and memory
+through the same cost-model classes the search uses, on the given tables or
+the analytic fallback of ``runtime/elastic.py``, and gives the run's share
+of the step's model FLOPs (``obs/flops.run_fwd_flops``). The online
+autotuner (``runtime/autotune.py``) splits the measured step by those
+shares; ``cli train --telemetry`` writes the rows as ``layer_run`` events.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+from galvatron_tpu_torch.config.strategy import HybridParallelConfig, LayerStrategy, layer_runs
+from galvatron_tpu_torch.obs import flops as F
+
+HEAD_RUN = -1  # pseudo-run index for the embed/head share row
+
+
+def strategy_as_list(s: LayerStrategy, hp: HybridParallelConfig, layer_idx: int) -> list:
+    """A LayerStrategy in the cost models' reference list form
+    [pp, tp, dp, info]."""
+    info: Dict[str, int] = {}
+    if s.sp:
+        info["sp"] = 1
+    if s.cp > 1:
+        info["cp"] = s.cp
+    if s.fsdp:
+        info["fsdp"] = 1
+    if s.checkpoint:
+        info["cpt"] = 1
+    if not s.tp_consec:
+        info["tp"] = 0
+    if s.grad_comm_dtype != "none":
+        info["gcd"] = s.grad_comm_dtype
+    if s.param_comm_dtype != "none":
+        info["pcd"] = s.param_comm_dtype
+    if s.remat_policy != "full":
+        info["rp"] = s.remat_policy
+    return [hp.pp, s.tp, hp.dp(layer_idx), info]
+
+
+def describe_strategy(s: LayerStrategy, hp: HybridParallelConfig, layer_idx: int) -> str:
+    return "tp%d%s cp%d dp%d%s%s%s" % (
+        s.tp, "(sp)" if s.sp else "", s.cp, hp.dp(layer_idx),
+        "(z3)" if s.fsdp else "",
+        ((" ckpt" if s.remat_policy == "full" else " ckpt[%s]" % s.remat_policy)
+         if s.checkpoint else ""),
+        " g%s" % s.grad_comm_dtype if s.grad_comm_dtype != "none" else "",
+    )
+
+
+def predict_layer_runs(
+    cfg: Any,
+    hp: HybridParallelConfig,
+    time_config: Optional[dict] = None,
+    memory_config: Optional[dict] = None,
+    hardware_configs: Optional[dict] = None,
+) -> Optional[List[Dict[str, Any]]]:
+    """Cost-model predictions per LayerRun, ready to emit as ``layer_run``
+    telemetry events.
+
+    Returns None for model families the analytic tables cannot describe
+    (and no profiled tables were given). Each entry:
+    ``{run, start, stop, strategy, predicted_ms, predicted_memory_mb,
+    flops, flops_share}``; a final ``run == HEAD_RUN`` entry carries the
+    embed/head FLOPs share so the shares sum to ~1 over the step."""
+    from galvatron_tpu_torch.analysis.strategy_lint import (
+        _analytic_activation_dict,
+        _analytic_parameter_mb,
+    )
+    from galvatron_tpu_torch.runtime.elastic import (
+        analytic_hardware_profiles,
+        analytic_model_profiles,
+    )
+    from galvatron_tpu_torch.search.cost_model import MemoryCostModel, TimeCostModel
+    from galvatron_tpu_torch.search.cost_model_args import (
+        ModelArgs,
+        ParallelArgs,
+        ProfileHardwareArgs,
+        ProfileModelArgs,
+        TrainArgs,
+        parse_hardware_profiles,
+    )
+
+    per_stage = hp.per_stage_devices
+
+    # ---- model profile tables (profiled > analytic fallback) -------------
+    if memory_config is not None and "layertype_0" in memory_config:
+        lt = memory_config["layertype_0"]
+        param_mb = float(lt["parameter_size"])
+        act_dict = dict(lt["tp_activation_per_bsz_dict"])
+    else:
+        param_mb = _analytic_parameter_mb(cfg)
+        act_dict = _analytic_activation_dict(cfg, per_stage)
+    if time_config is not None and "layertype_0" in time_config:
+        fwd_time = time_config["layertype_0"]
+    else:
+        synth = analytic_model_profiles(cfg, max_tp=per_stage)
+        fwd_time = synth[0]["layertype_0"] if synth is not None else None
+    if param_mb is None or not act_dict or fwd_time is None:
+        return None
+
+    # ---- hardware coefficient tables -------------------------------------
+    if hardware_configs is None:
+        allreduce, p2p, overlap = analytic_hardware_profiles(hp.world_size)
+        hardware_configs = parse_hardware_profiles(allreduce, p2p, overlap)
+    pha = ProfileHardwareArgs(
+        comm_coe_dict=hardware_configs.get("comm_coe_dict", {"1": 0.0}),
+        p2p_comm_coe_dict=hardware_configs.get("p2p_coe_dict") or None,
+        dp_overlap_coe=hardware_configs.get("overlap_coe", 1.1),
+        bct_overlap_coe=hardware_configs.get("overlap_coe", 1.1),
+        allreduce_dict=hardware_configs.get("allreduce_dict", {}),
+        all2all_dict=hardware_configs.get("all2all_dict", {}),
+    )
+
+    seq_len = getattr(cfg, "max_seq_len", 2048)
+    ma = ModelArgs(parameter_size=param_mb, seq_length=seq_len,
+                   hidden_size=getattr(cfg, "hidden_size", 1024),
+                   layer_num=hp.num_layers)
+    ta = TrainArgs(mixed_precision=hp.mixed_precision == "bf16")
+    pa = ParallelArgs(
+        use_zero2_for_dp=hp.default_dp_type == "zero2",
+        sequence_parallel=hp.sequence_parallel,
+        chunks=hp.chunks,
+        pipeline_type=hp.pipeline_type,
+        disable_vtp=True,  # embed/head is the HEAD_RUN flops row, not priced here
+        comm_quant_block=hp.comm_quant_block,
+    )
+    pma = ProfileModelArgs(
+        forward_computation_time=fwd_time,
+        tp_activation_per_bsz_dict=act_dict,
+        remat_recompute_frac=(time_config or {}).get("remat_recompute_frac"),
+    )
+
+    runs = layer_runs(hp)
+    run_flops = F.run_fwd_flops(cfg, hp)  # len(runs)+1 (head), or None
+    total_flops = sum(run_flops) if run_flops else None
+    tp_comm_mode = getattr(hp, "tp_comm_mode", "gspmd")
+
+    # chunks-aware pricing (ROADMAP item 5 leftover): mirror the engine's
+    # pipeline_costmodel — per-MICROBATCH layer costs times the schedule's
+    # tick count. A run's step share is length x per-mb cost x ticks/pp
+    # (ticks = chunks + pp - 1, the GPipe fill+drain; the /pp spreads the
+    # lockstep tick cost over the stages so the rows still sum to ~one
+    # step). At chunks=1 this reduces exactly to the old full-batch
+    # pricing, so calibrations against chunk-less runs are unchanged.
+    chunks = max(1, int(hp.chunks or 1))
+    mb_bsz = hp.global_bsz / chunks
+    tick_factor = (chunks + hp.pp - 1) / hp.pp
+
+    out: List[Dict[str, Any]] = []
+    for idx, run in enumerate(runs):
+        strategy = strategy_as_list(run.strategy, hp, run.start)
+        tcm = TimeCostModel(
+            strategy, global_batch_size=mb_bsz,
+            model_args=ma, train_args=ta, parallel_args=pa,
+            profile_model_args=pma, profile_hardware_args=pha,
+        )
+        per_layer_ms = tcm.gen_result() * tick_factor
+        # the TP-collective share of the layer, priced on the same scale as
+        # gen_result — the term tp_comm_mode=overlap can hide behind the
+        # chunked matmul schedule (bounded by the compute it overlaps with,
+        # the T3 perfect-overlap model)
+        scale = pha.costmodel_coe / tcm.layer_num * tick_factor
+        per_layer_comm_ms = tcm.tp_communication_time * scale
+        per_layer_hidden_ms = 0.0
+        if tp_comm_mode == "overlap" and run.strategy.tp > 1:
+            per_layer_hidden_ms = min(per_layer_comm_ms,
+                                      (tcm.fct + tcm.bct) * scale)
+            per_layer_ms -= per_layer_hidden_ms
+        per_layer_mb = MemoryCostModel(
+            strategy, global_batch_size=hp.global_bsz,
+            mbsz=max(1, hp.global_bsz // max(1, hp.chunks)),
+            min_tp=1, max_tp=per_stage, model_args=ma, train_args=ta,
+            parallel_args=pa, profile_model_args=pma,
+        ).get_memory_cost()["enc_total"]
+        entry: Dict[str, Any] = {
+            "run": idx,
+            "start": run.start,
+            "stop": run.stop,
+            "strategy": describe_strategy(run.strategy, hp, run.start),
+            "predicted_ms": round(per_layer_ms * run.length, 4),
+            "predicted_memory_mb": round(per_layer_mb * run.length, 2),
+        }
+        if run.strategy.tp > 1:
+            entry["tp_comm_mode"] = tp_comm_mode
+            entry["predicted_comm_ms"] = round(per_layer_comm_ms * run.length, 4)
+            if tp_comm_mode == "overlap":
+                entry["predicted_comm_hidden_ms"] = round(
+                    per_layer_hidden_ms * run.length, 4)
+        # comm-precision axis: what the cost model charges for the
+        # quantize/dequantize passes rides its own column so the report can
+        # lay it beside the measured quant_comm event
+        if run.strategy.grad_comm_dtype != "none" \
+                or run.strategy.param_comm_dtype != "none":
+            entry["grad_comm_dtype"] = run.strategy.grad_comm_dtype
+            entry["predicted_quant_overhead_ms"] = round(
+                tcm.quant_overhead_ms * scale * run.length, 4)
+        # remat axis: the policy-scaled recompute toll the cost model
+        # charged into the backward, beside the policy itself, so the
+        # report can lay predicted recompute against measured divergence
+        eff_rp = run.strategy.effective_remat_policy
+        if eff_rp != "none":
+            entry["remat_policy"] = eff_rp
+            entry["predicted_recompute_ms"] = round(
+                tcm.fct * tcm.remat_frac * scale * run.length, 4)
+        if run_flops is not None:
+            entry["flops"] = run_flops[idx]
+            entry["flops_share"] = round(run_flops[idx] / total_flops, 6)
+        out.append(entry)
+    if run_flops is not None:
+        out.append({
+            "run": HEAD_RUN,
+            "start": hp.num_layers,
+            "stop": hp.num_layers,
+            "strategy": "embed/head vtp%d" % hp.vocab_tp,
+            "flops": run_flops[-1],
+            "flops_share": round(run_flops[-1] / total_flops, 6),
+        })
+    return out

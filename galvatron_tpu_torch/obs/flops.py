@@ -8,7 +8,7 @@ the MLP and the head projection, independent of remat replay. MFU is
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 # Peak dense matmul throughput per device, FLOP/s, by device-name prefix
 # (``torch.cuda.get_device_name`` here, jax's device_kind in the reference,
@@ -130,6 +130,23 @@ def train_step_flops(cfg: Any, global_bsz: int) -> Optional[float]:
     if fwd is None:
         return None
     return fwd * (1.0 + BWD_FWD_RATIO)
+
+
+def run_fwd_flops(cfg: Any, hp: Any) -> Optional[List[float]]:
+    """Per-LayerRun forward FLOPs for one global batch
+    (``config.strategy.layer_runs``); None when the model is not
+    analytically describable. The embed/head share is appended as a final
+    pseudo-run, so the shares over the step sum to 1 (the autotuner's
+    calibration splits the measured step by them)."""
+    from galvatron_tpu_torch.config.strategy import layer_runs
+
+    tokens = float(hp.global_bsz) * (getattr(cfg, "max_seq_len", 0) or 0)
+    per_layer = layer_fwd_flops_from_config(cfg, tokens=tokens)
+    if per_layer is None or not tokens:
+        return None
+    out = [per_layer * run.length for run in layer_runs(hp)]
+    out.append(head_fwd_flops_from_config(cfg, tokens=tokens))
+    return out
 
 
 def flops_note(cfg: Any) -> Optional[str]:

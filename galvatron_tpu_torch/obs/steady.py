@@ -1,0 +1,131 @@
+"""Steady-state detection over per-step time series: the detector the
+online autotuner (`runtime/autotune.py`) and the watchdog's learned
+deadline read.
+
+Port of ``galvatron_tpu/obs/steady.py``, unchanged in behaviour. The rule:
+the steady region starts at the first index where the next `window`
+values have stdev/mean <= rel_std. A series that never settles still
+yields a usable tail (the post-25% median region), but the result says so:
+`SteadyState.settled` is False and `method` is "fallback", so a caller that
+must not act on an unsettled run (the autotuner) can refuse while one that
+only needs a number can print it.
+
+Two entry points:
+
+- `detect(values)`: batch, for a recorded series.
+- `SteadyStateDetector`: streaming, for the driver's drain loop: push each
+  drained step's wall time; the detector settles at the first trailing
+  window that meets the tolerance, the same index the batch scan finds on
+  the series so far.
+
+Standard library only.
+"""
+
+from __future__ import annotations
+
+import statistics
+from dataclasses import dataclass
+from typing import List, Optional, Sequence
+
+__all__ = ["SteadyState", "SteadyStateDetector", "detect"]
+
+
+@dataclass(frozen=True)
+class SteadyState:
+    """Where the steady region starts and how much to trust it.
+
+    method is "rolling-window" (a window met the tolerance — `settled` is
+    True), "fallback" (never settled; `start_index` is the post-25% tail
+    start), or "empty" (`start_index` is None)."""
+
+    start_index: Optional[int]
+    method: str
+    settled: bool
+    window: int
+    rel_std: float
+    n: int  # samples examined
+
+    def as_tuple(self):
+        """(start_index, method) — the legacy report-API shape."""
+        return self.start_index, self.method
+
+
+def _window_settles(win: Sequence[float], rel_std: float) -> bool:
+    mean = statistics.fmean(win)
+    if mean <= 0:
+        return False
+    return statistics.pstdev(win) / mean <= rel_std
+
+
+def detect(
+    values: Sequence[float], window: int = 5, rel_std: float = 0.15
+) -> SteadyState:
+    """Batch steady-state detection over a full series. None entries are
+    dropped (a step event without iter_ms contributes nothing)."""
+    vals = [float(v) for v in values if v is not None]
+    n = len(vals)
+    if not vals:
+        return SteadyState(None, "empty", False, window, rel_std, 0)
+    if n >= max(window, 2):
+        for i in range(0, n - window + 1):
+            if _window_settles(vals[i:i + window], rel_std):
+                return SteadyState(i, "rolling-window", True, window, rel_std, n)
+    return SteadyState(
+        min(n - 1, n // 4), "fallback", False, window, rel_std, n)
+
+
+class SteadyStateDetector:
+    """Streaming twin of `detect`: push per-step times as they drain.
+
+    Settles at the first push whose trailing `window` values meet the
+    tolerance — the minimal settling index, so the decision agrees with
+    the batch scan over the same prefix. Once settled the decision is
+    final (the autotuner treats a settle as one planning epoch; `reset()`
+    starts a new epoch after a strategy swap)."""
+
+    def __init__(self, window: int = 5, rel_std: float = 0.15):
+        self.window = int(window)
+        self.rel_std = float(rel_std)
+        self._values: List[float] = []
+        self._decision: Optional[SteadyState] = None
+
+    def push(self, value: Optional[float]) -> Optional[SteadyState]:
+        """Record one step time; returns the settled SteadyState (every
+        call after settling) or None while still unsettled."""
+        if value is not None:
+            self._values.append(float(value))
+            n = len(self._values)
+            if (self._decision is None and n >= max(self.window, 2)
+                    and _window_settles(self._values[-self.window:], self.rel_std)):
+                self._decision = SteadyState(
+                    n - self.window, "rolling-window", True,
+                    self.window, self.rel_std, n)
+        return self._decision
+
+    @property
+    def settled(self) -> bool:
+        return self._decision is not None
+
+    def state(self) -> SteadyState:
+        """Current decision — the settled window if there is one, else the
+        explicit fallback/empty result over everything seen so far."""
+        if self._decision is not None:
+            return self._decision
+        return detect(self._values, window=self.window, rel_std=self.rel_std)
+
+    def steady_tail(self) -> List[float]:
+        """Values from the decided start on (settled or fallback)."""
+        st = self.state()
+        if st.start_index is None:
+            return []
+        return self._values[st.start_index:]
+
+    def steady_step_ms(self) -> Optional[float]:
+        """Median of the steady tail — the measured steady step time."""
+        tail = self.steady_tail()
+        return float(statistics.median(tail)) if tail else None
+
+    def reset(self) -> None:
+        """Forget everything — a new measurement epoch (post-swap)."""
+        self._values = []
+        self._decision = None

@@ -368,6 +368,7 @@ def save_checkpoint(
     retry_policy: Any = None,
     counters: Any = None,
     rank_views: Optional[Dict[int, Tuple[Any, Optional[AdamState]]]] = None,
+    folds: Optional[Dict[str, int]] = None,
 ) -> Dict[str, Any]:
     """Write this rank's params (a module or name -> tensor) and Adam state
     at `iteration`, commit the manifest after every rank has written, then
@@ -380,7 +381,11 @@ def save_checkpoint(
     (``HybridParallelModel.checkpoint_views``), written as the files of a
     world of ``len(rank_views)``. Returns {"bytes", "seconds", "digest_s",
     "write_s", "items"} of this rank's part (of the first hosted rank's
-    with `rank_views`, and "ranks": every hosted rank's items)."""
+    with `rank_views`, and "ranks": every hosted rank's items). `folds`
+    ({"params": fold, "opt_state": fold}, ``runtime/sdc.state_fold`` of the
+    live state, which the train CLI computes at every save) goes into the
+    items' records as ``fold``: the layout-invariant digest a restore under
+    any strategy can be held to (`load_checkpoint(..., sdc_check=True)`)."""
     t0 = time.perf_counter()
     rank, world = _world()
     if rank_views is None:
@@ -439,6 +444,9 @@ def save_checkpoint(
         _before_manifest_write(iteration)
     first = min(hosts)
     items = {name: _fold([records[r][name] for r in range(world)]) for name in mine[first]}
+    for name, value in (folds or {}).items():
+        if name in items:
+            items[name]["fold"] = int(value)
     if train_meta:
         items["train_meta"] = _meta_digest(train_meta)
     _agreed(commit, retry_policy, counters, "manifest commit")
@@ -854,6 +862,7 @@ def load_checkpoint(
     counters: Any = None,
     target: Any = None,
     allow_cross: bool = False,
+    sdc_check: bool = False,
 ):
     """Restore (params, opt_state, train_meta) of this rank in place into
     `params_target` (a module or name -> tensor) and `opt_state_target`.
@@ -880,7 +889,10 @@ def load_checkpoint(
     `model_cfg` adds the model digest check (GLS201). Without
     `verify_integrity` the byte digests are not checked; the committed
     manifest is still required. Returns (params_target, opt_state or None,
-    meta) with ``meta["restore"]`` = {"bytes", "seconds", "digest_s", ...}."""
+    meta) with ``meta["restore"]`` = {"bytes", "seconds", "digest_s", ...}.
+    With `sdc_check`, a restore across strategies is also held to the
+    layout-invariant folds the manifest records (``runtime/sdc.py``,
+    GLS016), as the reference's sentinel holds it."""
     from galvatron_tpu_torch.runtime import resilience as rsl
 
     t0 = time.perf_counter()
@@ -969,6 +981,7 @@ def load_checkpoint(
             torn[step] = why
             continue
         out = step, loaded, stats, digests, digest_s
+        chosen = manifest
         break
     if out is None:
         raise FileNotFoundError("no intact checkpoint under %s (torn steps skipped: %s)"
@@ -977,6 +990,8 @@ def load_checkpoint(
     opt_state = None
     if stats is not None:
         params_target, opt_state = stages
+        if sdc_check:
+            _fold_continuity(chosen, target, params_target, opt_state, step)
     else:
         _copy_into(_param_leaves(params_target), loaded["params"], "params")
         if opt_state_target is not None and "opt_state" in loaded:
@@ -1005,6 +1020,22 @@ def load_checkpoint(
     meta["restore"] = dict(stats, seconds=time.perf_counter() - t0)
     _emit_restore(int(meta["iteration"]), ckpt_dir, meta["restore"], len(torn))
     return params_target, opt_state, meta
+
+
+def _fold_continuity(manifest, target, params, opt_state, step) -> None:
+    """GLS016 unless the restored state's layout-invariant folds equal the
+    ones the manifest recorded at the save (items without one are not
+    checked: a save made without folds)."""
+    from galvatron_tpu_torch.runtime import sdc
+
+    items = manifest.get("items", {})
+    if items.get("params", {}).get("fold") is not None:
+        sdc.assert_digest_continuity(items["params"]["fold"], sdc.state_fold(target, params),
+                                     "load_checkpoint(cross, params)", step)
+    if opt_state is not None and items.get("opt_state", {}).get("fold") is not None:
+        sdc.assert_digest_continuity(items["opt_state"]["fold"],
+                                     sdc.state_fold(target, params, opt_state),
+                                     "load_checkpoint(cross, opt_state)", step)
 
 
 def _emit_restore(iteration: int, ckpt_dir: str, stats: Dict[str, Any], torn: int):

@@ -26,7 +26,7 @@ from __future__ import annotations
 import contextlib
 import datetime
 import os
-from typing import Iterator
+from typing import Iterator, Optional
 
 import torch
 import torch.distributed as dist
@@ -97,19 +97,65 @@ def local_device(name: str) -> torch.device:
     raise ValueError("unknown device %r (cuda or cpu)" % name)
 
 
+_ABANDONED = [False]
+
+
+def abandon_group() -> None:
+    """Mark the default group as wedged: a collective of it never
+    completed, so no later collective may run, its teardown included
+    (`process_group` leaves it to the process's exit)."""
+    _ABANDONED[0] = True
+
+
 @contextlib.contextmanager
 def process_group(device_name: str) -> Iterator[torch.device]:
     """Resolve the device, initialize the default group for it (unless the
     caller already has one) and yield the device; the group this call
-    created is destroyed on the way out, whatever happens inside."""
+    created is destroyed on the way out, whatever happens inside, unless
+    it was abandoned (`abandon_group`)."""
     device = local_device(device_name)
     created = ensure_initialized(device)
     try:
         yield device
     finally:
-        if created and dist.is_initialized():
+        if created and dist.is_initialized() and not _ABANDONED[0]:
             _SUBGROUPS.clear()
             dist.destroy_process_group()
+
+
+_REGROUPS = [0]  # re-rendezvous count: the prefix of each new group's store keys
+
+
+def regroup(survivors, timeout_s: float = 600.0) -> Optional[int]:
+    """Replace the default group by one over `survivors` (ranks of the
+    current world), rendezvousing afresh on the run's store: the live
+    migration off a quarantined or lost rank. Collective over the current
+    world: every rank calls it after it has handed its shards over. Returns
+    this process's rank in the new world, or None on a departing rank,
+    whose group is destroyed (it exits after this). The subgroup cache is
+    emptied: the new world's models create their own. A world that keeps
+    every rank is left as it is. Under ``torchrun`` the store is the
+    agent's, so any rank may depart; a group whose store rank 0 serves
+    itself needs rank 0 among the survivors."""
+    old_rank, world = rank(), world_size()
+    survivors = sorted(int(r) for r in survivors)
+    if survivors == list(range(world)):
+        return old_rank
+    if not survivors or any(not 0 <= r < world for r in survivors):
+        raise ValueError("survivors %s are not ranks of a world of %d" % (survivors, world))
+    store = dist.distributed_c10d._get_default_store()
+    backend = dist.get_backend()
+    _REGROUPS[0] += 1
+    dist.barrier()
+    _SUBGROUPS.clear()
+    dist.destroy_process_group()
+    if old_rank not in survivors:
+        return None
+    new_rank = survivors.index(old_rank)
+    dist.init_process_group(backend, store=dist.PrefixStore("regroup%d/" % _REGROUPS[0], store),
+                            rank=new_rank, world_size=len(survivors),
+                            timeout=datetime.timedelta(seconds=timeout_s))
+    return new_rank
 
 
 def rank() -> int:

@@ -1,6 +1,7 @@
-"""Elastic resume: re-plan the strategy for the world a run resumes on.
+"""Elastic resume and live migration: re-plan the strategy for the world a
+run resumes or goes on in.
 
-Port of the resume half of ``galvatron_tpu/runtime/elastic.py``. Every
+Port of ``galvatron_tpu/runtime/elastic.py`` but its serve half. Every
 checkpoint's manifest carries a provenance block
 (``runtime/provenance.build_provenance``: the strategy JSON, the world
 size, the model and optimizer digests, the memory budget). On ``--load``
@@ -25,14 +26,21 @@ with ``--elastic resume|search`` the train CLI calls
 
 The restore across strategies is ``runtime/checkpoint.load_checkpoint(...,
 target=, allow_cross=True)``: every rank fills its shards of the new layout from the saved
-ranks' files. Live in-memory migration (the reference's ``migrate``, the
-watchdog and the mesh-health probe that trigger it) comes with
-``runtime/health.py`` (ROADMAP queue 1 item 11).
+ranks' files.
+
+Live migration (`resolve_migration_strategy`, `migrate`) moves a running
+state onto another strategy, and off ranks that leave, in memory: the
+train driver calls it at a drained step boundary on SIGUSR1, on a degraded
+mesh probe under ``--migrate_on_degrade`` (the detection is
+``runtime/health.py``), on a silent-corruption quarantine
+(``runtime/sdc.py``) and on an autotune swap (``runtime/autotune.py``).
+Serve migration waits for the serve layouts (ROADMAP queue 1 item 3).
 """
 
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -124,11 +132,20 @@ def search_surviving_strategy(
     model_type: str = "model",
     config_dir: Optional[str] = None,
     default_dp_type: str = "ddp",
+    logger=None,
+    time_config: Optional[dict] = None,
+    memory_config: Optional[dict] = None,
+    remat_search: bool = False,
 ) -> Optional[HybridParallelConfig]:
     """The strategy search for `live_world` devices under the same global
     batch and memory budget: on `config_dir`'s profiled tables for this
-    model when it has them, else on the analytic tables. None when nothing
-    fits (the caller's GLS203)."""
+    model when it has them, else on the analytic tables. Explicit
+    `time_config` / `memory_config` (the profiler's schema) override both:
+    the online autotuner re-searches on MEASURED tables through this recipe,
+    the global batch pinned. `remat_search` adds the per-layer remat axis
+    (with chunks free, memory freed by remat may buy fewer micro-batches);
+    `logger` is the engine's per-task logger. None when nothing fits (the
+    caller's GLS203)."""
     from galvatron_tpu_torch.search.engine import GalvatronSearchEngine, SearchArgs
 
     heads = getattr(model_cfg, "num_heads", None) or 1
@@ -148,11 +165,12 @@ def search_surviving_strategy(
         max_pp_deg=min(_pow2_floor(num_layers), live_world),
         default_dp_type=default_dp_type,
         sp_space="tp",
+        remat_search=remat_search,
     )
     engine = GalvatronSearchEngine(
         args, live_world,
         [{"hidden_size": hidden, "seq_len": seq_len, "layer_num": num_layers}],
-        config_dir=config_dir or "configs", model_name=model_type,
+        config_dir=config_dir or "configs", model_name=model_type, logger=logger,
     )
     profiles = None
     if config_dir:
@@ -165,6 +183,8 @@ def search_surviving_strategy(
         allreduce, p2p, overlap = analytic_hardware_profiles(live_world)
     else:
         time_cfg, mem_cfg, allreduce, p2p, overlap = profiles
+    if time_config is not None and memory_config is not None:
+        time_cfg, mem_cfg = time_config, memory_config  # measured tables win
     engine.set_model_profiles(time_cfg, mem_cfg)
     engine.set_hardware_profiles(allreduce, p2p, overlap)
     engine.initialize_search_engine()
@@ -343,3 +363,232 @@ def resolve_resume_strategy(
             raise D.DiagnosticError([refusal])
     telemetry.emit("elastic", action=action, saved_world=saved_world, live_world=live_world)
     return ElasticPlan(action, hp, saved_hp, prov, it)
+
+
+# ------------------------------------------------------- in-memory migration
+@dataclass
+class MigrationResult:
+    """What `migrate` produced: run `model` with `params` / `opt_state` from
+    here on (None on a rank that left the world: `departed`).
+    `same_layout` records whether the pipeline layout stayed."""
+
+    model: Any
+    params: Any
+    opt_state: Any
+    same_layout: bool
+    from_hp: HybridParallelConfig
+    to_hp: HybridParallelConfig
+    departed: bool = False
+    seconds: float = 0.0
+    device_extra_gb: Optional[float] = None
+
+
+def resolve_migration_strategy(
+    args: Any,
+    model_cfg: Any,
+    live_world: int,
+    current_hp: HybridParallelConfig,
+) -> Tuple[HybridParallelConfig, str]:
+    """The target strategy of a LIVE migration: ``--elastic_strategy`` when
+    given, else a fresh search for `live_world` under the memory budget.
+    Returns (hp, action).
+
+    Raises DiagnosticError: GLS203 when nothing fits the budget, GLS207 when
+    the candidate would fork the training trajectory (another global batch
+    makes "continue from the same step" meaningless: unlike a resume from
+    disk, a live migration exists only to preserve the run)."""
+    exec_kw = dict(
+        scan_layers=current_hp.scan_layers,
+        remat_policy=current_hp.remat_policy,
+        tp_comm_mode=current_hp.tp_comm_mode,
+        tp_comm_quant=current_hp.tp_comm_quant,
+        mixed_precision=current_hp.mixed_precision,
+    )
+    budget = getattr(args, "elastic_memory_gb", None) or DEFAULT_MEMORY_GB
+    strategy_file = getattr(args, "elastic_strategy", None)
+    if strategy_file:
+        hp = HybridParallelConfig.from_json(strategy_file, world_size=live_world, **exec_kw)
+        action = "strategy_file"
+    else:
+        hp = search_surviving_strategy(
+            model_cfg, live_world, current_hp.global_bsz, budget,
+            model_type=getattr(args, "model_type", "model"),
+            config_dir=getattr(args, "config_dir", None),
+            default_dp_type=current_hp.default_dp_type,
+        )
+        if hp is None:
+            raise D.DiagnosticError([D.make(
+                "GLS203", "no strategy for %d surviving devices fits "
+                "global_bsz=%d under the %.1f GB budget; supply one with "
+                "--elastic_strategy or raise --elastic_memory_gb"
+                % (live_world, current_hp.global_bsz, budget),
+            )])
+        for k, v in exec_kw.items():
+            setattr(hp, k, v)
+        action = "search"
+    if hp.global_bsz != current_hp.global_bsz:
+        raise D.DiagnosticError([D.make(
+            "GLS207", "live migration cannot change global_bsz (%d -> %d): "
+            "the run would fork its own trajectory; stop and resume from a "
+            "checkpoint instead" % (current_hp.global_bsz, hp.global_bsz),
+        )])
+    from galvatron_tpu_torch.analysis import strategy_lint as _slint
+
+    report = _slint.lint_hp(hp, model_cfg=model_cfg)
+    if not report.ok:
+        raise D.DiagnosticError(report.errors)
+    if action == "strategy_file":
+        refusal = _budget_refusal(hp, model_cfg, budget)
+        if refusal is not None:
+            raise D.DiagnosticError([refusal])
+    return hp, action
+
+
+def migrate(
+    model: Any,
+    params: Any,
+    opt_state: Any,
+    target_hp: HybridParallelConfig,
+    survivors: Optional[list] = None,
+    build_model: Any = None,
+    reason: str = "manual",
+    iteration: Optional[int] = None,
+    sdc_check: bool = False,
+) -> MigrationResult:
+    """Move the LIVE training state onto `target_hp` without a checkpoint.
+
+    Collective over the current world. One leaf at a time, every rank
+    gathers the full parameter and both Adam moments from the old layout
+    (``HybridParallelModel.gather_leaf``, on the device), frees its old
+    shard and cuts its shard of the new layout (the cut of the
+    cross-strategy restore: ``parallel.spec.shard_tensor`` under the target
+    placements), so the device holds the live state plus one full leaf.
+    Pipeline divisions change by renaming (stage trees key layers by their
+    global index); a tied table's copies are cut from one gather.
+
+    `survivors` (default: every rank) are the ranks of the current world
+    that go on, in the new world's order; the others hand their shards over
+    and then leave (``runtime.distributed.regroup``: a fresh rendezvous of
+    the survivors on the run's store), getting a result with `departed`
+    set. Then the target model is built (`build_model(cfg, hp, device)` for
+    a family with its own tree) and the kept shards become its params and
+    Adam state, the Adam count carried over.
+
+    Refusals (GLS207): another global batch; a family with its own tree
+    across pipeline layouts (``checkpoint.check_family_layout``). With
+    `sdc_check` the layout-invariant fold (``runtime/sdc.py``) of the params
+    and of the Adam state is taken before the move and asserted after it
+    (GLS016). The swap is an ``elastic`` telemetry event with both
+    strategies."""
+    import torch
+
+    from galvatron_tpu_torch.parallel import spec as S
+    from galvatron_tpu_torch.parallel.mesh import RankMesh
+    from galvatron_tpu_torch.runtime import checkpoint as ckpt
+    from galvatron_tpu_torch.runtime import distributed
+    from galvatron_tpu_torch.runtime.model_api import (
+        _set_param,
+        construct_hybrid_parallel_model,
+        model_def,
+    )
+    from galvatron_tpu_torch.runtime.optimizer import AdamState
+
+    old_hp: HybridParallelConfig = model.hp
+    if target_hp.global_bsz != old_hp.global_bsz:
+        raise D.DiagnosticError([D.make(
+            "GLS207", "live migration cannot change global_bsz (%d -> %d)"
+            % (old_hp.global_bsz, target_hp.global_bsz))])
+    ckpt.check_family_layout(model.cfg, old_hp, target_hp)
+    if len(model.stages) > 1:
+        raise ValueError("live migration moves the state of one stage per process; this "
+                         "process hosts stages %s" % list(model.stages))
+    world, rank = distributed.world_size(), distributed.rank()
+    survivors = sorted(int(r) for r in (range(world) if survivors is None else survivors))
+    if len(survivors) != target_hp.world_size:
+        raise ValueError("migration to a world of %d with %d surviving rank(s) %s"
+                         % (target_hp.world_size, len(survivors), survivors))
+    device = model.device
+    t0 = time.perf_counter()
+    before = None
+    if sdc_check:
+        from galvatron_tpu_torch.runtime import sdc
+
+        before = (sdc.state_fold(model, params), sdc.state_fold(model, params, opt_state))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        live_bytes = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+
+    new_rank = survivors.index(rank) if rank in survivors else None
+    arch = model_def(model.cfg, target_hp)
+    specs = ckpt._saved_specs(model.cfg, target_hp)
+    mesh = stage = None
+    names = set()
+    if new_rank is not None:
+        mesh = RankMesh(target_hp, new_rank, device)
+        stage = mesh.stage
+        names = {n for n, _ in arch.tree("meta", stage if target_hp.pp > 1 else None)
+                 .named_parameters()}
+    old_specs = {"params": {n: pl.spec for n, pl in model.param_layouts.items()}}
+    old_specs["mu"] = old_specs["nu"] = model.grad_accum_specs()
+    # the old state's leaves are emptied as they are moved: the old params
+    # and Adam state are spent afterwards
+    live = {"params": {s: dict(m.named_parameters()) for s, m in params.items()},
+            "mu": {s: st.mu for s, st in opt_state.items()},
+            "nu": {s: st.nu for s, st in opt_state.items()}}
+    count = int(next(iter(opt_state.values())).count)
+    kept = {"params": {}, "mu": {}, "nu": {}}
+    with torch.no_grad():
+        for n, _ in model.arch.tree("meta").named_parameters():
+            for item in ("params", "mu", "nu"):
+                full = model.gather_leaf(live[item], n, old_specs[item][n], host=False)
+                for d in live[item].values():  # the old shard is no longer needed
+                    if n in d:
+                        if item == "params":
+                            d[n].data = d[n].data.new_empty(0)
+                        else:
+                            d[n] = d[n].new_empty(0)
+                if n in names:
+                    kept[item][n] = S.shard_tensor(full, specs[item][n], mesh).clone()
+                del full
+    new_rank = distributed.regroup(survivors)
+    if new_rank is None:
+        telemetry.emit("elastic", action="migrate", reason=reason, iter=iteration,
+                       saved_world=old_hp.world_size, live_world=target_hp.world_size,
+                       from_strategy=old_hp.to_json_dict(), to_strategy=target_hp.to_json_dict(),
+                       duration_ms=(time.perf_counter() - t0) * 1e3,
+                       same_layout=ckpt.same_pipeline_layout(old_hp, target_hp))
+        return MigrationResult(None, None, None, ckpt.same_pipeline_layout(old_hp, target_hp),
+                               old_hp, target_hp, departed=True,
+                               seconds=time.perf_counter() - t0)
+    if build_model is not None:
+        new_model = build_model(model.cfg, target_hp, device)
+    else:
+        new_model = construct_hybrid_parallel_model(model.cfg, target_hp, device)
+    new_params, new_opt = {}, {}
+    for s in new_model.stages:
+        module = new_model._meta_model(s)
+        order = [n for n, _ in module.named_parameters()]
+        for n in order:
+            _set_param(module, n, kept["params"].pop(n))
+        new_params[s] = module
+        new_opt[s] = AdamState(count=count, mu={n: kept["mu"].pop(n) for n in order},
+                               nu={n: kept["nu"].pop(n) for n in order})
+    extra_gb = None
+    if device.type == "cuda":  # the copies are asynchronous: time them done
+        torch.cuda.synchronize(device)
+        extra_gb = (torch.cuda.max_memory_allocated(device) - live_bytes) / 1e9
+    if sdc_check:
+        sdc.assert_digest_continuity(before[0], sdc.state_fold(new_model, new_params),
+                                     "migrate(params)", iteration)
+        sdc.assert_digest_continuity(before[1], sdc.state_fold(new_model, new_params, new_opt),
+                                     "migrate(opt_state)", iteration)
+    same = ckpt.same_pipeline_layout(old_hp, target_hp)
+    seconds = time.perf_counter() - t0
+    telemetry.emit(
+        "elastic", action="migrate", reason=reason, iter=iteration,
+        saved_world=old_hp.world_size, live_world=target_hp.world_size,
+        from_strategy=old_hp.to_json_dict(), to_strategy=target_hp.to_json_dict(),
+        duration_ms=seconds * 1e3, same_layout=same)
+    return MigrationResult(new_model, new_params, new_opt, same, old_hp, target_hp,
+                           seconds=seconds, device_extra_gb=extra_gb)

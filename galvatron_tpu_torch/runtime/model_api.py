@@ -239,13 +239,15 @@ class HybridParallelModel:
         return out
 
     def gather_leaf(self, per_stage: Dict[int, Dict[str, torch.Tensor]], name: str,
-                    spec: S.Spec) -> torch.Tensor:
-        """One full tensor, on the host, from the shards of `name` in the
-        hosted stages' dicts (collective, like `_gather_stages`, but one
-        leaf's worth of device memory at a time)."""
+                    spec: S.Spec, host: bool = True) -> torch.Tensor:
+        """One full tensor, on the host (or, without `host`, on this
+        process's device), from the shards of `name` in the hosted stages'
+        dicts (collective, like `_gather_stages`, but one leaf's worth of
+        device memory at a time)."""
         mine = {s: {name: S.gather_tensor(d[name], spec, self.stage_meshes[s])}
                 if name in d else {} for s, d in per_stage.items()}
-        return next(d[name] for d in self.transport.gather(mine) if name in d).cpu()
+        full = next(d[name] for d in self.transport.gather(mine) if name in d)
+        return full.cpu() if host else full.to(self.device)
 
     def gather_params(self, params: Dict[int, nn.Module]) -> Dict[str, torch.Tensor]:
         """The full state dict from every rank's shards (collective)."""
@@ -542,33 +544,73 @@ class HybridParallelModel:
         gradient norm, which the clip uses: the guarded step syncs once, as
         the unguarded one does for the clip. Each stage updates its own
         parameters; a tied table's two copies get the same gradient, so they
-        stay bitwise equal. The silent-corruption sentinel and the quantized
-        gradient sync are refused until their slices are ported."""
-        if sdc_check != "off":
-            raise ValueError("sdc_check=%r is not ported yet: the silent-corruption "
-                             "sentinel comes with the resilience slice (ROADMAP queue 1 "
-                             "item 11)" % sdc_check)
+        stay bitwise equal.
+
+        `sdc_check` (``runtime/sdc.py``) adds the silent-corruption
+        sentinel's side outputs. "digest": ``metrics["sdc_fold"]``, the
+        layout-invariant fold and sum of squares of the params the step
+        hands back (float64 [fold sum, sumsq], one fold-kernel launch per
+        step and one all-reduce; ``sdc.fold_value`` reads it), a pure side
+        output: the trajectory is bitwise that of a run without it. "vote"
+        (pure-dp layouts, `sdc.vote_reason`; callers downgrade to "digest"
+        elsewhere) also folds every rank's whole replica of the INPUT params
+        and all-gathers the folds over the dp group before the step
+        (``metrics["sdc_votes"]``, in ``sdc.vote_device_ids`` order); on any
+        disagreement (``metrics["sdc_mismatch"]``) the step applies nothing,
+        through the guard's keep-old path, so a lying replica cannot ride
+        the summed gradients onto every rank. The votes are read in the
+        guard's one host transfer. The quantized gradient sync is refused
+        until its slice is ported."""
+        from galvatron_tpu_torch.runtime import sdc as SDC
+
+        if sdc_check not in SDC.SDC_MODES:
+            raise ValueError("sdc_check must be one of %r, got %r" % (SDC.SDC_MODES, sdc_check))
+        vote_fn = None
+        if sdc_check == "vote":
+            reason = SDC.vote_reason(self.hp)
+            if reason is not None:
+                raise ValueError("sdc_check='vote' unsupported for this layout (%s); callers "
+                                 "should downgrade to 'digest'" % reason)
+            vote_fn = SDC.make_vote_digest_fn(self)
         if any(s.grad_comm_dtype != "none" or s.param_comm_dtype != "none"
                for s in self.hp.layers):
             raise ValueError("quantized gradient/parameter sync is not ported yet: the "
                              "data-parallel slice syncs in full precision; quantized "
                              "collectives come with ROADMAP queue 1 item 10")
 
+        def keep_old(params, opt_state, metrics):
+            for m in params.values():
+                for p in m.parameters():
+                    p.grad = None
+            if sdc_check != "off":
+                metrics["sdc_fold"] = SDC.state_fold_metrics(self, params)
+            return params, opt_state, metrics
+
         def train_step(params, opt_state, batch, spike_cap=float("inf")):
+            votes = vote_fn(params) if vote_fn is not None else None
             loss, grads = self.loss_and_grads(params, batch)
             grad_norm = self.grad_sumsq(grads).sqrt()
             metrics = {"loss": loss, "grad_norm": grad_norm}
             norm_value = None
-            if guard_anomalies:
-                bad = self._world_max((~torch.isfinite(loss) | ~torch.isfinite(grad_norm)
-                                       | (loss > spike_cap)).float())
-                bad_value, norm_value = torch.stack([bad, grad_norm.float()]).tolist()
-                metrics["anomalous"] = bad_value > 0
-                if metrics["anomalous"]:
-                    for m in params.values():
-                        for p in m.parameters():
-                            p.grad = None
-                    return params, opt_state, metrics
+            if guard_anomalies or votes is not None:
+                # one host transfer: the guard's verdict, the norm the clip
+                # uses and the replica votes
+                row = [grad_norm.float().reshape(1)]
+                if guard_anomalies:
+                    bad = self._world_max((~torch.isfinite(loss) | ~torch.isfinite(grad_norm)
+                                           | (loss > spike_cap)).float())
+                    row.append(bad.reshape(1))
+                if votes is not None:
+                    row.append(votes.to(grad_norm.device))
+                host = torch.cat([r.to(torch.float64) for r in row]).tolist()
+                norm_value = host[0]
+                if guard_anomalies:
+                    metrics["anomalous"] = host[1] > 0
+                if votes is not None:
+                    metrics["sdc_votes"] = [int(v) for v in host[-votes.numel():]]
+                    metrics["sdc_mismatch"] = len(set(metrics["sdc_votes"])) > 1
+                if metrics.get("anomalous") or metrics.get("sdc_mismatch"):
+                    return keep_old(params, opt_state, metrics)
             elif len(params) > 1:
                 norm_value = float(grad_norm)  # one host read for every stage's clip
             for s, m in params.items():
@@ -589,6 +631,9 @@ class HybridParallelModel:
                         p.data.copy_(comm.all_gather(targets[n], d, group))
                 for p in m.parameters():
                     p.grad = None
+            if sdc_check != "off":
+                # the fold of the params this step hands back: a side output
+                metrics["sdc_fold"] = SDC.state_fold_metrics(self, params)
             return params, opt_state, metrics
 
         return train_step

@@ -12,14 +12,13 @@
 - :func:`with_retry` — exponential backoff with full jitter around
   checkpoint I/O and the dataloader for transient ``OSError``s.
 - :class:`ResilienceCounters` — the counts merged into the train summary
-  (the reference's keys, its silent-corruption counters included: they
-  stay 0 until that sentinel is ported).
+  (the reference's keys, the silent-corruption sentinel's included).
 - :class:`FaultHooks` — the deterministic fault-injection seam tests use.
 
-The watchdog, the mesh probe and the autotuner come with ROADMAP queue 1
-item 11. Checkpoint integrity (the atomic manifest) lives in
-``runtime/checkpoint.py``; this module decides when to save, retry and roll
-back.
+The watchdog and the mesh probe are ``runtime/health.py``, the
+silent-corruption sentinel ``runtime/sdc.py``. Checkpoint integrity (the
+atomic manifest) lives in ``runtime/checkpoint.py``; this module decides
+when to save, retry and roll back.
 """
 
 from __future__ import annotations
@@ -267,10 +266,17 @@ class FaultHooks:
 
     The train loop consults `args.fault_hooks` (absent in production): the data
     iterator (global CPU batches, before placement) and the step function are
-    wrapped once per (re)build — including after a rollback — and
-    `on_step(it)` fires at each step boundary before the batch is fetched
-    (where a test sends its process SIGTERM)."""
+    wrapped once per (re)build — including after a rollback or a live
+    migration — and `on_step(it)` fires at each step boundary before the
+    batch is fetched (where a test sends its process SIGTERM or SIGUSR1).
+    The step wrapper is where a test hangs a step or flips a bit of one
+    rank's replica; the serve engine wraps its prefill and decode ticks
+    with it (a stalled tick). `probe_devices_fn` replaces the mesh probe's
+    list of live ranks."""
 
     wrap_data_iter: Optional[Callable[[Iterator, int], Iterator]] = None  # (iter, start_step)
     wrap_step_fn: Optional[Callable[[Callable], Callable]] = None
     on_step: Optional[Callable[[int], None]] = None
+    # the mesh probe's live ranks (runtime/health.MeshHealthMonitor): a
+    # simulated lost rank without killing one
+    probe_devices_fn: Optional[Callable[[], list]] = None

@@ -297,10 +297,13 @@ class ContinuousBatcher:
     after ``min_shed_samples`` prefills AND ticks have been observed, so
     compile warmup never sheds.
 
-    Control: an optional ``control`` callback is polled once per scheduler
-    iteration and may return a drain-reason string to stop admission and
-    wind down. (The reference's watchdog hook and live ``migrate_to`` come
-    with the robustness slice.)
+    Resilience: an optional ``watchdog`` (``runtime/health.Watchdog``) is
+    armed around every prefill and decode tick with learned deadlines; an
+    optional ``control`` callback is polled once per scheduler iteration
+    and may return a drain-reason string (``"SIGTERM"``, ``"watchdog"``) to
+    stop admission and wind down (the ``cli serve`` resilience hook). The
+    reference's live ``migrate_to`` waits for the serve layouts (ROADMAP
+    queue 1 item 3).
     """
 
     def __init__(
@@ -312,6 +315,7 @@ class ContinuousBatcher:
         max_pending: int = 0,
         request_timeout_s: float = 0.0,
         min_shed_samples: int = 3,
+        watchdog=None,
         control: Optional[Callable[["ContinuousBatcher"], Optional[str]]] = None,
     ):
         self.engine = engine
@@ -322,6 +326,7 @@ class ContinuousBatcher:
         self.max_pending = int(max_pending)
         self.request_timeout_s = float(request_timeout_s)
         self.min_shed_samples = int(min_shed_samples)
+        self.watchdog = watchdog
         self.control = control
         # host-side per-slot state (device lengths are never read back)
         self.slot_req: List[Optional[Request]] = [None] * kv_cfg.max_slots
@@ -440,16 +445,23 @@ class ContinuousBatcher:
                 continue
             req.slot = slot
             req.prefill_start_t = self.now()
+            if self.watchdog is not None:
+                self.watchdog.arm(self.decode_steps, phase="prefill", inflight=self.occupancy())
             try:
                 tok, _ = self.engine.prefill(req.prompt, slot)
             except Exception as e:
                 # slot never assigned (slot_req[slot] still None): contain
                 # the failure to this request and keep serving
+                if self.watchdog is not None:
+                    self.watchdog.progress()
                 self._reject(req, "prefill_error", retryable=True,
                              error=repr(e)[:200])
                 continue
             prefill_ms = (self.now() - req.prefill_start_t) * 1000.0
             self._prefill_ms.append(prefill_ms)
+            if self.watchdog is not None:
+                self.watchdog.observe_step_time(prefill_ms)
+                self.watchdog.progress()
             req.first_token_t = self.now()
             req.output.append(tok)
             self.slot_req[slot] = req
@@ -498,16 +510,23 @@ class ContinuousBatcher:
         active = np.array([r is not None for r in self.slot_req], bool)
         pages = self.decode_pages()
         t_start = self.now()
+        if self.watchdog is not None:
+            self.watchdog.arm(self.decode_steps, phase="decode", inflight=int(active.sum()))
         try:
             next_tok, _ = self.engine.decode_step(self.slot_tok, active, pages)
         except Exception:
             # an engine-wide failure, not a per-request one: free every
             # slot (no leak), park the requests as retryable, and let the
             # driver decide on the re-raised error
+            if self.watchdog is not None:
+                self.watchdog.progress()
             self._abandon_active("decode_error")
             raise
         step_ms = (self.now() - t_start) * 1000.0
         self._tick_ms.append(step_ms)
+        if self.watchdog is not None:
+            self.watchdog.observe_step_time(step_ms)
+            self.watchdog.progress()
         self.decode_steps += 1
         n_active = int(active.sum())
         tokens = 0
@@ -534,6 +553,8 @@ class ContinuousBatcher:
         retryable), complete in-flight decodes where possible (bounded by
         the tokens they still owe), mark anything left retryable, and emit
         one `serve_drain` event. Idempotent per run()."""
+        if self.watchdog is not None:
+            self.watchdog.disarm()
         pending_shed = 0
         if pending:
             while pending:

@@ -101,6 +101,9 @@ def main(argv: List[str] = None) -> Dict:
     p.add_argument("--steps", type=int, default=2)
     p.add_argument("--top", type=int, default=15)
     p.add_argument("--trace_dir", default=None)
+    p.add_argument("--t5_batch", type=int, default=None,
+                   help="the t5 cell's global batch, in one micro-batch (default: the "
+                        "cell's 32 in 4): the trace's cost grows with the ops it records")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train needs a CUDA GPU (torch.cuda.is_available() is False)")
@@ -117,6 +120,9 @@ def main(argv: List[str] = None) -> Dict:
         train_argv = train_cell.bert_argv(train_cell.write_bert_strategy(out_dir))
     elif args.cell == "vit":
         train_argv = train_cell.vit_argv()
+    elif args.cell == "t5" and args.t5_batch:
+        train_argv = train_cell.t5_argv(train_cell.write_t5_strategy(
+            out_dir, bsz=args.t5_batch, chunks=1), bsz=args.t5_batch, chunks=1)
     elif args.cell == "t5":
         train_argv = train_cell.t5_argv(train_cell.write_t5_strategy(out_dir))
     else:

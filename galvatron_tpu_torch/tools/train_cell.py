@@ -286,14 +286,17 @@ def _layers_json(n: int, fsdp: List[int], bsz: int, chunks: int, pp: int,
     return out
 
 
-def write_t5_strategy(out_dir: str, zero: bool = False, pp: int = 1) -> str:
+def write_t5_strategy(out_dir: str, zero: bool = False, pp: int = 1, bsz: int = T5_BSZ,
+                      chunks: int = T5_CHUNKS) -> str:
     """Write the T5 strategy JSON (every layer plain dp; with `zero`, the
     encoder layers ZeRO-3 and the decoder layers ZeRO-2; with `pp` 2, an
-    encoder stage and a decoder stage under 1F1B) into `out_dir`."""
+    encoder stage and a decoder stage under 1F1B; global batch `bsz` in
+    `chunks` micro-batches) into `out_dir`."""
     fsdp = [1 if zero and i < T5_ENC_LAYERS else 0 for i in range(T5_LAYERS)]
-    return _write_json(out_dir, "train_cell_t5_%s_pp%d.json" % ("zero" if zero else "dp", pp),
-                       _layers_json(T5_LAYERS, fsdp, T5_BSZ, T5_CHUNKS, pp,
-                                    "zero2" if zero else "ddp"))
+    name = "train_cell_t5_%s_pp%d%s.json" % ("zero" if zero else "dp", pp, "" if (
+        bsz, chunks) == (T5_BSZ, T5_CHUNKS) else "_b%d_c%d" % (bsz, chunks))
+    return _write_json(out_dir, name, _layers_json(T5_LAYERS, fsdp, bsz, chunks, pp,
+                                                   "zero2" if zero else "ddp"))
 
 
 def write_t5_corpus(out_dir: str) -> str:
@@ -312,13 +315,14 @@ def write_t5_corpus(out_dir: str) -> str:
     return prefix
 
 
-def t5_argv(strategy_path: str, data_path: str = None) -> List[str]:
+def t5_argv(strategy_path: str, data_path: str = None, bsz: int = T5_BSZ,
+            chunks: int = T5_CHUNKS) -> List[str]:
     """The ``cli train`` arguments of the T5 configuration: span corruption
     of the corpus `data_path` (all of it the train split), or the synthetic
     seq2seq stream."""
     out = ["--model_type", "t5", "--model_size", T5_SIZE, "--mixed_precision", "bf16",
-           "--device", "cuda", "--global_train_batch_size", str(T5_BSZ),
-           "--chunks", str(T5_CHUNKS), "--galvatron_config_path", strategy_path,
+           "--device", "cuda", "--global_train_batch_size", str(bsz),
+           "--chunks", str(chunks), "--galvatron_config_path", strategy_path,
            "--train_iters", str(STEPS), "--lr", "1e-4", "--lr_warmup_iters", "2",
            "--seed", str(SEED)]
     if data_path:

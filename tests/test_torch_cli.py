@@ -64,19 +64,35 @@ def test_default_device_is_cuda_and_never_falls_back():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--watchdog", "5"], ["--mesh_probe_interval", "1"],
+    ["--xla_trace", "trace_dir"], ["--mesh_probe_interval", "1"],
     ["--migrate_on_degrade", "1"], ["--compile_cache", "1"],
 ])
 def test_unported_flags_are_refused(flag):
+    """Flags of what the port does not have (the XLA trace, the compilation
+    cache) and serve migration, which waits for the serve layouts: the
+    probe interval and --migrate_on_degrade parse only as 0."""
     with pytest.raises(SystemExit):
         S.initialize_galvatron(argv=TINY + flag)
+
+
+@pytest.mark.parametrize("flag", [["--watchdog", "5", "--watchdog_factor", "3",
+                                   "--watchdog_startup_s", "60"],
+                                  ["--mesh_probe_interval", "0", "--migrate_on_degrade", "0"]])
+def test_serve_resilience_flags_parse_as_in_the_reference(flag):
+    from galvatron_tpu.cli.arguments import initialize_galvatron as jax_parse
+
+    got, want = S.initialize_galvatron(argv=TINY + flag), jax_parse(mode="serve", argv=TINY + flag)
+    for key in ("watchdog", "watchdog_factor", "watchdog_startup_s", "mesh_probe_interval",
+                "migrate_on_degrade"):
+        assert getattr(got, key) == getattr(want, key), key
 
 
 @pytest.mark.parametrize("flag", [["--elastic_strategy", "x.json"],
                                   ["--elastic_memory_gb", "16"]])
 def test_elastic_flags_parse_as_in_the_reference(flag):
     """Serve parses the degraded-mesh flags as the JAX package's parser
-    does (they act only with --migrate_on_degrade, which is refused)."""
+    does (they act only with --migrate_on_degrade, which waits for the
+    serve layouts)."""
     from galvatron_tpu.cli.arguments import initialize_galvatron as jax_parse
 
     got, want = S.initialize_galvatron(argv=TINY + flag), jax_parse(mode="serve", argv=TINY + flag)

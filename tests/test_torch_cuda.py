@@ -1,4 +1,6 @@
-"""The port's hand-written CUDA kernels on the card: the flash-attention
+"""The port's hand-written CUDA kernels on the card: the silent-corruption
+sentinel's tree fold against its plain version (bitwise, every leaf width),
+and the flash-attention
 forward and backward against their plain versions on every route (the
 route each call took is asserted: bf16 head_dim 128 with TMA-readable rows
 runs "wgmma"), their argument checks,
@@ -454,3 +456,53 @@ def test_train_from_corpus_with_eval_save_and_resume_on_cuda(tmp_path):
     assert full["eval_flash_launches"] == {"fwd": 3 * 2, "bwd": 0}  # 3 passes x 1 x 2 layers
     assert resumed["losses"] == full["losses"][2:]
     assert resumed["test_loss"] == full["test_loss"]
+
+
+# ------------------------------------------------------------ the tree fold
+@pytest.mark.parametrize("dtype,n", [(torch.float32, 1_000_003), (torch.bfloat16, 77_777),
+                                     (torch.float16, 4097), (torch.float64, 1023),
+                                     (torch.int32, 12_345), (torch.int64, 5_431),
+                                     (torch.uint8, 333), (torch.bool, 4099)])
+def test_tree_fold_kernel_is_bitwise_its_plain_version(dtype, n):
+    """The silent-corruption sentinel's fold kernel (csrc/tree_fold.cu)
+    against its plain version on the card, one leaf of each width and kind
+    at an odd length, then with an empty leaf and an fp32 leaf in one tree
+    (one launch); a flipped bit changes the fold."""
+    from galvatron_tpu_torch.ops import tree_fold as TFold
+
+    _need_cuda_kernel()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(n)
+    if dtype.is_floating_point:
+        x = torch.randn(n, generator=g, device="cuda").to(dtype)
+    elif dtype == torch.bool:
+        x = torch.rand(n, generator=g, device="cuda") > 0.5
+    else:
+        hi = 256 if dtype == torch.uint8 else 2**31 - 1
+        x = torch.randint(0 if dtype == torch.uint8 else -hi, hi, (n,), generator=g,
+                          device="cuda", dtype=dtype)
+    tree = [x, torch.zeros(0, device="cuda"), torch.randn(129, generator=g, device="cuda")]
+    n0 = TFold.tree_fold.launches
+    fold, sumsq = TFold.tree_fold(tree)
+    ref_fold, ref_sumsq = TFold.tree_fold_reference(tree)
+    assert TFold.tree_fold.launches == n0 + 1
+    assert int(fold) == int(ref_fold)
+    assert float(sumsq) == pytest.approx(float(ref_sumsq), rel=1e-4)
+    tree[2].view(torch.int32)[64] ^= 1 << 18
+    assert int(TFold.tree_fold(tree)[0]) != int(fold)
+
+
+def test_tree_fold_kernel_leaves_the_current_device_as_it_was():
+    """Leaves on another card than the current one: the kernel launches on
+    theirs and the caller's current device (torch's too) stays put."""
+    from galvatron_tpu_torch.ops import tree_fold as TFold
+
+    _need_cuda_kernel()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: the leaves lie on the one that is not current")
+    torch.cuda.set_device(0)
+    x = torch.arange(10_001, device="cuda:1", dtype=torch.int32)
+    fold, _ = TFold.tree_fold([x])
+    assert torch.cuda.current_device() == 0
+    assert fold.device == x.device
+    assert int(fold) == int(TFold.tree_fold_reference([x])[0])

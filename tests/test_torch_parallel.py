@@ -345,6 +345,7 @@ def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "
     from galvatron_tpu_torch.ops.flash_attention import HEAD_DIMS
     from galvatron_tpu_torch.parallel import comm
     from galvatron_tpu_torch.runtime import distributed
+    from galvatron_tpu_torch.runtime import sdc
     from galvatron_tpu_torch.runtime.dataloader import prepare_batch
     from galvatron_tpu_torch.runtime.model_api import construct_hybrid_parallel_model
     from galvatron_tpu_torch.runtime.optimizer import AdamState, OptimizerArgs, \
@@ -392,6 +393,8 @@ def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "
         hp = _hp(kw, world, cfg.num_layers)
         model = construct_hybrid_parallel_model(cfg, hp, dev)
         params = model.shard_params(full[m])
+        # the sentinel's layout-invariant fold of the logical params
+        results["%s/fold" % name] = np.int64(sdc.state_fold(model, params))
         if m in ENCODERS:
             batch = {k: torch.from_numpy(v).to(dev) for k, v in encoder_batch_np(m).items()}
             if kw.get("zigzag_batch"):
@@ -441,19 +444,21 @@ def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "
     for n, p in TM.init_model_params(cfgs["gpt"], gen, dev).named_parameters():
         results["init_ref/%s" % n] = p.detach().cpu().numpy()
 
-    def trajectory(hp, key):
+    def trajectory(hp, key, sdc_check="off"):
         cfg = cfgs["gpt"]
         model = construct_hybrid_parallel_model(cfg, hp, dev)
         params = model.shard_params(full["gpt"])
         tx, _ = get_optimizer_and_scheduler(OptimizerArgs(**OPT))
         state = model.init_opt_state(tx, params)
-        step = model.make_train_step(tx)
+        step = model.make_train_step(tx, sdc_check=sdc_check)
         losses = []
         hp_batch = prepare_batch(hp, *batches[False, S_LEN][:3], device=dev)
         for _ in range(TRAJ_STEPS):
             params, state, metrics = step(params, state, hp_batch)
             losses.append(float(metrics["loss"]))
         results["%s/loss" % key] = np.asarray(losses)
+        if sdc_check != "off":
+            results["%s/fold" % key] = np.int64(sdc.fold_value(metrics["sdc_fold"])[0])
         for n, p in model.gather_params(params).items():
             results["%s/param/%s" % (key, n)] = p.cpu().numpy()
         moments = model.gather_opt_state(state)
@@ -465,9 +470,13 @@ def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "
 
     if TRAJ_CASE in CASES[world]:
         trajectory(_hp(CASES[world][TRAJ_CASE], world, cfgs["gpt"].num_layers), "traj")
+        # the sentinel's digest is a side output: the same trajectory bitwise
+        trajectory(_hp(CASES[world][TRAJ_CASE], world, cfgs["gpt"].num_layers), "traj_digest",
+                   "digest")
         if on_card(LC_TRAJ_CASE):
             trajectory(_hp(LC_TRAJ_CASE, world, cfgs["gpt"].num_layers), "lctraj")
     if world == 2:
+        trajectory(_hp(PP_TRAJ_CASE, world, cfgs["gpt"].num_layers), "pptraj_digest", "digest")
         model, params = trajectory(_hp(PP_TRAJ_CASE, world, cfgs["gpt"].num_layers), "pptraj")
         # every stage's copy of the tied table (the first and the last)
         copies = [None] * world
@@ -508,7 +517,24 @@ def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "
 
     results.update(_hardware_cases(os.path.join(os.path.dirname(out), "hw_w%d" % world), dev))
 
-    if rank == 0:
+    if world == 2:
+        results.update(_sigusr1_case(os.path.join(os.path.dirname(out), "usr1_w2"),
+                                     device_name))
+        # last at world 2: the simulated loss moves the run off rank 1
+        lost = _degraded_case(os.path.join(os.path.dirname(out), "lost_w2"), device_name)
+        if lost is None:
+            return
+        results.update(lost)
+    if world == 4:
+        results.update(_probe_case(dev))
+        # last: the persistent fault moves the run off rank 3, whose process
+        # leaves the world here; the survivors go on as a world of 3
+        vote = _vote_cases(os.path.join(os.path.dirname(out), "vote_w4"), device_name)
+        if vote is None:
+            return
+        results.update(vote)
+
+    if torch.distributed.get_rank() == 0:
         np.savez(out, **results)
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
@@ -785,6 +811,149 @@ H2G_ARGV = ["--model_type", "llama", "--set_model_config_manually", "1", "--hidd
             "constant", "--log_interval", "100", "--mixed_precision", "fp32"]
 H2G_STRATEGY = {"pp_deg": 1, "tp_sizes_enc": "2,2,1,1", "tp_consecutive_flags": "1,1,1,1",
                 "dp_types_enc": "0,0,1,1", "vtp": 2, "global_bsz": 4, "chunks": 2}
+
+
+# the sentinel's vote and the migrations off a rank: pure dp over 4 ranks, a
+# global batch that 4 and 3 ranks split
+VOTE_STRATEGY = {"pp_deg": 1, "tp_sizes_enc": "1,1,1,1", "tp_consecutive_flags": "1,1,1,1",
+                 "dp_types_enc": "0,0,0,0", "default_dp_type": "ddp", "global_bsz": 12,
+                 "chunks": 1}
+VOTE_ARGV = ["--model_type", "gpt", "--set_model_config_manually", "1", "--hidden_size", "64",
+             "--num_attention_heads", "4", "--num_layers", "4", "--vocab_size", "128",
+             "--seq_length", "32", "--global_train_batch_size", "12", "--chunks", "1",
+             "--lr", "1e-3", "--lr_decay_style", "constant", "--log_interval", "100",
+             "--train_iters", "6", "--sdc_check", "vote"]
+
+
+def _shared_json(path: str, content: dict) -> str:
+    import torch
+
+    if torch.distributed.get_rank() == 0:
+        with open(path, "w") as f:
+            json.dump(content, f)
+    torch.distributed.barrier()
+    return path
+
+
+def _vote_cases(tmp_dir: str, device_name: str):
+    """The vote sentinel at world 4 through ``cli train`` (pure dp, fp32
+    compute): a clean run saving at step 3; a bit flipped in rank 2's
+    replica before step call 2 (localized, repaired from a healthy replica,
+    the step re-executed); a flip stuck on rank 3 from call 3 on (two
+    strikes quarantine it; the run migrates to the 3 survivors in memory
+    and rank 3's process leaves); then, on the survivors, the clean run's
+    step-3 checkpoint resumed under the same world-3 strategy
+    (``--elastic resume``). Returns None on the rank that left."""
+    from galvatron_tpu_torch.cli import train as T
+    from tests import torch_fault_injection as FI
+
+    strategy = _shared_json(tmp_dir + ".json", VOTE_STRATEGY)
+    clean_dir = tmp_dir + "_clean"
+
+    def train(extra=(), hooks=None):
+        argv = VOTE_ARGV + ["--device", device_name, "--galvatron_config_path", strategy]
+        args = T.initialize_galvatron(argv=argv + list(extra), mode="train")
+        args.fault_hooks = hooks
+        return T.train(args)
+
+    out = {}
+    with fp32_compute():
+        clean = train(["--save", clean_dir, "--save_interval", "3"])
+        once = train(hooks=FI.bitflip_hooks(2, rank=2))
+        stuck = train(["--migrate_on_degrade", "1", "--elastic_strategy", strategy],
+                      hooks=FI.bitflip_hooks(3, rank=3, persistent=True))
+        if stuck.get("departed"):
+            return None
+        resumed = train(["--load", clean_dir, "--load_iteration", "3", "--elastic", "resume",
+                         "--elastic_strategy", strategy])
+    for key, run in (("clean", clean), ("once", once), ("stuck", stuck), ("resumed", resumed)):
+        out["vote/%s/losses" % key] = np.asarray(run["losses"])
+        out["vote/%s/counters" % key] = np.asarray(
+            [run["resilience"][k] for k in ("sdc_mismatches", "sdc_reexecutions",
+                                            "sdc_quarantines", "sdc_checks")])
+        out["vote/%s/world" % key] = np.int64(run["world_size"])
+    out["vote/stuck/migration"] = np.asarray(json.dumps(stuck["migrations"]))
+    out["vote/resumed/start"] = np.int64(resumed["checkpoint_restore"]["iteration"])
+    out["vote/sdc_mode"] = np.asarray(resumed["sdc_mode"])
+    return out
+
+
+def _degraded_case(tmp_dir: str, device_name: str):
+    """The mesh probe (every step boundary) sees rank 1 gone from step 3 on
+    (``device_loss_hooks``: the rank is alive, the probe's live list lacks
+    it): ``--migrate_on_degrade`` moves the run to rank 0 alone in memory
+    (rank 1's process leaves); against it, a clean world-2 run saving at
+    step 3 and, on rank 0, its ``--elastic resume`` at world 1 under the
+    same strategy. Returns None on the rank that left."""
+    from galvatron_tpu_torch.cli import train as T
+    from tests import torch_fault_injection as FI
+
+    strategy = _shared_json(tmp_dir + ".json", dict(VOTE_STRATEGY, global_bsz=4))
+    clean_dir = tmp_dir + "_clean"
+
+    def train(extra=(), hooks=None):
+        argv = VOTE_ARGV[:VOTE_ARGV.index("--sdc_check")] + [
+            "--device", device_name, "--galvatron_config_path", strategy,
+            "--global_train_batch_size", "4"]
+        args = T.initialize_galvatron(argv=argv + list(extra), mode="train")
+        args.fault_hooks = hooks
+        return T.train(args)
+
+    with fp32_compute():
+        clean = train(["--save", clean_dir, "--save_interval", "3"])
+        lost = train(["--mesh_probe_interval", "0.000001", "--migrate_on_degrade", "1",
+                      "--elastic_strategy", strategy], FI.device_loss_hooks(3, live=1))
+        if lost.get("departed"):
+            return None
+        resumed = train(["--load", clean_dir, "--load_iteration", "3", "--elastic", "resume",
+                         "--elastic_strategy", strategy])
+    return {"lost/clean": np.asarray(clean["losses"]), "lost/losses": np.asarray(lost["losses"]),
+            "lost/resumed": np.asarray(resumed["losses"]),
+            "lost/world": np.int64(lost["world_size"]),
+            "lost/migrations": np.asarray(json.dumps(lost["migrations"]))}
+
+
+def _probe_case(dev) -> dict:
+    """The mesh probe over the world (every rank): 5 probes of the timed
+    all-reduce, each healthy, and their seconds (on GPUs: the probe over
+    NVLink)."""
+    from galvatron_tpu_torch.runtime.health import MeshHealthMonitor
+
+    mon = MeshHealthMonitor(interval_s=0.0, timeout_s=60.0, device=dev)
+    verdicts = [mon.probe() for _ in range(5)]
+    return {"probe/healthy": np.bool_(all(v["status"] == "healthy" and v["collective_ok"]
+                                          for v in verdicts)),
+            "probe/seconds": np.asarray([v["collective_elapsed_s"] for v in verdicts])}
+
+
+def _sigusr1_case(tmp_dir: str, device_name: str) -> dict:
+    """SIGUSR1 at step 3 of a world-2 run under CKPT_STRATEGY (tp 2 and
+    ZeRO-3 layers, ZeRO-2 default) that saves at 3: the driver migrates in
+    memory to every layer plain dp with tp 1 (``--elastic_strategy``);
+    against it, the step-3 checkpoint resumed under the same target
+    (``--elastic resume``)."""
+    from galvatron_tpu_torch.cli import train as T
+    from tests import torch_fault_injection as FI
+
+    source = _shared_json(tmp_dir + "_from.json", CKPT_STRATEGY)
+    target = _shared_json(tmp_dir + "_to.json", dict(CKPT_STRATEGY, tp_sizes_enc="1,1,1,1",
+                                                      dp_types_enc="0,0,0,0"))
+
+    def train(extra, hooks=None):
+        argv = CKPT_ARGV + ["--device", device_name, "--train_iters", "6",
+                            "--galvatron_config_path", source, "--elastic_strategy", target]
+        args = T.initialize_galvatron(argv=argv + list(extra), mode="train")
+        args.fault_hooks = hooks
+        return T.train(args)
+
+    migrated = train(["--save", tmp_dir, "--save_interval", "3", "--sdc_check", "digest"],
+                     FI.sigusr1_hooks(3))
+    resumed = train(["--load", tmp_dir, "--load_iteration", "3", "--elastic", "resume"])
+    return {"usr1/migrated": np.asarray(migrated["losses"]),
+            "usr1/resumed": np.asarray(resumed["losses"]),
+            "usr1/migrations": np.asarray(json.dumps(migrated["migrations"])),
+            "usr1/strategy": np.asarray(json.dumps(migrated["strategy"])),
+            "usr1/resumed_strategy": np.asarray(json.dumps(resumed["strategy"]))}
 
 
 def _h2g_checkpoint(tmp_dir: str) -> str:
@@ -1576,3 +1745,106 @@ def test_world2_checkpoint_resumes_at_world1_in_the_pytest_process(world_results
             torch.equal(sa.nu[n], sb.nu[n]), n
     np.testing.assert_allclose(resumed["losses"], res["ckpt/elastic_other/ref"], rtol=0,
                                atol=TRAJ_TOL)
+
+
+# --------------------------------------------------- the resilience slice
+def _weights(reference, model):
+    data = np.load(reference["inputs"])
+    return {k[len(model) + 1:]: data[k] for k in data.files if k.startswith(model + "/")}
+
+
+@pytest.mark.parametrize("world,name", CASE_IDS, ids=["w%d-%s" % c for c in CASE_IDS])
+def test_layout_fold_equals_the_references_host_fold(world, name, reference, world_results):
+    """The silent-corruption sentinel's fold of the logical params under
+    every layout (owned shards only, summed mod 2^32 over the world: dp
+    replicas, ZeRO-3 and TP shards, a tied table on two stages, each
+    element once) equals the JAX package's ``host_tree_fold`` of the
+    weights the ranks sharded."""
+    from galvatron_tpu.runtime import sdc as JS
+
+    want = JS.host_tree_fold(_weights(reference, CASES[world][name].get("model", "gpt")))
+    assert int(world_results(world)["%s/fold" % name]) == want
+
+
+@pytest.mark.parametrize("world,key", [(4, "traj"), (2, "pptraj")])
+def test_digest_trajectory_is_bitwise_the_plain_one(world, key, world_results):
+    """``sdc_check="digest"`` only adds a side output: losses, params and
+    both moments after the steps are bitwise the plain run's (world 4
+    hetero layout; world 2 tied pp 2), and the last step's fold is the fold
+    of the params it handed back."""
+    from galvatron_tpu.runtime import sdc as JS
+
+    res = world_results(world)
+    got = {k[len(key) + 8:]: v for k, v in res.items() if k.startswith(key + "_digest/")}
+    want = {k[len(key) + 1:]: v for k, v in res.items() if k.startswith(key + "/")}
+    if key == "pptraj":  # the digest run kept no tied-copy record
+        want.pop("wte_copies")
+    assert sorted(got) == sorted(list(want) + ["fold"])
+    for k, v in want.items():
+        assert np.array_equal(got[k], v), k
+    params = {k[len("param/"):]: v for k, v in want.items() if k.startswith("param/")}
+    assert int(got["fold"]) == JS.host_tree_fold(params)
+
+
+def test_world2_lost_rank_migrates_to_the_survivor_as_save_and_resume(world_results):
+    """A probe that finds rank 1 missing from step 3 (simulated: alive, not
+    in the live list) under --migrate_on_degrade: the run moves to rank 0
+    alone in memory, rank 1 leaves, and the steps from 3 on are bit for
+    bit those of the clean run's step-3 save resumed at world 1."""
+    res = world_results(2)
+    migrations = json.loads(str(res["lost/migrations"]))
+    assert [(m["reason"], m["iteration"], m["from_world"], m["to_world"])
+            for m in migrations] == [("degraded_mesh", 3, 2, 1)]
+    assert int(res["lost/world"]) == 1
+    assert np.array_equal(res["lost/losses"][:3], res["lost/clean"][:3])
+    assert np.array_equal(res["lost/losses"][3:], res["lost/resumed"])
+
+
+def test_world4_mesh_probe_is_healthy_and_timed(world_results):
+    res = world_results(4)
+    assert bool(res["probe/healthy"]) and len(res["probe/seconds"]) == 5
+    assert (res["probe/seconds"] > 0).all()
+
+
+def test_world2_sigusr1_migration_continues_as_save_and_resume(world_results):
+    """SIGUSR1 at step 3 moves the live state from tp 2 + ZeRO-3 + ZeRO-2
+    to plain dp in memory (the digest's continuity held across it); the
+    steps after it are bit for bit those of the step-3 checkpoint resumed
+    under the same target."""
+    res = world_results(2)
+    migrations = json.loads(str(res["usr1/migrations"]))
+    assert [(m["reason"], m["iteration"], m["from_world"], m["to_world"])
+            for m in migrations] == [("sigusr1", 3, 2, 2)]
+    assert json.loads(str(res["usr1/strategy"])) == json.loads(str(res["usr1/resumed_strategy"]))
+    assert len(res["usr1/migrated"]) == 6
+    assert np.array_equal(res["usr1/migrated"][3:], res["usr1/resumed"])
+
+
+def test_world4_one_shot_bitflip_is_localized_repaired_and_bitwise_clean(world_results):
+    """A bit flipped in rank 2's replica before step 2: the vote localizes
+    it, the step applies nothing, the replica is repaired from a healthy
+    one and the step runs again; every loss is the clean run's bit for bit
+    and no rank is quarantined."""
+    res = world_results(4)
+    assert np.array_equal(res["vote/once/losses"], res["vote/clean/losses"])
+    mismatches, reexecutions, quarantines, checks = res["vote/once/counters"]
+    assert mismatches == reexecutions == 1 and quarantines == 0
+    assert res["vote/clean/counters"][:3].tolist() == [0, 0, 0]
+    assert res["vote/clean/counters"][3] == 6
+
+
+def test_world4_persistent_bitflip_quarantines_the_rank_and_migrates(world_results):
+    """A flip stuck on rank 3 from step 3: two strikes quarantine it, the
+    run migrates in memory to the 3 survivors (rank 3's process leaves) and
+    goes on voting; its steps from 3 on are bit for bit those of the clean
+    step-3 checkpoint resumed at world 3 under the same strategy."""
+    res = world_results(4)
+    migration = json.loads(str(res["vote/stuck/migration"]))
+    assert [(m["reason"], m["iteration"], m["from_world"], m["to_world"])
+            for m in migration] == [("sdc_quarantine", 3, 4, 3)]
+    mismatches, reexecutions, quarantines, _ = res["vote/stuck/counters"]
+    assert quarantines == 1 and mismatches == reexecutions == 2
+    assert int(res["vote/stuck/world"]) == int(res["vote/resumed/world"]) == 3
+    assert int(res["vote/resumed/start"]) == 3 and str(res["vote/sdc_mode"]) == "vote"
+    assert np.array_equal(res["vote/stuck/losses"][:3], res["vote/clean/losses"][:3])
+    assert np.array_equal(res["vote/stuck/losses"][3:], res["vote/resumed/losses"])

@@ -69,11 +69,38 @@ def test_train_default_device_is_cuda_and_never_falls_back():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--sdc_check", "digest"], ["--autotune", "observe"], ["--serve_page_size", "16"],
+    ["--trace_lint", "1"], ["--xla_trace", "trace_dir"], ["--serve_page_size", "16"],
 ])
 def test_train_unported_flags_are_refused(flag):
+    """The trace linter and the XLA trace are not ported; serve flags are
+    not train flags."""
     with pytest.raises(SystemExit):
         T.initialize_galvatron(argv=TINY + flag, mode="train")
+
+
+RESILIENCE_FLAGS = [
+    ["--watchdog", "30", "--watchdog_factor", "3", "--watchdog_startup_s", "120"],
+    ["--mesh_probe_interval", "5", "--migrate_on_degrade", "1"],
+    ["--sdc_check", "vote", "--sdc_interval", "4", "--sdc_strikes", "3"],
+    ["--sdc_check", "digest"],
+    ["--autotune", "apply", "--autotune_margin", "0.1"],
+    ["--autotune", "observe"],
+]
+
+
+@pytest.mark.parametrize("flag", RESILIENCE_FLAGS)
+def test_train_resilience_flags_parse_as_in_the_reference(flag):
+    """The watchdog, mesh-probe, migration, sentinel and autotune flags
+    parse to the JAX package's values (the port adds --autotune_window and
+    --autotune_rel_std, driver state there)."""
+    from galvatron_tpu.cli.arguments import initialize_galvatron as jax_parse
+
+    got = T.initialize_galvatron(argv=TINY + flag, mode="train")
+    want = jax_parse(mode="train", argv=TINY + flag)
+    for key in ("watchdog", "watchdog_factor", "watchdog_startup_s", "mesh_probe_interval",
+                "migrate_on_degrade", "sdc_check", "sdc_interval", "sdc_strikes", "autotune",
+                "autotune_margin"):
+        assert getattr(got, key) == getattr(want, key), key
 
 
 @pytest.mark.parametrize("flag", [
