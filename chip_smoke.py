@@ -257,13 +257,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
    exits 0. Each of (b)-(f) is a main path (counts reset before it). Phase
    16's T5 trace records one micro-batch of 8 (the runs' 32 in 4) and phase
    14's BERT trace one step after one warm-up, both cut for time.
+19. Serving under a layout and live serve migration (``serve/``,
+   ``cli/serve.py``, ``runtime/elastic.py``'s serve half; world > 1 needs
+   NCCL between cards: ``tools/serve_cell.py`` on four): (i) phase 7's load
+   (LLaMA-7B, 32 layers, bf16) through the engine under its world-1
+   layout, uninterrupted, then interrupted after 3 decode ticks by
+   ``migrate_to`` onto a freshly built engine whose cache holds 8 pages
+   (1024 tokens): the journals that fit are re-prefilled (the forward
+   kernel's launches for them exact), the rest shed retryable (at least
+   one each); every replayed request's logits held to the uninterrupted
+   run's within TOL_REPLAY while its tokens agree, and a replay without its
+   journal's last token must fail that; (ii) ``cli search --objective
+   serve`` at world 1 (analytic tables) and ``cli serve`` under its plan
+   with the mesh probe and ``--migrate_on_degrade 1``: healthy, no
+   migration. Each of (i)'s runs and (ii)'s serve is a main path.
 
 Each main path (serve, train, the GPT layout runs, phase 10's train,
 resumed, guarded and serve-from-checkpoint runs, phase 11's runs,
 phase 12's profile and train, phase 13's ring runs, phase 14's encoder
-runs, phase 15's resumed runs, phase 16's T5 and Swin runs and phase 17's
-runs from the converted checkpoints, phase 18's runs) runs with the
-kernels' launch counts (the flash kernels' and the fold's) set to 0 just
+runs, phase 15's resumed runs, phase 16's T5 and Swin runs, phase 17's
+runs from the converted checkpoints, phase 18's and phase 19's runs) runs
+with the kernels' launch counts (the flash kernels' and the fold's) set to 0 just
 before it and read just after. The last lines
 of standard output are the serve and train summaries, the ``kernels`` JSON
 line, the card line, and ``{"ok": true, "device": {...}}``. Details go to
@@ -3290,6 +3304,11 @@ def serve_drains(torch, TF):
     return out
 
 
+def serve_mig_paths(sm):
+    """Phase 19's paths with their flash launches, for the kernels line."""
+    return {"migrated": sm["migrate"], "searched_plan": sm["searched"]}
+
+
 def resilience_paths(res):
     """Phase 18's paths with their flash launches, for the kernels line."""
     return {"sdc_plain": res["sdc"]["runs"]["plain"], "sdc_digest": res["sdc"]["runs"]["digest"],
@@ -3352,6 +3371,277 @@ def log_resilience(fold, r, card):
             v["hang"]["shed"], v["sigterm"]["drain"], v["sigterm"]["exit_code"],
             v["sigterm"]["requests"], v["sigterm"]["shed"], v["wall_s"]))
 
+# ----------------------------------------------------------------- phase 19
+# Serve layouts and live serve migration on the one card (the world > 1
+# runs need NCCL between cards: tools/serve_cell.py on four). (i) phase 7's
+# load (LLaMA-7B, 32 layers, bf16, 16 requests) through the engine under
+# its world-1 layout, uninterrupted, then again interrupted after
+# SERVE_MIGRATE_AT decode ticks by `migrate_to` onto a freshly built engine
+# whose cache holds SERVE_SMALL_PAGES pages (1024 tokens): the in-flight
+# requests whose journal still fits are re-prefilled, the rest shed
+# retryable (and later arrivals that no longer fit refused); (ii) ``cli
+# serve`` at world 1 under the plan ``cli search --objective serve`` writes
+# (on analytic tables), with the mesh probe on and --migrate_on_degrade 1.
+SERVE_MIGRATE_AT = 3
+SERVE_SMALL_PAGES = 8
+SERVE_PLAN_DIR = os.path.join("chiprun_out", "phase19")
+# replayed logits against the uninterrupted run at 32 layers: TOL_DECODE's
+# rule (bf16 roundings in different places, ~1.3 logit std) set for 4
+# layers, scaled as a random walk to 8x the layers. The journal re-prefill
+# computes the cached tokens' k/v in one prefill (the flash kernel, one
+# GEMM over the bucket) where the uninterrupted run computed the generated
+# ones a token at a time in decode: on the H100 (PR 14) the first replayed
+# row is 0.23-0.34 off and the later steps 0.16-0.24, with the cache's
+# geometry unchanged or smaller alike; a replay that drops the journal's
+# last token (a wrong cache column) must fail it.
+TOL_REPLAY = TOL_DECODE * math.sqrt(32 / 4)
+
+
+def _serve_recorder(engine, batcher, prompts, logs, calls):
+    """`engine`'s prefill / decode_step recording each request's logits by
+    the index of the token they predict (a re-prefill of ``journal[:-1]``
+    predicts ``output[-1]`` again)."""
+    import numpy as np
+
+    class Recorder:
+        def prefill(self, prompt, slot):
+            tok, row = engine.prefill(prompt, slot)
+            rid = next(r for r, p in prompts.items() if list(prompt[:len(p)]) == p)
+            k = len(prompt) - len(prompts[rid])
+            logs.setdefault(rid, {})[k] = row
+            calls["replays" if k else "prefills"] += 1
+            if k:
+                calls["replay_at"][rid] = k
+            calls["nonfinite"] += int(not np.isfinite(row).all())
+            return tok, row
+
+        def decode_step(self, tokens, active, pages):
+            nxt, lg = engine.decode_step(tokens, active, pages)
+            for i, req in enumerate(batcher["b"].slot_req):
+                if req is not None:
+                    logs.setdefault(req.rid, {})[len(req.output)] = lg[i]
+                    calls["nonfinite"] += int(not np.isfinite(lg[i]).all())
+            return nxt, lg
+
+    return Recorder()
+
+
+def serve_migration(torch, TF, device="cuda", argv=SERVE_ARGV, small_pages=SERVE_SMALL_PAGES):
+    """Phase 19 (see its note above): returns what it measured. `device`,
+    `argv` (the model and load flags) and `small_pages` let a rehearsal run
+    it at a small size."""
+    import numpy as np
+
+    from galvatron_tpu_torch.cli import search as cli_search
+    from galvatron_tpu_torch.cli import serve as cli_serve
+    from galvatron_tpu_torch.cli.arguments import (hp_config_from_args, initialize_galvatron,
+                                                   model_config_from_args)
+    from galvatron_tpu_torch.ops import tree_fold as TFold
+    from galvatron_tpu_torch.profiler.model import ModelProfileArgs, ModelProfiler
+    from galvatron_tpu_torch.runtime import distributed, elastic
+    from galvatron_tpu_torch.runtime.model_api import construct_hybrid_parallel_model
+    from galvatron_tpu_torch.serve import engine as E
+    from galvatron_tpu_torch.serve.kv_cache import KVCacheConfig, request_fits
+    from galvatron_tpu_torch.utils.jsonio import write_json_config
+
+    t0 = time.perf_counter()
+    out = {}
+    argv = [a if a != "cuda" else device for a in argv]
+    args = initialize_galvatron(argv=argv)
+    _, cfg = model_config_from_args(args)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    with distributed.process_group(device) as dev:
+        hp = hp_config_from_args(args, cfg.num_layers, 1)
+        model = construct_hybrid_parallel_model(cfg, hp, dev, mode="serve")
+        params = model.init_params(SEED)[0]
+        kv = KVCacheConfig(max_slots=8, page_size=128, max_pages=-(-cfg.max_seq_len // 128))
+        small = KVCacheConfig(max_slots=8, page_size=128, max_pages=small_pages)
+
+        def load():
+            return E.synthetic_requests(
+                args.num_requests, vocab_size=cfg.vocab_size, seed=args.seed, rate_rps=0.0,
+                prompt_len_range=(args.prompt_len_min, min(args.prompt_len_max,
+                                                           kv.max_ctx - args.max_new_tokens)),
+                max_new_tokens=args.max_new_tokens)
+
+        prompts = {r.rid: list(r.prompt) for r in load()}
+
+        class DropLast:
+            """A planted fault: each replay prefills without the journal's
+            last token, so the replayed cache misses one column."""
+
+            def __init__(self, engine):
+                self.engine = engine
+
+            def prefill(self, prompt, slot):
+                return self.engine.prefill(prompt[:-1], slot)
+
+            def decode_step(self, tokens, active, pages):
+                return self.engine.decode_step(tokens, active, pages)
+
+        runs = {}
+        for name in ("uninterrupted", "migrated", "planted"):
+            logs, calls = {}, {"prefills": 0, "replays": 0, "nonfinite": 0, "replay_at": {}}
+            holder, mig = {}, {}
+            engine = E.ServeEngine(cfg, params, kv, device=dev, hp=hp, mesh=model.mesh)
+
+            def control(b, name=name, mig=mig, logs=logs, calls=calls, holder=holder):
+                if name != "uninterrupted" and b.decode_steps == SERVE_MIGRATE_AT and not mig:
+                    inflight = [r for r in b.slot_req if r is not None]
+                    fits = [r.rid for r in inflight if request_fits(
+                        small, len(r.journal) - 1, r.max_new_tokens - len(r.output) + 1)]
+                    new = E.ServeEngine(cfg, params, small, device=dev, hp=hp, mesh=model.mesh)
+                    if name == "planted":
+                        new = DropLast(new)
+                    n0 = TF.flash_attention_fwd.launches
+                    tm = time.perf_counter()
+                    mig.update(b.migrate_to(_serve_recorder(new, holder, prompts, logs, calls),
+                                            small))
+                    sync()
+                    mig.update(seconds=time.perf_counter() - tm, inflight=len(inflight),
+                               fits=fits, launches=TF.flash_attention_fwd.launches - n0)
+                return None
+
+            b = E.ContinuousBatcher(None, kv, control=control)
+            holder["b"] = b
+            b.engine = _serve_recorder(engine, holder, prompts, logs, calls)
+            _reset_counts(torch, TF, TFold)
+            tr = time.perf_counter()
+            done = b.run(load())
+            sync()
+            runs[name] = dict(done={r.rid: list(r.output) for r in done},
+                              shed={r.rid: (r.finish_reason, r.retryable) for r in b.shed},
+                              logs=logs, calls=calls, mig=mig, seconds=time.perf_counter() - tr,
+                              fwd_launches=TF.flash_attention_fwd.launches,
+                              bwd_launches=TF.flash_attention_bwd.launches)
+            del engine, b
+        ref, got = runs["uninterrupted"], runs["migrated"]
+        mig = got["mig"]
+        layers = cfg.num_layers
+        check(len(ref["done"]) == args.num_requests and not ref["shed"],
+              "phase 19 uninterrupted run: %d completed, shed %s" % (len(ref["done"]),
+                                                                     ref["shed"]))
+        check(ref["calls"]["nonfinite"] == 0 and got["calls"]["nonfinite"] == 0,
+              "phase 19 non-finite logits")
+        check(mig.get("inflight") and mig["replayed"] == len(mig["fits"]) and mig["shed"] >= 1
+              and mig["replayed"] >= 1,
+              "phase 19 migration: %s (at least one request must be replayed and one shed as "
+              "no longer fitting)" % {k: v for k, v in mig.items() if k != "fits"})
+        migrated_shed = [rid for rid, (why, retry) in got["shed"].items()
+                         if why == "migrate_infeasible" and retry]
+        check(len(migrated_shed) == mig["shed"], "phase 19 shed %s" % got["shed"])
+        check(mig["launches"] == layers * mig["replayed"],
+              "phase 19 re-prefills launched the forward kernel %d times, expected %d layers x "
+              "%d replays" % (mig["launches"], layers, mig["replayed"]))
+        check(got["fwd_launches"] == layers * (got["calls"]["prefills"] + got["calls"]["replays"])
+              and got["bwd_launches"] == 0,
+              "phase 19 migrated run launched fwd %d / bwd %d, expected %d x (%d + %d)" % (
+                  got["fwd_launches"], got["bwd_launches"], layers, got["calls"]["prefills"],
+                  got["calls"]["replays"]))
+        # every replayed request against the uninterrupted run: its logits
+        # from the re-prefill on, while its tokens agree
+        def replay_errs(run):
+            errs, agree = [], 0
+            for rid in run["mig"]["fits"]:
+                want, have = ref["logs"][rid], run["logs"][rid]
+                first = run["calls"]["replay_at"][rid]
+                for k in sorted(k for k in have if k >= first and k in want):
+                    if run["done"][rid][:k] != ref["done"][rid][:k]:
+                        break
+                    errs.append(float(np.abs(have[k] - want[k]).max()))
+                agree += int(run["done"][rid] == ref["done"][rid])
+            return errs, agree
+
+        errs, agree = replay_errs(got)
+        compared = len(errs)
+        check(compared >= len(mig["fits"]) and max(errs) <= TOL_REPLAY,
+              "phase 19 replayed logits vs the uninterrupted run: max err %.4f over %d steps "
+              "(tol %.3f)" % (max(errs or [float("inf")]), compared, TOL_REPLAY))
+        planted = max(replay_errs(runs["planted"])[0] or [float("inf")])
+        check(planted > TOL_REPLAY, "phase 19 planted fault (a replay without its last token) "
+              "passed the check: max err %.4f <= %.3f" % (planted, TOL_REPLAY))
+        out["migrate"] = dict(
+            inflight=mig["inflight"], replayed=mig["replayed"], shed=mig["shed"],
+            replay_seconds=mig["seconds"], replay_launches=mig["launches"],
+            small_ctx=small.max_ctx, max_abs_err=max(errs), steps_compared=compared,
+            first_step_err=errs[0], tolerance=TOL_REPLAY, planted_err=planted,
+            replayed_requests_identical=agree,
+            refused_after=sorted(rid for rid, (why, _) in got["shed"].items()
+                                 if why == "oversize"),
+            completed=len(got["done"]), runs_s={n: r["seconds"] for n, r in runs.items()},
+            fwd_launches=got["fwd_launches"], bwd_launches=got["bwd_launches"],
+            prefills=got["calls"]["prefills"])
+        del params, model, runs
+        _reset_counts(torch, TF, TFold)
+
+    # (ii) cli search --objective serve at world 1, then cli serve under its
+    # plan with the mesh probe on: healthy, no migration
+    os.makedirs(SERVE_PLAN_DIR, exist_ok=True)
+    margs = argv[:argv.index("--device")]
+    paths = ModelProfiler(cfg, model_name="llama", args=ModelProfileArgs(
+        mixed_precision="bf16", config_dir=SERVE_PLAN_DIR)).config_paths()
+    time_cfg, mem_cfg = elastic.analytic_model_profiles(cfg, max_tp=1)
+    write_json_config(time_cfg, paths["computation"])
+    write_json_config(mem_cfg, paths["memory"])
+    write_json_config(elastic.analytic_hardware_profiles(1)[2],
+                      os.path.join(SERVE_PLAN_DIR, "overlap_coefficient.json"))
+    plan = os.path.join(SERVE_PLAN_DIR, "serve_plan.json")
+    os.environ["GALVATRON_WORLD_SIZE"] = "1"
+    try:
+        cli_search.main(margs + ["--config_dir", SERVE_PLAN_DIR, "--objective", "serve",
+                                 "--serve_max_concurrency", "8", "--serve_page_size", "128",
+                                 "--memory_constraint", "70", "--output_config_path", plan,
+                                 "--log_dir", os.path.join(SERVE_PLAN_DIR, "logs")])
+    finally:
+        del os.environ["GALVATRON_WORLD_SIZE"]
+    with open(plan) as f:
+        planned = json.load(f)
+    _reset_counts(torch, TF, TFold)
+    summary = cli_serve.main(margs + [
+        "--device", device, "--galvatron_config_path", plan, "--num_requests", "8",
+        "--prompt_len_min", "100", "--prompt_len_max", "1500", "--max_new_tokens", "16",
+        "--seed", str(SEED), "--mesh_probe_interval", "0.05", "--migrate_on_degrade", "1"])
+    fwd = TF.flash_attention_fwd.launches
+    check(summary["requests"] == 8 and not summary["shed"] and not summary["migrations"]
+          and summary["mesh_probes"] >= 1 and summary["world_size"] == 1,
+          "phase 19 cli serve under the searched plan: %d served, shed %d, migrations %s, "
+          "probes %d" % (summary["requests"], summary["shed"], summary["migrations"],
+                         summary["mesh_probes"]))
+    check(fwd == cfg.num_layers * 8 and TF.flash_attention_bwd.launches == 0,
+          "phase 19 cli serve launched the forward kernel %d times, expected %d" % (
+              fwd, cfg.num_layers * 8))
+    out["searched"] = dict(plan={k: planned.get(k) for k in (
+        "tp_sizes_enc", "dp_types_enc", "serve_max_concurrency", "serve_page_size")},
+        probes=summary["mesh_probes"], requests=summary["requests"],
+        ttft_ms=summary["ttft_ms"], tpot_ms=summary["tpot_ms"],
+        tokens_per_s=summary["tokens_per_s"], fwd_launches=fwd, bwd_launches=0)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def log_serve_migration(sm, card):
+    m, s = sm["migrate"], sm["searched"]
+    log("phase 19 serve migration (llama-7b, 32 layers, bf16, phase 7's 16 requests) on %s: "
+        "at decode tick %d, %d in flight -> cache of %d tokens: %d replayed (re-prefills %.2f s, "
+        "%d forward launches), %d shed retryable, %d later arrivals refused; replayed logits "
+        "max abs err %.4f (first replayed row %.4f) over %d steps (tol %.3f; planted fault "
+        "%.3f) vs the uninterrupted run, %d of %d replayed requests token-identical; runs %s s"
+        % (card, SERVE_MIGRATE_AT, m["inflight"], m["small_ctx"], m["replayed"],
+           m["replay_seconds"], m["replay_launches"], m["shed"], len(m["refused_after"]),
+           m["max_abs_err"], m["first_step_err"], m["steps_compared"], m["tolerance"],
+           m["planted_err"], m["replayed_requests_identical"], m["replayed"],
+           {k: round(v, 2) for k, v in m["runs_s"].items()}))
+    log("phase 19 cli serve under the searched serve plan %s with the mesh probe: %d probes "
+        "healthy, no migration, %d requests, TTFT p50 %.1f ms, TPOT p50 %.1f ms, %d forward "
+        "launches; phase %.1f s" % (
+            s["plan"], s["probes"], s["requests"], s["ttft_ms"]["p50"], s["tpot_ms"]["p50"],
+            s["fwd_launches"], sm["wall_s"]))
+
+
 def main():
     try:
         import torch
@@ -3406,6 +3696,7 @@ def main():
     hf = hf_finetune(torch, TF)
     fold = fold_kernel(torch)
     res = resilience(torch, TF)
+    serve_mig = serve_migration(torch, TF)
     s, t = served["summary"], trained["summary"]
 
     def at_2048(rows, b):
@@ -3448,7 +3739,8 @@ def main():
                **{"elastic_" + n: r["fwd_launches"] for n, r in elastic["runs"].items()},
                **{"train_" + n: r["fwd_launches"] for n, r in t5_swin["runs"].items()},
                **{n: r["fwd_launches"] for n, r in hf["runs"].items()},
-               **{n: r["fwd_launches"] for n, r in resilience_paths(res).items()}},
+               **{n: r["fwd_launches"] for n, r in resilience_paths(res).items()},
+               **{"serve_" + n: r["fwd_launches"] for n, r in serve_mig_paths(serve_mig).items()}},
               TOL_FWD_BF16),
         entry("flash_attn_bwd", BWD_SOURCE, bwd_shapes, z3["bwd_launches"],
               {"serve": 0, "train": trained["bwd_launches"],
@@ -3463,7 +3755,8 @@ def main():
                **{"elastic_" + n: r["bwd_launches"] for n, r in elastic["runs"].items()},
                **{"train_" + n: r["bwd_launches"] for n, r in t5_swin["runs"].items()},
                **{n: r["bwd_launches"] for n, r in hf["runs"].items()},
-               **{n: r["bwd_launches"] for n, r in resilience_paths(res).items()}},
+               **{n: r["bwd_launches"] for n, r in resilience_paths(res).items()},
+               **{"serve_" + n: r["bwd_launches"] for n, r in serve_mig_paths(serve_mig).items()}},
               TOL_BWD_BF16),
         {"name": "tree_fold", "route": "cuda", "source": FOLD_SOURCE, "replaces": FOLD_REPLACES,
          "launches": res["sdc"]["runs"]["digest"]["fold_launches"],
@@ -3484,7 +3777,8 @@ def main():
                    corpus_checkpoint=corpus, train_pipelines=pipelines,
                    profile_search_train=loop, long_context=lc, encoder_families=encoders,
                    elastic_resume=elastic, t5_swin_families=t5_swin, hf_finetune=hf,
-                   fold_kernel=fold, resilience=res, wall_s=time.perf_counter() - t_start)
+                   fold_kernel=fold, resilience=res, serve_migration=serve_mig,
+                   wall_s=time.perf_counter() - t_start)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1, default=str)
@@ -3588,6 +3882,7 @@ def main():
     log_t5_swin(t5_swin, card)
     log_hf_finetune(hf, card)
     log_resilience(fold, res, card)
+    log_serve_migration(serve_mig, card)
     log(json.dumps(kernels))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,9 +6,10 @@ paths mirror the reference's (``config/``, ``ops/``, ``models/``, ``serve/``,
 is found by name. It imports ``torch`` and nothing of JAX or of the
 reference package.
 
-It serves a causal LM (LLaMA, GPT-2) on one device and trains one on 1..N
-GPUs under a searched per-layer strategy (DP, ZeRO-2/3, Megatron TP with
-Megatron-SP, vocab TP; ``torchrun`` launches one process per GPU).
+It serves and trains a causal LM (LLaMA, GPT-2) on 1..N GPUs under a
+searched per-layer strategy (DP, ZeRO-2/3, Megatron TP with Megatron-SP,
+vocab TP; serving without pipelines or sequence sharding; ``torchrun``
+launches one process per GPU).
 Attention runs hand-written CUDA flash-attention kernels
 (``csrc/flash_attn_fwd.cu``, ``csrc/flash_attn_bwd.cu``, wrapped by
 ``ops/flash_attention.py``) on CUDA tensors, and their plain PyTorch

@@ -30,6 +30,7 @@ CODES: Dict[str, Tuple[str, str]] = {
     "GLS009": (ERROR, "vocab size not divisible by vocab-parallel degree"),
     "GLS013": (ERROR, "unsupported comm-precision (quantized collectives) configuration"),
     "GLS014": (ERROR, "serve-infeasible configuration (latency bound, KV budget, or layout)"),
+    "GLS015": (ERROR, "serve world infeasible after mesh degradation"),
     "GLS016": (ERROR, "state motion changed the layout-invariant integrity digest"),
     "GLS017": (ERROR, "online autotuner fighting a pinned strategy"),
     "GLS102": (WARNING, "expensive cross-layer redistribution between adjacent layers"),

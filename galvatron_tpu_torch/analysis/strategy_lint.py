@@ -145,8 +145,43 @@ def train_refusals(hp: HybridParallelConfig, model_cfg: Any = None) -> List[str]
     return out
 
 
-def _serve_diagnostics(hp: HybridParallelConfig) -> List[D.Diagnostic]:
-    """GLS014: layouts a decode engine cannot realise."""
+def serve_kv_mb_per_device(
+    hp: HybridParallelConfig,
+    model_cfg: Any,
+    max_concurrency: int,
+    page_size: int,
+    dtype_bytes: int = 2,
+) -> Optional[float]:
+    """Per-device MB the decode KV cache pins: `max_concurrency` slots, each
+    holding a full-context (k, v) pair per layer, sharded as
+    ``serve/kv_cache.layer_kv_spec`` shards it (slots over dp, kv heads
+    over tp when divisible). The serve search and the GLS014 budget check
+    price KV through this one function, the reference's, so they agree on
+    what fits (where kv is replicated, nkv < tp, the port's rank holds one
+    kv head of the nkv priced here)."""
+    nh = getattr(model_cfg, "num_heads", None)
+    hd = getattr(model_cfg, "head_dim", None)
+    seq = getattr(model_cfg, "max_seq_len", None)
+    if nh is None or seq is None:
+        return None
+    nkv = getattr(model_cfg, "num_kv_heads", None) or nh
+    hd = hd or getattr(model_cfg, "hidden_size") // nh
+    page = max(int(page_size), 1)
+    max_ctx = -(-seq // page) * page  # bucket-quantised full context
+    total = 0.0
+    for i, s in enumerate(hp.layers):
+        slots_per_dev = max_concurrency / max(hp.dp(i), 1)
+        heads_per_dev = nkv / s.tp if (s.tp > 1 and nkv % s.tp == 0) else nkv
+        total += 2.0 * slots_per_dev * max_ctx * heads_per_dev * hd * dtype_bytes
+    return total / 2**20
+
+
+def _serve_diagnostics(hp: HybridParallelConfig, model_cfg: Any = None,
+                       memory_budget_gb: Optional[float] = None) -> List[D.Diagnostic]:
+    """GLS014: layouts a decode engine cannot realise
+    (``serve/kv_cache.py`` raises the same refusals at construction), and
+    with a `memory_budget_gb` the KV cache of ``serve_max_concurrency``
+    slots plus the bf16 weights over the budget."""
     out: List[D.Diagnostic] = []
     if hp.pp > 1:
         out.append(D.make(
@@ -171,6 +206,23 @@ def _serve_diagnostics(hp: HybridParallelConfig) -> List[D.Diagnostic]:
                 "cannot use; serve layouts require sp=0" % i, layer=i,
             ))
             break
+    conc = hp.serve_max_concurrency
+    if conc > 0 and model_cfg is not None and memory_budget_gb:
+        kv_mb = serve_kv_mb_per_device(hp, model_cfg, conc, hp.serve_page_size or 16)
+        layer_mb = _analytic_parameter_mb(model_cfg)
+        if kv_mb is not None and layer_mb is not None:
+            # bf16 inference weights, sharded over tp (and dp when fsdp)
+            param_mb = sum(layer_mb / 2.0 / s.tp / (hp.dp(i) if s.fsdp else 1)
+                           for i, s in enumerate(hp.layers))
+            budget_mb = memory_budget_gb * 1024.0
+            if kv_mb + param_mb > budget_mb:
+                out.append(D.make(
+                    "GLS014", "KV cache for %d concurrent slots needs %.1f MB"
+                    "/device on top of %.1f MB of weights — over the %.1f GB "
+                    "budget; lower concurrency, context, or raise tp/dp"
+                    % (conc, kv_mb, param_mb, memory_budget_gb),
+                    key="serve_max_concurrency",
+                ))
     return out
 
 
@@ -383,6 +435,7 @@ def lint_hp(
     model_cfg: Any = None,
     file: Optional[str] = None,
     mode: Optional[str] = None,
+    memory_budget_gb: Optional[float] = None,
     sdc_check: Optional[str] = None,
     sdc_interval: Optional[int] = None,
     autotune: Optional[str] = None,
@@ -391,8 +444,9 @@ def lint_hp(
 ) -> D.DiagnosticReport:
     """Lint an already-constructed config: structural checks, with
     `model_cfg` the model-aware GLS007-009, the GLS102/GLS103 warnings,
-    plus the GLS014 serve-feasibility layer when ``mode="serve"`` and the
-    train-mode GLS103 warnings when ``mode="train"``; the train driver's
+    plus the GLS014 serve-feasibility layer when ``mode="serve"`` (with
+    `memory_budget_gb`, the KV + weight budget check) and the train-mode
+    GLS103 warnings when ``mode="train"``; the train driver's
     state (the sentinel, the autotuner, a pinned elastic strategy) adds
     the reference's GLS103 / GLS017 checks of it."""
     report = D.DiagnosticReport()
@@ -401,7 +455,7 @@ def lint_hp(
         report.extend(_model_aware_diagnostics(hp, model_cfg))
     report.extend(_warning_diagnostics(hp))
     if mode == "serve":
-        report.extend(_serve_diagnostics(hp))
+        report.extend(_serve_diagnostics(hp, model_cfg, memory_budget_gb))
     elif mode == "train":
         report.extend(_train_diagnostics(hp))
     report.extend(_resilience_diagnostics(hp, sdc_check, sdc_interval, autotune,

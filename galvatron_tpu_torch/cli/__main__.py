@@ -1,9 +1,11 @@
 """``python -m galvatron_tpu_torch.cli <subcommand> [flags]``.
 
-    serve              run the prefill/decode inference engine on one device
-                       (--device cuda|cpu, default cuda): drives a synthetic
-                       or replayed load through the continuous batcher and
-                       reports TTFT/TPOT percentiles and tokens/s
+    serve              run the prefill/decode inference engine under a
+                       per-layer strategy on 1..N GPUs (torchrun
+                       --nproc_per_node N for N > 1; --device cuda|cpu,
+                       default cuda): drives a synthetic or replayed load
+                       through the continuous batcher and reports TTFT/TPOT
+                       percentiles and tokens/s
     train              train under a per-layer strategy on 1..N GPUs
                        (torchrun --nproc_per_node N for N > 1; --device
                        cuda|cpu, default cuda): strategy -> lint -> model

@@ -30,11 +30,10 @@ probe (``--mesh_probe_interval``), live migration
 (``--migrate_on_degrade``), the silent-corruption sentinel
 (``--sdc_check``, ``--sdc_interval``, ``--sdc_strikes``) and the online
 autotuner (``--autotune``, ``--autotune_margin``, ``--autotune_window``,
-``--autotune_rel_std``). Serve takes the watchdog flags; it parses
-``--mesh_probe_interval``, ``--migrate_on_degrade``, ``--elastic_strategy``
-and ``--elastic_memory_gb`` as the reference does, but serve migration
-waits for the serve layouts (ROADMAP queue 1 item 3): a probe interval or
-``--migrate_on_degrade`` other than 0 is refused.
+``--autotune_rel_std``). Serve takes the watchdog flags, the mesh probe,
+live serve migration (``--migrate_on_degrade`` with ``--elastic_strategy``,
+``--elastic_memory_gb`` and the ``--config_dir`` a re-search reads), as
+the reference does.
 
 Flags whose modules are not ported yet are not defined, so argparse
 refuses them: ``--trace_lint``, ``--xla_trace``, the compilation-cache and
@@ -120,9 +119,9 @@ def _add_parallel_args(p: argparse.ArgumentParser):
     g.add_argument("--galvatron_config_path", type=str, default=None,
                    help="searched per-layer strategy JSON; overrides the GLOBAL flags above")
     g.add_argument("--world_size", type=int, default=None,
-                   help="devices to use; training takes the process group's world size "
-                        "(torchrun --nproc_per_node) and this, when given, must equal it; "
-                        "serving runs world size 1 only")
+                   help="devices to use; serving and training take the process group's "
+                        "world size (torchrun --nproc_per_node) and this, when given, must "
+                        "equal it")
 
 
 def _add_device_arg(g):
@@ -339,32 +338,22 @@ def _add_serve_args(p: argparse.ArgumentParser):
                         "predicted-TTFT shedder arms")
     _add_watchdog_args(r, "a prefill/decode tick", "gracefully drains the batcher and "
                           "exits 3", "tick time", "first ticks build the kernels")
-    r.add_argument("--mesh_probe_interval", type=_serve_migration_flag(float), default=0.0,
-                   help="seconds between mesh-health probes between ticks; serve "
-                        "migration waits for the serve layouts (ROADMAP queue 1 item 3): "
-                        "only 0 is accepted")
-    r.add_argument("--migrate_on_degrade", type=_serve_migration_flag(int), default=0,
-                   help="re-plan serving for a degraded world in memory; waits for the "
-                        "serve layouts (ROADMAP queue 1 item 3): only 0 is accepted")
+    r.add_argument("--mesh_probe_interval", type=float, default=0.0,
+                   help="seconds between mesh-health probes between scheduler iterations "
+                        "(live ranks against the strategy's, plus one all-reduce under a "
+                        "timeout; 0 = off)")
+    r.add_argument("--migrate_on_degrade", type=int, default=0,
+                   help="when the mesh probe reports a degraded world, re-plan serving for "
+                        "the surviving ranks (--elastic_strategy if given, else a fresh "
+                        "--objective serve search), move the params in memory, rebuild the "
+                        "KV cache and journal-replay the in-flight requests; a world that "
+                        "cannot serve drains and exits 2 (GLS015)")
     r.add_argument("--elastic_strategy", type=str, default=None,
-                   help="replacement serve strategy JSON for a degraded mesh; acts only "
-                        "with --migrate_on_degrade (ROADMAP queue 1 item 3)")
+                   help="replacement serve strategy JSON for a degraded mesh (with "
+                        "--migrate_on_degrade)")
     r.add_argument("--elastic_memory_gb", type=float, default=None,
-                   help="memory budget per GPU for the degraded-world serve re-search; "
-                        "acts only with --migrate_on_degrade (ROADMAP queue 1 item 3)")
-
-
-def _serve_migration_flag(kind):
-    """A serve flag of degraded-mesh migration: 0 parses, anything else is
-    refused until serve layouts exist (the serve engine runs at world 1)."""
-    def parse(value: str):
-        v = kind(value)
-        if v:
-            raise argparse.ArgumentTypeError(
-                "serve migration waits for the serve layouts (ROADMAP queue 1 item 3): "
-                "the port serves at world size 1")
-        return v
-    return parse
+                   help="memory budget per GPU for the degraded-world serve re-search "
+                        "(default 16 GB)")
 
 
 def _add_watchdog_args(r, unit: str, escalation: str, timed: str, startup: str):
@@ -516,9 +505,10 @@ def build_parser(mode: str = "serve") -> argparse.ArgumentParser:
     if mode not in MODES:
         raise ValueError("unknown mode %r (one of %s)" % (mode, MODES))
     p = argparse.ArgumentParser("galvatron_tpu_torch-%s" % mode, allow_abbrev=False)
-    if mode in ("search", "profile", "profile_hardware", "train"):
+    if mode in MODES:
         p.add_argument("--config_dir", type=str, default="configs",
-                       help="where profiled/searched JSON configs live")
+                       help="where profiled/searched JSON configs live (serve: the "
+                            "profiles a degraded-world re-search reads)")
     _add_model_args(p)
     if mode in ("serve", "train"):
         _add_parallel_args(p)

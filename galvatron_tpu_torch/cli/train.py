@@ -70,9 +70,10 @@ starts fresh at iteration 0, as in the reference.
 A run that survives (the reference's self-healing loop, in its order at
 each step boundary: hooks -> preemption -> watchdog -> mesh probe ->
 migration -> autotune, every rank taking the same branch through one
-all-reduced flag vector, `_agree`): ``--watchdog`` (``runtime/health.py``:
-a missed learned deadline drains and retries, a second one makes an
-emergency save and `main` exits 3); ``--mesh_probe_interval`` (live ranks
+all-reduced flag vector, ``runtime.distributed.agree_max``): ``--watchdog``
+(``runtime/health.py``: a missed learned deadline drains and retries, a
+second one makes an emergency save and `main` exits 3);
+``--mesh_probe_interval`` (live ranks
 and a timed all-reduce; a degraded world under ``--migrate_on_degrade``
 migrates, a probe that times out exits 3 without a collective);
 ``--sdc_check digest|vote`` (``runtime/sdc.py``: the fold kernel's digest
@@ -388,19 +389,6 @@ def _routes_since(before: dict) -> list:
     every = [None] * distributed.world_size()
     torch.distributed.all_gather_object(every, mine)
     return every
-
-
-def _agree(flags, device):
-    """The elementwise max of `flags` (floats) over every rank: one
-    all-reduce per step boundary, so every rank takes the same branch
-    (preemption, the watchdog's requests, a due probe, a migration request,
-    an autotune plan). Every rank must call it; a world of one skips the
-    collective."""
-    if distributed.world_size() == 1:
-        return list(flags)
-    t = torch.tensor(flags, dtype=torch.float64, device=device)
-    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
-    return t.tolist()
 
 
 def _train(args, device) -> dict:
@@ -942,7 +930,7 @@ def _train(args, device) -> dict:
                 if hooks is not None and hooks.on_step:
                     hooks.on_step(it)
                 # every rank takes the same branches: one agreement per boundary
-                flags = _agree([
+                flags = distributed.agree_max([
                     float(preempt is not None and preempt.triggered),
                     float(wd is not None and wd.abort_requested),
                     float(wd is not None and wd.retry_requested),

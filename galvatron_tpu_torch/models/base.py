@@ -40,6 +40,7 @@ the port calls it (`parallel.comm`).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import types
 from dataclasses import dataclass
@@ -486,17 +487,26 @@ def decode_layer_forward(
     v_cache: torch.Tensor,
     write_index: torch.Tensor,
     attn_bias: Optional[torch.Tensor] = None,
+    tp: Optional[T.TPContext] = None,
 ):
     """One transformer block for single-token decode over a preallocated KV
     cache. ``x``: (B, 1, H); ``k_cache`` / ``v_cache``: (B, S_cache, nkv, hd)
     views into the cache, updated in place; ``write_index``: (B,) the new
     token's position per slot. ``attn_bias`` (serve/kv_cache.length_bias)
     carries both causality and slot-length masking, so attention runs with
-    causal=False. Every other op mirrors ``layer_forward``."""
+    causal=False. Every other op mirrors ``layer_forward``.
+
+    Under a layer's layout (`tp`, without Megatron-SP: one token has no
+    sequence to shard) the rows are the rank's slot shard, the qkv
+    projection is column-parallel (the rank's heads; with GQA and fewer kv
+    heads than tp, the one kv head its query heads share), the cache views
+    hold the rank's kv heads, and ``wo`` and the MLP are row-parallel, as
+    the reference's decode head layout (slots on the batch axes, kv heads on
+    tp)."""
     dtype = cfg.compute_dtype
     residual = x
     y = _norm(x, p.ln1, cfg) if cfg.pre_norm else x
-    q, k, v = qkv_projection(p, y, cfg, dtype)
+    q, k, v = qkv_projection(p, T.enter_column(y, tp), cfg, dtype, tp)
     if cfg.position_type == "rope":
         q = apply_rotary(q, positions, cfg.rope_theta)
         k = apply_rotary(k, positions, cfg.rope_theta)
@@ -504,11 +514,11 @@ def decode_layer_forward(
     _append_token_kv(v_cache, v.to(v_cache.dtype), write_index)
     attn = core_attention(q, k_cache.to(dtype), v_cache.to(dtype), causal=False,
                           bias=attn_bias, impl=cfg.attn_impl)
-    attn = attn.reshape(attn.shape[0], attn.shape[1], cfg.num_heads * cfg.head_dim)
-    x = residual + _proj(attn, p.wo, dtype)
+    attn = attn.reshape(attn.shape[0], attn.shape[1], attn.shape[2] * attn.shape[3])
+    x = residual + _row_proj(attn, p.wo, dtype, tp)
     if not cfg.pre_norm:
         x = _norm(x, p.ln1, cfg)
-    x = _mlp(p, x, cfg, dtype)
+    x = _mlp(p, x, cfg, dtype, tp)
     return x, k_cache, v_cache
 
 
@@ -750,6 +760,16 @@ def build_layouts(cfg: TransformerConfig, hp: HybridParallelConfig, mesh: RankMe
     layers = [make_layout(cfg, hp, mesh, pls, layer_axes(hp, i), "layers.%d." % i,
                           hp.layers[i].tp) for i in range(cfg.num_layers)]
     return ModelLayouts(vocab=vocab, layers=layers)
+
+
+def serve_layouts(layouts: ModelLayouts) -> ModelLayouts:
+    """The layouts a serve step runs under: the same groups, ZeRO-3 dims
+    and head shards, with Megatron-SP off (a prefill's one request and a
+    decode step's one token per slot are whole on every tp rank; the
+    reductions are all-reduces, the same sums)."""
+    def plain(lay: Layout) -> Layout:
+        return dataclasses.replace(lay, tp=dataclasses.replace(lay.tp, sequence_parallel=False))
+    return ModelLayouts(vocab=plain(layouts.vocab), layers=[plain(x) for x in layouts.layers])
 
 
 def gathered(module: nn.Module, layout: Optional[Layout], prefix: str = ""):
@@ -1005,14 +1025,18 @@ def run_layers(
     placement (its cp shard of the sequence); each layer runs its own TP,
     Ulysses, cp ring and ZeRO-3. ``collect_kv=True`` additionally returns
     one post-rope (k, v) pair per layer, in layer order — the serving
-    prefill's cache contents; that path is forward-only, without layouts,
-    and never remats."""
+    prefill's cache contents; that path is forward-only and never remats,
+    and under `layouts` (`serve_layouts`) its one request is whole on every
+    rank: each layer gathers its ZeRO-3 weights and runs its tp, and hands
+    back the rank's kv heads."""
     kvs: List[Tuple[torch.Tensor, torch.Tensor]] = []
     cur = layouts.vocab.act if layouts is not None else None
     side = {}
     for i, lp in layer_items(params):
         if collect_kv:
-            x, kv = layer_forward(lp, x, positions, cfg, attn_bias=attn_bias, return_kv=True)
+            lay = layouts.layers[i] if layouts is not None else None
+            x, kv = layer_forward(gathered(lp, lay), x, positions, cfg, attn_bias=attn_bias,
+                                  return_kv=True, tp=lay.tp if lay is not None else None)
             kvs.append(kv)
             continue
         lay = layouts.layers[i] if layouts is not None else None

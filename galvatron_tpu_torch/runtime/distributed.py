@@ -158,6 +158,18 @@ def regroup(survivors, timeout_s: float = 600.0) -> Optional[int]:
     return new_rank
 
 
+def agree_max(values, device):
+    """The elementwise max of `values` (floats) over every rank: one
+    all-reduce, so every rank takes the same branch (a train step
+    boundary's flags, a serve scheduler iteration's clock and costs).
+    Every rank must call it; a world of one skips the collective."""
+    if world_size() == 1:
+        return list(values)
+    t = torch.tensor(values, dtype=torch.float64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return t.tolist()
+
+
 def rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 

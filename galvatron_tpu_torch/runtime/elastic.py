@@ -1,7 +1,7 @@
 """Elastic resume and live migration: re-plan the strategy for the world a
 run resumes or goes on in.
 
-Port of ``galvatron_tpu/runtime/elastic.py`` but its serve half. Every
+Port of ``galvatron_tpu/runtime/elastic.py``. Every
 checkpoint's manifest carries a provenance block
 (``runtime/provenance.build_provenance``: the strategy JSON, the world
 size, the model and optimizer digests, the memory budget). On ``--load``
@@ -34,7 +34,15 @@ train driver calls it at a drained step boundary on SIGUSR1, on a degraded
 mesh probe under ``--migrate_on_degrade`` (the detection is
 ``runtime/health.py``), on a silent-corruption quarantine
 (``runtime/sdc.py``) and on an autotune swap (``runtime/autotune.py``).
-Serve migration waits for the serve layouts (ROADMAP queue 1 item 3).
+
+The serve half (`search_surviving_serve_strategy`,
+`resolve_serve_migration_strategy`, `migrate_serve_params`) re-plans a
+live server for the ranks that survive a degraded mesh: a fresh
+``--objective serve`` search (or ``--elastic_strategy``), the params moved
+in memory by `migrate` without an optimizer state; ``cli serve`` then
+rebuilds the engine and journal-replays the in-flight requests
+(``serve/engine.ContinuousBatcher.migrate_to``). A world that cannot serve
+refuses with GLS015.
 """
 
 from __future__ import annotations
@@ -146,30 +154,53 @@ def search_surviving_strategy(
     (with chunks free, memory freed by remat may buy fewer micro-batches);
     `logger` is the engine's per-task logger. None when nothing fits (the
     caller's GLS203)."""
-    from galvatron_tpu_torch.search.engine import GalvatronSearchEngine, SearchArgs
+    from galvatron_tpu_torch.search.engine import SearchArgs
 
-    heads = getattr(model_cfg, "num_heads", None) or 1
     num_layers = getattr(model_cfg, "num_layers", 1)
-    seq_len = getattr(model_cfg, "max_seq_len", 2048)
-    hidden = getattr(model_cfg, "hidden_size", 1024)
-    # tp at most the largest power of two dividing the head count, so every
-    # plan passes the model-aware GLS007 check
-    max_tp = 1
-    while max_tp * 2 <= min(heads, live_world) and heads % (max_tp * 2) == 0:
-        max_tp *= 2
     args = SearchArgs(
         memory_constraint=memory_budget_gb,
         settle_bsz=global_bsz,  # the batch is part of the training trajectory
         settle_chunk=None,
-        max_tp_deg=max_tp,
+        max_tp_deg=_max_tp(model_cfg, live_world),
         max_pp_deg=min(_pow2_floor(num_layers), live_world),
         default_dp_type=default_dp_type,
         sp_space="tp",
         remat_search=remat_search,
     )
+    engine = _search_engine(args, model_cfg, live_world, model_type, config_dir, logger,
+                            time_config, memory_config)
+    if engine is None:
+        return None
+    result = engine.parallelism_optimization()
+    if result is None:
+        return None
+    return engine.result_to_config(result)
+
+
+def _max_tp(model_cfg: Any, live_world: int) -> int:
+    """tp at most the largest power of two dividing the head count, so every
+    plan passes the model-aware GLS007 check."""
+    heads = getattr(model_cfg, "num_heads", None) or 1
+    max_tp = 1
+    while max_tp * 2 <= min(heads, live_world) and heads % (max_tp * 2) == 0:
+        max_tp *= 2
+    return max_tp
+
+
+def _search_engine(args, model_cfg: Any, live_world: int, model_type: str,
+                   config_dir: Optional[str], logger, time_config: Optional[dict] = None,
+                   memory_config: Optional[dict] = None):
+    """The search engine for `live_world` devices with its tables set: on
+    `config_dir`'s profiled tables for this model when it has them, else on
+    the analytic tables; explicit `time_config` / `memory_config` win. None
+    when no table can be had (the analytic ones need the model's sizes)."""
+    from galvatron_tpu_torch.search.engine import GalvatronSearchEngine
+
     engine = GalvatronSearchEngine(
         args, live_world,
-        [{"hidden_size": hidden, "seq_len": seq_len, "layer_num": num_layers}],
+        [{"hidden_size": getattr(model_cfg, "hidden_size", 1024),
+          "seq_len": getattr(model_cfg, "max_seq_len", 2048),
+          "layer_num": getattr(model_cfg, "num_layers", 1)}],
         config_dir=config_dir or "configs", model_name=model_type, logger=logger,
     )
     profiles = None
@@ -188,10 +219,7 @@ def search_surviving_strategy(
     engine.set_model_profiles(time_cfg, mem_cfg)
     engine.set_hardware_profiles(allreduce, p2p, overlap)
     engine.initialize_search_engine()
-    result = engine.parallelism_optimization()
-    if result is None:
-        return None
-    return engine.result_to_config(result)
+    return engine
 
 
 def _load_profiled_tables(model_cfg, model_type, config_dir, world):
@@ -479,7 +507,9 @@ def migrate(
     `sdc_check` the layout-invariant fold (``runtime/sdc.py``) of the params
     and of the Adam state is taken before the move and asserted after it
     (GLS016). The swap is an ``elastic`` telemetry event with both
-    strategies."""
+    strategies. Without an `opt_state` (a server's params,
+    `migrate_serve_params`) only the params move and the global batch is
+    inert."""
     import torch
 
     from galvatron_tpu_torch.parallel import spec as S
@@ -494,7 +524,7 @@ def migrate(
     from galvatron_tpu_torch.runtime.optimizer import AdamState
 
     old_hp: HybridParallelConfig = model.hp
-    if target_hp.global_bsz != old_hp.global_bsz:
+    if opt_state is not None and target_hp.global_bsz != old_hp.global_bsz:
         raise D.DiagnosticError([D.make(
             "GLS207", "live migration cannot change global_bsz (%d -> %d)"
             % (old_hp.global_bsz, target_hp.global_bsz))])
@@ -513,7 +543,8 @@ def migrate(
     if sdc_check:
         from galvatron_tpu_torch.runtime import sdc
 
-        before = (sdc.state_fold(model, params), sdc.state_fold(model, params, opt_state))
+        before = (sdc.state_fold(model, params),
+                  sdc.state_fold(model, params, opt_state) if opt_state is not None else None)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         live_bytes = torch.cuda.memory_allocated(device)
@@ -530,17 +561,21 @@ def migrate(
         names = {n for n, _ in arch.tree("meta", stage if target_hp.pp > 1 else None)
                  .named_parameters()}
     old_specs = {"params": {n: pl.spec for n, pl in model.param_layouts.items()}}
-    old_specs["mu"] = old_specs["nu"] = model.grad_accum_specs()
     # the old state's leaves are emptied as they are moved: the old params
     # and Adam state are spent afterwards
-    live = {"params": {s: dict(m.named_parameters()) for s, m in params.items()},
-            "mu": {s: st.mu for s, st in opt_state.items()},
-            "nu": {s: st.nu for s, st in opt_state.items()}}
-    count = int(next(iter(opt_state.values())).count)
-    kept = {"params": {}, "mu": {}, "nu": {}}
+    live = {"params": {s: dict(m.named_parameters()) for s, m in params.items()}}
+    items = ("params",)
+    count = None
+    if opt_state is not None:
+        old_specs["mu"] = old_specs["nu"] = model.grad_accum_specs()
+        live.update(mu={s: st.mu for s, st in opt_state.items()},
+                    nu={s: st.nu for s, st in opt_state.items()})
+        items = ("params", "mu", "nu")
+        count = int(next(iter(opt_state.values())).count)
+    kept = {item: {} for item in items}
     with torch.no_grad():
         for n, _ in model.arch.tree("meta").named_parameters():
-            for item in ("params", "mu", "nu"):
+            for item in items:
                 full = model.gather_leaf(live[item], n, old_specs[item][n], host=False)
                 for d in live[item].values():  # the old shard is no longer needed
                     if n in d:
@@ -565,15 +600,16 @@ def migrate(
         new_model = build_model(model.cfg, target_hp, device)
     else:
         new_model = construct_hybrid_parallel_model(model.cfg, target_hp, device)
-    new_params, new_opt = {}, {}
+    new_params, new_opt = {}, ({} if opt_state is not None else None)
     for s in new_model.stages:
         module = new_model._meta_model(s)
         order = [n for n, _ in module.named_parameters()]
         for n in order:
             _set_param(module, n, kept["params"].pop(n))
         new_params[s] = module
-        new_opt[s] = AdamState(count=count, mu={n: kept["mu"].pop(n) for n in order},
-                               nu={n: kept["nu"].pop(n) for n in order})
+        if new_opt is not None:
+            new_opt[s] = AdamState(count=count, mu={n: kept["mu"].pop(n) for n in order},
+                                   nu={n: kept["nu"].pop(n) for n in order})
     extra_gb = None
     if device.type == "cuda":  # the copies are asynchronous: time them done
         torch.cuda.synchronize(device)
@@ -581,8 +617,10 @@ def migrate(
     if sdc_check:
         sdc.assert_digest_continuity(before[0], sdc.state_fold(new_model, new_params),
                                      "migrate(params)", iteration)
-        sdc.assert_digest_continuity(before[1], sdc.state_fold(new_model, new_params, new_opt),
-                                     "migrate(opt_state)", iteration)
+        if new_opt is not None:
+            sdc.assert_digest_continuity(before[1],
+                                         sdc.state_fold(new_model, new_params, new_opt),
+                                         "migrate(opt_state)", iteration)
     same = ckpt.same_pipeline_layout(old_hp, target_hp)
     seconds = time.perf_counter() - t0
     telemetry.emit(
@@ -592,3 +630,147 @@ def migrate(
         duration_ms=seconds * 1e3, same_layout=same)
     return MigrationResult(new_model, new_params, new_opt, same, old_hp, target_hp,
                            seconds=seconds, device_extra_gb=extra_gb)
+
+
+# ------------------------------------------------- degraded-mesh serve path
+def search_surviving_serve_strategy(
+    model_cfg: Any,
+    live_world: int,
+    memory_budget_gb: float,
+    serve_max_concurrency: int,
+    serve_page_size: int,
+    p99_ttft_ms: float = 0.0,
+    p99_tpot_ms: float = 0.0,
+    model_type: str = "model",
+    config_dir: Optional[str] = None,
+    default_dp_type: str = "ddp",
+    logger=None,
+) -> HybridParallelConfig:
+    """Re-run ``search --objective serve`` for the surviving world: the same
+    decode-compatible enumeration and serve cost model the offline serve
+    search uses, on `config_dir`'s profiled tables for this model when it
+    has them and on the analytic tables otherwise. Concurrency and page
+    size are pinned to the RUNNING engine's, so in-flight journals stay
+    replayable into the new cache. Raises GLS015 when no strategy is
+    feasible on what survived."""
+    from galvatron_tpu_torch.search.engine import SearchArgs
+
+    heads = getattr(model_cfg, "num_heads", None) or 1
+    nkv = getattr(model_cfg, "num_kv_heads", None) or heads
+    args = SearchArgs(
+        memory_constraint=memory_budget_gb,
+        max_tp_deg=_max_tp(model_cfg, live_world),
+        max_pp_deg=1,  # serve layouts are pp=1 by contract (GLS014)
+        default_dp_type=default_dp_type,
+        sp_space="tp",
+        objective="serve",
+        p99_ttft_ms=p99_ttft_ms,
+        p99_tpot_ms=p99_tpot_ms,
+        serve_max_concurrency=serve_max_concurrency,
+        serve_page_size=serve_page_size,
+        serve_kv_frac=nkv / heads,
+    )
+    engine = _search_engine(args, model_cfg, live_world, model_type, config_dir, logger)
+    if engine is None:
+        raise D.DiagnosticError([D.make(
+            "GLS015", "cannot synthesize analytic cost tables for this "
+            "model config — no way to re-plan serving for the %d "
+            "surviving devices" % live_world,
+        )])
+    try:
+        result = engine.serve_optimization()
+    except D.DiagnosticError as e:
+        # the offline objective refuses with GLS014 ("this config cannot
+        # serve"); mid-flight the refusal is about the DEGRADED WORLD
+        raise D.DiagnosticError([D.make(
+            "GLS015", "serve world infeasible after degradation: no serving "
+            "strategy for the %d surviving devices (%s); drain and redeploy "
+            "on a healthy slice" % (
+                live_world, "; ".join(d.message for d in e.diagnostics)[:400]),
+        )]) from e
+    return engine.result_to_config(result)
+
+
+def resolve_serve_migration_strategy(
+    args: Any,
+    model_cfg: Any,
+    live_world: int,
+    current_hp: HybridParallelConfig,
+    kv_cfg: Any = None,
+) -> Tuple[HybridParallelConfig, str]:
+    """The target strategy of a LIVE degraded-mesh serve migration: the
+    ``--elastic_strategy`` JSON when given, otherwise a fresh ``--objective
+    serve`` search for `live_world`. Returns (hp, action). Raises
+    DiagnosticError (GLS015) when the surviving world cannot serve; the
+    serve CLI drains and exits 2."""
+    exec_kw = dict(
+        scan_layers=current_hp.scan_layers,
+        remat_policy=current_hp.remat_policy,
+        tp_comm_mode=current_hp.tp_comm_mode,
+        tp_comm_quant=current_hp.tp_comm_quant,
+        mixed_precision=current_hp.mixed_precision,
+    )
+    budget = getattr(args, "elastic_memory_gb", None) or DEFAULT_MEMORY_GB
+    concurrency = (getattr(kv_cfg, "max_slots", 0)
+                   or current_hp.serve_max_concurrency or 8)
+    page = (getattr(kv_cfg, "page_size", 0)
+            or current_hp.serve_page_size or 16)
+    strategy_file = getattr(args, "elastic_strategy", None)
+    if strategy_file:
+        hp = HybridParallelConfig.from_json(strategy_file, world_size=live_world, **exec_kw)
+        action = "strategy_file"
+    else:
+        hp = search_surviving_serve_strategy(
+            model_cfg, live_world, budget,
+            serve_max_concurrency=concurrency, serve_page_size=page,
+            p99_ttft_ms=getattr(args, "p99_ttft_ms", 0.0) or 0.0,
+            p99_tpot_ms=getattr(args, "p99_tpot_ms", 0.0) or 0.0,
+            model_type=getattr(args, "model_type", "model"),
+            config_dir=getattr(args, "config_dir", None),
+            default_dp_type=current_hp.default_dp_type,
+        )
+        for k, v in exec_kw.items():
+            setattr(hp, k, v)
+        action = "search"
+    from galvatron_tpu_torch.analysis import strategy_lint as _slint
+    from galvatron_tpu_torch.runtime.model_api import check_layout
+
+    report = _slint.lint_hp(hp, model_cfg=model_cfg, mode="serve")
+    problems = ["%s: %s" % (d.code, d.message) for d in report.errors]
+    if not problems:
+        try:
+            check_layout(hp, "serve")
+        except ValueError as e:
+            problems.append(str(e))
+    if problems:
+        raise D.DiagnosticError([D.make(
+            "GLS015", "serve world infeasible after degradation: the %s "
+            "strategy for %d devices fails the serve lint (%s)" % (
+                action, live_world, "; ".join(problems)[:400]),
+        )])
+    return hp, action
+
+
+def migrate_serve_params(
+    model: Any,
+    params: Any,
+    target_hp: HybridParallelConfig,
+    survivors: Optional[list] = None,
+    sdc_check: bool = False,
+    reason: str = "degraded_mesh",
+) -> MigrationResult:
+    """Params-only live relayout for a serve migration: `migrate` with no
+    optimizer state (serving has no training trajectory to fork; the global
+    batch is inert), the target built in serve mode. Collective over the
+    current world; the ranks outside `survivors` hand their shards over and
+    leave (the result's `departed`). With `sdc_check` the params' layout-
+    invariant fold (the fold kernel on the card) is asserted unchanged
+    across the move (GLS016). The caller rebuilds the ServeEngine (a fresh
+    KV cache in the new layout) and journal-replays the in-flight requests
+    (``serve/engine.ContinuousBatcher.migrate_to``)."""
+    from galvatron_tpu_torch.runtime.model_api import construct_hybrid_parallel_model
+
+    return migrate(model, params, None, target_hp, survivors=survivors,
+                   build_model=lambda cfg, hp, device: construct_hybrid_parallel_model(
+                       cfg, hp, device, mode="serve"),
+                   reason=reason, sdc_check=sdc_check)

@@ -91,16 +91,30 @@ def check_layout(hp: HybridParallelConfig, mode: str = "train", cfg=None) -> Non
     world size with per-layer DP / ZeRO-2/3 / Megatron TP(+SP) / Ulysses /
     ring cp / vocab TP, sp and cp, and GPipe or 1F1B pipelines within the
     reference's contracts, and what the family of `cfg` refuses
-    (``analysis.strategy_lint.train_refusals``); in serve mode world size 1
-    only."""
+    (``analysis.strategy_lint.train_refusals``); in serve mode any world
+    size with per-layer dp, ZeRO-2/3 (the params' layout), tp with or
+    without ``tp_consec`` and vocab tp, on one stage, without cp or
+    Ulysses (GLS014, as the serve lint) and without vocab sp or vocab cp
+    (a decode step's one token has no sequence to shard)."""
     from galvatron_tpu_torch.analysis.strategy_lint import train_refusals
 
     if mode == "serve":
-        if hp.world_size != 1 or hp.pp > 1 or any(s.tp > 1 or s.cp > 1 for s in hp.layers):
-            raise ValueError(
-                "galvatron_tpu_torch serves at world size 1 only; the strategy asks for "
-                "world_size=%d (the serve engine's tp/dp KV layouts come with ROADMAP "
-                "queue 1 item 3's serve follow-up)" % hp.world_size)
+        problems = []
+        if hp.pp > 1:
+            problems.append("pp=%d: serving runs one stage (GLS014)" % hp.pp)
+        problems += ["layer %d: cp=%d (GLS014)" % (i, s.cp) for i, s in enumerate(hp.layers)
+                     if s.cp > 1][:1]
+        problems += ["layer %d: Ulysses sp (GLS014)" % i for i, s in enumerate(hp.layers)
+                     if s.sp][:1]
+        if hp.vocab_sp or hp.vocab_cp > 1:
+            problems.append("vocab_sp=%d vocab_cp=%d: the vocab layers of a decode step shard "
+                            "no sequence" % (hp.vocab_sp, hp.vocab_cp))
+        if hp.tp_comm_mode != "gspmd" and any(s.tp > 1 for s in hp.layers):
+            problems.append("tp_comm_mode=%r (manual TP overlap: ROADMAP queue 1 item 10)"
+                            % hp.tp_comm_mode)
+        if problems:
+            raise ValueError("galvatron_tpu_torch does not serve this strategy: %s"
+                             % "; ".join(problems))
         return
     problems = train_refusals(hp, cfg)
     if problems:
@@ -213,6 +227,20 @@ class HybridParallelModel:
                     t = self._shard(name, full, s)
                     _set_param(models[s], name, t.clone() if k else t)
         return models
+
+    def empty_params(self) -> Dict[int, nn.Module]:
+        """This process's parameter shards, per hosted stage, uninitialized
+        (a checkpoint restore fills them in place)."""
+        out = {}
+        for s in self.stages:
+            model = self._meta_model(s)
+            for name, p in list(model.named_parameters()):
+                shape = S.local_shape(p.shape, self.param_layouts[name].spec,
+                                      self.stage_meshes[s], name)
+                _set_param(model, name, torch.empty(shape, dtype=self.cfg.param_dtype,
+                                                    device=self.device))
+            out[s] = model
+        return out
 
     def shard_params(self, full: Dict[str, torch.Tensor]) -> Dict[int, nn.Module]:
         """This process's parameters, per hosted stage, from a full state

@@ -1,6 +1,8 @@
 """Prefill/decode inference engine with continuous batching.
 
-Port of ``galvatron_tpu/serve/engine.py`` for one device.
+Port of ``galvatron_tpu/serve/engine.py``: on one device, or under a
+searched per-layer strategy on every rank of a world (``hp`` and the
+model's rank ``mesh``).
 
 Execution model
 ---------------
@@ -22,6 +24,20 @@ Execution model
 - **Continuous batching**: slot-based admission in strict arrival (FIFO)
   order; a slot frees the moment its request hits `max_new_tokens`, and the
   next pending request is admitted at the following scheduler tick.
+
+Under a strategy every rank runs the same batcher and takes part in every
+step (`models/base.serve_layouts`): a prefill's one request is whole on
+every rank (each layer gathers its ZeRO-3 weights over dp and runs its tp
+heads; the rank that owns the slot in a layer keeps that layer's kv, see
+``serve/kv_cache.layer_shards``); a decode step embeds every slot, re-lays
+the hidden state to each layer's slot shard (its dp axes, where dp divides
+the slots) as the training forward re-lays it, gathers it whole before
+the head, and gathers the vocab-parallel logits over the vocab tp group,
+so every rank samples every slot's token from the full row (greedy ties
+break to the lowest index, as argmax on one row). The sampled tokens are
+broadcast from rank 0, so a temperature draw is every rank's. The
+batcher's clock-driven decisions agree across ranks through its `agree`
+reduction (`ContinuousBatcher`).
 """
 
 from __future__ import annotations
@@ -37,14 +53,19 @@ import torch
 
 from galvatron_tpu_torch.models import base as M
 from galvatron_tpu_torch.obs import telemetry as T
+from galvatron_tpu_torch.parallel import spec as S
+from galvatron_tpu_torch.parallel.mesh import vocab_axes
 from galvatron_tpu_torch.serve.kv_cache import (
     KVCacheConfig,
     bucket_pages,
     init_kv_cache,
+    layer_shards,
     length_bias,
     request_fits,
     write_prompt_kv,
 )
+
+_WHOLE = ((), (), ())  # a decode hidden state with every slot on every rank
 
 
 # ------------------------------------------------------------------- sampling
@@ -61,32 +82,74 @@ def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
     return ids.reshape(probs.shape[:-1]).to(torch.int32)
 
 
-# ------------------------------------------------------------ step factories
+class _Plan:
+    """What a step needs of a strategy on this rank: the serve layouts, the
+    cache shards and the vocab tp axes the logits are gathered over; without
+    `hp` and `mesh`, the whole model on one device (no layouts, no
+    collectives)."""
+
+    def __init__(self, cfg, kv_cfg: KVCacheConfig, hp=None, mesh=None):
+        self.mesh = mesh
+        self.layouts = self.shards = self.vocab = None
+        if hp is not None and mesh is not None:
+            self.layouts = M.serve_layouts(M.build_layouts(cfg, hp, mesh))
+            self.shards = layer_shards(cfg, kv_cfg, hp, mesh)
+            self.vocab = self.layouts.vocab
+            self.vocab_tp = tuple(vocab_axes(hp).tp)
+
+    def layer(self, li: int):
+        """(layout, cache shard) of layer `li`, or (None, None)."""
+        if self.layouts is None:
+            return None, None
+        return self.layouts.layers[li], self.shards[li]
+
+    def logits(self, top, x, cfg) -> torch.Tensor:
+        """The full (B, V) logits of the (B, 1, H) hidden state `x`: under a
+        strategy each rank's vocab columns, concatenated over the vocab tp
+        group."""
+        logits = M.lm_logits(top, x, cfg, self.vocab)[:, 0]
+        if self.mesh is None:
+            return logits
+        return S.gather_tensor(logits, ((), self.vocab_tp), self.mesh)
+
+    def agree(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Rank 0's sampled tokens on every rank."""
+        if self.mesh is not None and self.mesh.world_size > 1:
+            torch.distributed.broadcast(tokens, src=0)
+        return tokens
+
+
 def make_prefill_step(
     cfg: M.TransformerConfig,
     kv_cfg: KVCacheConfig,
     pages: int,
     temperature: float = 0.0,
+    hp=None,
+    mesh=None,
 ) -> Callable:
     """Build the prefill function for one `pages` bucket:
     (params, cache, tokens (1, ctx_b), prompt_len, slot, generator)
       -> (first_token (1,), last_logits (1, V)), writing the cache in place.
     Padding past prompt_len is masked in attention and in the sampled
     position; its garbage K/V lands in the cache but stays behind the
-    length mask until decode overwrites it."""
+    length mask until decode overwrites it. With `hp` and the rank's
+    `mesh`, the step runs under the strategy (see the module note);
+    every rank calls it."""
     ctx_b = pages * kv_cfg.page_size
+    plan = _Plan(cfg, kv_cfg, hp, mesh)
 
     def prefill_bucket(params, cache, tokens, prompt_len: int, slot: int, generator):
         device = tokens.device
         positions = torch.arange(ctx_b, device=device).expand(1, ctx_b)
         valid = (torch.arange(ctx_b, device=device) < prompt_len)[None, :]
         bias = M.padding_attn_bias(valid)
-        x = M.embed_tokens(params.embed, tokens, positions, cfg)
-        x, kvs = M.run_layers(params, x, positions, cfg, attn_bias=bias, collect_kv=True)
-        h_last = x[:, prompt_len - 1:prompt_len]
-        logits = M.lm_logits(params, h_last, cfg)[:, 0]
-        token = sample_token(logits, generator, temperature)
-        write_prompt_kv(cache, kvs, slot, prompt_len)
+        top = M.gathered(params, plan.vocab)
+        x = M.embed_tokens(top.embed, tokens, positions, cfg, plan.vocab)
+        x, kvs = M.run_layers(params, x, positions, cfg, attn_bias=bias, collect_kv=True,
+                              layouts=plan.layouts)
+        logits = plan.logits(top, x[:, prompt_len - 1:prompt_len], cfg)
+        token = plan.agree(sample_token(logits, generator, temperature))
+        write_prompt_kv(cache, kvs, slot, prompt_len, plan.shards)
         return token, logits
 
     return prefill_bucket
@@ -97,28 +160,43 @@ def make_decode_step(
     kv_cfg: KVCacheConfig,
     pages: int,
     temperature: float = 0.0,
+    hp=None,
+    mesh=None,
 ) -> Callable:
     """Build the single-token decode function for one `pages` bucket:
     (params, cache, tokens (slots,), active (slots,) bool, generator)
       -> (next_tokens (slots,), logits (slots, V)), updating the cache in
     place. All slots step together; inactive slots compute (and write
     masked garbage k/v at their frozen length) but neither advance `lengths`
-    nor change their token — their columns are overwritten at re-admission."""
+    nor change their token — their columns are overwritten at re-admission.
+    With `hp` and the rank's `mesh`, each layer runs on the rank's slot
+    shard and kv heads (see the module note); every rank calls it."""
     ctx_b = pages * kv_cfg.page_size
+    plan = _Plan(cfg, kv_cfg, hp, mesh)
 
     def decode(params, cache, tokens, active, generator):
         lengths = cache["lengths"]
         positions = lengths[:, None]
-        x = M.embed_tokens(params.embed, tokens[:, None], positions, cfg)
         bias = length_bias(lengths, ctx_b)
-        for li, lp in enumerate(params.layers):
+        top = M.gathered(params, plan.vocab)
+        x = M.embed_tokens(top.embed, tokens[:, None], positions, cfg, plan.vocab)
+        cur = _WHOLE
+        for li, lp in M.layer_items(params):
+            lay, sh = plan.layer(li)
+            rows = slice(None)
+            if sh is not None:
+                x = S.relayout(x, plan.mesh, cur, sh.act)
+                cur, rows = sh.act, slice(sh.start, sh.start + sh.slots)
             x, _, _ = M.decode_layer_forward(
-                lp, x, positions, cfg,
+                M.gathered(lp, lay), x, positions[rows], cfg,
                 k_cache=cache["k"][li][:, :ctx_b], v_cache=cache["v"][li][:, :ctx_b],
-                write_index=lengths, attn_bias=bias,
+                write_index=lengths[rows], attn_bias=bias[rows],
+                tp=lay.tp if lay is not None else None,
             )
-        logits = M.lm_logits(params, x, cfg)[:, 0]
-        next_tok = sample_token(logits, generator, temperature)
+        if plan.mesh is not None:
+            x = S.relayout(x, plan.mesh, cur, _WHOLE)
+        logits = plan.logits(top, x, cfg)
+        next_tok = plan.agree(sample_token(logits, generator, temperature))
         next_tok = torch.where(active, next_tok, tokens)
         cache["lengths"] = lengths + active.to(torch.int32)
         return next_tok, logits
@@ -130,7 +208,11 @@ def make_decode_step(
 class ServeEngine:
     """Owns the cache and the per-bucket step functions; host-level
     prefill/decode API returning numpy. The scheduler (ContinuousBatcher)
-    drives it. Runs under ``torch.inference_mode``."""
+    drives it. Runs under ``torch.inference_mode``. With `hp` and `mesh`
+    (the model's ``RankMesh``) `params` are this rank's shards of the
+    strategy's layout (``HybridParallelModel``'s stage-0 module), the cache
+    holds the rank's shard, and every rank of the world makes the same
+    calls in the same order."""
 
     def __init__(
         self,
@@ -140,13 +222,17 @@ class ServeEngine:
         device=None,
         temperature: float = 0.0,
         rng_seed: int = 0,
+        hp=None,
+        mesh=None,
     ):
         if cfg.head_type != "lm":
             raise ValueError("serving requires a causal LM head, got head_type=%r" % cfg.head_type)
         self.cfg, self.params, self.kv_cfg = cfg, params, kv_cfg
+        self.hp, self.mesh = hp, mesh
         self.device = torch.device(device) if device is not None else params.embed.wte.device
         self.temperature = temperature
-        self.cache = init_kv_cache(cfg, kv_cfg, self.device)
+        self.cache = init_kv_cache(cfg, kv_cfg, self.device,
+                                   shards=_Plan(cfg, kv_cfg, hp, mesh).shards)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(rng_seed))
         self._prefill_fns: Dict[int, Callable] = {}
@@ -155,13 +241,13 @@ class ServeEngine:
     def _prefill_fn(self, pages: int) -> Callable:
         if pages not in self._prefill_fns:
             self._prefill_fns[pages] = make_prefill_step(
-                self.cfg, self.kv_cfg, pages, self.temperature)
+                self.cfg, self.kv_cfg, pages, self.temperature, self.hp, self.mesh)
         return self._prefill_fns[pages]
 
     def _decode_fn(self, pages: int) -> Callable:
         if pages not in self._decode_fns:
             self._decode_fns[pages] = make_decode_step(
-                self.cfg, self.kv_cfg, pages, self.temperature)
+                self.cfg, self.kv_cfg, pages, self.temperature, self.hp, self.mesh)
         return self._decode_fns[pages]
 
     @torch.inference_mode()
@@ -216,6 +302,14 @@ class Request:
     @property
     def prompt_len(self) -> int:
         return len(self.prompt)
+
+    @property
+    def journal(self) -> List[int]:
+        """The request's full token history — prompt plus every sampled
+        token. Pure token sequences are replayable by construction: the
+        exact cache state of an in-flight request is reproduced by greedy
+        re-prefill of ``journal[:-1]`` (see ContinuousBatcher.migrate_to)."""
+        return list(self.prompt) + list(self.output)
 
     def ttft_ms(self) -> Optional[float]:
         if self.first_token_t is None:
@@ -301,9 +395,23 @@ class ContinuousBatcher:
     armed around every prefill and decode tick with learned deadlines; an
     optional ``control`` callback is polled once per scheduler iteration
     and may return a drain-reason string (``"SIGTERM"``, ``"watchdog"``) to
-    stop admission and wind down (the ``cli serve`` resilience hook). The
-    reference's live ``migrate_to`` waits for the serve layouts (ROADMAP
-    queue 1 item 3).
+    stop admission and wind down, or trigger a live migration itself via
+    ``migrate_to`` and return None (the ``cli serve`` resilience hook).
+
+    Agreement across ranks (a world of more than one, every rank running
+    this batcher over its part of the engine): the decisions that read a
+    clock — admission by arrival time, deadlines, the predicted-TTFT shed —
+    must be every rank's, or the ranks issue different collectives and
+    hang. With `agree` (an elementwise max over the ranks, e.g.
+    ``runtime.distributed.agree_max``) each scheduler iteration reduces
+    this rank's clock and the prefill and tick times measured since the
+    last iteration in one call: the iteration's decisions read the agreed
+    clock (frozen for the iteration: a request arriving during this
+    iteration's prefills is admitted at the next one, where the reference,
+    one controller, would admit it at once) and the shed model learns the
+    agreed (slowest rank's) costs. Without `agree` the clock is read live,
+    as the reference reads it. The control callback agrees its own
+    verdicts (``cli serve``).
     """
 
     def __init__(
@@ -317,6 +425,7 @@ class ContinuousBatcher:
         min_shed_samples: int = 3,
         watchdog=None,
         control: Optional[Callable[["ContinuousBatcher"], Optional[str]]] = None,
+        agree: Optional[Callable[[List[float]], List[float]]] = None,
     ):
         self.engine = engine
         self.kv_cfg = kv_cfg
@@ -328,6 +437,9 @@ class ContinuousBatcher:
         self.min_shed_samples = int(min_shed_samples)
         self.watchdog = watchdog
         self.control = control
+        self.agree = agree
+        self._t_iter = 0.0  # the agreed clock of this iteration (with `agree`)
+        self._unagreed: Dict[str, List[float]] = {"prefill": [], "tick": []}
         # host-side per-slot state (device lengths are never read back)
         self.slot_req: List[Optional[Request]] = [None] * kv_cfg.max_slots
         self.slot_len = np.zeros((kv_cfg.max_slots,), np.int64)
@@ -335,6 +447,7 @@ class ContinuousBatcher:
         self.decode_steps = 0
         self.completed: List[Request] = []
         self.shed: List[Request] = []
+        self.migrations = 0
         self.drain_reason: Optional[str] = None
         # learned cost medians feeding the predicted-TTFT shed model
         self._prefill_ms: deque = deque(maxlen=64)
@@ -344,6 +457,29 @@ class ContinuousBatcher:
         if self._t0 is None:
             self._t0 = self._clock()
         return self._clock() - self._t0
+
+    def _decision_now(self) -> float:
+        """The clock the scheduling decisions read: live, or with `agree`
+        the iteration's agreed clock."""
+        return self.now() if self.agree is None else self._t_iter
+
+    def _learn(self, kind: str, ms: float) -> None:
+        """A measured prefill or tick time into the shed model: at once, or
+        with `agree` at the next iteration's agreement."""
+        if self.agree is None:
+            (self._prefill_ms if kind == "prefill" else self._tick_ms).append(ms)
+        else:
+            self._unagreed[kind].append(ms)
+
+    def _agree_iteration(self) -> None:
+        """One reduction per scheduler iteration: the clock and the costs
+        measured since the last (every rank measured as many)."""
+        n = len(self._unagreed["prefill"])
+        vals = self.agree([self.now()] + self._unagreed["prefill"] + self._unagreed["tick"])
+        self._t_iter = vals[0]
+        self._prefill_ms.extend(vals[1:1 + n])
+        self._tick_ms.extend(vals[1 + n:])
+        self._unagreed = {"prefill": [], "tick": []}
 
     def _free_slot(self) -> Optional[int]:
         for i, r in enumerate(self.slot_req):
@@ -386,7 +522,7 @@ class ContinuousBatcher:
         request + (queue depth ahead) × (median prefill + median tick) —
         every request ahead costs its own prefill and roughly one decode
         tick before a slot frees."""
-        waited = max(0.0, (self.now() - req.arrival_s) * 1000.0)
+        waited = max(0.0, (self._decision_now() - req.arrival_s) * 1000.0)
         mp = self._median(self._prefill_ms)
         mt = self._median(self._tick_ms)
         return waited + mp + queue_pos * (mp + mt)
@@ -397,7 +533,7 @@ class ContinuousBatcher:
         Rebuilds the deque preserving FIFO order of the survivors."""
         if not pending:
             return
-        now = self.now()
+        now = self._decision_now()
         learned = (len(self._prefill_ms) >= self.min_shed_samples
                    and len(self._tick_ms) >= self.min_shed_samples)
         keep: List[Request] = []
@@ -432,7 +568,7 @@ class ContinuousBatcher:
     def _admit(self, pending: deque) -> None:
         while pending:
             req = pending[0]
-            if req.arrival_s > self.now():
+            if req.arrival_s > self._decision_now():
                 break
             slot = self._free_slot()
             if slot is None:
@@ -458,7 +594,7 @@ class ContinuousBatcher:
                              error=repr(e)[:200])
                 continue
             prefill_ms = (self.now() - req.prefill_start_t) * 1000.0
-            self._prefill_ms.append(prefill_ms)
+            self._learn("prefill", prefill_ms)
             if self.watchdog is not None:
                 self.watchdog.observe_step_time(prefill_ms)
                 self.watchdog.progress()
@@ -523,7 +659,7 @@ class ContinuousBatcher:
             self._abandon_active("decode_error")
             raise
         step_ms = (self.now() - t_start) * 1000.0
-        self._tick_ms.append(step_ms)
+        self._learn("tick", step_ms)
         if self.watchdog is not None:
             self.watchdog.observe_step_time(step_ms)
             self.watchdog.progress()
@@ -588,26 +724,80 @@ class ContinuousBatcher:
             "active_completed": len(self.completed) - completed_before,
         }
 
+    # ----------------------------------------------------------- migration
+    def migrate_to(self, engine, kv_cfg: Optional[KVCacheConfig] = None) -> Dict[str, int]:
+        """Swap in a new engine (typically rebuilt on a degraded world with a
+        re-searched strategy) and re-prefill every in-flight request from
+        its token journal into the new KV cache.
+
+        Replay math: after k sampled tokens the old cache holds the K/V of
+        ``prompt + output[:-1]`` (the last sampled token has not been
+        embedded yet — it is the pending `slot_tok`). Greedy prefill of that
+        prefix therefore reproduces the exact cache state AND re-samples
+        ``output[-1]``; the re-sampled token is discarded and `slot_tok` is
+        restored, so the greedy continuation is identical to an
+        uninterrupted run. Requests that no longer fit the new cache
+        geometry shed retryable instead of raising."""
+        if self.watchdog is not None:
+            self.watchdog.disarm()
+        old_slots = [(r, int(self.slot_len[i]), int(self.slot_tok[i]))
+                     for i, r in enumerate(self.slot_req) if r is not None]
+        self.engine = engine
+        if kv_cfg is not None:
+            self.kv_cfg = kv_cfg
+        self.slot_req = [None] * self.kv_cfg.max_slots
+        self.slot_len = np.zeros((self.kv_cfg.max_slots,), np.int64)
+        self.slot_tok = np.zeros((self.kv_cfg.max_slots,), np.int32)
+        replayed = shed = 0
+        for req, _, last_tok in old_slots:
+            replay = req.journal[:-1]
+            slot = self._free_slot()
+            remaining = req.max_new_tokens - len(req.output) + 1
+            if slot is None or not request_fits(self.kv_cfg, len(replay), remaining):
+                self._reject(req, "migrate_infeasible", retryable=True)
+                shed += 1
+                continue
+            try:
+                self.engine.prefill(replay, slot)  # re-sampled token == last_tok (greedy); discarded
+            except Exception as e:
+                self._reject(req, "migrate_prefill_error", retryable=True,
+                             error=repr(e)[:200])
+                shed += 1
+                continue
+            req.slot = slot
+            self.slot_req[slot] = req
+            self.slot_len[slot] = len(replay)
+            self.slot_tok[slot] = last_tok
+            replayed += 1
+        self.migrations += 1
+        return {"replayed": replayed, "shed": shed}
+
     def run(self, requests: Sequence[Request]) -> List[Request]:
         """Drive the load to completion; returns the completed requests in
         completion order. Shed/failed requests land in ``self.shed``."""
         pending = deque(sorted(requests, key=lambda r: (r.arrival_s, r.rid)))
         self.now()  # start the clock
-        while pending or any(r is not None for r in self.slot_req):
-            if self.control is not None:
-                verdict = self.control(self)
-                if verdict:
-                    self.drain(str(verdict), pending)
-                    break
-            self._shed_scan(pending)
-            self._admit(pending)
-            if any(r is not None for r in self.slot_req):
-                self._decode_tick()
-            elif pending:
-                # idle: wait out the arrival gap (real clock) / spin (fake)
-                gap = pending[0].arrival_s - self.now()
-                if gap > 0 and self._clock is time.monotonic:
-                    time.sleep(min(gap, 0.05))
+        try:
+            while pending or any(r is not None for r in self.slot_req):
+                if self.control is not None:
+                    verdict = self.control(self)
+                    if verdict:
+                        self.drain(str(verdict), pending)
+                        break
+                if self.agree is not None:
+                    self._agree_iteration()
+                self._shed_scan(pending)
+                self._admit(pending)
+                if any(r is not None for r in self.slot_req):
+                    self._decode_tick()
+                elif pending:
+                    # idle: wait out the arrival gap (real clock) / spin (fake)
+                    gap = pending[0].arrival_s - self.now()
+                    if gap > 0 and self._clock is time.monotonic:
+                        time.sleep(min(gap, 0.05))
+        finally:
+            if self.watchdog is not None:
+                self.watchdog.disarm()
         return self.completed
 
 

@@ -64,20 +64,20 @@ def test_default_device_is_cuda_and_never_falls_back():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--xla_trace", "trace_dir"], ["--mesh_probe_interval", "1"],
-    ["--migrate_on_degrade", "1"], ["--compile_cache", "1"],
+    ["--xla_trace", "trace_dir"], ["--compile_cache_dir", "cache"],
+    ["--num_processes", "2"], ["--compile_cache", "1"],
 ])
 def test_unported_flags_are_refused(flag):
-    """Flags of what the port does not have (the XLA trace, the compilation
-    cache) and serve migration, which waits for the serve layouts: the
-    probe interval and --migrate_on_degrade parse only as 0."""
+    """Flags of what the port does not have: the XLA trace, the compilation
+    cache and the reference's multi-host bootstrap (the port's world comes
+    from torchrun)."""
     with pytest.raises(SystemExit):
         S.initialize_galvatron(argv=TINY + flag)
 
 
 @pytest.mark.parametrize("flag", [["--watchdog", "5", "--watchdog_factor", "3",
                                    "--watchdog_startup_s", "60"],
-                                  ["--mesh_probe_interval", "0", "--migrate_on_degrade", "0"]])
+                                  ["--mesh_probe_interval", "2.5", "--migrate_on_degrade", "1"]])
 def test_serve_resilience_flags_parse_as_in_the_reference(flag):
     from galvatron_tpu.cli.arguments import initialize_galvatron as jax_parse
 
@@ -91,8 +91,7 @@ def test_serve_resilience_flags_parse_as_in_the_reference(flag):
                                   ["--elastic_memory_gb", "16"]])
 def test_elastic_flags_parse_as_in_the_reference(flag):
     """Serve parses the degraded-mesh flags as the JAX package's parser
-    does (they act only with --migrate_on_degrade, which waits for the
-    serve layouts)."""
+    does (they act with --migrate_on_degrade)."""
     from galvatron_tpu.cli.arguments import initialize_galvatron as jax_parse
 
     got, want = S.initialize_galvatron(argv=TINY + flag), jax_parse(mode="serve", argv=TINY + flag)
@@ -101,7 +100,8 @@ def test_elastic_flags_parse_as_in_the_reference(flag):
 
 
 def test_multi_device_layout_is_refused_with_value_error():
-    with pytest.raises(ValueError, match="world size 1 only"):
+    """A strategy for more ranks than the process group has (no torchrun)."""
+    with pytest.raises(ValueError, match="launch with torchrun --nproc_per_node 2"):
         S.main(TINY + ["--device", "cpu", "--world_size", "2"])
 
 

@@ -334,9 +334,12 @@ def _hp(kw, world, num_layers):
                                 layers=[LayerStrategy(**s) for s in layers], **kw)
 
 
-def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "cpu") -> None:
+def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "cpu",
+            serve_ckpt: str = None) -> None:
     """One rank: every case of `world` on `device_name` (``cpu``: gloo;
-    ``cuda``: NCCL, one GPU per rank, fp32 without TF32)."""
+    ``cuda``: NCCL, one GPU per rank, fp32 without TF32). `serve_ckpt` is
+    the world-2 worker's train checkpoint (its ``ckpt_w2``), which the
+    world-4 worker serves when given."""
     import torch
 
     torch.set_num_threads(1)
@@ -416,6 +419,15 @@ def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "
         results["%s/loss" % name] = np.float64(loss)
         for n, g in grads.items():
             results["%s/grad/%s" % (name, n)] = g.cpu().numpy()
+    serve_full = {k[len(SERVE_CKPT) + 1:]: torch.from_numpy(data[k]).to(dev)
+                  for k in data.files if k.startswith(SERVE_CKPT + "/")}
+    serve_ckpt_dir = os.path.join(os.path.dirname(inputs), SERVE_CKPT)
+    for name, kw in SERVE_CASES.get(world, {}).items():
+        results.update(_serve_engine_case(name, kw, world, dev, device_name,
+                                          os.path.dirname(out), serve_full, serve_ckpt_dir))
+    if world == 4 and serve_ckpt:
+        results.update(_serve_load_case(os.path.join(os.path.dirname(out), "serve_load_w4"),
+                                        serve_ckpt, 4, device_name))
 
     if world == 4:
         from galvatron_tpu_torch.config.strategy import HybridParallelConfig
@@ -514,6 +526,12 @@ def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "
         results.update(_pipeline_checkpoint_cases(
             os.path.join(os.path.dirname(out), "ckpt_pp_w2"), device_name))
         results.update(_h2g_case(os.path.dirname(inputs), device_name))
+        results.update(_serve_load_case(os.path.join(os.path.dirname(out), "serve_load_w2"),
+                                        os.path.join(os.path.dirname(out), "ckpt_w2"), 2,
+                                        device_name))
+        results.update(_serve_agree_case(dev, world, serve_full))
+        results.update(_serve_gls015_case(os.path.join(os.path.dirname(out), "serve_gls015"),
+                                          device_name, serve_ckpt_dir))
 
     results.update(_hardware_cases(os.path.join(os.path.dirname(out), "hw_w%d" % world), dev))
 
@@ -533,6 +551,16 @@ def _worker(world: int, inputs: str, out: str, fault: bool, device_name: str = "
         if vote is None:
             return
         results.update(vote)
+        # on the survivors: a serve under dp 3 (8 slots, replicated) loses a
+        # rank and goes on at world 2 under tp 2; then dp 2 (the slots
+        # split) loses one and goes on alone (the params' layout kept)
+        for key, source, target in (("serve_mig3", _serve_json(), _serve_json("2,2,2,2")),
+                                    ("serve_mig2", _serve_json(), _serve_json())):
+            mig = _serve_migration_case(os.path.join(os.path.dirname(out), key), device_name,
+                                        key, source, target, 8, serve_ckpt_dir)
+            if mig is None:
+                return
+            results.update(mig)
 
     if torch.distributed.get_rank() == 0:
         np.savez(out, **results)
@@ -689,15 +717,16 @@ def _checkpoint_cases(ckpt_dir: str, device_name: str, strategy=None,
 
 
 class fp32_compute:
-    """``cli train`` with fp32 compute (the CLI computes in bf16; the
-    layout trajectory limits hold fp32 runs): the model config's compute
-    dtype replaced while the context is open."""
+    """``cli train`` and ``cli serve`` with fp32 compute (the CLI computes
+    in bf16; the layout trajectory limits hold fp32 runs): the model
+    config's compute dtype replaced while the context is open."""
 
     def __enter__(self):
         import dataclasses
 
         import torch
 
+        from galvatron_tpu_torch.cli import serve as S
         from galvatron_tpu_torch.cli import train as T
 
         self.orig = orig = T.model_config_from_args
@@ -705,12 +734,13 @@ class fp32_compute:
         def fp32(args):
             fam, cfg = orig(args)
             return fam, dataclasses.replace(cfg, compute_dtype=torch.float32)
-        T.model_config_from_args = fp32
+        T.model_config_from_args = S.model_config_from_args = fp32
 
     def __exit__(self, *exc):
+        from galvatron_tpu_torch.cli import serve as S
         from galvatron_tpu_torch.cli import train as T
 
-        T.model_config_from_args = self.orig
+        T.model_config_from_args = S.model_config_from_args = self.orig
 
 
 def _elastic_cases(ckpt_dir: str, name: str, strategy: dict, ref_losses,
@@ -1078,6 +1108,373 @@ def _pipeline_checkpoint_cases(ckpt_dir: str, device_name: str) -> dict:
 
 
 # ==================================================================== reference
+
+# ------------------------------------------------------------------ serving
+# a GQA llama with two kv heads: tp 2 splits them, tp 4 replicates the kv
+# projection (each rank keeps the kv head its query heads share); its
+# weights are drawn on the CPU from SERVE_SEED (a CUDA generator draws
+# others) and reach the workers in the weights file and, for ``cli serve``,
+# as a params-only checkpoint (SERVE_CKPT)
+SERVE_SEED = 4
+SERVE_CKPT = "serve_llama"  # its params-only step 0 beside the weights (``cli serve --load``)
+SERVE_LLAMA = dict(hidden_size=64, num_heads=4, num_kv_heads=2, num_layers=4, ffn_hidden=96,
+                   vocab_size=V, max_seq_len=32)
+SERVE_PROMPTS = [[5, 9, 2], [17, 3, 44, 8, 1], [60, 7], [11, 3, 29, 6, 50, 2, 9]]
+SERVE_NEW = 4  # tokens per prompt: the prefill's and three decode steps'
+SERVE_PAGE, SERVE_PAGES = 8, 4
+SERVE_ATOL = 2e-5  # the reference's decode-vs-recompute slack (fp32)
+# per world: the layouts the engine runs (uniform kwargs or per-layer
+# lists; "slots" the cache's, default one per prompt)
+SERVE_CASES = {
+    4: {"serve_tp4_kv_replicated": dict(tp=4),
+        "serve_dp4": dict(),
+        "serve_tp2_zero3": dict(tp=2, sdp=1, vocab_tp=4),
+        "serve_mixed": dict(layers=[_L(tp=4), _L(fsdp=1), _L(tp=2, tp_consec=0),
+                                    _L(tp=2, fsdp=1)], vocab_tp=2)},
+    2: {"serve_tp2": dict(tp=2, vocab_tp=2),
+        "serve_dp2": dict(),
+        "serve_zero3": dict(sdp=1, embed_sdp=1),
+        "serve_mixed": dict(layers=[_L(tp=2), _L(fsdp=1), _L(tp=2, fsdp=1), _L()]),
+        "serve_offgrid_slots": dict(sdp=1, slots=3)},
+}
+SERVE_CASE_IDS = [(w, n) for w in sorted(SERVE_CASES, reverse=True) for n in SERVE_CASES[w]]
+# ``cli serve`` of SERVE_LLAMA in fp32 (`fp32_compute`; with ``--load`` of
+# SERVE_CKPT): 8 requests, up to 12 prompt and 4 new tokens in a
+# 32-token context
+SERVE_ARGV = ["--model_type", "llama", "--set_model_config_manually", "1", "--hidden_size", "64",
+              "--num_attention_heads", "4", "--num_kv_heads", "2", "--ffn_hidden_size", "96",
+              "--num_layers", "4", "--vocab_size", str(V), "--seq_length", "32",
+              "--serve_page_size", str(SERVE_PAGE), "--num_requests", "8",
+              "--prompt_len_min", "3", "--prompt_len_max", "12", "--max_new_tokens", "4",
+              "--seed", str(SERVE_SEED), "--mixed_precision", "fp32",
+              "--global_train_batch_size", "12"]
+SERVE_LOAD = dict(n=8, seed=SERVE_SEED, prompt_len_range=(3, 12), max_new_tokens=4)
+# the serve layouts of the world-2 train checkpoint (CKPT_STRATEGY's GPT)
+CKPT_MODEL_ARGV = CKPT_ARGV[:CKPT_ARGV.index("--global_train_batch_size")]
+SERVE_CKPT_STRATEGY = {
+    2: {"pp_deg": 1, "tp_sizes_enc": "2,1,2,1", "tp_consecutive_flags": "1,1,0,1",
+        "dp_types_enc": "0,1,1,0", "vtp": 2, "global_bsz": 4},
+    4: {"pp_deg": 1, "tp_sizes_enc": "2,4,1,2", "tp_consecutive_flags": "1,1,1,0",
+        "dp_types_enc": "1,0,1,0", "vtp": 4, "global_bsz": 4},
+}
+
+
+def _serve_json(tp="1,1,1,1", dp_types="0,0,0,0"):
+    return {"pp_deg": 1, "tp_sizes_enc": tp, "tp_consecutive_flags": "1,1,1,1",
+            "dp_types_enc": dp_types, "global_bsz": 12}
+
+
+def _case_json(kw: dict) -> dict:
+    """A SERVE_CASES layout as the strategy JSON ``cli serve`` reads."""
+    layers = kw.get("layers") or [dict(tp=kw.get("tp", 1), fsdp=kw.get("sdp", 0))] * 4
+    enc = lambda key, default: ",".join(str(l.get(key, default)) for l in layers)  # noqa: E731
+    return {"pp_deg": 1, "tp_sizes_enc": enc("tp", 1), "tp_consecutive_flags": enc("tp_consec", 1),
+            "dp_types_enc": enc("fsdp", 0), "vtp": kw.get("vocab_tp", 1),
+            "embed_sdp": kw.get("embed_sdp", 0), "global_bsz": 12}
+
+
+def _serve_model(dev, kw, world, full):
+    """(cfg, hp, model, params) of a SERVE_CASES layout: SERVE_LLAMA in fp32,
+    this rank's shards of the `full` weights."""
+    import torch
+
+    from galvatron_tpu_torch.models.llama import llama_config
+    from galvatron_tpu_torch.runtime.model_api import construct_hybrid_parallel_model
+
+    cfg = llama_config("llama-0.3b", compute_dtype=torch.float32, **SERVE_LLAMA)
+    kw = {k: v for k, v in kw.items() if k != "slots"}
+    hp = _hp(kw, world, cfg.num_layers)
+    model = construct_hybrid_parallel_model(cfg, hp, dev, mode="serve")
+    return cfg, hp, model, model.shard_params(full)[0]
+
+
+def _serve_engine_case(name: str, kw: dict, world: int, dev, device_name: str,
+                       tmp_dir: str, full, ckpt: str) -> dict:
+    """The engine under a serve layout: each prompt of SERVE_PROMPTS
+    prefilled into its slot, then SERVE_NEW - 1 decode steps of every slot;
+    the logits of each step (prefill rows, then decode rows) and the greedy
+    tokens; then ``cli serve``'s completed tokens under the layout."""
+    from galvatron_tpu_torch.serve.engine import ServeEngine
+    from galvatron_tpu_torch.serve.kv_cache import KVCacheConfig, bucket_pages
+
+    cfg, hp, model, params = _serve_model(dev, kw, world, full)
+    slots = kw.get("slots", len(SERVE_PROMPTS))
+    prompts = SERVE_PROMPTS[:slots]
+    kv = KVCacheConfig(max_slots=slots, page_size=SERVE_PAGE, max_pages=SERVE_PAGES)
+    eng = ServeEngine(cfg, params, kv, device=dev, hp=hp, mesh=model.mesh)
+    cur, lens = np.zeros(slots, np.int32), np.zeros(slots, np.int64)
+    rows, toks = [], []
+    for slot, prompt in enumerate(prompts):
+        tok, row = eng.prefill(prompt, slot)
+        cur[slot], lens[slot] = tok, len(prompt)
+        rows.append(row)
+    logits, tokens = [np.stack(rows)], [cur.copy()]
+    for _ in range(SERVE_NEW - 1):
+        pages = bucket_pages(int(lens.max()), SERVE_PAGE, SERVE_PAGES)
+        nxt, lg = eng.decode_step(cur, np.ones(slots, bool), pages)
+        logits.append(lg)
+        tokens.append(nxt)
+        cur, lens = nxt.astype(np.int32), lens + 1
+    del eng, params, model
+    # ``cli serve`` under the same layout (as its strategy JSON), its load
+    # of SERVE_LOAD
+    strategy = _shared_json(os.path.join(tmp_dir, "%s_w%d.json" % (name, world)), _case_json(kw))
+    summary = _serve_cli(SERVE_ARGV + ["--device", device_name, "--load", ckpt,
+                                       "--galvatron_config_path", strategy,
+                                       "--serve_max_concurrency", str(slots)])
+    return {"%s/logits" % name: np.stack(logits), "%s/tokens" % name: np.stack(tokens),
+            "%s/cli" % name: _serve_outputs(summary)}
+
+
+def _serve_cli(argv, hooks=None, telemetry=None):
+    """``cli serve`` in this process's group, fp32 compute; returns the
+    summary, or the exit code `main` ends with."""
+    from galvatron_tpu_torch.cli import serve as S
+
+    args = S.initialize_galvatron(argv=list(argv) + (["--telemetry", telemetry]
+                                                     if telemetry else []))
+    args.fault_hooks = hooks
+    orig = S.initialize_galvatron
+    S.initialize_galvatron = lambda argv=None: args
+    try:
+        with fp32_compute():
+            return S.main()
+    except SystemExit as e:
+        return int(e.code)
+    finally:
+        S.initialize_galvatron = orig
+
+
+def _serve_outputs(summary) -> np.ndarray:
+    """A summary's completed requests' tokens, as rows [rid, tokens...]
+    (-1 padded)."""
+    out = summary["outputs"]
+    width = 1 + max(len(t) for t in out.values())
+    rows = np.full((len(out), width), -1, np.int64)
+    for i, rid in enumerate(sorted(out)):
+        rows[i, 0], rows[i, 1:1 + len(out[rid])] = rid, out[rid]
+    return rows
+
+
+def _outputs(rows):
+    """`_serve_outputs`' rows back as rid -> tokens."""
+    return {int(r[0]): [int(t) for t in r[1:] if t >= 0] for r in rows}
+
+
+def _serve_load_case(tmp_dir: str, ckpt_dir: str, world: int, device_name: str) -> dict:
+    """``cli serve --load`` of the world-2 train checkpoint (step 3) under
+    this world's SERVE_CKPT_STRATEGY: each rank restores only its slices."""
+    strategy = _shared_json(tmp_dir + ".json", SERVE_CKPT_STRATEGY[world])
+    summary = _serve_cli(CKPT_MODEL_ARGV + [
+        "--device", device_name, "--world_size", str(world), "--load", ckpt_dir,
+        "--load_iteration", "3", "--galvatron_config_path", strategy,
+        "--serve_page_size", str(SERVE_PAGE), "--serve_max_concurrency", "4",
+        "--num_requests", "6", "--prompt_len_min", "3", "--prompt_len_max", "12",
+        "--max_new_tokens", str(SERVE_LOAD["max_new_tokens"]), "--seed", str(SERVE_SEED),
+        "--mixed_precision", "fp32", "--global_train_batch_size", "4"])
+    return {"serve_load/outputs": _serve_outputs(summary),
+            "serve_load/cross": np.bool_(summary["checkpoint_restore"].get("cross_strategy")),
+            "serve_load/world": np.int64(summary["world_size"])}
+
+
+def _serve_agree_case(dev, world: int, full) -> dict:
+    """The batcher on every rank over SERVE_CASES' tp 2 engine, each rank
+    reading its own skewed clock (offset and rate), with arrivals,
+    deadlines, the predicted-TTFT shed and the pending bound: through the
+    agreement every rank admits, sheds and decodes alike (any difference
+    would hang the collectives). Every rank's outcome is gathered."""
+    import torch
+
+    from galvatron_tpu_torch.runtime import distributed
+    from galvatron_tpu_torch.serve import engine as E
+    from galvatron_tpu_torch.serve.kv_cache import KVCacheConfig
+
+    cfg, hp, model, params = _serve_model(dev, SERVE_CASES[2]["serve_tp2"], world, full)
+    kv = KVCacheConfig(max_slots=2, page_size=SERVE_PAGE, max_pages=SERVE_PAGES)
+    rank = distributed.rank()
+    clock = {"t": 50.0 * rank}
+
+    def skewed():
+        clock["t"] += 0.002 * (1 + 3 * rank)
+        return clock["t"]
+
+    # ``cli serve``'s load (the reference's prompts), arriving 50 ms apart
+    reqs = E.synthetic_requests(SERVE_LOAD["n"], vocab_size=V, seed=SERVE_LOAD["seed"],
+                                prompt_len_range=SERVE_LOAD["prompt_len_range"],
+                                max_new_tokens=SERVE_LOAD["max_new_tokens"])
+    for r in reqs:
+        r.arrival_s = 0.05 * r.rid
+    for r in reqs[::4]:
+        r.deadline_s = r.arrival_s + 0.03
+    b = E.ContinuousBatcher(E.ServeEngine(cfg, params, kv, device=dev, hp=hp, mesh=model.mesh),
+                            kv, clock=skewed, p99_ttft_ms=300.0, max_pending=4,
+                            min_shed_samples=2,
+                            agree=lambda v: distributed.agree_max(v, dev))
+    done = b.run(reqs)
+    mine = (sorted((r.rid, tuple(r.output)) for r in done),
+            sorted((r.rid, r.finish_reason) for r in b.shed), b.decode_steps)
+    every = [None] * world
+    torch.distributed.all_gather_object(every, mine)
+    return {"serve_agree/same": np.bool_(all(x == every[0] for x in every)),
+            "serve_agree/outputs": _serve_outputs({"outputs": dict(every[0][0])}),
+            "serve_agree/shed": np.asarray(json.dumps(every[0][1]))}
+
+
+def _serve_gls015_case(tmp_dir: str, device_name: str, ckpt: str) -> dict:
+    """At world 2 the probe loses rank 1 at decode step 2; the re-search for
+    the one survivor under an impossible budget refuses (GLS015): the
+    batcher drains and ``cli serve`` exits 2 on both ranks."""
+    from galvatron_tpu_torch.runtime import distributed
+    from tests import torch_fault_injection as FI
+
+    strategy = _shared_json(tmp_dir + ".json", _serve_json("2,2,2,2"))
+    tele = tmp_dir + ".jsonl"
+    code = _serve_cli(SERVE_ARGV + [
+        "--device", device_name, "--load", ckpt, "--galvatron_config_path", strategy,
+        "--serve_max_concurrency", "4", "--mesh_probe_interval", "0.000001",
+        "--migrate_on_degrade", "1", "--elastic_memory_gb", "1e-9"],
+        FI.device_loss_hooks(2, live=1), telemetry=tele)
+    drains = []
+    if distributed.rank() == 0:
+        with open(tele) as f:
+            drains = [e for e in map(json.loads, f) if e.get("type") == "serve_drain"]
+    return {"serve_gls015/exit": np.int64(code),
+            "serve_gls015/drains": np.asarray(json.dumps(drains))}
+
+
+def _serve_migration_case(tmp_dir: str, device_name: str, key: str, source: dict,
+                          target: dict, slots: int, ckpt: str):
+    """``cli serve`` under `source` whose mesh probe loses the last rank at
+    decode step 2: ``--migrate_on_degrade`` moves the params onto `target`
+    for the survivors (``--elastic_strategy``), rebuilds the cache and
+    journal-replays the in-flight requests; the last rank leaves. Returns
+    None on the rank that left."""
+    from galvatron_tpu_torch.runtime import distributed
+    from tests import torch_fault_injection as FI
+
+    world = distributed.world_size()
+    src = _shared_json(tmp_dir + "_from.json", source)
+    dst = _shared_json(tmp_dir + "_to.json", target)
+    summary = _serve_cli(SERVE_ARGV + [
+        "--device", device_name, "--load", ckpt, "--galvatron_config_path", src,
+        "--serve_max_concurrency", str(slots), "--mesh_probe_interval", "0.000001",
+        "--migrate_on_degrade", "1", "--elastic_strategy", dst],
+        FI.device_loss_hooks(2, live=world - 1))
+    if summary.get("departed"):
+        return None
+    mig = summary["migrations"]
+    return {"%s/outputs" % key: _serve_outputs(summary),
+            "%s/shed" % key: np.int64(summary["shed"]),
+            "%s/migration" % key: np.asarray(json.dumps(mig)),
+            "%s/worlds" % key: np.asarray([world, summary["world_size"]])}
+
+
+def _jax_tree(flat):
+    """A JAX parameter tree from state-dict names (``layers.<i>.`` a list)."""
+    tree = {}
+    for name, v in flat.items():
+        node, parts = tree, name.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = np.asarray(v, np.float32)
+    if "layers" in tree:
+        tree["layers"] = [tree["layers"][k] for k in sorted(tree["layers"], key=int)]
+    return tree
+
+
+def _serve_reference(tmp_dir):
+    """The JAX package's engines on SERVE_LLAMA (SERVE_SEED's weights, drawn
+    on the CPU): SERVE_PROMPTS through the unsharded engine and through the
+    engine under tp 2 on its 8-device CPU mesh, the full-forward greedy
+    recompute of each step, and the continuous batcher over ``cli serve``'s
+    load; and the weights for the workers' file (also written as SERVE_CKPT
+    beside it)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from galvatron_tpu.config.strategy import HybridParallelConfig as JHP
+    from galvatron_tpu.models import base as JM
+    from galvatron_tpu.models.llama import llama_config as jax_llama
+    from galvatron_tpu.runtime import model_api as JAPI
+    from galvatron_tpu.serve import engine as JE
+    from galvatron_tpu.serve.kv_cache import KVCacheConfig, bucket_pages
+    from galvatron_tpu_torch.models import base as TM
+    from galvatron_tpu_torch.models.llama import llama_config
+
+    from galvatron_tpu_torch.config.strategy import HybridParallelConfig
+    from galvatron_tpu_torch.runtime.checkpoint import save_checkpoint
+    from galvatron_tpu_torch.runtime.provenance import build_provenance
+
+    gen = torch.Generator()
+    gen.manual_seed(SERVE_SEED)
+    tcfg = llama_config("llama-0.3b", compute_dtype=torch.float32, **SERVE_LLAMA)
+    params = TM.init_model_params(tcfg, gen, "cpu")
+    hp = HybridParallelConfig.uniform(1, tcfg.num_layers, global_bsz=1)
+    save_checkpoint(os.path.join(tmp_dir, SERVE_CKPT), 0, params, hp=hp,
+                    train_meta={"iteration": 0}, provenance=build_provenance(hp, tcfg))
+    flat = {n: p.detach().numpy() for n, p in params.named_parameters()}
+    tree = _jax_tree(flat)
+    cfg = jax_llama("llama-0.3b", compute_dtype=jnp.float32, **SERVE_LLAMA)
+    kv = KVCacheConfig(max_slots=len(SERVE_PROMPTS), page_size=SERVE_PAGE,
+                       max_pages=SERVE_PAGES)
+
+    def engine_steps(eng):
+        cur, lens = np.zeros(kv.max_slots, np.int32), np.zeros(kv.max_slots, np.int64)
+        rows = []
+        for slot, prompt in enumerate(SERVE_PROMPTS):
+            tok, row = eng.prefill(prompt, slot)
+            cur[slot], lens[slot] = tok, len(prompt)
+            rows.append(np.asarray(row))
+        logits, tokens = [np.stack(rows)], [cur.copy()]
+        for _ in range(SERVE_NEW - 1):
+            nxt, lg = eng.decode_step(cur, np.ones(kv.max_slots, bool),
+                                      bucket_pages(int(lens.max()), SERVE_PAGE, SERVE_PAGES))
+            logits.append(np.asarray(lg))
+            tokens.append(np.asarray(nxt))
+            cur, lens = np.asarray(nxt, np.int32), lens + 1
+        return np.stack(logits), np.stack(tokens)
+
+    # the training forward over each sequence so far, padded to one length
+    # (one compile): causal, so the last real row sees no padding
+    width = max(len(p) for p in SERVE_PROMPTS) + SERVE_NEW
+    fwd = jax.jit(lambda p, x: JM.lm_logits(p, JM.run_layers(p, JM.embed_tokens(
+        p["embed"], x, jnp.arange(width)[None], cfg), jnp.arange(width)[None], cfg), cfg))
+    recompute = np.zeros((SERVE_NEW, len(SERVE_PROMPTS), V), np.float32)
+    for i, prompt in enumerate(SERVE_PROMPTS):
+        toks = list(prompt)
+        for step in range(SERVE_NEW):
+            row = np.asarray(fwd(tree, jnp.asarray([toks + [0] * (width - len(toks))],
+                                                   jnp.int32)))[0, len(toks) - 1]
+            recompute[step, i] = row
+            toks.append(int(np.argmax(row)))
+    out = {"recompute": recompute}
+    out["logits"], out["tokens"] = engine_steps(JE.ServeEngine(cfg, tree, kv))
+    hp = JHP.uniform(8, cfg.num_layers, tp=2, global_bsz=8)
+    model = JAPI.construct_hybrid_parallel_model(cfg, hp, jax.devices()[:8])
+    out["logits8"], out["tokens8"] = engine_steps(JE.ServeEngine(
+        cfg, jax.device_put(tree, model.shardings()), kv, hp=hp, mesh=model.mesh))
+    # the engine's cache geometry: its compiled steps are reused
+    out["load"] = _jax_batcher_outputs(cfg, tree, slots=kv.max_slots)
+    return out, {"%s/%s" % (SERVE_CKPT, n): v for n, v in flat.items()}
+
+
+def _jax_batcher_outputs(cfg, tree, slots, n=SERVE_LOAD["n"], max_seq=32):
+    """rid -> tokens of the JAX package's batcher over ``cli serve``'s
+    synthetic load (the CLI's cache geometry and prompt-length cap)."""
+    from galvatron_tpu.serve import engine as JE
+    from galvatron_tpu.serve.kv_cache import KVCacheConfig
+
+    kv = KVCacheConfig(max_slots=slots, page_size=SERVE_PAGE, max_pages=-(-max_seq // SERVE_PAGE))
+    lo, hi = SERVE_LOAD["prompt_len_range"]
+    new = SERVE_LOAD["max_new_tokens"]
+    reqs = JE.synthetic_requests(n, vocab_size=cfg.vocab_size, seed=SERVE_LOAD["seed"],
+                                 prompt_len_range=(lo, max(lo, min(hi, kv.max_ctx - new))),
+                                 max_new_tokens=new)
+    done = JE.ContinuousBatcher(JE.ServeEngine(cfg, tree, kv), kv).run(reqs)
+    return {r.rid: [int(t) for t in r.output] for r in done}
+
+
 def _reference(tmp_dir):
     """The JAX package's unsharded loss, gradients and trajectory, and the
     weights file the workers load."""
@@ -1179,11 +1576,13 @@ def _reference(tmp_dir):
         flat = {}
         _flatten(jax.device_get(t), "", flat)
         traj.update({"%s/%s" % (kind, n): np.asarray(v) for n, v in flat.items()})
+    serve, serve_weights = _serve_reference(tmp_dir)
+    weights.update(serve_weights)
     inputs = os.path.join(tmp_dir, "weights.npz")
     np.savez(inputs, **weights)
     _loop_plan(tmp_dir)
     _h2g_checkpoint(tmp_dir)
-    return dict(models=out, traj=traj, inputs=inputs, divergence=divergence)
+    return dict(models=out, traj=traj, inputs=inputs, divergence=divergence, serve=serve)
 
 
 # a world-2 profile: the tiny llama's tables of tests/test_torch_profile.py
@@ -1252,14 +1651,14 @@ def _loop_plan(tmp_dir: str) -> str:
     return plan
 
 
-def _launch(world, inputs, out, fault=True, timeout=240):
+def _launch(world, inputs, out, fault=True, timeout=240, extra=()):
     env = {k: v for k, v in os.environ.items() if not k.startswith(("RANK", "WORLD_SIZE",
                                                                      "LOCAL_RANK", "MASTER_"))}
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env["OMP_NUM_THREADS"] = "1"
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", str(world), os.path.abspath(__file__), "--worker", str(world),
-           inputs, out] + (["--fault"] if fault else [])
+           inputs, out] + (["--fault"] if fault else []) + list(extra)
     proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,
                           timeout=timeout)
     assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-8000:]
@@ -1303,7 +1702,8 @@ def report(tmp_dir, given=None):
     (e.g. a run on GPUs, written with the weights of
     ``--weights DIR``) instead of launching gloo ranks here."""
     ref = (saved_reference(tmp_dir) if given else None) or _reference(tmp_dir)
-    for world in sorted(given or CASES, reverse=True):
+    loads = {}
+    for world in sorted(given or CASES):
         res = dict(np.load(given[world])) if given else \
             _launch(world, ref["inputs"], os.path.join(tmp_dir, "out%d.npz" % world))
         for name, kw in CASES[world].items():
@@ -1366,6 +1766,32 @@ def report(tmp_dir, given=None):
                   "unsharded by %.3g, the port's by %.3g" % (
                       SHARP, abs(ref["divergence"]["jax_sharded_loss"] - want),
                       abs(float(res["%s/loss" % DIVERGENCE_CASE]) - want)))
+        for name in SERVE_CASES.get(world, {}):
+            if "%s/logits" % name not in res:
+                continue
+            got, sref = res["%s/logits" % name], ref["serve"]
+            n = got.shape[1]
+            print("world %d %-28s logits err %.3g (unsharded engine), %.3g (tp 2 on 8 devices), "
+                  "%.3g (recompute); greedy tokens equal: %s" % (
+                      world, name, *(float(np.abs(got - sref[k][:, :n]).max())
+                                     for k in ("logits", "logits8", "recompute")),
+                      bool((res["%s/tokens" % name] == sref["tokens"][:, :n]).all())))
+        want = ref["serve"]["load"]
+        for key in ("serve_agree", "serve_mig3", "serve_mig2"):
+            if "%s/outputs" % key in res:
+                done = _outputs(res["%s/outputs" % key])
+                print("world %d %s: %d requests completed, tokens equal to the reference "
+                      "batcher's: %s%s" % (world, key, len(done),
+                                           all(done[r] == want[r] for r in done),
+                                           "; migration %s" % str(res["%s/migration" % key])
+                                           if "%s/migration" % key in res else ""))
+        if "serve_load/outputs" in res:
+            loads[world] = _outputs(res["serve_load/outputs"])
+            print("world %d serve --load of world 2's train checkpoint: %d requests, tokens "
+                  "equal to world 2's: %s" % (world, len(loads[world]),
+                                               loads[world] == loads.get(2, loads[world])))
+        if "serve_gls015/exit" in res:
+            print("world 2 serve GLS015 drill: exit %d" % int(res["serve_gls015/exit"]))
         print("world %d relayout round trips exact: %s; init equals a one-rank init: %s" % (
             world, all(not res[k].any() for k in res if k.startswith("relayout/")),
             all(np.array_equal(res["init/" + k[9:]], res[k]) for k in res
@@ -1373,8 +1799,10 @@ def report(tmp_dir, given=None):
 
 
 USAGE = """usage:
-  test_torch_parallel.py --worker WORLD WEIGHTS OUT [--fault] [--device cuda]
-      one rank of a world (launch with torchrun --nproc_per_node WORLD)
+  test_torch_parallel.py --worker WORLD WEIGHTS OUT [--fault] [--device cuda] [--serve_ckpt DIR]
+      one rank of a world (launch with torchrun --nproc_per_node WORLD); the
+      world-4 worker serves DIR, the world-2 worker's train checkpoint
+      (OUT's directory/ckpt_w2), when given
   test_torch_parallel.py --weights DIR
       write the weights the workers load (DIR/weights.npz; needs jax) and
       the JAX package's reference (DIR/reference.pkl)
@@ -1405,7 +1833,10 @@ if __name__ == "__main__":
     if len(sys.argv) < 5 or sys.argv[1] != "--worker":
         raise SystemExit(USAGE)
     device = sys.argv[sys.argv.index("--device") + 1] if "--device" in sys.argv else "cpu"
-    _worker(int(sys.argv[2]), sys.argv[3], sys.argv[4], "--fault" in sys.argv[5:], device)
+    serve_ckpt = (sys.argv[sys.argv.index("--serve_ckpt") + 1] if "--serve_ckpt" in sys.argv
+                  else None)
+    _worker(int(sys.argv[2]), sys.argv[3], sys.argv[4], "--fault" in sys.argv[5:], device,
+            serve_ckpt)
     raise SystemExit(0)
 
 
@@ -1424,8 +1855,11 @@ def world_results(reference, tmp_path_factory):
 
     def get(world):
         if world not in cache:
+            extra = ()
+            if world == 4:  # it serves the world-2 worker's train checkpoint
+                extra = ("--serve_ckpt", str(get(2)["ckpt/dir"]))
             out = str(tmp_path_factory.mktemp("world%d" % world) / "out.npz")
-            cache[world] = _launch(world, reference["inputs"], out)
+            cache[world] = _launch(world, reference["inputs"], out, extra=extra)
         return cache[world]
 
     return get
@@ -1848,3 +2282,112 @@ def test_world4_persistent_bitflip_quarantines_the_rank_and_migrates(world_resul
     assert int(res["vote/resumed/start"]) == 3 and str(res["vote/sdc_mode"]) == "vote"
     assert np.array_equal(res["vote/stuck/losses"][:3], res["vote/clean/losses"][:3])
     assert np.array_equal(res["vote/stuck/losses"][3:], res["vote/resumed/losses"])
+
+
+# ------------------------------------------------------------------ serving
+@pytest.mark.parametrize("world,name", SERVE_CASE_IDS, ids=["w%d-%s" % c for c in SERVE_CASE_IDS])
+def test_serve_layout_decode_matches_the_jax_engines_and_recompute(world, name, reference,
+                                                                   world_results):
+    """The engine under a serve layout (kv heads over tp, slots over dp,
+    ZeRO-3 gathered per layer, vocab tp, a mixed per-layer plan, an
+    off-grid slot count): the prefill's and every decode step's logits
+    within 2e-5 of the JAX package's engine unsharded and under tp 2 on its
+    8-device mesh, and of the full-forward recompute; greedy tokens equal;
+    and ``cli serve`` under the layout serves every request with the JAX
+    package's batcher's tokens."""
+    res, ref = world_results(world), reference["serve"]
+    logits, tokens = res["%s/logits" % name], res["%s/tokens" % name]
+    n = logits.shape[1]
+    for key in ("logits", "logits8", "recompute"):
+        err = float(np.abs(logits - ref[key][:, :n]).max())
+        assert err <= SERVE_ATOL, (name, key, err)
+    np.testing.assert_array_equal(tokens, ref["tokens"][:, :n])
+    np.testing.assert_array_equal(tokens, ref["tokens8"][:, :n])
+    # ``cli serve`` under the layout: every request's tokens the JAX batcher's
+    assert _outputs(res["%s/cli" % name]) == ref["load"]
+
+
+_CKPT_REFS = {}
+
+
+def _ckpt_reference(world_results):
+    """(the JAX package's batcher, ``cli serve --load`` at world 1 in this
+    process) over the served load on the world-2 train checkpoint (step 3):
+    rid -> tokens of each."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from galvatron_tpu.cli import arguments as JA
+    from galvatron_tpu_torch.cli.arguments import initialize_galvatron, model_config_from_args
+    from galvatron_tpu_torch.runtime import checkpoint as ck
+
+    ckpt_dir = str(world_results(2)["ckpt/dir"])
+    if ckpt_dir not in _CKPT_REFS:
+        _, tcfg = model_config_from_args(initialize_galvatron(argv=CKPT_MODEL_ARGV))
+        full, _ = ck.load_full_params(ckpt_dir, 3, tcfg)
+        _, jcfg = JA.model_config_from_args(JA.initialize_galvatron(mode="serve",
+                                                                    argv=CKPT_MODEL_ARGV))
+        jcfg = dataclasses.replace(jcfg, compute_dtype=jnp.float32)
+        jax_out = _jax_batcher_outputs(jcfg, _jax_tree({n: t.numpy() for n, t in full.items()}),
+                                       slots=4, n=6)
+        port = _serve_cli(CKPT_MODEL_ARGV + [
+            "--device", "cpu", "--load", ckpt_dir, "--load_iteration", "3",
+            "--serve_page_size", str(SERVE_PAGE), "--serve_max_concurrency", "4",
+            "--num_requests", "6", "--prompt_len_min", "3", "--prompt_len_max", "12",
+            "--max_new_tokens", str(SERVE_LOAD["max_new_tokens"]), "--seed", str(SERVE_SEED),
+            "--mixed_precision", "fp32"])
+        _CKPT_REFS[ckpt_dir] = jax_out, _outputs(_serve_outputs(port))
+    return _CKPT_REFS[ckpt_dir]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_train_checkpoint_restores_into_serve_layout(world, world_results):
+    """``cli serve --load`` of the world-2 train checkpoint (tp 2, ZeRO-3,
+    ZeRO-2) into a world-2 and a world-4 serve layout, each rank reading
+    only its slices across strategies: the served tokens equal the same
+    load at world 1 (in this process) and the JAX package's batcher on the
+    checkpoint's parameters."""
+    res = world_results(world)
+    assert bool(res["serve_load/cross"]) and int(res["serve_load/world"]) == world
+    jax_out, world1 = _ckpt_reference(world_results)
+    assert world1 == jax_out
+    assert _outputs(res["serve_load/outputs"]) == world1
+
+
+def test_world2_batcher_agrees_across_ranks_with_skewed_clocks(reference, world_results):
+    """Each rank's batcher reads its own clock (offset and rate) and sheds
+    by deadline, predicted TTFT and queue bound over real collectives: the
+    ranks decide alike (or the run would hang), and every completed
+    request's tokens are the reference batcher's."""
+    res = world_results(2)
+    assert bool(res["serve_agree/same"])
+    done = _outputs(res["serve_agree/outputs"])
+    want = reference["serve"]["load"]
+    assert done and all(done[rid] == want[rid] for rid in done)
+
+
+def test_world2_infeasible_surviving_world_drains_and_exits_2(world_results):
+    """A lost rank whose surviving world cannot serve (the re-search under
+    an impossible budget refuses with GLS015): the batcher drains and
+    ``cli serve`` exits 2."""
+    res = world_results(2)
+    assert int(res["serve_gls015/exit"]) == 2
+    drains = json.loads(str(res["serve_gls015/drains"]))
+    assert [d["reason"] for d in drains] == ["migrate_infeasible", "migrate_infeasible"]
+    assert drains[-1]["exit_code"] == 2
+
+
+@pytest.mark.parametrize("key,worlds", [("serve_mig3", [3, 2]), ("serve_mig2", [2, 1])])
+def test_serve_migration_off_a_lost_rank_replays_journals(key, worlds, reference,
+                                                          world_results):
+    """A serve whose mesh probe loses a rank mid-decode migrates in memory
+    onto the survivors (dp 3 with replicated slots -> tp 2; dp 2 -> dp 1)
+    and journal-replays its in-flight requests: every request completes
+    with the uninterrupted run's tokens (the JAX package's batcher)."""
+    res = world_results(4)
+    assert res["%s/worlds" % key].tolist() == worlds
+    assert int(res["%s/shed" % key]) == 0
+    assert _outputs(res["%s/outputs" % key]) == reference["serve"]["load"]
+    mig = json.loads(str(res["%s/migration" % key]))
+    assert len(mig) == 1 and mig[0]["replayed"] > 0 and mig[0]["to_world"] == worlds[1]

@@ -88,13 +88,19 @@ def test_diagnostic_error_stays_a_value_error():
                                 dict(world_size=2, tp=2, sp=1)])
 def test_runtime_refuses_layouts_beyond_one_device(kw):
     """The train path executes world 2, tp 2, pp 2, ring cp and Ulysses
-    (the per-layer layout, pipeline and long-context slices); serving
-    stays at world size 1."""
+    (the per-layer layout, pipeline and long-context slices); serving runs
+    world 2 and tp 2 (the serve layouts) and refuses pp, cp and Ulysses
+    (GLS014, as the serve lint)."""
     world = kw.pop("world_size")
     hp = TC.HybridParallelConfig.uniform(world, 4, **kw)
     check_layout(hp)
-    with pytest.raises(ValueError, match="world size 1 only"):
+    refusal = ("pp=2" if kw.get("pp") else "cp=2" if kw.get("cp") else
+               "Ulysses" if kw.get("sp") else None)
+    if refusal is None:
         check_layout(hp, mode="serve")
+    else:
+        with pytest.raises(ValueError, match=refusal):
+            check_layout(hp, mode="serve")
 
 
 def test_runtime_accepts_world_one():
