@@ -271,12 +271,35 @@ Phases, in order; any failure exits non-zero and prints no result line:
    serve`` at world 1 (analytic tables) and ``cli serve`` under its plan
    with the mesh probe and ``--migrate_on_degrade 1``: healthy, no
    migration. Each of (i)'s runs and (ii)'s serve is a main path.
+20. Observability and lint (``obs/report.py``, ``cli/lint.py``,
+   ``analysis/ckpt_lint.py``, the train driver's trace window): (a)
+   ``cli train`` at LLaMA-7B width, depth 4 (phase 8's batch, its remat mix
+   cut to full, full, dots_saveable, none), 8 steps with ``--telemetry``,
+   ``--xla_trace`` over steps 5-6, ``--train_log_dir`` and ``--profile``:
+   trace start and stop events and no error, the Chrome trace's flash
+   kernel events (forward, dkv, dq) equal to the launch counters' moves
+   over steps 5-6 (read before steps 5 and 7 dispatch), one log line per
+   iteration, and ``cli report --json`` on the stream exits 0 with a
+   steady step within TOL_REPORT_STEP of the driver's summary median, an
+   MFU in (0, 1) and one divergence row per layer run (and the head); the
+   trace is deleted after it is read; (b) ``cli serve --telemetry`` at
+   depth 4, 8 requests: the report's TTFT and TPOT p50 / p99 equal the
+   serve summary's, the forward launches layers x prefills; (c) ``cli lint
+   --ckpt --deep`` on phase 10's checkpoint, run before phase 15 deletes
+   it: exit 0, two fold launches per step (its params, and its params with
+   the Adam state); then a depth-1 checkpoint of this phase (under
+   build/phase20, deleted after): one byte flipped in its rank file gives
+   GLS214 and exit 1 under ``--deep``, its manifest removed GLS210; (d)
+   ``cli lint`` on phase 12's searched strategy: clean at 80 GB, GLS101 at
+   1 GB (exit 0, 1 under ``--strict``). (a), (b) and each ``--deep`` audit
+   are main paths.
 
 Each main path (serve, train, the GPT layout runs, phase 10's train,
 resumed, guarded and serve-from-checkpoint runs, phase 11's runs,
 phase 12's profile and train, phase 13's ring runs, phase 14's encoder
 runs, phase 15's resumed runs, phase 16's T5 and Swin runs, phase 17's
-runs from the converted checkpoints, phase 18's and phase 19's runs) runs
+runs from the converted checkpoints, phase 18's and phase 19's runs,
+phase 20's traced train and serve runs and ``lint --deep`` audits) runs
 with the kernels' launch counts (the flash kernels' and the fold's) set to 0 just
 before it and read just after. The last lines
 of standard output are the serve and train summaries, the ``kernels`` JSON
@@ -3642,6 +3665,330 @@ def log_serve_migration(sm, card):
             s["fwd_launches"], sm["wall_s"]))
 
 
+# ----------------------------------------------------------------- phase 20
+# observability and lint on the card: the traced train run (a), the served
+# run (b), the checkpoint audit (c: phase 10's checkpoint inside the try
+# that keeps it, then a depth-1 checkpoint of this phase with planted
+# faults) and the strategy lint (d)
+OBS_LAYERS = 4
+OBS_CHECKPOINT = [1, 1, 1, 0]  # phase 8's remat mix at depth 4
+OBS_REMAT = ["full", "full", "dots_saveable", "full"]
+OBS_STEPS = 8
+OBS_TRACE = (5, 6)  # --trace_steps, inclusive
+OBS_SERVE_REQUESTS = 8
+OBS_DIR = os.path.join("chiprun_out", "phase20")
+OBS_CKPT = os.path.join("build", "phase20", "ckpt")  # ~5.6 GB at depth 1, deleted after
+TOL_REPORT_STEP = 0.10  # the report's steady step against the driver's summary, relative
+# the flash kernels' names in a trace (demangled or not: the name's
+# identifier, not preceded by a letter)
+TRACE_KERNELS = {"fwd": r"(?<![A-Za-z])flash_fwd_(?:wgmma_|mma_)?kernel",
+                 "dkv": r"(?<![A-Za-z])dkv_(?:wgmma_)?kernel",
+                 "dq": r"(?<![A-Za-z])dq_(?:wgmma_)?kernel"}
+
+
+def _quiet(fn, argv):
+    """Run a CLI's `run(argv + ["--json"])` in this process: (exit code,
+    the parsed JSON, stderr)."""
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = fn(list(argv) + ["--json"])
+    return rc, json.loads(out.getvalue()), err.getvalue()
+
+
+def _lint(argv):
+    from galvatron_tpu_torch.cli import lint as cli_lint
+
+    return _quiet(cli_lint.run, argv)
+
+
+def _report(path):
+    from galvatron_tpu_torch.obs import report as R
+
+    return _quiet(R.run, [path])
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def audit_phase10_checkpoint(torch, phase10):
+    """Phase 20 (c), first part: ``cli lint --ckpt --deep`` on phase 10's
+    checkpoint (every step restored on the card, its params and its params
+    with the Adam state folded: two fold launches a step)."""
+    from galvatron_tpu_torch.ops import flash_attention as TF
+    from galvatron_tpu_torch.ops import tree_fold as TFold
+
+    ck = phase10["ckpt"]
+    steps = sorted(int(d) for d in os.listdir(ck) if d.isdigit())
+    nbytes = sum(_dir_bytes(os.path.join(ck, str(s))) for s in steps)
+    _reset_counts(torch, TF, TFold)
+    t0 = time.perf_counter()
+    rc, payload, err = _lint(["--ckpt", ck, "--deep"])
+    seconds = time.perf_counter() - t0
+    folds = TFold.tree_fold.launches
+    check(rc == 0 and payload["summary"]["errors"] == 0,
+          "lint --deep of phase 10's checkpoint exited %d: %s %s" % (rc, payload, err))
+    check(folds == 2 * len(steps), "lint --deep launched the fold kernel %d times for %d steps "
+          "(expected 2 a step)" % (folds, len(steps)))
+    torch.cuda.empty_cache()
+    return dict(steps=steps, bytes=nbytes, seconds=seconds, s_per_gb=seconds / (nbytes / 1e9),
+                fold_launches=folds, warnings=[d["message"] for d in payload["diagnostics"]])
+
+
+def _trace_kernels(path):
+    """The flash kernels' events in a Chrome trace, by TRACE_KERNELS; the
+    events by category and the kernel names (for a failure message)."""
+    import collections
+    import re
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    count = {k: sum(1 for n in kernels if re.search(rx, n)) for k, rx in TRACE_KERNELS.items()}
+    cats = collections.Counter(str(e.get("cat")) for e in events)
+    names = sorted(set(n[:100] for n in kernels))
+    return count, dict(cats), names
+
+
+def traced_train(torch, TF, TFold):
+    """Phase 20 (a): ``cli train`` with --telemetry, --xla_trace over
+    OBS_TRACE, --train_log_dir and --profile; the trace's flash kernels
+    against the launch counters over the window, the log, the report."""
+    from galvatron_tpu_torch.cli import train as cli_train
+    from galvatron_tpu_torch.config.strategy import HybridParallelConfig, layer_runs
+    from galvatron_tpu_torch.runtime.resilience import FaultHooks
+
+    tele = os.path.join(OBS_DIR, "train.jsonl")
+    trace_dir, log_dir = os.path.join(OBS_DIR, "trace"), os.path.join(OBS_DIR, "logs")
+    strategy = _layers_strategy(os.path.join(OBS_DIR, "strategy.json"), OBS_CHECKPOINT,
+                                OBS_REMAT, [0] * OBS_LAYERS)
+    argv = _llama_argv(strategy, OBS_LAYERS, OBS_STEPS, [
+        "--telemetry", tele, "--xla_trace", trace_dir, "--trace_steps", "%d:%d" % OBS_TRACE,
+        "--train_log_dir", log_dir, "--profile", "1"])
+    marks = {}
+
+    def on_step(it):  # before step `it` is dispatched: the counters over the window
+        if it in (OBS_TRACE[0], OBS_TRACE[1] + 1):
+            marks[it] = (TF.flash_attention_fwd.launches, TF.flash_attention_bwd.launches)
+
+    _reset_counts(torch, TF, TFold)
+    summary = _train_with_hooks(argv, FaultHooks(on_step=on_step))
+    fwd, bwd, _ = _launch_counts(TF, TFold)
+    losses = summary["losses"]
+    check(len(losses) == OBS_STEPS and all(math.isfinite(x) for x in losses),
+          "phase 20 traced train losses %s" % losses)
+    remat = sum(OBS_CHECKPOINT)
+    want = (OBS_STEPS * 2 * (OBS_LAYERS + remat), OBS_STEPS * 2 * OBS_LAYERS)
+    check((fwd, bwd) == want, "phase 20 traced train launched %d / %d, expected %d / %d"
+          % (fwd, bwd, *want))
+    lo, hi = marks[OBS_TRACE[0]], marks[OBS_TRACE[1] + 1]
+    window = {"fwd": hi[0] - lo[0], "bwd": hi[1] - lo[1]}
+    trace_path = os.path.join(trace_dir, "trace_rank0.json")
+    check(os.path.exists(trace_path), "no trace at %s: %s" % (
+        trace_path, os.listdir(trace_dir) if os.path.isdir(trace_dir) else "no dir"))
+    trace_mb = os.path.getsize(trace_path) / 1e6
+    in_trace, cats, names = _trace_kernels(trace_path)
+    os.remove(trace_path)  # tens of MB: only the counts are kept
+    from galvatron_tpu_torch.obs import telemetry
+
+    events, errors = telemetry.read_events(tele)
+    check(errors == [], "train telemetry schema errors %s" % errors)
+    marks_seen = [e["action"] for e in events if e["type"] == "trace"]
+    check(marks_seen == ["start", "stop"], "trace events %s (start and stop, no error)"
+          % [e for e in events if e["type"] == "trace"])
+    check(in_trace == {"fwd": window["fwd"], "dkv": window["bwd"], "dq": window["bwd"]},
+          "the trace holds %s flash kernels over steps %d-%d; the launch counters moved by %s "
+          "(events by category %s; kernels %s)" % (in_trace, OBS_TRACE[0], OBS_TRACE[1], window,
+                                                   cats, names[:40]))
+    log_path = os.path.join(log_dir, "train_llama_llama-7b.log")
+    with open(log_path) as f:
+        lines = f.read().splitlines()
+    check([int(x.split()[1]) for x in lines] == list(range(OBS_STEPS)),
+          "%s holds %d lines for %d iterations" % (log_path, len(lines), OBS_STEPS))
+    rc, rep, err = _report(tele)
+    check(rc == 0 and rep["schema_errors"] == [], "cli report exited %d: %s" % (rc, err))
+    steady = rep["steady"]
+    rel = abs(steady["step_ms"] - summary["steady_step_ms"]) / summary["steady_step_ms"]
+    check(rel <= TOL_REPORT_STEP, "the report's steady step %.2f ms is %.3f off the driver's "
+          "%.2f ms (tol %.2f)" % (steady["step_ms"], rel, summary["steady_step_ms"],
+                                  TOL_REPORT_STEP))
+    check(0 < steady["mfu"] < 1, "the report's MFU %r" % steady["mfu"])
+    hp = HybridParallelConfig.from_json(strategy, world_size=1)
+    runs = len(layer_runs(hp)) + 1  # and the embed/head row
+    check(len(rep["divergence"]) == runs == rep["counts"].get("layer_run"),
+          "%d divergence rows for %d layer runs (+ head), %s layer_run events"
+          % (len(rep["divergence"]), runs - 1, rep["counts"].get("layer_run")))
+    torch.cuda.empty_cache()
+    return dict(summary={k: summary[k] for k in ("steady_step_ms", "device_step_ms", "mfu",
+                                                 "tokens_per_s", "peak_hbm_mb")},
+                losses=losses, fwd_launches=fwd, bwd_launches=bwd, window_launches=window,
+                trace_kernels=in_trace, trace_events=cats, trace_kernel_names=len(names),
+                trace_mb=trace_mb, log_lines=len(lines),
+                report=dict(steady=steady, divergence=rep["divergence"],
+                            timeline=rep["timeline"]), report_step_rel=rel)
+
+
+def served_with_telemetry(torch, TF, TFold):
+    """Phase 20 (b): ``cli serve --telemetry`` at depth OBS_LAYERS; the
+    report's serving percentiles against the serve summary's."""
+    from galvatron_tpu_torch.cli import serve as cli_serve
+    from galvatron_tpu_torch.serve import engine as E
+
+    tele = os.path.join(OBS_DIR, "serve.jsonl")
+    argv = [a for a in SERVE_ARGV] + ["--set_layernum_manually", "1", "--num_layers",
+                                      str(OBS_LAYERS), "--telemetry", tele]
+    argv[argv.index("--num_requests") + 1] = str(OBS_SERVE_REQUESTS)
+    prefills = [0]
+    orig = E.ServeEngine.prefill
+
+    def prefill(self, prompt, slot):
+        prefills[0] += 1
+        return orig(self, prompt, slot)
+
+    _reset_counts(torch, TF, TFold)
+    E.ServeEngine.prefill = prefill
+    try:
+        summary = cli_serve.main(argv)
+    finally:
+        E.ServeEngine.prefill = orig
+    fwd, bwd, _ = _launch_counts(TF, TFold)
+    check(summary["requests"] == OBS_SERVE_REQUESTS and summary["shed"] == 0,
+          "phase 20 served %d of %d requests" % (summary["requests"], OBS_SERVE_REQUESTS))
+    check(fwd == OBS_LAYERS * prefills[0] and bwd == 0,
+          "phase 20 serve launched the forward kernel %d times, expected %d layers x %d "
+          "prefills" % (fwd, OBS_LAYERS, prefills[0]))
+    rc, rep, err = _report(tele)
+    check(rc == 0, "cli report on the serve stream exited %d: %s" % (rc, err))
+    sv = rep["serving"]
+    for name in ("ttft_ms", "tpot_ms"):
+        for q in ("p50", "p99"):
+            check(math.isclose(sv[name][q], summary[name][q], rel_tol=1e-9),
+                  "the report's %s %s %r differs from the serve summary's %r"
+                  % (name, q, sv[name][q], summary[name][q]))
+    torch.cuda.empty_cache()
+    return dict(fwd_launches=fwd, prefills=prefills[0], requests=summary["requests"],
+                ttft_ms=sv["ttft_ms"], tpot_ms=sv["tpot_ms"],
+                tokens_per_s=summary["tokens_per_s"])
+
+
+def _flip_one_byte(path):
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) // 2)  # inside the tensor data
+        b = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([b[0] ^ 0x40]))
+
+
+def planted_checkpoint_faults(torch, TF, TFold):
+    """Phase 20 (c), second part: a depth-1 checkpoint of this phase, one
+    byte flipped in its rank file (GLS214 under --deep, exit 1), then its
+    manifest removed (GLS210)."""
+    import shutil
+
+    from galvatron_tpu_torch.runtime import checkpoint as CK
+
+    shutil.rmtree(OBS_CKPT, ignore_errors=True)
+    try:
+        strategy = _layers_strategy(os.path.join(OBS_DIR, "strategy_depth1.json"), [1],
+                                    ["full"], [0])
+        _reset_counts(torch, TF, TFold)
+        _train_with_hooks(_llama_argv(strategy, 1, 1, ["--lr_warmup_iters", "0",
+                                                        "--save", OBS_CKPT]), None)
+        step = CK.latest_iteration(OBS_CKPT)
+        rc, clean, err = _lint(["--ckpt", OBS_CKPT])
+        check(rc == 0 and clean["summary"]["errors"] == 0,
+              "lint of phase 20's own checkpoint exited %d: %s %s" % (rc, clean, err))
+        _flip_one_byte(CK._rank_file(OBS_CKPT, step, 0))
+        _reset_counts(torch, TF, TFold)
+        t0 = time.perf_counter()
+        rc, flipped, err = _lint(["--ckpt", OBS_CKPT, "--deep"])
+        deep_s = time.perf_counter() - t0
+        folds = TFold.tree_fold.launches
+        check(rc == 1 and "GLS214" in flipped["summary"]["codes"] and folds == 2,
+              "lint --deep after a flipped byte exited %d with %s, %d fold launches"
+              % (rc, flipped["summary"], folds))
+        os.remove(CK._manifest_path(OBS_CKPT, step))
+        rc, torn, err = _lint(["--ckpt", OBS_CKPT])
+        check(rc == 1 and "GLS210" in torn["summary"]["codes"],
+              "lint after removing the manifest exited %d with %s" % (rc, torn["summary"]))
+        return dict(step=step, bytes=_dir_bytes(os.path.join(OBS_CKPT, str(step))),
+                    deep_seconds=deep_s, fold_launches=folds,
+                    flipped=[d["message"] for d in flipped["diagnostics"]],
+                    torn=torn["summary"]["codes"])
+    finally:
+        shutil.rmtree(OBS_CKPT, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def strategy_lint(loop):
+    """Phase 20 (d): ``cli lint`` on phase 12's searched strategy: clean at
+    80 GB, GLS101 at 1 GB (exit 0, and 1 under --strict)."""
+    path = os.path.join(OBS_DIR, "searched_strategy.json")
+    with open(path, "w") as f:
+        json.dump(loop["search"]["strategy"], f)
+    model = ["--world_size", "1", "--model_type", "llama", "--model_size", "llama-7b"]
+    rc, roomy, err = _lint([path, "--memory_budget_gb", "80"] + model)
+    check(rc == 0 and roomy["summary"]["errors"] == 0 and "GLS101" not in roomy["summary"]["codes"],
+          "lint of the searched strategy at 80 GB exited %d: %s %s" % (rc, roomy, err))
+    rc, tight, _ = _lint([path, "--memory_budget_gb", "1"] + model)
+    rc_strict, _, _ = _lint([path, "--memory_budget_gb", "1", "--strict"] + model)
+    gls101 = [d["message"] for d in tight["diagnostics"] if d["code"] == "GLS101"]
+    check(rc == 0 and rc_strict == 1 and gls101,
+          "lint at 1 GB exited %d (strict %d), GLS101 %s" % (rc, rc_strict, gls101))
+    return dict(roomy=roomy["summary"], tight_gls101=gls101, exit=rc, exit_strict=rc_strict)
+
+
+def observability(torch, TF, audit10, loop):
+    """Phase 20 (a), (b), the rest of (c), (d); (c)'s phase-10 audit ran
+    before phase 15 (`audit_phase10_checkpoint`)."""
+    import shutil
+
+    from galvatron_tpu_torch.ops import tree_fold as TFold
+
+    t0 = time.perf_counter()
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    os.makedirs(OBS_DIR)
+    out = dict(train=traced_train(torch, TF, TFold), serve=served_with_telemetry(torch, TF, TFold),
+               audit10=audit10, planted=planted_checkpoint_faults(torch, TF, TFold),
+               lint=strategy_lint(loop))
+    out["wall_s"] = time.perf_counter() - t0 + audit10["seconds"]
+    return out
+
+
+def log_observability(ob, card):
+    a, s, c, p, d = ob["train"], ob["serve"], ob["audit10"], ob["planted"], ob["lint"]
+    log("phase 20 trace window (llama-7b width, %d layers, steps %d-%d of %d) on %s: flash "
+        "kernels in the trace fwd %d / dkv %d / dq %d, launch counters over the window fwd "
+        "%d / bwd %d; events by category %s, %.1f MB (deleted); iteration log %d lines"
+        % (OBS_LAYERS, OBS_TRACE[0], OBS_TRACE[1], OBS_STEPS, card, a["trace_kernels"]["fwd"],
+           a["trace_kernels"]["dkv"], a["trace_kernels"]["dq"], a["window_launches"]["fwd"],
+           a["window_launches"]["bwd"], a["trace_events"], a["trace_mb"], a["log_lines"]))
+    log("phase 20 report of the traced run: steady step %.2f ms (%s from iter %s) vs the "
+        "driver's %.2f ms (%.4f off), MFU %.4f vs %.4f, %d divergence rows %s; serve (%d "
+        "layers, %d requests): TTFT p50/p99 %.2f/%.2f ms, TPOT p50/p99 %.2f/%.2f ms, equal "
+        "to the serve summary's, forward launches %d = %d layers x %d prefills" % (
+            a["report"]["steady"]["step_ms"], a["report"]["steady"]["method"],
+            a["report"]["steady"].get("start_iter"), a["summary"]["steady_step_ms"],
+            a["report_step_rel"], a["report"]["steady"]["mfu"], a["summary"].get("mfu", 0.0),
+            len(a["report"]["divergence"]),
+            [(r["strategy"], r.get("predicted_ms"), r.get("measured_ms"))
+             for r in a["report"]["divergence"]],
+            OBS_LAYERS, s["requests"], s["ttft_ms"]["p50"], s["ttft_ms"]["p99"],
+            s["tpot_ms"]["p50"], s["tpot_ms"]["p99"], s["fwd_launches"], OBS_LAYERS,
+            s["prefills"]))
+    log("phase 20 lint --deep of phase 10's checkpoint: steps %s, %.2f GB in %.2f s (%.3f s/GB), "
+        "%d fold launches; planted faults on a depth-1 step (%.2f GB): flipped byte -> %s "
+        "(deep %.2f s, %d fold launches), manifest removed -> %s; searched strategy at 80 "
+        "GB %s, at 1 GB %s (exit %d, strict %d); phase %.1f s" % (
+            c["steps"], c["bytes"] / 1e9, c["seconds"], c["s_per_gb"], c["fold_launches"],
+            p["bytes"] / 1e9, p["flipped"], p["deep_seconds"], p["fold_launches"], p["torn"],
+            d["roomy"], d["tight_gls101"], d["exit"], d["exit_strict"], ob["wall_s"]))
+
+
 def main():
     try:
         import torch
@@ -3689,6 +4036,7 @@ def main():
         loop = profile_search_train(torch, TF)
         lc = long_context(torch, TF, dev)
         encoders = encoder_families(torch, TF)
+        audit10 = audit_phase10_checkpoint(torch, corpus)  # phase 20 (c), before phase 15
         elastic = elastic_resume(torch, TF, corpus)
     finally:
         remove_phase10_data()
@@ -3697,6 +4045,7 @@ def main():
     fold = fold_kernel(torch)
     res = resilience(torch, TF)
     serve_mig = serve_migration(torch, TF)
+    obs = observability(torch, TF, audit10, loop)
     s, t = served["summary"], trained["summary"]
 
     def at_2048(rows, b):
@@ -3740,7 +4089,9 @@ def main():
                **{"train_" + n: r["fwd_launches"] for n, r in t5_swin["runs"].items()},
                **{n: r["fwd_launches"] for n, r in hf["runs"].items()},
                **{n: r["fwd_launches"] for n, r in resilience_paths(res).items()},
-               **{"serve_" + n: r["fwd_launches"] for n, r in serve_mig_paths(serve_mig).items()}},
+               **{"serve_" + n: r["fwd_launches"] for n, r in serve_mig_paths(serve_mig).items()},
+               "obs_train_traced": obs["train"]["fwd_launches"],
+               "obs_serve": obs["serve"]["fwd_launches"]},
               TOL_FWD_BF16),
         entry("flash_attn_bwd", BWD_SOURCE, bwd_shapes, z3["bwd_launches"],
               {"serve": 0, "train": trained["bwd_launches"],
@@ -3756,13 +4107,16 @@ def main():
                **{"train_" + n: r["bwd_launches"] for n, r in t5_swin["runs"].items()},
                **{n: r["bwd_launches"] for n, r in hf["runs"].items()},
                **{n: r["bwd_launches"] for n, r in resilience_paths(res).items()},
-               **{"serve_" + n: r["bwd_launches"] for n, r in serve_mig_paths(serve_mig).items()}},
+               **{"serve_" + n: r["bwd_launches"] for n, r in serve_mig_paths(serve_mig).items()},
+               "obs_train_traced": obs["train"]["bwd_launches"], "obs_serve": 0},
               TOL_BWD_BF16),
         {"name": "tree_fold", "route": "cuda", "source": FOLD_SOURCE, "replaces": FOLD_REPLACES,
          "launches": res["sdc"]["runs"]["digest"]["fold_launches"],
          "launches_by_path": {"sdc_digest": res["sdc"]["runs"]["digest"]["fold_launches"],
                               "sdc_plain": res["sdc"]["runs"]["plain"]["fold_launches"],
-                              "migrate": res["migrate"]["fold_launches"]},
+                              "migrate": res["migrate"]["fold_launches"],
+                              "lint_deep": obs["audit10"]["fold_launches"],
+                              "lint_deep_planted": obs["planted"]["fold_launches"]},
          "max_abs_err": 0, "ms": fold["ms"], "plain_ms": fold["plain_ms"],
          "bound_ms": fold["bound_ms"], "bound_by": fold["bound_by"],
          "library_ms": fold["library_ms"], "library_calls": fold["library_calls"],
@@ -3778,6 +4132,7 @@ def main():
                    profile_search_train=loop, long_context=lc, encoder_families=encoders,
                    elastic_resume=elastic, t5_swin_families=t5_swin, hf_finetune=hf,
                    fold_kernel=fold, resilience=res, serve_migration=serve_mig,
+                   observability=obs,
                    wall_s=time.perf_counter() - t_start)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -3883,6 +4238,7 @@ def main():
     log_hf_finetune(hf, card)
     log_resilience(fold, res, card)
     log_serve_migration(serve_mig, card)
+    log_observability(obs, card)
     log(json.dumps(kernels))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

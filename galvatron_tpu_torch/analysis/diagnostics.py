@@ -1,17 +1,21 @@
-"""Structured diagnostics raised by the strategy code and the serve lint.
+"""Structured diagnostics raised by the strategy code and the linters.
 
-Port of the subset of ``galvatron_tpu/analysis/diagnostics.py`` that the
-strategy schema, the structural validator, the serve/train lint, the
-checkpoint layer and elastic resume (GLS2xx) report through: `Diagnostic`, `make`, `did_you_mean`, `DiagnosticError` (still a
-``ValueError``) and `DiagnosticReport`. Codes and severities are the
-reference's, so a strategy refused by one package is refused with the same
-code by the other. Stdlib only.
+Port of ``galvatron_tpu/analysis/diagnostics.py`` for the GLS codes: the
+strategy schema, the structural and pipeline-engine validators, the
+strategy lint, the checkpoint layer, elastic resume and the checkpoint
+auditor report through `Diagnostic`, `make`, `did_you_mean`,
+`DiagnosticError` (still a ``ValueError``) and `DiagnosticReport` (with the
+``cli lint`` contract: `exit_code`, `to_json`, `render`). Codes and
+severities are the reference's, so a strategy refused by one package is
+refused with the same code by the other. The GLC, GLT and WA codes analyse
+JAX programs and sources and are not registered here. Stdlib only.
 """
 
 from __future__ import annotations
 
 import difflib
-from dataclasses import dataclass, field
+import json
+from dataclasses import asdict, dataclass, field
 from typing import Dict, Iterable, List, Optional, Tuple
 
 ERROR = "error"
@@ -28,14 +32,17 @@ CODES: Dict[str, Tuple[str, str]] = {
     "GLS007": (ERROR, "attention heads not divisible by tensor-parallel degree"),
     "GLS008": (ERROR, "sequence length not divisible by its shard degree"),
     "GLS009": (ERROR, "vocab size not divisible by vocab-parallel degree"),
+    "GLS010": (ERROR, "cross-layer mesh-axis inconsistency within a pipeline stage"),
+    "GLS011": (ERROR, "illegal activation-checkpoint placement"),
     "GLS013": (ERROR, "unsupported comm-precision (quantized collectives) configuration"),
     "GLS014": (ERROR, "serve-infeasible configuration (latency bound, KV budget, or layout)"),
     "GLS015": (ERROR, "serve world infeasible after mesh degradation"),
     "GLS016": (ERROR, "state motion changed the layout-invariant integrity digest"),
     "GLS017": (ERROR, "online autotuner fighting a pinned strategy"),
+    "GLS101": (WARNING, "estimated per-device memory exceeds the HBM budget"),
     "GLS102": (WARNING, "expensive cross-layer redistribution between adjacent layers"),
     "GLS103": (WARNING, "suspicious but runnable configuration"),
-    # ---- checkpoint portability and integrity (runtime/checkpoint.py) ----
+    # ---- checkpoint portability, integrity and the auditor ----
     "GLS201": (ERROR, "model-config digest mismatch between checkpoint and run"),
     "GLS202": (ERROR, "optimizer state incompatible with the checkpoint's"),
     "GLS203": (ERROR, "no feasible strategy for the surviving mesh under the memory budget"),
@@ -44,7 +51,9 @@ CODES: Dict[str, Tuple[str, str]] = {
     "GLS206": (ERROR, "cross-strategy relayout unsupported for this model family"),
     "GLS207": (ERROR, "live in-memory strategy migration infeasible for this run"),
     "GLS210": (ERROR, "checkpoint step without a committed integrity manifest (torn save)"),
+    "GLS211": (WARNING, "stray or orphaned entry in the checkpoint directory"),
     "GLS212": (ERROR, "malformed checkpoint manifest or inconsistent provenance"),
+    "GLS213": (WARNING, "checkpoint predates provenance (not elastically resumable)"),
     "GLS214": (ERROR, "checkpoint bytes no longer match the manifest's integrity digest"),
 }
 
@@ -120,3 +129,35 @@ class DiagnosticReport:
 
     def codes(self) -> List[str]:
         return sorted({d.code for d in self.diagnostics})
+
+    def exit_code(self) -> int:
+        """The CLI contract: 0 = clean (warnings allowed), 1 = errors."""
+        return 0 if self.ok else 1
+
+    def to_json(self) -> str:
+        return json.dumps(
+            {
+                "version": 1,
+                "summary": {
+                    "errors": len(self.errors),
+                    "warnings": len(self.warnings),
+                    "codes": self.codes(),
+                },
+                "diagnostics": [asdict(d) for d in self.diagnostics],
+            },
+            indent=2,
+        )
+
+    def render(self) -> str:
+        lines = [d.format() for d in self.diagnostics]
+        lines.append("%d error(s), %d warning(s)" % (len(self.errors), len(self.warnings)))
+        return "\n".join(lines)
+
+
+def registry_table() -> str:
+    """Markdown table of every registered code (``cli lint --explain``)."""
+    lines = ["| code | severity | meaning |", "|------|----------|---------|"]
+    for code in sorted(CODES):
+        sev, title = CODES[code]
+        lines.append("| %s | %s | %s |" % (code, sev, title))
+    return "\n".join(lines)

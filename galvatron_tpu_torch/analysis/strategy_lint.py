@@ -1,30 +1,44 @@
-"""Strategy lint (``GLS***`` diagnostics) for the serve and train entry points.
+"""Strategy lint (``GLS***`` diagnostics): ``cli lint``, and the serve and
+train entry points before they build anything.
 
-Port of what ``galvatron_tpu/analysis/strategy_lint.lint_hp`` reports
-without a cost model: the structural errors (shared with
-``HybridParallelConfig.validate``), with a model config the model-aware
-divisibility errors (GLS007 heads vs tp, GLS008 sequence vs its shard
-degree, GLS009 vocab vs vocab tp), the adjacent-layer re-layout warning
-(GLS102), the runnable-but-odd warnings (GLS103: inert pipeline type,
-Ulysses sp at tp=1, tp_comm_mode, shadowed remat policy), in serve mode
-the GLS014 refusals of layouts a decode engine cannot realise (pp>1, ring
-cp, Ulysses sp), and in train mode the GLS103 warnings on serve knobs and
-comm dtypes that cannot act. A strategy the reference refuses is refused
-here with the same codes, in the same order, before any model is built.
-The analytic memory tables (`_analytic_parameter_mb`,
-`_analytic_activation_dict`, `estimate_stage_memory_mb`, the reference's,
-pure arithmetic through the search's ``MemoryCostModel``) price a strategy
-for elastic resume's budget check (``runtime/elastic.py``, GLS203); the
-lint rule that reads them (GLS101) and the manual-TP and
-quantized-collective refusals come with the slices that port those paths.
+Port of ``galvatron_tpu/analysis/strategy_lint.py``. Check layers, each
+gated on the previous one constructing:
+
+1. the raw-dict schema (``config.strategy.schema_diagnostics``): unknown
+   keys with did-you-mean hints, length mismatches, bad values
+   (GLS001 / GLS005 / GLS006), and GLS005 for a dict that fails to
+   construct (`lint_strategy_dict`);
+2. the structural checks shared with ``HybridParallelConfig.validate``
+   (GLS002-GLS005);
+3. the pipeline engines' contract
+   (``HybridParallelConfig.pipeline_engine_diagnostics``: GPipe and ring-cp
+   stage uniformity GLS010, checkpoint placement GLS011), the one rule the
+   port's engines refuse by (`train_refusals`);
+4. with a model config, the model-aware divisibility errors (GLS007 heads
+   vs tp, GLS008 sequence vs its shard degree, GLS009 vocab vs vocab tp);
+5. the warnings: the estimated per-stage memory against
+   ``memory_budget_gb`` (GLS101, through the search's ``MemoryCostModel``
+   on a profiled memory JSON or the analytic tables), adjacent-layer
+   re-layouts (GLS102) and runnable-but-odd configs (GLS103: inert
+   pipeline type, Ulysses sp at tp=1, tp_comm_mode, shadowed remat policy);
+6. in serve mode the GLS014 refusals of layouts a decode engine cannot
+   realise (pp>1, ring cp, Ulysses sp) and the KV budget; in train mode
+   the GLS103 warnings on serve knobs and comm dtypes that cannot act, and
+   the driver-state checks of the sentinel and the autotuner.
+
+A strategy the reference refuses is refused here with the same codes, in
+the same order, before any model is built. The manual-TP refusals (GLS012)
+and the quantized-collective reasons of GLS013 belong to the paths of
+ROADMAP queue 1 item 10; until they are ported, `lint_strategy_dict` gives
+GLS013 for any quantized gradient or parameter sync, which the trainer
+refuses.
 
 `train_refusals` lists what the port's trainer does not execute: a
 pipeline outside the reference engine's contract (GPipe:
-``validate_pipeline_config``, which refuses cp as the reference does;
-1F1B: ``validate_1f1b_config``, with their messages), and what is not
-ported yet (the manual TP modes), with the ROADMAP item that brings it;
-the train path raises ValueError on them
-(``runtime.model_api.check_layout``).
+``validate_pipeline_config``; 1F1B: ``validate_1f1b_config``; both raise
+the refusals of layer 3), the family's refusals, and what is not ported
+yet (the manual TP modes), with the ROADMAP item that brings it; the train
+path raises ValueError on them (``runtime.model_api.check_layout``).
 """
 
 from __future__ import annotations
@@ -32,7 +46,8 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional
 
 from galvatron_tpu_torch.analysis import diagnostics as D
-from galvatron_tpu_torch.config.strategy import HybridParallelConfig
+from galvatron_tpu_torch.config.strategy import HybridParallelConfig, schema_diagnostics
+from galvatron_tpu_torch.utils.jsonio import read_json_config
 
 
 def _model_aware_diagnostics(hp: HybridParallelConfig, model_cfg: Any) -> List[D.Diagnostic]:
@@ -343,9 +358,12 @@ def estimate_stage_memory_mb(
     return stage_mb
 
 
-def _warning_diagnostics(hp: HybridParallelConfig) -> List[D.Diagnostic]:
+def _warning_diagnostics(hp: HybridParallelConfig, model_cfg: Any = None,
+                         memory_budget_gb: Optional[float] = None,
+                         memory_profile: Optional[dict] = None) -> List[D.Diagnostic]:
     """GLS102, then GLS103: runnable but almost certainly not what was
-    meant."""
+    meant; then GLS101: a stage whose estimated memory exceeds
+    `memory_budget_gb`."""
     out: List[D.Diagnostic] = _relayout_diagnostics(hp)
     if hp.pp == 1 and hp.pipeline_type == "pipedream_flush":
         out.append(D.make("GLS103", "pipeline_type='pipedream_flush' with pp=1 runs the "
@@ -366,6 +384,15 @@ def _warning_diagnostics(hp: HybridParallelConfig) -> List[D.Diagnostic]:
             "or edit the JSON" % (
                 hp.remat_policy, sum(1 for s in hp.layers if s.remat_policy != hp.remat_policy),
                 hp.num_layers), key="remat_policy"))
+    if memory_budget_gb:
+        stage_mb = estimate_stage_memory_mb(hp, model_cfg, memory_profile)
+        for st, mb in enumerate(stage_mb or ()):
+            if mb > memory_budget_gb * 1024.0:
+                out.append(D.make(
+                    "GLS101", "stage %d estimated %.2f GB exceeds the %.1f GB budget (%s "
+                    "estimate via MemoryCostModel)" % (
+                        st, mb / 1024.0, memory_budget_gb,
+                        "profiled" if memory_profile else "analytic")))
     return out
 
 
@@ -436,33 +463,88 @@ def lint_hp(
     file: Optional[str] = None,
     mode: Optional[str] = None,
     memory_budget_gb: Optional[float] = None,
+    memory_profile: Optional[dict] = None,
     sdc_check: Optional[str] = None,
     sdc_interval: Optional[int] = None,
     autotune: Optional[str] = None,
     autotune_margin: Optional[float] = None,
     elastic_strategy: Optional[str] = None,
 ) -> D.DiagnosticReport:
-    """Lint an already-constructed config: structural checks, with
-    `model_cfg` the model-aware GLS007-009, the GLS102/GLS103 warnings,
-    plus the GLS014 serve-feasibility layer when ``mode="serve"`` (with
-    `memory_budget_gb`, the KV + weight budget check) and the train-mode
-    GLS103 warnings when ``mode="train"``; the train driver's
+    """Lint an already-constructed config: structural checks, the pipeline
+    engines' contract (GLS010 / GLS011), with `model_cfg` the model-aware
+    GLS007-009, the GLS102/GLS103 warnings, with `memory_budget_gb` the
+    GLS101 estimate (on `memory_profile`, the profiler's memory JSON, when
+    given), plus the GLS014 serve-feasibility layer when ``mode="serve"``
+    (with `memory_budget_gb`, the KV + weight budget check) and the
+    train-mode GLS103 warnings when ``mode="train"``; the train driver's
     state (the sentinel, the autotuner, a pinned elastic strategy) adds
     the reference's GLS103 / GLS017 checks of it."""
     report = D.DiagnosticReport()
     report.extend(hp.structural_diagnostics())
+    report.extend(hp.pipeline_engine_diagnostics())
     if model_cfg is not None:
         report.extend(_model_aware_diagnostics(hp, model_cfg))
-    report.extend(_warning_diagnostics(hp))
+    report.extend(_warning_diagnostics(hp, model_cfg, memory_budget_gb, memory_profile))
     if mode == "serve":
         report.extend(_serve_diagnostics(hp, model_cfg, memory_budget_gb))
     elif mode == "train":
         report.extend(_train_diagnostics(hp))
     report.extend(_resilience_diagnostics(hp, sdc_check, sdc_interval, autotune,
                                           autotune_margin, elastic_strategy))
+    return _with_file(report, file)
+
+
+def _quant_comm_refusal(hp: HybridParallelConfig) -> List[D.Diagnostic]:
+    """GLS013: a quantized gradient or parameter sync on a layer with a dp
+    group, which the port's trainer refuses (ROADMAP queue 1 item 10)."""
+    if not any(hp.dp(i) > 1 and (s.grad_comm_dtype != "none" or s.param_comm_dtype != "none")
+               for i, s in enumerate(hp.layers)):
+        return []
+    return [D.make("GLS013", "quantized collectives: the port syncs gradients and parameters "
+                   "in full precision; quantized syncs come with ROADMAP queue 1 item 10",
+                   key="grad_comm_dtype")]
+
+
+def lint_strategy_dict(cfg_dict: dict, world_size: int, model_cfg: Any = None,
+                       memory_budget_gb: Optional[float] = None,
+                       memory_profile: Optional[dict] = None, file: Optional[str] = None,
+                       mode: Optional[str] = None, **overrides) -> D.DiagnosticReport:
+    """Lint a raw strategy dict (the on-disk JSON schema) bottom-up. Stops
+    after the schema layer if the dict cannot construct at all (GLS005 for
+    a construction failure the schema does not name). Outside serve mode
+    it adds the port's GLS013 refusal of quantized syncs."""
+    report = D.DiagnosticReport()
+    schema = schema_diagnostics(cfg_dict)
+    report.extend(schema)
+    if any(d.severity == D.ERROR for d in schema):
+        return _with_file(report, file)
+    try:
+        hp = HybridParallelConfig.from_json(cfg_dict, world_size=world_size, **overrides)
+    except D.DiagnosticError as e:
+        report.extend(e.diagnostics)
+        return _with_file(report, file)
+    except (KeyError, ValueError, TypeError) as e:
+        report.add(D.make("GLS005", "config failed to construct: %s" % e))
+        return _with_file(report, file)
+    report.extend(lint_hp(hp, model_cfg=model_cfg, memory_budget_gb=memory_budget_gb,
+                          memory_profile=memory_profile, mode=mode).diagnostics)
+    if mode != "serve":
+        report.extend(_quant_comm_refusal(hp))
+    return _with_file(report, file)
+
+
+def lint_strategy_file(path: str, world_size: int, model_cfg: Any = None,
+                       memory_budget_gb: Optional[float] = None,
+                       memory_profile: Optional[dict] = None, mode: Optional[str] = None,
+                       **overrides) -> D.DiagnosticReport:
+    return lint_strategy_dict(read_json_config(path), world_size, model_cfg=model_cfg,
+                              memory_budget_gb=memory_budget_gb,
+                              memory_profile=memory_profile, file=path, mode=mode,
+                              **overrides)
+
+
+def _with_file(report: D.DiagnosticReport, file: Optional[str]) -> D.DiagnosticReport:
     if file:
-        report.diagnostics = [
-            D.Diagnostic(**{**d.__dict__, "file": d.file or file})
-            for d in report.diagnostics
-        ]
+        report.diagnostics = [D.Diagnostic(**{**d.__dict__, "file": d.file or file})
+                              for d in report.diagnostics]
     return report

@@ -23,15 +23,26 @@
                        --config_dir for GALVATRON_WORLD_SIZE devices
                        (default 8; CPU only) and write its JSON, which
                        `train --galvatron_config_path` runs
+    lint               static analysis before a job is spent: strategy
+                       JSONs (GLS0xx/1xx: structure, pipeline engines,
+                       model divisibility, the memory estimate against
+                       --memory_budget_gb, --serve feasibility) and
+                       checkpoint directories (--ckpt DIR, GLS21x; --deep
+                       restores each step and recomputes its integrity
+                       folds on --device); exit 0 clean, 1 errors, 2 usage
+    report             offline analysis of a --telemetry JSONL (train or
+                       serve): steady step time, MFU, predicted vs measured
+                       per layer run, lifecycle timeline, serving and
+                       integrity rollups (--json for the dict); exit 0
+                       clean, 1 schema violations, 2 usage or IO failure
 
 The loop:
     python -m galvatron_tpu_torch.cli profile-hardware
     python -m galvatron_tpu_torch.cli profile --model_type llama ...
     GALVATRON_WORLD_SIZE=N python -m galvatron_tpu_torch.cli search ... --output_config_path s.json
-    python -m galvatron_tpu_torch.cli train --galvatron_config_path s.json ...
-
-The reference's lint and report subcommands come with later slices of the
-port.
+    python -m galvatron_tpu_torch.cli lint s.json --world_size N --memory_budget_gb 80
+    python -m galvatron_tpu_torch.cli train --galvatron_config_path s.json --telemetry run.jsonl ...
+    python -m galvatron_tpu_torch.cli report run.jsonl
 """
 
 import sys
@@ -52,6 +63,14 @@ def main():
         from galvatron_tpu_torch.cli.profile import main_model as run
     elif cmd == "profile-hardware":
         from galvatron_tpu_torch.cli.profile import main_hardware as run
+    elif cmd == "lint":
+        from galvatron_tpu_torch.cli.lint import run as run_lint
+
+        return run_lint(argv)
+    elif cmd == "report":
+        from galvatron_tpu_torch.obs.report import run as run_report
+
+        return run_report(argv)
     else:
         print("unknown subcommand %r\n%s" % (cmd, __doc__))
         return 2

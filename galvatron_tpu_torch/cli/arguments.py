@@ -10,8 +10,9 @@ Port of ``galvatron_tpu/cli/arguments.py`` for the modes the port runs:
   preemption, retries, prefetch and the drain window, telemetry, memory
   snapshots) with the reference's defaults;
 - search: ``--config_dir``, the model flags and the reference's search
-  flags with its defaults; ``--trace_lint`` is refused (the trace linter is
-  ROADMAP queue 1 item 12);
+  flags with its defaults; ``--trace_lint`` is refused (the trace linter
+  waits in ROADMAP queue 1 item 12a, the collective audit of
+  ``analysis/trace_lint.py``);
 - profile: ``--config_dir``, the model flags, the model-profiling flags
   and ``--profile_type_model``; profile_hardware: ``--config_dir``, the
   model flags and the hardware-profiling flags. Both add ``--device``.
@@ -35,9 +36,15 @@ live serve migration (``--migrate_on_degrade`` with ``--elastic_strategy``,
 ``--elastic_memory_gb`` and the ``--config_dir`` a re-search reads), as
 the reference does.
 
-Flags whose modules are not ported yet are not defined, so argparse
-refuses them: ``--trace_lint``, ``--xla_trace``, the compilation-cache and
-multi-host bootstrap flags (JAX runtime only). ``--donate_step`` takes 1
+Train takes the observability flags ``--telemetry``, ``--xla_trace DIR``
+(the reference's name: the port writes a torch.profiler Chrome trace per
+rank), ``--trace_steps K:N``, ``--profile`` and ``--train_log_dir``.
+
+Flags whose modules are not ported are not defined, so argparse refuses
+them: the compilation-cache and multi-host bootstrap flags (JAX runtime
+only). Train does not define ``--trace_lint``; search parses its default
+only (the trace linter waits in ROADMAP queue 1 item 12a, the collective
+audit of ``analysis/trace_lint.py``). ``--donate_step`` takes 1
 only (see its help). The port adds ``--device {cuda,cpu}`` to every mode
 that runs a model.
 """
@@ -184,6 +191,19 @@ def _add_train_args(p: argparse.ArgumentParser):
                         "checkpoint, anomaly, rollback, preemption, run_end) to this path")
     o.add_argument("--telemetry_buffer", type=int, default=1024,
                    help="bounded queue depth of the background telemetry writer")
+    o.add_argument("--xla_trace", type=str, default=None,
+                   help="capture a torch.profiler trace (CPU and CUDA activities) of the "
+                        "--trace_steps window into this directory, one Chrome trace per rank "
+                        "(trace_rank<r>.json; the reference's flag name, whose XLA trace "
+                        "becomes the port's torch.profiler trace); a profiler that cannot "
+                        "start emits a trace error event and the run goes on")
+    o.add_argument("--trace_steps", type=str, default="3:5",
+                   help="K:N (inclusive) iteration window for --xla_trace; keep it a few "
+                        "steps wide: traces are large")
+    o.add_argument("--profile", type=int, default=0,
+                   help="log every iteration (the summary is printed either way)")
+    o.add_argument("--train_log_dir", type=str, default=None,
+                   help="tee rank 0's iteration lines to <dir>/train_<model>.log")
     c = p.add_argument_group("checkpointing")
     c.add_argument("--save", type=str, default=None, help="checkpoint output dir")
     c.add_argument("--load", type=str, default=None, help="checkpoint dir to resume from")
@@ -422,7 +442,8 @@ def _default_only(default: str, why: str):
 def _trace_lint_flag(value: str) -> int:
     if int(value):
         raise argparse.ArgumentTypeError(
-            "the trace linter is not ported yet (ROADMAP queue 1 item 12)")
+            "the trace linter is not ported yet (ROADMAP queue 1 item 12a: the "
+            "collective audit of analysis/trace_lint.py)")
     return 0
 
 
@@ -492,7 +513,7 @@ def _add_search_args(p: argparse.ArgumentParser):
                    help="per-device memory read bandwidth backing the decode roofline")
     g.add_argument("--trace_lint", type=_trace_lint_flag, default=0,
                    help="0 only: the JAX package's winner trace lint has no "
-                        "counterpart in the port yet (ROADMAP queue 1 item 12)")
+                        "counterpart in the port yet (ROADMAP queue 1 item 12a)")
 
 
 MODES = ("serve", "train", "search", "profile", "profile_hardware")

@@ -84,6 +84,18 @@ or an autotune swap, moving params and both Adam moments in memory at the
 same step, the departing ranks leaving (exit 0); ``--autotune
 observe|apply`` (``runtime/autotune.py``: once the step settles, a
 re-search on measured tables and, under apply, a swap).
+
+Observability: ``--telemetry`` (rank 0's JSONL event stream, which ``cli
+report`` analyses); ``--xla_trace DIR --trace_steps K:N`` (the reference's
+flag names) captures a ``torch.profiler`` trace (CPU and CUDA activities)
+of steps K..N, each rank exporting ``DIR/trace_rank<r>.json`` (Chrome
+format): the window is bracketed by full drains (nothing in flight when it
+starts, step N drained with nothing dispatched after it when it stops), so
+the trace holds those steps' kernels and no others; ``trace`` events mark
+its start, stop or a profiler that could not start (the run goes on, as in
+the reference). ``--profile`` logs every iteration (`main` prints the
+summary, with or without it); ``--train_log_dir`` tees rank 0's iteration lines to
+``<dir>/train_<model>_<size>.log``.
 """
 
 from __future__ import annotations
@@ -121,7 +133,7 @@ from galvatron_tpu_torch.runtime.prefetch import (
     PrefetchStalledError,
     consume,
 )
-from galvatron_tpu_torch.runtime.provenance import build_provenance
+from galvatron_tpu_torch.runtime.provenance import build_provenance, model_config_fields
 
 
 def optimizer_args_from(args) -> OptimizerArgs:
@@ -391,6 +403,13 @@ def _routes_since(before: dict) -> list:
     return every
 
 
+def _parse_trace_steps(spec) -> tuple:
+    """'K:N' -> (K, N) inclusive; a single 'K' traces one step."""
+    lo, _, hi = str(spec or "3:5").partition(":")
+    lo = int(lo)
+    return lo, int(hi) if hi else lo
+
+
 def _train(args, device) -> dict:
     from galvatron_tpu_torch.analysis.diagnostics import DiagnosticError
     from galvatron_tpu_torch.runtime import elastic as els
@@ -528,10 +547,57 @@ def _train(args, device) -> dict:
 
     prof = RuntimeProfiler(warmup=min(2, max(args.train_iters - 1, 0)), device=device,
                            model_flops=step_flops / run.hp.world_size if step_flops
-                           else step_flops, peak_flops=peak_flops)
+                           else step_flops, peak_flops=peak_flops,
+                           model_name="%s_%s" % (args.model_type,
+                                                 args.model_size or run.fam.default_size),
+                           log_dir=getattr(args, "train_log_dir", None))
     save_memory = bool(getattr(args, "save_profiled_memory", 0))
     preempt = rsl.PreemptionHandler().install() if getattr(args, "emergency_save", 0) else None
     saves = []
+
+    # ------------------------------------------------------ the trace window
+    # torch.profiler over steps K..N (--xla_trace, --trace_steps): started
+    # before step K is dispatched with nothing in flight, stopped when step
+    # N has drained with nothing dispatched after it (see the loop), so the
+    # device timeline holds exactly the window's kernels. A profiler that
+    # cannot start or stop emits an error event and the run goes on.
+    trace_dir = getattr(args, "xla_trace", None)
+    trace_lo, trace_hi = _parse_trace_steps(getattr(args, "trace_steps", None))
+    trace = {"prof": None, "done": trace_dir is None}
+
+    def start_trace():
+        try:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            trace["prof"] = profile(activities=acts)
+            trace["prof"].start()
+            telemetry.emit("trace", action="start", dir=trace_dir, first_step=trace_lo,
+                           last_step=trace_hi)
+        except Exception as e:  # noqa: BLE001 - tracing is best effort, as in the reference
+            trace.update(prof=None, done=True)
+            telemetry.emit("trace", action="error", error=str(e))
+            if distributed.rank() == 0:
+                print("torch.profiler trace skipped (%s): %s" % (type(e).__name__, e))
+
+    def maybe_stop_trace(iteration=None):
+        if trace["prof"] is None or (iteration is not None and iteration < trace_hi):
+            return
+        p = trace["prof"]
+        trace.update(prof=None, done=True)
+        try:
+            with prof.boundary():  # the export is not the next step's time
+                p.stop()
+                os.makedirs(trace_dir, exist_ok=True)
+                p.export_chrome_trace(os.path.join(trace_dir,
+                                                   "trace_rank%d.json" % distributed.rank()))
+            telemetry.emit("trace", action="stop", dir=trace_dir)
+        except Exception as e:  # noqa: BLE001
+            telemetry.emit("trace", action="error", error=str(e))
+            if distributed.rank() == 0:
+                print("torch.profiler trace stop failed (%s): %s" % (type(e).__name__, e))
 
     # -------------------------------------------------------- self-healing
     # the watchdog (runtime/health.py): a monitor thread armed around every
@@ -600,7 +666,8 @@ def _train(args, device) -> dict:
             info = ckpt.save_checkpoint(
                 args.save, iteration, p_view, o_view, run.hp, train_meta=meta,
                 keep_latest_k=getattr(args, "keep_latest_k", 0) or None, provenance=provenance,
-                meta={"model_type": args.model_type, "model_size": args.model_size},
+                meta={"model_type": args.model_type, "model_size": args.model_size,
+                      "model_config": model_config_fields(cfg)},
                 retry_policy=retry_policy, counters=res, folds=folds)
         saves.append({k: v for k, v in info.items() if k != "items"})
         saves[-1].update(iteration=iteration, digests=info["items"])
@@ -641,9 +708,11 @@ def _train(args, device) -> dict:
             tuner.observe_step(prof.all_times_ms[-1] if prof.all_times_ms else None,
                                iteration=d_it)
         loss = float(metrics["loss"])
-        if distributed.rank() == 0 and d_it % max(args.log_interval, 1) == 0:
+        if distributed.rank() == 0 and (getattr(args, "profile", 0)
+                                        or d_it % max(args.log_interval, 1) == 0):
             prof.log_iteration(d_it, {"loss": loss, "grad_norm": float(metrics["grad_norm"])})
         emit_step_event(d_it, metrics, loss, disp_ms)
+        maybe_stop_trace(d_it)
         if save_memory and not prof.memory_snapshots:
             prof.profile_memory(d_it, "after_step")
         if sdc_ladder is not None and metrics.get("sdc_mismatch"):
@@ -999,6 +1068,11 @@ def _train(args, device) -> dict:
                 if wd is not None:
                     wd.disarm()  # the exit saves are not step work
                 break
+            if not trace["done"] and trace["prof"] is None and it >= trace_lo:
+                if drain_inflight(0):
+                    continue
+                with prof.boundary():  # nor is the profiler's start
+                    start_trace()
             if wd is not None:
                 wd.arm(it, "fetch", inflight=len(inflight))
             batch = next(stream)
@@ -1015,7 +1089,9 @@ def _train(args, device) -> dict:
             # read it in its one host transfer): recover now, before any
             # step runs from the frozen state (a fault that stops lying
             # would otherwise let a descendant apply an update out of turn)
-            window = 0 if metrics.get("sdc_mismatch") else inflight_window
+            # (and the trace window's last step drains with nothing after it)
+            window = 0 if metrics.get("sdc_mismatch") or (
+                trace["prof"] is not None and it > trace_hi) else inflight_window
             if drain_inflight(window):
                 continue
             if eval_interval and it % eval_interval == 0:
@@ -1049,6 +1125,8 @@ def _train(args, device) -> dict:
             prof.loop_fence()
     finally:
         stream.close()
+        maybe_stop_trace()
+        prof.close()
         if preempt is not None:
             preempt.uninstall()
         if wd is not None:

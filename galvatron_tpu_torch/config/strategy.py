@@ -531,6 +531,69 @@ class HybridParallelConfig:
                     ))
         return out
 
+    def pipeline_engine_findings(self) -> list:
+        """The pipeline engines' contract as (diagnostic, refusal) pairs, in
+        the order the engines check it: GPipe needs equal divisions and
+        within-stage strategies that match on every stage (GLS011 when only
+        the remat flags or policies differ, else GLS010) and no ring cp;
+        1F1B with ring cp needs stage-uniform strategies (GLS010). The lint
+        reports the diagnostics (`pipeline_engine_diagnostics`, the
+        reference's messages); ``parallel/pipeline.validate_pipeline_config``
+        and ``parallel/pipeline_1f1b.validate_1f1b_config`` raise the first
+        refusal (the reference engines' messages). Not part of `validate()`:
+        a config for pp=1 slicing constructs fine."""
+        out = []
+        if self.pp <= 1:
+            return out
+        div = self.pp_division
+        if len(div) != self.pp or sum(div) != len(self.layers) or any(n < 1 for n in div):
+            return out  # GLS003 already reported; stage slicing is undefined
+        stage_sigs = [tuple(self.layers[i] for i in self.layers_of_stage(st))
+                      for st in range(self.pp)]
+        if self.pipeline_type == "gpipe":
+            # one stage body for every stage: equal stages, identical
+            # within-stage strategies everywhere, no ring cp
+            if len(set(div)) != 1:
+                out.append((D.make(
+                    "GLS010", "gpipe scan requires equal layers per stage, got pp_division %s "
+                    "(use pipeline_type='pipedream_flush' for uneven divisions)" % (div,),
+                    key="pp_division"),
+                    "pipelined execution requires equal layers per stage, got pp_division=%s "
+                    "(pad the model or use pp_division of equal parts)" % (div,)))
+            elif len(set(stage_sigs)) != 1:
+                ckpt_only = len({
+                    tuple(dataclasses.replace(s, checkpoint=0, remat_policy="full") for s in sig)
+                    for sig in stage_sigs}) == 1
+                j = next(j for j in range(div[0]) if len({sig[j] for sig in stage_sigs}) != 1)
+                out.append((D.make(
+                    "GLS011" if ckpt_only else "GLS010",
+                    "gpipe scan requires within-stage %s to match on every stage (the vmapped "
+                    "body is one program); use pipeline_type='pipedream_flush' for per-stage "
+                    "heterogeneous strategies" % ("activation-checkpoint flags" if ckpt_only
+                                                  else "layer strategies")),
+                    "within-stage layer %d must use the same strategy on every stage for the "
+                    "gpipe scan pipeline (use pipeline_type='pipedream_flush' for per-stage "
+                    "heterogeneous strategies); got %s" % (j, {sig[j] for sig in stage_sigs})))
+            for i, s in enumerate(self.layers):
+                if s.cp > 1:
+                    out.append((D.make(
+                        "GLS010", "layer %d: cp>1 with pp>1 must run through the 1F1B engine "
+                        "(pipeline_type='pipedream_flush'); the scan pipeline computes "
+                        "attention without the ring shard_map" % i, layer=i),
+                        "cp>1 with pp>1 runs through the 1F1B engine "
+                        "(pipeline_type='pipedream_flush'), not the scan pipeline"))
+                    break
+        elif any(s.cp > 1 for s in self.layers) and len(set(stage_sigs)) != 1:
+            msg = ("ring-attention cp>1 inside the 1F1B schedule requires stage-uniform "
+                   "strategies (equal divisions included)")
+            out.append((D.make("GLS010", msg + ": the ring's collective-permutes must execute "
+                               "identically on every stage every tick"), msg))
+        return out
+
+    def pipeline_engine_diagnostics(self) -> list:
+        """GLS010 / GLS011: the diagnostics of `pipeline_engine_findings`."""
+        return [d for d, _ in self.pipeline_engine_findings()]
+
     def validate(self):
         errors = [d for d in self.structural_diagnostics() if d.severity == D.ERROR]
         if errors:

@@ -1,13 +1,16 @@
-"""Predicted cost per LayerRun: what the search's cost models expect.
+"""Predicted-vs-measured cost per LayerRun.
 
-Port of the prediction half of ``galvatron_tpu/obs/attribution.py``. For
-every `LayerRun` of a strategy (``config.strategy.layer_runs``: the layers
+Port of ``galvatron_tpu/obs/attribution.py``. For every `LayerRun` of a strategy (``config.strategy.layer_runs``: the layers
 that share one realised layout) it prices the per-iteration time and memory
 through the same cost-model classes the search uses, on the given tables or
 the analytic fallback of ``runtime/elastic.py``, and gives the run's share
 of the step's model FLOPs (``obs/flops.run_fwd_flops``). The online
 autotuner (``runtime/autotune.py``) splits the measured step by those
 shares; ``cli train --telemetry`` writes the rows as ``layer_run`` events.
+`divergence_rows` joins them with a measured step (each run's measured time
+is its FLOPs share of the steady step) and `render_divergence_table` prints
+the join (``cli report``). The port has no compiled-program memory figure,
+so its reports leave the measured-memory column empty.
 """
 
 from __future__ import annotations
@@ -222,3 +225,94 @@ def predict_layer_runs(
             "flops_share": round(run_flops[-1] / total_flops, 6),
         })
     return out
+
+
+# --------------------------------------------------------------- divergence
+def divergence_rows(
+    predictions: List[Dict[str, Any]],
+    measured_step_ms: Optional[float] = None,
+    measured_memory_mb: Optional[float] = None,
+) -> List[Dict[str, Any]]:
+    """Join per-run predictions with the measured step: each run's measured
+    time is its FLOPs share of the steady-state step, memory its share of
+    the compiled working set. `predictions` accepts both predict_layer_runs
+    output and replayed ``layer_run`` telemetry events."""
+    rows: List[Dict[str, Any]] = []
+    for p in predictions:
+        row = {k: p.get(k) for k in (
+            "run", "start", "stop", "strategy", "predicted_ms",
+            "predicted_memory_mb", "flops_share", "tp_comm_mode",
+            "predicted_comm_ms", "predicted_comm_hidden_ms",
+            "grad_comm_dtype", "predicted_quant_overhead_ms",
+            "remat_policy", "predicted_recompute_ms",
+        )}
+        share = p.get("flops_share")
+        if measured_step_ms is not None and share is not None:
+            row["measured_ms"] = round(measured_step_ms * share, 4)
+            if p.get("predicted_ms"):
+                row["time_ratio"] = p["predicted_ms"] / row["measured_ms"] \
+                    if row["measured_ms"] else None
+        if measured_memory_mb is not None and share is not None \
+                and p.get("predicted_memory_mb") is not None:
+            row["measured_memory_mb"] = round(measured_memory_mb * share, 2)
+        rows.append(row)
+    return rows
+
+
+def render_divergence_table(rows: List[Dict[str, Any]]) -> str:
+    """Fixed-width text table of the divergence rows (the report CLI's
+    human rendering)."""
+    if not rows:
+        return "(no layer-run predictions recorded)"
+    # the comm columns only render when some run priced a TP-collective
+    # path (tp>1); dp-only tables keep the original width
+    has_comm = any(r.get("predicted_comm_ms") is not None for r in rows)
+    has_quant = any(r.get("grad_comm_dtype") is not None for r in rows)
+    has_remat = any(r.get("remat_policy") is not None for r in rows)
+    header = ("run", "layers", "strategy", "pred_ms", "meas_ms", "ratio",
+              "pred_mb", "share")
+    if has_comm:
+        header += ("comm_ms", "hid_ms")
+    if has_quant:
+        header += ("gcomm", "q_ms")
+    if has_remat:
+        header += ("remat", "rc_ms")
+    body = []
+    for r in rows:
+        run = r.get("run")
+        layers = ("%d-%d" % (r["start"], r["stop"] - 1)
+                  if r.get("stop") and r["stop"] > r.get("start", 0) else "-")
+        cells = (
+            "head" if run == HEAD_RUN else str(run),
+            layers,
+            str(r.get("strategy") or "-"),
+            _fmt(r.get("predicted_ms")),
+            _fmt(r.get("measured_ms")),
+            _fmt(r.get("time_ratio")),
+            _fmt(r.get("predicted_memory_mb")),
+            _fmt(r.get("flops_share")),
+        )
+        if has_comm:
+            cells += (_fmt(r.get("predicted_comm_ms")),
+                      _fmt(r.get("predicted_comm_hidden_ms")))
+        if has_quant:
+            cells += (_fmt(r.get("grad_comm_dtype")),
+                      _fmt(r.get("predicted_quant_overhead_ms")))
+        if has_remat:
+            cells += (_fmt(r.get("remat_policy")),
+                      _fmt(r.get("predicted_recompute_ms")))
+        body.append(cells)
+    widths = [max(len(header[i]), *(len(b[i]) for b in body)) for i in range(len(header))]
+    lines = ["  ".join(h.ljust(w) for h, w in zip(header, widths))]
+    lines.append("  ".join("-" * w for w in widths))
+    for b in body:
+        lines.append("  ".join(c.ljust(w) for c, w in zip(b, widths)))
+    return "\n".join(lines)
+
+
+def _fmt(v) -> str:
+    if v is None:
+        return "-"
+    if isinstance(v, float):
+        return "%.4g" % v
+    return str(v)

@@ -1,9 +1,12 @@
 """Analytic model-FLOPs accounting and the peak-FLOPs registry behind MFU.
 
-Port of ``galvatron_tpu/obs/flops.py`` (the training half). Model FLOPs, not
-hardware FLOPs: the matmul terms of attention (with the causal 0.5 factor),
-the MLP and the head projection, independent of remat replay. MFU is
-``model_flops / step_time / peak_flops``.
+Port of ``galvatron_tpu/obs/flops.py`` (the training half and the two decode
+roofline helpers). Model FLOPs, not hardware FLOPs: the matmul terms of
+attention (with the causal 0.5 factor), the MLP and the head projection,
+independent of remat replay. MFU is ``model_flops / step_time /
+peak_flops``. `decode_step_flops` and `model_bytes_per_decode_token` price
+one decode tick: its FLOPs, and the bytes it must stream (the
+bandwidth-roofline denominator of serving throughput).
 """
 
 from __future__ import annotations
@@ -158,6 +161,63 @@ def flops_note(cfg: Any) -> Optional[str]:
         return ("analytic FLOPs leave out T5's cross-attention (and count every layer's "
                 "self-attention causal), as the reference's count does")
     return None
+
+
+# -------------------------------------------------------------- inference
+def decode_step_flops(cfg: Any, batch_size: int = 1,
+                      context_len: Optional[int] = None) -> Optional[float]:
+    """Model FLOPs of ONE decode tick: `batch_size` slots each emit one
+    token against a KV cache of `context_len` entries. Forward-only — no 3x
+    train multiplier — and the attention term prices query-length 1 against
+    the CACHE length (causal=False: the cache rows ARE the visible past, so
+    no 0.5 triangular discount), which is what layer_fwd_flops computes when
+    tokens=batch and seq_len=context. None for non-transformer configs."""
+    layers = getattr(cfg, "num_layers", None)
+    ctx = context_len or getattr(cfg, "max_seq_len", None)
+    if not layers or not ctx:
+        return None
+    per_layer = layer_fwd_flops_from_config(
+        cfg, tokens=float(batch_size), seq_len=int(ctx))
+    if per_layer is None:
+        return None
+    # decode attention is not causal-masked: every cached position is live
+    # (layer_fwd_flops_from_config honours cfg.causal, so undo the 0.5)
+    if bool(getattr(cfg, "causal", True)):
+        hd = getattr(cfg, "head_dim", None) or cfg.hidden_size // cfg.num_heads
+        q_dim = cfg.num_heads * hd
+        per_layer += float(batch_size) * (2.0 * (2.0 * ctx * q_dim)) * 0.5
+    return layers * per_layer + head_fwd_flops_from_config(
+        cfg, tokens=float(batch_size))
+
+
+def model_bytes_per_decode_token(cfg: Any, *, context_len: Optional[int] = None,
+                                 dtype_bytes: int = 2,
+                                 batch_size: int = 1) -> Optional[float]:
+    """HBM bytes one decode tick must stream per generated token: the full
+    weight read (amortised over the batch — weights are read once per STEP,
+    not per token) plus the token's own KV-cache read at `context_len`.
+    This is the bandwidth-roofline denominator serving throughput divides
+    by (search/cost_model.ServeTimeCostModel prices the same quantity from
+    profiled tables); None for non-transformer configs."""
+    hidden = getattr(cfg, "hidden_size", None)
+    layers = getattr(cfg, "num_layers", None)
+    heads = getattr(cfg, "num_heads", None)
+    if not hidden or not layers or not heads:
+        return None
+    ctx = context_len or getattr(cfg, "max_seq_len", 0) or 0
+    ffn = getattr(cfg, "ffn_hidden", None) or 4 * hidden
+    hd = getattr(cfg, "head_dim", None) or hidden // heads
+    nkv = getattr(cfg, "num_kv_heads", None) or heads
+    swiglu = getattr(cfg, "activation", "gelu") == "swiglu"
+    # per-layer weight elements: q + kv (GQA) + out projections and the MLP
+    q_dim = heads * hd
+    proj = hidden * q_dim + hidden * (2 * nkv * hd) + q_dim * hidden
+    mlp = hidden * (2 * ffn) + ffn * hidden if swiglu else 2 * hidden * ffn
+    weight_bytes = layers * (proj + mlp) * float(dtype_bytes)
+    vocab = getattr(cfg, "vocab_size", 0) or 0
+    weight_bytes += hidden * vocab * float(dtype_bytes)  # head matmul read
+    kv_bytes = layers * 2.0 * ctx * nkv * hd * float(dtype_bytes)
+    return weight_bytes / max(int(batch_size), 1) + kv_bytes
 
 
 def mfu(flops_per_step: Optional[float], step_ms: Optional[float],

@@ -1,0 +1,574 @@
+"""Offline analysis of a telemetry JSONL: ``python -m galvatron_tpu_torch.cli report``.
+
+Port of ``galvatron_tpu/obs/report.py``: the same analysis dict (``--json``)
+and the same text, over the event stream ``obs/telemetry.py`` writes under
+``cli train --telemetry`` or ``cli serve --telemetry`` (both packages write
+one schema, so either package's report reads either stream):
+
+- **steady-state detection** (``obs/steady.py``): the first rolling window
+  of per-step times whose relative stdev drops under a tolerance marks the
+  end of warmup (the kernels' build, the allocator's first passes); the
+  steady step time is the median from there on (the post-25% median when
+  the run never settles, and the method says so).
+- **MFU / model-FLOPs-per-s**, recomputed from the run's recorded
+  ``model_flops_per_step`` and ``peak_flops`` at the steady step time.
+- **lifecycle timeline**: anomalies, rollbacks, checkpoint
+  save/restore/GC, retries, preemption, elastic decisions, trace windows,
+  in emit order.
+- **divergence table**: the per-LayerRun predicted-vs-measured join
+  (``obs/attribution.py``) at the steady step time, and the measured
+  memory of a ``compile`` event where the stream has one. The port's
+  driver emits none (it has no compiled-program memory figure), so on its
+  own streams that column stays empty.
+- **integrity rollup** (``train --sdc_check``): digest heartbeats, vote
+  mismatches with the suspected devices, re-executions, quarantines and
+  the continuity checks around state motion.
+- **serving rollup** (``serve_request`` / ``decode_batch`` events): TTFT
+  and TPOT percentiles, decode-step occupancy, output tokens/s, and the
+  resilience ledger of ``serve_shed`` / ``serve_drain`` / ``serve_migrate``.
+- the ``tp_overlap`` and ``quant_comm`` events of the manual-TP and
+  quantized-collective paths are read where a stream carries them.
+
+Exit-code contract (shared with ``cli lint``): 0 = analyzed clean, 1 =
+schema violations in the stream, 2 = usage/IO failure. ``--json`` prints
+the analysis dict; ``--emit_profiles DIR`` writes measured per-layer tables
+(``runtime/autotune.emit_profiles``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import sys
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+from galvatron_tpu_torch.obs import attribution as A
+from galvatron_tpu_torch.obs import flops as F
+from galvatron_tpu_torch.obs import steady as S
+from galvatron_tpu_torch.obs import telemetry as T
+
+# lifecycle event types surfaced on the timeline, in schema order
+TIMELINE_TYPES = (
+    "compile", "checkpoint_save", "checkpoint_restore", "checkpoint_gc",
+    "anomaly_skip", "rollback", "retry", "preemption", "watchdog", "elastic",
+    "autotune", "trace", "eval", "serve_drain", "serve_migrate",
+    "sdc_mismatch", "sdc_quarantine",
+)
+# serve_shed is deliberately NOT on the timeline: a shedding server emits
+# one per rejected request, which under overload is most of the load.
+# sdc_check is off it for the same reason: it is a per-interval heartbeat,
+# not a lifecycle transition — only mismatches and quarantines are.
+
+# timeline rendering: the watchdog's stack dump and a migration's full
+# strategy JSON are post-mortem payloads, not one-line timeline material
+_TIMELINE_ELIDED_KEYS = ("stacks", "from_strategy", "to_strategy")
+
+
+# ---------------------------------------------------------- steady state
+def detect_steady_state(
+    values: Sequence[float], window: int = 5, rel_std: float = 0.15
+) -> Tuple[Optional[int], str]:
+    """(start index, method) of the steady-state region of a per-step time
+    series. The detector itself lives in obs/steady.py (shared with the
+    online autotuner, which also needs the streaming form); this wrapper
+    keeps the report's historical tuple API."""
+    return S.detect(values, window=window, rel_std=rel_std).as_tuple()
+
+
+def _median(vals: Sequence[float]) -> Optional[float]:
+    vals = [v for v in vals if v is not None]
+    return float(statistics.median(vals)) if vals else None
+
+
+def _percentile(vals: Sequence[float], q: float) -> Optional[float]:
+    """Nearest-rank percentile (same convention as serve/engine.percentile)."""
+    vals = sorted(v for v in vals if v is not None)
+    if not vals:
+        return None
+    k = min(len(vals) - 1, max(0, int(round(q / 100.0 * (len(vals) - 1)))))
+    return float(vals[k])
+
+
+def _serving_section(
+    reqs: List[Dict[str, Any]],
+    batches: List[Dict[str, Any]],
+    sheds: List[Dict[str, Any]] = (),
+    drains: List[Dict[str, Any]] = (),
+    migrates: List[Dict[str, Any]] = (),
+) -> Dict[str, Any]:
+    """Latency/throughput rollup of serve_request + decode_batch events,
+    plus the resilience ledger (serve_shed/serve_drain/serve_migrate)."""
+    ttft = [e.get("ttft_ms") for e in reqs]
+    tpot = [e.get("tpot_ms") for e in reqs]
+    out_tokens = sum(e.get("output_len") or 0 for e in reqs)
+    arrivals = [e.get("arrival_t") for e in reqs if e.get("arrival_t") is not None]
+    dones = [e.get("done_t") for e in reqs if e.get("done_t") is not None]
+    span = (max(dones) - min(arrivals)) if arrivals and dones else None
+    occ = [e["occupancy"] for e in batches if e.get("occupancy") is not None]
+    by_reason: Dict[str, int] = {}
+    for e in sheds:
+        r = e.get("reason") or "?"
+        by_reason[r] = by_reason.get(r, 0) + 1
+    offered = len(reqs) + len(sheds)
+    return {
+        "requests": len(reqs),
+        "output_tokens": out_tokens,
+        "tokens_per_s": (out_tokens / span) if span else None,
+        "ttft_ms": {q: _percentile(ttft, n) for q, n in
+                    (("p50", 50), ("p90", 90), ("p99", 99))},
+        "tpot_ms": {q: _percentile(tpot, n) for q, n in
+                    (("p50", 50), ("p90", 90), ("p99", 99))},
+        "decode_steps": len(batches),
+        "median_step_ms": _median([e.get("step_ms") for e in batches]),
+        "mean_occupancy": (statistics.fmean(occ) if occ else None),
+        "shed": len(sheds),
+        "shed_retryable": sum(1 for e in sheds if e.get("retryable")),
+        "shed_rate": (len(sheds) / offered) if offered else None,
+        "shed_by_reason": dict(sorted(by_reason.items())),
+        "drains": [
+            {k: e.get(k) for k in ("reason", "completed", "active_completed",
+                                   "active_shed", "pending_shed", "exit_code")
+             if e.get(k) is not None}
+            for e in drains
+        ],
+        "migrations": len(migrates),
+        "migrated_worlds": [
+            [e.get("from_world"), e.get("to_world")] for e in migrates],
+    }
+
+
+def _integrity_section(
+    checks: List[Dict[str, Any]],
+    mismatches: List[Dict[str, Any]],
+    quarantines: List[Dict[str, Any]],
+) -> Dict[str, Any]:
+    """Silent-corruption sentinel rollup (sdc_check / sdc_mismatch /
+    sdc_quarantine events). Heartbeats carry the step-mode digests; the
+    mode=="continuity" checks are the GLS016 asserts around state motion
+    (relayout / migrate / cross-layout restore) and are counted apart."""
+    heartbeats = [e for e in checks if e.get("mode") != "continuity"]
+    continuity = [e for e in checks if e.get("mode") == "continuity"]
+    reexecs = sum(1 for e in mismatches if e.get("action") == "reexecute")
+    suspects: Dict[str, int] = {}
+    for e in mismatches:
+        for dev in e.get("suspects") or ():
+            suspects[str(dev)] = suspects.get(str(dev), 0) + 1
+    return {
+        "mode": heartbeats[-1].get("mode") if heartbeats else None,
+        "checks": len(heartbeats),
+        "continuity_checks": len(continuity),
+        "continuity_sites": sorted(
+            {e.get("where") for e in continuity if e.get("where")}),
+        "mismatches": len(mismatches),
+        "mismatch_rate": (len(mismatches) / (len(heartbeats) + len(mismatches))
+                          if (heartbeats or mismatches) else None),
+        "reexecutions": reexecs,
+        "suspect_counts": dict(sorted(suspects.items())),
+        "quarantines": len(quarantines),
+        "quarantined_devices": sorted(
+            {int(d) for e in quarantines for d in (e.get("device_ids") or ())}),
+        "last_fold": (("0x%08x" % int(heartbeats[-1]["fold"]))
+                      if heartbeats and heartbeats[-1].get("fold") is not None
+                      else None),
+    }
+
+
+def _autotune_section(events: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Online-autotuner rollup (`train --autotune`): planning decisions,
+    applied swaps with predicted-vs-realized saving, and — in observe mode
+    — the counterfactuals (decisions that WOULD have swapped)."""
+    plans = [e for e in events if e.get("action") == "plan"]
+    realized = [e for e in events if e.get("action") == "realized"]
+    holds: Dict[str, int] = {}
+    for e in plans:
+        if not e.get("swapped"):
+            r = e.get("reason") or "?"
+            holds[r] = holds.get(r, 0) + 1
+    return {
+        "plans": len(plans),
+        "swaps": sum(1 for e in plans if e.get("swapped")),
+        "counterfactuals": sum(
+            1 for e in plans
+            if e.get("mode") == "observe" and e.get("reason") == "swap"),
+        "holds_by_reason": dict(sorted(holds.items())),
+        "predicted_saving_ms": sum(
+            e.get("predicted_saving_ms") or 0.0
+            for e in plans if e.get("swapped")) or None,
+        "counterfactual_saving_ms": sum(
+            e.get("predicted_saving_ms") or 0.0
+            for e in plans
+            if e.get("mode") == "observe" and e.get("reason") == "swap")
+            or None,
+        "realized_saving_ms": sum(
+            e.get("realized_saving_ms") or 0.0 for e in realized)
+            if realized else None,
+        "swapped_iters": [e.get("iter") for e in plans if e.get("swapped")],
+    }
+
+
+# -------------------------------------------------------------- analysis
+def analyze(
+    events: List[Dict[str, Any]],
+    window: int = 5,
+    rel_std: float = 0.15,
+) -> Dict[str, Any]:
+    """The full analysis dict (the --json payload)."""
+    by_type: Dict[str, List[Dict[str, Any]]] = {}
+    for e in events:
+        by_type.setdefault(e["type"], []).append(e)
+
+    run_start = (by_type.get("run_start") or [{}])[-1]
+    steps = by_type.get("step", [])
+    iter_ms = [e.get("iter_ms") for e in steps if e.get("iter_ms") is not None]
+
+    start_idx, method = detect_steady_state(iter_ms, window=window, rel_std=rel_std)
+    steady: Dict[str, Any] = {"method": method, "window": window, "rel_std": rel_std}
+    if start_idx is not None and iter_ms:
+        tail = iter_ms[start_idx:]
+        steady_ms = _median(tail)
+        steady.update(
+            start_step_index=start_idx,
+            start_iter=steps[start_idx].get("iter") if start_idx < len(steps) else None,
+            step_ms=steady_ms,
+            steps_measured=len(tail),
+        )
+        if steady_ms:
+            steady["steps_per_s"] = 1e3 / steady_ms
+            fps = run_start.get("model_flops_per_step")
+            steady["model_flops_per_s"] = F.flops_per_s(fps, steady_ms)
+            steady["mfu"] = F.mfu(fps, steady_ms, run_start.get("peak_flops"))
+
+    compile_ev = (by_type.get("compile") or [{}])[-1]
+    predictions = [e for e in by_type.get("layer_run", [])]
+    divergence = A.divergence_rows(
+        predictions,
+        measured_step_ms=steady.get("step_ms"),
+        measured_memory_mb=compile_ev.get("compiled_memory_mb"),
+    ) if predictions else []
+    # measured overlap (tp_shard_map.measure_comm_hidden): lay the measured
+    # hidden-comm number beside the prediction's row for the same run
+    overlap_events = [
+        {k: v for k, v in e.items() if k not in ("v", "t", "seq", "type")}
+        for e in by_type.get("tp_overlap", [])
+    ]
+    # comm-precision axis (quantized collectives): the run-level wire
+    # dtypes + measured quant toll sit beside the divergence table, whose
+    # per-run gcomm/q_ms columns carry the predictions
+    quant_events = [
+        {k: v for k, v in e.items() if k not in ("v", "t", "seq", "type")}
+        for e in by_type.get("quant_comm", [])
+    ]
+    if overlap_events and divergence:
+        by_run = {e.get("run"): e for e in overlap_events}
+        for row in divergence:
+            ev = by_run.get(row.get("run"))
+            if ev is not None and ev.get("comm_hidden_ms") is not None:
+                row["comm_hidden_ms"] = ev["comm_hidden_ms"]
+
+    timeline = [
+        {k: v for k, v in e.items() if k not in ("v",) + _TIMELINE_ELIDED_KEYS}
+        for e in sorted(
+            (e for t in TIMELINE_TYPES for e in by_type.get(t, [])),
+            key=lambda e: e["seq"],
+        )
+    ]
+
+    losses = [e.get("loss") for e in steps if e.get("loss") is not None]
+    analysis: Dict[str, Any] = {
+        "version": T.SCHEMA_VERSION,
+        "run": {k: v for k, v in run_start.items()
+                if k not in ("v", "t", "seq", "type")},
+        "counts": {t: len(v) for t, v in sorted(by_type.items())},
+        "steps": {
+            "n": len(steps),
+            "first_iter": steps[0].get("iter") if steps else None,
+            "last_iter": steps[-1].get("iter") if steps else None,
+            "first_loss": losses[0] if losses else None,
+            "last_loss": losses[-1] if losses else None,
+            "median_iter_ms": _median(iter_ms),
+            "median_dispatch_ms": _median([e.get("dispatch_ms") for e in steps]),
+            "median_host_blocked_ms": _median(
+                [e.get("host_blocked_ms") for e in steps]),
+        },
+        "steady": steady,
+        "compile": {k: v for k, v in compile_ev.items()
+                    if k not in ("v", "t", "seq", "type")},
+        "anomalies": {
+            "skipped": len(by_type.get("anomaly_skip", [])),
+            "rollbacks": len(by_type.get("rollback", [])),
+            "retries": len(by_type.get("retry", [])),
+        },
+        "health": {
+            "watchdog_fires": sum(
+                1 for e in by_type.get("watchdog", []) if e.get("action") == "fire"),
+            "watchdog_escalations": sum(
+                1 for e in by_type.get("watchdog", [])
+                if e.get("action") == "escalate"),
+            "migrations": sum(
+                1 for e in by_type.get("elastic", [])
+                if e.get("action") == "migrate"),
+        },
+        "divergence": divergence,
+        "tp_overlap": overlap_events,
+        "quant_comm": quant_events,
+        "timeline": timeline,
+    }
+    sdc_checks = by_type.get("sdc_check", [])
+    sdc_mismatches = by_type.get("sdc_mismatch", [])
+    sdc_quarantines = by_type.get("sdc_quarantine", [])
+    if sdc_checks or sdc_mismatches or sdc_quarantines:
+        analysis["integrity"] = _integrity_section(
+            sdc_checks, sdc_mismatches, sdc_quarantines)
+    serve_reqs = by_type.get("serve_request", [])
+    decode_batches = by_type.get("decode_batch", [])
+    sheds = by_type.get("serve_shed", [])
+    drains = by_type.get("serve_drain", [])
+    migrates = by_type.get("serve_migrate", [])
+    if serve_reqs or decode_batches or sheds or drains or migrates:
+        analysis["serving"] = _serving_section(
+            serve_reqs, decode_batches, sheds, drains, migrates)
+    autotune_events = by_type.get("autotune", [])
+    if autotune_events:
+        analysis["autotuning"] = _autotune_section(autotune_events)
+    run_end = by_type.get("run_end")
+    if run_end and run_end[-1].get("summary") is not None:
+        analysis["summary"] = run_end[-1]["summary"]
+    return analysis
+
+
+# ------------------------------------------------------------- rendering
+def _fmt(v) -> str:
+    if v is None:
+        return "-"
+    if isinstance(v, float):
+        return "%.4g" % v
+    return str(v)
+
+
+def render(analysis: Dict[str, Any]) -> str:
+    run = analysis["run"]
+    steps = analysis["steps"]
+    steady = analysis["steady"]
+    lines = []
+    lines.append("telemetry report (schema v%d)" % analysis["version"])
+    if run:
+        lines.append(
+            "run: model=%s world=%s bsz=%s iters=%s device=%s"
+            % (run.get("model", "?"), run.get("world_size", "?"),
+               run.get("global_bsz", "?"), run.get("train_iters", "?"),
+               run.get("device_kind", "?"))
+        )
+    lines.append(
+        "steps: %d recorded (iter %s..%s), loss %s -> %s"
+        % (steps["n"], _fmt(steps["first_iter"]), _fmt(steps["last_iter"]),
+           _fmt(steps["first_loss"]), _fmt(steps["last_loss"]))
+    )
+    lines.append(
+        "steady state (%s): step %s ms over %s steps from iter %s "
+        "| steps/s %s | model FLOP/s %s | MFU %s"
+        % (steady.get("method"), _fmt(steady.get("step_ms")),
+           _fmt(steady.get("steps_measured")), _fmt(steady.get("start_iter")),
+           _fmt(steady.get("steps_per_s")), _fmt(steady.get("model_flops_per_s")),
+           _fmt(steady.get("mfu")))
+    )
+    comp = analysis["compile"]
+    if comp:
+        lines.append(
+            "compile: trace %s ms, compile %s ms, compiled memory %s MB, "
+            "xla flops %s"
+            % (_fmt(comp.get("trace_ms")), _fmt(comp.get("compile_ms")),
+               _fmt(comp.get("compiled_memory_mb")),
+               _fmt(comp.get("xla_flops_per_step")))
+        )
+    an = analysis["anomalies"]
+    lines.append(
+        "resilience: %d anomalies skipped, %d rollbacks, %d retries"
+        % (an["skipped"], an["rollbacks"], an["retries"])
+    )
+    lines.append("")
+    lines.append("predicted vs measured per layer run:")
+    lines.append(A.render_divergence_table(analysis["divergence"]))
+    if analysis.get("quant_comm"):
+        lines.append("")
+        lines.append("quantized collectives:")
+        for e in analysis["quant_comm"]:
+            lines.append(
+                "  grad wire %s | param wire %s | block %s | tp ring %s | "
+                "quant toll %s ms | wire MB %s (fp32 %s)"
+                % (_fmt(e.get("grad_comm_dtype")),
+                   _fmt(e.get("param_comm_dtype")),
+                   _fmt(e.get("comm_quant_block")),
+                   _fmt(e.get("tp_comm_quant")),
+                   _fmt(e.get("quant_overhead_ms")),
+                   _fmt(e.get("wire_mb_configured")),
+                   _fmt(e.get("wire_mb_fp32")))
+            )
+    if analysis.get("tp_overlap"):
+        lines.append("")
+        lines.append("TP overlap (decomposed collectives, measured):")
+        for e in analysis["tp_overlap"]:
+            lines.append(
+                "  run %s (layers %s-%s): overlap %s ms vs serialized %s ms "
+                "-> comm hidden %s ms"
+                % (_fmt(e.get("run")), _fmt(e.get("start")),
+                   _fmt(e.get("stop", 1) - 1 if e.get("stop") is not None else None),
+                   _fmt(e.get("overlap_ms")), _fmt(e.get("serial_ms")),
+                   _fmt(e.get("comm_hidden_ms")))
+            )
+    if analysis.get("integrity"):
+        iv = analysis["integrity"]
+        lines.append("")
+        lines.append("integrity (silent-corruption sentinel):")
+        lines.append(
+            "  mode %s | %s digest checks (last fold %s) | %s continuity "
+            "checks%s"
+            % (_fmt(iv["mode"]), _fmt(iv["checks"]), _fmt(iv["last_fold"]),
+               _fmt(iv["continuity_checks"]),
+               (" (%s)" % ", ".join(iv["continuity_sites"])
+                if iv["continuity_sites"] else ""))
+        )
+        if iv["mismatches"]:
+            suspects = " ".join(
+                "dev%s=%d" % (k, v) for k, v in iv["suspect_counts"].items())
+            lines.append(
+                "  mismatches: %s (rate %s), %s re-executions%s"
+                % (_fmt(iv["mismatches"]), _fmt(iv["mismatch_rate"]),
+                   _fmt(iv["reexecutions"]),
+                   (" | suspects %s" % suspects) if suspects else "")
+            )
+        if iv["quarantines"]:
+            lines.append(
+                "  quarantines: %s, devices %s"
+                % (_fmt(iv["quarantines"]),
+                   ",".join(str(d) for d in iv["quarantined_devices"]))
+            )
+    if analysis.get("serving"):
+        sv = analysis["serving"]
+        lines.append("")
+        lines.append("serving:")
+        lines.append(
+            "  %s requests, %s output tokens, %s tok/s | %s decode steps, "
+            "median step %s ms, mean occupancy %s"
+            % (_fmt(sv["requests"]), _fmt(sv["output_tokens"]),
+               _fmt(sv["tokens_per_s"]), _fmt(sv["decode_steps"]),
+               _fmt(sv["median_step_ms"]), _fmt(sv["mean_occupancy"]))
+        )
+        for name in ("ttft_ms", "tpot_ms"):
+            p = sv[name]
+            lines.append(
+                "  %s p50/p90/p99: %s / %s / %s"
+                % (name, _fmt(p["p50"]), _fmt(p["p90"]), _fmt(p["p99"]))
+            )
+        if sv.get("shed"):
+            reasons = " ".join(
+                "%s=%d" % (k, v) for k, v in sv["shed_by_reason"].items())
+            lines.append(
+                "  shed: %s (%s retryable, rate %s) %s"
+                % (_fmt(sv["shed"]), _fmt(sv["shed_retryable"]),
+                   _fmt(sv["shed_rate"]), reasons)
+            )
+        for d in sv.get("drains") or ():
+            lines.append(
+                "  drain %s: completed %s, active completed %s, shed "
+                "%s active + %s pending"
+                % (_fmt(d.get("reason")), _fmt(d.get("completed")),
+                   _fmt(d.get("active_completed")), _fmt(d.get("active_shed")),
+                   _fmt(d.get("pending_shed")))
+            )
+        if sv.get("migrations"):
+            lines.append(
+                "  migrations: %s (%s)"
+                % (_fmt(sv["migrations"]),
+                   ", ".join("world %s->%s" % (a, b)
+                             for a, b in sv["migrated_worlds"]))
+            )
+    if analysis.get("autotuning"):
+        at = analysis["autotuning"]
+        lines.append("")
+        lines.append("autotuning:")
+        holds = " ".join(
+            "%s=%d" % (k, v) for k, v in at["holds_by_reason"].items())
+        lines.append(
+            "  plans: %s | swaps: %s%s%s"
+            % (_fmt(at["plans"]), _fmt(at["swaps"]),
+               (" (iters %s)" % ",".join(str(i) for i in at["swapped_iters"])
+                if at["swapped_iters"] else ""),
+               (" | held: %s" % holds) if holds else "")
+        )
+        lines.append(
+            "  predicted saving %s ms/step | realized %s ms/step | "
+            "counterfactual (observe) %s swaps worth %s ms/step"
+            % (_fmt(at["predicted_saving_ms"]),
+               _fmt(at["realized_saving_ms"]),
+               _fmt(at["counterfactuals"]),
+               _fmt(at["counterfactual_saving_ms"]))
+        )
+    if analysis["timeline"]:
+        lines.append("")
+        lines.append("lifecycle timeline:")
+        for e in analysis["timeline"]:
+            detail = " ".join(
+                "%s=%s" % (k, _fmt(v)) for k, v in e.items()
+                if k not in ("t", "seq", "type")
+            )
+            lines.append("  [seq %4d] %-18s %s" % (e["seq"], e["type"], detail))
+    return "\n".join(lines)
+
+
+# ------------------------------------------------------------------- CLI
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        "galvatron_tpu_torch-report",
+        description="analyze a telemetry JSONL written by train --telemetry",
+        allow_abbrev=False,
+    )
+    p.add_argument("path", help="telemetry .jsonl file")
+    p.add_argument("--json", dest="as_json", action="store_true",
+                   help="machine-readable analysis output")
+    p.add_argument("--steady_window", type=int, default=5,
+                   help="rolling-window length for steady-state detection")
+    p.add_argument("--steady_tol", type=float, default=0.15,
+                   help="relative stdev threshold for the steady window")
+    p.add_argument("--emit_profiles", type=str, default=None, metavar="DIR",
+                   help="offline calibrator: write measured per-layer "
+                        "time/memory tables (profiler JSON schema) from this "
+                        "stream into DIR, for search --time_profile_path/"
+                        "--memory_profile_path")
+    return p
+
+
+def run(argv: Optional[List[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    try:
+        events, errors = T.read_events(args.path, strict=False)
+    except OSError as e:
+        print("cannot read %s: %s" % (args.path, e), file=sys.stderr)
+        return 2
+    for err in errors:
+        print("schema: %s: %s" % (args.path, err), file=sys.stderr)
+    analysis = analyze(events, window=args.steady_window, rel_std=args.steady_tol)
+    analysis["schema_errors"] = errors
+    if args.emit_profiles:
+        # measured-table emission shares the online autotuner's calibrator;
+        # paths go to stderr so --json stdout stays machine-parseable
+        from galvatron_tpu_torch.runtime import autotune as AT
+
+        try:
+            paths = AT.emit_profiles(
+                events, args.emit_profiles,
+                window=args.steady_window, rel_std=args.steady_tol)
+        except ValueError as e:
+            print("emit_profiles: %s" % e, file=sys.stderr)
+            return 2
+        for kind, path in sorted(paths.items()):
+            print("emit_profiles: wrote %s table %s" % (kind, path),
+                  file=sys.stderr)
+    print(json.dumps(analysis, indent=2) if args.as_json else render(analysis))
+    return 1 if errors else 0
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    rc = run(argv)
+    if rc:
+        sys.exit(rc)

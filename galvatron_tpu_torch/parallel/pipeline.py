@@ -54,30 +54,14 @@ from galvatron_tpu_torch.config.strategy import HybridParallelConfig
 # ------------------------------------------------------------------ validation
 def validate_pipeline_config(hp: HybridParallelConfig) -> None:
     """The reference's GPipe contract: equal layers per stage, within-stage
-    layer strategies uniform across stages, no cp, and a global batch that
-    splits into ``chunks``."""
+    layer strategies uniform across stages, no cp
+    (``HybridParallelConfig.pipeline_engine_findings``, whose diagnostics
+    the lint reports as GLS010 / GLS011), and a global batch that splits
+    into ``chunks``."""
     if hp.pp <= 1:
         return
-    div = hp.pp_division
-    if len(set(div)) != 1:
-        raise ValueError(
-            "pipelined execution requires equal layers per stage, got pp_division=%s "
-            "(pad the model or use pp_division of equal parts)" % (div,)
-        )
-    for j in range(div[0]):
-        strategies = {hp.layers[hp.layers_of_stage(s)[j]] for s in range(hp.pp)}
-        if len(strategies) != 1:
-            raise ValueError(
-                "within-stage layer %d must use the same strategy on every stage "
-                "for the gpipe scan pipeline (use pipeline_type='pipedream_flush' "
-                "for per-stage heterogeneous strategies); got %s" % (j, strategies)
-            )
-    for s in hp.layers:
-        if s.cp > 1:
-            raise ValueError(
-                "cp>1 with pp>1 runs through the 1F1B engine "
-                "(pipeline_type='pipedream_flush'), not the scan pipeline"
-            )
+    for _, refusal in hp.pipeline_engine_findings():
+        raise ValueError(refusal)
     if hp.global_bsz % hp.chunks != 0:
         raise ValueError("global_bsz must divide into chunks")
 

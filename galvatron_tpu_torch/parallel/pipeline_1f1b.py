@@ -33,22 +33,19 @@ from galvatron_tpu_torch.parallel.pipeline import Step
 def validate_1f1b_config(hp: HybridParallelConfig) -> None:
     """The reference's 1F1B contract: uneven divisions and per-stage
     heterogeneous strategies are allowed, every stage needs a layer, ring
-    cp needs stage-uniform strategies, and the global batch splits into
-    ``chunks``. Under that contract every cp rank of a stage runs the same
-    ring steps in the same order every tick: the cp ring's point-to-point
-    hops (on the layer's cp group) and the stage boundary's (on the
-    default group) never cross."""
+    cp needs stage-uniform strategies (``HybridParallelConfig.
+    pipeline_engine_findings``, GLS010 in the lint), and the global batch
+    splits into ``chunks``. Under that contract every cp rank of a stage
+    runs the same ring steps in the same order every tick: the cp ring's
+    point-to-point hops (on the layer's cp group) and the stage boundary's
+    (on the default group) never cross."""
     if hp.pp <= 1:
         return
     div = hp.pp_division
     if any(n < 1 for n in div):
         raise ValueError("every pipeline stage needs >= 1 layer, got %s" % (div,))
-    if any(s.cp > 1 for s in hp.layers):
-        sigs = {tuple(hp.layers[i] for i in hp.layers_of_stage(s)) for s in range(hp.pp)}
-        if len(sigs) != 1:
-            raise ValueError(
-                "ring-attention cp>1 inside the 1F1B schedule requires stage-"
-                "uniform strategies (equal divisions included)")
+    for _, refusal in hp.pipeline_engine_findings():
+        raise ValueError(refusal)
     if hp.global_bsz % hp.chunks != 0:
         raise ValueError("global_bsz must divide into chunks")
 

@@ -31,11 +31,15 @@ checkpoint passes included). Peak memory is
 ``torch.cuda.max_memory_allocated`` counted from the start of iteration 0;
 ``profile_memory`` keeps stage-tagged snapshots of `device_memory_stats`.
 Iterations inside the warmup window are timed but left out of the summary.
+``log_iteration`` prints one line per logged iteration and, with
+``log_dir`` (``cli train --train_log_dir``), tees it to
+``<log_dir>/train_<model_name>.log``, opened once and held until `close`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -68,6 +72,8 @@ class RuntimeProfiler:
     device: torch.device = field(default_factory=lambda: torch.device("cpu"))
     model_flops: Optional[float] = None  # model FLOPs per optimizer step
     peak_flops: Optional[float] = None  # device peak FLOP/s (registry)
+    model_name: str = "model"
+    log_dir: Optional[str] = None  # tee the iteration lines to <log_dir>/train_<model_name>.log
     iter_times_ms: List[float] = field(default_factory=list)  # post-warmup periods
     all_times_ms: List[float] = field(default_factory=list)  # every period
     device_times_ms: List[float] = field(default_factory=list)  # post-warmup
@@ -81,6 +87,7 @@ class RuntimeProfiler:
     _last_mark: object = None  # where the next period starts
     _wall_from: object = None  # the mark the post-warmup loop wall starts at
     _started: int = 0
+    _log_fh: object = None
 
     @property
     def _cuda(self) -> bool:
@@ -209,4 +216,20 @@ class RuntimeProfiler:
         extra = ""
         if metrics:
             extra = " " + " ".join("%s=%.4g" % (k, float(v)) for k, v in metrics.items())
-        print_fn("iter %4d | %8.2f ms%s" % (iteration, self.all_times_ms[-1], extra))
+        line = "iter %4d | %8.2f ms%s" % (iteration, self.all_times_ms[-1], extra)
+        print_fn(line)
+        if self.log_dir:
+            if self._log_fh is None:
+                os.makedirs(self.log_dir, exist_ok=True)
+                self._log_fh = open(os.path.join(self.log_dir, "train_%s.log" % self.model_name),
+                                    "a")
+            self._log_fh.write(line + "\n")
+
+    def close(self):
+        """Close the iteration log (the train driver calls this on its way
+        out); safe to call again."""
+        if self._log_fh is not None:
+            try:
+                self._log_fh.close()
+            finally:
+                self._log_fh = None

@@ -6,7 +6,8 @@ as the rank holds it — with ``torch.save``; nothing is gathered to rank 0.
 Layout under ``<dir>/`` (the reference's):
 
     hybrid_parallel_config.json      the strategy of the newest save
-    meta.json                        model family/size, world size
+    meta.json                        model family, size and config fields
+                                     (``model_config``), world size
     <iteration>/rank<r>.pt           rank r's params and Adam state
     <iteration>/train_meta.json      scalar train metadata
     manifests/<iteration>.json       the integrity manifest (below)
@@ -662,6 +663,26 @@ class SavedShards:
                 reg = _region(self.shapes[n], specs[item][n], mesh)
                 self.sources.setdefault((item, n), {}).setdefault(reg, (r, key))
 
+    def fill_target(self, target: Any, params: Dict[int, nn.Module],
+                    opt_state: Optional[Dict[int, AdamState]], what: str) -> None:
+        """Fill every hosted stage's live shards of `target`'s params and,
+        with `opt_state`, of both moments and the count, one leaf at a
+        time (GLS202 when the step holds no optimizer state)."""
+        if opt_state is not None and not self.counts:
+            raise _diag("GLS202", "%s holds no optimizer state" % what)
+        moment_specs = target.grad_accum_specs()
+        for s, module in params.items():
+            mesh = target.stage_meshes[s]
+            for n, p in module.named_parameters():
+                self.fill("params", n, p.data, _region(self.shapes[n],
+                                                       target.param_layouts[n].spec, mesh))
+                if opt_state is not None:
+                    reg = _region(self.shapes[n], moment_specs[n], mesh)
+                    self.fill("mu", n, opt_state[s].mu[n], reg)
+                    self.fill("nu", n, opt_state[s].nu[n], reg)
+            if opt_state is not None:
+                opt_state[s].count = min(self.counts)
+
     def fill(self, item: str, name: str, out: torch.Tensor, region: Region) -> None:
         """Copy the saved bytes of `region` of the full tensor into `out`
         (which holds that region); every element must be covered (GLS202
@@ -806,21 +827,8 @@ def _restore_across(ckpt_dir: str, step: int, manifest: Dict[str, Any],
     verify_s = time.perf_counter() - t0
     files = {r: _read_rank(ckpt_dir, step, r) for r in range(saved_hp.world_size)}
     saved = SavedShards(files, saved_hp, target.cfg)
-    moment_specs = target.grad_accum_specs()
-    if opt_state is not None and not saved.counts:
-        raise _diag("GLS202", "checkpoint %s step %d holds no optimizer state" % (ckpt_dir, step))
     t1 = time.perf_counter()
-    for s, module in params.items():
-        mesh = target.stage_meshes[s]
-        for n, p in module.named_parameters():
-            saved.fill("params", n, p.data, _region(saved.shapes[n],
-                                                    target.param_layouts[n].spec, mesh))
-            if opt_state is not None:
-                reg = _region(saved.shapes[n], moment_specs[n], mesh)
-                saved.fill("mu", n, opt_state[s].mu[n], reg)
-                saved.fill("nu", n, opt_state[s].nu[n], reg)
-        if opt_state is not None:
-            opt_state[s].count = min(saved.counts)
+    saved.fill_target(target, params, opt_state, "checkpoint %s step %d" % (ckpt_dir, step))
     t2 = time.perf_counter()
     dev = next(next(iter(params.values())).parameters()).device
     if dev.type == "cuda":  # what the check takes beyond the live state

@@ -41,6 +41,27 @@ def model_config_digest(model_cfg: Any) -> str:
     return hashlib.sha256(_stable_json(fields).encode()).hexdigest()
 
 
+def model_config_fields(model_cfg: Any) -> Dict[str, Any]:
+    """The model config's constructor fields that its digest covers, as
+    JSON values: what a checkpoint's ``meta.json`` records as
+    ``model_config`` so that an offline tool rebuilds the saved model
+    (`model_config_from_fields`; ``cli lint --ckpt --deep``)."""
+    return {f.name: getattr(model_cfg, f.name) for f in dataclasses.fields(model_cfg)
+            if f.init and f.name not in _DIGEST_EXCLUDE}
+
+
+def model_config_from_fields(model_type: str, model_size: Optional[str],
+                             fields: Dict[str, Any]) -> Any:
+    """The model config `model_config_fields` recorded, rebuilt through the
+    family's constructor (JSON lists back to tuples); a caller holds its
+    `model_config_digest` to the checkpoint's."""
+    from galvatron_tpu_torch.models.registry import get_family
+
+    fam = get_family(model_type)
+    return fam.config_fn(model_size or fam.default_size,
+                         **{k: tuple(v) if isinstance(v, list) else v for k, v in fields.items()})
+
+
 def optimizer_digest(opt_args: Any) -> str:
     """sha256 over the optimizer's hyperparameters (`OptimizerArgs`). A
     mismatch on resume is a warning: schedules legitimately change

@@ -12,7 +12,7 @@ same profiles and flags the JSON equals the JAX package's; what the port's
 trainer cannot run yet it refuses at train time
 (``analysis/strategy_lint.train_refusals``). The winner's trace lint
 (``trace_lint``) is refused: the trace linter is not ported (ROADMAP queue
-1 item 12).
+1 item 12a, the collective audit of ``analysis/trace_lint.py``).
 
 Pure CPU: no torch and no accelerator needed.
 """
@@ -100,7 +100,7 @@ class SearchArgs:
     # of the space and maximises decode tokens/s/chip under the p99 bounds
     objective: str = "train"  # train | serve
     # the JAX package's opt-in winner trace lint; kept for the dataclass's
-    # parity and refused by save_results (ROADMAP queue 1 item 12)
+    # parity and refused by save_results (ROADMAP queue 1 item 12a)
     trace_lint: bool = False
     p99_ttft_ms: float = 0.0  # p99 time-to-first-token bound, ms (0 = unbounded)
     p99_tpot_ms: float = 0.0  # p99 time-per-output-token bound, ms (0 = unbounded)
@@ -869,7 +869,8 @@ class GalvatronSearchEngine:
             # the JAX package abstract-traces the winner's train step here
             # (its trace linter); the port has no counterpart yet
             raise ValueError("trace_lint: the trace linter is not ported yet "
-                             "(ROADMAP queue 1 item 12)")
+                             "(ROADMAP queue 1 item 12a: the collective audit of "
+                             "analysis/trace_lint.py)")
         path = path or os.path.join(
             self.config_dir,
             "galvatron_config_%s_%dgpus_%dGB_%s.json"

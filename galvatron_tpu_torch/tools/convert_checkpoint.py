@@ -65,7 +65,7 @@ def _config(fam, hf_config_path: Optional[str], model_size: Optional[str]):
 def convert_h2g(args) -> str:
     from galvatron_tpu_torch.config.strategy import HybridParallelConfig
     from galvatron_tpu_torch.runtime.checkpoint import save_checkpoint
-    from galvatron_tpu_torch.runtime.provenance import build_provenance
+    from galvatron_tpu_torch.runtime.provenance import build_provenance, model_config_fields
 
     sd = load_hf_state_dict(args.hf_path)
     fam = get_family(args.model_type)
@@ -79,7 +79,8 @@ def convert_h2g(args) -> str:
     save_checkpoint(args.output_dir, 0, params, hp=hp,
                     train_meta={"iteration": 0, "source": "hf", "model_type": args.model_type},
                     provenance=build_provenance(hp, cfg),
-                    meta={"model_type": args.model_type, "model_size": args.model_size})
+                    meta={"model_type": args.model_type, "model_size": args.model_size,
+                          "model_config": model_config_fields(cfg)})
     return args.output_dir
 
 

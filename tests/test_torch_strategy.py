@@ -108,10 +108,12 @@ def test_runtime_accepts_world_one():
     check_layout(TC.HybridParallelConfig.uniform(1, 4, checkpoint=1), mode="serve")
 
 
-# codes the port's lint reports; the reference's others need its cost model
-# or the manual-TP / quantized-collective / pipeline-engine paths
+# codes the port's lint reports (GLS101 needs a budget, which these cases
+# do not give); the reference's others need the manual-TP /
+# quantized-collective paths
 _PORTED_CODES = {"GLS001", "GLS002", "GLS003", "GLS004", "GLS005", "GLS006", "GLS007",
-                 "GLS008", "GLS009", "GLS014", "GLS102", "GLS103"}
+                 "GLS008", "GLS009", "GLS010", "GLS011", "GLS014", "GLS101", "GLS102",
+                 "GLS103"}
 
 
 def _constructs(path):

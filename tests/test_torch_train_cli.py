@@ -69,13 +69,59 @@ def test_train_default_device_is_cuda_and_never_falls_back():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--trace_lint", "1"], ["--xla_trace", "trace_dir"], ["--serve_page_size", "16"],
+    ["--trace_lint", "1"], ["--compile_cache", "1"], ["--serve_page_size", "16"],
 ])
 def test_train_unported_flags_are_refused(flag):
-    """The trace linter and the XLA trace are not ported; serve flags are
-    not train flags."""
+    """The trace linter and the compilation cache (JAX runtime) are not
+    ported; serve flags are not train flags."""
     with pytest.raises(SystemExit):
         T.initialize_galvatron(argv=TINY + flag, mode="train")
+
+
+@pytest.mark.parametrize("flag", [
+    ["--xla_trace", "trace_dir"], ["--xla_trace", "d", "--trace_steps", "2:3"],
+    ["--profile", "1", "--train_log_dir", "logs"],
+])
+def test_train_observability_flags_parse_as_in_the_reference(flag):
+    """--xla_trace (a torch.profiler trace here), --trace_steps, --profile
+    and --train_log_dir parse to the JAX package's values and defaults."""
+    from galvatron_tpu.cli.arguments import initialize_galvatron as jax_parse
+
+    got = T.initialize_galvatron(argv=TINY + flag, mode="train")
+    want = jax_parse(mode="train", argv=TINY + flag)
+    for key in ("xla_trace", "trace_steps", "profile", "train_log_dir", "telemetry"):
+        assert getattr(got, key) == getattr(want, key), key
+
+
+def test_train_traces_a_step_window_and_tees_the_iteration_log(tmp_path, capsys):
+    """--xla_trace --trace_steps 2:3 exports a Chrome trace of the window
+    (rank 0's file) between trace start and stop events; --train_log_dir
+    gets one line per iteration under --profile, and the summary is
+    printed once."""
+    from galvatron_tpu_torch.obs import telemetry
+
+    trace_dir, log_dir, tele = tmp_path / "trace", tmp_path / "logs", tmp_path / "run.jsonl"
+    argv = TINY + ["--device", "cpu", "--train_iters", "5", "--xla_trace", str(trace_dir),
+                   "--trace_steps", "2:3", "--train_log_dir", str(log_dir), "--profile", "1",
+                   "--log_interval", "4", "--telemetry", str(tele)]
+    summary = T.main(argv)
+    trace = json.loads((trace_dir / "trace_rank0.json").read_text())
+    assert any(e.get("cat") == "cpu_op" for e in trace["traceEvents"])
+    events, errors = telemetry.read_events(str(tele))
+    assert errors == []
+    marks = [(e["action"], e.get("first_step"), e.get("last_step")) for e in events
+             if e["type"] == "trace"]
+    assert marks == [("start", 2, 3), ("stop", None, None)]
+    # the window is bracketed by full drains: it starts after step 1's
+    # step event and stops right after step 3's
+    order = [(e["type"], e.get("iter", e.get("action"))) for e in events
+             if e["type"] in ("step", "trace")]
+    assert order.index(("trace", "start")) == order.index(("step", 1)) + 1
+    assert order.index(("trace", "stop")) == order.index(("step", 3)) + 1
+    lines = (log_dir / "train_llama_llama-0.3b.log").read_text().splitlines()
+    assert [int(line.split()[1]) for line in lines] == list(range(5))
+    out = capsys.readouterr().out
+    assert out.count("'steady_step_ms'") == 1 and len(summary["losses"]) == 5
 
 
 RESILIENCE_FLAGS = [
